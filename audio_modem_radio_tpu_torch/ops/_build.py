@@ -1,0 +1,115 @@
+"""Build and bind the port's CUDA kernels (``csrc/*.cu``).
+
+The sources have a plain C interface, so ``nvcc`` compiles them into one
+shared library in seconds (no PyTorch headers), and ``ctypes`` binds it:
+every pointer and the stream travel as ``c_void_p``. The library lands in
+``build/audio_modem_radio_tpu_torch/`` beside the package, named by a hash
+of the sources and flags, so the first use after a source change rebuilds
+it and later uses load it. Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional, Tuple
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / _PKG_DIR.name
+# ``-Xptxas -v`` changes no code: it reports each kernel's registers,
+# shared memory and spills on stderr, which compile_library returns.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: (argtypes) -> int cudaError_t.
+_SIGNATURES = {
+    "amr_decide_qpsk": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "amr_rotation_match": (_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P),
+    "amr_relabel_pack": (_P, _P, _P, _P, _P, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, then PyTorch's idea of CUDA_HOME, then PATH."""
+    homes = [os.environ.get("CUDA_HOME")]
+    try:
+        from torch.utils.cpp_extension import CUDA_HOME
+
+        homes.append(CUDA_HOME)
+    except ImportError:
+        pass
+    for home in homes:
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def _sources() -> list:
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libamr_torch_{h.hexdigest()[:16]}.so"
+
+
+def compile_library() -> Tuple[Path, str]:
+    """Compile ``csrc/*.cu`` into the hashed library path if it is missing.
+
+    Returns ``(path, nvcc_stderr)``, the stderr empty when the library was
+    already built; raises with nvcc's stderr on failure.
+    """
+    out = library_path()
+    if out.is_file():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out, proc.stderr
+
+
+def load_library() -> ctypes.CDLL:
+    """The bound kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = compile_library()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib

@@ -1,0 +1,130 @@
+"""Where the device time of ``demod_pack_batch`` goes, on one CUDA card.
+
+    python3 -m audio_modem_radio_tpu_torch.profile_slice [--out FILE]
+
+The workload is ``chip_smoke.py``'s timing batch: one 16 KiB-payload
+QPSK@9600 capture tiled to 2^24 samples, shaped into int16 rows, shipped
+once and copied 64 times on the card. The script prints:
+
+- ``demod_pack_batch`` with ``cfo_retry`` on and off, and ``_batch_pass1``
+  alone: median of 9 by CUDA events after one warm-up;
+- for each ``cfo_retry``, 5 reps under ``torch.profiler``: the host-clock
+  time per rep (profiler on), the summed device-kernel time per rep, the
+  device's idle share (1 - kernel / wall), and the kernels by device time;
+- the profiler's ``key_averages()`` table.
+
+Each line carries the card's name and power limit. ``--out`` also writes
+the whole report to FILE.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import subprocess
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+from .framing import crc32, pack_frame
+from .modem import modulate
+from .ops.psk import _batch_pass1
+from .parallel.batch import demod_pack_batch, host_shape_batch
+
+SR, BAUD, CARRIER = 96000, 9600, 3000.0
+N, B, PAYLOAD = 1 << 24, 64, 16384
+
+
+def _card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0].strip() if out.returncode == 0 else "nvidia-smi failed"
+
+
+def _bench_rows(device: torch.device) -> torch.Tensor:
+    payload = np.random.default_rng(0).integers(0, 256, PAYLOAD, dtype=np.uint8).tobytes()
+    wave = modulate("QPSK", pack_frame("bench.bin", payload, 0, 1, len(payload), crc32(payload)), BAUD)
+    one = np.tile(wave, -(-N // len(wave)))[None, :N].astype(np.float32)
+    rows = torch.from_numpy(host_shape_batch(one, "QPSK", BAUD, device=device)).to(device)
+    return rows.expand(B, -1, -1).contiguous()
+
+
+def _median_ms(fn, reps: int = 9) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _profile(fn, reps: int = 5):
+    """(wall ms/rep, kernel ms/rep, [(ms/rep, launches/rep, name)], table)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += e.time_range.elapsed_us() / 1e3 / reps
+            by_name[e.name][1] += 1
+    kernels = sorted(((ms, n // reps, name) for name, (ms, n) in by_name.items()), reverse=True)
+    table = prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15)
+    return wall, sum(k[0] for k in kernels), kernels, table
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="also write the report to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is false: this profile needs a card")
+        return 2
+    device = torch.device("cuda")
+    card = _card()
+    lines = [f"card: {card}"]
+
+    def say(msg: str) -> None:
+        print(msg, flush=True)
+        lines.append(msg)
+
+    x = _bench_rows(device)
+    b, r, _ = x.shape
+    spsym = SR // BAUD
+    for cfo in (True, False):
+        ms = _median_ms(lambda: demod_pack_batch(x, "QPSK", BAUD, cfo_retry=cfo))
+        say(f"demod_pack_batch cfo={cfo}: median {ms:.4f} ms of 9 = "
+            f"{b * N / (ms * 1e-3) / 1e6:.2f} Msamples/s | {card}")
+    ms = _median_ms(lambda: _batch_pass1(None, x, b, r * 128, spsym, CARRIER, SR, 8, r))
+    say(f"_batch_pass1 alone: median {ms:.4f} ms | {card}")
+    for cfo in (True, False):
+        wall, busy, kernels, table = _profile(lambda: demod_pack_batch(x, "QPSK", BAUD, cfo_retry=cfo))
+        say(f"--- profile cfo={cfo}: wall {wall:.4f} ms/rep (profiler on), device kernel sum "
+            f"{busy:.4f} ms/rep, idle share {1 - busy / wall:.3f} | {card}")
+        for k_ms, n, name in kernels:
+            say(f"  {k_ms:9.4f} ms  x{n:<3d} {name[:110]}")
+        say(table)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

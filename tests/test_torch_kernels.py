@@ -1,0 +1,295 @@
+"""K2 (rotation match) and K3 (relabel + pack) of the PyTorch port vs the
+Pallas kernels in interpret mode, the arithmetic of the CUDA kernels
+mirrored in numpy, and the wrappers' checks, on the CPU.
+
+The CUDA kernels cannot run here. Their formulations (K1's direct window
+correlation, K2's mask/popcount hypotheses, K3's 10-bit register window)
+are mirrored in numpy and held against the plain versions, which are in
+turn held against the JAX package.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from audio_modem_radio_tpu.framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
+from audio_modem_radio_tpu.ops.pallas_kernels import (
+    relabel_pack_batch as j_relabel_pack,
+    rotation_match_batch as j_rotation_match,
+    rotation_match_conditions as j_conditions,
+)
+
+from audio_modem_radio_tpu_torch.ops import kernels as tk
+from audio_modem_radio_tpu_torch.ops import psk as tpsk
+
+_QT_TO_DIBIT = np.array([[0, 0], [0, 1], [1, 1], [1, 0]], np.uint8)
+_PATTERN = MAGIC_BIT_PATTERN + MAGIC_BIT_PATTERN2
+
+
+def _magic_streams(rng, r: int, k: int, parity: int, start_dib: int):
+    """Random raw Gray lanes (r, 128) x2 whose relabel by rotation k holds
+    the 32-bit magic + validation pattern at flat bit 2*start_dib + parity."""
+    bits = rng.integers(0, 2, 2 * r * 128, dtype=np.uint8)
+    pat = np.array([int(c) for c in _PATTERN], np.uint8)
+    pos = 2 * start_dib + parity
+    bits[pos : pos + len(pat)] = pat
+    h, l = bits[0::2], bits[1::2]
+    raw = _QT_TO_DIBIT[(2 * h + (h ^ l) + k) & 3]
+    return raw[:, 0].reshape(r, 128), raw[:, 1].reshape(r, 128)
+
+
+def _noise_streams(rng, r: int):
+    return (rng.integers(0, 2, (r, 128), dtype=np.uint8),
+            rng.integers(0, 2, (r, 128), dtype=np.uint8))
+
+
+def _both_match(hi, lo, r, rows_scanned=None):
+    p = r if rows_scanned is None else rows_scanned
+    first_j, found_j = j_rotation_match(
+        jnp.asarray(hi[:, :p]), jnp.asarray(lo[:, :p]), MAGIC_BIT_PATTERN, p,
+        pattern2=MAGIC_BIT_PATTERN2, interpret=True,
+    )
+    first_t, found_t = tk.rotation_match_batch(
+        torch.from_numpy(hi), torch.from_numpy(lo), MAGIC_BIT_PATTERN, r,
+        pattern2=MAGIC_BIT_PATTERN2, rows_scanned=rows_scanned,
+    )
+    return (np.asarray(first_j), np.asarray(found_j)), (first_t.numpy(), found_t.numpy())
+
+
+def test_conditions_ported_verbatim():
+    for pattern in (_PATTERN, MAGIC_BIT_PATTERN, "0110" * 4):
+        assert tk.rotation_match_conditions(pattern) == j_conditions(pattern)
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("k", [0, 1, 2, 3])
+def test_rotation_match_plain_equals_pallas(k, parity):
+    rng = np.random.default_rng(10 * k + parity)
+    r = 256
+    start = 1000 + 37 * k
+    h0, l0 = _magic_streams(rng, r, k, parity, start)
+    h1, l1 = _noise_streams(rng, r)
+    hi, lo = np.stack([h0, h1]), np.stack([l0, l1])
+    (first_j, found_j), (first_t, found_t) = _both_match(hi, lo, r)
+    assert first_t.dtype == np.int32 and found_t.dtype == np.bool_
+    assert np.array_equal(first_t, first_j) and np.array_equal(found_t, found_j)
+    h = 4 * parity + k
+    assert found_t[0, h] and first_t[0, h] == start
+
+
+def test_rotation_match_noise_finds_nothing():
+    rng = np.random.default_rng(99)
+    r = 512
+    hi, lo = (np.stack(s) for s in zip(*[_noise_streams(rng, r) for _ in range(2)]))
+    (first_j, found_j), (first_t, found_t) = _both_match(hi, lo, r)
+    assert np.array_equal(first_t, first_j) and np.array_equal(found_t, found_j)
+    assert not found_t.any()
+
+
+@pytest.mark.parametrize("start", [500, 32768 - 40, 40000])
+def test_rotation_match_prefix_of_longer_capture(start):
+    """A 256-row prefix of a 512-row capture: the port scans it in place;
+    the JAX call gets the sliced prefix. Matches straddling or past the
+    prefix's end must not be reported."""
+    rng = np.random.default_rng(start)
+    r = 512
+    h0, l0 = _magic_streams(rng, r, 0, 1, start)
+    h1, l1 = _magic_streams(rng, r, 2, 0, 300)
+    hi, lo = np.stack([h0, h1]), np.stack([l0, l1])
+    (first_j, found_j), (first_t, found_t) = _both_match(hi, lo, r, rows_scanned=256)
+    assert np.array_equal(first_t, first_j) and np.array_equal(found_t, found_j)
+    assert found_t[0, 4] == (start < 256 * 128 - 17)
+    assert found_t[1, 2] and first_t[1, 2] == 300
+
+
+def _kernel_rotmatch_numpy(hi, lo, pattern, n_exact, tol, rows_scanned):
+    """The CUDA kernel's formulation: 17-bit hi/lo windows per position,
+    two (mask, value) pairs per hypothesis and part, popcounts, and only
+    positions below the scan limit evaluated."""
+    conds, n_pat = tk.rotation_match_conditions(pattern)
+    masks = tk._condition_masks(conds, n_exact, torch.device("cpu")).numpy()
+    b = hi.shape[0]
+    n_pos = rows_scanned * 128 - (n_pat + 1)
+    w = 1 << np.arange(17, dtype=np.int64)
+    first = np.full((b, len(conds)), 1 << 30, np.int64)
+    for i in range(b):
+        h = hi[i, :rows_scanned].reshape(-1).astype(np.int64)
+        l = lo[i, :rows_scanned].reshape(-1).astype(np.int64)
+        hw = np.lib.stride_tricks.sliding_window_view(h, 17)[:n_pos] @ w
+        lw = np.lib.stride_tricks.sliding_window_view(l, 17)[:n_pos] @ w
+        for k, m in enumerate(masks.astype(np.int64)):
+            exact = np.bitwise_count((hw ^ m[1]) & m[0]) + np.bitwise_count((lw ^ m[3]) & m[2])
+            loose = np.bitwise_count((hw ^ m[5]) & m[4]) + np.bitwise_count((lw ^ m[7]) & m[6])
+            hit = np.nonzero((exact == 0) & (loose <= tol))[0]
+            if len(hit):
+                first[i, k] = hit[0]
+    found = first < (1 << 30)
+    return np.where(found, first, 0), found
+
+
+@pytest.mark.parametrize("rows_scanned", [256, 512])
+def test_rotation_match_kernel_formulation(rows_scanned):
+    rng = np.random.default_rng(rows_scanned)
+    r = 512
+    caps = [_magic_streams(rng, r, k, k % 2, 200 + 9000 * k) for k in range(4)]
+    caps.append(_noise_streams(rng, r))
+    hi, lo = np.stack([c[0] for c in caps]), np.stack([c[1] for c in caps])
+    first_n, found_n = _kernel_rotmatch_numpy(hi, lo, _PATTERN, 16, 3, rows_scanned)
+    first_t, found_t = tk.rotation_match_batch(
+        torch.from_numpy(hi), torch.from_numpy(lo), MAGIC_BIT_PATTERN, r,
+        pattern2=MAGIC_BIT_PATTERN2, rows_scanned=rows_scanned,
+    )
+    assert np.array_equal(found_t.numpy(), found_n)
+    assert np.array_equal(first_t.numpy(), first_n)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3])
+def test_relabel_pack_plain_equals_pallas(k):
+    """Every s8 in 0..7 (one capture each) under rotation k; the last byte
+    of each capture is garbage by contract and excluded."""
+    rng = np.random.default_rng(k)
+    b, r = 8, 256
+    hi = rng.integers(0, 2, (b, r, 128), dtype=np.uint8)
+    lo = rng.integers(0, 2, (b, r, 128), dtype=np.uint8)
+    s = (8 * rng.integers(0, 500, b) + np.arange(b)).astype(np.int32)
+    ksel = np.full(b, k, np.int32)
+    ref = np.asarray(j_relabel_pack(
+        jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(s), jnp.asarray(ksel),
+        rows_per_capture=r, interpret=True, variant="weights",
+    ))
+    got = tk.relabel_pack_batch(
+        torch.from_numpy(hi), torch.from_numpy(lo), torch.from_numpy(s),
+        torch.from_numpy(ksel), rows_per_capture=r,
+    )
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (b, r * 32)
+    assert np.array_equal(got.numpy()[:, :-1], ref[:, :-1])
+
+
+def _kernel_relabel_pack_numpy(hi, lo, s, ksel):
+    """The CUDA kernel's formulation: per output byte, relabel the 5
+    dibits its 8 bits can touch into a 10-bit window and shift it out;
+    bits past the capture's end are zero."""
+    b = hi.shape[0]
+    n_dib = hi.shape[1] * 128
+    h = np.pad(hi.reshape(b, -1).astype(np.int64), ((0, 0), (0, 5)))
+    l = np.pad(lo.reshape(b, -1).astype(np.int64), ((0, 0), (0, 5)))
+    n_bytes = hi.shape[1] * 32
+    out = np.empty((b, n_bytes), np.uint8)
+    c = np.arange(n_bytes)
+    for i in range(b):
+        p = 8 * c + (int(s[i]) & 7)
+        t = p >> 1
+        v = np.zeros(n_bytes, np.int64)
+        for q in range(5):
+            hh, ll = h[i, t + q], l[i, t + q]
+            s2 = (2 * hh + (hh ^ ll) + 4 - int(ksel[i])) & 3
+            inside = t + q < n_dib
+            rh, rl = (s2 >= 2) & inside, ((s2 == 1) | (s2 == 2)) & inside
+            v = (v << 2) | (rh << 1) | rl
+        out[i] = (v >> (2 - (p & 1))) & 0xFF
+    return out
+
+
+def test_relabel_pack_kernel_formulation():
+    rng = np.random.default_rng(5)
+    b, r = 8, 256
+    hi = rng.integers(0, 2, (b, r, 128), dtype=np.uint8)
+    lo = rng.integers(0, 2, (b, r, 128), dtype=np.uint8)
+    s = (8 * rng.integers(0, 500, b) + np.arange(b)).astype(np.int32)
+    ksel = (np.arange(b) % 4).astype(np.int32)
+    got = tk.relabel_pack_batch(
+        torch.from_numpy(hi), torch.from_numpy(lo), torch.from_numpy(s),
+        torch.from_numpy(ksel), rows_per_capture=r,
+    ).numpy()
+    assert np.array_equal(got, _kernel_relabel_pack_numpy(hi, lo, s, ksel))
+
+
+def test_decide_kernel_formulation():
+    """K1's CUDA formulation: each symbol's 2*spsym-sample window against
+    the winning offset's two template columns (taken from the blocked
+    templates as the wrapper takes them), then differential, derotation and
+    decision, equals the dense plain version over the signal."""
+    from audio_modem_radio_tpu_torch.modem import modulate
+    from audio_modem_radio_tpu_torch.framing import crc32, pack_frame
+
+    rng = np.random.default_rng(8)
+    payload = rng.integers(0, 256, 1024, dtype=np.uint8).tobytes()
+    wave = modulate("QPSK", pack_frame("d.bin", payload, 0, 1, len(payload), crc32(payload)), 9600)
+    spsym, n = 10, 1 << 17
+    r, row = tpsk.blocked_row_shape(n, 9600, 96000)
+    x = np.zeros((2, r * row), np.float32)
+    x[0, : len(wave)] = wave
+    x[1, 3 : 3 + len(wave)] = wave
+    W8 = torch.from_numpy(tpsk._blocked_templates(spsym, 3000.0, 96000, 8).copy())
+    best = torch.tensor([0, 3], dtype=torch.int32)
+    theta = np.array([0.1, -0.2])
+    rot = torch.tensor(np.stack([np.cos(theta), np.sin(theta)], 1), dtype=torch.float32)
+    hi_p, lo_p = tk.psk_project_decide_batch(
+        torch.from_numpy(x.reshape(2, r, row)), W8, best, rot, rows_per_capture=r
+    )
+    n_sig = len(wave) // spsym - 2
+    for i in range(2):
+        tmpl = torch.stack([W8[best[i], : 2 * spsym, 0], W8[best[i], : 2 * spsym, 128]], -1)
+        win = np.lib.stride_tricks.sliding_window_view(x[i], 2 * spsym)[::spsym][: n_sig + 1]
+        z = win.astype(np.float64) @ tmpl.numpy().astype(np.float64)
+        d_re = z[1:, 0] * z[:-1, 0] + z[1:, 1] * z[:-1, 1]
+        d_im = z[1:, 1] * z[:-1, 0] - z[1:, 0] * z[:-1, 1]
+        c, s = float(rot[i, 0]), float(rot[i, 1])
+        dr, di = d_re * c + d_im * s, d_im * c - d_re * s
+        swap = np.abs(di) > np.abs(dr)
+        neg = np.where(swap, di, dr) < 0
+        assert np.array_equal(hi_p[i].reshape(-1)[:n_sig].numpy(), neg.astype(np.uint8))
+        assert np.array_equal(lo_p[i].reshape(-1)[:n_sig].numpy(), (neg ^ swap).astype(np.uint8))
+
+
+def _small_inputs():
+    r = 256
+    hi = torch.zeros((2, r, 128), dtype=torch.uint8)
+    lo = torch.zeros_like(hi)
+    s = torch.zeros(2, dtype=torch.int32)
+    k = torch.zeros(2, dtype=torch.int32)
+    x3d = torch.zeros((2, r, 1280), dtype=torch.int16)
+    W8 = torch.from_numpy(tpsk._blocked_templates(10, 3000.0, 96000, 8).copy())
+    best = torch.zeros(2, dtype=torch.int32)
+    rot = torch.tensor([[1.0, 0.0], [1.0, 0.0]])
+    return r, hi, lo, s, k, x3d, W8, best, rot
+
+
+def test_wrappers_take_plain_path_on_cpu_without_counting():
+    r, hi, lo, s, k, x3d, W8, best, rot = _small_inputs()
+    tk.reset_launch_counts()
+    tk.psk_project_decide_batch(x3d, W8, best, rot, rows_per_capture=r)
+    tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2)
+    tk.relabel_pack_batch(hi, lo, s, k, rows_per_capture=r)
+    assert tk.launch_counts() == {
+        "psk_project_decide_batch": 0, "rotation_match_batch": 0, "relabel_pack_batch": 0,
+    }
+
+
+@pytest.mark.parametrize("case", [
+    "k1_dtype", "k1_rows", "k1_best_dtype", "k1_w_dtype", "k1_psk8",
+    "k2_dtype", "k2_rows", "k2_prefix", "k2_family",
+    "k3_dtype", "k3_shape", "k3_s_dtype", "k3_variant", "device_mix",
+])
+def test_wrappers_raise_on_bad_input(case):
+    r, hi, lo, s, k, x3d, W8, best, rot = _small_inputs()
+    calls = {
+        "k1_dtype": lambda: tk.psk_project_decide_batch(x3d.double(), W8, best, rot, r),
+        "k1_rows": lambda: tk.psk_project_decide_batch(x3d[:, :128], W8, best, rot, 128),
+        "k1_best_dtype": lambda: tk.psk_project_decide_batch(x3d, W8, best.long(), rot, r),
+        "k1_w_dtype": lambda: tk.psk_project_decide_batch(x3d, W8.double(), best, rot, r),
+        "k1_psk8": lambda: tk.psk_project_decide_batch(x3d, W8, best, rot, r, n_psk=8),
+        "k2_dtype": lambda: tk.rotation_match_batch(hi.int(), lo, MAGIC_BIT_PATTERN, r),
+        "k2_rows": lambda: tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, 2 * r),
+        "k2_prefix": lambda: tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r, rows_scanned=100),
+        "k2_family": lambda: tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r, family="bpsk"),
+        "k3_dtype": lambda: tk.relabel_pack_batch(hi.bool(), lo, s, k, r),
+        "k3_shape": lambda: tk.relabel_pack_batch(hi[:, :, :64], lo[:, :, :64], s, k, r),
+        "k3_s_dtype": lambda: tk.relabel_pack_batch(hi, lo, s.long(), k, r),
+        "k3_variant": lambda: tk.relabel_pack_batch(hi, lo, s, k, r, variant="shift"),
+        "device_mix": lambda: tk.relabel_pack_batch(hi, lo.to("meta"), s, k, r),
+    }
+    with pytest.raises((ValueError, NotImplementedError)):
+        calls[case]()

@@ -1,0 +1,180 @@
+"""PyTorch port vs JAX package: DQPSK transmit, tables, pass 1 and K1's
+plain version, on the CPU at small sizes.
+
+Inputs are made with numpy from a seed and handed to both implementations
+as numpy arrays.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from audio_modem_radio_tpu import modem as jmodem
+from audio_modem_radio_tpu.framing import crc32 as jcrc32, pack_frame as jpack_frame
+from audio_modem_radio_tpu.ops import psk as jpsk
+from audio_modem_radio_tpu.ops.pallas_kernels import (
+    _shifted_pack_weights_qpsk,
+    psk_project_decide_batch as j_decide,
+)
+
+from audio_modem_radio_tpu_torch import modem as tmodem
+from audio_modem_radio_tpu_torch.ops import kernels as tk
+from audio_modem_radio_tpu_torch.ops import psk as tpsk
+from audio_modem_radio_tpu_torch.ops.tables import tables_from_reference
+
+SR = 96000
+N_OFF = 8
+
+
+def _framed(seed: int, n_bytes: int = 1200) -> bytes:
+    rng = np.random.default_rng(seed)
+    payload = rng.integers(0, 256, n_bytes, dtype=np.uint8).tobytes()
+    return jpack_frame("k.bin", payload, 0, 1, len(payload), jcrc32(payload))
+
+
+def _batch(seed: int, baud: int = 9600, n: int = 1 << 17, shift: int = 7):
+    """Two captures of one framed QPSK wave; the second is shifted so the
+    winning timing offsets differ."""
+    wave = np.asarray(jmodem.modulate("QPSK", _framed(seed), baud), np.float32)
+    batch = np.zeros((2, n), np.float32)
+    batch[0, : len(wave)] = wave
+    batch[1, shift : shift + len(wave)] = wave
+    return batch, len(wave)
+
+
+def _rows(batch: np.ndarray, baud: int, int16: bool) -> np.ndarray:
+    r, row = tpsk.blocked_row_shape(batch.shape[1], baud, SR)
+    flat = np.zeros((batch.shape[0], r * row), np.float32)
+    flat[:, : batch.shape[1]] = batch
+    if int16:
+        flat = np.clip(np.round(flat * 32768.0), -32768, 32767).astype(np.int16)
+    return flat.reshape(batch.shape[0], r, row)
+
+
+@pytest.mark.parametrize("baud", [9600, 4800, 1200])
+def test_qpsk_modulate_matches_jax(baud):
+    framed = _framed(baud)
+    ref = np.asarray(jmodem.modulate("QPSK", framed, baud), np.float32)
+    got = tmodem.modulate("QPSK", framed, baud)
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    assert np.max(np.abs(got - ref)) <= 1e-6
+
+
+def test_modulate_unknown_mode_raises():
+    with pytest.raises(ValueError):
+        tmodem.modulate("BPSK", b"x", 1200)
+
+
+@pytest.mark.parametrize("baud,carrier", [(9600, 3000.0), (4800, 3000.0), (9600, 12000.0)])
+def test_tables_bitwise_equal(baud, carrier):
+    spsym = 96000 // baud
+    for name in ("_offset_templates", "_blocked_templates", "_offset_grams"):
+        ref = getattr(jpsk, name)(spsym, carrier, SR, N_OFF)
+        got = getattr(tpsk, name)(spsym, carrier, SR, N_OFF)
+        assert got.dtype == ref.dtype and np.array_equal(got, ref), name
+
+
+def test_tables_from_reference():
+    spsym = 10
+    arrays = {
+        "_blocked_templates": jpsk._blocked_templates(spsym, 3000.0, SR, N_OFF),
+        "_offset_templates": jpsk._offset_templates(spsym, 3000.0, SR, N_OFF),
+        "_offset_grams": jpsk._offset_grams(spsym, 3000.0, SR, N_OFF),
+        "_shifted_pack_weights_qpsk": _shifted_pack_weights_qpsk(),
+    }
+    got = tables_from_reference(arrays, "cpu")
+    for name, a in arrays.items():
+        ref = np.stack(a) if isinstance(a, tuple) else a
+        assert got[name].dtype == torch.float32
+        assert np.array_equal(got[name].numpy(), ref), name
+    with pytest.raises(KeyError):
+        tables_from_reference({"nope": arrays["_offset_grams"]})
+
+
+@pytest.mark.parametrize("int16", [False, True])
+def test_batch_pass1_matches_jax(int16):
+    """best equal and theta within 1e-5 rad, on f32 rows and on int16 rows
+    at scale 32768 (which overflows float32 in the 4th-power estimate
+    unless the scoring windows normalize themselves)."""
+    baud, spsym = 9600, 10
+    batch, _ = _batch(1, baud)
+    x3d = _rows(batch, baud, int16)
+    b, r, _ = x3d.shape
+    _, _, best_j, theta_j = jpsk._batch_pass1(
+        None, jnp.asarray(x3d), b, r * 128, spsym, 3000.0, SR, N_OFF, r
+    )
+    _, _, best_t, theta_t = tpsk._batch_pass1(
+        None, torch.from_numpy(x3d), b, r * 128, spsym, 3000.0, SR, N_OFF, r
+    )
+    assert np.array_equal(best_t.numpy(), np.asarray(best_j))
+    assert len(set(best_t.tolist())) == 2  # the shift moved the offset
+    assert np.all(np.isfinite(theta_t.numpy()))
+    assert np.max(np.abs(theta_t.numpy() - np.asarray(theta_j))) <= 1e-5
+
+
+def test_batch_pass1_flat_input_matches_jax():
+    baud, spsym = 9600, 10
+    batch, _ = _batch(2, baud)
+    b, n = batch.shape
+    n_frames = -(-n // spsym)
+    x3d_j, r_j, best_j, theta_j = jpsk._batch_pass1(
+        jnp.asarray(batch), None, b, n_frames, spsym, 3000.0, SR, N_OFF, 0
+    )
+    x3d_t, r_t, best_t, theta_t = tpsk._batch_pass1(
+        torch.from_numpy(batch), None, b, n_frames, spsym, 3000.0, SR, N_OFF, 0
+    )
+    assert r_t == r_j and np.array_equal(x3d_t.numpy(), np.asarray(x3d_j))
+    assert np.array_equal(best_t.numpy(), np.asarray(best_j))
+    assert np.max(np.abs(theta_t.numpy() - np.asarray(theta_j))) <= 1e-5
+
+
+@pytest.mark.parametrize("int16,cfo", [(False, True), (True, True), (False, False)])
+def test_decide_plain_matches_pallas_interpret(int16, cfo):
+    """K1's plain version == the Pallas decide kernel (interpret mode),
+    bitwise over the modulated span, on identical (x3d, W8, best, rot)."""
+    baud, spsym = 9600, 10
+    batch, n_wave = _batch(3, baud)
+    x3d = _rows(batch, baud, int16)
+    b, r, _ = x3d.shape
+    _, _, best, theta = jpsk._batch_pass1(
+        None, jnp.asarray(x3d), b, r * 128, spsym, 3000.0, SR, N_OFF, r
+    )
+    best = np.array(best, np.int32)
+    theta = np.asarray(theta, np.float32)
+    rot = np.stack([np.cos(theta), np.sin(theta)], axis=1).astype(np.float32)
+    if not cfo:
+        rot = np.tile(np.asarray([[1.0, 0.0]], np.float32), (b, 1))
+    W8 = jpsk._blocked_templates(spsym, 3000.0, SR, N_OFF)
+
+    hi_j, lo_j = j_decide(
+        jnp.asarray(x3d), jnp.asarray(W8), jnp.asarray(best), jnp.asarray(rot),
+        rows_per_capture=r, n_psk=4, interpret=True,
+    )
+    hi_t, lo_t = tk.psk_project_decide_batch(
+        torch.from_numpy(x3d), torch.from_numpy(W8), torch.from_numpy(best),
+        torch.from_numpy(rot), rows_per_capture=r,
+    )
+    assert hi_t.dtype == torch.uint8 and tuple(hi_t.shape) == (b, r, 128)
+    n_sig = n_wave // spsym - 2
+    hi_j = np.asarray(hi_j).reshape(b, -1)[:, :n_sig]
+    lo_j = np.asarray(lo_j).reshape(b, -1)[:, :n_sig]
+    assert np.array_equal(hi_t.numpy().reshape(b, -1)[:, :n_sig], hi_j)
+    assert np.array_equal(lo_t.numpy().reshape(b, -1)[:, :n_sig], lo_j)
+
+
+def test_decision_streams_shape_and_unported_configs():
+    batch, _ = _batch(4)
+    hi, lo = tpsk.psk_decision_streams_batch(torch.from_numpy(batch), 9600.0, 3000.0, SR)
+    r, _ = tpsk.blocked_row_shape(batch.shape[1], 9600, SR)
+    assert hi.shape == lo.shape == (2, r * 128) and hi.dtype == torch.uint8
+    with pytest.raises(NotImplementedError):
+        tpsk.psk_decision_streams_batch(torch.from_numpy(batch), 9600.0, 3000.0, SR, n_psk=2)
+    with pytest.raises(NotImplementedError):  # too short for the blocked path
+        tpsk.psk_decision_streams_batch(torch.zeros((1, 1000)), 9600.0, 3000.0, SR)
+
+
+@pytest.mark.parametrize("n,baud", [(1 << 17, 9600), (100_001, 4800), (2000, 9600), (5000, 1200)])
+def test_blocked_row_shape_matches_jax(n, baud):
+    assert tpsk.blocked_row_shape(n, baud, SR) == jpsk.blocked_row_shape(n, baud, SR)
