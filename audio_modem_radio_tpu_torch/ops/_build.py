@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
-The sources have a plain C interface, so ``nvcc`` compiles them into one
-shared library in seconds (no PyTorch headers), and ``ctypes`` binds it:
-every pointer and the stream travel as ``c_void_p``. The library lands in
+The sources have a plain C interface, so ``nvcc`` compiles them in seconds
+(no PyTorch headers): one ``nvcc -c`` per source, all started together,
+then one link into a shared library that ``ctypes`` binds: every pointer
+and the stream travel as ``c_void_p``. The library lands in
 ``build/audio_modem_radio_tpu_torch/`` beside the package, named by a hash
 of the sources and flags, so the first use after a source change rebuilds
 it and later uses load it. Nothing here runs at import.
@@ -27,16 +28,19 @@ BUILD_DIR = _PKG_DIR.parent / "build" / _PKG_DIR.name
 # shared memory and spills on stderr, which compile_library returns.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: (argtypes) -> int cudaError_t.
 _SIGNATURES = {
-    "amr_decide_qpsk": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "amr_rotation_match": (_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P),
+    "amr_decide": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "amr_rotation_match": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P),
     "amr_relabel_pack": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "amr_bit_select_pack": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "amr_sector_match": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P),
+    "amr_psk8_pack": (_P, _P, _P, _P, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -75,7 +79,8 @@ def library_path() -> Path:
 
 
 def compile_library() -> Tuple[Path, str]:
-    """Compile ``csrc/*.cu`` into the hashed library path if it is missing.
+    """Compile ``csrc/*.cu`` into the hashed library path if it is missing:
+    one ``nvcc -c`` process per source, all running at once, then the link.
 
     Returns ``(path, nvcc_stderr)``, the stderr empty when the library was
     already built; raises with nvcc's stderr on failure.
@@ -84,20 +89,30 @@ def compile_library() -> Tuple[Path, str]:
     if out.is_file():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs, procs = [], []
+        for src in _sources():
+            obj = str(Path(work) / f"{src.stem}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs, failed = [], []
+        for cmd, proc in procs:
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = str(Path(work) / out.name)
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, proc.stderr
+    return out, "".join(logs) + proc.stderr
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,12 +1,16 @@
-"""The DQPSK slice's kernels: wrappers, plain PyTorch versions, launch counts.
+"""The batched PSK slices' kernels: wrappers, plain PyTorch versions, launch counts.
 
-Counterpart of ``audio_modem_radio_tpu/ops/pallas_kernels.py`` for the three
-kernels the batched DQPSK receive runs, with the JAX names and argument
-order:
+Counterpart of ``audio_modem_radio_tpu/ops/pallas_kernels.py`` for the six
+kernels the batched DBPSK, DQPSK and D8PSK receive runs, with the JAX names
+and argument order:
 
-* K1 :func:`psk_project_decide_batch` (``csrc/decide.cu``),
-* K2 :func:`rotation_match_batch` (``csrc/rotmatch.cu``),
-* K3 :func:`relabel_pack_batch` (``csrc/relabel_pack.cu``).
+* K1 :func:`psk_project_decide_batch` (``csrc/decide.cu``), ``n_psk`` 2, 4, 8,
+* K2 :func:`rotation_match_batch` (``csrc/rotmatch.cu``), families "qpsk"
+  and "bpsk",
+* K3 :func:`relabel_pack_batch` (``csrc/relabel_pack.cu``),
+* K4 :func:`bit_select_pack_batch` (``csrc/bit_select_pack.cu``),
+* K5 :func:`sector_match_batch` (``csrc/sector_match.cu``),
+* K6 :func:`psk8_relabel_pack_rows` (``csrc/psk8_pack.cu``).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. For tensors on the CPU it runs the plain version
@@ -18,16 +22,20 @@ adds one to its ``launches`` attribute.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
 _BLOCK_SYM = 128  # symbols per lane row (matches ops.psk)
-_BIG = 1 << 30  # "no match" sentinel of the rotation matcher
+_BIG = 1 << 30  # "no match" sentinel of the magic matchers
 _DECIDE_DTYPES = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
+_MATCH_SPAN = 32  # K2's widest window: bit offsets 0..31 (csrc/rotmatch.cu)
+_BYTE_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -59,15 +67,97 @@ def _ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
-# --- K1: projection + differential + derotation + Gray decision ----------------
+def _check_lanes(name: str, lanes, rows_per_capture: int, block_rows: int) -> Tuple[int, int]:
+    """(B, R) of equal-shaped (B, R, 128) uint8 lane tensors; raises on
+    anything else."""
+    shape = lanes[0].shape
+    _require(lanes[0].ndim == 3 and all(t.shape == shape for t in lanes),
+             f"{name}: lanes {[tuple(t.shape) for t in lanes]}")
+    b, r, w = shape
+    _require(w == _BLOCK_SYM and r == rows_per_capture and r % block_rows == 0,
+             f"{name}: bad shapes {tuple(shape)} for rows_per_capture={rows_per_capture}")
+    _require(all(t.dtype == torch.uint8 for t in lanes), f"{name}: dtypes {[t.dtype for t in lanes]}")
+    _require(b <= 65535, f"{name}: {b} captures exceed the kernel grid")
+    return b, r
+
+
+def _check_per_capture(name: str, b: int, *ts: torch.Tensor) -> None:
+    _require(all(t.dtype == torch.int32 and tuple(t.shape) == (b,) for t in ts),
+             f"{name}: per-capture scalars {[(t.dtype, tuple(t.shape)) for t in ts]}, want int32 ({b},)")
+
+
+def _pack_bits_from(bits: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """(B, n) uint8 0/1 bits -> (B, n // 8) bytes: byte c is bits
+    ``8c + shift .. 8c + shift + 7`` MSB first, zeros past the end."""
+    b, n = bits.shape
+    padded = F.pad(bits, (0, 32))  # shifts are below 24 (K6: 3 * 7)
+    idx = shift.to(torch.int64)[:, None] + torch.arange(n // 8 * 8, device=bits.device)
+    shifted = torch.gather(padded, 1, idx).reshape(b, -1, 8).to(torch.int32)
+    weights = torch.tensor(_BYTE_WEIGHTS, dtype=torch.int32, device=bits.device)
+    return (shifted * weights).sum(dim=2).to(torch.uint8)
+
+
+def _first_match_plain(planes, conds, tol: int, n: int) -> torch.Tensor:
+    """The matchers' plain sweep. ``planes`` are (B, n + max_off) uint8 0/1
+    streams (zeros past the scanned prefix); ``conds[h]`` is a tuple of
+    (plane, offset, bit, exact). A position matches hypothesis h when every
+    exact condition holds and at most ``tol`` others miss. Returns (B, n_hyp)
+    int32 first positions, 2^30 where none matched."""
+    b = planes[0].shape[0]
+    dev = planes[0].device
+    pos = torch.arange(n, dtype=torch.int32, device=dev)
+    firsts = []
+    for c in conds:
+        acc1 = torch.zeros((b, n), dtype=torch.uint8, device=dev)
+        acc2 = torch.zeros_like(acc1)
+        for plane, off, bit, exact in c:
+            miss = planes[plane][:, off : off + n] ^ bit
+            if exact:
+                acc1 += miss
+            else:
+                acc2 += miss
+        good = (acc1 == 0) & (acc2 <= tol)
+        firsts.append(torch.where(good, pos, _BIG).amin(dim=1))
+    return torch.stack(firsts, dim=1).to(torch.int32)
+
+
+# --- K1: projection + differential + derotation + decision --------------------
+
+_TAN_PI_8 = math.tan(math.pi / 8)  # rounds to 0.41421356f, csrc/decide.cu's constant
+
+
+def psk8_sector_stream(dr: torch.Tensor, di: torch.Tensor) -> torch.Tensor:
+    """Differential phasor -> nearest k·π/4 sector (uint8 0..7), compares
+    only: an axis sector when one component dominates by more than
+    tan(67.5°), a diagonal sector otherwise (``ops/psk.py`` of the JAX
+    package, :1306)."""
+    ax, bx = torch.abs(dr), torch.abs(di)
+    diag = (bx > _TAN_PI_8 * ax) & (ax > _TAN_PI_8 * bx)
+    k_axis = torch.where(ax >= bx, torch.where(dr >= 0, 0, 4), torch.where(di >= 0, 2, 6))
+    k_diag = torch.where(di >= 0, torch.where(dr >= 0, 1, 3), torch.where(dr >= 0, 7, 5))
+    return torch.where(diag, k_diag, k_axis).to(torch.uint8)
+
+
+def _decide(dr: torch.Tensor, di: torch.Tensor, n_psk: int):
+    """Derotated differential -> uint8 decisions: Gray (hi, lo) for 4, the
+    sign bits of (re, im) for 2, the π/4 sector for 8."""
+    if n_psk == 8:
+        return psk8_sector_stream(dr, di)
+    if n_psk == 2:
+        return (dr < 0).to(torch.uint8), (di < 0).to(torch.uint8)
+    swap = torch.abs(di) > torch.abs(dr)
+    neg = torch.where(swap, di, dr) < 0
+    return neg.to(torch.uint8), (neg ^ swap).to(torch.uint8)
+
 
 def psk_project_decide_batch_plain(
-    x3d: torch.Tensor, w_all: torch.Tensor, best: torch.Tensor, rot: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    x3d: torch.Tensor, w_all: torch.Tensor, best: torch.Tensor, rot: torch.Tensor,
+    n_psk: int = 4,
+):
     """Plain K1: the dense blocked projection of ``ops/psk.py
     _blocked_project_xla`` (the next-row overlap of each capture's last row
     is zero), the differential with the successor symbol (zero past the
-    capture's end), derotation by (cos θ, sin θ) and the Gray decision."""
+    capture's end), derotation by (cos θ, sin θ) and the decision."""
     b, r, row = x3d.shape
     ov = w_all.shape[1] - row
     x = x3d.to(torch.float32)
@@ -83,11 +173,10 @@ def psk_project_decide_batch_plain(
     c, s = rot[:, 0:1], rot[:, 1:2]
     dr = d_re * c + d_im * s
     di = d_im * c - d_re * s
-    swap = torch.abs(di) > torch.abs(dr)
-    neg = torch.where(swap, di, dr) < 0
-    hi = neg.to(torch.uint8).reshape(b, r, _BLOCK_SYM)
-    lo = (neg ^ swap).to(torch.uint8).reshape(b, r, _BLOCK_SYM)
-    return hi, lo
+    out = _decide(dr, di, n_psk)
+    if n_psk == 8:
+        return out.reshape(b, r, _BLOCK_SYM)
+    return tuple(o.reshape(b, r, _BLOCK_SYM) for o in out)
 
 
 def psk_project_decide_batch(
@@ -99,7 +188,7 @@ def psk_project_decide_batch(
     n_psk: int = 4,
     block_rows: int = 256,
     variant: str = "roll",
-) -> Tuple[torch.Tensor, torch.Tensor]:
+):
     """Whole-batch projection + differential + derotation + decision.
 
     Args:
@@ -109,15 +198,18 @@ def psk_project_decide_batch(
         (2*spsym, 2) dual basis each offset's block-diagonal repeats.
       best: (B,) int32 winning timing offset per capture.
       rot: (B, 2) float32 per-capture (cos θ, sin θ).
-    Returns uint8 (hi, lo) of shape (B, R, 128); entries past the modulated
-    span are garbage by contract.
+      n_psk: 4 (Gray dibits), 2 (sign bits of re, im) or 8 (π/4 sectors).
+    Returns uint8 (hi, lo) of shape (B, R, 128) for ``n_psk`` 2 and 4, or one
+    uint8 (B, R, 128) sector array for 8; entries past the modulated span
+    are garbage by contract.
     """
     _require(x3d.ndim == 3, f"x3d must be (B, R, row), got {tuple(x3d.shape)}")
     b, r, row = x3d.shape
     _require(r == rows_per_capture and r % block_rows == 0 and r % 2 == 0,
              f"rows {r} vs rows_per_capture={rows_per_capture}, block_rows={block_rows}")
-    if n_psk != 4 or variant != "roll":
-        raise NotImplementedError(f"n_psk={n_psk}, variant={variant!r}: only DQPSK 'roll' is ported")
+    _require(n_psk in (2, 4, 8), f"n_psk={n_psk}: the decision exists for 2, 4 and 8 phases")
+    if variant != "roll":
+        raise NotImplementedError(f"variant={variant!r}: only the 'roll' body is ported")
     spsym = row // _BLOCK_SYM
     _require(row % _BLOCK_SYM == 0 and 1 <= spsym <= 32, f"row width {row}")
     _require(x3d.dtype in _DECIDE_DTYPES, f"x3d dtype {x3d.dtype}")
@@ -128,20 +220,20 @@ def psk_project_decide_batch(
     _require(rot.dtype == torch.float32 and tuple(rot.shape) == (b, 2), f"rot {rot.dtype} {tuple(rot.shape)}")
     dev = _same_device(x3d, w_all, best, rot)
     if dev.type == "cpu":
-        return psk_project_decide_batch_plain(x3d, w_all, best, rot)
+        return psk_project_decide_batch_plain(x3d, w_all, best, rot, n_psk)
 
     tmpl = torch.stack(
         [w_all[:, : 2 * spsym, 0], w_all[:, : 2 * spsym, _BLOCK_SYM]], dim=-1
     ).contiguous()  # (n_offsets, 2*spsym, 2)
     hi = torch.empty((b, r, _BLOCK_SYM), dtype=torch.uint8, device=dev)
-    lo = torch.empty_like(hi)
-    _launch("amr_decide_qpsk", dev, _ptr(x3d), _DECIDE_DTYPES[x3d.dtype], _ptr(tmpl),
-            _ptr(best), _ptr(rot), _ptr(hi), _ptr(lo), b, r, spsym)
+    lo = None if n_psk == 8 else torch.empty_like(hi)
+    _launch("amr_decide", dev, _ptr(x3d), _DECIDE_DTYPES[x3d.dtype], n_psk, _ptr(tmpl),
+            _ptr(best), _ptr(rot), _ptr(hi), None if lo is None else _ptr(lo), b, r, spsym)
     psk_project_decide_batch.launches += 1
-    return hi, lo
+    return hi if n_psk == 8 else (hi, lo)
 
 
-# --- K2: rotation x parity magic match ------------------------------------------
+# --- K2: rotation x parity (QPSK) or stream x inversion (BPSK) magic match -------
 
 def rotation_match_conditions(pattern: str):
     """All 8 (rotation x bit-parity) magic hypotheses as uniform conditions.
@@ -184,23 +276,43 @@ def rotation_match_conditions(pattern: str):
     return tuple(conds), n_dib
 
 
+def bpsk_match_conditions(pattern: str):
+    """The 4 DBPSK magic hypotheses as uniform (is_hi, offset, bitval) conds.
+
+    A k·π/2 differential rotation maps the BPSK decision streams as: k=0 the
+    real-axis bits, k=2 their complement, k=1/3 the imag-axis bits and their
+    complement. Matching order mirrors ops.common.bit_sync_and_pack_rotations:
+    h = [re+pat, im+pat, re+inv, im+inv]; positions are BIT indices in the
+    matched stream (``hi``/``lo`` here are the re/im bit streams).
+    """
+    p = [1 if c == "1" else 0 for c in pattern]
+    conds = []
+    for inv in (0, 1):
+        for is_hi in (True, False):
+            conds.append(tuple((is_hi, t, p[t] ^ inv) for t in range(len(p))))
+    return tuple(conds), len(p)
+
+
+_MATCH_FAMILIES = {"qpsk": rotation_match_conditions, "bpsk": bpsk_match_conditions}
+
+
 @functools.lru_cache(maxsize=8)
 def _condition_masks(conds, n_exact: int, device: torch.device) -> torch.Tensor:
-    """(n_hyp, 8) int32 device table: per hypothesis [hi mask, hi value, lo
-    mask, lo value] of the exact part, then of the tolerant part, with bit j
-    standing for window offset j. A hypothesis is then
-    ``popc((window ^ value) & mask)`` per stream and part."""
+    """(n_hyp, 8) device table of uint32 bit patterns (stored as int32): per
+    hypothesis [hi mask, hi value, lo mask, lo value] of the exact part, then
+    of the tolerant part, with bit j standing for window offset j. A
+    hypothesis is then ``popc((window ^ value) & mask)`` per stream and part."""
     rows = []
     for c in conds:
         m = [0] * 8
         for idx, (is_hi, off, bit) in enumerate(c):
             base = (0 if idx < n_exact else 4) + (0 if is_hi else 2)
-            _require(0 <= off <= 16, f"condition offset {off} outside the 17-dibit window")
+            _require(0 <= off < _MATCH_SPAN, f"condition offset {off} outside the {_MATCH_SPAN}-bit window")
             _require(not m[base] >> off & 1, "a condition set repeats a (stream, offset)")
             m[base] |= 1 << off
             m[base + 1] |= bit << off
         rows.append(m)
-    return torch.tensor(rows, dtype=torch.int32, device=device)
+    return torch.from_numpy(np.array(rows, dtype=np.uint32).view(np.int32)).to(device)
 
 
 def rotation_match_batch_plain(
@@ -212,22 +324,10 @@ def rotation_match_batch_plain(
     b = hi.shape[0]
     n = rows_scanned * _BLOCK_SYM
     max_off = max(off for c in conds for (_s, off, _b) in c)
-    h = F.pad(hi[:, :rows_scanned].reshape(b, n), (0, max_off))
-    l = F.pad(lo[:, :rows_scanned].reshape(b, n), (0, max_off))
-    pos = torch.arange(n, dtype=torch.int32, device=hi.device)
-    firsts = []
-    for c in conds:
-        acc1 = torch.zeros((b, n), dtype=torch.uint8, device=hi.device)
-        acc2 = torch.zeros_like(acc1)
-        for idx, (is_hi, off, bit) in enumerate(c):
-            miss = (h if is_hi else l)[:, off : off + n] ^ bit
-            if idx < n_exact:
-                acc1 += miss
-            else:
-                acc2 += miss
-        good = (acc1 == 0) & (acc2 <= tol)
-        firsts.append(torch.where(good, pos, _BIG).amin(dim=1))
-    return torch.stack(firsts, dim=1).to(torch.int32)
+    planes = [F.pad(x[:, :rows_scanned].reshape(b, n), (0, max_off)) for x in (hi, lo)]
+    conds4 = [tuple((0 if is_hi else 1, off, bit, idx < n_exact)
+                    for idx, (is_hi, off, bit) in enumerate(c)) for c in conds]
+    return _first_match_plain(planes, conds4, tol, n)
 
 
 def rotation_match_batch(
@@ -241,33 +341,31 @@ def rotation_match_batch(
     tol: int = 3,
     rows_scanned: int = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, R, 128) uint8 Gray lanes -> per-capture (first_pos, found), shape
-    (B, 8), for every rotation x parity hypothesis (positions in dibits).
+    """(B, R, 128) uint8 streams -> per-capture (first_pos, found) for every
+    magic hypothesis: shape (B, 8) for ``family="qpsk"`` (rotation x parity,
+    positions in dibits) or (B, 4) for ``family="bpsk"`` (re/im x inverted,
+    positions in bits; ``hi``/``lo`` are the re/im bit streams).
 
     ``rows_scanned`` (default R) limits the scan to each capture's first
     rows without a copy; the end-of-scan limit follows it exactly as the JAX
     call with ``rows_per_capture=rows_scanned`` does.
     """
-    if family != "qpsk":
-        raise NotImplementedError(f"family={family!r}: only 'qpsk' is ported (ROADMAP.md: BPSK)")
-    _require(hi.ndim == 3 and hi.shape == lo.shape, f"hi {tuple(hi.shape)} lo {tuple(lo.shape)}")
-    b, r, w = hi.shape
-    _require(w == _BLOCK_SYM and r == rows_per_capture and r % block_rows == 0,
-             f"bad shapes {tuple(hi.shape)} for rows_per_capture={rows_per_capture}")
-    _require(hi.dtype == torch.uint8 and lo.dtype == torch.uint8, f"dtypes {hi.dtype} {lo.dtype}")
+    if family not in _MATCH_FAMILIES:
+        raise NotImplementedError(f"family={family!r}: the matcher has {sorted(_MATCH_FAMILIES)}")
+    b, r = _check_lanes("rotation_match_batch", (hi, lo), rows_per_capture, block_rows)
     p = r if rows_scanned is None else int(rows_scanned)
     _require(0 < p <= r and p % block_rows == 0, f"rows_scanned={p} for R={r}")
-    _require(b <= 65535, f"{b} captures exceed the kernel grid")
-    conds, n_pat = rotation_match_conditions(pattern + pattern2)
+    conds, n_pat = _MATCH_FAMILIES[family](pattern + pattern2)
     n_exact = len(pattern)
     dev = _same_device(hi, lo)
     if dev.type == "cpu":
         first = rotation_match_batch_plain(hi, lo, conds, n_exact, tol, p)
     else:
         masks = _condition_masks(conds, n_exact, dev)
+        span = max(off for c in conds for (_s, off, _b) in c) + 1
         first = torch.empty((b, len(conds)), dtype=torch.int32, device=dev)
-        _launch("amr_rotation_match", dev, _ptr(hi), _ptr(lo), _ptr(masks), len(conds), tol,
-                n_pat, _ptr(first), b, r, p)
+        _launch("amr_rotation_match", dev, _ptr(hi), _ptr(lo), _ptr(masks), len(conds), span,
+                tol, n_pat, _ptr(first), b, r, p)
         rotation_match_batch.launches += 1
     # Windows starting in the last n_pat+1 entries of the scan can reach
     # past it; the matcher accepts only L = m - (n_pat+1) positions.
@@ -284,19 +382,14 @@ def relabel_pack_batch_plain(
     """Plain K3 in integer ops: relabel each dibit by ``ksel``, interleave
     (rh, rl) into the flat bit stream, shift it by ``s & 7`` bits (zeros
     past the capture's end) and pack MSB-first."""
-    b, r, _ = hi3.shape
+    b = hi3.shape[0]
     h = hi3.reshape(b, -1).to(torch.int32)
     l = lo3.reshape(b, -1).to(torch.int32)
     s2 = (2 * h + (h ^ l) + 4 - ksel.to(torch.int32)[:, None]) & 3
     rh = s2 >= 2
     rl = (s2 == 1) | (s2 == 2)
     bits = torch.stack([rh, rl], dim=2).reshape(b, -1).to(torch.uint8)
-    n_bits = bits.shape[1]
-    bits = F.pad(bits, (0, 8))
-    idx = (s.to(torch.int64) & 7)[:, None] + torch.arange(n_bits, device=bits.device)
-    shifted = torch.gather(bits, 1, idx).reshape(b, -1, 8).to(torch.int32)
-    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=bits.device)
-    return (shifted * weights).sum(dim=2).to(torch.uint8)
+    return _pack_bits_from(bits, s & 7)
 
 
 def relabel_pack_batch(
@@ -314,15 +407,8 @@ def relabel_pack_batch(
     byte of each capture is garbage by contract."""
     if variant != "weights":
         raise NotImplementedError(f"variant={variant!r}: only 'weights' is ported")
-    _require(hi3.ndim == 3 and hi3.shape == lo3.shape, f"hi3 {tuple(hi3.shape)} lo3 {tuple(lo3.shape)}")
-    b, r, w = hi3.shape
-    _require(w == _BLOCK_SYM and r == rows_per_capture and r % block_rows == 0,
-             f"bad shapes {tuple(hi3.shape)} for rows_per_capture={rows_per_capture}")
-    _require(hi3.dtype == torch.uint8 and lo3.dtype == torch.uint8, f"dtypes {hi3.dtype} {lo3.dtype}")
-    _require(s.dtype == torch.int32 and ksel.dtype == torch.int32
-             and tuple(s.shape) == (b,) and tuple(ksel.shape) == (b,),
-             f"s {s.dtype} {tuple(s.shape)}, ksel {ksel.dtype} {tuple(ksel.shape)}")
-    _require(b <= 65535, f"{b} captures exceed the kernel grid")
+    b, r = _check_lanes("relabel_pack_batch", (hi3, lo3), rows_per_capture, block_rows)
+    _check_per_capture("relabel_pack_batch", b, s, ksel)
     dev = _same_device(hi3, lo3, s, ksel)
     if dev.type == "cpu":
         return relabel_pack_batch_plain(hi3, lo3, s, ksel)
@@ -332,7 +418,192 @@ def relabel_pack_batch(
     return out
 
 
-KERNELS = (psk_project_decide_batch, rotation_match_batch, relabel_pack_batch)
+# --- K4: DBPSK stream select + complement + mod-8 alignment + byte pack ----------
+
+def bit_select_pack_batch_plain(
+    re3: torch.Tensor, im3: torch.Tensor, s: torch.Tensor, ksel: torch.Tensor
+) -> torch.Tensor:
+    """Plain K4 in integer ops: the im stream where ``ksel`` is odd, else
+    re; complemented where ``ksel >= 2``; shifted by ``s & 7`` bits (zeros
+    past the capture's end) and packed MSB-first."""
+    b = re3.shape[0]
+    use_im = (ksel & 1).bool()[:, None]
+    inv = (ksel >= 2).to(torch.uint8)[:, None]
+    v = torch.where(use_im, im3.reshape(b, -1), re3.reshape(b, -1))
+    return _pack_bits_from((v ^ inv) & 1, s & 7)
+
+
+def bit_select_pack_batch(
+    re3: torch.Tensor,
+    im3: torch.Tensor,
+    s: torch.Tensor,
+    ksel: torch.Tensor,
+    rows_per_capture: int,
+    block_rows: int = 256,
+    variant: str = "weights",
+) -> torch.Tensor:
+    """Whole-batch DBPSK stream select + complement + byte pack: (B, R, 128)
+    uint8 sign-bit lanes -> (B, R*16) uint8. ``ksel`` is the hypothesis in
+    :func:`bpsk_match_conditions` order (0 re, 1 im, 2 re inverted, 3 im
+    inverted). The frame starts at byte ``s // 8``; bytes at or past
+    ``(R*128 - (s & 7)) // 8`` are garbage by contract."""
+    if variant != "weights":
+        raise NotImplementedError(f"variant={variant!r}: only 'weights' is ported")
+    b, r = _check_lanes("bit_select_pack_batch", (re3, im3), rows_per_capture, block_rows)
+    _check_per_capture("bit_select_pack_batch", b, s, ksel)
+    dev = _same_device(re3, im3, s, ksel)
+    if dev.type == "cpu":
+        return bit_select_pack_batch_plain(re3, im3, s, ksel)
+    out = torch.empty((b, r * 16), dtype=torch.uint8, device=dev)
+    _launch("amr_bit_select_pack", dev, _ptr(re3), _ptr(im3), _ptr(s), _ptr(ksel), _ptr(out), b, r)
+    bit_select_pack_batch.launches += 1
+    return out
+
+
+# --- K5: D8PSK 8-rotation magic match on Gray planes of sectors ------------------
+
+def psk8_match_conditions(pattern: str, pattern2: str = ""):
+    """The 8 D8PSK π/4-rotation magic hypotheses as uniform plane conditions.
+
+    The received SECTOR under a channel rotation of k·π/4 is (true + k) % 8;
+    matching the frame magic in rotation-k sector space reduces to per-bit
+    conditions on the THREE Gray bit planes of the received sector: with raw
+    sector planes (b2, b1, b0), the Gray bits are g2 = b2, g1 = b2^b1,
+    g0 = b1^b0 — derived ONCE in the kernel so every condition is a
+    single-plane lookup across all 8 hypotheses. Returns
+    ``conds[k] = tuple of (gray_plane, symbol_offset, bitval, exact)`` where
+    ``gray_plane`` indexes (g2, g1, g0); ``exact`` marks bits inside
+    ``pattern`` (must all match), the rest count toward the tolerance like
+    the dibit matcher's validation region. Trailing bits of a partial final
+    tribit are dropped — sector granularity, exactly like
+    ops.psk._psk8_expected_sectors.
+    """
+    from .psk import _GRAY8_INV
+
+    both = pattern + pattern2
+    n_sym = len(both) // 3
+    n_exact_bits = len(pattern)
+    conds = []
+    for k in range(8):
+        c = []
+        for j in range(n_sym):
+            tri = (
+                int(both[3 * j]) * 4 + int(both[3 * j + 1]) * 2 + int(both[3 * j + 2])
+            )
+            e = (int(_GRAY8_INV[tri]) + k) % 8  # expected RECEIVED sector
+            ge = e ^ (e >> 1)
+            for t, gb in enumerate(((ge >> 2) & 1, (ge >> 1) & 1, ge & 1)):
+                c.append((t, j, gb, (3 * j + t) < n_exact_bits))
+        conds.append(tuple(c))
+    return tuple(conds), n_sym
+
+
+def _gray_planes(sec: torch.Tensor):
+    """uint8 sectors -> their Gray planes (g2, g1, g0) as uint8 0/1."""
+    b2, b1, b0 = (sec >> 2) & 1, (sec >> 1) & 1, sec & 1
+    return b2, b2 ^ b1, b1 ^ b0
+
+
+@functools.lru_cache(maxsize=8)
+def _sector_masks(conds, device: torch.device) -> torch.Tensor:
+    """(n_hyp, 4) int32 device table: per hypothesis [exact mask, exact
+    value, tolerant mask, tolerant value] over a window word holding Gray
+    plane q of window symbol j at bit 3j + q."""
+    rows = []
+    for c in conds:
+        m = [0] * 4
+        for plane, off, bit, exact in c:
+            j = 3 * off + plane
+            _require(0 <= j < 31, f"condition at symbol {off} outside the 10-symbol window")
+            base = 0 if exact else 2
+            m[base] |= 1 << j
+            m[base + 1] |= bit << j
+        rows.append(m)
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def sector_match_batch_plain(sec3: torch.Tensor, conds, tol: int, rows_scanned: int) -> torch.Tensor:
+    """Plain K5: the Gray planes of the first ``rows_scanned`` rows (zeros
+    past them) swept by the condition sets. Returns (B, 8) int32 first
+    symbol positions, 2^30 where none matched (before the limit epilogue)."""
+    b = sec3.shape[0]
+    n = rows_scanned * _BLOCK_SYM
+    max_off = max(off for c in conds for (_p, off, _b, _e) in c)
+    sec = F.pad(sec3[:, :rows_scanned].reshape(b, n), (0, max_off))
+    return _first_match_plain(_gray_planes(sec), conds, tol, n)
+
+
+def sector_match_batch(
+    sec3: torch.Tensor,
+    pattern: str,
+    rows_per_capture: int,
+    block_rows: int = 256,
+    pattern2: str = "",
+    tol: int = 3,
+    rows_scanned: int = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, R, 128) uint8 raw sector rows -> per-capture (first_pos, found),
+    shape (B, 8), for the 8 D8PSK rotation hypotheses; positions in symbols.
+    ``rows_scanned`` limits the scan to each capture's first rows as in
+    :func:`rotation_match_batch`."""
+    b, r = _check_lanes("sector_match_batch", (sec3,), rows_per_capture, block_rows)
+    p = r if rows_scanned is None else int(rows_scanned)
+    _require(0 < p <= r and p % block_rows == 0, f"rows_scanned={p} for R={r}")
+    conds, n_sym = psk8_match_conditions(pattern, pattern2)
+    dev = _same_device(sec3)
+    if dev.type == "cpu":
+        first = sector_match_batch_plain(sec3, conds, tol, p)
+    else:
+        masks = _sector_masks(conds, dev)
+        first = torch.empty((b, len(conds)), dtype=torch.int32, device=dev)
+        _launch("amr_sector_match", dev, _ptr(sec3), _ptr(masks), len(conds), tol, n_sym,
+                _ptr(first), b, r, p)
+        sector_match_batch.launches += 1
+    limit = p * _BLOCK_SYM - (n_sym + 1)
+    found = (first < _BIG) & (first < limit)
+    return torch.where(found, first, 0), found
+
+
+# --- K6: D8PSK relabel + Gray + mod-8-symbol alignment + byte pack ---------------
+
+def psk8_relabel_pack_rows_plain(
+    sec3: torch.Tensor, ksel: torch.Tensor, r8: torch.Tensor
+) -> torch.Tensor:
+    """Plain K6 in integer ops: true sector (rx + 8 - ksel) & 7, its Gray
+    planes interleaved MSB first into the flat bit stream, shifted by
+    3 * r8 bits (zeros past the capture's end) and packed."""
+    b = sec3.shape[0]
+    t = (sec3.reshape(b, -1).to(torch.int32) + 8 - ksel.to(torch.int32)[:, None]) & 7
+    bits = torch.stack(_gray_planes(t), dim=2).reshape(b, -1).to(torch.uint8)
+    return _pack_bits_from(bits, 3 * r8)
+
+
+def psk8_relabel_pack_rows(
+    sec3: torch.Tensor,
+    ksel: torch.Tensor,
+    r8: torch.Tensor,
+    rows_per_capture: int,
+    block_rows: int = 256,
+) -> torch.Tensor:
+    """Whole-batch D8PSK relabel + byte pack: (B, R, 128) uint8 received
+    sectors -> (B, R*48) uint8. ``ksel`` is the winning rotation and ``r8``
+    the sync shift in symbols, already reduced mod 8: the frame starts at
+    byte ``3 * (s // 8)``, which the parser's magic scan absorbs."""
+    b, r = _check_lanes("psk8_relabel_pack_rows", (sec3,), rows_per_capture, block_rows)
+    _check_per_capture("psk8_relabel_pack_rows", b, ksel, r8)
+    dev = _same_device(sec3, ksel, r8)
+    if dev.type == "cpu":
+        return psk8_relabel_pack_rows_plain(sec3, ksel, r8)
+    out = torch.empty((b, r * 48), dtype=torch.uint8, device=dev)
+    _launch("amr_psk8_pack", dev, _ptr(sec3), _ptr(ksel), _ptr(r8), _ptr(out), b, r)
+    psk8_relabel_pack_rows.launches += 1
+    return out
+
+
+KERNELS = (
+    psk_project_decide_batch, rotation_match_batch, relabel_pack_batch,
+    bit_select_pack_batch, sector_match_batch, psk8_relabel_pack_rows,
+)
 
 
 def reset_launch_counts() -> None:

@@ -1,22 +1,30 @@
-"""Differential QPSK on PyTorch: modulation and the batched receive front half.
+"""Differential PSK on PyTorch: modulation and the batched receive front half.
 
-Counterpart of ``audio_modem_radio_tpu/ops/psk.py`` for the DQPSK batch
-slice. The wire format is the same: MSB-first bits, the ``[0,0]*30 +
-[1,1]*10`` preamble, Gray-coded quarter-turn phase deltas, a sine carrier
-restarted every symbol with a 10% linear ramp envelope.
+Counterpart of ``audio_modem_radio_tpu/ops/psk.py`` for the batched DBPSK,
+DQPSK and D8PSK slices. The wire formats are the same: MSB-first bits, a
+sine carrier restarted every symbol with a 10% linear ramp envelope, and
+per mode
+
+* DBPSK: the ``[1,0]*40`` preamble, a half turn for every 1 bit;
+* DQPSK: the ``[0,0]*30 + [1,1]*10`` preamble, Gray-coded quarter-turn
+  phase deltas;
+* D8PSK: the ``[0,0,0]*30 + [1,1,0]*10`` preamble, Gray-coded eighth-turn
+  phase deltas, 3 bits per symbol.
 
 Receive is the JAX package's two-pass design, with the batch dimension
 written out:
 
 * pass 1 (``_batch_pass1``): three windows of blocked sample rows are
   projected onto every timing offset's template at once (one float32
-  ``torch.matmul``), scored by the energy-weighted 4th-power phase
-  coherence, and the winning offset's differentials give each capture's
+  ``torch.matmul``), scored by the energy-weighted phase coherence at the
+  power that cancels the data (the 4th for DBPSK and DQPSK, the 8th for
+  D8PSK), and the winning offset's differentials give each capture's
   blind common-rotation estimate θ;
-* pass 2 (``psk_decision_streams_batch``): kernel K1
-  (``ops.kernels.psk_project_decide_batch``) projects every symbol at the
-  winning offset, forms the differential, derotates by θ and emits the
-  uint8 Gray (hi, lo) decision lanes.
+* pass 2 (``psk_decision_streams_batch``, ``psk8_sector_rows_batch``):
+  kernel K1 (``ops.kernels.psk_project_decide_batch``) projects every
+  symbol at the winning offset, forms the differential, derotates by θ and
+  emits uint8 decisions: Gray (hi, lo) lanes for DQPSK, the sign bits of
+  (re, im) for DBPSK, one π/4 sector lane for D8PSK.
 
 The tables are numpy, built from the same formulas as the JAX package's, so
 both packages hold bitwise-equal templates.
@@ -38,6 +46,7 @@ from .kernels import psk_project_decide_batch
 _QT_COS = np.array([1.0, 0.0, -1.0, 0.0], dtype=np.float64)
 _QT_SIN = np.array([0.0, 1.0, 0.0, -1.0], dtype=np.float64)
 
+BPSK_PREAMBLE_BITS = [1, 0] * 40
 QPSK_PREAMBLE_BITS = [0, 0] * 30 + [1, 1] * 10
 
 # Symbols per row of the blocked layout (row width = 128 * spsym samples).
@@ -73,18 +82,34 @@ def _carrier_basis(spsym: int, carrier: float, sample_rate: int) -> np.ndarray:
     return np.stack([np.sin(w) * env, np.cos(w) * env]).astype(np.float32)
 
 
-def _synthesize(phase_qt: np.ndarray, spsym: int, carrier: float, sample_rate: int) -> torch.Tensor:
-    """Quarter-turn phase indices (n_sym,) -> waveform (n_sym*spsym,).
+def _synthesize(
+    phase: np.ndarray, spsym: int, carrier: float, sample_rate: int,
+    cos: np.ndarray = _QT_COS, sin: np.ndarray = _QT_SIN,
+) -> torch.Tensor:
+    """Phase indices (n_sym,) into the unit-circle table (``cos``, ``sin``)
+    -> waveform (n_sym*spsym,).
 
     sin(w + φ) = sin(w)cos(φ) + cos(w)sin(φ): a (n_sym, 2) @ (2, spsym)
-    product. One of cos φ, sin φ is exactly 0 for every symbol, so each
-    sample is exactly ± one basis value, whatever the summation order.
+    product. For quarter turns one of cos φ, sin φ is exactly 0 for every
+    symbol, so each sample is exactly ± one basis value, whatever the
+    summation order; eighth turns sum two products.
     """
     basis = torch.from_numpy(_carrier_basis(spsym, carrier, sample_rate))
-    cs = torch.from_numpy(
-        np.stack([_QT_COS[phase_qt], _QT_SIN[phase_qt]], axis=1).astype(np.float32)
-    )
+    cs = torch.from_numpy(np.stack([cos[phase], sin[phase]], axis=1).astype(np.float32))
     return (cs @ basis).reshape(-1)
+
+
+def bpsk_modulate(
+    data_bytes: bytes, baud: float = 1200, carrier: float = 3000.0, samp_rate: int = 96000
+) -> np.ndarray:
+    """DBPSK: 1 = invert phase, 0 = keep phase; ``[1,0]*40`` preamble."""
+    bits = np.concatenate(
+        [np.asarray(BPSK_PREAMBLE_BITS, np.uint8), bytes_to_bits(data_bytes)]
+    ).astype(np.int64)
+    # The phase after bit k is (number of ones so far) half turns.
+    phase_qt = 2 * (np.cumsum(bits) % 2)
+    spsym = _samples_per_symbol(samp_rate, baud)
+    return _synthesize(phase_qt, spsym, float(carrier), int(samp_rate)).numpy()
 
 
 def qpsk_modulate(
@@ -100,6 +125,37 @@ def qpsk_modulate(
     phase_qt = np.cumsum(deltas) % 4
     spsym = _samples_per_symbol(samp_rate, baud)
     return _synthesize(phase_qt, spsym, float(carrier), int(samp_rate)).numpy()
+
+
+_ET_SQ = float(np.sqrt(0.5))
+# cos/sin of k·π/4: the 8PSK constellation directions.
+_ET_COS = np.array([1, _ET_SQ, 0, -_ET_SQ, -1, -_ET_SQ, 0, _ET_SQ], np.float64)
+_ET_SIN = np.array([0, _ET_SQ, 1, _ET_SQ, 0, -_ET_SQ, -1, -_ET_SQ], np.float64)
+# 3-bit reflected Gray code: sector k carries tribit value _GRAY8[k]
+# (adjacent sectors differ in one bit); the inverse maps tribit -> phase delta.
+_GRAY8 = np.array([0, 1, 3, 2, 6, 7, 5, 4], np.uint8)
+_GRAY8_INV = np.argsort(_GRAY8).astype(np.uint8)
+
+# 30 zero deltas then 10 half turns, in tribits. 120 bits ≡ 0 mod 3, so the
+# frame magic always lands tribit-aligned.
+PSK8_PREAMBLE_BITS = [0, 0, 0] * 30 + [1, 1, 0] * 10
+
+
+def psk8_real_modulate(
+    data_bytes: bytes, baud: float = 1200, carrier: float = 3000.0, samp_rate: int = 96000
+) -> np.ndarray:
+    """D8PSK: Gray-coded tribit phase deltas, 3 bits/symbol."""
+    bits = np.concatenate(
+        [np.asarray(PSK8_PREAMBLE_BITS, np.uint8), bytes_to_bits(data_bytes)]
+    )
+    if len(bits) % 3:
+        bits = np.concatenate([bits, np.zeros(3 - len(bits) % 3, np.uint8)])
+    tri = bits[0::3].astype(np.int64) * 4 + bits[1::3] * 2 + bits[2::3]
+    phase_et = np.cumsum(_GRAY8_INV[tri].astype(np.int64)) % 8
+    spsym = _samples_per_symbol(samp_rate, baud)
+    return _synthesize(
+        phase_et, spsym, float(carrier), int(samp_rate), _ET_COS, _ET_SIN
+    ).numpy()
 
 
 # --- receive tables (numpy, the JAX package's formulas) ------------------------
@@ -187,11 +243,21 @@ def _fourth_power(d_re: torch.Tensor, d_im: torch.Tensor) -> Tuple[torch.Tensor,
     return (u * u - v * v) / w, (2 * u * v) / w
 
 
-def _coherence_score(d_re: torch.Tensor, d_im: torch.Tensor, dim) -> torch.Tensor:
-    """Energy-weighted 4-fold phase coherence |Σ |z|² e^{j4θ}|; the
-    magnitude is rotation-invariant, so timing selection survives CFO."""
-    re4, im4 = _fourth_power(d_re, d_im)
-    return torch.hypot(torch.sum(re4, dim=dim), torch.sum(im4, dim=dim))
+def _eighth_power(d_re: torch.Tensor, d_im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Energy-normalized 8th power: |z|² e^{j8θ} as (re, im). Squares the
+    4th-power phasor and renormalizes by its magnitude (= |z|²); D8PSK data
+    sits on k·π/4, which only the 8th power cancels."""
+    r4, i4 = _fourth_power(d_re, d_im)
+    w = torch.sqrt(r4 * r4 + i4 * i4) + 1e-20
+    return (r4 * r4 - i4 * i4) / w, (2 * r4 * i4) / w
+
+
+def _coherence_score(d_re: torch.Tensor, d_im: torch.Tensor, dim, n_psk: int = 4) -> torch.Tensor:
+    """Energy-weighted phase coherence |Σ |z|² e^{jpθ}| at the power p that
+    cancels the data (8 for D8PSK, 4 otherwise); the magnitude is
+    rotation-invariant, so timing selection survives CFO."""
+    re_p, im_p = (_eighth_power if n_psk == 8 else _fourth_power)(d_re, d_im)
+    return torch.hypot(torch.sum(re_p, dim=dim), torch.sum(im_p, dim=dim))
 
 
 def _gram_scale(
@@ -218,10 +284,20 @@ def estimate_common_rotation(d_re: torch.Tensor, d_im: torch.Tensor) -> torch.Te
     return torch.atan2(torch.sum(im4, dim=-1), torch.sum(re4, dim=-1)) / 4
 
 
-def _batch_pass1(samples, x3d, b, n_frames, spsym, carrier, sample_rate, n_offsets, r_pre):
+def estimate_common_rotation8(d_re: torch.Tensor, d_im: torch.Tensor) -> torch.Tensor:
+    """Blind CFO estimate for D8PSK: θ̂ = arg(Σ |z|²e^{j8θ})/8 over the last
+    axis, resolved mod π/4 (the sector matcher's 8 hypotheses take the rest)."""
+    re8, im8 = _eighth_power(d_re, d_im)
+    return torch.atan2(torch.sum(im8, dim=-1), torch.sum(re8, dim=-1)) / 8
+
+
+def _batch_pass1(samples, x3d, b, n_frames, spsym, carrier, sample_rate, n_offsets, r_pre,
+                 n_psk=4):
     """Batched pass 1: build the blocked rows (flat input), score every timing
     offset on up to 3 row windows, and estimate each capture's common
     differential rotation from the winning offset's window differentials.
+    ``n_psk=8`` scores and estimates at the 8th power, anything else at the
+    4th (DBPSK and DQPSK both).
 
     Returns ``(x3d, r, best, theta)`` with best (B,) int32 and theta (B,).
     """
@@ -265,13 +341,14 @@ def _batch_pass1(samples, x3d, b, n_frames, spsym, carrier, sample_rate, n_offse
     # In-row differentials (127 per row) are plenty for scoring.
     dr = re[..., 1:] * re[..., :-1] + im[..., 1:] * im[..., :-1]
     di = im[..., 1:] * re[..., :-1] - re[..., 1:] * im[..., :-1]
-    score = _coherence_score(dr, di, (1, 3))  # (B, K)
+    score = _coherence_score(dr, di, (1, 3), n_psk)  # (B, K)
     best = torch.argmax(score, dim=1).to(torch.int32)
 
     idx = best.long()[:, None, None, None].expand(-1, dr.shape[1], 1, dr.shape[3])
     dr_b = torch.gather(dr, 2, idx)[:, :, 0]  # (B, nw, 127)
     di_b = torch.gather(di, 2, idx)[:, :, 0]
-    theta = estimate_common_rotation(dr_b.reshape(b, -1), di_b.reshape(b, -1))
+    est = estimate_common_rotation8 if n_psk == 8 else estimate_common_rotation
+    theta = est(dr_b.reshape(b, -1), di_b.reshape(b, -1))
     return x3d, r, best, theta
 
 
@@ -310,27 +387,9 @@ def blocked_row_shape(n_samples: int, baud: float, sample_rate: int) -> Optional
     return r, row
 
 
-def psk_decision_streams_batch(
-    samples: torch.Tensor,
-    baud: float,
-    carrier: float,
-    sample_rate: int,
-    n_psk: int = 4,
-    cfo: bool = True,
-    n_offsets: int = 8,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched DQPSK decision streams: uint8 Gray ``(hi, lo)`` of shape
-    (B, r*128), on the input's device.
-
-    Pass 1 picks each capture's timing offset and rotation θ; kernel K1
-    projects, differentiates, derotates by θ (``cfo=True``; identity
-    otherwise) and decides. Entries past each capture's modulated span are
-    garbage, which the sync tail and the frame parser ignore.
-    """
-    if n_psk != 4:
-        raise NotImplementedError(
-            f"n_psk={n_psk}: only DQPSK is ported (ROADMAP.md queue 1: BPSK, 8PSK)"
-        )
+def _decide_inputs(samples, baud, carrier, sample_rate, cfo, n_offsets, pass1_psk):
+    """Pass 1 and K1's operands: ``(x3d, W8, best, rot, b, r)``. Raises
+    NotImplementedError where the configuration has no blocked path."""
     spsym = _samples_per_symbol(sample_rate, baud)
     setup = _batch_block_setup(samples, spsym)
     if setup is None:
@@ -340,7 +399,7 @@ def psk_decision_streams_batch(
         )
     b, n_frames, x3d, r = setup
     x3d, r, best, theta = _batch_pass1(
-        samples, x3d, b, n_frames, spsym, carrier, sample_rate, n_offsets, r
+        samples, x3d, b, n_frames, spsym, carrier, sample_rate, n_offsets, r, pass1_psk
     )
     W8, _, _ = _device_tables(spsym, float(carrier), sample_rate, n_offsets, x3d.device)
     if cfo:
@@ -348,5 +407,54 @@ def psk_decision_streams_batch(
     else:
         rot = torch.zeros((b, 2), dtype=torch.float32, device=x3d.device)
         rot[:, 0] = 1.0
+    return x3d, W8, best, rot, b, r
+
+
+def psk_decision_streams_batch(
+    samples: torch.Tensor,
+    baud: float,
+    carrier: float,
+    sample_rate: int,
+    n_psk: int = 4,
+    cfo: bool = True,
+    n_offsets: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched decision streams of shape (B, r*128), uint8, on the input's
+    device: Gray ``(hi, lo)`` dibit lanes for ``n_psk=4``, the sign bits of
+    the (re, im) differential for ``n_psk=2``.
+
+    Pass 1 (4th power for both) picks each capture's timing offset and
+    rotation θ; kernel K1 projects, differentiates, derotates by θ
+    (``cfo=True``; identity otherwise) and decides. Entries past each
+    capture's modulated span are garbage, which the sync tail and the frame
+    parser ignore.
+    """
+    if n_psk not in (2, 4):
+        raise NotImplementedError(
+            f"n_psk={n_psk}: decision streams exist for DBPSK (2) and DQPSK (4); "
+            "D8PSK is psk8_sector_rows_batch"
+        )
+    x3d, W8, best, rot, b, r = _decide_inputs(
+        samples, baud, carrier, sample_rate, cfo, n_offsets, pass1_psk=4
+    )
     hi, lo = psk_project_decide_batch(x3d, W8, best, rot, rows_per_capture=r, n_psk=n_psk)
     return hi.reshape(b, -1), lo.reshape(b, -1)
+
+
+def psk8_sector_rows_batch(
+    samples: torch.Tensor,
+    baud: float,
+    carrier: float,
+    sample_rate: int,
+    cfo: bool = True,
+    n_offsets: int = 8,
+) -> torch.Tensor:
+    """Batched D8PSK receive front half: uint8 π/4 sectors (0..7) of shape
+    (B, r*128), on the input's device. Pass 1 at the 8th power, then K1 with
+    ``n_psk=8`` (projection, differential, derotation by θ, sector
+    decision)."""
+    x3d, W8, best, rot, b, r = _decide_inputs(
+        samples, baud, carrier, sample_rate, cfo, n_offsets, pass1_psk=8
+    )
+    sec = psk_project_decide_batch(x3d, W8, best, rot, rows_per_capture=r, n_psk=8)
+    return sec.reshape(b, -1)

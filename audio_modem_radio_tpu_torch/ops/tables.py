@@ -1,6 +1,6 @@
 """The slice's constant tables, carried from the JAX package as tensors.
 
-The DQPSK receive path learns nothing: its parameters are the projection
+The PSK receive paths learn nothing: their parameters are the projection
 templates and the magic patterns. The port builds its own tables
 (``ops.psk``) with the JAX package's formulas; this module turns the JAX
 package's numpy arrays into the port's tensors, so a comparison can feed

@@ -1,14 +1,20 @@
 """Batched demodulation of many captures on one device — the throughput layer.
 
-Counterpart of ``audio_modem_radio_tpu/parallel/batch.py`` for the DQPSK
-slice. The pipeline:
+Counterpart of ``audio_modem_radio_tpu/parallel/batch.py`` for the batched
+PSK slices: DBPSK (kind ``psk2``), DQPSK (``psk4``) and D8PSK (``psk8``).
+The pipeline:
 
   host:   read WAVs, pad to one bucket length, shape each capture into
           blocked (r, 128*spsym) sample rows (int16 for a CUDA device)
   device: pass 1 (timing offset + blind rotation, plain torch), kernel K1
-          (projection + differential + derotation + Gray decision), kernel
-          K2 over tiered prefixes (rotation x parity magic match), the fold
-          rule, kernel K3 (relabel + mod-8 alignment + byte pack)
+          (projection + differential + derotation + decision), then the
+          kind's sync tail over tiered prefixes:
+          psk4: K2 (rotation x parity magic match), fold, K3 (relabel +
+                mod-8 alignment + byte pack);
+          psk2: K2 (stream x inversion match), fold, K4 (stream select +
+                complement + mod-8 alignment + byte pack);
+          psk8: K5 (8-rotation sector match), earliest-position fold, K6
+                (relabel + Gray + mod-8-symbol alignment + byte pack)
   host:   strict FBPC frame parse, decompression, assembly, save
 
 ``jit`` and ``vmap`` have no counterpart here: the batch dimension is
@@ -23,13 +29,20 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..assembly import AssemblyRegistry
 from ..config import CONFIG
 from ..framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2, parse_frames
 from ..modem import SAMPLE_RATE
-from ..ops.kernels import relabel_pack_batch, rotation_match_batch
-from ..ops.psk import blocked_row_shape, psk_decision_streams_batch
+from ..ops.kernels import (
+    bit_select_pack_batch,
+    psk8_relabel_pack_rows,
+    relabel_pack_batch,
+    rotation_match_batch,
+    sector_match_batch,
+)
+from ..ops.psk import blocked_row_shape, psk8_sector_rows_batch, psk_decision_streams_batch
 from ..utils.torchenv import DeviceLike, resolve_device
 from ..utils.wavio import read_wav, resample
 
@@ -39,8 +52,6 @@ logger = logging.getLogger("audio_modem_radio_tpu_torch")
 
 # Demodulator kind -> the ROADMAP.md queue-1 item that will port it.
 _UNPORTED_KINDS = {
-    "psk2": "BPSK",
-    "psk8": "8PSK",
     "ofdm": "OFDM",
     "fsk": "FSK",
     "dsss": "DSSS",
@@ -79,10 +90,39 @@ def resolve_demod_plan(mode: str, symbol_rate: int) -> Tuple[str, tuple]:
     return table[mode]
 
 
+def _receive_kind(mode: str, symbol_rate: int) -> Tuple[str, tuple]:
+    """:func:`resolve_demod_plan` with the compatibility aliases applied:
+    under CONFIG ``modem.psk8_compat_alias`` the 8PSK wire format is DQPSK
+    at the same carrier (kind psk4), under ``modem.dsss_compat_alias`` the
+    DSSS wire format is plain DBPSK (kind psk2)."""
+    kind, params = resolve_demod_plan(mode, symbol_rate)
+    if kind == "psk8" and CONFIG.get("modem.psk8_compat_alias", False):
+        kind = "psk4"
+    if kind == "dsss" and CONFIG.get("modem.dsss_compat_alias", False):
+        kind = "psk2"
+    return kind, params
+
+
 # --- device-side batched demod -------------------------------------------------
 
-# Row granularity of the rotation matcher; prefix tiers are multiples of it.
+# Row granularity of the magic matchers; prefix tiers are multiples of it.
 _MATCH_BLOCK_ROWS = 256
+_BIG = 1 << 30
+
+
+def _scan_tiered(r: int, match, fold, accept):
+    """Tiered prefix scan of an r-row stream: a genuine capture's magic sits
+    near the stream start, so scan one matcher block first, then ~1/8 of
+    the rows, then everything. ``match(rows) -> (first, found)``; a tier is
+    taken when ``accept(found)`` holds for every capture (one scalar read to
+    the host), and its ``fold(first, found) -> (s, ksel, found)`` returned."""
+    r_pre = -(-r // 8 // _MATCH_BLOCK_ROWS) * _MATCH_BLOCK_ROWS
+    tiers = [p for p in sorted({_MATCH_BLOCK_ROWS, r_pre}) if 2 * p <= r]
+    for p in tiers:
+        first_p, found_p = match(p)
+        if bool(torch.all(accept(found_p))):
+            return fold(first_p, found_p)
+    return fold(*match(r))
 
 
 def psk4_kernel_sync_tail(
@@ -123,25 +163,99 @@ def psk4_kernel_sync_tail(
             pattern2=MAGIC_BIT_PATTERN2, rows_scanned=rows,
         )
 
-    # Tiered prefix scan: a genuine capture's magic sits near the stream
-    # start, so scan one matcher block first, then ~1/8 of the rows, then
-    # everything. A tier is accepted iff EVERY capture matched hypothesis
-    # k=0 (either parity) inside it; the fold over the prefix then equals
-    # the full scan's (a prefix k=0 match is the global first for its
-    # parity, and ksel = 0 on both views).
-    r_pre = -(-r_dib // 8 // _MATCH_BLOCK_ROWS) * _MATCH_BLOCK_ROWS
-    tiers = sorted({_MATCH_BLOCK_ROWS, r_pre})
-    tiers = [p for p in tiers if 2 * p <= r_dib]
-    for p in tiers:
-        first_p, found_p = match(p)
-        if bool(torch.all(found_p[:, 0] | found_p[:, 4])):  # one scalar read
-            s, ksel, found = fold(first_p, found_p)
-            break
-    else:
-        s, ksel, found = fold(*match(r_dib))
-
+    # A tier is accepted iff EVERY capture matched hypothesis k=0 (either
+    # parity) inside it; the fold over the prefix then equals the full
+    # scan's (a prefix k=0 match is the global first for its parity, and
+    # ksel = 0 on both views).
+    s, ksel, found = _scan_tiered(r_dib, match, fold, lambda f: f[:, 0] | f[:, 4])
     packed = relabel_pack_batch(hi3, lo3, s, ksel, rows_per_capture=r_dib, variant="weights")
     n_valid = (2 * n_dib - (s & 7)) // 8
+    return packed, n_valid.to(torch.int32), found
+
+
+def psk2_kernel_sync_tail(
+    hi: torch.Tensor, lo: torch.Tensor, cfo_retry: bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The DBPSK sync tail: K2 with the 4 DBPSK hypotheses (re/im x
+    inverted) over tiered prefixes, then K4 (select + complement + pack).
+
+    ``hi``/``lo`` are the (B, n_bits) uint8 sign-bit streams of the (re, im)
+    differential, n_bits a multiple of 128*256. Returns ``(packed (B,
+    n_bits/8) uint8, n_valid (B,) int32, found (B,) bool)``; the frame
+    starts at byte s//8. With ``cfo_retry`` off only hypothesis 0 (re,
+    uninverted) is accepted.
+    """
+    n_bits = hi.shape[1]
+    r_bit = n_bits // 128
+    hi3 = hi.reshape(-1, r_bit, 128)
+    lo3 = lo.reshape(-1, r_bit, 128)
+
+    def fold(first, found4):
+        if not cfo_retry:
+            found4 = found4.clone()
+            found4[:, 1:] = False
+        ksel = torch.argmax(found4.to(torch.uint8), dim=1, keepdim=True)
+        s = torch.gather(first, 1, ksel)[:, 0]
+        found = torch.gather(found4, 1, ksel)[:, 0]
+        return torch.where(found, s, 0).to(torch.int32), ksel[:, 0].to(torch.int32), found
+
+    def match(rows):
+        return rotation_match_batch(
+            hi3, lo3, MAGIC_BIT_PATTERN, r_bit, family="bpsk",
+            pattern2=MAGIC_BIT_PATTERN2, rows_scanned=rows,
+        )
+
+    # Accepted iff every capture matched hypothesis 0 inside the tier: then
+    # ksel = 0 on both views and the prefix's first[:, 0] is the global first.
+    s, ksel, found = _scan_tiered(r_bit, match, fold, lambda f: f[:, 0])
+    packed = bit_select_pack_batch(hi3, lo3, s, ksel, rows_per_capture=r_bit, variant="weights")
+    n_valid = (n_bits - (s & 7)) // 8
+    return packed, n_valid.to(torch.int32), found
+
+
+def psk8_kernel_sync_tail(
+    sec: torch.Tensor, cfo_retry: bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The D8PSK sync tail: K5 (8 π/4-rotation sector match) over tiered
+    prefixes, the earliest-position fold, then K6 (relabel + Gray + pack).
+
+    ``sec`` is (B, m) uint8 received sectors, m a multiple of 128*256.
+    Returns ``(packed (B, 3m/8) uint8, n_valid (B,) int32, found (B,)
+    bool)``; the stream is aligned only mod 8 symbols, so the frame starts
+    at byte 3*(s//8). With ``cfo_retry`` off only hypothesis k=0 is accepted.
+    """
+    b, m = sec.shape
+    r_sym = m // 128
+    sec3 = sec.reshape(b, r_sym, 128)
+    k_order = torch.arange(8, dtype=torch.int32, device=sec.device)
+
+    def fold(first, found8):
+        # Earliest position, k order breaking ties: the true rotation is the
+        # one whose validated magic starts the frame. It also makes the
+        # any-hypothesis tier acceptance below sound.
+        if not cfo_retry:
+            found8 = found8.clone()
+            found8[:, 1:] = False
+        score = torch.where(found8, first * 8 + k_order, _BIG)
+        ksel = torch.argmin(score, dim=1, keepdim=True)
+        s = torch.gather(first, 1, ksel)[:, 0]
+        found = torch.gather(found8, 1, ksel)[:, 0]
+        return torch.where(found, s, 0).to(torch.int32), ksel[:, 0].to(torch.int32), found
+
+    def match(rows):
+        return sector_match_batch(
+            sec3, MAGIC_BIT_PATTERN, r_sym, pattern2=MAGIC_BIT_PATTERN2, rows_scanned=rows,
+        )
+
+    # Accepted iff every capture matched any hypothesis inside the tier
+    # (hypothesis 0 with cfo_retry off): positions past the prefix are
+    # larger, so the earliest match over all hypotheses lies in it.
+    s, ksel, found = _scan_tiered(
+        r_sym, match, fold, (lambda f: f.any(dim=1)) if cfo_retry else (lambda f: f[:, 0])
+    )
+    r8 = (s % 8).to(torch.int32)
+    packed = psk8_relabel_pack_rows(sec3, ksel, r8, rows_per_capture=r_sym)
+    n_valid = (3 * (m - r8)) // 8
     return packed, n_valid.to(torch.int32), found
 
 
@@ -154,22 +268,36 @@ def demod_pack_batch(
     """(B, N) samples or (B, r, 128*spsym) blocked rows -> (packed bytes
     (B, max_bytes), n_valid (B,), found (B,)), on the input's device.
 
-    Demod + magic sync + byte pack for the whole batch. Only the DQPSK
-    family ('psk4') is ported; other kinds raise NotImplementedError naming
-    the ROADMAP.md item that will port them (the compatibility aliases of
-    OFDM, 8PSK and DSSS come with those items).
+    Demod + magic sync + byte pack for the whole batch. The PSK kinds are
+    ported: 'psk4' (QPSK, APSK16, SSTV, and 8PSK under
+    ``modem.psk8_compat_alias``), 'psk2' (BPSK, and DSSS under
+    ``modem.dsss_compat_alias``) and 'psk8' (8PSK); other kinds raise
+    NotImplementedError naming the ROADMAP.md item that will port them.
     """
-    kind, params = resolve_demod_plan(mode, symbol_rate)
-    if kind != "psk4":
+    kind, params = _receive_kind(mode, symbol_rate)
+    if kind not in ("psk2", "psk4", "psk8"):
         raise NotImplementedError(
             f"mode {mode!r} (demodulator kind {kind!r}) is not ported to PyTorch yet: "
             f"ROADMAP.md queue 1, {_UNPORTED_KINDS[kind]}"
         )
     baud, carrier = params
+    if kind == "psk8":
+        sec = psk8_sector_rows_batch(samples, baud, carrier, SAMPLE_RATE, cfo=cfo_retry)
+        # Zero-pad to the matcher's row grain: zero sectors cannot match the
+        # exact part of the magic (its tribits hit 5 distinct sectors under
+        # any rotation), and packed bytes past n_valid are ignored. Blocked
+        # rows already sit on the grain, and F.pad would copy them anyway.
+        grain = 128 * _MATCH_BLOCK_ROWS
+        if sec.shape[1] % grain:
+            sec = F.pad(sec, (0, -(-sec.shape[1] // grain) * grain - sec.shape[1]))
+        return psk8_kernel_sync_tail(sec, cfo_retry)
+    n_psk = 4 if kind == "psk4" else 2
     hi, lo = psk_decision_streams_batch(
-        samples, baud, carrier, SAMPLE_RATE, n_psk=4, cfo=cfo_retry
+        samples, baud, carrier, SAMPLE_RATE, n_psk=n_psk, cfo=cfo_retry
     )
-    return psk4_kernel_sync_tail(hi, lo, cfo_retry)
+    if kind == "psk4":
+        return psk4_kernel_sync_tail(hi, lo, cfo_retry)
+    return psk2_kernel_sync_tail(hi, lo, cfo_retry)
 
 
 # --- host orchestration --------------------------------------------------------
@@ -184,19 +312,22 @@ def _bucket_length(lengths: Sequence[int]) -> int:
 def host_shape_batch(
     batch: np.ndarray, mode: str, symbol_rate: int, device: DeviceLike = None
 ) -> np.ndarray:
-    """Pre-shape (B, N) DQPSK captures into blocked (B, r, 128*spsym) rows
-    for ``demod_pack_batch``; other mode families, not ported yet, pass
-    through unchanged.
+    """Pre-shape (B, N) PSK captures (kinds psk2, psk4, psk8, after the
+    compatibility aliases) into blocked (B, r, 128*spsym) rows for
+    ``demod_pack_batch``; other mode families, not ported yet, pass through
+    unchanged.
 
     Rows are int16 at scale 32768 when the target device is CUDA (half the
     host-to-device copy and half K1's read; exact for int16-PCM sources,
     which read_wav divides by 32768), float32 otherwise. CONFIG
-    ``tpu.int16_rows`` overrides that choice.
+    ``tpu.int16_rows`` overrides that choice; CONFIG ``tpu.int8_rows`` (off
+    by default) ships int8 rows at scale 128 instead, a quarter of the
+    float32 read at about -50 dB of quantization noise.
     """
     batch = np.asarray(batch, dtype=np.float32)
     b = batch.shape[0]
-    kind, params = resolve_demod_plan(mode, symbol_rate)
-    if kind != "psk4":
+    kind, params = _receive_kind(mode, symbol_rate)
+    if kind not in ("psk2", "psk4", "psk8"):
         return batch
     shape = blocked_row_shape(batch.shape[1], params[0], SAMPLE_RATE)
     if shape is None:
@@ -206,7 +337,12 @@ def host_shape_batch(
     i16 = CONFIG.get("tpu.int16_rows", None)
     if i16 is None:
         i16 = resolve_device(device).type == "cuda"
-    if i16:
+    if CONFIG.get("tpu.int8_rows", False):
+        shaped = np.zeros((b, r * row), dtype=np.int8)
+        shaped[:, :keep] = np.clip(
+            np.round(batch[:, :keep] * 128.0), -128, 127
+        ).astype(np.int8)
+    elif i16:
         shaped = np.zeros((b, r * row), dtype=np.int16)
         shaped[:, :keep] = np.clip(
             np.round(batch[:, :keep] * 32768.0), -32768, 32767

@@ -1,10 +1,11 @@
 """Where the device time of ``demod_pack_batch`` goes, on one CUDA card.
 
-    python3 -m audio_modem_radio_tpu_torch.profile_slice [--out FILE]
+    python3 -m audio_modem_radio_tpu_torch.profile_slice [--mode QPSK|BPSK|8PSK] [--out FILE]
 
-The workload is ``chip_smoke.py``'s timing batch: one 16 KiB-payload
-QPSK@9600 capture tiled to 2^24 samples, shaped into int16 rows, shipped
-once and copied 64 times on the card. The script prints:
+The workload is ``chip_smoke.py``'s timing batch for the mode (default
+QPSK): one 16 KiB-payload capture at 9600 Bd tiled to 2^24 samples, shaped
+into int16 rows, shipped once and copied 64 times on the card. The script
+prints:
 
 - ``demod_pack_batch`` with ``cfo_retry`` on and off, and ``_batch_pass1``
   alone: median of 9 by CUDA events after one warm-up;
@@ -33,8 +34,9 @@ from .modem import modulate
 from .ops.psk import _batch_pass1
 from .parallel.batch import demod_pack_batch, host_shape_batch
 
-SR, BAUD, CARRIER = 96000, 9600, 3000.0
+SR, BAUD = 96000, 9600
 N, B, PAYLOAD = 1 << 24, 64, 16384
+CARRIERS = {"QPSK": 3000.0, "BPSK": 3000.0, "8PSK": 12000.0}
 
 
 def _card() -> str:
@@ -45,11 +47,11 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0].strip() if out.returncode == 0 else "nvidia-smi failed"
 
 
-def _bench_rows(device: torch.device) -> torch.Tensor:
+def _bench_rows(mode: str, device: torch.device) -> torch.Tensor:
     payload = np.random.default_rng(0).integers(0, 256, PAYLOAD, dtype=np.uint8).tobytes()
-    wave = modulate("QPSK", pack_frame("bench.bin", payload, 0, 1, len(payload), crc32(payload)), BAUD)
+    wave = modulate(mode, pack_frame("bench.bin", payload, 0, 1, len(payload), crc32(payload)), BAUD)
     one = np.tile(wave, -(-N // len(wave)))[None, :N].astype(np.float32)
-    rows = torch.from_numpy(host_shape_batch(one, "QPSK", BAUD, device=device)).to(device)
+    rows = torch.from_numpy(host_shape_batch(one, mode, BAUD, device=device)).to(device)
     return rows.expand(B, -1, -1).contiguous()
 
 
@@ -91,6 +93,7 @@ def _profile(fn, reps: int = 5):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mode", choices=sorted(CARRIERS), default="QPSK")
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -98,24 +101,26 @@ def main() -> int:
         return 2
     device = torch.device("cuda")
     card = _card()
-    lines = [f"card: {card}"]
+    mode = args.mode
+    lines = [f"card: {card}", f"mode: {mode}"]
 
     def say(msg: str) -> None:
         print(msg, flush=True)
         lines.append(msg)
 
-    x = _bench_rows(device)
+    x = _bench_rows(mode, device)
     b, r, _ = x.shape
     spsym = SR // BAUD
     for cfo in (True, False):
-        ms = _median_ms(lambda: demod_pack_batch(x, "QPSK", BAUD, cfo_retry=cfo))
-        say(f"demod_pack_batch cfo={cfo}: median {ms:.4f} ms of 9 = "
+        ms = _median_ms(lambda: demod_pack_batch(x, mode, BAUD, cfo_retry=cfo))
+        say(f"{mode} demod_pack_batch cfo={cfo}: median {ms:.4f} ms of 9 = "
             f"{b * N / (ms * 1e-3) / 1e6:.2f} Msamples/s | {card}")
-    ms = _median_ms(lambda: _batch_pass1(None, x, b, r * 128, spsym, CARRIER, SR, 8, r))
-    say(f"_batch_pass1 alone: median {ms:.4f} ms | {card}")
+    n_psk = 8 if mode == "8PSK" else 4
+    ms = _median_ms(lambda: _batch_pass1(None, x, b, r * 128, spsym, CARRIERS[mode], SR, 8, r, n_psk))
+    say(f"{mode} _batch_pass1 alone: median {ms:.4f} ms | {card}")
     for cfo in (True, False):
-        wall, busy, kernels, table = _profile(lambda: demod_pack_batch(x, "QPSK", BAUD, cfo_retry=cfo))
-        say(f"--- profile cfo={cfo}: wall {wall:.4f} ms/rep (profiler on), device kernel sum "
+        wall, busy, kernels, table = _profile(lambda: demod_pack_batch(x, mode, BAUD, cfo_retry=cfo))
+        say(f"--- {mode} profile cfo={cfo}: wall {wall:.4f} ms/rep (profiler on), device kernel sum "
             f"{busy:.4f} ms/rep, idle share {1 - busy / wall:.3f} | {card}")
         for k_ms, n, name in kernels:
             say(f"  {k_ms:9.4f} ms  x{n:<3d} {name[:110]}")

@@ -1,11 +1,11 @@
-"""K2 (rotation match) and K3 (relabel + pack) of the PyTorch port vs the
+"""K2 to K6 (the magic matchers and the packs) of the PyTorch port vs the
 Pallas kernels in interpret mode, the arithmetic of the CUDA kernels
 mirrored in numpy, and the wrappers' checks, on the CPU.
 
 The CUDA kernels cannot run here. Their formulations (K1's direct window
-correlation, K2's mask/popcount hypotheses, K3's 10-bit register window)
-are mirrored in numpy and held against the plain versions, which are in
-turn held against the JAX package.
+correlation, K2's and K5's mask/popcount hypotheses, the packs' register
+windows) are mirrored in numpy and held against the plain versions, which
+are in turn held against the JAX package.
 """
 
 import numpy as np
@@ -16,9 +16,14 @@ import jax.numpy as jnp
 
 from audio_modem_radio_tpu.framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
 from audio_modem_radio_tpu.ops.pallas_kernels import (
+    bit_select_pack_batch as j_bit_select_pack,
+    bpsk_match_conditions as j_bpsk_conditions,
+    psk8_match_conditions as j_psk8_conditions,
+    psk8_relabel_pack_rows as j_psk8_pack,
     relabel_pack_batch as j_relabel_pack,
     rotation_match_batch as j_rotation_match,
     rotation_match_conditions as j_conditions,
+    sector_match_batch as j_sector_match,
 )
 
 from audio_modem_radio_tpu_torch.ops import kernels as tk
@@ -45,15 +50,15 @@ def _noise_streams(rng, r: int):
             rng.integers(0, 2, (r, 128), dtype=np.uint8))
 
 
-def _both_match(hi, lo, r, rows_scanned=None):
+def _both_match(hi, lo, r, rows_scanned=None, family="qpsk"):
     p = r if rows_scanned is None else rows_scanned
     first_j, found_j = j_rotation_match(
         jnp.asarray(hi[:, :p]), jnp.asarray(lo[:, :p]), MAGIC_BIT_PATTERN, p,
-        pattern2=MAGIC_BIT_PATTERN2, interpret=True,
+        pattern2=MAGIC_BIT_PATTERN2, interpret=True, family=family,
     )
     first_t, found_t = tk.rotation_match_batch(
         torch.from_numpy(hi), torch.from_numpy(lo), MAGIC_BIT_PATTERN, r,
-        pattern2=MAGIC_BIT_PATTERN2, rows_scanned=rows_scanned,
+        pattern2=MAGIC_BIT_PATTERN2, rows_scanned=rows_scanned, family=family,
     )
     return (np.asarray(first_j), np.asarray(found_j)), (first_t.numpy(), found_t.numpy())
 
@@ -61,6 +66,14 @@ def _both_match(hi, lo, r, rows_scanned=None):
 def test_conditions_ported_verbatim():
     for pattern in (_PATTERN, MAGIC_BIT_PATTERN, "0110" * 4):
         assert tk.rotation_match_conditions(pattern) == j_conditions(pattern)
+
+
+def test_bpsk_and_psk8_conditions_ported_verbatim():
+    for pattern in (_PATTERN, MAGIC_BIT_PATTERN, "0110" * 4):
+        assert tk.bpsk_match_conditions(pattern) == j_bpsk_conditions(pattern)
+    for pattern, pattern2 in ((MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2), ("0110" * 4, ""),
+                              (MAGIC_BIT_PATTERN, "101")):
+        assert tk.psk8_match_conditions(pattern, pattern2) == j_psk8_conditions(pattern, pattern2)
 
 
 @pytest.mark.parametrize("parity", [0, 1])
@@ -104,21 +117,24 @@ def test_rotation_match_prefix_of_longer_capture(start):
     assert found_t[1, 2] and first_t[1, 2] == 300
 
 
-def _kernel_rotmatch_numpy(hi, lo, pattern, n_exact, tol, rows_scanned):
-    """The CUDA kernel's formulation: 17-bit hi/lo windows per position,
-    two (mask, value) pairs per hypothesis and part, popcounts, and only
-    positions below the scan limit evaluated."""
-    conds, n_pat = tk.rotation_match_conditions(pattern)
-    masks = tk._condition_masks(conds, n_exact, torch.device("cpu")).numpy()
+def _kernel_rotmatch_numpy(hi, lo, pattern, n_exact, tol, rows_scanned, family="qpsk"):
+    """The CUDA kernel's formulation: span-bit hi/lo windows per position
+    (17 bits for "qpsk", 32 for "bpsk"), two (mask, value) pairs per
+    hypothesis and part, popcounts, and only positions below the scan limit
+    evaluated."""
+    build = tk.rotation_match_conditions if family == "qpsk" else tk.bpsk_match_conditions
+    conds, n_pat = build(pattern)
+    masks = tk._condition_masks(conds, n_exact, torch.device("cpu")).numpy().view(np.uint32)
+    span = max(off for c in conds for (_s, off, _b) in c) + 1
     b = hi.shape[0]
     n_pos = rows_scanned * 128 - (n_pat + 1)
-    w = 1 << np.arange(17, dtype=np.int64)
+    w = 1 << np.arange(span, dtype=np.int64)
     first = np.full((b, len(conds)), 1 << 30, np.int64)
     for i in range(b):
         h = hi[i, :rows_scanned].reshape(-1).astype(np.int64)
         l = lo[i, :rows_scanned].reshape(-1).astype(np.int64)
-        hw = np.lib.stride_tricks.sliding_window_view(h, 17)[:n_pos] @ w
-        lw = np.lib.stride_tricks.sliding_window_view(l, 17)[:n_pos] @ w
+        hw = np.lib.stride_tricks.sliding_window_view(h, span)[:n_pos] @ w
+        lw = np.lib.stride_tricks.sliding_window_view(l, span)[:n_pos] @ w
         for k, m in enumerate(masks.astype(np.int64)):
             exact = np.bitwise_count((hw ^ m[1]) & m[0]) + np.bitwise_count((lw ^ m[3]) & m[2])
             loose = np.bitwise_count((hw ^ m[5]) & m[4]) + np.bitwise_count((lw ^ m[7]) & m[6])
@@ -260,11 +276,17 @@ def _small_inputs():
 def test_wrappers_take_plain_path_on_cpu_without_counting():
     r, hi, lo, s, k, x3d, W8, best, rot = _small_inputs()
     tk.reset_launch_counts()
-    tk.psk_project_decide_batch(x3d, W8, best, rot, rows_per_capture=r)
-    tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2)
+    for n_psk in (2, 4, 8):
+        tk.psk_project_decide_batch(x3d, W8, best, rot, rows_per_capture=r, n_psk=n_psk)
+    for family in ("qpsk", "bpsk"):
+        tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2, family=family)
     tk.relabel_pack_batch(hi, lo, s, k, rows_per_capture=r)
+    tk.bit_select_pack_batch(hi, lo, s, k, rows_per_capture=r)
+    tk.sector_match_batch(hi, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2)
+    tk.psk8_relabel_pack_rows(hi, k, s, rows_per_capture=r)
     assert tk.launch_counts() == {
         "psk_project_decide_batch": 0, "rotation_match_batch": 0, "relabel_pack_batch": 0,
+        "bit_select_pack_batch": 0, "sector_match_batch": 0, "psk8_relabel_pack_rows": 0,
     }
 
 
@@ -272,6 +294,8 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
     "k1_dtype", "k1_rows", "k1_best_dtype", "k1_w_dtype", "k1_psk8",
     "k2_dtype", "k2_rows", "k2_prefix", "k2_family",
     "k3_dtype", "k3_shape", "k3_s_dtype", "k3_variant", "device_mix",
+    "k4_dtype", "k4_ksel_dtype", "k4_variant", "k5_shape", "k5_prefix",
+    "k6_rows", "k6_r8_shape",
 ])
 def test_wrappers_raise_on_bad_input(case):
     r, hi, lo, s, k, x3d, W8, best, rot = _small_inputs()
@@ -280,16 +304,255 @@ def test_wrappers_raise_on_bad_input(case):
         "k1_rows": lambda: tk.psk_project_decide_batch(x3d[:, :128], W8, best, rot, 128),
         "k1_best_dtype": lambda: tk.psk_project_decide_batch(x3d, W8, best.long(), rot, r),
         "k1_w_dtype": lambda: tk.psk_project_decide_batch(x3d, W8.double(), best, rot, r),
-        "k1_psk8": lambda: tk.psk_project_decide_batch(x3d, W8, best, rot, r, n_psk=8),
+        "k1_psk8": lambda: tk.psk_project_decide_batch(x3d, W8, best, rot, r, n_psk=3),
         "k2_dtype": lambda: tk.rotation_match_batch(hi.int(), lo, MAGIC_BIT_PATTERN, r),
         "k2_rows": lambda: tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, 2 * r),
         "k2_prefix": lambda: tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r, rows_scanned=100),
-        "k2_family": lambda: tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r, family="bpsk"),
+        "k2_family": lambda: tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r, family="qam"),
         "k3_dtype": lambda: tk.relabel_pack_batch(hi.bool(), lo, s, k, r),
         "k3_shape": lambda: tk.relabel_pack_batch(hi[:, :, :64], lo[:, :, :64], s, k, r),
         "k3_s_dtype": lambda: tk.relabel_pack_batch(hi, lo, s.long(), k, r),
         "k3_variant": lambda: tk.relabel_pack_batch(hi, lo, s, k, r, variant="shift"),
         "device_mix": lambda: tk.relabel_pack_batch(hi, lo.to("meta"), s, k, r),
+        "k4_dtype": lambda: tk.bit_select_pack_batch(hi, lo.int(), s, k, r),
+        "k4_ksel_dtype": lambda: tk.bit_select_pack_batch(hi, lo, s, k.long(), r),
+        "k4_variant": lambda: tk.bit_select_pack_batch(hi, lo, s, k, r, variant="shift"),
+        "k5_shape": lambda: tk.sector_match_batch(hi[:, :, :64], MAGIC_BIT_PATTERN, r),
+        "k5_prefix": lambda: tk.sector_match_batch(hi, MAGIC_BIT_PATTERN, r, rows_scanned=2 * r),
+        "k6_rows": lambda: tk.psk8_relabel_pack_rows(hi, k, s, 2 * r),
+        "k6_r8_shape": lambda: tk.psk8_relabel_pack_rows(hi, k, s[:1], r),
     }
     with pytest.raises((ValueError, NotImplementedError)):
         calls[case]()
+
+
+# --- DBPSK: K2 family "bpsk" and K4 ---------------------------------------------
+
+def _bpsk_streams(rng, r: int, h: int, start: int):
+    """Random re/im sign-bit lanes (r, 128) x2 with the 32-bit magic +
+    validation pattern at bit ``start`` of stream h & 1 (0 re, 1 im),
+    complemented for h >= 2."""
+    re = rng.integers(0, 2, r * 128, dtype=np.uint8)
+    im = rng.integers(0, 2, r * 128, dtype=np.uint8)
+    pat = np.array([int(c) for c in _PATTERN], np.uint8) ^ np.uint8(h >= 2)
+    (im if h & 1 else re)[start : start + len(pat)] = pat
+    return re.reshape(r, 128), im.reshape(r, 128)
+
+
+@pytest.mark.parametrize("h", [0, 1, 2, 3])
+def test_rotation_match_bpsk_plain_equals_pallas(h):
+    rng = np.random.default_rng(50 + h)
+    r = 256
+    start = 777 + 1001 * h
+    c0 = _bpsk_streams(rng, r, h, start)
+    c1 = _noise_streams(rng, r)
+    hi, lo = np.stack([c0[0], c1[0]]), np.stack([c0[1], c1[1]])
+    (first_j, found_j), (first_t, found_t) = _both_match(hi, lo, r, family="bpsk")
+    assert first_t.shape == (2, 4) and first_t.dtype == np.int32
+    assert np.array_equal(first_t, first_j) and np.array_equal(found_t, found_j)
+    assert found_t[0, h] and first_t[0, h] == start
+
+
+@pytest.mark.parametrize("start", [500, 32768 - 40, 40000])
+def test_rotation_match_bpsk_prefix_of_longer_capture(start):
+    """A 256-row prefix of a 512-row capture; a match straddling or past the
+    prefix's end is not reported."""
+    rng = np.random.default_rng(start + 1)
+    r = 512
+    c0 = _bpsk_streams(rng, r, 0, start)
+    c1 = _bpsk_streams(rng, r, 3, 300)
+    hi, lo = np.stack([c0[0], c1[0]]), np.stack([c0[1], c1[1]])
+    (first_j, found_j), (first_t, found_t) = _both_match(hi, lo, r, rows_scanned=256, family="bpsk")
+    assert np.array_equal(first_t, first_j) and np.array_equal(found_t, found_j)
+    assert found_t[0, 0] == (start < 256 * 128 - 33)
+    assert found_t[1, 3] and first_t[1, 3] == 300
+
+
+@pytest.mark.parametrize("rows_scanned", [256, 512])
+def test_rotation_match_bpsk_kernel_formulation(rows_scanned):
+    rng = np.random.default_rng(rows_scanned + 3)
+    r = 512
+    caps = [_bpsk_streams(rng, r, h, 100 + 15000 * h) for h in range(4)]
+    caps.append(_noise_streams(rng, r))
+    hi, lo = np.stack([c[0] for c in caps]), np.stack([c[1] for c in caps])
+    first_n, found_n = _kernel_rotmatch_numpy(hi, lo, _PATTERN, 16, 3, rows_scanned, family="bpsk")
+    first_t, found_t = tk.rotation_match_batch(
+        torch.from_numpy(hi), torch.from_numpy(lo), MAGIC_BIT_PATTERN, r, family="bpsk",
+        pattern2=MAGIC_BIT_PATTERN2, rows_scanned=rows_scanned,
+    )
+    assert np.array_equal(found_t.numpy(), found_n)
+    assert np.array_equal(first_t.numpy(), first_n)
+
+
+@pytest.mark.parametrize("ksel", [0, 1, 2, 3])
+def test_bit_select_pack_plain_equals_pallas(ksel):
+    """Every s & 7 (one capture each) under hypothesis ksel, on bytes
+    [0, n_valid): past n_valid the JAX kernel reads the next capture."""
+    rng = np.random.default_rng(60 + ksel)
+    b, r = 8, 256
+    re = rng.integers(0, 2, (b, r, 128), dtype=np.uint8)
+    im = rng.integers(0, 2, (b, r, 128), dtype=np.uint8)
+    s = (8 * rng.integers(0, 500, b) + np.arange(b)).astype(np.int32)
+    k = np.full(b, ksel, np.int32)
+    ref = np.asarray(j_bit_select_pack(
+        jnp.asarray(re), jnp.asarray(im), jnp.asarray(s), jnp.asarray(k),
+        rows_per_capture=r, interpret=True, variant="weights",
+    ))
+    got = tk.bit_select_pack_batch(
+        torch.from_numpy(re), torch.from_numpy(im), torch.from_numpy(s), torch.from_numpy(k),
+        rows_per_capture=r,
+    )
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (b, r * 16)
+    n_valid = (r * 128 - (s & 7)) // 8
+    for i in range(b):
+        assert np.array_equal(got.numpy()[i, : n_valid[i]], ref[i, : n_valid[i]]), i
+
+
+def test_bit_select_pack_kernel_formulation():
+    """K4's CUDA formulation: per output byte, the 8 stream bytes from bit
+    8c + s8 on, complemented by the hypothesis, zero past the end."""
+    rng = np.random.default_rng(61)
+    b, r = 8, 256
+    re = rng.integers(0, 2, (b, r, 128), dtype=np.uint8)
+    im = rng.integers(0, 2, (b, r, 128), dtype=np.uint8)
+    s = (8 * rng.integers(0, 500, b) + np.arange(b)).astype(np.int32)
+    k = (np.arange(b) % 4).astype(np.int32)
+    got = tk.bit_select_pack_batch(
+        torch.from_numpy(re), torch.from_numpy(im), torch.from_numpy(s), torch.from_numpy(k),
+        rows_per_capture=r,
+    ).numpy()
+    n_bits = r * 128
+    for i in range(b):
+        v = (im if k[i] & 1 else re)[i].reshape(-1).astype(np.int64)
+        p = 8 * np.arange(r * 16)[:, None] + (s[i] & 7) + np.arange(8)
+        bits = np.where(p < n_bits, (v[np.minimum(p, n_bits - 1)] ^ (k[i] >= 2)) & 1, 0)
+        assert np.array_equal(got[i], (bits << (7 - np.arange(8))).sum(1).astype(np.uint8))
+
+
+# --- D8PSK: K5 and K6 --------------------------------------------------------------
+
+def _psk8_stream(rng, r: int, k: int, lead: int):
+    """Random received sectors (r, 128) whose tribits, read as rotation-k
+    sectors, hold the 32-bit magic + validation pattern at symbol ``lead``."""
+    from audio_modem_radio_tpu_torch.ops.psk import _GRAY8_INV
+
+    bits = rng.integers(0, 2, 3 * r * 128, dtype=np.uint8)
+    pat = np.array([int(c) for c in _PATTERN], np.uint8)
+    bits[3 * lead : 3 * lead + len(pat)] = pat
+    tri = bits[0::3] * 4 + bits[1::3] * 2 + bits[2::3]
+    return ((_GRAY8_INV[tri].astype(np.int64) + k) % 8).astype(np.uint8).reshape(r, 128)
+
+
+def _both_sector_match(sec, r, rows_scanned=None):
+    p = r if rows_scanned is None else rows_scanned
+    first_j, found_j = j_sector_match(
+        jnp.asarray(sec[:, :p]), MAGIC_BIT_PATTERN, p, pattern2=MAGIC_BIT_PATTERN2, interpret=True,
+    )
+    first_t, found_t = tk.sector_match_batch(
+        torch.from_numpy(sec), MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2,
+        rows_scanned=rows_scanned,
+    )
+    return (np.asarray(first_j), np.asarray(found_j)), (first_t.numpy(), found_t.numpy())
+
+
+@pytest.mark.parametrize("k", [0, 1, 3, 5, 7])
+def test_sector_match_plain_equals_pallas(k):
+    rng = np.random.default_rng(70 + k)
+    r = 256
+    lead = 37 + 911 * k
+    sec = np.stack([_psk8_stream(rng, r, k, lead), rng.integers(0, 8, (r, 128), dtype=np.uint8)])
+    (first_j, found_j), (first_t, found_t) = _both_sector_match(sec, r)
+    assert first_t.shape == (2, 8) and first_t.dtype == np.int32
+    assert np.array_equal(first_t, first_j) and np.array_equal(found_t, found_j)
+    assert found_t[0, k] and first_t[0, k] == lead
+
+
+@pytest.mark.parametrize("lead", [500, 32768 - 12, 40000])
+def test_sector_match_prefix_of_longer_capture(lead):
+    rng = np.random.default_rng(lead + 2)
+    r = 512
+    sec = np.stack([_psk8_stream(rng, r, 2, lead), _psk8_stream(rng, r, 6, 300)])
+    (first_j, found_j), (first_t, found_t) = _both_sector_match(sec, r, rows_scanned=256)
+    assert np.array_equal(first_t, first_j) and np.array_equal(found_t, found_j)
+    assert found_t[0, 2] == (lead < 256 * 128 - 11)
+    assert found_t[1, 6] and first_t[1, 6] == 300
+
+
+@pytest.mark.parametrize("rows_scanned", [256, 512])
+def test_sector_match_kernel_formulation(rows_scanned):
+    """K5's CUDA formulation: the Gray planes of 10 window symbols packed as
+    bit 3j + q of one word, two (mask, value) pairs per hypothesis,
+    popcounts, and only positions below the scan limit evaluated."""
+    rng = np.random.default_rng(rows_scanned + 4)
+    r = 512
+    sec = np.stack([_psk8_stream(rng, r, k, 100 + 7000 * k) for k in range(8)]
+                   + [rng.integers(0, 8, (r, 128), dtype=np.uint8)])
+    conds, n_sym = tk.psk8_match_conditions(MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2)
+    masks = tk._sector_masks(conds, torch.device("cpu")).numpy().astype(np.int64)
+    n_pos = rows_scanned * 128 - (n_sym + 1)
+    first_n = np.full((sec.shape[0], 8), 1 << 30, np.int64)
+    for i in range(sec.shape[0]):
+        x = sec[i, :rows_scanned].reshape(-1).astype(np.int64)
+        b2, b1, b0 = (x >> 2) & 1, (x >> 1) & 1, x & 1
+        g = b2 | ((b2 ^ b1) << 1) | ((b1 ^ b0) << 2)
+        w = np.lib.stride_tricks.sliding_window_view(g, n_sym)[:n_pos] @ (1 << (3 * np.arange(n_sym)))
+        for h, m in enumerate(masks):
+            hit = np.nonzero((np.bitwise_count((w ^ m[1]) & m[0]) == 0)
+                             & (np.bitwise_count((w ^ m[3]) & m[2]) <= 3))[0]
+            if len(hit):
+                first_n[i, h] = hit[0]
+    found_n = first_n < (1 << 30)
+    first_t, found_t = tk.sector_match_batch(
+        torch.from_numpy(sec), MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2,
+        rows_scanned=rows_scanned,
+    )
+    assert np.array_equal(found_t.numpy(), found_n)
+    assert np.array_equal(first_t.numpy(), np.where(found_n, first_n, 0))
+    assert all(found_n[k, k] for k in range(8) if 100 + 7000 * k < n_pos)
+
+
+@pytest.mark.parametrize("pairs", [((0, 0), (3, 5)), ((6, 1), (7, 7)), ((1, 2), (2, 4))])
+def test_psk8_relabel_pack_plain_equals_pallas(pairs):
+    """(ksel, r8) per capture; bytes [0, n_valid - 1) as the JAX package's
+    own test compares them."""
+    rng = np.random.default_rng(sum(sum(p) for p in pairs))
+    b, r = 2, 256
+    sec = rng.integers(0, 8, (b, r, 128), dtype=np.uint8)
+    ksel = np.array([p[0] for p in pairs], np.int32)
+    r8 = np.array([p[1] for p in pairs], np.int32)
+    ref = np.asarray(j_psk8_pack(
+        jnp.asarray(sec), jnp.asarray(ksel), jnp.asarray(r8), rows_per_capture=r, interpret=True,
+    ))
+    got = tk.psk8_relabel_pack_rows(
+        torch.from_numpy(sec), torch.from_numpy(ksel), torch.from_numpy(r8), rows_per_capture=r,
+    )
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (b, r * 48)
+    n_valid = 3 * (r * 128 - r8) // 8
+    for i in range(b):
+        assert np.array_equal(got.numpy()[i, : n_valid[i] - 1], ref[i, : n_valid[i] - 1]), i
+
+
+def test_psk8_relabel_pack_kernel_formulation():
+    """K6's CUDA formulation: per output byte, the 4 symbols its bits can
+    touch, relabelled and Gray-coded into a 12-bit window, shifted by the
+    bit's place in its symbol; zero past the end."""
+    rng = np.random.default_rng(80)
+    b, r = 8, 256
+    m = r * 128
+    sec = rng.integers(0, 8, (b, r, 128), dtype=np.uint8)
+    ksel = (np.arange(b) % 8).astype(np.int32)
+    r8 = ((3 * np.arange(b)) % 8).astype(np.int32)
+    got = tk.psk8_relabel_pack_rows(
+        torch.from_numpy(sec), torch.from_numpy(ksel), torch.from_numpy(r8), rows_per_capture=r,
+    ).numpy()
+    c = np.arange(r * 48)
+    for i in range(b):
+        x = np.pad(sec[i].reshape(-1).astype(np.int64), (0, 8))
+        p = 8 * c + 3 * int(r8[i])
+        t0, q0 = p // 3, p % 3
+        v = np.zeros_like(c)
+        for j in range(4):
+            t = t0 + j
+            y = (x[t] + 8 - ksel[i]) & 7
+            v = (v << 3) | np.where(t < m, y ^ (y >> 1), 0)
+        assert np.array_equal(got[i], ((v >> (4 - q0)) & 0xFF).astype(np.uint8))
