@@ -1,12 +1,15 @@
 """audio_modem_radio_tpu_torch — the PyTorch and CUDA port of audio_modem_radio_tpu.
 
 It sits beside the JAX package, which stays the reference, and imports
-``torch`` and numpy, never JAX. It carries batched DQPSK, DBPSK and D8PSK
-receive end to end: host shaping into blocked sample rows, the pass-1
-timing and rotation estimate, and six hand-written CUDA kernels for the
-NVIDIA H100 (``csrc/``): the decide stage and, per mode, a magic matcher
-and a pack. On tensors that lie on the CPU each kernel's wrapper runs its
-plain PyTorch version instead.
+``torch`` and numpy, never JAX. It carries batched DQPSK, DBPSK, D8PSK and
+FSK (FSK1200, FSK9600, FSK19200, MSK, FT8) receive end to end: host
+shaping into sample rows or FIR windows, the pass-1 timing (and, for PSK,
+rotation) estimate, and ten hand-written CUDA kernels for the NVIDIA H100
+(``csrc/``): the PSK decide stage with a magic matcher and a pack per PSK
+mode, and the FSK dual-tone, discriminator and quadrature detectors. Entry
+points run on the card unless the caller passes ``device="cpu"``; on
+tensors that lie on the CPU each kernel's wrapper runs its plain PyTorch
+version.
 """
 
 from .utils import torchenv  # noqa: F401  (pins float32 products to IEEE float32)

@@ -3,9 +3,10 @@
 The sources have a plain C interface, so ``nvcc`` compiles them in seconds
 (no PyTorch headers): one ``nvcc -c`` per source, all started together,
 then one link into a shared library that ``ctypes`` binds: every pointer
-and the stream travel as ``c_void_p``. The library lands in
+and the stream travel as ``c_void_p``. ``csrc/*.cuh`` holds code that more
+than one source includes. The library lands in
 ``build/audio_modem_radio_tpu_torch/`` beside the package, named by a hash
-of the sources and flags, so the first use after a source change rebuilds
+of the sources, the headers and the flags, so the first use after a source change rebuilds
 it and later uses load it. Nothing here runs at import.
 """
 
@@ -41,6 +42,9 @@ _SIGNATURES = {
     "amr_bit_select_pack": (_P, _P, _P, _P, _P, _I, _I, _P),
     "amr_sector_match": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P),
     "amr_psk8_pack": (_P, _P, _P, _P, _I, _I, _P),
+    "amr_fsk_tile": (_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
+    "amr_fsk_disc": (_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "amr_fsk_quad": (_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -71,7 +75,7 @@ def _sources() -> list:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(_sources() + list(SRC_DIR.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

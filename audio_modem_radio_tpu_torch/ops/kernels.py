@@ -1,8 +1,8 @@
-"""The batched PSK slices' kernels: wrappers, plain PyTorch versions, launch counts.
+"""The batched receive slices' kernels: wrappers, plain PyTorch versions, launch counts.
 
-Counterpart of ``audio_modem_radio_tpu/ops/pallas_kernels.py`` for the six
-kernels the batched DBPSK, DQPSK and D8PSK receive runs, with the JAX names
-and argument order:
+Counterpart of ``audio_modem_radio_tpu/ops/pallas_kernels.py`` for the ten
+kernels the batched DBPSK, DQPSK, D8PSK and FSK receive runs, with the JAX
+names and argument order:
 
 * K1 :func:`psk_project_decide_batch` (``csrc/decide.cu``), ``n_psk`` 2, 4, 8,
 * K2 :func:`rotation_match_batch` (``csrc/rotmatch.cu``), families "qpsk"
@@ -10,7 +10,12 @@ and argument order:
 * K3 :func:`relabel_pack_batch` (``csrc/relabel_pack.cu``),
 * K4 :func:`bit_select_pack_batch` (``csrc/bit_select_pack.cu``),
 * K5 :func:`sector_match_batch` (``csrc/sector_match.cu``),
-* K6 :func:`psk8_relabel_pack_rows` (``csrc/psk8_pack.cu``).
+* K6 :func:`psk8_relabel_pack_rows` (``csrc/psk8_pack.cu``),
+* K7 :func:`fsk_tile_bits_batch` and K13 :func:`fsk_project_bits_batch`
+  (``csrc/fsk_tile.cu``), without the Pallas ``block_rows`` argument,
+* K8 :func:`fsk_disc_sums_batch` (``csrc/fsk_disc.cu``),
+* K9 :func:`fsk_quad_margin_batch` (``csrc/fsk_quad.cu``); K8 and K9 take
+  the dense (c_pad, 256) FIR matrix only, not the Pallas banded form.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. For tensors on the CPU it runs the plain version
@@ -600,9 +605,298 @@ def psk8_relabel_pack_rows(
     return out
 
 
+# --- the FSK kernels' shared pieces --------------------------------------------------
+
+_FSK_DTYPES = {torch.float32: 0, torch.int16: 1}
+_SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on sm_90
+
+
+def _band_tables(w: torch.Tensor, groups: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Compact a block-diagonal template ``w`` (n_off, n_rows, groups*n_out),
+    whose output o reads the columns ``g*n_out + o``, to the rows where they
+    are nonzero.
+
+    Returns ``(first (n_off, n_out) int32, tab (n_off, groups, span, n_out)
+    float32, span)``: every nonzero entry of output o's columns lies in rows
+    [first, first + span), first is clamped so that first + span <= n_rows,
+    and ``tab[i, g, t, o] = w[i, first[i, o] + t, g*n_out + o]``. The
+    projection over those rows equals the dense one up to summation order.
+    Reads ``span`` to the host (one synchronisation)."""
+    n_off, n_rows, cols = w.shape
+    n_out = cols // groups
+    w4 = w.reshape(n_off, n_rows, groups, n_out)
+    nz = (w4 != 0).any(dim=2)  # (n_off, n_rows, n_out)
+    idx = torch.arange(n_rows, device=w.device)[None, :, None]
+    first = torch.where(nz, idx, n_rows).amin(dim=1)
+    last = torch.where(nz, idx, -1).amax(dim=1)
+    span = max(1, int((last - first + 1).max()))
+    first = first.clamp(max=n_rows - span)
+    rows = first[:, None, :] + torch.arange(span, device=w.device)[None, :, None]
+    tab = torch.gather(w4, 1, rows[:, :, None, :].expand(n_off, span, groups, n_out))
+    return first.to(torch.int32), tab.permute(0, 2, 1, 3).contiguous(), span
+
+
+def _check_best(name: str, best: torch.Tensor, b: int, n_offsets: int) -> None:
+    _require(best.dtype == torch.int32 and tuple(best.shape) == (b,),
+             f"{name}: best {best.dtype} {tuple(best.shape)}, want int32 ({b},)")
+    _require(b <= 65535 and n_offsets >= 1, f"{name}: {b} captures, {n_offsets} offsets")
+
+
+# --- K7 and K13: dual-tone projection + energy decision ------------------------------
+
+def fsk_tile_bits_batch_plain(x3d: torch.Tensor, w_all: torch.Tensor, best: torch.Tensor,
+                              spr: int) -> torch.Tensor:
+    """Plain K7: the dense projection of each overlapped row on the winning
+    offset's template (``ops/fsk.py`` of the JAX package, :1258-1263), bit =
+    E_mark - E_space > 0."""
+    b, r, _ = x3d.shape
+    pj = torch.bmm(x3d.to(torch.float32), w_all[best.long()]).reshape(b, r, 4, spr)
+    margin = (pj[:, :, 0] ** 2 + pj[:, :, 1] ** 2) - (pj[:, :, 2] ** 2 + pj[:, :, 3] ** 2)
+    return (margin > 0).to(torch.uint8).reshape(b, r * spr)
+
+
+def fsk_project_bits_batch_plain(x3d: torch.Tensor, w_all: torch.Tensor, best: torch.Tensor,
+                                 spr: int) -> torch.Tensor:
+    """Plain K13: row j's overlap is the head of row j+1 of the same capture,
+    zeros after the last row (the JAX package's :757-765)."""
+    b, r, row = x3d.shape
+    ov = w_all.shape[1] - row
+    x = x3d.to(torch.float32)
+    x_next = torch.cat([x[:, 1:, :ov], x.new_zeros((b, 1, ov))], dim=1)
+    return fsk_tile_bits_batch_plain(torch.cat([x, x_next], dim=2), w_all, best, spr)
+
+
+def _fsk_dual_launch(name: str, x3d, w_all, best, rows_per_capture: int, spr: int, flat: bool):
+    _require(x3d.ndim == 3 and w_all.ndim == 3, f"{name}: x3d {tuple(x3d.shape)}, w_all {tuple(w_all.shape)}")
+    b, r, c = x3d.shape
+    n_off, n_rows, cols = w_all.shape
+    _require(r == rows_per_capture and r >= 1, f"{name}: rows {r} vs rows_per_capture={rows_per_capture}")
+    _require(x3d.dtype in _FSK_DTYPES, f"{name}: x3d dtype {x3d.dtype}")
+    _require(w_all.dtype == torch.float32 and spr >= 1 and cols == 4 * spr,
+             f"{name}: w_all {w_all.dtype} {tuple(w_all.shape)} for spr={spr}")
+    _require(n_rows >= c if flat else n_rows == c,
+             f"{name}: template rows {n_rows} vs row width {c}")
+    _check_best(name, best, b, n_off)
+    dev = _same_device(x3d, w_all, best)
+    if dev.type == "cpu":
+        plain = fsk_project_bits_batch_plain if flat else fsk_tile_bits_batch_plain
+        return plain(x3d, w_all, best, spr)
+    first, tab, span = _band_tables(w_all, 4)
+    _require(16 * span * spr <= _SMEM_LIMIT, f"{name}: a {span} x {spr} band table exceeds shared memory")
+    bits = torch.empty((b, r * spr), dtype=torch.uint8, device=dev)
+    _launch("amr_fsk_tile", dev, _ptr(x3d), _FSK_DTYPES[x3d.dtype], int(flat), _ptr(tab), _ptr(first),
+            span, _ptr(best), _ptr(bits), b, r, c, spr)
+    return bits
+
+
+def fsk_tile_bits_batch(
+    x3d: torch.Tensor, w_all: torch.Tensor, best: torch.Tensor, rows_per_capture: int, spr: int,
+) -> torch.Tensor:
+    """Whole-batch dual-tone FSK over host-overlapped rows.
+
+    Args:
+      x3d: (B, R, row+ov) float32 or int16 rows (integers cast unscaled).
+      w_all: (n_offsets, row+ov, 4*spr) float32 templates
+        (``ops.fsk._fsk_blocked_templates``); the kernel reads each bit's band.
+      best: (B,) int32 winning offset per capture.
+    Returns uint8 bits (B, R*spr). Any spr and any R: the Pallas kernel's
+    ``128 % spr`` and block-row conditions were its lane layout's."""
+    bits = _fsk_dual_launch("fsk_tile_bits_batch", x3d, w_all, best, rows_per_capture, spr, False)
+    if x3d.is_cuda:
+        fsk_tile_bits_batch.launches += 1
+    return bits
+
+
+def fsk_project_bits_batch(
+    x3d: torch.Tensor, w_all: torch.Tensor, best: torch.Tensor, rows_per_capture: int, spr: int,
+) -> torch.Tensor:
+    """K7's function on flat (B, R, row) float32 or int16 rows: row j's
+    overlap is the head of row j+1 of the same capture, zeros after the
+    capture's last row. Returns uint8 bits (B, R*spr)."""
+    bits = _fsk_dual_launch("fsk_project_bits_batch", x3d, w_all, best, rows_per_capture, spr, True)
+    if x3d.is_cuda:
+        fsk_project_bits_batch.launches += 1
+    return bits
+
+
+# --- K8 and K9: analytic FIR on FIR windows, then phasor boxcar or quadratures ------
+
+def _fir_stream(fir_rows: torch.Tensor, w_fir: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, m, c_pad) FIR windows -> the flat analytic stream (re, im), each
+    (B, m*128) float32."""
+    z2 = torch.matmul(fir_rows.to(torch.float32), w_fir)
+    bm = fir_rows.shape[0]
+    return z2[..., :_BLOCK_SYM].reshape(bm, -1), z2[..., _BLOCK_SYM:].reshape(bm, -1)
+
+
+def _boxcar_rows(v: torch.Tensor, m2: int, row2: int, ov2: int) -> torch.Tensor:
+    """Flat (B, n) stream -> (B, m2, row2+ov2) rows: row j holds samples
+    [j*row2, j*row2 + row2 + ov2), zeros past the stream's end."""
+    bm, n = v.shape
+    v = F.pad(v, (0, max(0, (m2 + 1) * row2 - n)))
+    main = v[:, : m2 * row2].reshape(bm, m2, row2)
+    tail = v[:, row2 : (m2 + 1) * row2].reshape(bm, m2, row2)[:, :, :ov2]
+    return torch.cat([main, tail], dim=2)
+
+
+def disc_phasor_rows(fir_rows: torch.Tensor, w_fir: torch.Tensor, m2: int, row2: int, ov2: int):
+    """(B, m, c_pad) FIR windows -> the phasor p[n] = z[n+1]·conj z[n] as
+    boxcar rows (re, im), each (B, m2, row2+ov2); z past the stream is 0
+    (the JAX package's ``p_rows``)."""
+    zr, zi = _fir_stream(fir_rows, w_fir)
+    zeros = zr.new_zeros((zr.shape[0], 1))
+    z1r = torch.cat([zr[:, 1:], zeros], dim=1)
+    z1i = torch.cat([zi[:, 1:], zeros], dim=1)
+    p_re = z1r * zr + z1i * zi
+    p_im = z1i * zr - z1r * zi
+    return _boxcar_rows(p_re, m2, row2, ov2), _boxcar_rows(p_im, m2, row2, ov2)
+
+
+def quad_analytic_rows(fir_rows: torch.Tensor, w_fir: torch.Tensor, m2: int, row2: int, ov2: int):
+    """(B, m, c_pad) FIR windows -> the analytic stream as boxcar rows (re,
+    im), each (B, m2, row2+ov2) (the JAX package's ``z_rows``)."""
+    zr, zi = _fir_stream(fir_rows, w_fir)
+    return _boxcar_rows(zr, m2, row2, ov2), _boxcar_rows(zi, m2, row2, ov2)
+
+
+def quad_margins(M: torch.Tensor, N: torch.Tensor) -> torch.Tensor:
+    """Noncoherent mark-space margin from (..., 4, spr2) projections of the
+    analytic re (M) and im (N) streams on [cos_m, sin_m, cos_s, sin_s]."""
+    u_m = M[..., 0, :] + N[..., 1, :]
+    v_m = N[..., 0, :] - M[..., 1, :]
+    u_s = M[..., 2, :] + N[..., 3, :]
+    v_s = N[..., 2, :] - M[..., 3, :]
+    return u_m**2 + v_m**2 - u_s**2 - v_s**2
+
+
+def fsk_disc_sums_batch_plain(x3d, w_fir, w_box, best, row2: int, ov2: int):
+    """Plain K8: ``disc_phasor_rows`` over the whole capture, then the
+    boxcar of the winning offset (the JAX package's :998-1002)."""
+    b, r, _ = x3d.shape
+    pr, pi = disc_phasor_rows(x3d, w_fir, r * _BLOCK_SYM // row2, row2, ov2)
+    wb = w_box[best.long()]
+    return torch.bmm(pr, wb).reshape(b, -1), torch.bmm(pi, wb).reshape(b, -1)
+
+
+def fsk_quad_margin_batch_plain(x3d, w_fir, w_quad, best, row2: int, ov2: int, spr2: int):
+    """Plain K9: ``quad_analytic_rows`` over the whole capture, the winning
+    offset's quadratures and the margin (the JAX package's :1181-1184)."""
+    b, r, _ = x3d.shape
+    r2 = r * _BLOCK_SYM // row2
+    rz, ri = quad_analytic_rows(x3d, w_fir, r2, row2, ov2)
+    wq = w_quad[best.long()]
+    M = torch.bmm(rz, wq).reshape(b, r2, 4, spr2)
+    N = torch.bmm(ri, wq).reshape(b, r2, 4, spr2)
+    return quad_margins(M, N).reshape(b, -1)
+
+
+_FIR_TAPS = 129  # csrc/fsk_fir.cuh's unrolled tap count (shorter filters pad with zeros)
+_FIR_DECS = (1, 4)  # its instantiated decimations
+
+
+def _fir_taps(w_fir: torch.Tensor) -> Tuple[np.ndarray, int]:
+    """``(h (2, 129) float32 [Re; Im] reversed taps, dec)`` of a decimating
+    FIR matrix: column m (< 128) holds Re(h) from row dec*m, column 128+m
+    Im(h) (``ops.common._fir_dec_template``, zero rows to c_pad). Raises
+    unless ``w_fir`` is exactly that matrix for an instantiated dec."""
+    c = w_fir.shape[0]
+    dev = w_fir.device
+    m = torch.arange(_BLOCK_SYM, device=dev)[:, None]
+    k = torch.arange(_FIR_TAPS, device=dev)[None, :]
+    for dec in _FIR_DECS:
+        if c < (_BLOCK_SYM - 1) * dec + _FIR_TAPS:
+            continue  # the kernel's 129-tap window would read past the row
+        h = w_fir[:_FIR_TAPS, [0, _BLOCK_SYM]].T.contiguous()  # (2, 129)
+        rows = (dec * m + k).reshape(-1)
+        cols = m.expand(-1, _FIR_TAPS).reshape(-1)
+        rebuilt = torch.zeros_like(w_fir)
+        rebuilt[rows, cols] = h[0].repeat(_BLOCK_SYM)
+        rebuilt[rows, cols + _BLOCK_SYM] = h[1].repeat(_BLOCK_SYM)
+        if torch.equal(rebuilt, w_fir):
+            return h.cpu().numpy(), dec
+    raise ValueError(f"w_fir {tuple(w_fir.shape)} is not a decimating FIR matrix with dec in {_FIR_DECS} "
+                     f"and at most {_FIR_TAPS} taps")
+
+
+def _check_fir_rows(name, x3d, w_fir, w2, best, rows_per_capture, nrow2, row2, ov2, cols2):
+    _require(x3d.ndim == 3, f"{name}: x3d {tuple(x3d.shape)}")
+    b, r, c = x3d.shape
+    fb = nrow2 * row2 // _BLOCK_SYM
+    _require(r == rows_per_capture and fb > 0 and r % fb == 0,
+             f"{name}: rows {r} vs rows_per_capture={rows_per_capture}, FB={fb}")
+    _require(c % _BLOCK_SYM == 0 and row2 % _BLOCK_SYM == 0 and ov2 % _BLOCK_SYM == 0 and 0 < ov2 <= row2,
+             f"{name}: c_pad={c}, row2={row2}, ov2={ov2} must be 128-aligned, ov2 <= row2")
+    _require(x3d.dtype in _FSK_DTYPES, f"{name}: x3d dtype {x3d.dtype}")
+    _require(w_fir.dtype == torch.float32 and tuple(w_fir.shape) == (c, 2 * _BLOCK_SYM),
+             f"{name}: w_fir {w_fir.dtype} {tuple(w_fir.shape)}, want the dense ({c}, 256) matrix")
+    _require(w2.dtype == torch.float32 and w2.ndim == 3 and tuple(w2.shape[1:]) == (row2 + ov2, cols2),
+             f"{name}: template {w2.dtype} {tuple(w2.shape)}")
+    _check_best(name, best, b, w2.shape[0])
+    return b, r, c, _same_device(x3d, w_fir, w2, best)
+
+
+def _fir_launch(name: str, x3d, w_fir, w2, groups: int, best, outs, row2: int, ov2: int, spr2: int):
+    """Launch K8 (``groups`` 1) or K9 (``groups`` 4) into ``outs``."""
+    b, r, c = x3d.shape
+    dev = x3d.device
+    taps, dec = _fir_taps(w_fir)
+    first, tab, span = _band_tables(w2, groups)
+    ptrs = [_ptr(o) for o in outs] + [None] * (2 - len(outs))
+    _launch(name, dev, _ptr(x3d), _FSK_DTYPES[x3d.dtype], taps.ctypes.data, dec, _ptr(first), _ptr(tab),
+            span, _ptr(best), ptrs[0], ptrs[1], b, r, c, row2, ov2, spr2)
+
+
+def fsk_disc_sums_batch(
+    x3d: torch.Tensor, w_fir: torch.Tensor, w_box: torch.Tensor, best: torch.Tensor,
+    rows_per_capture: int, nrow2: int, row2: int, ov2: int, spr2: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole-batch FSK discriminator front half: decimating analytic FIR,
+    phasor z[n+1]·conj z[n], fractional per-bit boxcar.
+
+    Args:
+      x3d: (B, R, c_pad) float32 or int16 FIR windows (``fsk_disc_row_shape``),
+        R a multiple of FB = nrow2*row2/128.
+      w_fir: (c_pad, 256) dense decimating analytic-FIR matrix.
+      w_box: (n_offsets, row2+ov2, spr2) boxcar templates.
+      best: (B,) int32 winning offset per capture.
+    Returns the per-bit vector sums (sr, si), each (B, R*128//row2 * spr2)
+    float32. The phasor past a capture's last row is zero."""
+    b, r, c, dev = _check_fir_rows("fsk_disc_sums_batch", x3d, w_fir, w_box, best,
+                                   rows_per_capture, nrow2, row2, ov2, spr2)
+    if dev.type == "cpu":
+        return fsk_disc_sums_batch_plain(x3d, w_fir, w_box, best, row2, ov2)
+    n = r * _BLOCK_SYM // row2 * spr2
+    sr = torch.empty((b, n), dtype=torch.float32, device=dev)
+    si = torch.empty_like(sr)
+    _fir_launch("amr_fsk_disc", x3d, w_fir, w_box, 1, best, (sr, si), row2, ov2, spr2)
+    fsk_disc_sums_batch.launches += 1
+    return sr, si
+
+
+def fsk_quad_margin_batch(
+    x3d: torch.Tensor, w_fir: torch.Tensor, w_quad: torch.Tensor, best: torch.Tensor,
+    rows_per_capture: int, nrow2: int, row2: int, ov2: int, spr2: int,
+) -> torch.Tensor:
+    """Whole-batch mid-separation FSK matched filter: analytic FIR (dec 1),
+    per-bit tone quadratures of its re and im streams, noncoherent margin.
+
+    Args as :func:`fsk_disc_sums_batch`, with ``w_quad`` (n_offsets,
+    row2+ov2, 4*spr2) tone quadratures [cos_m | sin_m | cos_s | sin_s].
+    Returns the margin E_mark - E_space, (B, R*128//row2 * spr2) float32."""
+    b, r, c, dev = _check_fir_rows("fsk_quad_margin_batch", x3d, w_fir, w_quad, best,
+                                   rows_per_capture, nrow2, row2, ov2, 4 * spr2)
+    if dev.type == "cpu":
+        return fsk_quad_margin_batch_plain(x3d, w_fir, w_quad, best, row2, ov2, spr2)
+    margin = torch.empty((b, r * _BLOCK_SYM // row2 * spr2), dtype=torch.float32, device=dev)
+    _fir_launch("amr_fsk_quad", x3d, w_fir, w_quad, 4, best, (margin,), row2, ov2, spr2)
+    fsk_quad_margin_batch.launches += 1
+    return margin
+
+
 KERNELS = (
     psk_project_decide_batch, rotation_match_batch, relabel_pack_batch,
     bit_select_pack_batch, sector_match_batch, psk8_relabel_pack_rows,
+    fsk_tile_bits_batch, fsk_project_bits_batch, fsk_disc_sums_batch, fsk_quad_margin_batch,
 )
 
 

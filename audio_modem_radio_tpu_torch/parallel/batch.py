@@ -1,20 +1,27 @@
 """Batched demodulation of many captures on one device — the throughput layer.
 
 Counterpart of ``audio_modem_radio_tpu/parallel/batch.py`` for the batched
-PSK slices: DBPSK (kind ``psk2``), DQPSK (``psk4``) and D8PSK (``psk8``).
-The pipeline:
+PSK slices, DBPSK (kind ``psk2``), DQPSK (``psk4``) and D8PSK (``psk8``),
+and the batched FSK slices (kind ``fsk``: FSK1200, FSK9600, FSK19200, MSK,
+FT8). The pipeline:
 
   host:   read WAVs, pad to one bucket length, shape each capture into
-          blocked (r, 128*spsym) sample rows (int16 for a CUDA device)
-  device: pass 1 (timing offset + blind rotation, plain torch), kernel K1
-          (projection + differential + derotation + decision), then the
+          rows: blocked (r, 128*spsym) sample rows for PSK, overlapped
+          (r, row+ov) rows for dual-tone FSK, padded FIR windows for the
+          FSK discriminator and quadrature paths (int16 for a CUDA device)
+  device: PSK: pass 1 (timing offset + blind rotation, plain torch), kernel
+          K1 (projection + differential + derotation + decision), then the
           kind's sync tail over tiered prefixes:
           psk4: K2 (rotation x parity magic match), fold, K3 (relabel +
                 mod-8 alignment + byte pack);
           psk2: K2 (stream x inversion match), fold, K4 (stream select +
                 complement + mod-8 alignment + byte pack);
           psk8: K5 (8-rotation sector match), earliest-position fold, K6
-                (relabel + Gray + mod-8-symbol alignment + byte pack)
+                (relabel + Gray + mod-8-symbol alignment + byte pack).
+          FSK: pass 1 (timing offset, plain torch), then K7 (dual tone), K8
+          (discriminator, followed by atan2 + equalizer + decision) or K9
+          (quadrature margin); K13 for flat dual-tone input; then the
+          plain-torch sync tail: first exact magic, shift, byte pack
   host:   strict FBPC frame parse, decompression, assembly, save
 
 ``jit`` and ``vmap`` have no counterpart here: the batch dimension is
@@ -35,6 +42,22 @@ from ..assembly import AssemblyRegistry
 from ..config import CONFIG
 from ..framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2, parse_frames
 from ..modem import SAMPLE_RATE
+from ..ops.common import find_bit_pattern, pack_bits_from
+from ..ops.fsk import (
+    _fir_frontend_plan,
+    _fsk_disc_kernel_plan,
+    _fsk_geometry,
+    _samples_per_bit,
+    _separation_cycles,
+    fsk_blocked_row_shape,
+    fsk_demod_bits_batch,
+    fsk_disc_bits_rows_batch,
+    fsk_disc_row_shape,
+    fsk_dual_bits_rows_batch,
+    fsk_dual_rows_batch_plan,
+    fsk_quad_bits_rows_batch,
+    fsk_quad_row_shape,
+)
 from ..ops.kernels import (
     bit_select_pack_batch,
     psk8_relabel_pack_rows,
@@ -53,11 +76,16 @@ logger = logging.getLogger("audio_modem_radio_tpu_torch")
 # Demodulator kind -> the ROADMAP.md queue-1 item that will port it.
 _UNPORTED_KINDS = {
     "ofdm": "OFDM",
-    "fsk": "FSK",
     "dsss": "DSSS",
     "hell": "HELL",
     "neural": "NEURAL",
 }
+_PORTED_KINDS = ("psk2", "psk4", "psk8", "fsk")
+# What the single-capture FSK receiver (fsk_demod_bits, MLSE) would take.
+_FSK_SINGLE = (
+    "the single-capture FSK receiver (fsk_demod_bits with MLSE) is not ported: "
+    "ROADMAP.md queue 1, item 1 (recovery ladder)"
+)
 
 
 def resolve_demod_plan(mode: str, symbol_rate: int) -> Tuple[str, tuple]:
@@ -259,27 +287,63 @@ def psk8_kernel_sync_tail(
     return packed, n_valid.to(torch.int32), found
 
 
+def _fsk_bits(samples: torch.Tensor, baud: float, mark: float, space: float) -> torch.Tensor:
+    """FSK bits (B, n_bits) uint8 from host-shaped rows (the layout
+    :func:`host_shape_batch` picks) or flat (B, N) dual-tone captures."""
+    sep = _separation_cycles(baud, mark, space, SAMPLE_RATE)
+    spb = _samples_per_bit(SAMPLE_RATE, baud)
+    if samples.ndim == 3 and sep >= 0.8:
+        _spr, row, ov = _fsk_geometry(spb)
+        if samples.shape[2] != row + ov:
+            raise ValueError("pre-shaped dual-tone rows have the wrong column count")
+        return fsk_dual_bits_rows_batch(samples, baud, mark, space, SAMPLE_RATE)
+    if samples.ndim == 3:
+        _lo, _hi, dec, taps = _fir_frontend_plan(baud, mark, space, SAMPLE_RATE)
+        plan = _fsk_disc_kernel_plan(spb, dec, taps)
+        if (plan is not None and samples.shape[2] == plan["c_pad"]
+                and samples.shape[1] % plan["fb"] == 0):
+            fn = fsk_disc_bits_rows_batch if sep < 0.4 else fsk_quad_bits_rows_batch
+            return fn(samples, baud, mark, space, SAMPLE_RATE)
+    elif sep >= 0.8 and samples.shape[1] // spb >= 2 * _fsk_geometry(spb)[0]:
+        return fsk_demod_bits_batch(samples, baud, mark, space, SAMPLE_RATE)
+    raise NotImplementedError(
+        f"FSK {baud:g} Bd {mark:g}/{space:g} Hz on {tuple(samples.shape)} input: {_FSK_SINGLE}"
+    )
+
+
 def demod_pack_batch(
     samples: torch.Tensor,
     mode: str,
     symbol_rate: int,
     cfo_retry: bool = True,
+    fsk_mlse: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(B, N) samples or (B, r, 128*spsym) blocked rows -> (packed bytes
+    """(B, N) samples or host-shaped (B, r, cols) rows -> (packed bytes
     (B, max_bytes), n_valid (B,), found (B,)), on the input's device.
 
-    Demod + magic sync + byte pack for the whole batch. The PSK kinds are
-    ported: 'psk4' (QPSK, APSK16, SSTV, and 8PSK under
-    ``modem.psk8_compat_alias``), 'psk2' (BPSK, and DSSS under
-    ``modem.dsss_compat_alias``) and 'psk8' (8PSK); other kinds raise
-    NotImplementedError naming the ROADMAP.md item that will port them.
+    Demod + magic sync + byte pack for the whole batch. Ported kinds: 'psk4'
+    (QPSK, APSK16, SSTV, and 8PSK under ``modem.psk8_compat_alias``), 'psk2'
+    (BPSK, and DSSS under ``modem.dsss_compat_alias``), 'psk8' (8PSK) and
+    'fsk' (FSK1200, FSK9600, FSK19200, MSK, FT8; flat input only for dual
+    tones). Other kinds, ``fsk_mlse``, and FSK inputs that only the
+    single-capture receiver takes raise NotImplementedError naming the
+    ROADMAP.md item that will port them.
     """
     kind, params = _receive_kind(mode, symbol_rate)
-    if kind not in ("psk2", "psk4", "psk8"):
+    if kind not in _PORTED_KINDS:
         raise NotImplementedError(
             f"mode {mode!r} (demodulator kind {kind!r}) is not ported to PyTorch yet: "
             f"ROADMAP.md queue 1, {_UNPORTED_KINDS[kind]}"
         )
+    if kind == "fsk":
+        if fsk_mlse:
+            raise NotImplementedError(f"MLSE (CONFIG modem.batch_mlse): {_FSK_SINGLE}")
+        # The JAX package's sync tail as it is: the first exact magic (no
+        # validation pattern, no rotations), unvalidated, then the pack.
+        bits = _fsk_bits(samples, *params)
+        start, found = find_bit_pattern(bits, MAGIC_BIT_PATTERN)
+        packed, n_valid = pack_bits_from(bits, start)
+        return packed, n_valid, found
     baud, carrier = params
     if kind == "psk8":
         sec = psk8_sector_rows_batch(samples, baud, carrier, SAMPLE_RATE, cfo=cfo_retry)
@@ -309,24 +373,81 @@ def _bucket_length(lengths: Sequence[int]) -> int:
     return len(pad_to_bucket(probe))
 
 
+def _int16_rows(device: DeviceLike) -> bool:
+    """int16 rows on a CUDA device, float32 otherwise; CONFIG
+    ``tpu.int16_rows`` overrides the choice."""
+    i16 = CONFIG.get("tpu.int16_rows", None)
+    if i16 is None:
+        i16 = resolve_device(device).type == "cuda"
+    return bool(i16)
+
+
+def _fsk_host_shape(batch: np.ndarray, params: tuple, device: DeviceLike) -> np.ndarray:
+    """FSK rows in the layout of the JAX package's TPU path, on every device:
+    dual tones as overlapped rows, padded to 256-row blocks (int16 on CUDA)
+    where ``fsk_dual_rows_batch_plan`` maps, else unpadded float32 rows;
+    close and mid tones as the fused FIR windows (int16 on CUDA); anything
+    else flat. ``tpu.int8_rows`` does not apply to FSK."""
+    baud, mark, space = params
+    n = batch.shape[1]
+    dtype = np.int16 if _int16_rows(device) else np.float32
+    shape = fsk_blocked_row_shape(n, baud, mark, space, SAMPLE_RATE)
+    if shape is not None:
+        r, row, ov = shape
+        r_pad = -(-r // 256) * 256
+        if fsk_dual_rows_batch_plan(_samples_per_bit(SAMPLE_RATE, baud), r_pad) is not None:
+            return _overlap_rows(batch, r_pad, row, ov, dtype=dtype)
+        return _overlap_rows(batch, r, row, ov)
+    dshape = (fsk_disc_row_shape(n, baud, mark, space, SAMPLE_RATE)
+              or fsk_quad_row_shape(n, baud, mark, space, SAMPLE_RATE))
+    if dshape is not None:
+        r, row, ov, lead = dshape
+        return _overlap_rows(batch, r, row, ov, lead=lead, dtype=dtype)
+    return batch
+
+
+def _overlap_rows(
+    batch: np.ndarray, r: int, row: int, ov: int, lead: int = 0, dtype=np.float32,
+) -> np.ndarray:
+    """(B, N) -> (B, r, row+ov) overlapped rows from two strided views, with
+    ``lead`` zero samples logically prepended (the FIR's center-tap
+    alignment); ``dtype=np.int16`` quantizes at scale 32768."""
+    if ov > row:
+        raise ValueError("overlap must not exceed the row length")
+    b = batch.shape[0]
+    keep = min(batch.shape[1], r * row + ov - lead)
+    src = batch[:, :keep]
+    if np.dtype(dtype) == np.int16:
+        src = np.clip(np.round(src * 32768.0), -32768, 32767).astype(np.int16)
+    flat = np.zeros((b, (r + 1) * row), dtype=dtype)
+    flat[:, lead : lead + keep] = src
+    shaped = np.empty((b, r, row + ov), dtype=dtype)
+    shaped[:, :, :row] = flat[:, : r * row].reshape(b, r, row)
+    shaped[:, :, row:] = flat[:, row : (r + 1) * row].reshape(b, r, row)[:, :, :ov]
+    return shaped
+
+
 def host_shape_batch(
     batch: np.ndarray, mode: str, symbol_rate: int, device: DeviceLike = None
 ) -> np.ndarray:
-    """Pre-shape (B, N) PSK captures (kinds psk2, psk4, psk8, after the
-    compatibility aliases) into blocked (B, r, 128*spsym) rows for
-    ``demod_pack_batch``; other mode families, not ported yet, pass through
-    unchanged.
+    """Pre-shape (B, N) captures into the layout ``demod_pack_batch`` takes
+    on ``device`` (default: the card): PSK captures (kinds psk2, psk4, psk8,
+    after the compatibility aliases) into blocked (B, r, 128*spsym) rows,
+    FSK captures as :func:`_fsk_host_shape` says; other mode families, not
+    ported yet, pass through unchanged.
 
     Rows are int16 at scale 32768 when the target device is CUDA (half the
-    host-to-device copy and half K1's read; exact for int16-PCM sources,
-    which read_wav divides by 32768), float32 otherwise. CONFIG
+    host-to-device copy and half the kernels' read; exact for int16-PCM
+    sources, which read_wav divides by 32768), float32 otherwise. CONFIG
     ``tpu.int16_rows`` overrides that choice; CONFIG ``tpu.int8_rows`` (off
-    by default) ships int8 rows at scale 128 instead, a quarter of the
-    float32 read at about -50 dB of quantization noise.
+    by default) ships PSK rows as int8 at scale 128 instead, a quarter of
+    the float32 read at about -50 dB of quantization noise.
     """
     batch = np.asarray(batch, dtype=np.float32)
     b = batch.shape[0]
     kind, params = _receive_kind(mode, symbol_rate)
+    if kind == "fsk":
+        return _fsk_host_shape(batch, params, device)
     if kind not in ("psk2", "psk4", "psk8"):
         return batch
     shape = blocked_row_shape(batch.shape[1], params[0], SAMPLE_RATE)
@@ -334,9 +455,7 @@ def host_shape_batch(
         return batch
     r, row = shape
     keep = min(batch.shape[1], r * row)
-    i16 = CONFIG.get("tpu.int16_rows", None)
-    if i16 is None:
-        i16 = resolve_device(device).type == "cuda"
+    i16 = _int16_rows(device)
     if CONFIG.get("tpu.int8_rows", False):
         shaped = np.zeros((b, r * row), dtype=np.int8)
         shaped[:, :keep] = np.clip(
@@ -357,12 +476,15 @@ def decode_sample_batch(
     batch: np.ndarray, mode: str, symbol_rate: int, device: DeviceLike = None
 ) -> List[bytes]:
     """Demodulate a (B, N) batch to per-capture raw byte streams on
-    ``device`` (default: the card when present, else the CPU)."""
+    ``device`` (default: the card; the CPU only when named). FSK under
+    CONFIG ``modem.batch_mlse`` raises NotImplementedError (ROADMAP.md
+    queue 1, item 1)."""
     dev = resolve_device(device)
     shaped = host_shape_batch(batch, mode, symbol_rate, device=dev)
     x = torch.from_numpy(np.ascontiguousarray(shaped)).to(dev)
     packed, n_valid, _found = demod_pack_batch(
-        x, mode, int(symbol_rate), cfo_retry=bool(CONFIG.get("modem.cfo_retry", True))
+        x, mode, int(symbol_rate), cfo_retry=bool(CONFIG.get("modem.cfo_retry", True)),
+        fsk_mlse=bool(CONFIG.get("modem.batch_mlse", False)),
     )
     packed = packed.cpu().numpy()
     n_valid = n_valid.cpu().numpy()
@@ -396,7 +518,9 @@ def decode_wav_batch(
     Returns, per input WAV, the list of file paths recovered from it.
     Frames from all captures feed one assembly registry, so a multi-part
     transfer spread across several captures reassembles here. Each capture
-    gets the strict parse only; the recovery ladder is not ported yet.
+    gets the strict parse only; the recovery ladder is not ported yet, nor
+    the JAX package's MLSE re-dispatch of lost close-tone FSK captures
+    (ROADMAP.md queue 1, item 1): such captures stay lost, with a warning.
     """
     from ..decoder import save_decoded_files
 
@@ -407,4 +531,15 @@ def decode_wav_batch(
         batch[i, : min(len(a), n)] = a[:n]
 
     raws = decode_sample_batch(batch, mode, symbol_rate, device=device)
-    return [save_decoded_files(parse_frames(raw), recv_dir, registry) for raw in raws]
+    out = []
+    for path, raw in zip(paths, raws):
+        frames = parse_frames(raw)
+        out.append(save_decoded_files(frames, recv_dir, registry))
+        if not frames and _fsk_close_tones(mode, symbol_rate):
+            logger.warning("%s: no frame; the MLSE re-dispatch is not ported (%s)", path, _FSK_SINGLE)
+    return out
+
+
+def _fsk_close_tones(mode: str, symbol_rate: int) -> bool:
+    kind, params = _receive_kind(mode, symbol_rate)
+    return kind == "fsk" and _separation_cycles(*params, SAMPLE_RATE) < 0.8

@@ -1,17 +1,18 @@
 """Where the device time of ``demod_pack_batch`` goes, on one CUDA card.
 
-    python3 -m audio_modem_radio_tpu_torch.profile_slice [--mode QPSK|BPSK|8PSK] [--out FILE]
+    python3 -m audio_modem_radio_tpu_torch.profile_slice \
+        [--mode QPSK|BPSK|8PSK|FSK1200|FSK9600|FSK19200] [--out FILE]
 
 The workload is ``chip_smoke.py``'s timing batch for the mode (default
-QPSK): one 16 KiB-payload capture at 9600 Bd tiled to 2^24 samples, shaped
-into int16 rows, shipped once and copied 64 times on the card. The script
-prints:
+QPSK): one 16 KiB-payload capture (PSK at 9600 Bd, FSK at its own rate)
+tiled to 2^24 samples, shaped into int16 rows, shipped once and copied 64
+times on the card. The script prints:
 
-- ``demod_pack_batch`` with ``cfo_retry`` on and off, and ``_batch_pass1``
+- ``demod_pack_batch`` (PSK: with ``cfo_retry`` on and off) and pass 1
   alone: median of 9 by CUDA events after one warm-up;
-- for each ``cfo_retry``, 5 reps under ``torch.profiler``: the host-clock
-  time per rep (profiler on), the summed device-kernel time per rep, the
-  device's idle share (1 - kernel / wall), and the kernels by device time;
+- for each run, 5 reps under ``torch.profiler``: the host-clock time per
+  rep (profiler on), the summed device-kernel time per rep, the device's
+  idle share (1 - kernel / wall), and the kernels by device time;
 - the profiler's ``key_averages()`` table.
 
 Each line carries the card's name and power limit. ``--out`` also writes
@@ -31,12 +32,19 @@ import torch
 
 from .framing import crc32, pack_frame
 from .modem import modulate
+from .ops import fsk
 from .ops.psk import _batch_pass1
-from .parallel.batch import demod_pack_batch, host_shape_batch
+from .parallel.batch import demod_pack_batch, host_shape_batch, resolve_demod_plan
 
 SR, BAUD = 96000, 9600
 N, B, PAYLOAD = 1 << 24, 64, 16384
 CARRIERS = {"QPSK": 3000.0, "BPSK": 3000.0, "8PSK": 12000.0}
+# FSK mode -> (symbol rate, its pass 1).
+FSK_MODES = {
+    "FSK1200": (1200, fsk.fsk_dual_pass1),
+    "FSK9600": (9600, fsk.fsk_disc_pass1),
+    "FSK19200": (19200, fsk.fsk_quad_pass1),
+}
 
 
 def _card() -> str:
@@ -47,11 +55,11 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0].strip() if out.returncode == 0 else "nvidia-smi failed"
 
 
-def _bench_rows(mode: str, device: torch.device) -> torch.Tensor:
+def _bench_rows(mode: str, rate: int, device: torch.device) -> torch.Tensor:
     payload = np.random.default_rng(0).integers(0, 256, PAYLOAD, dtype=np.uint8).tobytes()
-    wave = modulate(mode, pack_frame("bench.bin", payload, 0, 1, len(payload), crc32(payload)), BAUD)
+    wave = modulate(mode, pack_frame("bench.bin", payload, 0, 1, len(payload), crc32(payload)), rate)
     one = np.tile(wave, -(-N // len(wave)))[None, :N].astype(np.float32)
-    rows = torch.from_numpy(host_shape_batch(one, mode, BAUD, device=device)).to(device)
+    rows = torch.from_numpy(host_shape_batch(one, mode, rate, device=device)).to(device)
     return rows.expand(B, -1, -1).contiguous()
 
 
@@ -93,7 +101,7 @@ def _profile(fn, reps: int = 5):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", choices=sorted(CARRIERS), default="QPSK")
+    ap.add_argument("--mode", choices=sorted(CARRIERS) + sorted(FSK_MODES), default="QPSK")
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -108,18 +116,25 @@ def main() -> int:
         print(msg, flush=True)
         lines.append(msg)
 
-    x = _bench_rows(mode, device)
+    rate = FSK_MODES[mode][0] if mode in FSK_MODES else BAUD
+    x = _bench_rows(mode, rate, device)
     b, r, _ = x.shape
-    spsym = SR // BAUD
-    for cfo in (True, False):
-        ms = _median_ms(lambda: demod_pack_batch(x, mode, BAUD, cfo_retry=cfo))
+    cfos = (True,) if mode in FSK_MODES else (True, False)
+    for cfo in cfos:
+        ms = _median_ms(lambda: demod_pack_batch(x, mode, rate, cfo_retry=cfo))
         say(f"{mode} demod_pack_batch cfo={cfo}: median {ms:.4f} ms of 9 = "
             f"{b * N / (ms * 1e-3) / 1e6:.2f} Msamples/s | {card}")
-    n_psk = 8 if mode == "8PSK" else 4
-    ms = _median_ms(lambda: _batch_pass1(None, x, b, r * 128, spsym, CARRIERS[mode], SR, 8, r, n_psk))
-    say(f"{mode} _batch_pass1 alone: median {ms:.4f} ms | {card}")
-    for cfo in (True, False):
-        wall, busy, kernels, table = _profile(lambda: demod_pack_batch(x, mode, BAUD, cfo_retry=cfo))
+    if mode in FSK_MODES:
+        params = resolve_demod_plan(mode, rate)[1]
+        ms = _median_ms(lambda: FSK_MODES[mode][1](x, *params, SR))
+        say(f"{mode} pass 1 ({FSK_MODES[mode][1].__name__}) alone: median {ms:.4f} ms | {card}")
+    else:
+        n_psk = 8 if mode == "8PSK" else 4
+        spsym = SR // BAUD
+        ms = _median_ms(lambda: _batch_pass1(None, x, b, r * 128, spsym, CARRIERS[mode], SR, 8, r, n_psk))
+        say(f"{mode} _batch_pass1 alone: median {ms:.4f} ms | {card}")
+    for cfo in cfos:
+        wall, busy, kernels, table = _profile(lambda: demod_pack_batch(x, mode, rate, cfo_retry=cfo))
         say(f"--- {mode} profile cfo={cfo}: wall {wall:.4f} ms/rep (profiler on), device kernel sum "
             f"{busy:.4f} ms/rep, idle share {1 - busy / wall:.3f} | {card}")
         for k_ms, n, name in kernels:

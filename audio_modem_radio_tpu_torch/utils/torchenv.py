@@ -21,11 +21,13 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """The requested device; ``None`` means the card when one is present,
-    else the CPU. Raises if a CUDA device is requested and none exists."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(device)
+    """The requested device; ``None`` means the card. The CPU is used only
+    when the caller names it. Raises if a CUDA device is meant and none
+    exists: there is no silent fallback to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but torch.cuda.is_available() is false")
+        raise RuntimeError(
+            f"device {dev} requested (the default) but torch.cuda.is_available() is false; "
+            "pass device='cpu' to run on the CPU"
+        )
     return dev

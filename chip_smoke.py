@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's batched PSK receive (DQPSK, DBPSK, D8PSK) once
-on one NVIDIA GPU.
+"""Drive the PyTorch port's batched receive, PSK (DQPSK, DBPSK, D8PSK) and
+FSK (FSK1200, FSK9600, FSK19200, with MSK and FT8 on the dual-tone kernel),
+once on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # one card, full size, about 5-8 minutes
+    python3 chip_smoke.py    # one card, full size, about 2.5 minutes on an H100
 
 It runs only on a CUDA card; the CPU checks of the same code are the tests
 ``tests/test_torch_*.py``. On a host with several cards it uses the first
@@ -21,28 +22,43 @@ Phases, in order; any failure exits non-zero and prints no result line:
    sign of the imaginary part, rounding noise on a clean derotated
    capture) is compared under a further π/4 rotation, where it carries
    the signal;
+3b. the FSK kernels vs plain on 8 x 2^24-sample captures through the
+   port's host shaping and pass 1, float32 and int16 rows: K7 at spr 16
+   (FSK1200), 128 (MSK@9600), 12 (MSK@1000) and 1 (FT8), K13 on flat
+   FSK1200 rows (and equal to K7 at the same offsets), K8 (FSK9600) and K9
+   (FSK19200). Bits equal on clean captures, at most 1e-4 different with
+   AWGN (6 dB for the dual tones, 15 dB for FSK9600 and FSK19200); K8's
+   sums and K9's margins within 1e-4 of the largest plain value;
 4. the matchers and packs vs plain at the main path's row count: K2 (qpsk
    and bpsk families), K5 on streams built under every hypothesis plus a
    noise capture, (first, found) equal on the 256-row prefix and on the
    full scan; K3, K4 and K6 packed bytes equal on every byte, for every
    shift;
-5. the slices at real size, 5 QPSK, 5b BPSK, 5c 8PSK: 64 captures x 2^24
-   samples each (one seeded 16 KiB payload per capture, 0-2 bytes shorter
-   for 8PSK so that the tiled frames stay byte-aligned, random leads, two
-   captures at the carrier +- 100 Hz, one pure noise) through
-   ``decode_sample_batch`` and ``parse_frames``; each slice must launch its
-   own three kernels and none of the others' (launch counts reset before
-   each); then ``decode_wav_batch`` on 4 WAVs written by the port (QPSK
-   and 8PSK);
+5. the slices at real size, 5 QPSK, 5b BPSK, 5c 8PSK, 5d FSK1200, 5e
+   FSK9600, 5f FSK19200: 64 captures x 2^24 samples each (one seeded 16 KiB
+   payload per capture, 0-2 bytes shorter for 8PSK so that the tiled frames
+   stay byte-aligned, random leads, for PSK two captures at the carrier +-
+   100 Hz, one pure noise) through ``decode_sample_batch`` and
+   ``parse_frames``; each slice must launch its own kernels and none of
+   the others' (launch counts reset before each). FSK1200 also runs its
+   flat (B, N) captures through ``demod_pack_batch``, the path of K13, with
+   the counts reset again. Then ``decode_wav_batch`` on 4 WAVs written by
+   the port (QPSK, 8PSK, FSK1200 and FSK9600);
 6. timing with CUDA events (one warm-up, median of 5): ``demod_pack_batch``
-   of each mode on its 64 x 2^24 int16 batch staged on the card, cfo_retry
-   on and off, and each kernel and variant beside its plain version (K1@4
-   also on int8 rows).
+   of each mode on its 64 x 2^24 int16 batch staged on the card (PSK with
+   cfo_retry on and off), and each kernel and variant beside its plain
+   version (K1@4 also on int8 rows; the plain K8 and K9 at 8 captures,
+   where their float32 intermediates fit).
 
 The line before the last is one JSON object with the kernels' names,
-sources, launch counts, errors and times (one entry per kernel and
-variant); the last line is ``{"ok": true, "device": {...}}``. It imports
-nothing of JAX.
+sources, launch counts, errors, times and bounds (one entry per kernel and
+PSK variant): ``bound_ms`` is the larger of the bytes the call must move
+over 3.35 TB/s and its operations over 67 T/s (the H100 SXM's published
+memory rate and float32 CUDA-core rate; integer operations are counted
+against the same rate), from the shapes and templates of the timed call.
+No single PyTorch call computes any of these functions, so ``library_ms``
+is null throughout. The last line is ``{"ok": true, "device": {...}}``. It
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -75,8 +91,23 @@ _SLICES = {
     "8PSK": dict(carrier=12000.0, n_psk=8, wav=True, kernels=(
         "psk_project_decide_batch", "sector_match_batch", "psk8_relabel_pack_rows")),
 }
-# The kernels line: entry -> (wrapper, the slice whose run gives its
-# launches, source, the TPU kernel it replaces).
+# FSK slices: symbol rate, the kernels its main path must launch, and
+# whether phase 5 also decodes WAVs written by the port.
+_FSK_SLICES = {
+    "FSK1200": dict(rate=1200, wav=True, kernels=("fsk_tile_bits_batch",)),
+    "FSK9600": dict(rate=9600, wav=True, kernels=("fsk_disc_sums_batch",)),
+    "FSK19200": dict(rate=19200, wav=False, kernels=("fsk_quad_margin_batch",)),
+}
+# K7's geometries in phase 3b: label -> (mode, symbol rate, payload bytes).
+_K7_CASES = {
+    "FSK1200": ("FSK1200", 1200, 16384),
+    "MSK@9600": ("MSK", 9600, 16384),
+    "MSK@1000": ("MSK", 1000, 16384),
+    "FT8": ("FT8", 50, 400),
+}
+_PEAK_BYTES, _PEAK_OPS = 3.35e12, 67e12  # H100 SXM: HBM3 bytes/s, float32 CUDA-core ops/s
+# The kernels line: entry -> (wrapper, the run whose launches it reports,
+# source, the TPU kernel it replaces).
 _ENTRIES = {
     "psk_project_decide_batch@4": ("psk_project_decide_batch", "QPSK", "decide.cu", 359),
     "psk_project_decide_batch@2": ("psk_project_decide_batch", "BPSK", "decide.cu", 359),
@@ -87,6 +118,10 @@ _ENTRIES = {
     "bit_select_pack_batch": ("bit_select_pack_batch", "BPSK", "bit_select_pack.cu", 1510),
     "sector_match_batch": ("sector_match_batch", "8PSK", "sector_match.cu", 1900),
     "psk8_relabel_pack_rows": ("psk8_relabel_pack_rows", "8PSK", "psk8_pack.cu", 2021),
+    "fsk_tile_bits_batch": ("fsk_tile_bits_batch", "FSK1200", "fsk_tile.cu", 582),
+    "fsk_project_bits_batch": ("fsk_project_bits_batch", "FSK1200 flat", "fsk_tile.cu", 481),
+    "fsk_disc_sums_batch": ("fsk_disc_sums_batch", "FSK9600", "fsk_disc.cu", 741),
+    "fsk_quad_margin_batch": ("fsk_quad_margin_batch", "FSK19200", "fsk_quad.cu", 858),
 }
 
 
@@ -130,9 +165,9 @@ def _tiled(wave: np.ndarray, n: int, lead: int = 0) -> np.ndarray:
     return out
 
 
-def _rows(batch: np.ndarray, dtype: str, device, mode: str = "QPSK"):
-    """Blocked rows ("f32", "int16" or "int8") through the port's own host
-    shaping, on ``device``."""
+def _rows(batch: np.ndarray, dtype: str, device, mode: str = "QPSK", rate: int = BAUD):
+    """Rows ("f32", "int16" or "int8") through the port's own host shaping,
+    on ``device``."""
     import torch
 
     from audio_modem_radio_tpu_torch.config import CONFIG
@@ -142,11 +177,42 @@ def _rows(batch: np.ndarray, dtype: str, device, mode: str = "QPSK"):
     CONFIG.set("tpu.int16_rows", dtype == "int16")
     CONFIG.set("tpu.int8_rows", dtype == "int8")
     try:
-        shaped = host_shape_batch(batch, mode, BAUD, device=device)
+        shaped = host_shape_batch(batch, mode, rate, device=device)
     finally:
         CONFIG.set("tpu.int16_rows", old[0])
         CONFIG.set("tpu.int8_rows", old[1])
     return torch.from_numpy(shaped).to(device)
+
+
+def _fsk_wave(payload: bytes, name: str, mode: str, rate: int) -> np.ndarray:
+    from audio_modem_radio_tpu_torch.framing import crc32, pack_frame
+    from audio_modem_radio_tpu_torch.modem import modulate
+
+    return modulate(mode, pack_frame(name, payload, 0, 1, len(payload), crc32(payload)), rate)
+
+
+def _fsk_params(mode: str, rate: int):
+    """(baud, mark, space) of an FSK mode, as the port's batch layer plans it."""
+    from audio_modem_radio_tpu_torch.parallel.batch import resolve_demod_plan
+
+    return resolve_demod_plan(mode, rate)[1]
+
+
+def _awgn(clean: np.ndarray, snr_db: float, device) -> np.ndarray:
+    """``clean`` plus white Gaussian noise at ``snr_db`` (seeded on the card)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(1234)
+    sigma = (float(np.mean(clean ** 2)) / 10 ** (snr_db / 10)) ** 0.5
+    noise = (torch.randn(clean.shape, generator=gen, device=device) * sigma).cpu().numpy()
+    return np.clip(clean + noise, -1.0, 1.0).astype(np.float32)
+
+
+def _bound(n_bytes: float, n_ops: float):
+    """(ms, "bytes" or "operations"): the least time of a call that moves
+    ``n_bytes`` and does ``n_ops``, at the card's published peaks."""
+    t_bytes, t_ops = n_bytes / _PEAK_BYTES * 1e3, n_ops / _PEAK_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _magic_bits(rng, n_bits: int, start: int) -> np.ndarray:
@@ -489,7 +555,7 @@ def phase_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, card:
     return counts
 
 
-def _wav_roundtrip(device, mode: str, payload_bytes: int, tag: str) -> None:
+def _wav_roundtrip(device, mode: str, payload_bytes: int, tag: str, rate: int = BAUD) -> None:
     from audio_modem_radio_tpu_torch.assembly import AssemblyRegistry
     from audio_modem_radio_tpu_torch.framing import crc32, pack_frame
     from audio_modem_radio_tpu_torch.modem import modulate
@@ -507,10 +573,10 @@ def _wav_roundtrip(device, mode: str, payload_bytes: int, tag: str) -> None:
             blob = intelligent_compress(data)
             framed = pack_frame(f"src{i}.bin", blob, 0, 1, len(data), crc32(data))
             path = os.path.join(work, f"src{i}.wav")
-            write_wav(path, modulate(mode, framed, BAUD))
+            write_wav(path, modulate(mode, framed, rate))
             sources.append(data)
             wavs.append(path)
-        saved = decode_wav_batch(wavs, mode, BAUD, recv_dir=os.path.join(work, "recv"),
+        saved = decode_wav_batch(wavs, mode, rate, recv_dir=os.path.join(work, "recv"),
                                  registry=AssemblyRegistry(journal_dir=""), device=device)
         for i, paths in enumerate(saved):
             check(len(paths) == 1, f"{mode} WAV {i}: {len(paths)} files saved")
@@ -522,8 +588,12 @@ def _wav_roundtrip(device, mode: str, payload_bytes: int, tag: str) -> None:
 
 
 def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
-    """Times on the bench workload of every slice; returns ({entry: (ms,
-    plain_ms)}, {mode: {cfo: Msamples/s}})."""
+    """Times on the bench workload of every PSK slice; returns ({entry: (ms,
+    plain_ms)}, {mode: {cfo: Msamples/s}}, {entry: (bound_ms, bound_by)}).
+    Operations per item, from the kernels' code: K1 8*spsym + 12 per symbol
+    (two 2*spsym-tap correlations, the differential and derotation); K2 12
+    per position and hypothesis (four masked popcounts); K3 8 per dibit; K4
+    3 per bit; K5 6 per position and hypothesis; K6 6 per symbol."""
     import torch
 
     from audio_modem_radio_tpu_torch.framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
@@ -532,7 +602,7 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
     from audio_modem_radio_tpu_torch.parallel.batch import demod_pack_batch
 
     pattern = MAGIC_BIT_PATTERN + MAGIC_BIT_PATTERN2
-    t, msps = {}, {}
+    t, msps, bounds = {}, {}, {}
     for mode, spec in _SLICES.items():
         t0 = time.perf_counter()
         n_psk, carrier = spec["n_psk"], spec["carrier"]
@@ -555,6 +625,9 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
         W8, _, _ = _device_tables(SPSYM, carrier, SR, 8, x.device)
         rot = torch.stack([torch.cos(theta), torch.sin(theta)], dim=1)
         key = f"psk_project_decide_batch@{n_psk}"
+        n_sym = b * r * 128
+        bounds[key] = _bound(x.numel() * x.element_size() + n_sym * (1 if n_psk == 8 else 2),
+                             n_sym * (8 * SPSYM + 12))
         t[key] = (
             _time_ms(lambda: tk.psk_project_decide_batch(x, W8, best, rot, rows_per_capture=r, n_psk=n_psk)),
             _time_ms(lambda: tk.psk_project_decide_batch_plain(x, W8, best, rot, n_psk=n_psk)),
@@ -566,6 +639,8 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
             conds, _ = tk.rotation_match_conditions(pattern)
             first, _ = tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r,
                                                pattern2=MAGIC_BIT_PATTERN2, rows_scanned=256)
+            bounds["rotation_match_batch:qpsk"] = _bound(2 * b * 256 * 128, b * 256 * 128 * 8 * 12)
+            bounds["relabel_pack_batch"] = _bound(n_sym * 2 + b * r * 32, n_sym * 8)
             for p in (256, r):
                 t[f"rotation_match_batch:qpsk@{p}"] = (
                     _time_ms(lambda: tk.rotation_match_batch(
@@ -589,6 +664,8 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
             conds, _ = tk.bpsk_match_conditions(pattern)
             first, _ = tk.rotation_match_batch(re, im, MAGIC_BIT_PATTERN, r, family="bpsk",
                                                pattern2=MAGIC_BIT_PATTERN2, rows_scanned=256)
+            bounds["rotation_match_batch:bpsk"] = _bound(2 * b * 256 * 128, b * 256 * 128 * 4 * 12)
+            bounds["bit_select_pack_batch"] = _bound(n_sym + b * r * 16, n_sym * 3)
             for p in (256, r):
                 t[f"rotation_match_batch:bpsk@{p}"] = (
                     _time_ms(lambda: tk.rotation_match_batch(
@@ -607,6 +684,8 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
             conds, _ = tk.psk8_match_conditions(MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2)
             first, found8 = tk.sector_match_batch(sec, MAGIC_BIT_PATTERN, r,
                                                   pattern2=MAGIC_BIT_PATTERN2, rows_scanned=256)
+            bounds["sector_match_batch"] = _bound(b * 256 * 128, b * 256 * 128 * 8 * 6)
+            bounds["psk8_relabel_pack_rows"] = _bound(n_sym + b * r * 48, n_sym * 6)
             for p in (256, r):
                 t[f"sector_match_batch@{p}"] = (
                     _time_ms(lambda: tk.sector_match_batch(
@@ -625,7 +704,286 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
         say(f"[6 time] {mode}: {time.perf_counter() - t0:.1f} s | {card}")
     for name, (ms, plain) in t.items():
         say(f"[6 time] {name} B={n_cap} R={r}: kernel {ms:.4f} ms, plain {plain:.4f} ms | {card}")
-    return t, msps
+    return t, msps, bounds
+
+
+def _bit_mismatch(got, ref, n_sig: int):
+    """(mismatched bits, compared bits) over [0, n_sig) of every capture."""
+    g, p = got[:, :n_sig], ref[:, :n_sig]
+    return int((g != p).sum()), g.numel()
+
+
+def phase_fsk_kernels(device, n_cap: int, n: int, card: str) -> dict:
+    """K7, K13, K8 and K9 vs plain on real FSK captures; returns
+    {entry: (max abs error, max relative error)} over the clean captures."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.ops import fsk as tf
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+
+    errs = {}
+    for label, (mode, rate, pbytes) in _K7_CASES.items():
+        t0 = time.perf_counter()
+        baud, mark, space = _fsk_params(mode, rate)
+        spb = int(round(SR / baud))
+        clean = np.stack([_tiled(_fsk_wave(_payload(300 + i, pbytes), f"k7_{i}.bin", mode, rate), n,
+                                 lead=7 * i) for i in range(n_cap)])
+        noisy = _awgn(clean[:1], 6.0, device)
+        n_sig = n // spb - 2
+        for dtype in ("f32", "int16"):
+            for tag, data in (("clean", clean), ("awgn6dB", noisy)):
+                x = _rows(data, dtype, device, mode, rate)
+                if dtype == "int16" and x.dtype != torch.int16:
+                    break  # no 256-row plan (MSK@1000, FT8): the rows are float32 on every device
+                best, W, spr = tf.fsk_dual_pass1(x, baud, mark, space, SR)
+                got = tk.fsk_tile_bits_batch(x, W, best, rows_per_capture=x.shape[1], spr=spr)
+                ref = tk.fsk_tile_bits_batch_plain(x, W, best, spr)
+                torch.cuda.synchronize()
+                n_bad, n_all = _bit_mismatch(got, ref, n_sig)
+                say(f"[3b K7] {label} spr={spr} {tag} {dtype} rows {tuple(x.shape)}: best={best.tolist()} "
+                    f"mismatches={n_bad} of {n_all} ({n_bad / n_all:.3e}) | {card}")
+                if tag == "clean":
+                    check(n_bad == 0, f"K7 differs from plain on clean {label} {dtype} captures")
+                else:
+                    check(n_bad / n_all <= 1e-4, f"K7 mismatch fraction {n_bad / n_all} > 1e-4 at 6 dB")
+                if label == "FSK1200" and dtype == "f32" and tag == "clean":
+                    # K13 on the same captures' flat rows, at the same offsets.
+                    flat = torch.from_numpy(data).to(device)
+                    r = x.shape[1]
+                    rows = torch.nn.functional.pad(flat, (0, r * spr * spb - n)).reshape(n_cap, r, spr * spb)
+                    got13 = tk.fsk_project_bits_batch(rows, W, best, rows_per_capture=r, spr=spr)
+                    ref13 = tk.fsk_project_bits_batch_plain(rows, W, best, spr)
+                    torch.cuda.synchronize()
+                    bad13, _ = _bit_mismatch(got13, ref13, n_sig)
+                    bad_k7, _ = _bit_mismatch(got13, got, n_sig)
+                    say(f"[3b K13] FSK1200 flat f32 rows {tuple(rows.shape)}: mismatches vs plain={bad13}, "
+                        f"vs K7={bad_k7} of {n_all} | {card}")
+                    check(bad13 == 0 and bad_k7 == 0, "K13 differs from plain or from K7 on clean FSK1200")
+                    errs["fsk_project_bits_batch"] = (0.0, None)
+                    del flat, rows, got13, ref13
+                del x, got, ref
+        errs["fsk_tile_bits_batch"] = (0.0, None)
+        say(f"[3b K7] {label}: {time.perf_counter() - t0:.1f} s | {card}")
+
+    for mode, entry in (("FSK9600", "fsk_disc_sums_batch"), ("FSK19200", "fsk_quad_margin_batch")):
+        t0 = time.perf_counter()
+        rate = _FSK_SLICES[mode]["rate"]
+        baud, mark, space = _fsk_params(mode, rate)
+        clean = np.stack([_tiled(_fsk_wave(_payload(400 + i, 16384), f"k8_{i}.bin", mode, rate), n,
+                                 lead=5 * i) for i in range(n_cap)])
+        noisy = _awgn(clean[:1], 15.0, device)
+        n_sig = n // int(round(SR / baud)) - 2
+        worst_abs = worst_rel = 0.0
+        for dtype in ("f32", "int16"):
+            for tag, data in (("clean", clean), ("awgn15dB", noisy)):
+                x = _rows(data, dtype, device, mode, rate)
+                if mode == "FSK9600":
+                    best, plan, Wf, W2, coef = tf.fsk_disc_pass1(x, baud, mark, space, SR)
+                else:
+                    best, plan, Wf, W2 = tf.fsk_quad_pass1(x, baud, mark, space, SR)
+                kw = dict(rows_per_capture=x.shape[1], nrow2=plan["nrow2"], row2=plan["row2"],
+                          ov2=plan["ov2"], spr2=plan["spr2"])
+                if mode == "FSK9600":
+                    got = tk.fsk_disc_sums_batch(x, Wf, W2, best, **kw)
+                    ref = tk.fsk_disc_sums_batch_plain(x, Wf, W2, best, plan["row2"], plan["ov2"])
+                    bits_k = tf.disc_decide(*got, plan, coef, SR, mark, space)
+                    bits_p = tf.disc_decide(*ref, plan, coef, SR, mark, space)
+                else:
+                    got = (tk.fsk_quad_margin_batch(x, Wf, W2, best, **kw),)
+                    ref = (tk.fsk_quad_margin_batch_plain(x, Wf, W2, best, plan["row2"], plan["ov2"],
+                                                          plan["spr2"]),)
+                    bits_k, bits_p = got[0] > 0, ref[0] > 0
+                torch.cuda.synchronize()
+                rel = ab = 0.0
+                for g, p in zip(got, ref):
+                    d = (g[:, :n_sig] - p[:, :n_sig]).abs().amax(dim=1)
+                    rel = max(rel, float((d / p[:, :n_sig].abs().amax(dim=1)).max()))
+                    ab = max(ab, float(d.max()))
+                n_bad, n_all = _bit_mismatch(bits_k, bits_p, n_sig)
+                say(f"[3b {entry}] {mode} {tag} {dtype} rows {tuple(x.shape)}: best={best.tolist()} max abs "
+                    f"err {ab:.4e}, max rel err {rel:.4e}; bit mismatches={n_bad} of {n_all} | {card}")
+                check(rel <= 1e-4, f"{entry} relative error {rel} > 1e-4 on {mode} {tag} {dtype}")
+                if tag == "clean":
+                    check(n_bad == 0, f"{entry} bits differ from plain on clean {mode} {dtype} captures")
+                    worst_abs, worst_rel = max(worst_abs, ab), max(worst_rel, rel)
+                else:
+                    check(n_bad / n_all <= 1e-4, f"{entry} bit mismatch fraction {n_bad / n_all} > 1e-4")
+                del x, got, ref
+        errs[entry] = (worst_abs, worst_rel)
+        torch.cuda.empty_cache()
+        say(f"[3b {entry}] {mode}: {time.perf_counter() - t0:.1f} s | {card}")
+    return errs
+
+
+def _check_fsk_frames(mode: str, raws, payloads, min_frames, tag: str, card: str, what: str) -> None:
+    from audio_modem_radio_tpu_torch.framing import parse_frames
+
+    n_frames = []
+    noise_i = len(payloads) - 1
+    for i, raw in enumerate(raws):
+        frames = parse_frames(raw)
+        n_frames.append(len(frames))
+        if payloads[i] is None:
+            check(not frames, f"{mode} noise capture {i} yielded {len(frames)} frames ({what})")
+            continue
+        check(all(f.data == payloads[i] for f in frames), f"{mode} capture {i} decoded a foreign payload ({what})")
+        check(len(frames) >= min_frames[i], f"{mode} capture {i}: {len(frames)} frames < {min_frames[i]} ({what})")
+    say(f"[{tag} {mode}] {what}: frames per capture min={min(n_frames[:noise_i])} max={max(n_frames)} "
+        f"(need >= {min(min_frames[:noise_i])}); noise capture frames={n_frames[noise_i]} | {card}")
+
+
+def _check_launches(counts: dict, want, mode: str, what: str) -> None:
+    for name, c in counts.items():
+        if name in want:
+            check(c > 0, f"{name} was not launched on the {mode} {what} path")
+        else:
+            check(c == 0, f"{name} was launched on the {mode} {what} path")
+
+
+def phase_fsk_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, tag: str, card: str) -> dict:
+    """One FSK slice's main path at real size; returns the launch counts of
+    its ``decode_sample_batch`` run (and, for FSK1200, of the flat path
+    under the key "FSK1200 flat")."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch, demod_pack_batch
+
+    rate = _FSK_SLICES[mode]["rate"]
+    rng = np.random.default_rng(2025)
+    t_phase = t0 = time.perf_counter()
+    batch = np.empty((n_cap, n), np.float32)
+    payloads, min_frames = [], []
+    noise_i = n_cap - 1
+    for i in range(n_cap):
+        if i == noise_i:
+            batch[i] = np.clip(rng.normal(0.0, 0.3, n), -1, 1)
+            payloads.append(None)
+            min_frames.append(0)
+            continue
+        p = _payload(6000 + i, payload_bytes)
+        wave = _fsk_wave(p, f"cap{i}.bin", mode, rate)
+        batch[i] = _tiled(wave, n, lead=int(rng.integers(0, 1281)))
+        payloads.append(p)
+        min_frames.append(max(1, n // len(wave) - 1))
+    say(f"[{tag} {mode}] built {n_cap} x {n} captures (capture {noise_i} noise) in "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    raws = decode_sample_batch(batch, mode, rate, device=device)
+    wall = time.perf_counter() - t0
+    counts = {mode: tk.launch_counts()}
+    say(f"[{tag} {mode}] decode_sample_batch wall {wall:.3f} s (host shaping, copy, device, copy back) "
+        f"launches={counts[mode]} | {card}")
+    _check_launches(counts[mode], _FSK_SLICES[mode]["kernels"], mode, "decode_sample_batch")
+    _check_fsk_frames(mode, raws, payloads, min_frames, tag, card, "decode_sample_batch")
+    del raws
+
+    if mode == "FSK1200":
+        flat = torch.from_numpy(batch).to(device)
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        packed, n_valid, _found = demod_pack_batch(flat, mode, rate)
+        packed, n_valid = packed.cpu().numpy(), n_valid.cpu().numpy()
+        wall = time.perf_counter() - t0
+        counts["FSK1200 flat"] = tk.launch_counts()
+        say(f"[{tag} {mode}] flat (B, N) captures through demod_pack_batch: wall {wall:.3f} s "
+            f"launches={counts['FSK1200 flat']} | {card}")
+        _check_launches(counts["FSK1200 flat"], ("fsk_project_bits_batch",), mode, "flat")
+        raws = [packed[i, : int(n_valid[i])].tobytes() for i in range(n_cap)]
+        _check_fsk_frames(mode, raws, payloads, min_frames, tag, card, "flat demod_pack_batch")
+        del flat, packed, raws
+    del batch
+    torch.cuda.empty_cache()
+    if _FSK_SLICES[mode]["wav"]:
+        _wav_roundtrip(device, mode, payload_bytes, tag, rate)
+    say(f"[{tag} {mode}] {time.perf_counter() - t_phase:.1f} s | {card}")
+    return counts
+
+
+def phase_fsk_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
+    """``demod_pack_batch`` and the FSK kernels on each FSK mode's bench
+    batch; returns ({entry: (ms, plain_ms, plain_captures)}, {mode:
+    Msamples/s}, {entry: (bound_ms, bound_by)}). Operations: K7 and K13 8*spb
+    + 7 per bit (four spb-tap correlations and the energies), K8 and K9 4 x
+    129 per analytic output (two 129-tap FMAs), 6 per phasor (K8), 4 per
+    nonzero boxcar or quadrature tap of the winning offset (two streams)
+    and 11 per K9 margin."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.ops import fsk as tf
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.parallel.batch import demod_pack_batch
+
+    t, msps, bounds = {}, {}, {}
+    plain_cap = min(8, n_cap)
+    for mode, spec in _FSK_SLICES.items():
+        t0 = time.perf_counter()
+        rate = spec["rate"]
+        baud, mark, space = _fsk_params(mode, rate)
+        spb = int(round(SR / baud))
+        wave = _fsk_wave(_payload(0, payload_bytes), "bench.bin", mode, rate)
+        one = _rows(_tiled(wave, n)[None], "int16", device, mode, rate)
+        x = one.expand(n_cap, -1, -1).contiguous()  # ship once, tile on the card
+        del one
+        b, r, c = x.shape
+        ms = _time_ms(lambda: demod_pack_batch(x, mode, rate))
+        msps[mode] = b * n / (ms * 1e-3) / 1e6
+        say(f"[6 time] demod_pack_batch {mode} {b} x {n} int16 rows {tuple(x.shape)}: {ms:.3f} ms = "
+            f"{msps[mode]:.2f} Msamples/s | {card}")
+        _, _, found = demod_pack_batch(x, mode, rate)
+        check(bool(found.all()), f"{mode} bench batch: a capture found no magic")
+        x_bytes = x.numel() * x.element_size()
+        if mode == "FSK1200":
+            best, W, spr = tf.fsk_dual_pass1(x, baud, mark, space, SR)
+            n_bits = b * r * spr
+            bounds["fsk_tile_bits_batch"] = _bound(x_bytes + n_bits, n_bits * (8 * spb + 7))
+            t["fsk_tile_bits_batch"] = (
+                _time_ms(lambda: tk.fsk_tile_bits_batch(x, W, best, rows_per_capture=r, spr=spr)),
+                _time_ms(lambda: tk.fsk_tile_bits_batch_plain(x, W, best, spr)), b)
+            del x
+            flat = torch.from_numpy(_tiled(wave, n)[None]).to(device)
+            flat = torch.nn.functional.pad(flat, (0, r * spr * spb - n)).expand(n_cap, -1).contiguous()
+            rows = flat.reshape(n_cap, r, spr * spb)
+            bounds["fsk_project_bits_batch"] = _bound(rows.numel() * 4 + n_bits, n_bits * (8 * spb + 7))
+            t["fsk_project_bits_batch"] = (
+                _time_ms(lambda: tk.fsk_project_bits_batch(rows, W, best, rows_per_capture=r, spr=spr)),
+                _time_ms(lambda: tk.fsk_project_bits_batch_plain(rows, W, best, spr)), b)
+            del flat, rows
+        else:
+            pass1 = tf.fsk_disc_pass1 if mode == "FSK9600" else tf.fsk_quad_pass1
+            best, plan, Wf, W2 = pass1(x, baud, mark, space, SR)[:4]
+            kw = dict(rows_per_capture=r, nrow2=plan["nrow2"], row2=plan["row2"], ov2=plan["ov2"],
+                      spr2=plan["spr2"])
+            r2 = r * 128 // plan["row2"]
+            n_bits = b * r2 * plan["spr2"]
+            taps_nz = float(sum(int((W2[int(k)] != 0).sum()) for k in best.tolist()))  # per boxcar row
+            fir_ops = b * r * 128 * 4 * 129
+            if mode == "FSK9600":
+                entry = "fsk_disc_sums_batch"
+                ops = fir_ops + b * r * 128 * 6 + r2 * taps_nz * 4
+                bounds[entry] = _bound(x_bytes + 2 * 4 * n_bits, ops)
+                fn = lambda: tk.fsk_disc_sums_batch(x, Wf, W2, best, **kw)  # noqa: E731
+                xp = x[:plain_cap]
+                plain = lambda: tk.fsk_disc_sums_batch_plain(  # noqa: E731
+                    xp, Wf, W2, best[:plain_cap], plan["row2"], plan["ov2"])
+            else:
+                entry = "fsk_quad_margin_batch"
+                ops = fir_ops + r2 * taps_nz * 4 + n_bits * 11
+                bounds[entry] = _bound(x_bytes + 4 * n_bits, ops)
+                fn = lambda: tk.fsk_quad_margin_batch(x, Wf, W2, best, **kw)  # noqa: E731
+                xp = x[:plain_cap]
+                plain = lambda: tk.fsk_quad_margin_batch_plain(  # noqa: E731
+                    xp, Wf, W2, best[:plain_cap], plan["row2"], plan["ov2"], plan["spr2"])
+            t[entry] = (_time_ms(fn), _time_ms(plain), plain_cap)
+            del x, xp
+        torch.cuda.empty_cache()
+        say(f"[6 time] {mode}: {time.perf_counter() - t0:.1f} s | {card}")
+    for name, (ms, plain, pc) in t.items():
+        say(f"[6 time] {name} B={n_cap}: kernel {ms:.4f} ms, plain {plain:.4f} ms (plain at {pc} captures), "
+            f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]} | {card}")
+    return t, msps, bounds
 
 
 def main() -> int:
@@ -656,16 +1014,25 @@ def main() -> int:
         phase = "2 build"
         phase_build()
         phase = "3 K1"
-        errs = phase_decide(device, n_k1, n, payload_bytes, card)
+        errs = {k: (v, None) for k, v in phase_decide(device, n_k1, n, payload_bytes, card).items()}
+        phase = "3b FSK kernels"
+        errs.update(phase_fsk_kernels(device, n_k1, n, card))
         phase = "4 match/pack"
         r = blocked_row_shape(n, BAUD, SR)[0]
-        errs.update(phase_match_pack(device, r, card))
+        errs.update({k: (v, None) for k, v in phase_match_pack(device, r, card).items()})
         counts = {}
         for mode in _SLICES:
             phase = f"5 slice {mode}"
             counts[mode] = phase_slice(device, mode, n_slice, n, payload_bytes, card)
+        for tag, mode in zip(("5d", "5e", "5f"), _FSK_SLICES):
+            phase = f"5 slice {mode}"
+            counts.update(phase_fsk_slice(device, mode, n_slice, n, payload_bytes, tag, card))
         phase = "6 timing"
-        times, _ = phase_timing(device, n_slice, n, payload_bytes, card)
+        psk_times, _, bounds = phase_timing(device, n_slice, n, payload_bytes, card)
+        times = {k: (ms, plain, n_slice) for k, (ms, plain) in psk_times.items()}
+        fsk_times, _, fsk_bounds = phase_fsk_timing(device, n_slice, n, payload_bytes, card)
+        times.update(fsk_times)
+        bounds.update(fsk_bounds)
     except Exception as e:  # any failure: report the phase, print no result
         import traceback
 
@@ -674,13 +1041,20 @@ def main() -> int:
         return 1
 
     kernels = []
-    for entry, (wrapper, mode, src, line) in _ENTRIES.items():
+    for entry, (wrapper, run, src, line) in _ENTRIES.items():
         timed = times.get(entry) or times[f"{entry}@256"]  # the matchers: the 256-row tier
-        kernels.append({
+        err_abs, err_rel = errs[entry]
+        item = {
             "name": entry, "route": "cuda", "source": f"{_CSRC}/{src}",
-            "replaces": f"{_PALLAS}:{line}", "launches": counts[mode][wrapper],
-            "max_abs_err": errs[entry], "ms": timed[0], "plain_ms": timed[1],
-        })
+            "replaces": f"{_PALLAS}:{line}", "launches": counts[run][wrapper],
+            "max_abs_err": err_abs, "ms": timed[0], "plain_ms": timed[1],
+            "bound_ms": bounds[entry][0], "bound_by": bounds[entry][1], "library_ms": None,
+        }
+        if err_rel is not None:
+            item["max_rel_err"] = err_rel
+        if timed[2] != n_slice:
+            item["plain_captures"] = timed[2]
+        kernels.append(item)
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s | {card}")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

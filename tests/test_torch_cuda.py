@@ -240,3 +240,137 @@ def test_wrapper_rejects_non_contiguous(cuda):
     s = torch.zeros(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         tk.relabel_pack_batch(hi, hi, s, s, rows_per_capture=256)
+
+
+# --- FSK: K7, K13, K8, K9 --------------------------------------------------------
+
+# mode -> (symbol rate, baud, mark, space) as parallel.batch.resolve_demod_plan gives them.
+_FSK = {
+    "FSK1200": (1200, 1200.0, 1200.0, 2200.0),
+    "MSK@1000": (1000, 1000.0, 6000.0, 7000.0),
+    "MSK@9600": (9600, 9600.0, 6000.0, 15600.0),
+    "FT8": (50, 50.0, 3000.0, 3050.0),
+    "FSK9600": (9600, 9600.0, 1200.0, 2200.0),
+    "FSK19200": (19200, 19200.0, 8000.0, 16000.0),
+}
+
+
+def _fsk_batch(mode: str, n_cap: int = 3, seed: int = 0):
+    """``n_cap`` captures of framed FSK waves at different leads, sized to
+    hold them; returns (batch, n_sig) with n_sig the bits every capture's
+    signal covers."""
+    from audio_modem_radio_tpu_torch.ops.fsk import _samples_per_bit
+
+    rate, baud = _FSK[mode][:2]
+    name = mode.split("@")[0]
+    rng = np.random.default_rng(seed)
+    p = rng.integers(0, 256, 40 if name == "FT8" else 700, dtype=np.uint8).tobytes()
+    wave = modulate(name, pack_frame("f.bin", p, 0, 1, len(p), crc32(p)), rate)
+    n = 1 << int(np.ceil(np.log2(len(wave) + 64 * n_cap)))
+    batch = np.zeros((n_cap, n), np.float32)
+    for i in range(n_cap):
+        batch[i, 17 * i : 17 * i + len(wave)] = wave
+    return batch, len(wave) // _samples_per_bit(96000, baud) - 2
+
+
+def _fsk_rows(cuda, mode: str, dtype: str, n_cap: int = 3):
+    from audio_modem_radio_tpu_torch.config import CONFIG
+    from audio_modem_radio_tpu_torch.parallel.batch import host_shape_batch
+
+    rate = _FSK[mode][0]
+    batch, n_sig = _fsk_batch(mode, n_cap)
+    old = CONFIG.get("tpu.int16_rows")
+    CONFIG.set("tpu.int16_rows", dtype == "int16")
+    try:
+        shaped = host_shape_batch(batch, mode.split("@")[0], rate, device=cuda)
+    finally:
+        CONFIG.set("tpu.int16_rows", old)
+    return torch.from_numpy(shaped).to(cuda), batch, n_sig
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("mode", ["FSK1200", "MSK@1000", "MSK@9600", "FT8"])
+def test_fsk_tile_kernel_equals_plain(cuda, mode, dtype):
+    from audio_modem_radio_tpu_torch.ops.fsk import fsk_dual_pass1
+
+    x, _, n_sig = _fsk_rows(cuda, mode, dtype)
+    best, W, spr = fsk_dual_pass1(x, *_FSK[mode][1:], 96000)
+    before = tk.fsk_tile_bits_batch.launches
+    got = tk.fsk_tile_bits_batch(x, W, best, rows_per_capture=x.shape[1], spr=spr)
+    ref = tk.fsk_tile_bits_batch_plain(x, W, best, spr)
+    torch.cuda.synchronize()
+    assert tk.fsk_tile_bits_batch.launches == before + 1
+    assert torch.equal(got[:, :n_sig], ref[:, :n_sig])
+
+
+def test_fsk_project_kernel_equals_plain_and_tile(cuda):
+    from audio_modem_radio_tpu_torch.ops.fsk import fsk_demod_bits_batch, fsk_dual_pass1
+
+    x, batch, n_sig = _fsk_rows(cuda, "FSK1200", "float32")
+    flat = torch.from_numpy(batch).to(cuda)
+    before = tk.fsk_project_bits_batch.launches
+    bits_flat = fsk_demod_bits_batch(flat, 1200.0, 1200.0, 2200.0, 96000)
+    assert tk.fsk_project_bits_batch.launches == before + 1
+    assert bits_flat.shape == (3, batch.shape[1] // 80)
+    best, W, spr = fsk_dual_pass1(x, 1200.0, 1200.0, 2200.0, 96000)
+    rows = torch.nn.functional.pad(flat, (0, x.shape[1] * 1280 - flat.shape[1])).reshape(3, -1, 1280)
+    got = tk.fsk_project_bits_batch(rows, W, best, rows_per_capture=rows.shape[1], spr=spr)
+    ref = tk.fsk_project_bits_batch_plain(rows, W, best, spr)
+    tile = tk.fsk_tile_bits_batch(x, W, best, rows_per_capture=x.shape[1], spr=spr)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :n_sig], ref[:, :n_sig])
+    assert torch.equal(got[:, :n_sig], tile[:, :n_sig])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("mode", ["FSK9600", "FSK19200"])
+def test_fsk_fir_kernels_equal_plain(cuda, mode, dtype):
+    """K8's sums and K9's margins within 1e-4 of the largest plain value,
+    and the same bits, over the span every capture's signal covers."""
+    from audio_modem_radio_tpu_torch.ops import fsk as tf
+
+    x, _, n_sig = _fsk_rows(cuda, mode, dtype)
+    args = (*_FSK[mode][1:], 96000)
+    if mode == "FSK9600":
+        best, plan, Wf, Wb, _ = tf.fsk_disc_pass1(x, *args)
+        kernel, plain, W2 = tk.fsk_disc_sums_batch, tk.fsk_disc_sums_batch_plain, Wb
+    else:
+        best, plan, Wf, Wq = tf.fsk_quad_pass1(x, *args)
+        kernel, plain, W2 = tk.fsk_quad_margin_batch, tk.fsk_quad_margin_batch_plain, Wq
+    before = kernel.launches
+    got = kernel(x, Wf, W2, best, rows_per_capture=x.shape[1], nrow2=plan["nrow2"], row2=plan["row2"],
+                 ov2=plan["ov2"], spr2=plan["spr2"])
+    extra = () if mode == "FSK9600" else (plan["spr2"],)
+    ref = plain(x, Wf, W2, best, plan["row2"], plan["ov2"], *extra)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    got, ref = (got, ref) if mode == "FSK9600" else ((got,), (ref,))
+    for g, p in zip(got, ref):
+        g, p = g[:, :n_sig], p[:, :n_sig]
+        assert float((g - p).abs().max()) <= 1e-4 * float(p.abs().max())
+    bits = (tf.fsk_disc_bits_rows_batch if mode == "FSK9600" else tf.fsk_quad_bits_rows_batch)(x, *args)
+    assert bits.shape[1] >= n_sig
+
+
+@pytest.mark.parametrize("mode", ["FSK1200", "FSK9600", "FSK19200", "MSK", "FT8"])
+def test_fsk_decode_sample_batch_on_card(cuda, mode):
+    from audio_modem_radio_tpu_torch.framing import parse_frames
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
+
+    key = {"MSK": "MSK@9600"}.get(mode, mode)
+    rate = _FSK[key][0]
+    rng = np.random.default_rng(2)
+    p = rng.integers(0, 256, 30 if mode == "FT8" else 900, dtype=np.uint8).tobytes()
+    wave = modulate(mode, pack_frame("d.bin", p, 0, 1, len(p), crc32(p)), rate)
+    n = 1 << int(np.ceil(np.log2(len(wave) + 300)))
+    batch = np.zeros((3, n), np.float32)
+    batch[0, : len(wave)] = wave
+    batch[1, 211 : 211 + len(wave)] = wave
+    batch[2] = rng.normal(0, 0.3, n)
+    want = {"FSK1200": "fsk_tile_bits_batch", "MSK": "fsk_tile_bits_batch", "FT8": "fsk_tile_bits_batch",
+            "FSK9600": "fsk_disc_sums_batch", "FSK19200": "fsk_quad_margin_batch"}[mode]
+    tk.reset_launch_counts()
+    raws = decode_sample_batch(batch, mode, rate, device=cuda)
+    counts = tk.launch_counts()
+    assert {k for k, v in counts.items() if v > 0} == {want}
+    assert [[f.data for f in parse_frames(r)] for r in raws] == [[p], [p], []]

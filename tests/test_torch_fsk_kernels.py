@@ -1,0 +1,308 @@
+"""K7, K13, K8 and K9 of the PyTorch port: the plain versions vs the Pallas
+kernels in interpret mode and the JAX package's XLA paths, the CUDA
+kernels' arithmetic mirrored in numpy, and the wrappers' checks, on the CPU.
+
+The CUDA kernels cannot run here. What they compute beyond the plain
+versions (the band tables they read instead of the dense templates, K13's
+flat indexing, the FIR's taps and decimation recovered from its matrix, the
+16-row tiles of K8 and K9) is mirrored in numpy and held against the plain
+versions, which are in turn held against the JAX package.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from audio_modem_radio_tpu.framing import crc32, pack_frame
+from audio_modem_radio_tpu.ops import fsk as jfsk
+from audio_modem_radio_tpu.ops.pallas_kernels import (
+    fsk_disc_sums_batch as j_disc_sums,
+    fsk_project_bits_batch as j_project_bits,
+    fsk_quad_margin_batch as j_quad_margin,
+    fsk_tile_bits_batch as j_tile_bits,
+)
+from audio_modem_radio_tpu.parallel.batch import _overlap_rows as j_overlap_rows
+
+from audio_modem_radio_tpu_torch.ops import fsk as tfsk
+from audio_modem_radio_tpu_torch.ops import kernels as tk
+
+SR = 96000
+MARK, SPACE = 1200.0, 2200.0
+
+
+def _wave(baud, mark, space, seed, payload_len):
+    rng = np.random.default_rng(seed)
+    p = rng.integers(0, 256, payload_len, dtype=np.uint8).tobytes()
+    framed = pack_frame("k.bin", p, 0, 1, len(p), crc32(p))
+    return np.asarray(jfsk.fsk_modulate(framed, baud, mark, space, SR), np.float32)
+
+
+def _batch(baud, mark, space, n, leads, snr_db=None, seed=0, payload_len=600):
+    """One clean capture per lead (different timing offsets), plus one
+    capture with AWGN at ``snr_db`` when given."""
+    rows = []
+    for i, lead in enumerate(list(leads) + ([leads[0]] if snr_db is not None else [])):
+        w = _wave(baud, mark, space, seed + i, payload_len)[: n - lead]
+        row = np.zeros(n, np.float32)
+        row[lead : lead + len(w)] = w
+        rows.append(row)
+    batch = np.stack(rows)
+    if snr_db is not None:
+        rng = np.random.default_rng(seed + 99)
+        sig = batch[-1]
+        batch[-1] = sig + rng.normal(0, np.sqrt(np.mean(sig**2) / 10 ** (snr_db / 10)), n)
+    return batch
+
+
+def _n_sig(n, baud):
+    return n // jfsk._samples_per_bit(SR, baud) - 2
+
+
+def _check_bits(got, ref, n_sig, noisy_last):
+    """Bits equal on [0, n_sig) for clean captures; at most 1e-4 of them
+    different on the AWGN capture (summation order differs)."""
+    got, ref = np.asarray(got)[:, :n_sig], np.asarray(ref)[:, :n_sig]
+    clean = slice(0, len(got) - 1) if noisy_last else slice(None)
+    assert np.array_equal(got[clean], ref[clean])
+    if noisy_last:
+        assert np.mean(got[-1] != ref[-1]) <= 1e-4
+
+
+# --- K7 and K13 ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int16])
+@pytest.mark.parametrize("baud", [1200.0, 750.0])  # spr 16 (FSK1200) and 8 (spb 128)
+def test_tile_plain_equals_pallas_and_xla(baud, dtype):
+    spb = jfsk._samples_per_bit(SR, baud)
+    spr, row, ov = jfsk._fsk_geometry(spb)
+    n = 256 * row
+    batch = _batch(baud, MARK, SPACE, n, (0, spb // 3 + 1), snr_db=6.0, payload_len=250)
+    rows = j_overlap_rows(batch, 256, row, ov, dtype=dtype)
+    x = torch.from_numpy(rows)
+    best, W, spr_t = tfsk.fsk_dual_pass1(x, baud, MARK, SPACE, SR)
+    assert spr_t == spr
+    got = tk.fsk_tile_bits_batch(x, W, best, rows_per_capture=256, spr=spr)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (3, 256 * spr)
+    ref = j_tile_bits(jnp.asarray(rows), jnp.asarray(W.numpy()), jnp.asarray(best.numpy()),
+                      rows_per_capture=256, spr=spr, interpret=True)
+    _check_bits(got.numpy(), ref, _n_sig(n, baud), True)
+    for kernel in (True, False):
+        jbits = jfsk.fsk_dual_bits_rows_batch(jnp.asarray(rows), baud, MARK, SPACE, SR, kernel=kernel)
+        _check_bits(tfsk.fsk_dual_bits_rows_batch(x, baud, MARK, SPACE, SR).numpy(), jbits,
+                    _n_sig(n, baud), True)
+
+
+def test_project_plain_equals_pallas_and_xla():
+    baud = 1200.0
+    spb = jfsk._samples_per_bit(SR, baud)
+    spr, row, _ov = jfsk._fsk_geometry(spb)
+    n = 256 * row
+    batch = _batch(baud, MARK, SPACE, n, (0, 29), snr_db=6.0, payload_len=250)
+    W = jfsk._fsk_blocked_templates(spb, MARK, SPACE, SR, 8)
+    best = np.array([0, 3, 5], np.int32)
+    x3d = batch.reshape(3, 256, row)
+    got = tk.fsk_project_bits_batch(torch.from_numpy(x3d), torch.from_numpy(W), torch.from_numpy(best),
+                                    rows_per_capture=256, spr=spr)
+    ref = j_project_bits(jnp.asarray(x3d), jnp.asarray(W), jnp.asarray(best), rows_per_capture=256,
+                         spr=spr, interpret=True)
+    # The Pallas kernel reads the next capture at a capture's last row; the
+    # port reads zeros, so compare the rows before it.
+    _check_bits(got.numpy(), ref, (256 - 1) * spr, False)
+    got_b = tfsk.fsk_demod_bits_batch(torch.from_numpy(batch), baud, MARK, SPACE, SR)
+    ref_b = jfsk.fsk_demod_bits_batch(jnp.asarray(batch), baud, MARK, SPACE, SR)
+    _check_bits(got_b.numpy(), ref_b, _n_sig(n, baud), True)
+
+
+# --- K8 and K9 ------------------------------------------------------------------------
+
+def _fused(kind, dtype, n):
+    baud, mark, space = (9600.0, MARK, SPACE) if kind == "disc" else (19200.0, 8000.0, 16000.0)
+    batch = _batch(baud, mark, space, n, (0, 7), snr_db=15.0, payload_len=500)
+    shape = (jfsk.fsk_disc_row_shape if kind == "disc" else jfsk.fsk_quad_row_shape)(n, baud, mark, space, SR)
+    r, row, ov, lead = shape
+    rows = j_overlap_rows(batch, r, row, ov, lead=lead, dtype=dtype)
+    return rows, (baud, mark, space), _n_sig(n, baud)
+
+
+def _relative_close(got, ref, n_sig):
+    for g, p in zip(got, np.asarray(ref)):
+        g, p = np.asarray(g)[:n_sig], p[:n_sig]
+        assert np.abs(g - p).max() <= 1e-4 * np.abs(p).max()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int16])
+def test_disc_plain_equals_pallas_and_xla(dtype):
+    rows, cfg, n_sig = _fused("disc", dtype, 1 << 18)
+    x = torch.from_numpy(rows)
+    best, plan, Wf, Wb, _ = tfsk.fsk_disc_pass1(x, *cfg, SR)
+    kw = dict(rows_per_capture=rows.shape[1], nrow2=plan["nrow2"], row2=plan["row2"], ov2=plan["ov2"],
+              spr2=plan["spr2"])
+    sr, si = tk.fsk_disc_sums_batch(x, Wf, Wb, best, **kw)
+    sr_j, si_j = j_disc_sums(jnp.asarray(rows), jnp.asarray(Wf.numpy()), jnp.asarray(Wb.numpy()),
+                             jnp.asarray(best.numpy()), interpret=True, **kw)
+    _relative_close(sr.numpy(), sr_j, n_sig)
+    _relative_close(si.numpy(), si_j, n_sig)
+    bits = tfsk.fsk_disc_bits_rows_batch(x, *cfg, SR).numpy()
+    for kernel in (True, False) if dtype == np.float32 else (False,):
+        _check_bits(bits, jfsk.fsk_disc_bits_rows_batch(jnp.asarray(rows), *cfg, SR, kernel=kernel),
+                    n_sig, True)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int16])
+def test_quad_plain_equals_pallas_and_xla(dtype):
+    rows, cfg, n_sig = _fused("quad", dtype, 1 << 17)
+    x = torch.from_numpy(rows)
+    best, plan, Wf, Wq = tfsk.fsk_quad_pass1(x, *cfg, SR)
+    kw = dict(rows_per_capture=rows.shape[1], nrow2=plan["nrow2"], row2=plan["row2"], ov2=plan["ov2"],
+              spr2=plan["spr2"])
+    margin = tk.fsk_quad_margin_batch(x, Wf, Wq, best, **kw)
+    margin_j = j_quad_margin(jnp.asarray(rows), jnp.asarray(Wf.numpy()), jnp.asarray(Wq.numpy()),
+                             jnp.asarray(best.numpy()), interpret=True, **kw)
+    _relative_close(margin.numpy(), margin_j, n_sig)
+    bits = tfsk.fsk_quad_bits_rows_batch(x, *cfg, SR).numpy()
+    for kernel in (True, False) if dtype == np.float32 else (False,):
+        _check_bits(bits, jfsk.fsk_quad_bits_rows_batch(jnp.asarray(rows), *cfg, SR, kernel=kernel),
+                    n_sig, True)
+
+
+# --- the CUDA kernels' arithmetic, mirrored in numpy ----------------------------------
+
+def _tile_numpy(x3d, first, tab, span, best, flat):
+    """csrc/fsk_tile.cu: one bit at a time from the band tables; FLAT reads
+    the capture's flat stream (zeros past its end)."""
+    b, r, cols = x3d.shape
+    spr = first.shape[1]
+    out = np.zeros((b, r * spr), np.uint8)
+    for i in range(b):
+        k = best[i]
+        stream = np.concatenate([x3d[i].reshape(-1).astype(np.float32), np.zeros(2 * cols, np.float32)])
+        for g in range(r * spr):
+            j, s = divmod(g, spr)
+            p = j * cols + first[k, s]
+            v = stream[p : p + span] if flat else x3d[i, j, first[k, s] : first[k, s] + span].astype(np.float32)
+            a = tab[k, :, :, s] @ v.astype(np.float64)
+            out[i, g] = (a[0] ** 2 + a[1] ** 2) - (a[2] ** 2 + a[3] ** 2) > 0
+    return out
+
+
+@pytest.mark.parametrize("flat", [False, True])
+def test_tile_kernel_arithmetic_mirrored(flat):
+    baud = 1000.0  # spr 12: no Pallas geometry, the port's kernel takes it
+    spb = jfsk._samples_per_bit(SR, baud)
+    spr, row, ov = jfsk._fsk_geometry(spb)
+    r = 6
+    batch = _batch(baud, 6000.0, 7000.0, r * row, (0, 41), payload_len=60)
+    W = torch.from_numpy(jfsk._fsk_blocked_templates(spb, 6000.0, 7000.0, SR, 8))
+    first, tab, span = tk._band_tables(W, 4)
+    assert span == spb
+    best = np.array([2, 6], np.int32)
+    x3d = batch.reshape(2, r, row) if flat else j_overlap_rows(batch, r, row, ov)
+    plain = (tk.fsk_project_bits_batch_plain if flat else tk.fsk_tile_bits_batch_plain)(
+        torch.from_numpy(x3d), W, torch.from_numpy(best), spr).numpy()
+    mirror = _tile_numpy(x3d, first.numpy(), tab.numpy(), span, best, flat)
+    assert np.array_equal(mirror, plain)
+
+
+def _fir_numpy(rows, h, dec):
+    """csrc/fsk_fir.cuh: z[128g + l] = sum_k x[g, dec*l + k] * h[k], per capture."""
+    idx = dec * np.arange(128)[:, None] + np.arange(h.shape[1])[None, :]
+    zs = [rows[i].astype(np.float64)[:, idx] @ h.T for i in range(len(rows))]  # (r, 128, 2) each
+    return np.stack([z[..., 0].reshape(-1) for z in zs]), np.stack([z[..., 1].reshape(-1) for z in zs])
+
+
+@pytest.mark.parametrize("kind", ["disc", "quad"])
+def test_fir_kernels_arithmetic_mirrored(kind):
+    """K8 and K9 as the CUDA kernels compute them: taps and dec recovered
+    from the dense FIR matrix, 16-row tiles whose FIR rows past the capture
+    are zero, band tables of the boxcar / quadrature templates."""
+    n = 1 << 15
+    rows, cfg, n_sig = _fused(kind, np.float32, n)
+    x = torch.from_numpy(rows)
+    pass1 = tfsk.fsk_disc_pass1 if kind == "disc" else tfsk.fsk_quad_pass1
+    best, plan, Wf, W2 = pass1(x, *cfg, SR)[:4]
+    h, dec = tk._fir_taps(Wf)
+    assert dec == plan["dec"] and h.shape == (2, 129)
+    row2, ov2, spr2 = plan["row2"], plan["ov2"], plan["spr2"]
+    first, tab, span = tk._band_tables(W2, 1 if kind == "disc" else 4)
+    zr, zi = _fir_numpy(rows, h.astype(np.float64), dec)
+    b, r, _ = rows.shape
+    r2 = r * 128 // row2
+    zr = np.concatenate([zr, np.zeros((b, 2 * row2))], 1)
+    zi = np.concatenate([zi, np.zeros((b, 2 * row2))], 1)
+    out = np.zeros((2 if kind == "disc" else 1, b, r2 * spr2))
+    for i in range(b):
+        k = int(best[i])
+        for j in range(r2):
+            for s in range(spr2):
+                n0 = j * row2 + int(first[k, s])
+                sl = slice(n0, n0 + span)
+                if kind == "disc":
+                    pr = zr[i, n0 + 1 : n0 + span + 1] * zr[i, sl] + zi[i, n0 + 1 : n0 + span + 1] * zi[i, sl]
+                    pi = zi[i, n0 + 1 : n0 + span + 1] * zr[i, sl] - zr[i, n0 + 1 : n0 + span + 1] * zi[i, sl]
+                    out[:, i, j * spr2 + s] = pr @ tab[k, 0, :, s].numpy(), pi @ tab[k, 0, :, s].numpy()
+                else:
+                    M = tab[k, :, :, s].numpy() @ zr[i, sl]
+                    N = tab[k, :, :, s].numpy() @ zi[i, sl]
+                    u_m, v_m, u_s, v_s = M[0] + N[1], N[0] - M[1], M[2] + N[3], N[2] - M[3]
+                    out[0, i, j * spr2 + s] = u_m**2 + v_m**2 - u_s**2 - v_s**2
+    kw = dict(rows_per_capture=r, nrow2=plan["nrow2"], row2=row2, ov2=ov2, spr2=spr2)
+    if kind == "disc":
+        plain = [p.numpy() for p in tk.fsk_disc_sums_batch(x, Wf, W2, best, **kw)]
+    else:
+        plain = [tk.fsk_quad_margin_batch(x, Wf, W2, best, **kw).numpy()]
+    for got, ref in zip(out, plain):
+        assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+# --- the wrappers' checks --------------------------------------------------------------
+
+def test_band_tables_rebuild_the_dense_templates():
+    W = torch.from_numpy(jfsk._fsk_quadrature_templates_geom(5, 8000.0, 16000.0, SR, 8, 128, 640, 128))
+    first, tab, span = tk._band_tables(W, 4)
+    assert span == 5 and tuple(tab.shape) == (8, 4, 5, 128)
+    dense = torch.zeros_like(W).reshape(8, 768, 4, 128)
+    for t in range(span):
+        rows = first + t  # (8, 128)
+        for g in range(4):
+            dense[torch.arange(8)[:, None], rows, g, torch.arange(128)[None, :]] = tab[:, g, t, :]
+    assert torch.equal(dense.reshape(W.shape), W)
+
+
+def test_fir_taps_recovered_and_foreign_matrix_refused():
+    for baud, mark, space in ((9600.0, MARK, SPACE), (19200.0, 8000.0, 16000.0)):
+        spb = jfsk._samples_per_bit(SR, baud)
+        blo, bhi, dec, taps = jfsk._fir_frontend_plan(baud, mark, space, SR)
+        plan = jfsk._fsk_disc_kernel_plan(spb, dec, taps)
+        Wf = torch.from_numpy(jfsk._fir_padded_template(blo, bhi, SR, taps, dec, plan))
+        h, got_dec = tk._fir_taps(Wf)
+        taps_c = jfsk._analytic_fir_taps(blo, bhi, SR, taps)
+        assert got_dec == dec
+        assert np.array_equal(h[0], taps_c.real[::-1].astype(np.float32))
+        assert np.array_equal(h[1], taps_c.imag[::-1].astype(np.float32))
+    with pytest.raises(ValueError, match="decimating FIR"):
+        tk._fir_taps(torch.ones((640, 256)))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.zeros((2, 256, 1408), dtype=torch.float64)
+    W = torch.zeros((8, 1408, 64))
+    best = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="dtype"):
+        tk.fsk_tile_bits_batch(x, W, best, rows_per_capture=256, spr=16)
+    with pytest.raises(ValueError, match="rows_per_capture"):
+        tk.fsk_tile_bits_batch(x.float(), W, best, rows_per_capture=128, spr=16)
+    with pytest.raises(ValueError, match="best"):
+        tk.fsk_tile_bits_batch(x.float(), W, best.long(), rows_per_capture=256, spr=16)
+    with pytest.raises(ValueError, match="template rows"):
+        tk.fsk_tile_bits_batch(x.float()[:, :, :1280], W, best, rows_per_capture=256, spr=16)
+    fir = torch.zeros((2, 640, 640), dtype=torch.int16)
+    kw = dict(rows_per_capture=640, nrow2=128, row2=640, ov2=128, spr2=256)
+    with pytest.raises(ValueError, match="w_fir"):
+        tk.fsk_disc_sums_batch(fir, torch.zeros((637, 256)), torch.zeros((8, 768, 256)), best, **kw)
+    with pytest.raises(ValueError, match="FB"):
+        tk.fsk_disc_sums_batch(fir[:, :600], torch.zeros((640, 256)), torch.zeros((8, 768, 256)), best,
+                               **dict(kw, rows_per_capture=600))
+    with pytest.raises(ValueError, match="template"):
+        tk.fsk_quad_margin_batch(fir, torch.zeros((640, 256)), torch.zeros((8, 768, 256)), best, **kw)

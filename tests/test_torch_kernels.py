@@ -284,9 +284,18 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
     tk.bit_select_pack_batch(hi, lo, s, k, rows_per_capture=r)
     tk.sector_match_batch(hi, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2)
     tk.psk8_relabel_pack_rows(hi, k, s, rows_per_capture=r)
+    W = torch.zeros((8, 256, 64))
+    tk.fsk_tile_bits_batch(torch.zeros((2, 4, 256)), W, best, rows_per_capture=4, spr=16)
+    tk.fsk_project_bits_batch(torch.zeros((2, 4, 128)), W, best, rows_per_capture=4, spr=16)
+    fir = torch.zeros((2, 640, 640), dtype=torch.int16)
+    kw = dict(rows_per_capture=640, nrow2=128, row2=640, ov2=128)
+    tk.fsk_disc_sums_batch(fir, torch.zeros((640, 256)), torch.zeros((8, 768, 256)), best, spr2=256, **kw)
+    tk.fsk_quad_margin_batch(fir, torch.zeros((640, 256)), torch.zeros((8, 768, 512)), best, spr2=128, **kw)
     assert tk.launch_counts() == {
         "psk_project_decide_batch": 0, "rotation_match_batch": 0, "relabel_pack_batch": 0,
         "bit_select_pack_batch": 0, "sector_match_batch": 0, "psk8_relabel_pack_rows": 0,
+        "fsk_tile_bits_batch": 0, "fsk_project_bits_batch": 0, "fsk_disc_sums_batch": 0,
+        "fsk_quad_margin_batch": 0,
     }
 
 
