@@ -4,18 +4,20 @@ It sits beside the JAX package, which stays the reference, and imports
 ``torch`` and numpy, never JAX. It carries batched DQPSK, DBPSK, D8PSK and
 FSK (FSK1200, FSK9600, FSK19200, MSK, FT8) receive end to end: host
 shaping into sample rows or FIR windows, the pass-1 timing (and, for PSK,
-rotation) estimate, and ten hand-written CUDA kernels for the NVIDIA H100
-(``csrc/``): the PSK decide stage with a magic matcher and a pack per PSK
-mode, and the FSK dual-tone, discriminator and quadrature detectors. Entry
-points run on the card unless the caller passes ``device="cpu"``; on
-tensors that lie on the CPU each kernel's wrapper runs its plain PyTorch
-version.
+rotation) estimate, the PSK decide stage with a magic matcher and a pack
+per PSK mode, and the FSK dual-tone, discriminator and quadrature
+detectors; and the single-capture PSK receive (``decoder.decode_wav_file``
+-> ``modem.demodulate`` -> the recovery ladder) for BPSK, QPSK, 8PSK,
+APSK16, SSTV and PSK31. Twelve hand-written CUDA kernels for the NVIDIA
+H100 (``csrc/``) do the work on the card. Entry points run on the card
+unless the caller passes ``device="cpu"``; on tensors that lie on the CPU
+each kernel's wrapper runs its plain PyTorch version.
 """
 
 from .utils import torchenv  # noqa: F401  (pins float32 products to IEEE float32)
 from .config import CONFIG, ConfigManager
 from .framing import Frame, pack_frame, parse_frames
-from .modem import MODES, SAMPLE_RATE, modulate
+from .modem import MODES, SAMPLE_RATE, demodulate, modulate
 
 __version__ = "0.1.0"
 
@@ -27,6 +29,7 @@ __all__ = [
     "parse_frames",
     "MODES",
     "SAMPLE_RATE",
+    "demodulate",
     "modulate",
     "__version__",
 ]

@@ -1,15 +1,20 @@
-"""Mode registry and modulation dispatch of the PyTorch port.
+"""Mode registry, modulation and single-capture demodulation of the PyTorch port.
 
-Counterpart of ``audio_modem_radio_tpu/modem.py:427-650`` for the modes the
-port carries so far: FSK1200 (1200/2200 Hz tones at 1200 Bd), FSK9600 (the
-same tones at 9600 Bd), FSK19200 (8/16 kHz at 19200 Bd), MSK (FSK with mark
-6 kHz, space 6 kHz + the rate), FT8 (50 Bd FSK, 3000/3050 Hz), BPSK (DBPSK
-on a 3 kHz carrier), QPSK (DQPSK, 3 kHz), 8PSK (real D8PSK on 12 kHz, or
-under CONFIG ``modem.psk8_compat_alias`` the reference's DQPSK alias),
-APSK16 (DQPSK, 12 kHz) and SSTV (DQPSK, 3 kHz).
-The other modes of the JAX registry arrive with their slices (ROADMAP.md,
-queue 1). Receive runs batched through ``parallel.batch``; the
-single-capture ``demodulate`` ladder is not ported yet.
+Counterpart of ``audio_modem_radio_tpu/modem.py`` for the modes the port
+carries: FSK1200 (1200/2200 Hz tones at 1200 Bd), FSK9600 (the same tones
+at 9600 Bd), FSK19200 (8/16 kHz at 19200 Bd), MSK (FSK with mark 6 kHz,
+space 6 kHz + the rate), FT8 (50 Bd FSK, 3000/3050 Hz), BPSK (DBPSK on a
+3 kHz carrier), QPSK (DQPSK, 3 kHz), 8PSK (real D8PSK on 12 kHz, or under
+CONFIG ``modem.psk8_compat_alias`` the reference's DQPSK alias), APSK16
+(DQPSK, 12 kHz), SSTV (DQPSK, 3 kHz) and PSK31 (DBPSK at 31.25 Bd, 3 kHz).
+
+:func:`demodulate` is the single-capture receive of every PSK mode, with
+the JAX package's coherent escalation (the Viterbi&Viterbi-tracked receiver
+when differential detection leaves the capture incomplete) and, for 8PSK,
+its probe-gated alias fallback. It runs on the card unless the caller
+passes ``device="cpu"``. The FSK modes' single-capture receiver is not
+ported (they decode through ``parallel.batch``), nor are the modes the
+registry lacks; both raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -20,17 +25,49 @@ from typing import Callable, Dict
 import numpy as np
 
 from .config import CONFIG
+from .framing import MAGIC, pack_frame, parse_frames_detailed
 from .ops.fsk import fsk_high_speed_modulate, fsk_modulate
-from .ops.psk import bpsk_modulate, psk8_real_modulate, qpsk_modulate
+from .ops.psk import (
+    bpsk_demodulate,
+    bpsk_modulate,
+    bpsk_tracked_demodulate,
+    psk8_real_demodulate,
+    psk8_real_modulate,
+    psk8_tracked_demodulate,
+    qpsk_demodulate,
+    qpsk_modulate,
+    qpsk_tracked_demodulate,
+)
+from .utils.torchenv import DeviceLike
 from .utils.wavio import SAMPLE_RATE  # noqa: F401  (re-export)
+
+# The single-capture FSK receiver (fsk_demod_bits with MLSE).
+FSK_SINGLE_ITEM = "ROADMAP.md queue 1, item 1 (single-capture FSK receiver)"
+# Modes of the JAX registry the port does not carry -> their ROADMAP.md item.
+_UNPORTED_MODES = {
+    "OFDM4": "item 4 (OFDM)", "OFDM8": "item 4 (OFDM)", "DSSS": "item 5 (DSSS)",
+    "HELLSCHREIBER": "item 6 (HELL)", "FELD_HELL": "item 6 (HELL)", "SLOW_HELL": "item 6 (HELL)",
+    "NEURAL": "item 7 (NEURAL)",
+}
 
 
 @dataclass(frozen=True)
 class ModeSpec:
-    """One transmission mode: ``modulate(framed_bytes, symbol_rate) -> waveform``."""
+    """One transmission mode: ``modulate(framed_bytes, symbol_rate) ->
+    waveform`` and ``demodulate(samples, symbol_rate, device) -> bytes``."""
 
     name: str
     modulate: Callable[[bytes, int], np.ndarray]
+    demodulate: Callable[..., bytes]
+
+
+def psk8_modulate(d, b=1200, c=3000.0, s=96000):
+    """8PSK alias: DQPSK (the reference's wire format)."""
+    return qpsk_modulate(d, b, c, s)
+
+
+def psk8_demodulate(x, b=1200, c=3000.0, s_r=96000, device: DeviceLike = None):
+    return qpsk_demodulate(x, b, c, s_r, device=device)
 
 
 def _psk8_mode_modulate(d, b, c, s=96000):
@@ -38,8 +75,127 @@ def _psk8_mode_modulate(d, b, c, s=96000):
     ``modem.psk8_compat_alias`` selects the reference-interoperable alias
     wire format, DQPSK."""
     if CONFIG.get("modem.psk8_compat_alias", False):
-        return qpsk_modulate(d, b, c, s)
+        return psk8_modulate(d, b, c, s)
     return psk8_real_modulate(d, b, c, s)
+
+
+def _alias_probe_hits(xs: np.ndarray, baud, carrier, samp_rate, probe_demod=None,
+                      device: DeviceLike = None) -> bool:
+    """True when a 2^16-sample alias-layer probe (DQPSK by default) finds
+    the frame magic: at the first sample above 0.02, and at the first
+    2^16-sample block with half the peak block energy and half a block
+    later (captures led by noise)."""
+    nz = np.flatnonzero(np.abs(xs) > 0.02)
+    if nz.size == 0:
+        return False
+    P = 1 << 16
+    blocks = len(xs) // P
+    starts = [int(nz[0])]
+    if blocks > 1:
+        e = np.add.reduceat(xs * xs, np.arange(0, blocks * P, P))
+        flb = int(np.argmax(e >= 0.5 * e.max()))
+        for cand in (flb * P, flb * P + P // 2):
+            if all(abs(cand - s) > P // 2 for s in starts):
+                starts.append(cand)
+    demod = probe_demod or qpsk_demodulate
+    for s0 in starts:
+        probe = np.zeros(P, np.float32)
+        w = xs[s0 : s0 + P]
+        probe[: len(w)] = w
+        try:
+            probed = demod(probe, baud, carrier, samp_rate, device=device)
+        except Exception:
+            return False
+        if MAGIC in probed:
+            return True
+    return False
+
+
+def _capture_complete(valid, damaged, raw) -> bool:
+    """True when a parsed capture needs no rescue: no damaged frames, and
+    either every file whose frames appear has all its parts CRC-valid, or
+    the stream holds no more frame magics than valid frames (no evidence of
+    a lost frame in this capture)."""
+    if damaged:
+        return False
+    parts = {}
+    for f in valid:
+        parts.setdefault((f.name, f.file_crc, f.total_parts), set()).add(f.part_number)
+    if all(len(got) >= total for (_, _, total), got in parts.items()):
+        return True
+    return raw.count(MAGIC) <= len(valid)
+
+
+def _frame_key(f):
+    return (f.name, f.file_crc, f.part_number, f.total_parts)
+
+
+def _merge_valid(stream, v_have, v_other):
+    """Append to ``stream`` the CRC-valid frames only the other stream
+    carried, re-serialized byte-exact."""
+    have = {_frame_key(f) for f in v_have}
+    extra = [f for f in v_other if _frame_key(f) not in have]
+    if not extra:
+        return stream
+    return stream + b"".join(
+        pack_frame(f.name, f.data, f.part_number, f.total_parts, f.file_size, f.file_crc) for f in extra
+    )
+
+
+def _coherent_escalate(raw, tracked_fn):
+    """The PSK coherent-escalation policy. A complete capture in ``raw``
+    ships as is (no tracked pass); otherwise the tracked stream runs and
+    the one with more CRC-valid frames ships (ties to ``raw``) with the
+    other's extra valid frames appended; with no valid frame anywhere the
+    tracked stream ships if it syncs at least as well; else None (the
+    caller keeps ``raw``)."""
+    v_raw, d_raw = parse_frames_detailed(raw)
+    if v_raw and _capture_complete(v_raw, d_raw, raw):
+        return raw
+    tracked = tracked_fn()
+    v_t, d_t = parse_frames_detailed(tracked)
+    if v_raw or v_t:
+        if len(v_t) > len(v_raw):
+            return _merge_valid(tracked, v_t, v_raw)
+        return _merge_valid(raw, v_raw, v_t)
+    if (d_t or MAGIC in tracked) and ((len(d_t), MAGIC in tracked) >= (len(d_raw), MAGIC in raw)):
+        return tracked
+    return None
+
+
+def _psk_mode_demodulate(x, b, c, sr=96000, n_psk=4, device: DeviceLike = None):
+    """DBPSK/DQPSK mode receive with coherent escalation."""
+    fn = qpsk_demodulate if n_psk == 4 else bpsk_demodulate
+    raw = fn(x, b, c, sr, device=device)
+    if CONFIG.get("modem.psk_coherent_escalation", True):
+        tfn = qpsk_tracked_demodulate if n_psk == 4 else bpsk_tracked_demodulate
+        out = _coherent_escalate(raw, lambda: tfn(x, b, c, sr, device=device))
+        if out is not None:
+            return out
+    return raw
+
+
+def _psk8_mode_demodulate(x, b, c, sr=96000, device: DeviceLike = None):
+    """Real-D8PSK receive with the probe-gated alias fallback (run before
+    the tracked escalation when no magic decodes) and coherent escalation."""
+    if CONFIG.get("modem.psk8_compat_alias", False):
+        return psk8_demodulate(x, b, c, sr, device=device)
+    raw = psk8_real_demodulate(x, b, c, sr, device=device)
+    if MAGIC not in raw and _alias_probe_hits(np.asarray(x, np.float32), b, c, sr, device=device):
+        return psk8_demodulate(x, b, c, sr, device=device)
+    if CONFIG.get("modem.psk_coherent_escalation", True):
+        out = _coherent_escalate(raw, lambda: psk8_tracked_demodulate(x, b, c, sr, device=device))
+        if out is not None:
+            return out
+    return raw
+
+
+def apsk16_modulate(d, b, c, s=96000):
+    return qpsk_modulate(d, b, c, s)
+
+
+def apsk16_demodulate(x, b, c, s=96000, device: DeviceLike = None):
+    return qpsk_demodulate(x, b, c, s, device=device)
 
 
 def msk_modulate(d, b, c, s=96000):
@@ -53,19 +209,41 @@ def ft8_modulate(d, b, c, s=96000):
     return fsk_modulate(d, 50, c, c + 50, s)
 
 
+def psk31_modulate(d, b, c, s=96000):
+    """PSK31 alias: DBPSK at 31.25 baud."""
+    del b
+    return bpsk_modulate(d, 31.25, c, s)
+
+
+def psk31_demodulate(x, b, c, sr=96000, device: DeviceLike = None):
+    del b
+    return bpsk_demodulate(x, 31.25, c, sr, device=device)
+
+
+def _fsk_single(x, r, device=None):
+    raise NotImplementedError(f"single-capture FSK demodulation is not ported: {FSK_SINGLE_ITEM}")
+
+
 MODES: Dict[str, ModeSpec] = {
-    "FSK1200": ModeSpec("FSK1200", lambda d, r: fsk_modulate(d, 1200, 1200.0, 2200.0)),
-    "FSK9600": ModeSpec("FSK9600", lambda d, r: fsk_modulate(d, 9600)),
-    "FSK19200": ModeSpec("FSK19200", lambda d, r: fsk_high_speed_modulate(d, 19200)),
-    "BPSK": ModeSpec("BPSK", lambda d, r: bpsk_modulate(d, r, 3000.0)),
-    "QPSK": ModeSpec("QPSK", lambda d, r: qpsk_modulate(d, r, 3000.0)),
-    "8PSK": ModeSpec("8PSK", lambda d, r: _psk8_mode_modulate(d, r, 12000.0)),
-    "APSK16": ModeSpec("APSK16", lambda d, r: qpsk_modulate(d, r, 12000.0)),
+    "FSK1200": ModeSpec("FSK1200", lambda d, r: fsk_modulate(d, 1200, 1200.0, 2200.0), _fsk_single),
+    "FSK9600": ModeSpec("FSK9600", lambda d, r: fsk_modulate(d, 9600), _fsk_single),
+    "FSK19200": ModeSpec("FSK19200", lambda d, r: fsk_high_speed_modulate(d, 19200), _fsk_single),
+    "BPSK": ModeSpec("BPSK", lambda d, r: bpsk_modulate(d, r, 3000.0),
+                     lambda x, r, device=None: _psk_mode_demodulate(x, r, 3000.0, n_psk=2, device=device)),
+    "QPSK": ModeSpec("QPSK", lambda d, r: qpsk_modulate(d, r, 3000.0),
+                     lambda x, r, device=None: _psk_mode_demodulate(x, r, 3000.0, n_psk=4, device=device)),
+    "8PSK": ModeSpec("8PSK", lambda d, r: _psk8_mode_modulate(d, r, 12000.0),
+                     lambda x, r, device=None: _psk8_mode_demodulate(x, r, 12000.0, device=device)),
+    "APSK16": ModeSpec("APSK16", lambda d, r: apsk16_modulate(d, r, 12000.0),
+                       lambda x, r, device=None: apsk16_demodulate(x, r, 12000.0, device=device)),
     # The reference GUI lists SSTV but ships no SSTV modulator; payloads ride
     # a DQPSK carrier.
-    "SSTV": ModeSpec("SSTV", lambda d, r: qpsk_modulate(d, r, 3000.0)),
-    "MSK": ModeSpec("MSK", lambda d, r: msk_modulate(d, r, 6000.0)),
-    "FT8": ModeSpec("FT8", lambda d, r: ft8_modulate(d, r, 3000.0)),
+    "SSTV": ModeSpec("SSTV", lambda d, r: qpsk_modulate(d, r, 3000.0),
+                     lambda x, r, device=None: qpsk_demodulate(x, r, 3000.0, device=device)),
+    "MSK": ModeSpec("MSK", lambda d, r: msk_modulate(d, r, 6000.0), _fsk_single),
+    "FT8": ModeSpec("FT8", lambda d, r: ft8_modulate(d, r, 3000.0), _fsk_single),
+    "PSK31": ModeSpec("PSK31", lambda d, r: psk31_modulate(d, r, 3000.0),
+                      lambda x, r, device=None: psk31_demodulate(x, r, 3000.0, device=device)),
 }
 
 
@@ -76,3 +254,19 @@ def modulate(mode: str, framed: bytes, symbol_rate: int) -> np.ndarray:
     if spec is None:
         raise ValueError(f"Unknown mode: {mode} (the PyTorch port carries {sorted(MODES)})")
     return spec.modulate(framed, symbol_rate)
+
+
+def demodulate(mode: str, samples: np.ndarray, symbol_rate: int, device: DeviceLike = None) -> bytes:
+    """Single-capture demodulation to the raw byte stream, on ``device``
+    (default: the card). Unknown modes fall back to QPSK, like the
+    reference decoder; modes of the JAX registry the port does not carry
+    raise NotImplementedError naming their ROADMAP.md item (DSSS under CONFIG
+    ``modem.dsss_compat_alias`` is plain DBPSK at 3 kHz and decodes)."""
+    if mode == "DSSS" and CONFIG.get("modem.dsss_compat_alias", False):
+        return bpsk_demodulate(samples, symbol_rate, 3000.0, device=device)
+    if mode in _UNPORTED_MODES:
+        raise NotImplementedError(
+            f"mode {mode!r} is not ported to PyTorch yet: ROADMAP.md queue 1, {_UNPORTED_MODES[mode]}"
+        )
+    spec = MODES.get(mode, MODES["QPSK"])
+    return spec.demodulate(samples, symbol_rate, device=device)

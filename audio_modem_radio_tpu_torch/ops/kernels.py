@@ -1,10 +1,13 @@
 """The batched receive slices' kernels: wrappers, plain PyTorch versions, launch counts.
 
-Counterpart of ``audio_modem_radio_tpu/ops/pallas_kernels.py`` for the ten
-kernels the batched DBPSK, DQPSK, D8PSK and FSK receive runs, with the JAX
+Counterpart of ``audio_modem_radio_tpu/ops/pallas_kernels.py`` for the
+twelve kernels the DBPSK, DQPSK, D8PSK and FSK receive runs, with the JAX
 names and argument order:
 
 * K1 :func:`psk_project_decide_batch` (``csrc/decide.cu``), ``n_psk`` 2, 4, 8,
+* K11 :func:`psk_project_diff` and K12 :func:`psk_project_diff_batch`
+  (``csrc/project_diff.cu``): the single-capture receiver's and the staged
+  batch's float differential streams, float32 or int16 rows,
 * K2 :func:`rotation_match_batch` (``csrc/rotmatch.cu``), families "qpsk"
   and "bpsk",
 * K3 :func:`relabel_pack_batch` (``csrc/relabel_pack.cu``),
@@ -155,14 +158,13 @@ def _decide(dr: torch.Tensor, di: torch.Tensor, n_psk: int):
     return neg.to(torch.uint8), (neg ^ swap).to(torch.uint8)
 
 
-def psk_project_decide_batch_plain(
-    x3d: torch.Tensor, w_all: torch.Tensor, best: torch.Tensor, rot: torch.Tensor,
-    n_psk: int = 4,
-):
-    """Plain K1: the dense blocked projection of ``ops/psk.py
+def psk_project_diff_batch_plain(
+    x3d: torch.Tensor, w_all: torch.Tensor, best: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K12: the dense blocked projection of ``ops/psk.py
     _blocked_project_xla`` (the next-row overlap of each capture's last row
-    is zero), the differential with the successor symbol (zero past the
-    capture's end), derotation by (cos θ, sin θ) and the decision."""
+    is zero) and the differential with the successor symbol (zero past the
+    capture's end). Returns (d_re, d_im), each (B, R*128) float32."""
     b, r, row = x3d.shape
     ov = w_all.shape[1] - row
     x = x3d.to(torch.float32)
@@ -173,8 +175,26 @@ def psk_project_decide_batch_plain(
     im = out[:, :, _BLOCK_SYM:].reshape(b, -1)
     re1 = torch.cat([re[:, 1:], re.new_zeros((b, 1))], dim=1)
     im1 = torch.cat([im[:, 1:], im.new_zeros((b, 1))], dim=1)
-    d_re = re1 * re + im1 * im
-    d_im = im1 * re - re1 * im
+    return re1 * re + im1 * im, im1 * re - re1 * im
+
+
+def psk_project_diff_plain(x2d: torch.Tensor, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K11: :func:`psk_project_diff_batch_plain` for one capture of
+    (R, ROW) rows and its one (ROW+OV, 256) template. Returns (d_re, d_im),
+    each (R, 128)."""
+    zero = torch.zeros(1, dtype=torch.int32, device=x2d.device)
+    d_re, d_im = psk_project_diff_batch_plain(x2d[None], w[None], zero)
+    return d_re.reshape(-1, _BLOCK_SYM), d_im.reshape(-1, _BLOCK_SYM)
+
+
+def psk_project_decide_batch_plain(
+    x3d: torch.Tensor, w_all: torch.Tensor, best: torch.Tensor, rot: torch.Tensor,
+    n_psk: int = 4,
+):
+    """Plain K1: plain K12's projection and differential, derotation by
+    (cos θ, sin θ) and the decision."""
+    b, r, _ = x3d.shape
+    d_re, d_im = psk_project_diff_batch_plain(x3d, w_all, best)
     c, s = rot[:, 0:1], rot[:, 1:2]
     dr = d_re * c + d_im * s
     di = d_im * c - d_re * s
@@ -236,6 +256,89 @@ def psk_project_decide_batch(
             _ptr(best), _ptr(rot), _ptr(hi), None if lo is None else _ptr(lo), b, r, spsym)
     psk_project_decide_batch.launches += 1
     return hi if n_psk == 8 else (hi, lo)
+
+
+# --- K11 and K12: projection + differential, float streams ---------------------
+
+_DIFF_DTYPES = {torch.float32: 0, torch.int16: 1}
+
+
+def _dual_basis(w_all: torch.Tensor, spsym: int) -> torch.Tensor:
+    """(n_offsets, 2*spsym, 2) dual-basis columns that each block-diagonal
+    (ROW+OV, 256) template repeats: symbol 0's re and im columns."""
+    return torch.stack([w_all[:, : 2 * spsym, 0], w_all[:, : 2 * spsym, _BLOCK_SYM]], dim=-1).contiguous()
+
+
+def _check_diff(name: str, x: torch.Tensor, w_all: torch.Tensor, block_rows: int) -> int:
+    """spsym of (..., R, ROW) rows against (n, ROW+OV, 256) templates."""
+    r, row = x.shape[-2:]
+    spsym = row // _BLOCK_SYM
+    _require(r % block_rows == 0 and r % 2 == 0, f"{name}: rows {r} vs block_rows={block_rows}")
+    _require(row % _BLOCK_SYM == 0 and 1 <= spsym <= 32, f"{name}: row width {row}")
+    _require(x.dtype in _DIFF_DTYPES, f"{name}: x dtype {x.dtype}")
+    _require(w_all.dtype == torch.float32 and w_all.ndim == 3 and row >= w_all.shape[1] - row >= 2 * spsym
+             and w_all.shape[2] == 2 * _BLOCK_SYM, f"{name}: template {w_all.dtype} {tuple(w_all.shape)}")
+    return spsym
+
+
+def psk_project_diff_batch(
+    x3d: torch.Tensor,
+    w_all: torch.Tensor,
+    best: torch.Tensor,
+    rows_per_capture: int,
+    block_rows: int = 256,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole-batch projection + differential: float32 (d_re, d_im), each
+    (B, R, 128).
+
+    Args:
+      x3d: (B, R, 128*spsym) float32 or int16 sample rows (integers cast
+        unscaled), R a multiple of ``block_rows``.
+      w_all: (n_offsets, 128*spsym + OV, 256) float32 blocked templates; the
+        kernel reads the (2*spsym, 2) dual basis each one repeats.
+      best: (B,) int32 winning timing offset per capture.
+    Each capture's last entry is 0 (no successor); samples past a capture's
+    end read as zero, where the Pallas kernel's lookahead reads the next
+    capture's head (garbage by its contract).
+    """
+    _require(x3d.ndim == 3 and x3d.shape[1] == rows_per_capture,
+             f"x3d {tuple(x3d.shape)} vs rows_per_capture={rows_per_capture}")
+    spsym = _check_diff("psk_project_diff_batch", x3d, w_all, block_rows)
+    b, r, _ = x3d.shape
+    _check_best("psk_project_diff_batch", best, b, w_all.shape[0])
+    dev = _same_device(x3d, w_all, best)
+    if dev.type == "cpu":
+        d_re, d_im = psk_project_diff_batch_plain(x3d, w_all, best)
+        return d_re.reshape(b, r, _BLOCK_SYM), d_im.reshape(b, r, _BLOCK_SYM)
+    d_re = torch.empty((b, r, _BLOCK_SYM), dtype=torch.float32, device=dev)
+    d_im = torch.empty_like(d_re)
+    _launch("amr_project_diff_batch", dev, _ptr(x3d), _DIFF_DTYPES[x3d.dtype], _ptr(_dual_basis(w_all, spsym)),
+            _ptr(best), _ptr(d_re), _ptr(d_im), b, r, spsym)
+    psk_project_diff_batch.launches += 1
+    return d_re, d_im
+
+
+def psk_project_diff(
+    x2d: torch.Tensor, w: torch.Tensor, block_rows: int = 64
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One capture's projection + differential: (R, 128*spsym) float32 or
+    int16 rows, R a multiple of ``block_rows``, and the winning offset's
+    (128*spsym + OV, 256) template -> (d_re, d_im), each (R, 128) float32.
+    Samples past the last row read as zero, as the Pallas kernel's appended
+    zero rows; the last entry is 0 (no successor)."""
+    _require(x2d.ndim == 2 and w.ndim == 2, f"x2d {tuple(x2d.shape)}, w {tuple(w.shape)}")
+    _require(block_rows % 8 == 0, f"block_rows={block_rows} must be a multiple of 8")
+    spsym = _check_diff("psk_project_diff", x2d, w[None], block_rows)
+    r = x2d.shape[0]
+    dev = _same_device(x2d, w)
+    if dev.type == "cpu":
+        return psk_project_diff_plain(x2d, w)
+    d_re = torch.empty((r, _BLOCK_SYM), dtype=torch.float32, device=dev)
+    d_im = torch.empty_like(d_re)
+    _launch("amr_project_diff", dev, _ptr(x2d), _DIFF_DTYPES[x2d.dtype], _ptr(_dual_basis(w[None], spsym)),
+            _ptr(d_re), _ptr(d_im), r, spsym)
+    psk_project_diff.launches += 1
+    return d_re, d_im
 
 
 # --- K2: rotation x parity (QPSK) or stream x inversion (BPSK) magic match -------
@@ -897,6 +1000,7 @@ KERNELS = (
     psk_project_decide_batch, rotation_match_batch, relabel_pack_batch,
     bit_select_pack_batch, sector_match_batch, psk8_relabel_pack_rows,
     fsk_tile_bits_batch, fsk_project_bits_batch, fsk_disc_sums_batch, fsk_quad_margin_batch,
+    psk_project_diff, psk_project_diff_batch,
 )
 
 

@@ -21,8 +21,17 @@ FT8). The pipeline:
           FSK: pass 1 (timing offset, plain torch), then K7 (dual tone), K8
           (discriminator, followed by atan2 + equalizer + decision) or K9
           (quadrature margin); K13 for flat dual-tone input; then the
-          plain-torch sync tail: first exact magic, shift, byte pack
-  host:   strict FBPC frame parse, decompression, assembly, save
+          plain-torch sync tail: first exact magic, shift, byte pack.
+          PSK captures without a blocked path (PSK31, symbols over 32
+          samples, captures under 256 symbols) run the single-capture
+          receiver per capture (K11, rotation, decision) and the
+          per-capture plain-torch sync tails; CONFIG
+          ``tpu.demod_backend = "xla"`` selects the staged D8PSK path (K12)
+          and the per-capture tails for every PSK kind
+  host:   the recovery ladder per capture (strict FBPC parse,
+          header-tolerant recovery, no-sync rescue), the coherent and
+          clock-drift escalations of lost captures, decompression,
+          assembly, save
 
 ``jit`` and ``vmap`` have no counterpart here: the batch dimension is
 written out and each tier of the prefix scan is one scalar read to the host
@@ -40,9 +49,16 @@ import torch.nn.functional as F
 
 from ..assembly import AssemblyRegistry
 from ..config import CONFIG
-from ..framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2, parse_frames
-from ..modem import SAMPLE_RATE
-from ..ops.common import find_bit_pattern, pack_bits_from
+from ..framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
+from ..modem import FSK_SINGLE_ITEM, SAMPLE_RATE
+from ..ops.common import (
+    bit_sync_and_pack_rotations,
+    dibit_sync_and_pack,
+    dibit_sync_and_pack_rotations,
+    find_bit_pattern,
+    find_bit_pattern_validated,
+    pack_bits_from,
+)
 from ..ops.fsk import (
     _fir_frontend_plan,
     _fsk_disc_kernel_plan,
@@ -65,7 +81,13 @@ from ..ops.kernels import (
     rotation_match_batch,
     sector_match_batch,
 )
-from ..ops.psk import blocked_row_shape, psk8_sector_rows_batch, psk_decision_streams_batch
+from ..ops.psk import (
+    blocked_row_shape,
+    psk8_sector_rows_batch,
+    psk8_sector_staged,
+    psk8_sync_and_pack_rotations,
+    psk_decision_streams_batch,
+)
 from ..utils.torchenv import DeviceLike, resolve_device
 from ..utils.wavio import read_wav, resample
 
@@ -82,10 +104,7 @@ _UNPORTED_KINDS = {
 }
 _PORTED_KINDS = ("psk2", "psk4", "psk8", "fsk")
 # What the single-capture FSK receiver (fsk_demod_bits, MLSE) would take.
-_FSK_SINGLE = (
-    "the single-capture FSK receiver (fsk_demod_bits with MLSE) is not ported: "
-    "ROADMAP.md queue 1, item 1 (recovery ladder)"
-)
+_FSK_SINGLE = f"the single-capture FSK receiver (fsk_demod_bits with MLSE) is not ported: {FSK_SINGLE_ITEM}"
 
 
 def resolve_demod_plan(mode: str, symbol_rate: int) -> Tuple[str, tuple]:
@@ -323,11 +342,18 @@ def demod_pack_batch(
 
     Demod + magic sync + byte pack for the whole batch. Ported kinds: 'psk4'
     (QPSK, APSK16, SSTV, and 8PSK under ``modem.psk8_compat_alias``), 'psk2'
-    (BPSK, and DSSS under ``modem.dsss_compat_alias``), 'psk8' (8PSK) and
-    'fsk' (FSK1200, FSK9600, FSK19200, MSK, FT8; flat input only for dual
-    tones). Other kinds, ``fsk_mlse``, and FSK inputs that only the
-    single-capture receiver takes raise NotImplementedError naming the
-    ROADMAP.md item that will port them.
+    (BPSK, PSK31, and DSSS under ``modem.dsss_compat_alias``), 'psk8'
+    (8PSK) and 'fsk' (FSK1200, FSK9600, FSK19200, MSK, FT8; flat input only
+    for dual tones). The PSK kinds take the kernel sync tails (K2 + K3/K4,
+    K5 + K6) on blocked streams and the per-capture plain-torch tails on the
+    single-capture streams of captures without a blocked path, as the JAX
+    package picks them by stream length; D8PSK zero-pads to the kernels'
+    grain and keeps K5 + K6 there. Under CONFIG ``tpu.demod_backend =
+    "xla"`` D8PSK runs the staged float path (K12, rotation, sectors) and
+    every PSK kind the per-capture tails. Other kinds, ``fsk_mlse``, FSK
+    under ``"xla"`` and FSK inputs that only the single-capture receiver
+    takes raise NotImplementedError naming the ROADMAP.md item that will
+    port them.
     """
     kind, params = _receive_kind(mode, symbol_rate)
     if kind not in _PORTED_KINDS:
@@ -335,7 +361,10 @@ def demod_pack_batch(
             f"mode {mode!r} (demodulator kind {kind!r}) is not ported to PyTorch yet: "
             f"ROADMAP.md queue 1, {_UNPORTED_KINDS[kind]}"
         )
+    xla = CONFIG.get("tpu.demod_backend", "auto") == "xla"
     if kind == "fsk":
+        if xla:
+            raise NotImplementedError(f"FSK under CONFIG tpu.demod_backend='xla': {_FSK_SINGLE}")
         if fsk_mlse:
             raise NotImplementedError(f"MLSE (CONFIG modem.batch_mlse): {_FSK_SINGLE}")
         # The JAX package's sync tail as it is: the first exact magic (no
@@ -346,6 +375,10 @@ def demod_pack_batch(
         return packed, n_valid, found
     baud, carrier = params
     if kind == "psk8":
+        if xla:
+            sec = psk8_sector_staged(samples, baud, carrier, SAMPLE_RATE, cfo=cfo_retry)
+            return _per_capture(lambda s: psk8_sync_and_pack_rotations(
+                s, MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2), sec)
         sec = psk8_sector_rows_batch(samples, baud, carrier, SAMPLE_RATE, cfo=cfo_retry)
         # Zero-pad to the matcher's row grain: zero sectors cannot match the
         # exact part of the magic (its tribits hit 5 distinct sectors under
@@ -359,9 +392,37 @@ def demod_pack_batch(
     hi, lo = psk_decision_streams_batch(
         samples, baud, carrier, SAMPLE_RATE, n_psk=n_psk, cfo=cfo_retry
     )
+    if not xla and hi.shape[1] % (128 * _MATCH_BLOCK_ROWS) == 0:
+        tail = psk4_kernel_sync_tail if kind == "psk4" else psk2_kernel_sync_tail
+        return tail(hi, lo, cfo_retry)
+    return _per_capture(_psk_capture_tail(kind, cfo_retry), hi, lo)
+
+
+def _psk_capture_tail(kind: str, cfo_retry: bool):
+    """The JAX package's per-capture DQPSK/DBPSK tail for one (hi, lo)
+    capture: the validated rotation sync, or with ``cfo_retry`` off the
+    validated k=0 sync (the parity-aligned dibit match, or the re stream's
+    pattern find)."""
+    pat, pat2 = MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
     if kind == "psk4":
-        return psk4_kernel_sync_tail(hi, lo, cfo_retry)
-    return psk2_kernel_sync_tail(hi, lo, cfo_retry)
+        sync = dibit_sync_and_pack_rotations if cfo_retry else dibit_sync_and_pack
+        return lambda h, l: sync(h, l, pat, pat2)
+    if cfo_retry:
+        return lambda br, bi: bit_sync_and_pack_rotations(br, bi, pat, pat2)
+
+    def sync_pack_one(br, _bi):
+        start, found = find_bit_pattern_validated(br, pat, pat2)
+        packed, n_valid = pack_bits_from(br[None], start.reshape(1))
+        return packed[0], n_valid, found
+
+    return sync_pack_one
+
+
+def _per_capture(tail, *streams) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run a single-capture sync tail on every row of the (B, n) streams and
+    stack ``(packed (B, max_bytes), n_valid (B,), found (B,))``."""
+    out = [tail(*rows) for rows in zip(*streams)]
+    return tuple(torch.stack([o[j] for o in out]) for j in range(3))
 
 
 # --- host orchestration --------------------------------------------------------
@@ -512,18 +573,32 @@ def decode_wav_batch(
     recv_dir: str = "recv",
     registry: Optional[AssemblyRegistry] = None,
     device: DeviceLike = None,
+    stream_fec: bool = False,
+    denoise: Optional[bool] = None,
+    drift_retry: bool = True,
 ) -> List[List[str]]:
     """Decode many WAV files in one device batch.
 
     Returns, per input WAV, the list of file paths recovered from it.
     Frames from all captures feed one assembly registry, so a multi-part
-    transfer spread across several captures reassembles here. Each capture
-    gets the strict parse only; the recovery ladder is not ported yet, nor
-    the JAX package's MLSE re-dispatch of lost close-tone FSK captures
-    (ROADMAP.md queue 1, item 1): such captures stay lost, with a warning.
+    transfer spread across several captures reassembles here. Every capture
+    runs ``decoder.run_recovery_ladder`` (strict parse, header-tolerant
+    recovery, the no-sync rescue on total loss); then the captures that
+    yielded nothing go through the coherent escalation (the carrier-tracked
+    single-capture receiver; psk2, psk4 and psk8 outside the compatibility
+    aliases) and, with ``drift_retry``, the ±5% clock-drift hypotheses as
+    one extra batched dispatch. The JAX package's MLSE re-dispatch of lost
+    close-tone FSK captures is not ported (ROADMAP.md queue 1, item 1):
+    such captures stay lost, with a warning. ``stream_fec`` and ``denoise``
+    raise NotImplementedError (the FEC item).
     """
-    from ..decoder import save_decoded_files
+    from ..decoder import RETRY_FACTORS, default_registry, drift_rows, run_recovery_ladder, save_decoded_files
+    from ..ops.psk import bpsk_tracked_demodulate, psk8_tracked_demodulate, qpsk_tracked_demodulate
 
+    if denoise is None:
+        denoise = bool(CONFIG.get("modem.noise_reduction", False))
+    if stream_fec or denoise:
+        raise NotImplementedError("stream FEC and the denoiser are not ported: ROADMAP.md queue 1, item 2 (FEC)")
     arrays = [_read_wav_row(p) for p in paths]
     n = _bucket_length([max(len(a), 1) for a in arrays])
     batch = np.zeros((len(arrays), n), dtype=np.float32)
@@ -531,12 +606,71 @@ def decode_wav_batch(
         batch[i, : min(len(a), n)] = a[:n]
 
     raws = decode_sample_batch(batch, mode, symbol_rate, device=device)
-    out = []
-    for path, raw in zip(paths, raws):
-        frames = parse_frames(raw)
-        out.append(save_decoded_files(frames, recv_dir, registry))
-        if not frames and _fsk_close_tones(mode, symbol_rate):
-            logger.warning("%s: no frame; the MLSE re-dispatch is not ported (%s)", path, _FSK_SINGLE)
+    reg = registry or default_registry
+
+    def ladder(raw: bytes, samples_i: np.ndarray, rescue: bool):
+        frames, damaged, _loss, _counts = run_recovery_ladder(
+            raw, samples_i, mode, symbol_rate, stats=reg.stats, rescue=rescue, device=device)
+        return frames, damaged
+
+    out: List[List[str]] = []
+    lost: List[int] = []
+    for i, raw in enumerate(raws):
+        frames, damaged = ladder(raw, arrays[i], rescue=True)
+        out.append(save_decoded_files(frames, recv_dir, registry, damaged=damaged or None))
+        # Lost: nothing saved and no CRC-valid frame (a valid part banked in
+        # the assembly is progress).
+        if not out[-1] and not frames:
+            lost.append(i)
+    if lost and _fsk_close_tones(mode, symbol_rate):
+        for i in lost:
+            logger.warning("%s: no frame; the MLSE re-dispatch is not ported (%s)", paths[i], _FSK_SINGLE)
+
+    kind, params = resolve_demod_plan(mode, symbol_rate)
+    if (
+        lost
+        and kind in ("psk2", "psk4", "psk8")
+        and CONFIG.get("modem.psk_coherent_escalation", True)
+        and not (kind == "psk8" and CONFIG.get("modem.psk8_compat_alias", False))
+    ):
+        tfn = {"psk2": bpsk_tracked_demodulate, "psk4": qpsk_tracked_demodulate,
+               "psk8": psk8_tracked_demodulate}[kind]
+        still_lost = []
+        for i in lost:
+            if len(arrays[i]) < 2 * int(SAMPLE_RATE // params[0]):
+                still_lost.append(i)
+                continue
+            try:
+                traw = tfn(arrays[i], params[0], params[1], SAMPLE_RATE, device=device)
+            except ValueError:  # a degenerate capture stays lost
+                still_lost.append(i)
+                continue
+            frames, damaged = ladder(traw, arrays[i], rescue=False)
+            saved = save_decoded_files(frames, recv_dir, registry, damaged=damaged or None)
+            if saved:
+                out[i] = saved
+            elif not frames:
+                still_lost.append(i)
+        lost = still_lost
+
+    if drift_retry and lost:
+        drift = [f for f in RETRY_FACTORS if f != 1.0]
+        m = _bucket_length([int(np.ceil(n * max(drift)))])
+        retry = np.zeros((len(lost) * len(drift), m), dtype=np.float32)
+        for j, i in enumerate(lost):
+            if len(arrays[i]) >= 2:  # an unreadable WAV keeps empty rows
+                retry[j * len(drift) : (j + 1) * len(drift)] = drift_rows(arrays[i], drift, m)
+        retry_raws = decode_sample_batch(retry, mode, symbol_rate, device=device)
+        for j, i in enumerate(lost):
+            for k in range(len(drift)):
+                row = j * len(drift) + k
+                frames, damaged = ladder(retry_raws[row], retry[row], rescue=False)
+                if not frames and not damaged:
+                    continue
+                saved = save_decoded_files(frames, recv_dir, registry, damaged=damaged or None)
+                if saved or frames:  # a spurious damaged parse must not end the sweep
+                    out[i] = saved
+                    break
     return out
 
 

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's batched receive, PSK (DQPSK, DBPSK, D8PSK) and
-FSK (FSK1200, FSK9600, FSK19200, with MSK and FT8 on the dual-tone kernel),
-once on one NVIDIA GPU.
+"""Drive the PyTorch port's receive once on one NVIDIA GPU: the batched PSK
+(DQPSK, DBPSK, D8PSK) and FSK (FSK1200, FSK9600, FSK19200, with MSK and FT8
+on the dual-tone kernel) slices, and the single-capture PSK receive
+(``decode_wav_file`` -> ``modem.demodulate`` -> the recovery ladder).
 
-    python3 chip_smoke.py    # one card, full size, about 2.5 minutes on an H100
+    python3 chip_smoke.py    # one card, full size, about 4 minutes on an H100
 
 It runs only on a CUDA card; the CPU checks of the same code are the tests
 ``tests/test_torch_*.py``. On a host with several cards it uses the first
@@ -29,6 +30,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (FSK19200). Bits equal on clean captures, at most 1e-4 different with
    AWGN (6 dB for the dual tones, 15 dB for FSK9600 and FSK19200); K8's
    sums and K9's margins within 1e-4 of the largest plain value;
+3c. K12 vs plain on 8 x 2^24-sample QPSK and 8PSK captures (blocked rows,
+   float32 and int16) and K11 vs plain on one 2^24-sample float32 capture
+   (the single-capture layout, 64-row padded): the float streams within
+   1e-5 of their RMS, and the Gray dibits (QPSK) or π/4 sectors (8PSK)
+   decided from them after derotation by pass 1's θ equal on every symbol;
 4. the matchers and packs vs plain at the main path's row count: K2 (qpsk
    and bpsk families), K5 on streams built under every hypothesis plus a
    noise capture, (first, found) equal on the 256-row prefix and on the
@@ -44,11 +50,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flat (B, N) captures through ``demod_pack_batch``, the path of K13, with
    the counts reset again. Then ``decode_wav_batch`` on 4 WAVs written by
    the port (QPSK, 8PSK, FSK1200 and FSK9600);
+5g. single-capture decodes: for QPSK@9600, BPSK@9600 and 8PSK@9600, one
+   2^24-sample WAV written by the port carrying a 128 KiB random file in 8
+   parts of 16 KiB (each compressed on its own and framed, one
+   transmission), decoded by ``decoder.decode_wav_file(device="cuda")``: the
+   reassembled file equals the sent one and K11 is the only kernel
+   launched, once; the same at the carrier +100 Hz; a noise-only WAV saves
+   nothing (its launches and the ladder's host reads are printed). Then a
+   PSK31 WAV (one short file; no kernel at 3072 samples per symbol) and a
+   batch of 8 captures under 256 symbols through ``decode_sample_batch``
+   (K11 once per capture);
+5h. the 8PSK slice batch again under CONFIG ``tpu.demod_backend = "xla"``:
+   the staged float path, K12 launched once and no other kernel;
 6. timing with CUDA events (one warm-up, median of 5): ``demod_pack_batch``
    of each mode on its 64 x 2^24 int16 batch staged on the card (PSK with
    cfo_retry on and off), and each kernel and variant beside its plain
    version (K1@4 also on int8 rows; the plain K8 and K9 at 8 captures,
-   where their float32 intermediates fit).
+   where their float32 intermediates fit; K11 on one float32 capture, K12
+   on 64 x 2^24 int16 rows); and each mode's single-capture
+   ``decode_wav_file`` by the host clock (median of 3) with its device
+   kernel time under ``torch.profiler``.
 
 The line before the last is one JSON object with the kernels' names,
 sources, launch counts, errors, times and bounds (one entry per kernel and
@@ -122,7 +143,11 @@ _ENTRIES = {
     "fsk_project_bits_batch": ("fsk_project_bits_batch", "FSK1200 flat", "fsk_tile.cu", 481),
     "fsk_disc_sums_batch": ("fsk_disc_sums_batch", "FSK9600", "fsk_disc.cu", 741),
     "fsk_quad_margin_batch": ("fsk_quad_margin_batch", "FSK19200", "fsk_quad.cu", 858),
+    "psk_project_diff": ("psk_project_diff", "QPSK single", "project_diff.cu", 199),
+    "psk_project_diff_batch": ("psk_project_diff_batch", "8PSK xla", "project_diff.cu", 126),
 }
+# The single-capture decodes of phase 5g: 128 KiB in 8 parts of 16 KiB.
+_FILE_BYTES, _N_PARTS = 128 * 1024, 8
 
 
 class PhaseError(RuntimeError):
@@ -156,6 +181,27 @@ def _wave(payload: bytes, name: str, mode: str = "QPSK", offset_hz: float = 0.0)
         return modulate(mode, framed, BAUD)
     fn = {"QPSK": qpsk_modulate, "BPSK": bpsk_modulate, "8PSK": psk8_real_modulate}[mode]
     return fn(framed, BAUD, _SLICES[mode]["carrier"] + offset_hz)
+
+
+def _multipart_transmission(mode: str, seed: int, offset_hz: float = 0.0):
+    """(file, wave): a random 128 KiB file in 8 parts of 16 KiB, each part
+    compressed on its own and framed as the JAX ``encoder.py`` frames a
+    multi-part file (``name.partN``, the whole file's size and CRC), the 8
+    frames modulated as one transmission on the mode's carrier +
+    ``offset_hz``."""
+    from audio_modem_radio_tpu_torch.framing import crc32, pack_frame
+    from audio_modem_radio_tpu_torch.ops.psk import bpsk_modulate, psk8_real_modulate, qpsk_modulate
+    from audio_modem_radio_tpu_torch.utils.compression import adaptive_compress
+
+    data = _payload(seed, _FILE_BYTES)
+    part = _FILE_BYTES // _N_PARTS
+    framed = b"".join(
+        pack_frame(f"file{seed}.bin.part{i + 1}", adaptive_compress(data[i * part : (i + 1) * part], mode),
+                   i, _N_PARTS, len(data), crc32(data))
+        for i in range(_N_PARTS)
+    )
+    fn = {"QPSK": qpsk_modulate, "BPSK": bpsk_modulate, "8PSK": psk8_real_modulate}[mode]
+    return data, fn(framed, BAUD, _SLICES[mode]["carrier"] + offset_hz)
 
 
 def _tiled(wave: np.ndarray, n: int, lead: int = 0) -> np.ndarray:
@@ -487,14 +533,17 @@ def phase_match_pack(device, r: int, card: str) -> dict:
     return errs
 
 
-def phase_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, card: str) -> dict:
+def phase_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, card: str,
+                kernels=None, tag=None, wav=None) -> dict:
     """One slice's main path at real size; returns the launch counts of its
-    ``decode_sample_batch`` run."""
+    ``decode_sample_batch`` run. ``kernels`` (default: the slice's own) are
+    the kernels the path must launch, and no others."""
     from audio_modem_radio_tpu_torch.framing import crc32, pack_frame, parse_frames
     from audio_modem_radio_tpu_torch.ops import kernels as tk
     from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
 
-    tag = {"QPSK": "5", "BPSK": "5b", "8PSK": "5c"}[mode]
+    tag = tag or {"QPSK": "5", "BPSK": "5b", "8PSK": "5c"}[mode]
+    kernels = kernels or _SLICES[mode]["kernels"]
     rng = np.random.default_rng(2024)
     t_phase = t0 = time.perf_counter()
     batch = np.empty((n_cap, n), np.float32)
@@ -529,7 +578,7 @@ def phase_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, card:
     say(f"[{tag} {mode}] decode_sample_batch wall {wall:.3f} s (host shaping, copy, device, "
         f"copy back) launches={counts} | {card}")
     for name, c in counts.items():
-        if name in _SLICES[mode]["kernels"]:
+        if name in kernels:
             check(c > 0, f"{name} was not launched on the {mode} path")
         else:
             check(c == 0, f"{name} was launched on the {mode} path")
@@ -549,7 +598,7 @@ def phase_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, card:
         f"noise capture frames={n_frames[noise_i]} | {card}")
     del batch, raws
 
-    if _SLICES[mode]["wav"]:
+    if _SLICES[mode]["wav"] if wav is None else wav:
         _wav_roundtrip(device, mode, payload_bytes, tag)
     say(f"[{tag} {mode}] {time.perf_counter() - t_phase:.1f} s | {card}")
     return counts
@@ -986,6 +1035,253 @@ def phase_fsk_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
     return t, msps, bounds
 
 
+# --- the single-capture receive: K11, K12 and decode_wav_file ---------------------
+
+def _k11_rows(n: int) -> int:
+    """Rows of a capture of n samples in the single-capture receiver's K11
+    layout: ceil(n_frames / 128), padded to a multiple of 64."""
+    r = -(-(-(-n // SPSYM)) // 128)
+    return -(-r // 64) * 64
+
+
+def _diff_decisions(d_re, d_im, theta, n_psk: int):
+    """Decisions from float differential streams after derotation by θ:
+    stacked Gray (hi, lo) for n_psk 4, π/4 sectors for 8."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.ops.psk import derotate
+
+    dr, di = derotate(d_re, d_im, theta)
+    return tk.psk8_sector_stream(dr, di) if n_psk == 8 else torch.stack(tk._decide(dr, di, 4))
+
+
+def _diff_compare(got, ref, theta, n_psk: int, n_sig: int):
+    """(max abs error, error / RMS, decision mismatches, decisions compared)
+    of two (d_re, d_im) pairs over each capture's first n_sig entries."""
+    import torch
+
+    b = theta.shape[0]
+    got = [g.reshape(b, -1)[:, :n_sig] for g in got]
+    ref = [p.reshape(b, -1)[:, :n_sig] for p in ref]
+    err = max(float((g - p).abs().max()) for g, p in zip(got, ref))
+    rms = float(torch.sqrt(torch.mean(ref[0] ** 2 + ref[1] ** 2)))
+    dk, dp = _diff_decisions(*got, theta, n_psk), _diff_decisions(*ref, theta, n_psk)
+    return err, err / rms, int((dk != dp).sum()), dk.numel()
+
+
+def phase_project_diff(device, n_cap: int, n: int, payload_bytes: int, card: str) -> dict:
+    """K12 and K11 vs plain; returns {entry: (max abs error, max relative
+    error)} (relative to the stream's RMS)."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.ops.psk import _batch_pass1, _device_tables
+
+    errs = {"psk_project_diff_batch": (0.0, 0.0), "psk_project_diff": (0.0, 0.0)}
+    n_sig = n // SPSYM - 2
+    for mode in ("QPSK", "8PSK"):
+        t0 = time.perf_counter()
+        n_psk, carrier = _SLICES[mode]["n_psk"], _SLICES[mode]["carrier"]
+        clean = np.stack([_tiled(_wave(_payload(700 + i, payload_bytes), f"k12_{i}.bin", mode), n, lead=3 * i)
+                          for i in range(n_cap)])
+        W8, _, _ = _device_tables(SPSYM, carrier, SR, 8, device)
+        for dtype in ("f32", "int16"):
+            x = _rows(clean, dtype, device, mode)
+            b, r, _ = x.shape
+            _, _, best, theta = _batch_pass1(None, x, b, r * 128, SPSYM, carrier, SR, 8, r, n_psk=n_psk)
+            got = tk.psk_project_diff_batch(x, W8, best, rows_per_capture=r)
+            ref = tk.psk_project_diff_batch_plain(x, W8, best)
+            torch.cuda.synchronize()
+            err, rel, bad, n_all = _diff_compare(got, ref, theta, n_psk, n_sig)
+            say(f"[3c K12] {mode} {dtype} rows B={b} R={r}: best={best.tolist()} max abs err {err:.4e} "
+                f"({rel:.3e} of the RMS); decisions after derotation: mismatches={bad} of {n_all} | {card}")
+            check(rel <= 1e-5, f"K12 differs from plain by {rel:.3e} of the RMS on {mode} {dtype}")
+            check(bad == 0, f"K12's decisions differ from plain on clean {mode} {dtype} captures")
+            e = errs["psk_project_diff_batch"]
+            errs["psk_project_diff_batch"] = (max(e[0], err), max(e[1], rel))
+            if dtype == "f32":
+                # K11: capture 0 in the single-capture layout (rows of the
+                # flat capture padded to a multiple of 64), its own offset.
+                flat = torch.from_numpy(clean[0]).to(device)
+                r64 = _k11_rows(n)
+                x2d = F.pad(flat, (0, r64 * 128 * SPSYM - n)).reshape(r64, 128 * SPSYM)
+                got1 = tk.psk_project_diff(x2d, W8[best[0]], block_rows=64)
+                ref1 = tk.psk_project_diff_plain(x2d, W8[best[0]])
+                torch.cuda.synchronize()
+                err, rel, bad, n_all = _diff_compare(got1, ref1, theta[:1], n_psk, n_sig)
+                say(f"[3c K11] {mode} f32 one capture, {r64} rows: max abs err {err:.4e} ({rel:.3e} of the "
+                    f"RMS); decisions after derotation: mismatches={bad} of {n_all} | {card}")
+                check(rel <= 1e-5 and bad == 0, f"K11 differs from plain on a clean {mode} capture")
+                e = errs["psk_project_diff"]
+                errs["psk_project_diff"] = (max(e[0], err), max(e[1], rel))
+                del flat, x2d, got1, ref1
+            del x, got, ref
+        torch.cuda.empty_cache()
+        say(f"[3c] {mode}: {time.perf_counter() - t0:.1f} s | {card}")
+    return errs
+
+
+def _decode_wav(device, path: str, mode: str, rate: int, work: str, label: str):
+    """decode_wav_file on ``device`` with the launch counts and the ladder's
+    host reads reset first: (saved paths, counts, host reads, wall s)."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.assembly import AssemblyRegistry
+    from audio_modem_radio_tpu_torch.decoder import decode_wav_file
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.ops import psk as tpsk
+
+    tk.reset_launch_counts()
+    tpsk._found.host_reads = 0
+    t0 = time.perf_counter()
+    saved = decode_wav_file(path, mode, rate, recv_dir=os.path.join(work, "recv_" + label),
+                            registry=AssemblyRegistry(journal_dir=""), device=device)
+    torch.cuda.synchronize()
+    return saved, tk.launch_counts(), tpsk._found.host_reads, time.perf_counter() - t0
+
+
+def phase_single(device, n: int, card: str) -> dict:
+    """Single-capture decodes at full width; returns the launch counts of
+    the clean QPSK decode under the key "QPSK single" and the WAV paths
+    kept for phase 6 under "wavs"."""
+    from audio_modem_radio_tpu_torch.framing import crc32, pack_frame, parse_frames
+    from audio_modem_radio_tpu_torch.modem import modulate
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
+    from audio_modem_radio_tpu_torch.utils.wavio import write_wav
+
+    scratch = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(scratch, exist_ok=True)
+    work = tempfile.mkdtemp(dir=scratch)
+    out = {"work": work, "wavs": {}}
+    rng = np.random.default_rng(77)
+    for k, mode in enumerate(_SLICES):
+        for offset in (0.0, 100.0):
+            t0 = time.perf_counter()
+            data, wave = _multipart_transmission(mode, 40 + k, offset)
+            x = np.zeros(n, np.float32)
+            lead = int(rng.integers(0, 96000))
+            check(lead + len(wave) <= n, f"{mode}: the 8-part transmission does not fit 2^24 samples")
+            x[lead : lead + len(wave)] = wave
+            path = os.path.join(work, f"{mode}_{offset:g}.wav")
+            write_wav(path, x)
+            saved, counts, reads, wall = _decode_wav(device, path, mode, BAUD, work, f"{mode}{offset:g}")
+            say(f"[5g {mode}] decode_wav_file, carrier +{offset:g} Hz, {len(wave) / SR:.1f} s of signal in "
+                f"{n / SR:.1f} s: wall {wall:.3f} s, saved {len(saved)}, launches={counts}, ladder host "
+                f"reads {reads} | {card}")
+            check(len(saved) == 1, f"{mode} +{offset:g} Hz: {len(saved)} files saved")
+            with open(saved[0], "rb") as f:
+                check(f.read() == data, f"{mode} +{offset:g} Hz: the reassembled file differs")
+            if offset == 0.0:
+                check(counts["psk_project_diff"] == 1 and sum(counts.values()) == 1,
+                      f"{mode}: a clean single capture must launch K11 once and nothing else: {counts}")
+                out["wavs"][mode] = path
+                if mode == "QPSK":
+                    out["QPSK single"] = counts
+            say(f"[5g {mode}] +{offset:g} Hz: {time.perf_counter() - t0:.1f} s | {card}")
+
+    path = os.path.join(work, "noise.wav")
+    write_wav(path, np.clip(rng.normal(0.0, 0.3, n), -1, 1).astype(np.float32))
+    saved, counts, reads, wall = _decode_wav(device, path, "QPSK", BAUD, work, "noise")
+    say(f"[5g noise] decode_wav_file QPSK on a noise-only WAV: wall {wall:.3f} s, saved {len(saved)}, "
+        f"launches={counts}, ladder host reads {reads} | {card}")
+    check(saved == [], "a noise-only WAV saved files")
+
+    t0 = time.perf_counter()
+    text = b"PSK31 single-capture smoke"
+    framed = pack_frame("psk31.txt", text, 0, 1, len(text), crc32(text))
+    wave = modulate("PSK31", framed, 31)
+    path = os.path.join(work, "psk31.wav")
+    write_wav(path, np.concatenate([np.zeros(4000, np.float32), wave, np.zeros(4000, np.float32)]))
+    saved, counts, reads, wall = _decode_wav(device, path, "PSK31", 31, work, "psk31")
+    say(f"[5g PSK31] decode_wav_file, {len(wave) / SR:.1f} s: wall {wall:.3f} s, saved {len(saved)}, "
+        f"launches={counts}, ladder host reads {reads} | {card}")
+    check(len(saved) == 1 and open(saved[0], "rb").read() == text, "PSK31: the saved file differs")
+    check(sum(counts.values()) == 0, f"PSK31 (3072 samples per symbol) launched a kernel: {counts}")
+
+    payloads, rows = [], []
+    for i in range(8):
+        p = _payload(900 + i, 16)
+        w = modulate("QPSK", pack_frame(f"s{i}", p, 0, 1, len(p), crc32(p)), BAUD)
+        rows.append(np.pad(w, (3 * i, 2550 - 3 * i - len(w))))
+        payloads.append(p)
+    tk.reset_launch_counts()
+    raws = decode_sample_batch(np.stack(rows).astype(np.float32), "QPSK", BAUD, device=device)
+    counts = tk.launch_counts()
+    say(f"[5g short] decode_sample_batch of 8 QPSK captures of 2550 samples (255 symbols): "
+        f"launches={counts} | {card}")
+    check([[f.data for f in parse_frames(r)] for r in raws] == [[p] for p in payloads],
+          "short captures: decoded frames differ")
+    check(counts["psk_project_diff"] == 8 and sum(counts.values()) == 8,
+          f"short captures must launch K11 once per capture: {counts}")
+    say(f"[5g] PSK31 and short captures: {time.perf_counter() - t0:.1f} s | {card}")
+    return out
+
+
+def phase_single_timing(device, n_cap: int, n: int, payload_bytes: int, wavs: dict, work: str, card: str):
+    """K11 and K12 beside their plain versions, and each mode's
+    decode_wav_file; returns ({entry: (ms, plain_ms, plain_captures)},
+    {entry: (bound_ms, bound_by)}, {mode: (wall s median of 3, device ms)}).
+    Operations per symbol, from the kernel's code: 8*spsym (two
+    2*spsym-tap correlations) + 6 (the differential)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.ops.psk import _batch_pass1, _device_tables
+
+    t, bounds, decodes = {}, {}, {}
+    carrier = _SLICES["8PSK"]["carrier"]
+    wave = _wave(_payload(0, payload_bytes), "bench.bin", "8PSK")
+    one = _rows(_tiled(wave, n)[None], "int16", device, "8PSK")
+    x = one.expand(n_cap, -1, -1).contiguous()  # the bench batch, shipped once
+    del one
+    b, r, row = x.shape
+    _, _, best, _ = _batch_pass1(None, x, b, r * 128, SPSYM, carrier, SR, 8, r, n_psk=8)
+    W8, _, _ = _device_tables(SPSYM, carrier, SR, 8, device)
+    n_sym = b * r * 128
+    bounds["psk_project_diff_batch"] = _bound(x.numel() * x.element_size() + n_sym * 8, n_sym * (8 * SPSYM + 6))
+    t["psk_project_diff_batch"] = (
+        _time_ms(lambda: tk.psk_project_diff_batch(x, W8, best, rows_per_capture=r)),
+        _time_ms(lambda: tk.psk_project_diff_batch_plain(x, W8, best)), b)
+    del x
+    torch.cuda.empty_cache()
+    flat = torch.from_numpy(_tiled(wave, n)).to(device)
+    r64 = _k11_rows(n)
+    x2d = F.pad(flat, (0, r64 * row - n)).reshape(r64, row)
+    w = W8[best[0]]
+    bounds["psk_project_diff"] = _bound(x2d.numel() * 4 + r64 * 128 * 8, r64 * 128 * (8 * SPSYM + 6))
+    t["psk_project_diff"] = (_time_ms(lambda: tk.psk_project_diff(x2d, w, block_rows=64)),
+                             _time_ms(lambda: tk.psk_project_diff_plain(x2d, w)), 1)
+    del flat, x2d
+    for name in ("psk_project_diff_batch", "psk_project_diff"):
+        ms, plain, pc = t[name]
+        say(f"[6 time] {name} ({pc} x {n} samples): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]} | {card}")
+
+    for mode, path in wavs.items():
+        walls = [_decode_wav(device, path, mode, BAUD, work, f"t{mode}{i}")[3] for i in range(3)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _decode_wav(device, path, mode, BAUD, work, f"p{mode}")
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ms_n = by_name.setdefault(e.name, [0.0, 0])
+                ms_n[0] += e.time_range.elapsed_us() / 1e3
+                ms_n[1] += 1
+        dev_ms = sum(ms for ms, _ in by_name.values())
+        decodes[mode] = (statistics.median(walls), dev_ms)
+        say(f"[6 time] decode_wav_file {mode} 2^24 samples: wall median of 3 {decodes[mode][0]:.3f} s "
+            f"({', '.join(f'{v:.3f}' for v in walls)}); device kernel time under the profiler {dev_ms:.3f} ms "
+            f"in {sum(c for _, c in by_name.values())} kernels, host and copies the rest | {card}")
+        for name, (ms, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+            say(f"[6 time]   {ms:9.4f} ms x{c:<5d} {name[:100]}")
+    return t, bounds, decodes
+
+
 def main() -> int:
     n, n_k1, n_slice, payload_bytes = 1 << 24, 8, 64, 16384
     # One card: the first visible one (set before torch initialises CUDA).
@@ -1002,6 +1298,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         import audio_modem_radio_tpu_torch  # noqa: F401
+        from audio_modem_radio_tpu_torch.config import CONFIG
         from audio_modem_radio_tpu_torch.ops.psk import blocked_row_shape
     except ImportError as e:
         say(f"FAIL: the port's package is not beside this script ({e})")
@@ -1009,6 +1306,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase = "1 env"
+    single = None
     try:
         device, card = phase_environment()
         phase = "2 build"
@@ -1017,6 +1315,8 @@ def main() -> int:
         errs = {k: (v, None) for k, v in phase_decide(device, n_k1, n, payload_bytes, card).items()}
         phase = "3b FSK kernels"
         errs.update(phase_fsk_kernels(device, n_k1, n, card))
+        phase = "3c K11/K12"
+        errs.update(phase_project_diff(device, n_k1, n, payload_bytes, card))
         phase = "4 match/pack"
         r = blocked_row_shape(n, BAUD, SR)[0]
         errs.update({k: (v, None) for k, v in phase_match_pack(device, r, card).items()})
@@ -1027,18 +1327,36 @@ def main() -> int:
         for tag, mode in zip(("5d", "5e", "5f"), _FSK_SLICES):
             phase = f"5 slice {mode}"
             counts.update(phase_fsk_slice(device, mode, n_slice, n, payload_bytes, tag, card))
+        phase = "5g single-capture decodes"
+        single = phase_single(device, n, card)
+        counts["QPSK single"] = single["QPSK single"]
+        phase = "5h 8PSK under tpu.demod_backend=xla"
+        CONFIG.set("tpu.demod_backend", "xla")
+        try:
+            counts["8PSK xla"] = phase_slice(device, "8PSK", n_slice, n, payload_bytes, card,
+                                             kernels=("psk_project_diff_batch",), tag="5h", wav=False)
+        finally:
+            CONFIG.set("tpu.demod_backend", "auto")
+        check(counts["8PSK xla"]["psk_project_diff_batch"] == 1, "K12 must launch once on the xla path")
         phase = "6 timing"
         psk_times, _, bounds = phase_timing(device, n_slice, n, payload_bytes, card)
         times = {k: (ms, plain, n_slice) for k, (ms, plain) in psk_times.items()}
         fsk_times, _, fsk_bounds = phase_fsk_timing(device, n_slice, n, payload_bytes, card)
         times.update(fsk_times)
         bounds.update(fsk_bounds)
+        diff_times, diff_bounds, _ = phase_single_timing(device, n_slice, n, payload_bytes, single["wavs"],
+                                                         single["work"], card)
+        times.update(diff_times)
+        bounds.update(diff_bounds)
     except Exception as e:  # any failure: report the phase, print no result
         import traceback
 
         traceback.print_exc()
         say(f"FAIL in phase {phase}: {type(e).__name__}: {e}")
         return 1
+    finally:
+        if single is not None:
+            shutil.rmtree(single["work"], ignore_errors=True)
 
     kernels = []
     for entry, (wrapper, run, src, line) in _ENTRIES.items():

@@ -16,6 +16,7 @@ from audio_modem_radio_tpu.modem import modulate as j_modulate
 from audio_modem_radio_tpu.parallel.batch import (
     decode_sample_batch as j_decode_sample_batch,
     decode_wav_batch as j_decode_wav_batch,
+    demod_pack_batch as j_demod_pack_batch,
     host_shape_batch as j_host_shape_batch,
     psk2_kernel_sync_tail as j_psk2_tail,
     psk4_kernel_sync_tail as j_sync_tail,
@@ -157,9 +158,14 @@ def test_host_shape_rule_and_unported_kinds():
     assert tb.resolve_demod_plan("NOPE", 9600) == tb.resolve_demod_plan("QPSK", 9600)
     # Flat close-tone FSK needs the single-capture receiver (flat dual-tone
     # FSK runs K13's path, tests/test_torch_fsk.py).
-    for mode in ("PSK31", "FSK9600", "OFDM4", "DSSS", "NEURAL", "HELLSCHREIBER"):
+    for mode in ("FSK9600", "OFDM4", "DSSS", "NEURAL", "HELLSCHREIBER"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tb.demod_pack_batch(torch.zeros((1, 1 << 16)), mode, 9600)
+    # PSK31 has no blocked path: the single-capture receiver per capture,
+    # equal to the JAX package's on a silent capture.
+    ref = [np.asarray(a) for a in j_demod_pack_batch(jnp.zeros((1, 1 << 16)), "PSK31", 31)]
+    got = [a.numpy() for a in tb.demod_pack_batch(torch.zeros((1, 1 << 16)), "PSK31", 31)]
+    assert all(np.array_equal(g, r) for g, r in zip(got, ref))
 
 
 def test_decode_wav_batch_matches_jax(workdir):

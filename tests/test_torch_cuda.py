@@ -374,3 +374,71 @@ def test_fsk_decode_sample_batch_on_card(cuda, mode):
     counts = tk.launch_counts()
     assert {k for k, v in counts.items() if v > 0} == {want}
     assert [[f.data for f in parse_frames(r)] for r in raws] == [[p], [p], []]
+
+
+# --- K11 and K12: projection + differential ---------------------------------------
+
+def _diff_close(got, ref, n_sig):
+    """Max abs difference over each capture's first ``n_sig`` entries, against
+    1e-5 of the plain stream's RMS there (the projection's summation order
+    differs; nothing else does)."""
+    got, ref = [g.reshape(g.shape[0], -1)[:, :n_sig] for g in got], [p.reshape(p.shape[0], -1)[:, :n_sig] for p in ref]
+    rms = torch.sqrt(torch.mean(ref[0] ** 2 + ref[1] ** 2))
+    err = max(float((g - p).abs().max()) for g, p in zip(got, ref))
+    return err, float(rms)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("mode", ["QPSK", "8PSK"])
+def test_project_diff_batch_kernel_equals_plain(cuda, mode, dtype):
+    x, n_sig = _rows(3, 1 << 19, dtype, mode)
+    x = torch.from_numpy(x).to(cuda)
+    b, r, _ = x.shape
+    carrier = _CARRIER[mode]
+    _, _, best, _theta = _batch_pass1(None, x, b, r * 128, 10, carrier, 96000, 8, r,
+                                      n_psk=8 if mode == "8PSK" else 4)
+    W8, _, _ = _device_tables(10, carrier, 96000, 8, x.device)
+    before = tk.psk_project_diff_batch.launches
+    got = tk.psk_project_diff_batch(x, W8, best, rows_per_capture=r)
+    ref = tk.psk_project_diff_batch_plain(x, W8, best)
+    torch.cuda.synchronize()
+    assert tk.psk_project_diff_batch.launches == before + 1
+    assert got[0].shape == (b, r, 128) and got[0].dtype == torch.float32
+    err, rms = _diff_close(got, ref, n_sig)
+    assert err <= 1e-5 * rms, (err, rms)
+    # Clean decisions (Gray dibits, or π/4 sectors) from either stream are equal.
+    decide = tk.psk8_sector_stream if mode == "8PSK" else (lambda a, c: torch.stack(tk._decide(a, c, 4)))
+    assert torch.equal(decide(*[g.reshape(b, -1)[:, :n_sig] for g in got]),
+                       decide(*[p[:, :n_sig] for p in ref]))
+
+
+def test_project_diff_kernel_equals_plain(cuda):
+    x, n_sig = _rows(1, 1 << 19, "float32")
+    x2d = torch.from_numpy(x[0]).to(cuda)
+    r = x2d.shape[0]
+    W8, _, _ = _device_tables(10, 3000.0, 96000, 8, cuda)
+    before = tk.psk_project_diff.launches
+    got = tk.psk_project_diff(x2d, W8[3], block_rows=64)
+    ref = tk.psk_project_diff_plain(x2d, W8[3])
+    torch.cuda.synchronize()
+    assert tk.psk_project_diff.launches == before + 1
+    assert got[0].shape == (r, 128)
+    err, rms = _diff_close([g[None] for g in got], [p[None] for p in ref], n_sig)
+    assert err <= 1e-5 * rms, (err, rms)
+
+
+def test_single_capture_decode_on_card(cuda):
+    """modem.demodulate on the card: K11 launches once per clean capture and
+    the frame decodes."""
+    from audio_modem_radio_tpu_torch.framing import parse_frames
+    from audio_modem_radio_tpu_torch.modem import demodulate
+
+    p = bytes(range(256)) * 4
+    wave = modulate("QPSK", pack_frame("s.bin", p, 0, 1, len(p), crc32(p)), 9600)
+    x = np.zeros(1 << 17, np.float32)
+    x[33 : 33 + len(wave)] = wave
+    tk.reset_launch_counts()
+    raw = demodulate("QPSK", x, 9600, device="cuda")
+    counts = tk.launch_counts()
+    assert counts["psk_project_diff"] == 1 and sum(counts.values()) == 1
+    assert [f.data for f in parse_frames(raw)] == [p]

@@ -219,8 +219,12 @@ def test_decision_streams_shape_and_unported_configs():
     assert hi.shape == lo.shape == (2, r * 128) and hi.dtype == torch.uint8
     with pytest.raises(NotImplementedError):
         tpsk.psk_decision_streams_batch(torch.from_numpy(batch), 9600.0, 3000.0, SR, n_psk=3)
-    with pytest.raises(NotImplementedError):  # too short for the blocked path
-        tpsk.psk_decision_streams_batch(torch.zeros((1, 1000)), 9600.0, 3000.0, SR)
+    # Too short for the blocked path: the single-capture receiver per
+    # capture, equal to the JAX package's.
+    short = np.ascontiguousarray(batch[:, :2000])
+    ref = jpsk.psk_decision_streams_batch(jnp.asarray(short), 9600.0, 3000.0, SR)
+    got = tpsk.psk_decision_streams_batch(torch.from_numpy(short), 9600.0, 3000.0, SR)
+    assert all(np.array_equal(g.numpy(), np.asarray(j)) for g, j in zip(got, ref))
 
 
 @pytest.mark.parametrize("n,baud", [(1 << 17, 9600), (100_001, 4800), (2000, 9600), (5000, 1200)])
@@ -310,5 +314,9 @@ def test_psk8_sector_rows_shape():
     sec = tpsk.psk8_sector_rows_batch(torch.from_numpy(batch), 9600.0, 12000.0, SR)
     r, _ = tpsk.blocked_row_shape(batch.shape[1], 9600, SR)
     assert sec.shape == (2, r * 128) and sec.dtype == torch.uint8 and int(sec.max()) <= 7
-    with pytest.raises(NotImplementedError, match="recovery ladder"):
-        tpsk.psk8_sector_rows_batch(torch.zeros((1, 1000)), 9600.0, 12000.0, SR)
+    # Too short for the blocked path: the staged single-capture path, equal
+    # to the JAX package's.
+    short = np.ascontiguousarray(batch[:, :2400])
+    ref = np.asarray(jpsk.psk8_sector_rows_batch(jnp.asarray(short), 9600.0, 12000.0, SR))
+    got = tpsk.psk8_sector_rows_batch(torch.from_numpy(short), 9600.0, 12000.0, SR)
+    assert got.shape == ref.shape and np.array_equal(got.numpy(), ref)
