@@ -6,13 +6,14 @@ at 9600 Bd), FSK19200 (8/16 kHz at 19200 Bd), MSK (FSK with mark 6 kHz,
 space 6 kHz + the rate), FT8 (50 Bd FSK, 3000/3050 Hz), BPSK (DBPSK on a
 3 kHz carrier), QPSK (DQPSK, 3 kHz), 8PSK (real D8PSK on 12 kHz, or under
 CONFIG ``modem.psk8_compat_alias`` the reference's DQPSK alias), APSK16
-(DQPSK, 12 kHz), SSTV (DQPSK, 3 kHz) and PSK31 (DBPSK at 31.25 Bd, 3 kHz).
+(DQPSK, 12 kHz), SSTV (DQPSK, 3 kHz), PSK31 (DBPSK at 31.25 Bd, 3 kHz) and
+NEURAL (the learned codebook, 1 byte per symbol, 24 kHz).
 
-:func:`demodulate` is the single-capture receive of every PSK mode, with
-the JAX package's coherent escalation (the Viterbi&Viterbi-tracked receiver
-when differential detection leaves the capture incomplete) and, for 8PSK,
-its probe-gated alias fallback. It runs on the card unless the caller
-passes ``device="cpu"``. The FSK modes' single-capture receiver is not
+:func:`demodulate` is the single-capture receive of NEURAL and of every
+PSK mode, the latter with the JAX package's coherent escalation (the
+Viterbi&Viterbi-tracked receiver when differential detection leaves the
+capture incomplete) and, for 8PSK, its probe-gated alias fallback. It runs
+on the card unless the caller passes ``device="cpu"``. The FSK modes' single-capture receiver is not
 ported (they decode through ``parallel.batch``), nor are the modes the
 registry lacks; both raise NotImplementedError naming their ROADMAP.md item.
 """
@@ -27,6 +28,7 @@ import numpy as np
 from .config import CONFIG
 from .framing import MAGIC, pack_frame, parse_frames_detailed
 from .ops.fsk import fsk_high_speed_modulate, fsk_modulate
+from .ops.neural import neural_mode_demodulate, neural_mode_modulate
 from .ops.psk import (
     bpsk_demodulate,
     bpsk_modulate,
@@ -47,7 +49,6 @@ FSK_SINGLE_ITEM = "ROADMAP.md queue 1, item 1 (single-capture FSK receiver)"
 _UNPORTED_MODES = {
     "OFDM4": "item 4 (OFDM)", "OFDM8": "item 4 (OFDM)", "DSSS": "item 5 (DSSS)",
     "HELLSCHREIBER": "item 6 (HELL)", "FELD_HELL": "item 6 (HELL)", "SLOW_HELL": "item 6 (HELL)",
-    "NEURAL": "item 7 (NEURAL)",
 }
 
 
@@ -244,6 +245,9 @@ MODES: Dict[str, ModeSpec] = {
     "FT8": ModeSpec("FT8", lambda d, r: ft8_modulate(d, r, 3000.0), _fsk_single),
     "PSK31": ModeSpec("PSK31", lambda d, r: psk31_modulate(d, r, 3000.0),
                       lambda x, r, device=None: psk31_demodulate(x, r, 3000.0, device=device)),
+    # Learned codebook, 1 byte per symbol on a 24 kHz carrier (ops/neural.py).
+    "NEURAL": ModeSpec("NEURAL", lambda d, r: neural_mode_modulate(d, r),
+                       lambda x, r, device=None: neural_mode_demodulate(x, r, device=device)),
 }
 
 

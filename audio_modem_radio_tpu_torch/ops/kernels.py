@@ -1,8 +1,8 @@
-"""The batched receive slices' kernels: wrappers, plain PyTorch versions, launch counts.
+"""The receive slices' kernels: wrappers, plain PyTorch versions, launch counts.
 
-Counterpart of ``audio_modem_radio_tpu/ops/pallas_kernels.py`` for the
-twelve kernels the DBPSK, DQPSK, D8PSK and FSK receive runs, with the JAX
-names and argument order:
+Counterpart of ``audio_modem_radio_tpu/ops/pallas_kernels.py`` for all of
+its thirteen kernels (the DBPSK, DQPSK, D8PSK, FSK and NEURAL receive),
+with the JAX names and argument order:
 
 * K1 :func:`psk_project_decide_batch` (``csrc/decide.cu``), ``n_psk`` 2, 4, 8,
 * K11 :func:`psk_project_diff` and K12 :func:`psk_project_diff_batch`
@@ -18,7 +18,10 @@ names and argument order:
   (``csrc/fsk_tile.cu``), without the Pallas ``block_rows`` argument,
 * K8 :func:`fsk_disc_sums_batch` (``csrc/fsk_disc.cu``),
 * K9 :func:`fsk_quad_margin_batch` (``csrc/fsk_quad.cu``); K8 and K9 take
-  the dense (c_pad, 256) FIR matrix only, not the Pallas banded form.
+  the dense (c_pad, 256) FIR matrix only, not the Pallas banded form,
+* K10 :func:`neural_extract_batch` (``csrc/neural_extract.cu``), which
+  takes the (256, 16) codebook in place of the Pallas chip table and
+  block-diagonal scorer.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. For tensors on the CPU it runs the plain version
@@ -996,11 +999,99 @@ def fsk_quad_margin_batch(
     return margin
 
 
+# --- K10: NEURAL chip extraction + codebook scores + argmax ---------------------------
+
+_NEURAL_DTYPES = {torch.float32: 0, torch.int16: 1}
+_NEURAL_SPR = 8  # symbols per 128-sample row at chip length 2
+_MASK_RE = (1.0, 0.0, -1.0, 0.0)  # fs/4 downconversion by lane mod 4
+_MASK_IM = (0.0, -1.0, 0.0, 1.0)
+
+
+def neural_extract_batch_plain(
+    x2d: torch.Tensor, codebook: torch.Tensor, phasors: torch.Tensor, s: torch.Tensor,
+    rows_per_capture: int,
+) -> torch.Tensor:
+    """Plain K10: each row j of a capture and its circular successor (row
+    j+1, row 0 after the last) as one 256-sample pair; fs/4 downconversion
+    by sign masks; chip c the mean of lanes s+2c and s+2c+1 (s taken mod
+    128); unrotation ``(a·re + b·im, a·im - b·re)``; slot m's 16 chips
+    ``[re 8m..8m+7 | im 8m..8m+7]`` times the codebook; the first-max
+    argmax. Returns (B, r3 * 8) uint8."""
+    r = rows_per_capture
+    b = x2d.shape[0] // r
+    dev = x2d.device
+    x = x2d.reshape(b, r, 128).to(torch.float32)
+    pair = torch.cat([x, torch.roll(x, -1, dims=1)], dim=2)  # (B, r, 256)
+    lane = torch.arange(256, device=dev) % 4
+    zr = pair * torch.tensor(_MASK_RE, device=dev)[lane]
+    zi = pair * torch.tensor(_MASK_IM, device=dev)[lane]
+    idx = (s.to(torch.int64) % 128)[:, None] + torch.arange(128, device=dev)
+    idx = idx[:, None, :].expand(b, r, 128)
+    cr = torch.gather(zr, 2, idx).reshape(b, r, 64, 2).sum(-1) * 0.5
+    ci = torch.gather(zi, 2, idx).reshape(b, r, 64, 2).sum(-1) * 0.5
+    a, c = phasors[:, 0, None, None], phasors[:, 1, None, None]
+    ur, ui = cr * a + ci * c, ci * a - cr * c
+    rx = torch.cat([ur.reshape(b, r, _NEURAL_SPR, 8), ui.reshape(b, r, _NEURAL_SPR, 8)], dim=3)
+    return torch.argmax(rx @ codebook.T, dim=-1).to(torch.uint8).reshape(b, r * _NEURAL_SPR)
+
+
+def neural_extract_batch(
+    x2d: torch.Tensor,
+    codebook: torch.Tensor,
+    phasors: torch.Tensor,
+    s: torch.Tensor,
+    rows_per_capture: int,
+) -> torch.Tensor:
+    """Whole-batch NEURAL symbol extraction at chip length 2 (8 symbols of
+    16 samples per 128-sample row): downconversion, chips, unrotation,
+    codebook scores and argmax in one launch, the uint8 symbols its only
+    output.
+
+    Args:
+      x2d: (B*r3, 128) float32 or int16 capture rows (integers cast
+        unscaled), any r3 >= 1.
+      codebook: (256, 16) float32 codebook ``[I 0..7 | Q 0..7]`` (the JAX
+        kernel takes its block-diagonal expansion and a chip table instead).
+      phasors: (B, 2) float32 per-capture unit channel phasor (a, b).
+      s: (B,) int32 in-row sample offset k0 % 128 (taken mod 128).
+    Returns (B, r3 * 8) uint8 symbols on the UNROTATED grid, symbol 8j+m from
+    row j's slot m; the caller rolls each capture left by (k0 // 128) * 8.
+
+    Contract, pinned by the tests: the successor of each capture's last row
+    is the capture's own row 0 (the circular wrap of the JAX package's
+    ``_td_extract``; the Pallas kernel reads the next capture's head there,
+    garbage by its contract); the argmax is the FIRST maximum, as
+    ``jnp.argmax`` and the Pallas kernel's ``argmax="loop"`` (its default
+    in the JAX package's ``demod_td_batch`` is ``"dot"``, which sends an
+    exact tie between distinct nonzero codewords to 0; all-zero rows give
+    0 either way). The rolled stream then equals the JAX package's XLA
+    extraction symbol for symbol, up to scores within rounding of a tie.
+    """
+    r = rows_per_capture
+    _require(x2d.ndim == 2 and x2d.shape[1] == 128 and r >= 1 and x2d.shape[0] % r == 0,
+             f"x2d {tuple(x2d.shape)} must be (B*r3, 128) for rows_per_capture={r}")
+    _require(x2d.dtype in _NEURAL_DTYPES, f"x2d dtype {x2d.dtype}")
+    _require(codebook.dtype == torch.float32 and tuple(codebook.shape) == (256, 16),
+             f"codebook {codebook.dtype} {tuple(codebook.shape)}, want float32 (256, 16)")
+    b = x2d.shape[0] // r
+    _require(phasors.dtype == torch.float32 and tuple(phasors.shape) == (b, 2),
+             f"phasors {phasors.dtype} {tuple(phasors.shape)}, want float32 ({b}, 2)")
+    _check_per_capture("neural_extract_batch", b, s)
+    dev = _same_device(x2d, codebook, phasors, s)
+    if dev.type == "cpu":
+        return neural_extract_batch_plain(x2d, codebook, phasors, s, r)
+    out = torch.empty((b, r * _NEURAL_SPR), dtype=torch.uint8, device=dev)
+    _launch("amr_neural_extract", dev, _ptr(x2d), _NEURAL_DTYPES[x2d.dtype], _ptr(codebook), _ptr(phasors),
+            _ptr(s), _ptr(out), b, r)
+    neural_extract_batch.launches += 1
+    return out
+
+
 KERNELS = (
     psk_project_decide_batch, rotation_match_batch, relabel_pack_batch,
     bit_select_pack_batch, sector_match_batch, psk8_relabel_pack_rows,
     fsk_tile_bits_batch, fsk_project_bits_batch, fsk_disc_sums_batch, fsk_quad_margin_batch,
-    psk_project_diff, psk_project_diff_batch,
+    psk_project_diff, psk_project_diff_batch, neural_extract_batch,
 )
 
 

@@ -1,11 +1,12 @@
 """The slice's constant tables, carried from the JAX package as tensors.
 
-The receive paths learn nothing: their parameters are the projection
-templates, the FIR front end, the discriminator's equalizer and the magic
-patterns. The port builds its own tables (``ops.psk``, ``ops.fsk``) with the
-JAX package's formulas; this module turns the JAX package's numpy arrays
-into the port's tensors, so a comparison can feed both implementations the
-very same tables.
+The receive paths learn nothing at run time: their parameters are the
+projection templates, the FIR front end, the discriminator's equalizer, the
+magic patterns and NEURAL's committed codebook with the tables derived
+from it. The port builds its own tables (``ops.psk``, ``ops.fsk``,
+``ops.neural``) with the JAX package's formulas; this module turns the JAX
+package's numpy arrays into the port's tensors, so a comparison can feed
+both implementations the very same tables.
 """
 
 from __future__ import annotations
@@ -28,6 +29,10 @@ TABLE_NDIM = {
     "_fsk_boxcar_templates_geom": 3,  # (n_offsets, row2+ov2, spr2)
     "_fsk_quadrature_templates_geom": 3,  # (n_offsets, row2+ov2, 4*spr2)
     "_discriminator_calibration": 1,  # (_EQ_TAPS + 1,): equalizer taps, then the bias
+    "_codebook": 2,  # (256, 16): the NEURAL codebook
+    "_corr_table": 2,  # (128+P, 256): the NEURAL preamble correlation weights
+    "_codebook_blocked": 2,  # (256//chip_len, spr*256): the block-diagonal scorer
+    "_energy_table": 2,  # (128+P, 128): banded ones, the window energies
 }
 
 

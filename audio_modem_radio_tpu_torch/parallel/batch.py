@@ -2,13 +2,14 @@
 
 Counterpart of ``audio_modem_radio_tpu/parallel/batch.py`` for the batched
 PSK slices, DBPSK (kind ``psk2``), DQPSK (``psk4``) and D8PSK (``psk8``),
-and the batched FSK slices (kind ``fsk``: FSK1200, FSK9600, FSK19200, MSK,
-FT8). The pipeline:
+the batched FSK slices (kind ``fsk``: FSK1200, FSK9600, FSK19200, MSK,
+FT8) and NEURAL (kind ``neural``). The pipeline:
 
   host:   read WAVs, pad to one bucket length, shape each capture into
           rows: blocked (r, 128*spsym) sample rows for PSK, overlapped
           (r, row+ov) rows for dual-tone FSK, padded FIR windows for the
-          FSK discriminator and quadrature paths (int16 for a CUDA device)
+          FSK discriminator and quadrature paths (int16 for a CUDA device);
+          NEURAL captures stay flat float32
   device: PSK: pass 1 (timing offset + blind rotation, plain torch), kernel
           K1 (projection + differential + derotation + decision), then the
           kind's sync tail over tiered prefixes:
@@ -27,7 +28,12 @@ FT8). The pipeline:
           receiver per capture (K11, rotation, decision) and the
           per-capture plain-torch sync tails; CONFIG
           ``tpu.demod_backend = "xla"`` selects the staged D8PSK path (K12)
-          and the per-capture tails for every PSK kind
+          and the per-capture tails for every PSK kind.
+          NEURAL: the preamble matched filter (one blocked matmul, prefix
+          lags first, the full search for the whole batch when a capture
+          fails the prefix test), then K10 (chips + unrotation + codebook
+          argmax) at 9600 Bd, the plain-torch extraction at chip length 4,
+          or the FFT matched filter per capture at other rates
   host:   the recovery ladder per capture (strict FBPC parse,
           header-tolerant recovery, no-sync rescue), the coherent and
           clock-drift escalations of lost captures, decompression,
@@ -81,6 +87,7 @@ from ..ops.kernels import (
     rotation_match_batch,
     sector_match_batch,
 )
+from ..ops.neural import PREAMBLE_LEN, _chip_len, _demod, _fft_len, _td_supported, demod_td_batch
 from ..ops.psk import (
     blocked_row_shape,
     psk8_sector_rows_batch,
@@ -100,9 +107,8 @@ _UNPORTED_KINDS = {
     "ofdm": "OFDM",
     "dsss": "DSSS",
     "hell": "HELL",
-    "neural": "NEURAL",
 }
-_PORTED_KINDS = ("psk2", "psk4", "psk8", "fsk")
+_PORTED_KINDS = ("psk2", "psk4", "psk8", "fsk", "neural")
 # What the single-capture FSK receiver (fsk_demod_bits, MLSE) would take.
 _FSK_SINGLE = f"the single-capture FSK receiver (fsk_demod_bits with MLSE) is not ported: {FSK_SINGLE_ITEM}"
 
@@ -343,9 +349,10 @@ def demod_pack_batch(
     Demod + magic sync + byte pack for the whole batch. Ported kinds: 'psk4'
     (QPSK, APSK16, SSTV, and 8PSK under ``modem.psk8_compat_alias``), 'psk2'
     (BPSK, PSK31, and DSSS under ``modem.dsss_compat_alias``), 'psk8'
-    (8PSK) and 'fsk' (FSK1200, FSK9600, FSK19200, MSK, FT8; flat input only
-    for dual tones). The PSK kinds take the kernel sync tails (K2 + K3/K4,
-    K5 + K6) on blocked streams and the per-capture plain-torch tails on the
+    (8PSK), 'fsk' (FSK1200, FSK9600, FSK19200, MSK, FT8; flat input only
+    for dual tones) and 'neural' (flat input; the bytes after the preamble,
+    n_valid their count, found all true). The PSK kinds take the kernel
+    sync tails (K2 + K3/K4, K5 + K6) on blocked streams and the per-capture plain-torch tails on the
     single-capture streams of captures without a blocked path, as the JAX
     package picks them by stream length; D8PSK zero-pads to the kernels'
     grain and keeps K5 + K6 there. Under CONFIG ``tpu.demod_backend =
@@ -361,6 +368,8 @@ def demod_pack_batch(
             f"mode {mode!r} (demodulator kind {kind!r}) is not ported to PyTorch yet: "
             f"ROADMAP.md queue 1, {_UNPORTED_KINDS[kind]}"
         )
+    if kind == "neural":
+        return _neural_pack(samples, int(params[0]))
     xla = CONFIG.get("tpu.demod_backend", "auto") == "xla"
     if kind == "fsk":
         if xla:
@@ -396,6 +405,24 @@ def demod_pack_batch(
         tail = psk4_kernel_sync_tail if kind == "psk4" else psk2_kernel_sync_tail
         return tail(hi, lo, cfo_retry)
     return _per_capture(_psk_capture_tail(kind, cfo_retry), hi, lo)
+
+
+def _neural_pack(samples: torch.Tensor, symbol_rate: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """NEURAL: the symbols are the bytes, so there is no bit-level sync or
+    pack stage. Chip lengths 2 and 4 take the time-domain batch
+    (``demod_td_batch``: K10 at chip length 2), others the FFT matched
+    filter per capture. Returns the stream after the preamble, its full
+    length as n_valid and found all true, as the JAX package does."""
+    chip_len = _chip_len(symbol_rate)
+    if _td_supported(chip_len):
+        syms = demod_td_batch(samples, chip_len)
+    else:
+        n_fft = _fft_len(samples.shape[-1], chip_len)
+        syms = torch.stack([_demod(x.to(torch.float32), chip_len, n_fft)[0] for x in samples])
+    payload = syms[:, PREAMBLE_LEN:]
+    b, dev = payload.shape[0], payload.device
+    return (payload, torch.full((b,), payload.shape[1], dtype=torch.int32, device=dev),
+            torch.ones((b,), dtype=torch.bool, device=dev))
 
 
 def _psk_capture_tail(kind: str, cfo_retry: bool):
@@ -494,8 +521,9 @@ def host_shape_batch(
     """Pre-shape (B, N) captures into the layout ``demod_pack_batch`` takes
     on ``device`` (default: the card): PSK captures (kinds psk2, psk4, psk8,
     after the compatibility aliases) into blocked (B, r, 128*spsym) rows,
-    FSK captures as :func:`_fsk_host_shape` says; other mode families, not
-    ported yet, pass through unchanged.
+    FSK captures as :func:`_fsk_host_shape` says; NEURAL captures, which the
+    JAX package ships flat, and the mode families not ported yet pass
+    through unchanged as float32.
 
     Rows are int16 at scale 32768 when the target device is CUDA (half the
     host-to-device copy and half the kernels' read; exact for int16-PCM

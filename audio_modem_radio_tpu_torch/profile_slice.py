@@ -1,15 +1,17 @@
 """Where the device time of ``demod_pack_batch`` goes, on one CUDA card.
 
     python3 -m audio_modem_radio_tpu_torch.profile_slice \
-        [--mode QPSK|BPSK|8PSK|FSK1200|FSK9600|FSK19200] [--out FILE]
+        [--mode QPSK|BPSK|8PSK|FSK1200|FSK9600|FSK19200|NEURAL] [--out FILE]
 
 The workload is ``chip_smoke.py``'s timing batch for the mode (default
-QPSK): one 16 KiB-payload capture (PSK at 9600 Bd, FSK at its own rate)
-tiled to 2^24 samples, shaped into int16 rows, shipped once and copied 64
+QPSK): one 16 KiB-payload capture (PSK and NEURAL at 9600 Bd, FSK at its
+own rate) tiled to 2^24 samples, shaped as ``host_shape_batch`` ships it
+to the card (int16 rows; NEURAL flat float32), shipped once and copied 64
 times on the card. The script prints:
 
 - ``demod_pack_batch`` (PSK: with ``cfo_retry`` on and off) and pass 1
-  alone: median of 9 by CUDA events after one warm-up;
+  alone (NEURAL: the preamble sync, ``td_sync_batch``): median of 9 by
+  CUDA events after one warm-up;
 - for each run, 5 reps under ``torch.profiler``: the host-clock time per
   rep (profiler on), the summed device-kernel time per rep, the device's
   idle share (1 - kernel / wall), and the kernels by device time;
@@ -33,6 +35,7 @@ import torch
 from .framing import crc32, pack_frame
 from .modem import modulate
 from .ops import fsk
+from .ops.neural import td_sync_batch
 from .ops.psk import _batch_pass1
 from .parallel.batch import demod_pack_batch, host_shape_batch, resolve_demod_plan
 
@@ -60,7 +63,7 @@ def _bench_rows(mode: str, rate: int, device: torch.device) -> torch.Tensor:
     wave = modulate(mode, pack_frame("bench.bin", payload, 0, 1, len(payload), crc32(payload)), rate)
     one = np.tile(wave, -(-N // len(wave)))[None, :N].astype(np.float32)
     rows = torch.from_numpy(host_shape_batch(one, mode, rate, device=device)).to(device)
-    return rows.expand(B, -1, -1).contiguous()
+    return rows.expand(B, *rows.shape[1:]).contiguous()
 
 
 def _median_ms(fn, reps: int = 9) -> float:
@@ -101,7 +104,7 @@ def _profile(fn, reps: int = 5):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--mode", choices=sorted(CARRIERS) + sorted(FSK_MODES), default="QPSK")
+    ap.add_argument("--mode", choices=sorted(CARRIERS) + sorted(FSK_MODES) + ["NEURAL"], default="QPSK")
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -118,19 +121,23 @@ def main() -> int:
 
     rate = FSK_MODES[mode][0] if mode in FSK_MODES else BAUD
     x = _bench_rows(mode, rate, device)
-    b, r, _ = x.shape
-    cfos = (True,) if mode in FSK_MODES else (True, False)
+    b = x.shape[0]
+    cfos = (True, False) if mode in CARRIERS else (True,)
     for cfo in cfos:
         ms = _median_ms(lambda: demod_pack_batch(x, mode, rate, cfo_retry=cfo))
         say(f"{mode} demod_pack_batch cfo={cfo}: median {ms:.4f} ms of 9 = "
             f"{b * N / (ms * 1e-3) / 1e6:.2f} Msamples/s | {card}")
-    if mode in FSK_MODES:
+    if mode == "NEURAL":
+        ms = _median_ms(lambda: td_sync_batch(x, 2))
+        say(f"{mode} td_sync_batch (the preamble sync) alone: median {ms:.4f} ms | {card}")
+    elif mode in FSK_MODES:
         params = resolve_demod_plan(mode, rate)[1]
         ms = _median_ms(lambda: FSK_MODES[mode][1](x, *params, SR))
         say(f"{mode} pass 1 ({FSK_MODES[mode][1].__name__}) alone: median {ms:.4f} ms | {card}")
     else:
         n_psk = 8 if mode == "8PSK" else 4
         spsym = SR // BAUD
+        r = x.shape[1]
         ms = _median_ms(lambda: _batch_pass1(None, x, b, r * 128, spsym, CARRIERS[mode], SR, 8, r, n_psk))
         say(f"{mode} _batch_pass1 alone: median {ms:.4f} ms | {card}")
     for cfo in cfos:

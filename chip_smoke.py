@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's receive once on one NVIDIA GPU: the batched PSK
-(DQPSK, DBPSK, D8PSK) and FSK (FSK1200, FSK9600, FSK19200, with MSK and FT8
-on the dual-tone kernel) slices, and the single-capture PSK receive
-(``decode_wav_file`` -> ``modem.demodulate`` -> the recovery ladder).
+(DQPSK, DBPSK, D8PSK), FSK (FSK1200, FSK9600, FSK19200, with MSK and FT8
+on the dual-tone kernel) and NEURAL slices, and the single-capture PSK and
+NEURAL receive (``decode_wav_file`` -> ``modem.demodulate`` -> the recovery
+ladder).
 
     python3 chip_smoke.py    # one card, full size, about 4 minutes on an H100
 
@@ -35,6 +36,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (the single-capture layout, 64-row padded): the float streams within
    1e-5 of their RMS, and the Gray dibits (QPSK) or π/4 sectors (8PSK)
    decided from them after derotation by pass 1's θ equal on every symbol;
+3d. K10 vs plain on 8 x 2^24-sample NEURAL@9600 captures synced by the
+   port's ``td_sync_batch``, float32 and int16 rows: symbols equal on clean
+   captures, at most 1e-4 different with AWGN at 6 dB, all zeros on an
+   all-zero capture;
 4. the matchers and packs vs plain at the main path's row count: K2 (qpsk
    and bpsk families), K5 on streams built under every hypothesis plus a
    noise capture, (first, found) equal on the 256-row prefix and on the
@@ -62,14 +67,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (K11 once per capture);
 5h. the 8PSK slice batch again under CONFIG ``tpu.demod_backend = "xla"``:
    the staged float path, K12 launched once and no other kernel;
+5i. the NEURAL@9600 slice: 64 x 2^24 captures (one seeded 16 KiB payload
+   each, tiled, random leads, one capture sign-flipped, one pure noise,
+   which escalates the batch to the full-lag search) through
+   ``decode_sample_batch``: K10 launched once and nothing else, every
+   signal capture its own frames, the peak device memory printed and under
+   40 GB; then ``decode_wav_batch`` on 2 NEURAL WAVs written by the port;
+5j. the same at NEURAL@3000 (chip length 4) on 8 captures: no kernel;
+5k. ``decode_wav_file(device="cuda")`` of a 2^24-sample NEURAL@9600 WAV
+   carrying the 128 KiB file in 8 parts (the time-domain path) and of one
+   at NEURAL@1200 (the FFT path): the file reassembles, no kernel launches;
 6. timing with CUDA events (one warm-up, median of 5): ``demod_pack_batch``
    of each mode on its 64 x 2^24 int16 batch staged on the card (PSK with
-   cfo_retry on and off), and each kernel and variant beside its plain
-   version (K1@4 also on int8 rows; the plain K8 and K9 at 8 captures,
-   where their float32 intermediates fit; K11 on one float32 capture, K12
-   on 64 x 2^24 int16 rows); and each mode's single-capture
-   ``decode_wav_file`` by the host clock (median of 3) with its device
-   kernel time under ``torch.profiler``.
+   cfo_retry on and off; NEURAL on float32, on the prefix branch and, with
+   one noise capture, the full search), and each kernel and variant beside
+   its plain version (K1@4 also on int8 rows; the plain K8, K9 and K10 at 8
+   captures, where their float32 intermediates fit; K11 on one float32
+   capture, K12 on 64 x 2^24 int16 rows); and each mode's single-capture
+   ``decode_wav_file`` (the PSK modes and NEURAL@9600) by the host clock
+   (median of 3) with its device kernel time under ``torch.profiler``.
 
 The line before the last is one JSON object with the kernels' names,
 sources, launch counts, errors, times and bounds (one entry per kernel and
@@ -145,7 +161,12 @@ _ENTRIES = {
     "fsk_quad_margin_batch": ("fsk_quad_margin_batch", "FSK19200", "fsk_quad.cu", 858),
     "psk_project_diff": ("psk_project_diff", "QPSK single", "project_diff.cu", 199),
     "psk_project_diff_batch": ("psk_project_diff_batch", "8PSK xla", "project_diff.cu", 126),
+    "neural_extract_batch": ("neural_extract_batch", "NEURAL", "neural_extract.cu", 1083),
 }
+# K10's operations per symbol, from its code: 256 codewords x 16 FMAs, 256
+# compares, 16 chips of 4 (two mask products, a sum, the half) and 16
+# unrotated chips of 3.
+_K10_OPS = 256 * 16 * 2 + 256 + 16 * 4 + 16 * 3
 # The single-capture decodes of phase 5g: 128 KiB in 8 parts of 16 KiB.
 _FILE_BYTES, _N_PARTS = 128 * 1024, 8
 
@@ -183,13 +204,14 @@ def _wave(payload: bytes, name: str, mode: str = "QPSK", offset_hz: float = 0.0)
     return fn(framed, BAUD, _SLICES[mode]["carrier"] + offset_hz)
 
 
-def _multipart_transmission(mode: str, seed: int, offset_hz: float = 0.0):
+def _multipart_transmission(mode: str, seed: int, offset_hz: float = 0.0, rate: int = BAUD):
     """(file, wave): a random 128 KiB file in 8 parts of 16 KiB, each part
     compressed on its own and framed as the JAX ``encoder.py`` frames a
     multi-part file (``name.partN``, the whole file's size and CRC), the 8
     frames modulated as one transmission on the mode's carrier +
-    ``offset_hz``."""
+    ``offset_hz`` (NEURAL: at ``rate`` on its own carrier)."""
     from audio_modem_radio_tpu_torch.framing import crc32, pack_frame
+    from audio_modem_radio_tpu_torch.modem import modulate
     from audio_modem_radio_tpu_torch.ops.psk import bpsk_modulate, psk8_real_modulate, qpsk_modulate
     from audio_modem_radio_tpu_torch.utils.compression import adaptive_compress
 
@@ -200,6 +222,8 @@ def _multipart_transmission(mode: str, seed: int, offset_hz: float = 0.0):
                    i, _N_PARTS, len(data), crc32(data))
         for i in range(_N_PARTS)
     )
+    if mode == "NEURAL":
+        return data, modulate(mode, framed, rate)
     fn = {"QPSK": qpsk_modulate, "BPSK": bpsk_modulate, "8PSK": psk8_real_modulate}[mode]
     return data, fn(framed, BAUD, _SLICES[mode]["carrier"] + offset_hz)
 
@@ -230,7 +254,8 @@ def _rows(batch: np.ndarray, dtype: str, device, mode: str = "QPSK", rate: int =
     return torch.from_numpy(shaped).to(device)
 
 
-def _fsk_wave(payload: bytes, name: str, mode: str, rate: int) -> np.ndarray:
+def _mode_wave(payload: bytes, name: str, mode: str, rate: int) -> np.ndarray:
+    """A framed ``mode`` wave at symbol rate ``rate`` through the port's ``modulate``."""
     from audio_modem_radio_tpu_torch.framing import crc32, pack_frame
     from audio_modem_radio_tpu_torch.modem import modulate
 
@@ -604,7 +629,7 @@ def phase_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, card:
     return counts
 
 
-def _wav_roundtrip(device, mode: str, payload_bytes: int, tag: str, rate: int = BAUD) -> None:
+def _wav_roundtrip(device, mode: str, payload_bytes: int, tag: str, rate: int = BAUD, n_wavs: int = 4) -> None:
     from audio_modem_radio_tpu_torch.assembly import AssemblyRegistry
     from audio_modem_radio_tpu_torch.framing import crc32, pack_frame
     from audio_modem_radio_tpu_torch.modem import modulate
@@ -617,7 +642,7 @@ def _wav_roundtrip(device, mode: str, payload_bytes: int, tag: str, rate: int = 
     work = tempfile.mkdtemp(dir=scratch)
     try:
         sources, wavs = [], []
-        for i in range(4):
+        for i in range(n_wavs):
             data = (f"{mode} wav file {i} ".encode() * 100) + _payload(900 + i, payload_bytes // 4)
             blob = intelligent_compress(data)
             framed = pack_frame(f"src{i}.bin", blob, 0, 1, len(data), crc32(data))
@@ -631,7 +656,7 @@ def _wav_roundtrip(device, mode: str, payload_bytes: int, tag: str, rate: int = 
             check(len(paths) == 1, f"{mode} WAV {i}: {len(paths)} files saved")
             with open(paths[0], "rb") as f:
                 check(f.read() == sources[i], f"{mode} WAV {i}: saved file differs from its source")
-        say(f"[{tag} {mode}] decode_wav_batch: 4 WAVs written by the port, 4 saved files byte-equal")
+        say(f"[{tag} {mode}] decode_wav_batch: {n_wavs} WAVs written by the port, {n_wavs} saved files byte-equal")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -775,7 +800,7 @@ def phase_fsk_kernels(device, n_cap: int, n: int, card: str) -> dict:
         t0 = time.perf_counter()
         baud, mark, space = _fsk_params(mode, rate)
         spb = int(round(SR / baud))
-        clean = np.stack([_tiled(_fsk_wave(_payload(300 + i, pbytes), f"k7_{i}.bin", mode, rate), n,
+        clean = np.stack([_tiled(_mode_wave(_payload(300 + i, pbytes), f"k7_{i}.bin", mode, rate), n,
                                  lead=7 * i) for i in range(n_cap)])
         noisy = _awgn(clean[:1], 6.0, device)
         n_sig = n // spb - 2
@@ -818,7 +843,7 @@ def phase_fsk_kernels(device, n_cap: int, n: int, card: str) -> dict:
         t0 = time.perf_counter()
         rate = _FSK_SLICES[mode]["rate"]
         baud, mark, space = _fsk_params(mode, rate)
-        clean = np.stack([_tiled(_fsk_wave(_payload(400 + i, 16384), f"k8_{i}.bin", mode, rate), n,
+        clean = np.stack([_tiled(_mode_wave(_payload(400 + i, 16384), f"k8_{i}.bin", mode, rate), n,
                                  lead=5 * i) for i in range(n_cap)])
         noisy = _awgn(clean[:1], 15.0, device)
         n_sig = n // int(round(SR / baud)) - 2
@@ -911,7 +936,7 @@ def phase_fsk_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, t
             min_frames.append(0)
             continue
         p = _payload(6000 + i, payload_bytes)
-        wave = _fsk_wave(p, f"cap{i}.bin", mode, rate)
+        wave = _mode_wave(p, f"cap{i}.bin", mode, rate)
         batch[i] = _tiled(wave, n, lead=int(rng.integers(0, 1281)))
         payloads.append(p)
         min_frames.append(max(1, n // len(wave) - 1))
@@ -972,7 +997,7 @@ def phase_fsk_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
         rate = spec["rate"]
         baud, mark, space = _fsk_params(mode, rate)
         spb = int(round(SR / baud))
-        wave = _fsk_wave(_payload(0, payload_bytes), "bench.bin", mode, rate)
+        wave = _mode_wave(_payload(0, payload_bytes), "bench.bin", mode, rate)
         one = _rows(_tiled(wave, n)[None], "int16", device, mode, rate)
         x = one.expand(n_cap, -1, -1).contiguous()  # ship once, tile on the card
         del one
@@ -1282,6 +1307,208 @@ def phase_single_timing(device, n_cap: int, n: int, payload_bytes: int, wavs: di
     return t, bounds, decodes
 
 
+# --- NEURAL: K10, the batched slices, the single-capture decodes --------------------
+
+def phase_neural_kernel(device, n_cap: int, n: int, payload_bytes: int, card: str) -> dict:
+    """K10 vs plain on ``n_cap`` x 2^24-sample NEURAL@9600 captures (tiled
+    waves, capture 1 sign-flipped) synced by the port's ``td_sync_batch``, in
+    float32 and int16 rows: symbols equal on the clean captures, at most
+    1e-4 of them different on a capture with AWGN at 6 dB SNR, and all zeros
+    on an all-zero capture. Returns {entry: (max abs symbol error, None)}."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.ops.neural import _codebook, td_sync_batch
+
+    t0 = time.perf_counter()
+    clean = np.stack([_tiled(_mode_wave(_payload(800 + i, payload_bytes), f"k10_{i}.bin", "NEURAL", BAUD), n,
+                             lead=5 * i + 3) for i in range(n_cap)])
+    clean[1] *= -1.0
+    cases = (("clean", clean), ("awgn6dB", _awgn(clean[:1], 6.0, device)), ("zero", np.zeros((1, n), np.float32)))
+    cb = torch.from_numpy(_codebook()).to(device)
+    r3 = n // 128
+    worst = 0
+    for dtype in ("f32", "int16"):
+        for tag, data in cases:
+            x = torch.from_numpy(data).to(device)
+            if dtype == "int16":
+                x = torch.clamp(torch.round(x * 32768.0), -32768, 32767).to(torch.int16)
+            k0, pr, pi = td_sync_batch(x, 2)
+            b = x.shape[0]
+            x2d = x.reshape(b * r3, 128)
+            ph = torch.stack([pr, pi], dim=1).contiguous()
+            s = (k0 % 128).to(torch.int32)
+            got = tk.neural_extract_batch(x2d, cb, ph, s, rows_per_capture=r3)
+            ref = tk.neural_extract_batch_plain(x2d, cb, ph, s, r3)
+            torch.cuda.synchronize()
+            n_bad, n_all = int((got != ref).sum()), got.numel()
+            say(f"[3d K10] {tag} {dtype} rows ({b * r3}, 128): k0={k0.tolist()[:4]} mismatches={n_bad} of "
+                f"{n_all} ({n_bad / n_all:.3e}) | {card}")
+            if tag == "clean":
+                check(n_bad == 0, f"K10 differs from plain on clean {dtype} captures")
+                worst = max(worst, int((got.int() - ref.int()).abs().max()))
+            elif tag == "zero":
+                check(not got.any() and not ref.any(), f"K10 or plain decoded nonzero symbols from zeros ({dtype})")
+            else:
+                check(n_bad / n_all <= 1e-4, f"K10 mismatch fraction {n_bad / n_all} > 1e-4 at 6 dB")
+            del x, x2d, got, ref
+    torch.cuda.empty_cache()
+    say(f"[3d K10] {time.perf_counter() - t0:.1f} s | {card}")
+    return {"neural_extract_batch": (float(worst), None)}
+
+
+def phase_neural_slice(device, rate: int, n_cap: int, n: int, payload_bytes: int, tag: str, card: str) -> dict:
+    """A NEURAL slice at real size: one seeded payload per capture, its
+    framed wave tiled with a random lead of 0-1280 samples, capture 1
+    sign-flipped, the last one pure noise (so the batch escalates to the
+    full-lag search), through ``decode_sample_batch`` and ``parse_frames``.
+    At 9600 Bd K10 launches once and nothing else, at 3000 Bd (chip length
+    4) nothing; the peak device memory stays under 40 GB. At 9600 Bd also
+    ``decode_wav_batch`` on 2 WAVs written by the port. Returns the launch
+    counts of the ``decode_sample_batch`` run."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.ops import neural as tn
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
+
+    label = f"NEURAL@{rate}"
+    rng = np.random.default_rng(2026)
+    t_phase = t0 = time.perf_counter()
+    batch = np.empty((n_cap, n), np.float32)
+    payloads, min_frames = [], []
+    noise_i = n_cap - 1
+    for i in range(n_cap):
+        if i == noise_i:
+            batch[i] = np.clip(rng.normal(0.0, 0.3, n), -1, 1)
+            payloads.append(None)
+            min_frames.append(0)
+            continue
+        p = _payload(7000 + i, payload_bytes)
+        wave = _mode_wave(p, f"cap{i}.bin", "NEURAL", rate)
+        batch[i] = _tiled(wave, n, lead=int(rng.integers(0, 1281))) * (-1.0 if i == 1 else 1.0)
+        payloads.append(p)
+        min_frames.append(max(1, n // len(wave) - 1))
+    say(f"[{tag} {label}] built {n_cap} x {n} captures (capture 1 sign-flipped, capture {noise_i} noise) in "
+        f"{time.perf_counter() - t0:.1f} s | {card}")
+
+    searched = []  # the lag rows of each matched-filter search
+    real_peaks = tn._peaks
+    tn._peaks = lambda x, c, rows, rho: searched.append(rows) or real_peaks(x, c, rows, rho)
+    try:
+        tk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        raws = decode_sample_batch(batch, "NEURAL", rate, device=device)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        tn._peaks = real_peaks
+    counts = tk.launch_counts()
+    say(f"[{tag} {label}] decode_sample_batch wall {wall:.3f} s (copy, sync, extraction, copy back) "
+        f"launches={counts}; matched-filter rows searched {searched}; peak device memory "
+        f"{peak / 1e9:.3f} GB | {card}")
+    want = ("neural_extract_batch",) if tn._chip_len(rate) == 2 else ()
+    _check_launches(counts, want, label, "decode_sample_batch")
+    check(sum(counts.values()) == len(want), f"{label}: a kernel launched more than once: {counts}")
+    check(searched[-1] == -(-n // 128), f"{label}: the noise capture did not escalate the batch to the full search")
+    check(peak < 40e9, f"{label}: peak device memory {peak / 1e9:.1f} GB is not under 40 GB")
+    _check_fsk_frames(label, raws, payloads, min_frames, tag, card, "decode_sample_batch")
+    del batch, raws
+    torch.cuda.empty_cache()
+    if want:
+        _wav_roundtrip(device, "NEURAL", payload_bytes, tag, rate, n_wavs=2)
+    say(f"[{tag} {label}] {time.perf_counter() - t_phase:.1f} s | {card}")
+    return counts
+
+
+def phase_neural_single(device, n: int, work: str, card: str) -> str:
+    """``decode_wav_file(device)`` of a NEURAL@9600 (time domain) and a
+    NEURAL@1200 (FFT matched filter) 2^24-sample WAV, each carrying the
+    128 KiB file in 8 parts: the reassembled file equals the sent one and
+    no kernel launches. Returns the 9600 Bd WAV's path."""
+    from audio_modem_radio_tpu_torch.utils.wavio import write_wav
+
+    rng = np.random.default_rng(78)
+    out = None
+    for rate, seed in ((BAUD, 50), (1200, 51)):
+        t0 = time.perf_counter()
+        data, wave = _multipart_transmission("NEURAL", seed, rate=rate)
+        x = np.zeros(n, np.float32)
+        lead = int(rng.integers(0, 96000))
+        check(lead + len(wave) <= n, f"NEURAL@{rate}: the 8-part transmission does not fit 2^24 samples")
+        x[lead : lead + len(wave)] = wave
+        path = os.path.join(work, f"NEURAL_{rate}.wav")
+        write_wav(path, x)
+        saved, counts, _reads, wall = _decode_wav(device, path, "NEURAL", rate, work, f"NEURAL{rate}")
+        say(f"[5k NEURAL@{rate}] decode_wav_file, {len(wave) / SR:.1f} s of signal in {n / SR:.1f} s: wall "
+            f"{wall:.3f} s, saved {len(saved)}, launches={counts} | {card}")
+        check(len(saved) == 1, f"NEURAL@{rate}: {len(saved)} files saved")
+        with open(saved[0], "rb") as f:
+            check(f.read() == data, f"NEURAL@{rate}: the reassembled file differs")
+        check(sum(counts.values()) == 0, f"NEURAL@{rate}: the single-capture decode launched a kernel: {counts}")
+        if rate == BAUD:
+            out = path
+        say(f"[5k NEURAL@{rate}] {time.perf_counter() - t0:.1f} s | {card}")
+    return out
+
+
+def phase_neural_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
+    """``demod_pack_batch`` NEURAL on the 64 x 2^24 float32 bench batch
+    staged on the card (the prefix branch), again with its last capture
+    pure noise (the full search), and K10 beside its bound and its plain
+    version at 8 captures (the plain scores of 64 captures would take 69
+    GB). Returns ({entry: (ms, plain_ms, plain_captures)}, {label:
+    Msamples/s}, {entry: (bound_ms, bound_by)})."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.framing import parse_frames
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.ops.neural import _codebook, td_sync_batch
+    from audio_modem_radio_tpu_torch.parallel.batch import demod_pack_batch
+
+    t0 = time.perf_counter()
+    wave = _mode_wave(_payload(0, payload_bytes), "bench.bin", "NEURAL", BAUD)
+    one = torch.from_numpy(_tiled(wave, n)[None]).to(device)
+    x = one.expand(n_cap, -1).contiguous()  # ship once, tile on the card
+    del one
+    packed, n_valid, _ = demod_pack_batch(x, "NEURAL", BAUD)
+    check(len(parse_frames(packed[0, : int(n_valid[0])].cpu().numpy().tobytes())) >= n // len(wave) - 1,
+          "NEURAL bench batch: capture 0 lost frames")
+    del packed
+    msps = {}
+    for label in ("prefix", "full search"):
+        if label == "full search":
+            gen = torch.Generator(device=device).manual_seed(99)
+            x[-1] = torch.clamp(torch.randn(n, generator=gen, device=device) * 0.3, -1.0, 1.0)
+        ms = _time_ms(lambda: demod_pack_batch(x, "NEURAL", BAUD))
+        msps[label] = n_cap * n / (ms * 1e-3) / 1e6
+        say(f"[6 time] demod_pack_batch NEURAL {n_cap} x {n} float32, {label}: {ms:.3f} ms = "
+            f"{msps[label]:.2f} Msamples/s | {card}")
+    x[-1] = x[0]
+    k0, pr, pi = td_sync_batch(x, 2)
+    r3 = n // 128
+    x2d = x.reshape(n_cap * r3, 128)
+    cb = torch.from_numpy(_codebook()).to(device)
+    ph = torch.stack([pr, pi], dim=1).contiguous()
+    s = (k0 % 128).to(torch.int32)
+    n_sym = n_cap * r3 * 8
+    bounds = {"neural_extract_batch": _bound(x2d.numel() * 4 + n_sym + cb.numel() * 4 + n_cap * 12,
+                                             n_sym * _K10_OPS)}
+    pc = min(8, n_cap)
+    xp = x2d[: pc * r3]
+    t = {"neural_extract_batch": (
+        _time_ms(lambda: tk.neural_extract_batch(x2d, cb, ph, s, rows_per_capture=r3)),
+        _time_ms(lambda: tk.neural_extract_batch_plain(xp, cb, ph[:pc], s[:pc], r3)), pc)}
+    ms, plain, _ = t["neural_extract_batch"]
+    say(f"[6 time] neural_extract_batch B={n_cap}: kernel {ms:.4f} ms, plain {plain:.4f} ms (plain at {pc} "
+        f"captures), bound {bounds['neural_extract_batch'][0]:.4f} ms by {bounds['neural_extract_batch'][1]} | {card}")
+    del x, x2d, xp
+    torch.cuda.empty_cache()
+    say(f"[6 time] NEURAL: {time.perf_counter() - t0:.1f} s | {card}")
+    return t, msps, bounds
+
+
 def main() -> int:
     n, n_k1, n_slice, payload_bytes = 1 << 24, 8, 64, 16384
     # One card: the first visible one (set before torch initialises CUDA).
@@ -1317,6 +1544,8 @@ def main() -> int:
         errs.update(phase_fsk_kernels(device, n_k1, n, card))
         phase = "3c K11/K12"
         errs.update(phase_project_diff(device, n_k1, n, payload_bytes, card))
+        phase = "3d K10"
+        errs.update(phase_neural_kernel(device, n_k1, n, payload_bytes, card))
         phase = "4 match/pack"
         r = blocked_row_shape(n, BAUD, SR)[0]
         errs.update({k: (v, None) for k, v in phase_match_pack(device, r, card).items()})
@@ -1338,12 +1567,21 @@ def main() -> int:
         finally:
             CONFIG.set("tpu.demod_backend", "auto")
         check(counts["8PSK xla"]["psk_project_diff_batch"] == 1, "K12 must launch once on the xla path")
+        phase = "5i NEURAL slice"
+        counts["NEURAL"] = phase_neural_slice(device, BAUD, n_slice, n, payload_bytes, "5i", card)
+        phase = "5j NEURAL@3000"
+        phase_neural_slice(device, 3000, n_k1, n, payload_bytes, "5j", card)
+        phase = "5k NEURAL single-capture decodes"
+        single["wavs"]["NEURAL"] = phase_neural_single(device, n, single["work"], card)
         phase = "6 timing"
         psk_times, _, bounds = phase_timing(device, n_slice, n, payload_bytes, card)
         times = {k: (ms, plain, n_slice) for k, (ms, plain) in psk_times.items()}
         fsk_times, _, fsk_bounds = phase_fsk_timing(device, n_slice, n, payload_bytes, card)
         times.update(fsk_times)
         bounds.update(fsk_bounds)
+        neural_times, _, neural_bounds = phase_neural_timing(device, n_slice, n, payload_bytes, card)
+        times.update(neural_times)
+        bounds.update(neural_bounds)
         diff_times, diff_bounds, _ = phase_single_timing(device, n_slice, n, payload_bytes, single["wavs"],
                                                          single["work"], card)
         times.update(diff_times)

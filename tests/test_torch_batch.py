@@ -158,7 +158,7 @@ def test_host_shape_rule_and_unported_kinds():
     assert tb.resolve_demod_plan("NOPE", 9600) == tb.resolve_demod_plan("QPSK", 9600)
     # Flat close-tone FSK needs the single-capture receiver (flat dual-tone
     # FSK runs K13's path, tests/test_torch_fsk.py).
-    for mode in ("FSK9600", "OFDM4", "DSSS", "NEURAL", "HELLSCHREIBER"):
+    for mode in ("FSK9600", "OFDM4", "DSSS", "HELLSCHREIBER"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tb.demod_pack_batch(torch.zeros((1, 1 << 16)), mode, 9600)
     # PSK31 has no blocked path: the single-capture receiver per capture,

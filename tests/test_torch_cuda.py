@@ -442,3 +442,65 @@ def test_single_capture_decode_on_card(cuda):
     counts = tk.launch_counts()
     assert counts["psk_project_diff"] == 1 and sum(counts.values()) == 1
     assert [f.data for f in parse_frames(raw)] == [p]
+
+
+# --- K10: NEURAL chip extraction + codebook argmax ---------------------------------
+
+def _neural_rows(n_cap: int, n: int, dtype: str):
+    """(n_cap * r3, 128) rows of NEURAL@9600 captures at different leads
+    (the last one all zeros), float32 or int16 at scale 32768."""
+    from audio_modem_radio_tpu_torch.ops.neural import neural_mode_modulate
+
+    rng = np.random.default_rng(9)
+    x = np.zeros((n_cap, n), np.float32)
+    for i in range(n_cap - 1):
+        p = rng.integers(0, 256, 3000, dtype=np.uint8).tobytes()
+        wave = neural_mode_modulate(pack_frame("n.bin", p, 0, 1, len(p), crc32(p)), 9600)
+        x[i, 37 * i : 37 * i + len(wave)] = wave[: n - 37 * i]
+    if dtype == "int16":
+        x = np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
+    return x.reshape(-1, 128)
+
+
+@pytest.mark.parametrize("rows", [512, 300])
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_neural_extract_kernel_equals_plain(cuda, dtype, rows):
+    """Every symbol equal to the plain version at several offsets s (one
+    taken mod 128) and phasors, 512 rows and a row count that is not a
+    multiple of 512; the all-zero capture decodes to 0."""
+    from audio_modem_radio_tpu_torch.ops.neural import _codebook
+
+    x = torch.from_numpy(_neural_rows(4, rows * 128, dtype)).to(cuda)
+    cb = torch.from_numpy(_codebook()).to(cuda)
+    ang = torch.tensor([0.0, 2.1, -0.7, 3.0], device=cuda)
+    ph = torch.stack([torch.cos(ang), torch.sin(ang)], dim=1)
+    s = torch.tensor([0, 37, 74 + 128, 127], dtype=torch.int32, device=cuda)
+    before = tk.neural_extract_batch.launches
+    got = tk.neural_extract_batch(x, cb, ph, s, rows_per_capture=rows)
+    ref = tk.neural_extract_batch_plain(x, cb, ph, s, rows)
+    torch.cuda.synchronize()
+    assert tk.neural_extract_batch.launches == before + 1
+    assert got.shape == (4, rows * 8) and got.dtype == torch.uint8
+    assert torch.equal(got, ref)
+    assert not got[3].any()
+
+
+def test_neural_decode_sample_batch_on_card(cuda):
+    """NEURAL@9600 round trip on the card: K10 launches once and nothing
+    else; NEURAL@3000 (chip length 4) launches no kernel."""
+    from audio_modem_radio_tpu_torch.framing import parse_frames
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
+
+    rng = np.random.default_rng(3)
+    for rate, want in ((9600, {"neural_extract_batch"}), (3000, set())):
+        p = rng.integers(0, 256, 1500, dtype=np.uint8).tobytes()
+        wave = modulate("NEURAL", pack_frame("n.bin", p, 0, 1, len(p), crc32(p)), rate)
+        batch = np.zeros((3, 1 << 18), np.float32)
+        batch[0, : len(wave)] = wave
+        batch[1, 555 : 555 + len(wave)] = -wave
+        batch[2] = rng.normal(0, 0.3, 1 << 18)
+        tk.reset_launch_counts()
+        raws = decode_sample_batch(batch, "NEURAL", rate, device=cuda)
+        counts = tk.launch_counts()
+        assert {k for k, v in counts.items() if v > 0} == want and sum(counts.values()) == len(want)
+        assert [[f.data for f in parse_frames(r)] for r in raws] == [[p], [p], []]

@@ -166,7 +166,7 @@ def test_8psk_alias_flag_and_probe_match_jax(captures, configs):
 def test_demodulate_unknown_and_unported_modes():
     x = np.zeros(N, np.float32)
     assert tmodem.demodulate("NOPE", x, 9600, device="cpu") == tmodem.demodulate("QPSK", x, 9600, device="cpu")
-    for mode in ("OFDM4", "DSSS", "NEURAL", "HELLSCHREIBER"):
+    for mode in ("OFDM4", "DSSS", "HELLSCHREIBER"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
             tmodem.demodulate(mode, x, 9600, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 1"):
