@@ -15,15 +15,17 @@ each kernel's wrapper runs its plain PyTorch version.
 """
 
 from .utils import torchenv  # noqa: F401  (pins float32 products to IEEE float32)
-from .config import CONFIG, ConfigManager
+from .config import CONFIG, ConfigManager, get_quality_threshold, set_quality_threshold
 from .framing import Frame, pack_frame, parse_frames
-from .modem import MODES, SAMPLE_RATE, demodulate, modulate
+from .modem import MODES, SAMPLE_RATE, demodulate, modulate, wav_from_array
 
 __version__ = "0.1.0"
 
 __all__ = [
     "CONFIG",
     "ConfigManager",
+    "get_quality_threshold",
+    "set_quality_threshold",
     "Frame",
     "pack_frame",
     "parse_frames",
@@ -31,5 +33,6 @@ __all__ = [
     "SAMPLE_RATE",
     "demodulate",
     "modulate",
+    "wav_from_array",
     "__version__",
 ]

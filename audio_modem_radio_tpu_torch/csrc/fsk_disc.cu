@@ -17,61 +17,92 @@
 //
 // What bounds it on the H100: float32 operations, in the FIR. At FSK9600
 // (dec 4, 129 taps) 64 captures of 2^24 samples need 64 x 33280 x 128 outputs
-// x 258 FMAs, 141 GFLOP or 2.1 ms at 67 TFLOP/s, against 2.7 GB read and 0.9
-// GB written (1.1 ms at 3.35 TB/s).
+// x 258 FMAs, 141 GFLOP or 2.1 ms at 67 TFLOP/s, against 2.2 GB read (each
+// sample once) and 0.9 GB written (0.9 ms at 3.35 TB/s). What holds it back is
+// every issued instruction that is not one of those FMAs, and every warp that
+// is not in the tap loop: at dec 4 a pass stages and converts four samples per
+// output, and a bit takes 2.5 outputs, so the share outside the loop is larger
+// than K9's.
 //
-// Design. One block per kTileRows = 16 boxcar rows of one capture: it runs the
-// FIR over the 16*row2/128 + 2 FIR rows those need (one for the overlap
-// columns, one for the last phasor's successor) into shared memory, about 84 KB
-// at FSK9600, where the Pallas kernel's 640-row block would need 657 KB, then
-// one thread per (row, bit) forms the phasors of its window from shared memory
-// and sums them against the offset's band table, also in shared memory.
+// Design (fsk_fir.cuh has the FIR's). One block walks 512 FIR rows of one
+// capture in 32 passes of 16 rows: it loads the winning offset's (span, spr2)
+// band table once, and after each pass one thread per (boxcar row, bit) forms
+// the phasors of the bits whose windows that pass completed and sums them,
+// reading the analytic stream from a ring in shared memory that holds the pass
+// and the row before it (a bit of span phasors reads span + 1 samples). The
+// filter's outputs never reach global memory; about 75 KB of shared memory and
+// a cap of 85 registers a thread let three blocks share a multiprocessor.
 
 #include "fsk_fir.cuh"
 
 namespace {
 
 template <typename T, int DEC>
-__global__ void fsk_disc_kernel(const T* __restrict__ x, const __grid_constant__ FirTaps h,
-                                const int* __restrict__ first, const float* __restrict__ tab,
-                                int span, const int* __restrict__ best, float* __restrict__ sr,
-                                float* __restrict__ si, int rows, int c_pad, int row2, int ov2,
-                                int spr2, int r2, int tiles_per_capture, int n_fir) {
-  extern __shared__ float smem[];
-  float* zr = smem;
-  float* zi = zr + n_fir * kOut;
-  float* xs = zi + n_fir * kOut;
-  float* wt = xs + kChunk * staged_row_words<DEC>(c_pad);  // (span, spr2)
-  int* ft = reinterpret_cast<int*>(wt + span * spr2);       // (spr2,)
+__global__ void __launch_bounds__(kThreads, 3)
+    fsk_disc_kernel(const T* __restrict__ x, const __grid_constant__ FirTaps h,
+                    const int* __restrict__ first, const float* __restrict__ tab, int span,
+                    const int* __restrict__ best, float* __restrict__ sr, float* __restrict__ si,
+                    int rows, int row2, int ov2, int spr2, int r2, int chunk_step,
+                    int chunks_per_capture, int ring) {
+  extern __shared__ __align__(16) float smem[];
+  float* zr = smem;  // the ring: analytic sample n of the chunk at n % ring
+  float* zi = zr + ring;
+  unsigned char* staging = reinterpret_cast<unsigned char*>(zi + ring);
+  float* wt = reinterpret_cast<float*>(staging + FirGeom<T, DEC>::kStagingBytes);  // (span, spr2)
+  int* ft = reinterpret_cast<int*>(wt + span * spr2);                               // (spr2,)
 
-  const int b = blockIdx.x / tiles_per_capture;
-  const int i0 = (blockIdx.x % tiles_per_capture) * kTileRows;
+  const int b = blockIdx.x / chunks_per_capture;
+  const int row0 = (blockIdx.x % chunks_per_capture) * chunk_step;
+  // The bits this block owns start in [own_lo, own_hi) of the capture's analytic
+  // stream; a bit reads span phasors, span + 1 analytic samples.
+  const int window = span + 1;
+  const int own_lo = row0 * kOut, own_hi = own_lo + chunk_step * kOut;
+  const int z_need = min(own_hi, rows * kOut + ov2) - own_lo + window;
+  const int n_rows = min(kChunkRows, (z_need + kOut - 1) / kOut);
+  const FirStream<T, DEC> fir(x + (long long)b * rows * FirGeom<T, DEC>::kCPad, rows, row0, n_rows, staging);
+  fir.begin();
+
   const int k = best[b];
-  for (int e = threadIdx.x; e < span * spr2; e += blockDim.x)
-    wt[e] = tab[(long long)k * span * spr2 + e];
+  for (int e = threadIdx.x; e < span * spr2; e += blockDim.x) wt[e] = tab[(long long)k * span * spr2 + e];
   for (int e = threadIdx.x; e < spr2; e += blockDim.x) ft[e] = first[k * spr2 + e];
 
-  const int rows_pb = row2 / kOut;
-  fir_rows<T, DEC>(x + (long long)b * rows * c_pad, rows, c_pad, (long long)i0 * rows_pb, n_fir,
-                   h, xs, zr, zi);
-
+  const ItemStep step(kThreads, spr2);
+  const int row_t = threadIdx.x / spr2, bit_t = threadIdx.x % spr2;
   const long long out0 = (long long)b * r2 * spr2;
-  for (int e = threadIdx.x; e < kTileRows * spr2; e += blockDim.x) {
-    const int il = e / spr2, s = e - il * spr2;
-    if (i0 + il >= r2) break;
-    const int n0 = il * row2 + ft[s];
-    float ar = 0.f, ai = 0.f;
-    for (int t = 0; t < span; ++t) {
-      const int n = n0 + t;
-      const float r0 = zr[n], i0v = zi[n], r1 = zr[n + 1], i1 = zi[n + 1];
-      const float pr = __fadd_rn(__fmul_rn(r1, r0), __fmul_rn(i1, i0v));
-      const float pi = __fsub_rn(__fmul_rn(i1, r0), __fmul_rn(r1, i0v));
-      const float w = wt[t * spr2 + s];
-      ar = fmaf(pr, w, ar);
-      ai = fmaf(pi, w, ai);
+  int zbase = 0;  // where the ring holds this pass's first output
+  for (int p = 0; p * kPassRows < n_rows; ++p) {
+    int zpos = zbase + kQ * threadIdx.x;
+    if (zpos >= ring) zpos -= ring;
+    fir.pass(p, h, zr + zpos, zi + zpos);
+    __syncthreads();
+    // The bits whose windows end in this pass's outputs.
+    const int prev = own_lo + p * kPassOut, lim = prev + kPassOut;
+    int i_lo, i_hi;
+    rows_ending_in(prev, lim, window, row2, ov2, r2, i_lo, i_hi);
+    int i = i_lo + row_t, s = bit_t;
+    for (; i <= i_hi; step.advance(i, s, spr2)) {
+      const int n0 = i * row2 + ft[s];
+      if (n0 < own_lo || n0 >= own_hi || n0 + window <= prev || n0 + window > lim) continue;
+      float ar = 0.f, ai = 0.f;
+      int n = zbase + n0 - prev;  // the window starts at most `ring - kPassOut` samples before this pass
+      if (n < 0) n += ring;
+      if (n >= ring) n -= ring;
+      float r0 = zr[n], i0v = zi[n];
+      for (int t = 0; t < span; ++t) {
+        if (++n == ring) n = 0;
+        const float r1 = zr[n], i1 = zi[n];
+        const float pr = __fadd_rn(__fmul_rn(r1, r0), __fmul_rn(i1, i0v));
+        const float pi = __fsub_rn(__fmul_rn(i1, r0), __fmul_rn(r1, i0v));
+        const float w = wt[t * spr2 + s];
+        ar = fmaf(pr, w, ar);
+        ai = fmaf(pi, w, ai);
+        r0 = r1, i0v = i1;
+      }
+      sr[out0 + (long long)i * spr2 + s] = ar;
+      si[out0 + (long long)i * spr2 + s] = ai;
     }
-    sr[out0 + (long long)(i0 + il) * spr2 + s] = ar;
-    si[out0 + (long long)(i0 + il) * spr2 + s] = ai;
+    zbase += kPassOut;
+    if (zbase >= ring) zbase -= ring;
   }
 }
 
@@ -79,17 +110,15 @@ template <typename T, int DEC>
 int launch(const void* x, const FirTaps& h, const int* first, const float* tab, int span,
            const int* best, float* sr, float* si, int n_captures, int rows, int c_pad, int row2,
            int ov2, int spr2, cudaStream_t stream) {
+  if (!fir_operands_ok<T, DEC>(x, c_pad)) return (int)cudaErrorInvalidValue;
   const int r2 = (int)((long long)rows * kOut / row2);
-  const int tiles = (r2 + kTileRows - 1) / kTileRows;
-  const int n_fir = kTileRows * (row2 / kOut) + ov2 / kOut + 1;
-  const size_t smem = fir_smem_bytes<DEC>(n_fir, c_pad) + sizeof(float) * span * spr2 +
-                      sizeof(int) * spr2;
-  cudaError_t err = cudaFuncSetAttribute(fsk_disc_kernel<T, DEC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  FirWalk walk;
+  cudaError_t err = fir_plan_walk<T, DEC>(fsk_disc_kernel<T, DEC>, rows + ov2 / kOut, span + 1,
+                                          sizeof(float) * span * spr2 + sizeof(int) * spr2, &walk);
   if (err != cudaSuccess) return (int)err;
-  fsk_disc_kernel<T, DEC><<<(unsigned)((long long)n_captures * tiles), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), h, first, tab, span, best, sr, si, rows, c_pad, row2, ov2, spr2,
-      r2, tiles, n_fir);
+  fsk_disc_kernel<T, DEC><<<n_captures * walk.chunks_per_capture, kThreads, walk.smem, stream>>>(
+      static_cast<const T*>(x), h, first, tab, span, best, sr, si, rows, row2, ov2, spr2, r2,
+      walk.chunk_step, walk.chunks_per_capture, walk.ring);
   return (int)cudaGetLastError();
 }
 

@@ -32,7 +32,7 @@ import numpy as np
 
 from .assembly import AssemblyRegistry, registry as default_registry
 from .config import CONFIG
-from .framing import Frame, crc32, parse_frames_detailed, scan_frame_candidates
+from .framing import Frame, crc32, parse_frames, parse_frames_detailed, scan_frame_candidates
 from .modem import SAMPLE_RATE, demodulate
 from .utils.compression import intelligent_decompress
 from .utils.torchenv import DeviceLike
@@ -56,6 +56,23 @@ def pad_to_bucket(samples: np.ndarray) -> np.ndarray:
                 return samples
             return np.concatenate([samples, np.zeros(b - n, dtype=samples.dtype)])
     return samples  # beyond the largest bucket: use the exact length
+
+
+def parse_fbp_stream_enhanced(raw: bytes) -> List[Frame]:
+    """The reference decoder's parser name; returns full Frame objects."""
+    return parse_frames(raw)
+
+
+def smart_decompress(compressed_data: bytes) -> bytes:
+    """The reference decoder's name for the tagged-container decompression
+    of ``utils.compression.intelligent_decompress``."""
+    return intelligent_decompress(compressed_data)
+
+
+def find_frame_start(data: bytes, start_pos: int = 0) -> int:
+    """Offset of an 0xAA preamble followed by the FBPC magic, or -1 (the
+    parser itself scans every magic offset and does not call this)."""
+    return data.find(b"\xAA\xAA\xAA\xAAFBPC", start_pos)
 
 
 def _safe_name(name: str) -> str:
@@ -439,9 +456,25 @@ def decode_with_retry(
 
     drift = [f for f in factors if f != 1.0]
     raws = []
-    if drift:
-        m = int(np.ceil(len(samples) * max(drift)))
-        raws = decode_sample_batch(drift_rows(samples, drift, m), mode, symbol_rate, device=device)
+    try:
+        if drift:
+            m = int(np.ceil(len(samples) * max(drift)))
+            raws = decode_sample_batch(drift_rows(samples, drift, m), mode, symbol_rate, device=device)
+    except NotImplementedError:
+        raise
+    except Exception:
+        # Captures too short to batch (0 or 1 samples, under two symbols):
+        # one single-capture decode per hypothesis at the scaled symbol rate.
+        logger.exception("batched retry failed; falling back to sequential attempts")
+        raws = []
+        for factor in drift:
+            rate = max(1, int(symbol_rate * factor))
+            try:
+                raws.append(demodulate(mode, pad_to_bucket(samples), rate, device=device))
+            except NotImplementedError:
+                raise
+            except Exception:
+                raws.append(b"")
     for i, raw in enumerate(raws):
         attempt = i + 2  # attempt 1 was the nominal full decode above
         _dump(attempt, raw)
@@ -451,3 +484,37 @@ def decode_with_retry(
             return saved
     logger.warning("all %d decode hypotheses failed", len(raws) + 1)
     return []
+
+
+# --- observability -------------------------------------------------------------
+
+def get_reception_stats(registry: Optional[AssemblyRegistry] = None) -> dict:
+    return (registry or default_registry).get_stats()
+
+
+def clear_reception_stats(registry: Optional[AssemblyRegistry] = None) -> None:
+    (registry or default_registry).clear_stats()
+
+
+def get_assembly_status(registry: Optional[AssemblyRegistry] = None) -> List[dict]:
+    return (registry or default_registry).get_status()
+
+
+def calculate_global_average_quality(registry: Optional[AssemblyRegistry] = None) -> float:
+    return (registry or default_registry).average_quality()
+
+
+def debug_demodulation(samples: np.ndarray, mode: str, symbol_rate: int) -> dict:
+    """Sample statistics of a capture, logged and returned, for troubleshooting."""
+    s = np.asarray(samples)
+    info = {
+        "mode": mode,
+        "symbol_rate": symbol_rate,
+        "n_samples": int(len(s)),
+        "mean": float(np.mean(s)) if len(s) else 0.0,
+        "std": float(np.std(s)) if len(s) else 0.0,
+        "min": float(np.min(s)) if len(s) else 0.0,
+        "max": float(np.max(s)) if len(s) else 0.0,
+    }
+    logger.info("debug_demodulation: %s", info)
+    return info

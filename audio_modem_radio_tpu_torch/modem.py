@@ -21,14 +21,14 @@ registry lacks; both raise NotImplementedError naming their ROADMAP.md item.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
 from .config import CONFIG
 from .framing import MAGIC, pack_frame, parse_frames_detailed
 from .ops.fsk import fsk_high_speed_modulate, fsk_modulate
-from .ops.neural import neural_mode_demodulate, neural_mode_modulate
+from .ops.neural import _chip_len as _neural_chip_len, neural_mode_demodulate, neural_mode_modulate
 from .ops.psk import (
     bpsk_demodulate,
     bpsk_modulate,
@@ -41,7 +41,7 @@ from .ops.psk import (
     qpsk_tracked_demodulate,
 )
 from .utils.torchenv import DeviceLike
-from .utils.wavio import SAMPLE_RATE  # noqa: F401  (re-export)
+from .utils.wavio import SAMPLE_RATE, wav_from_array  # noqa: F401  (re-export)
 
 # The single-capture FSK receiver (fsk_demod_bits with MLSE).
 FSK_SINGLE_ITEM = "ROADMAP.md queue 1, item 1 (single-capture FSK receiver)"
@@ -55,11 +55,16 @@ _UNPORTED_MODES = {
 @dataclass(frozen=True)
 class ModeSpec:
     """One transmission mode: ``modulate(framed_bytes, symbol_rate) ->
-    waveform`` and ``demodulate(samples, symbol_rate, device) -> bytes``."""
+    waveform`` and ``demodulate(samples, symbol_rate, device) -> bytes``.
+    ``bytes_per_sec(symbol_rate)`` is the design-throughput estimate of the
+    reference's efficiency map; ``fixed_baud`` is the mode's own rate where
+    it ignores the caller's."""
 
     name: str
     modulate: Callable[[bytes, int], np.ndarray]
     demodulate: Callable[..., bytes]
+    bytes_per_sec: Callable[[int], float]
+    fixed_baud: Optional[float] = None
 
 
 def psk8_modulate(d, b=1200, c=3000.0, s=96000):
@@ -226,29 +231,48 @@ def _fsk_single(x, r, device=None):
 
 
 MODES: Dict[str, ModeSpec] = {
-    "FSK1200": ModeSpec("FSK1200", lambda d, r: fsk_modulate(d, 1200, 1200.0, 2200.0), _fsk_single),
-    "FSK9600": ModeSpec("FSK9600", lambda d, r: fsk_modulate(d, 9600), _fsk_single),
-    "FSK19200": ModeSpec("FSK19200", lambda d, r: fsk_high_speed_modulate(d, 19200), _fsk_single),
+    "FSK1200": ModeSpec("FSK1200", lambda d, r: fsk_modulate(d, 1200, 1200.0, 2200.0), _fsk_single,
+                        lambda r: 100, fixed_baud=1200),
+    "FSK9600": ModeSpec("FSK9600", lambda d, r: fsk_modulate(d, 9600), _fsk_single, lambda r: 800, fixed_baud=9600),
+    "FSK19200": ModeSpec("FSK19200", lambda d, r: fsk_high_speed_modulate(d, 19200), _fsk_single,
+                         lambda r: 1600, fixed_baud=19200),
     "BPSK": ModeSpec("BPSK", lambda d, r: bpsk_modulate(d, r, 3000.0),
-                     lambda x, r, device=None: _psk_mode_demodulate(x, r, 3000.0, n_psk=2, device=device)),
+                     lambda x, r, device=None: _psk_mode_demodulate(x, r, 3000.0, n_psk=2, device=device),
+                     lambda r: r // 8),
     "QPSK": ModeSpec("QPSK", lambda d, r: qpsk_modulate(d, r, 3000.0),
-                     lambda x, r, device=None: _psk_mode_demodulate(x, r, 3000.0, n_psk=4, device=device)),
+                     lambda x, r, device=None: _psk_mode_demodulate(x, r, 3000.0, n_psk=4, device=device),
+                     lambda r: r // 4),
     "8PSK": ModeSpec("8PSK", lambda d, r: _psk8_mode_modulate(d, r, 12000.0),
-                     lambda x, r, device=None: _psk8_mode_demodulate(x, r, 12000.0, device=device)),
+                     lambda x, r, device=None: _psk8_mode_demodulate(x, r, 12000.0, device=device),
+                     lambda r: (r * 3) // 8),
     "APSK16": ModeSpec("APSK16", lambda d, r: apsk16_modulate(d, r, 12000.0),
-                       lambda x, r, device=None: apsk16_demodulate(x, r, 12000.0, device=device)),
+                       lambda x, r, device=None: apsk16_demodulate(x, r, 12000.0, device=device),
+                       lambda r: r // 2),
     # The reference GUI lists SSTV but ships no SSTV modulator; payloads ride
     # a DQPSK carrier.
     "SSTV": ModeSpec("SSTV", lambda d, r: qpsk_modulate(d, r, 3000.0),
-                     lambda x, r, device=None: qpsk_demodulate(x, r, 3000.0, device=device)),
-    "MSK": ModeSpec("MSK", lambda d, r: msk_modulate(d, r, 6000.0), _fsk_single),
-    "FT8": ModeSpec("FT8", lambda d, r: ft8_modulate(d, r, 3000.0), _fsk_single),
+                     lambda x, r, device=None: qpsk_demodulate(x, r, 3000.0, device=device),
+                     lambda r: 50),
+    "MSK": ModeSpec("MSK", lambda d, r: msk_modulate(d, r, 6000.0), _fsk_single, lambda r: r // 4),
+    "FT8": ModeSpec("FT8", lambda d, r: ft8_modulate(d, r, 3000.0), _fsk_single,
+                    lambda r: 6, fixed_baud=50),  # 50 baud / 8 bits
     "PSK31": ModeSpec("PSK31", lambda d, r: psk31_modulate(d, r, 3000.0),
-                      lambda x, r, device=None: psk31_demodulate(x, r, 3000.0, device=device)),
+                      lambda x, r, device=None: psk31_demodulate(x, r, 3000.0, device=device),
+                      lambda r: 4, fixed_baud=31.25),  # 31.25 baud / 8 bits
     # Learned codebook, 1 byte per symbol on a 24 kHz carrier (ops/neural.py).
     "NEURAL": ModeSpec("NEURAL", lambda d, r: neural_mode_modulate(d, r),
-                       lambda x, r, device=None: neural_mode_demodulate(x, r, device=device)),
+                       lambda x, r, device=None: neural_mode_demodulate(x, r, device=device),
+                       lambda r: SAMPLE_RATE / (8 * _neural_chip_len(r))),
 }
+
+
+# Display-only mode catalogs of the reference GUI, restricted to the modes
+# this registry carries. Of the JAX package's lists, OFDM4 and OFDM8 wait
+# for ROADMAP.md queue 1 item 4, DSSS for item 5, and HELLSCHREIBER,
+# FELD_HELL and SLOW_HELL for item 6; its 37 labels no package can transmit
+# (FT4 ... LORA) come back with the UI (item 8).
+DIGITAL_MODES = ["FSK1200", "FSK9600", "BPSK", "QPSK", "8PSK", "FSK19200", "APSK16", "MSK", "FT8", "PSK31"]
+ANALOG_MODES = ["SSTV"]
 
 
 def modulate(mode: str, framed: bytes, symbol_rate: int) -> np.ndarray:

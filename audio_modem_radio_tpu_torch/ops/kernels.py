@@ -946,6 +946,8 @@ def _fir_launch(name: str, x3d, w_fir, w2, groups: int, best, outs, row2: int, o
     b, r, c = x3d.shape
     dev = x3d.device
     taps, dec = _fir_taps(w_fir)
+    _require(c == _BLOCK_SYM * dec + _BLOCK_SYM,
+             f"{name}: c_pad={c}, the kernel takes dec {dec} windows of {_BLOCK_SYM * dec + _BLOCK_SYM} samples")
     first, tab, span = _band_tables(w2, groups)
     ptrs = [_ptr(o) for o in outs] + [None] * (2 - len(outs))
     _launch(name, dev, _ptr(x3d), _FSK_DTYPES[x3d.dtype], taps.ctypes.data, dec, _ptr(first), _ptr(tab),
@@ -961,7 +963,12 @@ def fsk_disc_sums_batch(
 
     Args:
       x3d: (B, R, c_pad) float32 or int16 FIR windows (``fsk_disc_row_shape``),
-        R a multiple of FB = nrow2*row2/128.
+        R a multiple of FB = nrow2*row2/128: row g is the capture's samples
+        [g*128*dec, g*128*dec + c_pad), c_pad = 128*dec + 128, so its first
+        128 samples repeat row g-1's last 128. The kernel relies on that
+        overlap (it fetches each row's last 128*dec samples, and the first
+        128 of every 16th row only); the plain version reads every window
+        whole.
       w_fir: (c_pad, 256) dense decimating analytic-FIR matrix.
       w_box: (n_offsets, row2+ov2, spr2) boxcar templates.
       best: (B,) int32 winning offset per capture.

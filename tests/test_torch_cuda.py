@@ -352,6 +352,47 @@ def test_fsk_fir_kernels_equal_plain(cuda, mode, dtype):
     assert bits.shape[1] >= n_sig
 
 
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("dec", [1, 4])
+@pytest.mark.parametrize("kernel", ["fsk_disc_sums_batch", "fsk_quad_margin_batch"])
+def test_fsk_fir_kernels_ragged_last_tile(cuda, kernel, dec, dtype):
+    """K8 and K9 on 53 boxcar rows (265 FIR rows: 16 passes of 16 and one of 9,
+    which reads past the capture's last row) and on 3 (less than one pass), at both
+    decimations (each kernel's own templates over the FIR of the mode with
+    that decimation) and both input types: within 1e-4 of the largest plain
+    value, no NaN."""
+    from audio_modem_radio_tpu_torch.ops import fsk as tf
+
+    def tables(kind, mode):
+        baud, mark, space = _FSK[mode][1:]
+        return tf._device_tables(kind, tf._samples_per_bit(96000, baud), float(baud), float(mark), float(space),
+                                 96000, 8, cuda)
+
+    disc, quad = tables("disc", "FSK9600"), tables("quad", "FSK19200")
+    plan, W2 = (disc[0], disc[2]) if kernel == "fsk_disc_sums_batch" else (quad[0], quad[2])
+    Wf = {d[0]["dec"]: d[1] for d in (disc, quad)}[dec]
+    assert disc[0]["row2"] == quad[0]["row2"] and disc[0]["ov2"] == quad[0]["ov2"]
+    row2, ov2, spr2 = plan["row2"], plan["ov2"], plan["spr2"]
+    best = torch.tensor([0, 3, 7], dtype=torch.int32, device=cuda)
+    for r2 in (53, 3):
+        r, run = r2 * row2 // 128, 128 * dec
+        g = torch.Generator(device=cuda).manual_seed(r2)
+        flat = torch.randint(-20000, 20000, (3, r * run + 128), generator=g, device=cuda, dtype=torch.int32)
+        flat = flat.to(torch.int16) if dtype == "int16" else flat.float() / 20000.0
+        x = flat.as_strided((3, r, run + 128), (flat.stride(0), run, 1)).contiguous()
+        kw = dict(rows_per_capture=r, nrow2=1, row2=row2, ov2=ov2, spr2=spr2)
+        if kernel == "fsk_disc_sums_batch":
+            got = tk.fsk_disc_sums_batch(x, Wf, W2, best, **kw)
+            ref = tk.fsk_disc_sums_batch_plain(x, Wf, W2, best, row2, ov2)
+        else:
+            got = (tk.fsk_quad_margin_batch(x, Wf, W2, best, **kw),)
+            ref = (tk.fsk_quad_margin_batch_plain(x, Wf, W2, best, row2, ov2, spr2),)
+        torch.cuda.synchronize()
+        for gt, p in zip(got, ref):
+            assert gt.shape == p.shape == (3, r2 * spr2) and not bool(torch.isnan(gt).any())
+            assert float((gt - p).abs().max()) <= 1e-4 * float(p.abs().max())
+
+
 @pytest.mark.parametrize("mode", ["FSK1200", "FSK9600", "FSK19200", "MSK", "FT8"])
 def test_fsk_decode_sample_batch_on_card(cuda, mode):
     from audio_modem_radio_tpu_torch.framing import parse_frames

@@ -5,7 +5,7 @@ kernels' arithmetic mirrored in numpy, and the wrappers' checks, on the CPU.
 The CUDA kernels cannot run here. What they compute beyond the plain
 versions (the band tables they read instead of the dense templates, K13's
 flat indexing, the FIR's taps and decimation recovered from its matrix, the
-16-row tiles of K8 and K9) is mirrored in numpy and held against the plain
+FIR staging, the chunk walk and the analytic ring of K8 and K9) is mirrored in numpy and held against the plain
 versions, which are in turn held against the JAX package.
 """
 
@@ -205,49 +205,155 @@ def test_tile_kernel_arithmetic_mirrored(flat):
     assert np.array_equal(mirror, plain)
 
 
-def _fir_numpy(rows, h, dec):
-    """csrc/fsk_fir.cuh: z[128g + l] = sum_k x[g, dec*l + k] * h[k], per capture."""
-    idx = dec * np.arange(128)[:, None] + np.arange(h.shape[1])[None, :]
-    zs = [rows[i].astype(np.float64)[:, idx] @ h.T for i in range(len(rows))]  # (r, 128, 2) each
-    return np.stack([z[..., 0].reshape(-1) for z in zs]), np.stack([z[..., 1].reshape(-1) for z in zs])
+# csrc/fsk_fir.cuh's constants. A block walks 512 FIR rows there; the mirror
+# walks 48 (3 passes), so that these short captures span several blocks.
+_Q, _THREADS, _STAGE_ROWS = 8, 256, 8
+_PASS_ROWS = _THREADS * _Q // 128
+_SPP = _PASS_ROWS // _STAGE_ROWS
+_STAGES = _SPP  # the raw ring holds one pass
+_PASS_OUT = _PASS_ROWS * 128
+_CHUNK_ROWS = 48
+
+
+def _fir_stream_numpy(xc, row0, n_rows, h, dec):
+    """csrc/fsk_fir.cuh FirStream: one block's passes over FIR rows [row0,
+    row0 + n_rows) of the capture ``xc`` (r, c_pad), yielding each pass's
+    2048 analytic outputs ``(p, zr, zi)`` as the block stages and computes
+    them. Each row's run x[g, 128:c_pad) is fetched once into a ring of two
+    8-row stages (stage s in slot s % 2), a pass's first row adds its head
+    x[g, 0:128), both fetched for pass p+1 once pass p is converted; rows
+    past the walk or the capture are not fetched; a pass of 16 rows is
+    converted into one buffer in stream
+    order with 4 pad words after every 8*dec samples; thread t reads its
+    window from word (8*dec + 4)*t on, and rows past the capture give zeros.
+    What was never fetched is NaN here, so a read of it that reached an
+    output would show."""
+    rows_cap = xc.shape[0]
+    run, group = 128 * dec, _Q * dec
+    stride = group + 4
+    assert xc.shape[1] == run + 128
+    n_chunks = (dec * (_Q - 1) + 129 + 3) // 4
+    pass_samples = _PASS_ROWS * run + 128
+    ring = np.full((_STAGES, _STAGE_ROWS, run), np.nan)
+    head = np.full(128, np.nan)
+    fetched = np.zeros(xc.shape[0], int)
+
+    def issue(s):
+        r0 = s * _STAGE_ROWS
+        for i in range(_STAGE_ROWS):
+            if r0 + i < n_rows and row0 + r0 + i < rows_cap:
+                ring[s % _STAGES, i] = xc[row0 + r0 + i, 128:]
+                fetched[row0 + r0 + i] += 1
+        if s % _SPP == 0 and r0 < n_rows and row0 + r0 < rows_cap:
+            head[:] = xc[row0 + r0, :128]
+
+    o = np.arange(4 * n_chunks)
+    window = o // group * stride + o % group  # a thread's compile-time offsets
+    L = np.arange(pass_samples)
+    for s in range(_STAGES):
+        issue(s)
+    for p in range(-(-n_rows // _PASS_ROWS)):
+        stream = np.concatenate([head] + [ring[(p * _SPP + j) % _STAGES].reshape(-1) for j in range(_SPP)])
+        xf = np.full(pass_samples // group * stride, np.nan)
+        xf[L // group * stride + L % group] = stream
+        for s in range(_SPP):
+            issue(_STAGES + p * _SPP + s)
+        z = np.zeros((_PASS_OUT, 2))
+        for t in range(_THREADS):
+            row = p * _PASS_ROWS + t // (128 // _Q)
+            if row < n_rows and row0 + row < rows_cap:
+                w = xf[t * stride + window]
+                for q in range(_Q):
+                    z[_Q * t + q] = h @ w[dec * q : dec * q + 129]
+        yield p, z[:, 0], z[:, 1]
+    assert fetched.max() <= 1  # each run fetched once
 
 
 @pytest.mark.parametrize("kind", ["disc", "quad"])
 def test_fir_kernels_arithmetic_mirrored(kind):
     """K8 and K9 as the CUDA kernels compute them: taps and dec recovered
-    from the dense FIR matrix, 16-row tiles whose FIR rows past the capture
-    are zero, band tables of the boxcar / quadrature templates."""
+    from the dense FIR matrix; blocks that each walk a chunk of a capture's
+    FIR rows in full passes (every sample fetched once from consecutive
+    windows, zeros past the capture), keep a pass of the analytic stream
+    and the row before it in a ring and, after each pass, sum the bits
+    whose windows it completed, from the band tables of the boxcar / quadrature templates.
+    Every bit is written by exactly one block, once."""
+    _mirror_fir_kernel(kind, np.float32, False)
+
+
+@pytest.mark.parametrize("dtype,ragged", [(np.float32, True), (np.int16, False), (np.int16, True)])
+@pytest.mark.parametrize("kind", ["disc", "quad"])
+def test_fir_kernels_staging_mirrored(kind, dtype, ragged):
+    """The same on int16 rows and, ``ragged``, on a FIR row count that is no
+    multiple of a pass or a chunk, so that the last block of each capture is
+    cut short and reads past the capture's last FIR row."""
+    _mirror_fir_kernel(kind, dtype, ragged)
+
+
+def _mirror_fir_kernel(kind, dtype, ragged):
     n = 1 << 15
-    rows, cfg, n_sig = _fused(kind, np.float32, n)
+    rows, cfg, n_sig = _fused(kind, dtype, n)
     x = torch.from_numpy(rows)
     pass1 = tfsk.fsk_disc_pass1 if kind == "disc" else tfsk.fsk_quad_pass1
     best, plan, Wf, W2 = pass1(x, *cfg, SR)[:4]
     h, dec = tk._fir_taps(Wf)
     assert dec == plan["dec"] and h.shape == (2, 129)
-    row2, ov2, spr2 = plan["row2"], plan["ov2"], plan["spr2"]
+    row2, ov2, spr2, nrow2 = plan["row2"], plan["ov2"], plan["spr2"], plan["nrow2"]
+    if ragged:
+        nrow2 = 1
+        rows = np.ascontiguousarray(rows[:, : row2 // 128 * 19])  # 95 FIR rows: 2 chunks and 3 rows
+        x = torch.from_numpy(rows)
     first, tab, span = tk._band_tables(W2, 1 if kind == "disc" else 4)
-    zr, zi = _fir_numpy(rows, h.astype(np.float64), dec)
+    first, tab = first.numpy(), tab.numpy().astype(np.float64)
     b, r, _ = rows.shape
     r2 = r * 128 // row2
-    zr = np.concatenate([zr, np.zeros((b, 2 * row2))], 1)
-    zi = np.concatenate([zi, np.zeros((b, 2 * row2))], 1)
+    window = span + (kind == "disc")  # analytic samples a bit reads
+    extra = -(-window // 128)
+    chunk_step = _CHUNK_ROWS - extra
+    chunks_per_capture = -(-(r + ov2 // 128) // chunk_step)
+    assert chunks_per_capture >= 2
     out = np.zeros((2 if kind == "disc" else 1, b, r2 * spr2))
-    for i in range(b):
-        k = int(best[i])
-        for j in range(r2):
-            for s in range(spr2):
-                n0 = j * row2 + int(first[k, s])
-                sl = slice(n0, n0 + span)
-                if kind == "disc":
-                    pr = zr[i, n0 + 1 : n0 + span + 1] * zr[i, sl] + zi[i, n0 + 1 : n0 + span + 1] * zi[i, sl]
-                    pi = zi[i, n0 + 1 : n0 + span + 1] * zr[i, sl] - zr[i, n0 + 1 : n0 + span + 1] * zi[i, sl]
-                    out[:, i, j * spr2 + s] = pr @ tab[k, 0, :, s].numpy(), pi @ tab[k, 0, :, s].numpy()
-                else:
-                    M = tab[k, :, :, s].numpy() @ zr[i, sl]
-                    N = tab[k, :, :, s].numpy() @ zi[i, sl]
-                    u_m, v_m, u_s, v_s = M[0] + N[1], N[0] - M[1], M[2] + N[3], N[2] - M[3]
-                    out[0, i, j * spr2 + s] = u_m**2 + v_m**2 - u_s**2 - v_s**2
-    kw = dict(rows_per_capture=r, nrow2=plan["nrow2"], row2=row2, ov2=ov2, spr2=spr2)
+    written = np.zeros((b, r2 * spr2), int)
+    for cap in range(b):
+        k = int(best[cap])
+        for c in range(chunks_per_capture):
+            row0 = c * chunk_step
+            own_lo, own_hi = row0 * 128, (row0 + chunk_step) * 128
+            n_rows = min(_CHUNK_ROWS, -(-(min(own_hi, r * 128 + ov2) - own_lo + window) // 128))
+            ring = _PASS_OUT + extra * 128  # a pass and the rows before it that a window can reach
+            zr, zi = np.full(ring, np.nan), np.full(ring, np.nan)
+            zbase = 0  # where the ring holds this pass's first output
+            for p, zr_p, zi_p in _fir_stream_numpy(rows[cap].astype(np.float64), row0, n_rows,
+                                                   h.astype(np.float64), dec):
+                at = (zbase + np.arange(_PASS_OUT)) % ring
+                zr[at], zi[at] = zr_p, zi_p
+                prev, lim = own_lo + p * _PASS_OUT, own_lo + (p + 1) * _PASS_OUT
+                lo = prev + 1 - window - (row2 + ov2 - 1)
+                i_lo = 0 if lo <= 0 else -(-lo // row2)
+                i_hi = min(r2 - 1, int((lim - window) / row2))
+                for i in range(i_lo, i_hi + 1):
+                    for s in range(spr2):
+                        n0 = i * row2 + int(first[k, s])
+                        if n0 < own_lo or n0 >= own_hi or n0 + window <= prev or n0 + window > lim:
+                            continue
+                        n = zbase + n0 - prev
+                        n += ring if n < 0 else -ring if n >= ring else 0
+                        assert 0 <= n < ring
+                        at = (n + np.arange(span + 1)) % ring
+                        vr, vi = zr[at], zi[at]
+                        if kind == "disc":
+                            pr = vr[1:] * vr[:-1] + vi[1:] * vi[:-1]
+                            pi = vi[1:] * vr[:-1] - vr[1:] * vi[:-1]
+                            val = pr @ tab[k, 0, :, s], pi @ tab[k, 0, :, s]
+                        else:
+                            M, N = tab[k, :, :, s] @ vr[:-1], tab[k, :, :, s] @ vi[:-1]
+                            u_m, v_m, u_s, v_s = M[0] + N[1], N[0] - M[1], M[2] + N[3], N[2] - M[3]
+                            val = (u_m**2 + v_m**2 - u_s**2 - v_s**2,)
+                        out[:, cap, i * spr2 + s] = val
+                        written[cap, i * spr2 + s] += 1
+                zbase = (zbase + _PASS_OUT) % ring
+    assert (written == 1).all() and not np.isnan(out).any()
+    kw = dict(rows_per_capture=r, nrow2=nrow2, row2=row2, ov2=ov2, spr2=spr2)
     if kind == "disc":
         plain = [p.numpy() for p in tk.fsk_disc_sums_batch(x, Wf, W2, best, **kw)]
     else:

@@ -255,6 +255,25 @@ def test_decode_with_retry_recovers_clock_drift(tmp_path):
         "demodulated_attempt_1.bin", "demodulated_attempt_2.bin", "demodulated_attempt_3.bin"]
 
 
+@pytest.mark.parametrize("mode,n", [("QPSK", 0), ("QPSK", 1), ("QPSK", 50), ("QPSK", 5000), ("BPSK", 0),
+                                    ("BPSK", 1), ("8PSK", 0), ("8PSK", 1), ("NEURAL", 0), ("NEURAL", 1)])
+def test_decode_with_retry_degenerate_captures_save_nothing(tmp_path, mode, n):
+    """Captures too short to batch (the drift dispatch raises on them) fall
+    back to one single-capture decode per hypothesis and save nothing, in
+    both packages."""
+    x = np.zeros(n, np.float32)
+    assert jdec.decode_with_retry(x, mode, 9600, recv_dir=str(tmp_path / "j"), registry=JRegistry()) == []
+    assert tdec.decode_with_retry(x, mode, 9600, recv_dir=str(tmp_path / "t"), registry=TRegistry(),
+                                  device="cpu") == []
+
+
+def test_decode_with_retry_fallback_keeps_not_implemented(tmp_path):
+    """The sequential fallback re-raises what the port has not ported
+    instead of logging it away."""
+    with pytest.raises(NotImplementedError, match="item 1"):
+        tdec.decode_with_retry(np.zeros(1, np.float32), "FSK9600", 9600, recv_dir=str(tmp_path), device="cpu")
+
+
 def test_save_decoded_files_damaged_fec_frames_left_unsaved(tmp_path, caplog):
     from audio_modem_radio_tpu_torch.framing import Frame
 
