@@ -12,24 +12,48 @@
 // template compacted to each bit's band by the wrapper (ops/kernels.py
 // _band_tables): the dense (row+ov, 4*spr) matrix the TPU kernel multiplies by
 // is 94% zeros at FSK1200. K7 reads row j of the (R, row+ov) overlapped rows;
-// K13 (FLAT) reads the flat stream of (R, row) rows at j*row + column, so the
+// K13 reads the flat stream of (R, row) rows at j*row + column, so the
 // overlap columns are the next row's head and samples past the capture's
 // last row are zero, as in the plain version (the TPU kernel read the next
-// capture there). Integer rows are cast to float without scaling.
+// capture there). Integer rows are cast to float without scaling. Both sum
+// each a_g over t = 0..span-1 in order, so K13's bits equal K7's on the same
+// samples.
 //
 // What bounds it on the H100: device memory. Per bit it reads its row's share
 // of the samples (about spb+ov/spr int16 at FSK1200, 2.4 GB for 64 captures of
-// 2^24 samples, 0.72 ms at 3.35 TB/s) against 4*spb FMAs, about 4 flop/B,
-// under the float32 ridge of 20 flop/B.
+// 2^24 samples, 0.72 ms at 3.35 TB/s; K13's flat float32 rows 4.3 GB, 1.31
+// ms) against 4*spb FMAs, about 4 flop/B, under the float32 ridge of 20 flop/B.
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 6 and
+// profile_slice.py --flat, PERF.md): K13 1.58 ms alone, 1.70 ms through its
+// wrapper, 83% and 77% of its bound (the one-thread-a-bit K13: 4.61 and 5.98
+// ms, 22%); K7 2.50 ms through its wrapper, 29% of its 0.72 ms bound.
 //
-// Design. One thread per bit, a block per 256 consecutive bits of a capture.
-// The block stages its capture's (4, span, spr) band table in shared memory
-// (bits along the fast axis, so a warp's neighbouring bits read neighbouring
-// banks) and each thread correlates its own span samples, read straight from
-// device memory: a warp's reads fall in the few rows its 32 bits cover and
-// are served from L1 after the first touch. Unlike the Pallas kernel it takes
-// any spr and any row count (the 128 % spr and 256-row conditions were its
-// lane layout's), so MSK at 1000 Bd (spr 12) and FT8 (spr 1) run it too.
+// K7's design. One thread per bit, a block per 256 consecutive bits of a
+// capture. The block stages its capture's (4, span, spr) band table in shared
+// memory (bits along the fast axis, so a warp's neighbouring bits read
+// neighbouring banks) and each thread correlates its own span samples, read
+// straight from device memory: a warp's reads fall in the few rows its 32 bits
+// cover and are served from L1 after the first touch. Unlike the Pallas
+// kernel it takes any spr and any row count (the 128 % spr and 256-row
+// conditions were its lane layout's), so MSK at 1000 Bd (spr 12) and FT8
+// (spr 1) run it too.
+//
+// K13's design. A thread that reads its own bit's samples from device memory
+// makes every warp-wide load touch 32 cache lines (its bits lie spb samples
+// apart): the first K13 ran at 22% of the bytes bound, limited by L1
+// wavefronts. Here a block walks tiles of kTileRows consecutive rows of one
+// capture. For each it stages, per row, the band [j*row + lo, j*row + hi) of
+// the flat stream that the row's bits read (lo..hi: the band of the
+// capture's offset; a row's tail and the next row's head are both staged
+// where the band is wider than a row) in whole 16-byte chunks with cp.async
+// into a shared-memory row, zero-filled past the capture's end (int16 rows
+// are converted sample by sample instead). The next tile is staged while this
+// one is correlated, so the loads stay in flight; the grid is one wave of
+// kFlatBlocks blocks a multiprocessor. A thread owns one (row, s) of the tile
+// and sums t = 0..span-1 with 16-byte shared loads of its samples and of the
+// capture's (spr, span, 4) weights (staged once per block). Shared rows lie
+// an odd number of chunks apart, so the 8 rows a quarter-warp reads for one
+// bit s fall in 8 different chunks of banks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,8 +61,12 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTileRows = 8;       // flat rows a K13 tile buffer holds
+constexpr int kFlatThreads = 128;  // one (row, bit) of a tile each at FSK1200
+constexpr int kFlatBlocks = 2;     // K13 blocks a multiprocessor
+constexpr int kFlatSmem = 224 * 1024 / kFlatBlocks;  // a K13 block's shared memory at most
 
-template <typename T, bool FLAT>
+template <typename T>
 __global__ void fsk_tile_kernel(const T* __restrict__ x, const float* __restrict__ tab,
                                 const int* __restrict__ first, const int* __restrict__ best,
                                 uint8_t* __restrict__ bits, int rows, int cols, int spr,
@@ -56,77 +84,243 @@ __global__ void fsk_tile_kernel(const T* __restrict__ x, const float* __restrict
   if (g >= bits_per_capture) return;
   const int j = (int)(g / spr);
   const int s = (int)(g % spr);
-  const long long n_cap = (long long)rows * cols;
-  const T* xc = x + (long long)b * n_cap;
+  const T* xc = x + (long long)b * rows * cols;
   const long long p = (long long)j * cols + first[k * spr + s];
   const float* w0 = tw + s;
   const int gs = span * spr;  // stride between the four columns
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-  if (!FLAT || p + span <= n_cap) {
-    for (int t = 0; t < span; ++t) {
-      const float v = static_cast<float>(xc[p + t]);
-      const float* w = w0 + t * spr;
-      a0 = fmaf(v, w[0], a0);
-      a1 = fmaf(v, w[gs], a1);
-      a2 = fmaf(v, w[2 * gs], a2);
-      a3 = fmaf(v, w[3 * gs], a3);
-    }
-  } else {
-    for (int t = 0; t < span; ++t) {
-      const float v = p + t < n_cap ? static_cast<float>(xc[p + t]) : 0.f;
-      const float* w = w0 + t * spr;
-      a0 = fmaf(v, w[0], a0);
-      a1 = fmaf(v, w[gs], a1);
-      a2 = fmaf(v, w[2 * gs], a2);
-      a3 = fmaf(v, w[3 * gs], a3);
-    }
+  for (int t = 0; t < span; ++t) {
+    const float v = static_cast<float>(xc[p + t]);
+    const float* w = w0 + t * spr;
+    a0 = fmaf(v, w[0], a0);
+    a1 = fmaf(v, w[gs], a1);
+    a2 = fmaf(v, w[2 * gs], a2);
+    a3 = fmaf(v, w[3 * gs], a3);
   }
   const float em = __fadd_rn(__fmul_rn(a0, a0), __fmul_rn(a1, a1));
   const float es = __fadd_rn(__fmul_rn(a2, a2), __fmul_rn(a3, a3));
   bits[(long long)b * bits_per_capture + g] = __fsub_rn(em, es) > 0.f;
 }
 
-template <typename T, bool FLAT>
-int launch(const void* x, const float* tab, const int* first, int span, const int* best,
-           uint8_t* bits, int n_captures, int rows, int cols, int spr, cudaStream_t stream) {
+// --- K13 ------------------------------------------------------------------------------
+
+// Where a staged row's samples start in its shared-memory row: a float32 row
+// is copied in whole 16-byte chunks, so its first sample keeps its offset in
+// its chunk; an int16 row is converted sample by sample from offset 0.
+__device__ __forceinline__ int row_phase(const float* row) { return (int)(((uintptr_t)row >> 2) & 3); }
+__device__ __forceinline__ int row_phase(const int16_t*) { return 0; }
+
+// Stage samples [0, n) of a flat row (n_valid of them before the capture's
+// end, zeros after) into dst, from dst[row_phase(src)] on; ``any`` is an
+// address of the capture, given where no byte is read.
+__device__ __forceinline__ void stage_row(float* dst, const float* src, int n, long long n_valid,
+                                          const float* any, int lane, int n_lanes) {
+  const int phase = row_phase(src);
+  const char* base = reinterpret_cast<const char*>(src) - 4 * phase;  // 16-byte aligned
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int chunks = (phase + n + 3) >> 2;
+  for (int c = lane; c < chunks; c += n_lanes) {
+    const long long valid = n_valid + phase - 4LL * c;  // samples of the chunk before the end
+    const int bytes = valid >= 4 ? 16 : (valid > 0 ? 4 * (int)valid : 0);
+    const void* from = bytes > 0 ? static_cast<const void*>(base + 16LL * c) : static_cast<const void*>(any);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d + 16 * c), "l"(from), "r"(bytes));
+  }
+}
+
+__device__ __forceinline__ void stage_row(float* dst, const int16_t* src, int n, long long n_valid,
+                                          const int16_t*, int lane, int n_lanes) {
+  for (int q = lane; q < n; q += n_lanes) dst[q] = q < n_valid ? static_cast<float>(src[q]) : 0.f;
+}
+
+// The four sums of one bit over t = 0..span-1 in order: samples from shared
+// memory 16 bytes at a time, the first M of the first chunk skipped.
+__device__ __forceinline__ void acc4(float (&a)[4], float v, float4 w) {
+  a[0] = fmaf(v, w.x, a[0]);
+  a[1] = fmaf(v, w.y, a[1]);
+  a[2] = fmaf(v, w.z, a[2]);
+  a[3] = fmaf(v, w.w, a[3]);
+}
+
+template <int M>
+__device__ __forceinline__ void correlate(const float4* xv, const float4* w, int span, float (&a)[4]) {
+  const float4 q0 = xv[0];
+  const float h[4] = {q0.x, q0.y, q0.z, q0.w};
+  int t = 0;
+#pragma unroll
+  for (int i = M; i < 4; ++i, ++t) {
+    if (t < span) acc4(a, h[i], w[t]);
+  }
+  int c = 1;
+#pragma unroll 4
+  for (; t + 4 <= span; t += 4, ++c) {
+    const float4 q = xv[c];
+    acc4(a, q.x, w[t]);
+    acc4(a, q.y, w[t + 1]);
+    acc4(a, q.z, w[t + 2]);
+    acc4(a, q.w, w[t + 3]);
+  }
+  if (t < span) {
+    const float4 q = xv[c];
+    acc4(a, q.x, w[t]);
+    if (t + 1 < span) acc4(a, q.y, w[t + 1]);
+    if (t + 2 < span) acc4(a, q.z, w[t + 2]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kFlatThreads)
+    fsk_flat_kernel(const T* __restrict__ x, const float4* __restrict__ tab4,
+                    const int* __restrict__ first, const int* __restrict__ best,
+                    uint8_t* __restrict__ bits, int rows, int cols, int spr, int span,
+                    int tile_rows, int buf_floats) {
+  extern __shared__ float4 smem[];  // the capture's (spr, span) weights, then two tile buffers
+  __shared__ int band[2];           // lo, hi of the capture's offset
+  const int b = blockIdx.y;
+  const int k = best[b];
+  const int* fk = first + (long long)k * spr;
+  if (threadIdx.x == 0) {
+    band[0] = 0x7fffffff;
+    band[1] = 0;
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < spr; s += blockDim.x) {
+    atomicMin(&band[0], fk[s]);
+    atomicMax(&band[1], fk[s] + span);
+  }
+  float4* tw = smem;
+  const float4* tk = tab4 + (long long)k * spr * span;
+  for (int i = threadIdx.x; i < spr * span; i += blockDim.x) tw[i] = tk[i];
+  float* bufs = reinterpret_cast<float*>(smem + spr * span);
+  __syncthreads();
+  const int lo = band[0];
+  const int ls = band[1] - lo;  // staged samples a row
+  // Row stride in 16-byte chunks: room for the phase, and odd, so that the
+  // 8 rows a quarter-warp reads for one bit s lie in 8 different chunks of banks.
+  const int rs = 4 * (((ls + 3 + 3) >> 2) | 1);
+
+  const long long n_cap = (long long)rows * cols;
+  const T* xc = x + (long long)b * n_cap;
+  const int n_tiles = (rows + tile_rows - 1) / tile_rows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int kWarps = kFlatThreads / 32;
+  auto stage = [&](int tile, float* buf) {
+    const int j0 = tile * tile_rows;
+    const int n_rows = min(tile_rows, rows - j0);
+    for (int jj = warp; jj < n_rows; jj += kWarps) {
+      const long long p0 = (long long)(j0 + jj) * cols + lo;
+      stage_row(buf + jj * rs, xc + p0, ls, n_cap - p0, xc, lane, 32);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  uint8_t* out = bits + (long long)b * rows * spr;
+  int i = 0;
+  if (blockIdx.x < n_tiles) stage(blockIdx.x, bufs);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+    // Stage the next tile into the other buffer while this one is correlated.
+    const int next = tile + gridDim.x;
+    if (next < n_tiles) {
+      stage(next, bufs + ((i + 1) & 1) * buf_floats);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    const float* buf = bufs + (i & 1) * buf_floats;
+    const int j0 = tile * tile_rows;
+    const int n_rows = min(tile_rows, rows - j0);
+    for (int it = threadIdx.x; it < n_rows * spr; it += kFlatThreads) {
+      // Items row-fastest: a quarter-warp takes 8 rows of one bit s.
+      const int jj = it % n_rows, s = it / n_rows;
+      const int e0 = jj * rs + row_phase(xc + (long long)(j0 + jj) * cols + lo) + (fk[s] - lo);
+      const float4* xv = reinterpret_cast<const float4*>(buf) + (e0 >> 2);
+      const float4* w = tw + s * span;
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+      switch (e0 & 3) {
+        case 0: correlate<0>(xv, w, span, a); break;
+        case 1: correlate<1>(xv, w, span, a); break;
+        case 2: correlate<2>(xv, w, span, a); break;
+        default: correlate<3>(xv, w, span, a); break;
+      }
+      const float em = __fadd_rn(__fmul_rn(a[0], a[0]), __fmul_rn(a[1], a[1]));
+      const float es = __fadd_rn(__fmul_rn(a[2], a[2]), __fmul_rn(a[3], a[3]));
+      out[(long long)(j0 + jj) * spr + s] = __fsub_rn(em, es) > 0.f;
+    }
+    __syncthreads();  // this buffer is staged again two tiles on
+  }
+}
+
+template <typename T>
+int launch_tile(const void* x, const float* tab, const int* first, int span, const int* best,
+                uint8_t* bits, int n_captures, int rows, int cols, int spr, cudaStream_t stream) {
   const size_t smem = sizeof(float) * 4 * (size_t)span * spr;
-  cudaError_t err = cudaFuncSetAttribute(fsk_tile_kernel<T, FLAT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(fsk_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long bits_per_capture = (long long)rows * spr;
   dim3 grid((unsigned)((bits_per_capture + kThreads - 1) / kThreads), (unsigned)n_captures);
-  fsk_tile_kernel<T, FLAT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), tab, first, best, bits, rows, cols, spr, span);
+  fsk_tile_kernel<T><<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), tab, first, best, bits,
+                                                       rows, cols, spr, span);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_flat(int flat, const void* x, const float* tab, const int* first, int span,
-                const int* best, uint8_t* bits, int n_captures, int rows, int cols, int spr,
-                cudaStream_t st) {
-  return flat ? launch<T, true>(x, tab, first, span, best, bits, n_captures, rows, cols, spr, st)
-              : launch<T, false>(x, tab, first, span, best, bits, n_captures, rows, cols, spr, st);
+int launch_flat(const void* x, const float* tab4, const int* first, int span, const int* best,
+                uint8_t* bits, int n_captures, int rows, int cols, int spr, int tab_rows,
+                cudaStream_t stream) {
+  // A row's band lies in the template's tab_rows columns, so its stride is at
+  // most row_floats; two buffers of tile_rows rows beside the weights.
+  const size_t row_floats = 4 * (size_t)((((tab_rows + 6) >> 2)) | 1);
+  const size_t w_bytes = 16 * (size_t)spr * span;
+  const size_t fit = w_bytes < kFlatSmem ? (kFlatSmem - w_bytes) / (2 * 4 * row_floats) : 0;
+  const size_t tile_rows = fit < 1 ? 1 : (fit > (size_t)kTileRows ? kTileRows : fit);
+  const size_t buf_floats = tile_rows * row_floats;
+  const size_t smem = w_bytes + 2 * 4 * buf_floats;
+  cudaError_t err = cudaFuncSetAttribute(fsk_flat_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // At most kFlatBlocks blocks a multiprocessor, all resident at once, each
+  // walking tiles of one capture (one wave: a second would run alone).
+  const long long n_tiles = (rows + (long long)tile_rows - 1) / (long long)tile_rows;
+  long long per_capture = (long long)kFlatBlocks * sms / n_captures;
+  if (per_capture < 1) per_capture = 1;
+  if (per_capture > n_tiles) per_capture = n_tiles;
+  dim3 grid((unsigned)per_capture, (unsigned)n_captures);
+  fsk_flat_kernel<T><<<grid, kFlatThreads, smem, stream>>>(static_cast<const T*>(x),
+                                                           reinterpret_cast<const float4*>(tab4), first, best,
+                                                           bits, rows, cols, spr, span, (int)tile_rows,
+                                                           (int)buf_floats);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(int flat, const void* x, const float* tab, const int* first, int span, const int* best,
+           uint8_t* bits, int n_captures, int rows, int cols, int spr, int tab_rows, cudaStream_t st) {
+  return flat ? launch_flat<T>(x, tab, first, span, best, bits, n_captures, rows, cols, spr, tab_rows, st)
+              : launch_tile<T>(x, tab, first, span, best, bits, n_captures, rows, cols, spr, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = int16. flat: 0 for K7 (x is (n_captures, rows, cols)
-// overlapped rows, cols = row+ov), 1 for K13 (x is (n_captures, rows, cols)
-// flat rows, cols = row). tab: (n_offsets, 4, span, spr) float32; first:
-// (n_offsets, spr) int32 with first + span <= the template's rows; best:
-// (n_captures,) int32; bits: (n_captures, rows*spr) uint8. Returns the
-// cudaError_t of the launch.
+// overlapped rows, cols = row+ov; tab (n_offsets, 4, span, spr) float32), 1
+// for K13 (x is (n_captures, rows, cols) flat rows, cols = row; tab
+// (n_offsets, spr, span, 4) float32). first: (n_offsets, spr) int32 with
+// first + span <= tab_rows, the template's rows; best: (n_captures,) int32;
+// bits: (n_captures, rows*spr) uint8. Returns the cudaError_t of the launch.
 extern "C" int amr_fsk_tile(const void* x, int dtype, int flat, const float* tab,
                             const int* first, int span, const int* best, uint8_t* bits,
-                            int n_captures, int rows, int cols, int spr, void* stream) {
+                            int n_captures, int rows, int cols, int spr, int tab_rows, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_flat<float>(flat, x, tab, first, span, best, bits, n_captures, rows, cols,
-                                spr, st);
+      return launch<float>(flat, x, tab, first, span, best, bits, n_captures, rows, cols, spr, tab_rows, st);
     case 1:
-      return launch_flat<int16_t>(flat, x, tab, first, span, best, bits, n_captures, rows, cols,
-                                  spr, st);
+      return launch<int16_t>(flat, x, tab, first, span, best, bits, n_captures, rows, cols, spr, tab_rows, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -32,6 +32,7 @@ adds one to its ``launches`` attribute.
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 from typing import Tuple
@@ -742,6 +743,30 @@ def _band_tables(w: torch.Tensor, groups: int) -> Tuple[torch.Tensor, torch.Tens
     return first.to(torch.int32), tab.permute(0, 2, 1, 3).contiguous(), span
 
 
+_DUAL_TABLES: "collections.OrderedDict" = collections.OrderedDict()  # K7's and K13's, by template
+
+
+def _dual_tables(w: torch.Tensor, flat: bool) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """``_band_tables(w, 4)`` for K7, or for K13 with the table laid out
+    (n_off, spr, span, 4), kept for the last 8 templates. The main path
+    passes the same cached template on every call, so the tables' kernels
+    and their host read run once; an entry holds its template, so no other
+    tensor can take its address, and is used only while the template's
+    version counter shows no write since."""
+    key = (w.data_ptr(), w._version, tuple(w.shape), w.device, flat)
+    hit = _DUAL_TABLES.get(key)
+    if hit is not None and hit[0] is w:
+        _DUAL_TABLES.move_to_end(key)
+        return hit[1]
+    first, tab, span = _band_tables(w, 4)
+    if flat:
+        tab = tab.permute(0, 3, 2, 1).contiguous()
+    _DUAL_TABLES[key] = (w, (first, tab, span))
+    while len(_DUAL_TABLES) > 8:
+        _DUAL_TABLES.popitem(last=False)
+    return first, tab, span
+
+
 def _check_best(name: str, best: torch.Tensor, b: int, n_offsets: int) -> None:
     _require(best.dtype == torch.int32 and tuple(best.shape) == (b,),
              f"{name}: best {best.dtype} {tuple(best.shape)}, want int32 ({b},)")
@@ -787,11 +812,16 @@ def _fsk_dual_launch(name: str, x3d, w_all, best, rows_per_capture: int, spr: in
     if dev.type == "cpu":
         plain = fsk_project_bits_batch_plain if flat else fsk_tile_bits_batch_plain
         return plain(x3d, w_all, best, spr)
-    first, tab, span = _band_tables(w_all, 4)
-    _require(16 * span * spr <= _SMEM_LIMIT, f"{name}: a {span} x {spr} band table exceeds shared memory")
+    first, tab, span = _dual_tables(w_all, flat)
+    if flat:  # K13: the band table and two buffers of at least one row of samples
+        row_floats = 4 * (((n_rows + 6) >> 2) | 1)
+        _require(16 * span * spr + 8 * row_floats <= _SMEM_LIMIT,
+                 f"{name}: a {span} x {spr} band table and {n_rows}-sample rows exceed shared memory")
+    else:  # K7 stages the (4, span, spr) band table
+        _require(16 * span * spr <= _SMEM_LIMIT, f"{name}: a {span} x {spr} band table exceeds shared memory")
     bits = torch.empty((b, r * spr), dtype=torch.uint8, device=dev)
     _launch("amr_fsk_tile", dev, _ptr(x3d), _FSK_DTYPES[x3d.dtype], int(flat), _ptr(tab), _ptr(first),
-            span, _ptr(best), _ptr(bits), b, r, c, spr)
+            span, _ptr(best), _ptr(bits), b, r, c, spr, n_rows)
     return bits
 
 

@@ -1,13 +1,14 @@
 """Where the device time of ``demod_pack_batch`` goes, on one CUDA card.
 
     python3 -m audio_modem_radio_tpu_torch.profile_slice \
-        [--mode QPSK|BPSK|8PSK|FSK1200|FSK9600|FSK19200|NEURAL] [--out FILE]
+        [--mode QPSK|BPSK|8PSK|FSK1200|FSK9600|FSK19200|NEURAL] [--flat] [--out FILE]
 
 The workload is ``chip_smoke.py``'s timing batch for the mode (default
 QPSK): one 16 KiB-payload capture (PSK and NEURAL at 9600 Bd, FSK at its
 own rate) tiled to 2^24 samples, shaped as ``host_shape_batch`` ships it
 to the card (int16 rows; NEURAL flat float32), shipped once and copied 64
-times on the card. The script prints:
+times on the card. ``--flat`` (FSK1200) ships the flat float32 captures
+instead, the path of K13. The script prints:
 
 - ``demod_pack_batch`` (PSK: with ``cfo_retry`` on and off) and pass 1
   alone (NEURAL: the preamble sync, ``td_sync_batch``): median of 9 by
@@ -58,11 +59,11 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0].strip() if out.returncode == 0 else "nvidia-smi failed"
 
 
-def _bench_rows(mode: str, rate: int, device: torch.device) -> torch.Tensor:
+def _bench_rows(mode: str, rate: int, device: torch.device, flat: bool = False) -> torch.Tensor:
     payload = np.random.default_rng(0).integers(0, 256, PAYLOAD, dtype=np.uint8).tobytes()
     wave = modulate(mode, pack_frame("bench.bin", payload, 0, 1, len(payload), crc32(payload)), rate)
     one = np.tile(wave, -(-N // len(wave)))[None, :N].astype(np.float32)
-    rows = torch.from_numpy(host_shape_batch(one, mode, rate, device=device)).to(device)
+    rows = torch.from_numpy(one if flat else host_shape_batch(one, mode, rate, device=device)).to(device)
     return rows.expand(B, *rows.shape[1:]).contiguous()
 
 
@@ -105,22 +106,25 @@ def _profile(fn, reps: int = 5):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", choices=sorted(CARRIERS) + sorted(FSK_MODES) + ["NEURAL"], default="QPSK")
+    ap.add_argument("--flat", action="store_true", help="FSK1200: flat (B, N) float32 captures (K13)")
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args()
+    if args.flat and args.mode != "FSK1200":
+        ap.error("--flat takes --mode FSK1200")
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: this profile needs a card")
         return 2
     device = torch.device("cuda")
     card = _card()
     mode = args.mode
-    lines = [f"card: {card}", f"mode: {mode}"]
+    lines = [f"card: {card}", f"mode: {mode}{' flat' if args.flat else ''}"]
 
     def say(msg: str) -> None:
         print(msg, flush=True)
         lines.append(msg)
 
     rate = FSK_MODES[mode][0] if mode in FSK_MODES else BAUD
-    x = _bench_rows(mode, rate, device)
+    x = _bench_rows(mode, rate, device, args.flat)
     b = x.shape[0]
     cfos = (True, False) if mode in CARRIERS else (True,)
     for cfo in cfos:
@@ -131,9 +135,10 @@ def main() -> int:
         ms = _median_ms(lambda: td_sync_batch(x, 2))
         say(f"{mode} td_sync_batch (the preamble sync) alone: median {ms:.4f} ms | {card}")
     elif mode in FSK_MODES:
-        params = resolve_demod_plan(mode, rate)[1]
-        ms = _median_ms(lambda: FSK_MODES[mode][1](x, *params, SR))
-        say(f"{mode} pass 1 ({FSK_MODES[mode][1].__name__}) alone: median {ms:.4f} ms | {card}")
+        if not args.flat:  # the flat path's pass 1 runs on windows it cuts itself
+            params = resolve_demod_plan(mode, rate)[1]
+            ms = _median_ms(lambda: FSK_MODES[mode][1](x, *params, SR))
+            say(f"{mode} pass 1 ({FSK_MODES[mode][1].__name__}) alone: median {ms:.4f} ms | {card}")
     else:
         n_psk = 8 if mode == "8PSK" else 4
         spsym = SR // BAUD

@@ -79,8 +79,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    at NEURAL@1200 (the FFT path): the file reassembles, no kernel launches;
 6. timing with CUDA events (one warm-up, median of 5): ``demod_pack_batch``
    of each mode on its 64 x 2^24 int16 batch staged on the card (PSK with
-   cfo_retry on and off; NEURAL on float32, on the prefix branch and, with
-   one noise capture, the full search), and each kernel and variant beside
+   cfo_retry on and off; FSK1200 also on flat float32 captures, the path of
+   K13; NEURAL on float32, on the prefix branch and, with one noise
+   capture, the full search), and each kernel and variant beside
    its plain version (K1@4 also on int8 rows; the plain K8, K9 and K10 at 8
    captures, where their float32 intermediates fit; K11 on one float32
    capture, K12 on 64 x 2^24 int16 rows); and each mode's single-capture
@@ -1049,8 +1050,16 @@ def phase_fsk_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
                 _time_ms(lambda: tk.fsk_tile_bits_batch(x, W, best, rows_per_capture=r, spr=spr)),
                 _time_ms(lambda: tk.fsk_tile_bits_batch_plain(x, W, best, spr)), b)
             del x
-            flat = torch.from_numpy(_tiled(wave, n)[None]).to(device)
-            flat = torch.nn.functional.pad(flat, (0, r * spr * spb - n)).expand(n_cap, -1).contiguous()
+            # The flat (B, N) float32 captures of the same wave: the path of K13.
+            samples = torch.from_numpy(_tiled(wave, n)[None]).to(device).expand(n_cap, -1).contiguous()
+            ms = _time_ms(lambda: demod_pack_batch(samples, mode, rate))
+            msps["FSK1200 flat"] = b * n / (ms * 1e-3) / 1e6
+            say(f"[6 time] demod_pack_batch {mode} {b} x {n} flat float32 captures: {ms:.3f} ms = "
+                f"{msps['FSK1200 flat']:.2f} Msamples/s | {card}")
+            _, _, found = demod_pack_batch(samples, mode, rate)
+            check(bool(found.all()), f"{mode} flat bench batch: a capture found no magic")
+            flat = torch.nn.functional.pad(samples, (0, r * spr * spb - n))
+            del samples
             rows = flat.reshape(n_cap, r, spr * spb)
             bounds["fsk_project_bits_batch"] = _bound(rows.numel() * 4 + n_bits, n_bits * (8 * spb + 7))
             t["fsk_project_bits_batch"] = (

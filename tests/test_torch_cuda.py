@@ -323,6 +323,38 @@ def test_fsk_project_kernel_equals_plain_and_tile(cuda):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_fsk_project_kernel_ragged_tile_and_zero_tail(cuda, dtype):
+    """K13 on flat FSK1200 rows at all 8 offsets: 16 * 20 + 5 rows (the
+    last block stages 5), a tiled wave up to the capture's end with
+    capture k led by offset k's step, so offsets 1-7, whose bands run
+    past the last row, read the zeros there. Bits equal to the plain
+    version's and to K7's on the same samples overlapped with a zero tail."""
+    from audio_modem_radio_tpu_torch.ops.fsk import _device_tables
+
+    spb, spr, row = 80, 16, 1280
+    (W,) = _device_tables("dual", spb, 1200.0, 1200.0, 2200.0, 96000, 8, cuda)
+    first, _, span = tk._band_tables(W, 4)
+    assert int((first[:, -1] + span).max()) > row  # a band that reaches into the next row
+    r = 16 * 20 + 5
+    p = np.random.default_rng(17).integers(0, 256, 900, dtype=np.uint8).tobytes()
+    wave = np.tile(modulate("FSK1200", pack_frame("f.bin", p, 0, 1, len(p), crc32(p)), 1200), 4)
+    x = np.stack([wave[100 - 10 * k : 100 - 10 * k + r * row] for k in range(8)]).reshape(8, r, row)
+    if dtype == "int16":
+        x = np.round(x * 10000).astype(np.int16)
+    rows = torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    best = torch.arange(8, dtype=torch.int32, device=cuda)
+    got = tk.fsk_project_bits_batch(rows, W, best, rows_per_capture=r, spr=spr)
+    ref = tk.fsk_project_bits_batch_plain(rows, W, best, spr)
+    ov = W.shape[1] - row
+    nxt = torch.cat([rows[:, 1:, :ov], torch.zeros_like(rows[:, :1, :ov])], dim=1)
+    tile = tk.fsk_tile_bits_batch(torch.cat([rows, nxt], dim=2).contiguous(), W, best, rows_per_capture=r, spr=spr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(got, tile)
+    assert 0.3 < got.float().mean() < 0.7
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
 @pytest.mark.parametrize("mode", ["FSK9600", "FSK19200"])
 def test_fsk_fir_kernels_equal_plain(cuda, mode, dtype):
     """K8's sums and K9's margins within 1e-4 of the largest plain value,
@@ -524,6 +556,53 @@ def test_neural_extract_kernel_equals_plain(cuda, dtype, rows):
     assert got.shape == (4, rows * 8) and got.dtype == torch.uint8
     assert torch.equal(got, ref)
     assert not got[3].any()
+
+
+def test_neural_extract_kernel_follows_a_codebook_change(cuda):
+    """Three calls back to back with codebooks A, B, A (B is A with its
+    codewords reversed and one column negated): each equals the plain
+    version on its own codebook, so no call reads an earlier codebook."""
+    from audio_modem_radio_tpu_torch.ops.neural import _codebook
+
+    rows = 300
+    x = torch.from_numpy(_neural_rows(4, rows * 128, "float32")).to(cuda)
+    cb_a = torch.from_numpy(_codebook()).to(cuda)
+    cb_b = cb_a.flip(0).contiguous()
+    cb_b[:, 5] = -cb_b[:, 5]
+    ph = torch.tensor([[1.0, 0.0], [0.6, 0.8], [-0.8, 0.6], [0.0, 1.0]], device=cuda)
+    s = torch.tensor([0, 19, 64, 127], dtype=torch.int32, device=cuda)
+    outs = [tk.neural_extract_batch(x, cb, ph, s, rows_per_capture=rows) for cb in (cb_a, cb_b, cb_a)]
+    refs = [tk.neural_extract_batch_plain(x, cb, ph, s, rows) for cb in (cb_a, cb_b, cb_a)]
+    torch.cuda.synchronize()
+    for got, ref in zip(outs, refs):
+        assert torch.equal(got, ref)
+    assert not torch.equal(outs[0][:3], outs[1][:3])
+
+
+def test_neural_extract_kernel_first_maximum_wins_a_tie(cuda):
+    """A codebook in which codewords 9, 77 and 200 repeat codeword 3 and
+    codeword 250 repeats codeword 40: every symbol sent as 3, 9, 77 or 200
+    decodes to 3, as 40 or 250 to 40, in every slot of a 257-row capture,
+    with the plain version agreeing."""
+    from audio_modem_radio_tpu_torch.ops import neural as tn
+
+    cb = tn._codebook()
+    tied = cb.copy()
+    tied[[9, 77, 200]] = cb[3]
+    tied[250] = cb[40]
+    rows = 257
+    rng = np.random.default_rng(21)
+    sent = rng.choice([3, 9, 77, 200, 40, 250], rows * 8)
+    xt = torch.from_numpy(tn._synth(sent, tied, 2).reshape(rows, 128)).to(cuda)
+    cbt = torch.from_numpy(tied).to(cuda)
+    ph = torch.tensor([[1.0, 0.0]], device=cuda)
+    s = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = tk.neural_extract_batch(xt, cbt, ph, s, rows_per_capture=rows)
+    ref = tk.neural_extract_batch_plain(xt, cbt, ph, s, rows)
+    torch.cuda.synchronize()
+    want = np.where(np.isin(sent, [3, 9, 77, 200]), 3, 40)
+    assert np.array_equal(got.cpu().numpy()[0], want)
+    assert torch.equal(got, ref)
 
 
 def test_neural_decode_sample_batch_on_card(cuda):

@@ -205,6 +205,110 @@ def test_tile_kernel_arithmetic_mirrored(flat):
     assert np.array_equal(mirror, plain)
 
 
+# csrc/fsk_tile.cu's K13 constants: threads a block, rows a tile buffer, the
+# shared memory a block may take, the multiprocessors of an H100.
+_FLAT_THREADS, _FLAT_TILE_ROWS, _FLAT_SMEM, _SMS = 128, 8, 112 * 1024, 132
+
+
+def _flat_numpy(x3d, first, tab, span, best, tab_rows):
+    """csrc/fsk_tile.cu fsk_flat_kernel, block by block, for a 16-byte
+    aligned tensor: the tile walk, each staged row (float32: the 16-byte
+    chunks holding its band, so the band keeps its offset in a chunk, zeros
+    past the capture; int16: converted samples from offset 0) at a stride of
+    an odd number of chunks, then each (row, bit) item read from it. Asserts
+    that every staged word a (bit, t) reads is the flat sample j*row + first
+    + t (or a zero past the capture), that each bit is written once, and
+    that the 8 rows a quarter-warp reads at once lie in 8 different chunks
+    of banks. Returns the bits."""
+    b, r, row = x3d.shape
+    spr = first.shape[1]
+    row_floats = 4 * (((tab_rows + 6) >> 2) | 1)
+    fit = (_FLAT_SMEM - 16 * spr * span) // (2 * 4 * row_floats)
+    tile_rows = max(1, min(_FLAT_TILE_ROWS, fit))
+    n_tiles = -(-r // tile_rows)
+    per_capture = min(n_tiles, max(1, 2 * _SMS // b))
+    n_cap = r * row
+    flat_all = x3d.reshape(-1).astype(np.float32)
+    out = np.full((b, r * spr), 255, np.uint8)
+    t = np.arange(span)
+    for i in range(b):
+        k = best[i]
+        lo, hi = int(first[k].min()), int(first[k].max()) + span
+        ls = hi - lo
+        rs = 4 * (((ls + 6) >> 2) | 1)
+        assert rs <= row_floats
+        tiles = [tl for bx in range(per_capture) for tl in range(bx, n_tiles, per_capture)]
+        assert sorted(tiles) == list(range(n_tiles))
+        for tile in tiles:
+            j0 = tile * tile_rows
+            n_rows = min(tile_rows, r - j0)
+            xs = np.full(n_rows * rs, np.nan, np.float32)  # words no item may read stay NaN
+            phase = np.zeros(n_rows, np.int64)
+            for jj in range(n_rows):
+                p0 = (j0 + jj) * row + lo
+                if x3d.dtype == np.float32:
+                    phase[jj] = (i * n_cap + p0) & 3
+                    chunks = (phase[jj] + ls + 3) >> 2
+                    p = p0 - phase[jj] + np.arange(4 * chunks)
+                    assert 4 * chunks <= rs and i * n_cap + p[0] >= 0
+                    vals = np.where(p < n_cap, flat_all[np.minimum(i * n_cap + p, flat_all.size - 1)], 0.0)
+                else:
+                    p = p0 + np.arange(ls)
+                    vals = np.where(p < n_cap, flat_all[np.minimum(i * n_cap + p, flat_all.size - 1)], 0.0)
+                xs[jj * rs : jj * rs + len(vals)] = vals
+            items = np.arange(n_rows * spr)
+            jj, s = items % n_rows, items // n_rows
+            e0 = jj * rs + phase[jj] + (first[k, s] - lo)
+            word = e0[:, None] + t  # (items, span)
+            p = (j0 + jj)[:, None] * row + first[k, s][:, None] + t
+            want = np.where(p < n_cap, flat_all[np.minimum(i * n_cap + p, flat_all.size - 1)], 0.0)
+            assert np.array_equal(xs[word], want)
+            if n_rows == 8:
+                quarter = (word[:, ::4] >> 2).reshape(-1, 8, (span + 3) // 4) % 8
+                assert (np.sort(quarter, axis=1) == np.arange(8)[None, :, None]).all()  # no bank conflict
+            a = np.einsum("it,gti->ig", xs[word].astype(np.float64), tab[k][:, :, s])
+            dec = ((a[:, 0] ** 2 + a[:, 1] ** 2) - (a[:, 2] ** 2 + a[:, 3] ** 2) > 0).astype(np.uint8)
+            g = (j0 + jj) * spr + s
+            assert (out[i, g] == 255).all()  # each bit once
+            out[i, g] = dec
+    assert (out != 255).all()
+    return out
+
+
+@pytest.fixture(scope="module")
+def flat_case():
+    """FSK1200 (spr 16, spb 80) and MSK@1000 (spr 12, spb 96) flat rows of
+    85 rows (10 full tiles and a ragged one): 8 captures of a tiled wave,
+    capture k led by offset k's step so that every offset decides crisp
+    bits."""
+    cases = {}
+    for baud, mark, space in ((1200.0, MARK, SPACE), (1000.0, 6000.0, 7000.0)):
+        spb = jfsk._samples_per_bit(SR, baud)
+        spr, row, _ov = jfsk._fsk_geometry(spb)
+        W = torch.from_numpy(jfsk._fsk_blocked_templates(spb, mark, space, SR, 8))
+        wave = _wave(baud, mark, space, 3, 300)
+        n = 85 * row
+        x = np.stack([np.tile(wave, -(-(n + 100) // len(wave)))[100 - spb // 8 * k : 100 - spb // 8 * k + n]
+                      for k in range(8)]).reshape(8, 85, row)
+        cases[baud] = (W, x, spr)
+    return cases
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int16])
+@pytest.mark.parametrize("baud", [1200.0, 1000.0])
+def test_flat_kernel_staging_mirrored(flat_case, baud, dtype):
+    W, x, spr = flat_case[baud]
+    if dtype == np.int16:
+        x = np.round(x * 10000).astype(np.int16)
+    first, tab, span = tk._band_tables(W, 4)
+    best = np.arange(8, dtype=np.int32)
+    if baud == 1200.0:
+        assert int((first[:, -1] + span).max()) > x.shape[2]  # offset 7's band runs into the zero tail
+    plain = tk.fsk_project_bits_batch_plain(torch.from_numpy(x), W, torch.from_numpy(best), spr).numpy()
+    mirror = _flat_numpy(x, first.numpy(), tab.numpy(), span, best, W.shape[1])
+    assert np.array_equal(mirror, plain)
+
+
 # csrc/fsk_fir.cuh's constants. A block walks 512 FIR rows there; the mirror
 # walks 48 (3 passes), so that these short captures span several blocks.
 _Q, _THREADS, _STAGE_ROWS = 8, 256, 8
@@ -374,6 +478,23 @@ def test_band_tables_rebuild_the_dense_templates():
         for g in range(4):
             dense[torch.arange(8)[:, None], rows, g, torch.arange(128)[None, :]] = tab[:, g, t, :]
     assert torch.equal(dense.reshape(W.shape), W)
+
+
+def test_dual_tables_kept_per_template_until_it_changes():
+    """The K7/K13 wrapper's tables: K13's are K7's laid out (n_off, spr,
+    span, 4); a second call with the same template reuses them; a write to
+    the template, or another tensor with equal values, makes them anew."""
+    W = torch.from_numpy(jfsk._fsk_blocked_templates(80, MARK, SPACE, SR, 8))
+    first, tab, span = tk._band_tables(W, 4)
+    f7, t7, s7 = tk._dual_tables(W, False)
+    f13, t13, s13 = tk._dual_tables(W, True)
+    assert s7 == s13 == span and torch.equal(f7, first) and torch.equal(f13, first)
+    assert torch.equal(t7, tab) and torch.equal(t13, tab.permute(0, 3, 2, 1))
+    assert tk._dual_tables(W, True)[1] is t13
+    assert tk._dual_tables(W.clone(), True)[1] is not t13
+    W[:, :, 0] *= 2.0
+    f2, t2, _ = tk._dual_tables(W, True)
+    assert t2 is not t13 and torch.equal(t2[:, 0, :, 0], 2.0 * t13[:, 0, :, 0])
 
 
 def test_fir_taps_recovered_and_foreign_matrix_refused():

@@ -569,3 +569,21 @@ def test_psk8_relabel_pack_kernel_formulation():
             y = (x[t] + 8 - ksel[i]) & 7
             v = (v << 3) | np.where(t < m, y ^ (y >> 1), 0)
         assert np.array_equal(got[i], ((v >> (4 - q0)) & 0xFF).astype(np.uint8))
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "fsk_flat", "--variant", "d=csrc/fsk_tile.cu"],
+    ["-m", "audio_modem_radio_tpu_torch.profile_slice", "--mode", "FSK1200", "--flat"],
+])
+def test_card_tools_fail_without_a_card(argv):
+    """The timing tools measure only on a card: without one they print FAIL
+    and exit 2 (no CPU fallback), before building anything."""
+    import pathlib
+    import subprocess
+    import sys
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the tools would measure")
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, *argv], cwd=repo, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 2 and "FAIL" in out.stdout, out.stdout + out.stderr

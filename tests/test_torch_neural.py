@@ -209,6 +209,33 @@ def test_extract_contract_wrap_first_max_and_offsets():
                           tk.neural_extract_batch(torch.from_numpy(i16.astype(np.float32)), cb, ph[1:], s[1:] * 0, 1).numpy())
 
 
+# csrc/neural_extract.cu's launch: threads a block, symbols a thread, blocks a multiprocessor.
+_K10_THREADS, _K10_SYMS, _K10_BLOCKS_PER_SM = 256, 8, 1
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("rows", [300, 512])
+def test_extract_kernel_symbol_walk_mirrored(rows, sms):
+    """csrc/neural_extract.cu's walk over symbols, on 3 captures: block
+    ``blk`` of the grid scores, at each stride of the grid, symbol ``base +
+    thread + u * 256`` for u < 8. Every symbol is written exactly once, none
+    past the batch, and at each u a warp's 32 lanes take 32 neighbouring
+    symbols (its byte stores and sample loads stay together). One
+    multiprocessor makes each block stride several times."""
+    n_sym = 3 * rows * 8
+    per_block = _K10_THREADS * _K10_SYMS
+    grid = min(-(-n_sym // per_block), sms * _K10_BLOCKS_PER_SM)
+    writes = np.zeros(n_sym, np.int64)
+    thread = np.arange(_K10_THREADS)
+    for blk in range(grid):
+        for base in range(blk * per_block, n_sym, grid * per_block):
+            for u in range(_K10_SYMS):
+                g = base + thread + u * _K10_THREADS
+                assert (np.diff(g.reshape(-1, 32), axis=1) == 1).all()
+                np.add.at(writes, g[g < n_sym], 1)
+    assert (writes == 1).all()
+
+
 @pytest.mark.parametrize("case", ["x_width", "rows", "x_dtype", "codebook", "phasors", "s_dtype"])
 def test_extract_wrapper_raises_on_bad_input(case):
     x = torch.zeros((8, 128))
