@@ -23,20 +23,34 @@
 // of the samples (about spb+ov/spr int16 at FSK1200, 2.4 GB for 64 captures of
 // 2^24 samples, 0.72 ms at 3.35 TB/s; K13's flat float32 rows 4.3 GB, 1.31
 // ms) against 4*spb FMAs, about 4 flop/B, under the float32 ridge of 20 flop/B.
-// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 6 and
-// profile_slice.py --flat, PERF.md): K13 1.58 ms alone, 1.70 ms through its
-// wrapper, 83% and 77% of its bound (the one-thread-a-bit K13: 4.61 and 5.98
-// ms, 22%); K7 2.50 ms through its wrapper, 29% of its 0.72 ms bound.
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 6,
+// profile_slice.py --flat and kernel_variants.py, PERF.md section 6): K13
+// 1.58 ms alone, 1.70 ms through its wrapper, 83% and 77% of its bound (the
+// one-thread-a-bit K13: 4.61 and 5.98 ms, 22%). K7 at FSK1200 on int16 rows:
+// 0.81-0.82 ms through its wrapper, 0.75 ms alone (89% and 96% of its 0.72
+// ms bound; the one-thread-a-bit K7: 2.36-2.38 ms, 30%), its bits equal to
+// that kernel's; a thread summing 1 or 2 rows of a bit instead of 4 took the
+// same time.
 //
-// K7's design. One thread per bit, a block per 256 consecutive bits of a
-// capture. The block stages its capture's (4, span, spr) band table in shared
-// memory (bits along the fast axis, so a warp's neighbouring bits read
-// neighbouring banks) and each thread correlates its own span samples, read
-// straight from device memory: a warp's reads fall in the few rows its 32 bits
-// cover and are served from L1 after the first touch. Unlike the Pallas
-// kernel it takes any spr and any row count (the 128 % spr and 256-row
-// conditions were its lane layout's), so MSK at 1000 Bd (spr 12) and FT8
-// (spr 1) run it too.
+// K7's design. The first K7 (one thread a bit, a block per 256 bits, each
+// block copying its capture's whole band table, each thread reading its bit's
+// samples with scalar loads straight from device memory) was limited by L1
+// wavefronts, as the first K13 was: neighbouring bits lie spb samples apart,
+// so a warp-wide load touched some 32 sectors. Now a persistent one-wave grid
+// (one block a multiprocessor, split evenly over the captures) walks tiles of
+// up to kK7TileRows overlapped rows of one capture. Every row starts on a
+// 16-byte boundary (row+ov is a multiple of 128; the wrapper rejects a
+// misaligned view), so each row's band [lo, hi) of the capture's offset is
+// the same run of 16-byte chunks, staged with cp.async past L1 in the
+// storage type (int16 converted at the shared read, 8 samples a 16-byte
+// load, by an exact float bit trick, no I2F), the next tile while this one is
+// correlated. The capture's (4, span, spr) table is staged once per block as
+// (spr, span) float4s. A thread owns bit s of kRowsPerItem rows of the tile,
+// so each t's float4 of weights feeds 4*kRowsPerItem FMAs; its rows lie
+// G = ceil(rows/kRowsPerItem) apart, so a quarter-warp reads one bit of 8
+// consecutive rows, whose shared rows lie an odd number of chunks apart: 8
+// different chunks of banks. K7 reads within its own rows, so it needs no
+// zero fill and no next-row logic.
 //
 // K13's design. A thread that reads its own bit's samples from device memory
 // makes every warp-wide load touch 32 cache lines (its bits lie spb samples
@@ -60,46 +74,208 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kRowsPerItem = 4;                      // K7 rows a thread sums for one bit
+constexpr int kK7TileRows = 32;                       // K7 rows a tile buffer holds at most
+constexpr int kTileThreads = 16 * kK7TileRows / kRowsPerItem;  // one item each at FSK1200 (spr 16)
+constexpr int kK7Smem = 220 * 1024;                   // a K7 block's shared memory at most: one a multiprocessor
 constexpr int kTileRows = 8;       // flat rows a K13 tile buffer holds
 constexpr int kFlatThreads = 128;  // one (row, bit) of a tile each at FSK1200
 constexpr int kFlatBlocks = 2;     // K13 blocks a multiprocessor
 constexpr int kFlatSmem = 224 * 1024 / kFlatBlocks;  // a K13 block's shared memory at most
 
-template <typename T>
-__global__ void fsk_tile_kernel(const T* __restrict__ x, const float* __restrict__ tab,
-                                const int* __restrict__ first, const int* __restrict__ best,
-                                uint8_t* __restrict__ bits, int rows, int cols, int spr,
-                                int span) {
-  extern __shared__ float tw[];  // (4, span, spr) of the capture's offset
-  const int b = blockIdx.y;
-  const int k = best[b];
-  const int n_tab = 4 * span * spr;
-  const float* tk = tab + (long long)k * n_tab;
-  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) tw[i] = tk[i];
-  __syncthreads();
+// One sample's four multiply-adds into a bit's sums, in K7's and K13's order.
+__device__ __forceinline__ void acc4(float (&a)[4], float v, float4 w) {
+  a[0] = fmaf(v, w.x, a[0]);
+  a[1] = fmaf(v, w.y, a[1]);
+  a[2] = fmaf(v, w.z, a[2]);
+  a[3] = fmaf(v, w.w, a[3]);
+}
 
-  const long long bits_per_capture = (long long)rows * spr;
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= bits_per_capture) return;
-  const int j = (int)(g / spr);
-  const int s = (int)(g % spr);
-  const T* xc = x + (long long)b * rows * cols;
-  const long long p = (long long)j * cols + first[k * spr + s];
-  const float* w0 = tw + s;
-  const int gs = span * spr;  // stride between the four columns
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-  for (int t = 0; t < span; ++t) {
-    const float v = static_cast<float>(xc[p + t]);
-    const float* w = w0 + t * spr;
-    a0 = fmaf(v, w[0], a0);
-    a1 = fmaf(v, w[gs], a1);
-    a2 = fmaf(v, w[2 * gs], a2);
-    a3 = fmaf(v, w[3 * gs], a3);
+// The band [band[0], band[1]) of a row that the bits of one offset read,
+// from its (spr,) first samples; visible to the block after its next barrier.
+__device__ __forceinline__ void offset_band(const int* fk, int spr, int span, int* band) {
+  if (threadIdx.x == 0) {
+    band[0] = 0x7fffffff;
+    band[1] = 0;
   }
-  const float em = __fadd_rn(__fmul_rn(a0, a0), __fmul_rn(a1, a1));
-  const float es = __fadd_rn(__fmul_rn(a2, a2), __fmul_rn(a3, a3));
-  bits[(long long)b * bits_per_capture + g] = __fsub_rn(em, es) > 0.f;
+  __syncthreads();
+  for (int s = threadIdx.x; s < spr; s += blockDim.x) {
+    atomicMin(&band[0], fk[s]);
+    atomicMax(&band[1], fk[s] + span);
+  }
+}
+
+// --- K7 -------------------------------------------------------------------------------
+
+// Sample i of a 16-byte chunk as float: float32 as is; int16 by placing the
+// offset-binary value in a float's mantissa (2^23 + v + 2^15) and
+// subtracting the offset, which is exact (no I2F).
+__device__ __forceinline__ float chunk_sample(const uint4& q, int i, float) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+  return __uint_as_float(w[i]);
+}
+__device__ __forceinline__ float chunk_sample(const uint4& q, int i, int16_t) {
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+  const uint32_t u = w[i >> 1] ^ 0x80008000u;
+  return __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, (i & 1) ? 0x7432 : 0x7410)), 8421376.f);
+}
+
+// The four sums of kRowsPerItem rows of one bit over t = 0..span-1 in order:
+// each row's samples from shared memory 16 bytes at a time (the first M of
+// the first chunk skipped), each t's float4 of weights read once for all rows.
+template <typename T, int M>
+__device__ __forceinline__ void correlate_rows(const uint4* const (&xr)[kRowsPerItem], const float4* w,
+                                               int span, float (&a)[kRowsPerItem][4]) {
+  constexpr int E = 16 / (int)sizeof(T);  // samples a chunk
+  int t = 0, c = 0;
+  {
+    uint4 q[kRowsPerItem];
+#pragma unroll
+    for (int r = 0; r < kRowsPerItem; ++r) q[r] = xr[r][0];
+#pragma unroll
+    for (int i = M; i < E; ++i, ++t) {
+      if (t < span) {
+        const float4 wt = w[t];
+#pragma unroll
+        for (int r = 0; r < kRowsPerItem; ++r) acc4(a[r], chunk_sample(q[r], i, T()), wt);
+      }
+    }
+    ++c;
+  }
+#pragma unroll 2
+  for (; t + E <= span; t += E, ++c) {
+    uint4 q[kRowsPerItem];
+#pragma unroll
+    for (int r = 0; r < kRowsPerItem; ++r) q[r] = xr[r][c];
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const float4 wt = w[t + i];
+#pragma unroll
+      for (int r = 0; r < kRowsPerItem; ++r) acc4(a[r], chunk_sample(q[r], i, T()), wt);
+    }
+  }
+  if (t < span) {
+    uint4 q[kRowsPerItem];
+#pragma unroll
+    for (int r = 0; r < kRowsPerItem; ++r) q[r] = xr[r][c];
+#pragma unroll
+    for (int i = 0; i < E - 1; ++i) {
+      if (t + i < span) {
+        const float4 wt = w[t + i];
+#pragma unroll
+        for (int r = 0; r < kRowsPerItem; ++r) acc4(a[r], chunk_sample(q[r], i, T()), wt);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+    fsk_tile_kernel(const T* __restrict__ x, const float* __restrict__ tab, const int* __restrict__ first,
+                    const int* __restrict__ best, uint8_t* __restrict__ bits, int rows, int cols, int spr,
+                    int span, int per_capture, int tile_rows, int buf_chunks) {
+  constexpr int E = 16 / (int)sizeof(T);
+  extern __shared__ float4 smem[];  // the capture's (spr, span) weights, then two tile buffers
+  __shared__ int band[2];           // lo, hi of the capture's offset
+  const int b = blockIdx.x / per_capture;
+  const int first_tile = blockIdx.x % per_capture;
+  const int k = best[b];
+  const int* fk = first + (long long)k * spr;
+  offset_band(fk, spr, span, band);
+  // The (4, span, spr) table of offset k as (spr, span) float4s, read along s.
+  float4* tw = smem;
+  const float* tk = tab + (long long)k * 4 * span * spr;
+  const int gs = span * spr;
+  for (int q = threadIdx.x; q < gs; q += blockDim.x) {
+    const int t = q / spr, s = q - t * spr;
+    tw[s * span + t] = make_float4(tk[q], tk[gs + q], tk[2 * gs + q], tk[3 * gs + q]);
+  }
+  uint4* bufs = reinterpret_cast<uint4*>(smem + gs);
+  __syncthreads();
+  // Every row starts on a 16-byte boundary, so all rows stage the same
+  // chunks [c_lo, c_lo + cpr) and the band starts at sample phase of them.
+  const int c_lo = band[0] / E;
+  const int phase = band[0] - c_lo * E;
+  const int cpr = (band[1] + E - 1) / E - c_lo;
+  const int rs = cpr | 1;  // odd: the rows a quarter-warp reads lie in 8 different chunks of banks
+
+  const T* xc = x + (long long)b * rows * cols;
+  const int n_tiles = (rows + tile_rows - 1) / tile_rows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int kWarps = kTileThreads / 32;
+  auto stage = [&](int tile, uint4* buf) {
+    const int j0 = tile * tile_rows;
+    const int n_rows = min(tile_rows, rows - j0);
+    const unsigned d = (unsigned)__cvta_generic_to_shared(buf);
+    for (int jj = warp; jj < n_rows; jj += kWarps) {
+      const uint4* src = reinterpret_cast<const uint4*>(xc + (long long)(j0 + jj) * cols) + c_lo;
+      for (int q = lane; q < cpr; q += 32)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + 16 * (jj * rs + q)), "l"(src + q));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  uint8_t* out = bits + (long long)b * rows * spr;
+  int i = 0;
+  if (first_tile < n_tiles) stage(first_tile, bufs);
+  for (int tile = first_tile; tile < n_tiles; tile += per_capture, ++i) {
+    // Stage the next tile into the other buffer while this one is correlated.
+    const int next = tile + per_capture;
+    if (next < n_tiles) {
+      stage(next, bufs + ((i + 1) & 1) * buf_chunks);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    const uint4* buf = bufs + (i & 1) * buf_chunks;
+    const int j0 = tile * tile_rows;
+    const int n_rows = min(tile_rows, rows - j0);
+    // Item (g, s): bit s of rows g, g + G, g + 2G, ...; g fastest, so a
+    // quarter-warp reads 8 consecutive rows of one bit at the same column.
+    const int G = (n_rows + kRowsPerItem - 1) / kRowsPerItem;
+    for (int it = threadIdx.x; it < G * spr; it += kTileThreads) {
+      const int g = it % G, s = it / G;
+      const int e = phase + fk[s] - band[0];  // the bit's first sample in a staged row
+      const uint4* xr[kRowsPerItem];
+#pragma unroll
+      for (int r = 0; r < kRowsPerItem; ++r) {
+        const int jj = g + r * G;
+        xr[r] = buf + (jj < n_rows ? jj : g) * rs + e / E;
+      }
+      const float4* w = tw + s * span;
+      float a[kRowsPerItem][4] = {};
+      if constexpr (E == 8) {
+        switch (e & 7) {
+          case 0: correlate_rows<T, 0>(xr, w, span, a); break;
+          case 1: correlate_rows<T, 1>(xr, w, span, a); break;
+          case 2: correlate_rows<T, 2>(xr, w, span, a); break;
+          case 3: correlate_rows<T, 3>(xr, w, span, a); break;
+          case 4: correlate_rows<T, 4>(xr, w, span, a); break;
+          case 5: correlate_rows<T, 5>(xr, w, span, a); break;
+          case 6: correlate_rows<T, 6>(xr, w, span, a); break;
+          default: correlate_rows<T, 7>(xr, w, span, a); break;
+        }
+      } else {
+        switch (e & 3) {
+          case 0: correlate_rows<T, 0>(xr, w, span, a); break;
+          case 1: correlate_rows<T, 1>(xr, w, span, a); break;
+          case 2: correlate_rows<T, 2>(xr, w, span, a); break;
+          default: correlate_rows<T, 3>(xr, w, span, a); break;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRowsPerItem; ++r) {
+        const int jj = g + r * G;
+        if (jj < n_rows) {
+          const float em = __fadd_rn(__fmul_rn(a[r][0], a[r][0]), __fmul_rn(a[r][1], a[r][1]));
+          const float es = __fadd_rn(__fmul_rn(a[r][2], a[r][2]), __fmul_rn(a[r][3], a[r][3]));
+          out[(long long)(j0 + jj) * spr + s] = __fsub_rn(em, es) > 0.f;
+        }
+      }
+    }
+    __syncthreads();  // this buffer is staged again two tiles on
+  }
 }
 
 // --- K13 ------------------------------------------------------------------------------
@@ -134,13 +310,6 @@ __device__ __forceinline__ void stage_row(float* dst, const int16_t* src, int n,
 
 // The four sums of one bit over t = 0..span-1 in order: samples from shared
 // memory 16 bytes at a time, the first M of the first chunk skipped.
-__device__ __forceinline__ void acc4(float (&a)[4], float v, float4 w) {
-  a[0] = fmaf(v, w.x, a[0]);
-  a[1] = fmaf(v, w.y, a[1]);
-  a[2] = fmaf(v, w.z, a[2]);
-  a[3] = fmaf(v, w.w, a[3]);
-}
-
 template <int M>
 __device__ __forceinline__ void correlate(const float4* xv, const float4* w, int span, float (&a)[4]) {
   const float4 q0 = xv[0];
@@ -178,15 +347,7 @@ __global__ void __launch_bounds__(kFlatThreads)
   const int b = blockIdx.y;
   const int k = best[b];
   const int* fk = first + (long long)k * spr;
-  if (threadIdx.x == 0) {
-    band[0] = 0x7fffffff;
-    band[1] = 0;
-  }
-  __syncthreads();
-  for (int s = threadIdx.x; s < spr; s += blockDim.x) {
-    atomicMin(&band[0], fk[s]);
-    atomicMax(&band[1], fk[s] + span);
-  }
+  offset_band(fk, spr, span, band);
   float4* tw = smem;
   const float4* tk = tab4 + (long long)k * spr * span;
   for (int i = threadIdx.x; i < spr * span; i += blockDim.x) tw[i] = tk[i];
@@ -253,14 +414,35 @@ __global__ void __launch_bounds__(kFlatThreads)
 template <typename T>
 int launch_tile(const void* x, const float* tab, const int* first, int span, const int* best,
                 uint8_t* bits, int n_captures, int rows, int cols, int spr, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 4 * (size_t)span * spr;
-  cudaError_t err = cudaFuncSetAttribute(fsk_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  constexpr int E = 16 / (int)sizeof(T);
+  if (cols % E != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0) return (int)cudaErrorInvalidValue;
+  // A row's band lies in its cols samples, so it stages at most cols / E
+  // chunks; two buffers of tile_rows rows beside the weights.
+  const size_t row_chunks = (size_t)((cols / E) | 1);
+  const size_t w_bytes = 16 * (size_t)spr * span;
+  const size_t fit = w_bytes < (size_t)kK7Smem ? (kK7Smem - w_bytes) / (2 * 16 * row_chunks) : 0;
+  if (fit < 1) return (int)cudaErrorInvalidValue;
+  const int tile_rows = (int)(fit > (size_t)kK7TileRows ? kK7TileRows : fit);
+  const int buf_chunks = (int)(tile_rows * row_chunks);
+  const size_t smem = w_bytes + 2 * 16 * (size_t)buf_chunks;
+  auto kernel = fsk_tile_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTileThreads, smem);
   if (err != cudaSuccess) return (int)err;
-  const long long bits_per_capture = (long long)rows * spr;
-  dim3 grid((unsigned)((bits_per_capture + kThreads - 1) / kThreads), (unsigned)n_captures);
-  fsk_tile_kernel<T><<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), tab, first, best, bits,
-                                                       rows, cols, spr, span);
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // One wave: every block resident at once, each walking tiles of one capture.
+  const long long n_tiles = (rows + (long long)tile_rows - 1) / tile_rows;
+  long long per_capture = (long long)per_sm * sms / n_captures;
+  if (per_capture < 1) per_capture = 1;
+  if (per_capture > n_tiles) per_capture = n_tiles;
+  const long long n_blocks = per_capture * n_captures;
+  if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)n_blocks, kTileThreads, smem, stream>>>(static_cast<const T*>(x), tab, first, best, bits,
+                                                             rows, cols, spr, span, (int)per_capture, tile_rows,
+                                                             buf_chunks);
   return (int)cudaGetLastError();
 }
 

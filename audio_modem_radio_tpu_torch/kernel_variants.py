@@ -4,22 +4,27 @@
         --variant parent=/path/to/parent/audio_modem_radio_tpu_torch/csrc/neural_extract.cu \\
         --variant new=csrc/neural_extract.cu [--reps 5] [--out FILE]
 
-``--kernel`` is ``neural_extract`` (K10) or ``fsk_flat`` (K13). Each
-``--variant NAME=SOURCE[:FLAGS]`` compiles SOURCE alone (a path relative to
-the package, or absolute, such as another checkout's copy of the same file)
-with the build's nvcc flags plus FLAGS (space-separated ``-D`` options) into
-its own library under ``build/``; all variants compile at once. Each is then
+``--kernel`` is ``decide`` (K1), ``fsk_tile`` (K7), ``neural_extract`` (K10)
+or ``fsk_flat`` (K13). Each ``--variant NAME=SOURCE[:FLAGS]`` compiles
+SOURCE alone (a path relative to the package, or absolute, such as another
+checkout's copy of the same file) with the build's nvcc flags plus FLAGS
+(space-separated ``-D`` options) into its own library under ``build/``; all
+variants compile at once. Each is then
 called through the port's own wrapper (``ops/kernels.py``), so it must keep
 the C signature of the source it replaces, on the inputs of
-``chip_smoke.py``'s phase 6 (64 x 2^24 samples): K10 on the NEURAL@9600
-bench batch's float32 rows synced by ``td_sync_batch``, K13 on the FSK1200
+``chip_smoke.py``'s phase 6 (64 x 2^24 samples): K1 on the bench batch's
+rows (``--dtype`` int16, int8 or float32) at pass 1's offsets and rotations,
+of QPSK (``--n-psk 4``), BPSK (2) or 8PSK (8); K7 on the FSK1200 bench
+batch's int16 overlapped rows at pass 1's offset; K10 on the NEURAL@9600
+bench batch's float32 rows synced by ``td_sync_batch``; K13 on the FSK1200
 bench capture's flat float32 rows at pass 1's offset. The report gives each
 variant's time (median of ``--reps`` CUDA-event timings after one warm-up),
 the kernel's own device time per call under ``torch.profiler`` (the
 wrapper's table work left out), the number of outputs that differ from
 the first variant's, the card's SM clock and power draw while the variant
 runs back to back for two seconds (``nvidia-smi``), ``nvcc``'s register
-and spill line, and the card's name and power limit.
+and spill lines of the kernel's instantiations, and the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -40,8 +45,12 @@ from .ops import kernels as tk
 from .profile_slice import _card, _median_ms
 
 SR, N, B, PAYLOAD = 96000, 1 << 24, 64, 16384
-_ENTRY = {"neural_extract": "amr_neural_extract", "fsk_flat": "amr_fsk_tile"}
-_KERNEL = {"neural_extract": "neural_extract_kernel", "fsk_flat": "fsk_flat_kernel"}
+_ENTRY = {"decide": "amr_decide", "fsk_tile": "amr_fsk_tile", "neural_extract": "amr_neural_extract",
+          "fsk_flat": "amr_fsk_tile"}
+_KERNEL = {"decide": "decide_kernel", "fsk_tile": "fsk_tile_kernel", "neural_extract": "neural_extract_kernel",
+           "fsk_flat": "fsk_flat_kernel"}
+_PSK = {2: ("BPSK", 3000.0), 4: ("QPSK", 3000.0), 8: ("8PSK", 12000.0)}
+_MANGLED = {"int16": "s", "int8": "a", "float32": "f"}  # a C++ type's code in a mangled name
 
 
 def _kernel_ms(call, name: str, reps: int) -> float:
@@ -90,7 +99,7 @@ def _clocks(call, seconds: float = 2.0) -> str:
 
 
 def _build_variants(variants):
-    """{name: (library path, ptxas lines)}, every source compiled at once."""
+    """{name: (library path, nvcc's stderr)}, every source compiled at once."""
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
@@ -105,8 +114,20 @@ def _build_variants(variants):
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name}: nvcc failed\n{err}")
-        built[name] = (lib, [ln.strip() for ln in err.splitlines() if "registers" in ln or "spill" in ln])
+        built[name] = (lib, err)
     return built
+
+
+def _ptxas_lines(log: str, kernel: str):
+    """nvcc's register and spill lines of the functions whose name holds
+    ``kernel``, each led by its (mangled) name."""
+    out, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.split()[-1]
+        elif ("registers" in ln or "spill" in ln) and name and kernel in name:
+            out.append(f"{name[-40:]}: {ln.split(':', 1)[-1].strip()}")
+    return out
 
 
 @contextlib.contextmanager
@@ -143,6 +164,48 @@ def _neural_call(device):
     return lambda: tk.neural_extract_batch(x2d, cb, ph, s, rows_per_capture=r3)
 
 
+def _psk_rows(mode: str, dtype: str, device):
+    """The bench batch of ``mode`` as (64, R, 1280) rows of ``dtype`` through
+    the port's host shaping: one capture shipped, tiled on the card."""
+    from .config import CONFIG
+    from .parallel.batch import host_shape_batch
+
+    old = CONFIG.get("tpu.int16_rows"), CONFIG.get("tpu.int8_rows")
+    CONFIG.set("tpu.int16_rows", dtype == "int16")
+    CONFIG.set("tpu.int8_rows", dtype == "int8")
+    try:
+        one = host_shape_batch(_wave(mode, 9600)[None], mode, 9600, device=device)
+    finally:
+        CONFIG.set("tpu.int16_rows", old[0])
+        CONFIG.set("tpu.int8_rows", old[1])
+    return torch.from_numpy(one).to(device).expand(B, -1, -1).contiguous()
+
+
+def _decide_call(device, dtype: str, n_psk: int):
+    from .ops.psk import _batch_pass1, _device_tables
+
+    mode, carrier = _PSK[n_psk]
+    x = _psk_rows(mode, dtype, device)
+    b, r, row = x.shape
+    spsym = row // 128
+    _, _, best, theta = _batch_pass1(None, x, b, r * 128, spsym, carrier, SR, 8, r,
+                                     n_psk=8 if n_psk == 8 else 4)
+    W8, _, _ = _device_tables(spsym, carrier, SR, 8, device)
+    rot = torch.stack([torch.cos(theta), torch.sin(theta)], dim=1)
+    return lambda: tk.psk_project_decide_batch(x, W8, best, rot, rows_per_capture=r, n_psk=n_psk)
+
+
+def _tile_call(device):
+    from .ops import fsk as tf
+    from .parallel.batch import host_shape_batch, resolve_demod_plan
+
+    baud, mark, space = resolve_demod_plan("FSK1200", 1200)[1]
+    one = host_shape_batch(_wave("FSK1200", 1200)[None], "FSK1200", 1200, device=device)
+    x = torch.from_numpy(one).to(device).expand(B, -1, -1).contiguous()
+    best, W, spr = tf.fsk_dual_pass1(x, baud, mark, space, SR)
+    return lambda: tk.fsk_tile_bits_batch(x, W, best, rows_per_capture=x.shape[1], spr=spr)
+
+
 def _flat_call(device):
     from .ops import fsk as tf
     from .parallel.batch import host_shape_batch, resolve_demod_plan
@@ -162,6 +225,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=sorted(_ENTRY), required=True)
     ap.add_argument("--variant", action="append", required=True, help="NAME=SOURCE[:FLAGS]")
+    ap.add_argument("--dtype", choices=("int16", "int8", "float32"), default="int16", help="K1's rows")
+    ap.add_argument("--n-psk", type=int, choices=sorted(_PSK), default=4, help="K1's decision")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args()
@@ -176,22 +241,33 @@ def main() -> int:
     built = _build_variants(variants)
     device = torch.device("cuda")
     card = _card()
-    call = (_neural_call if args.kernel == "neural_extract" else _flat_call)(device)
-    lines = [f"card: {card}", f"kernel: {args.kernel}"]
+    if args.kernel == "decide":
+        call = _decide_call(device, args.dtype, args.n_psk)
+    else:
+        call = {"fsk_tile": _tile_call, "neural_extract": _neural_call, "fsk_flat": _flat_call}[args.kernel](device)
+    what = f" ({args.dtype} rows, n_psk {args.n_psk})" if args.kernel == "decide" else ""
+    # The timed instantiation's mangled template arguments: K1's sample type,
+    # n_psk and spsym 10; K7's and K13's sample type.
+    instance = {"decide": f"I{_MANGLED[args.dtype]}Li{args.n_psk}ELi10E", "fsk_tile": "Is", "fsk_flat": "If"}.get(
+        args.kernel, "")
+    lines = [f"card: {card}", f"kernel: {args.kernel}{what}"]
     ref = None
     for name, src, flags in variants:
-        lib, ptxas = built[name]
+        lib, log = built[name]
+        ptxas = _ptxas_lines(log, _KERNEL[args.kernel] + instance)
         with _bound_to(lib, _ENTRY[args.kernel]):
             got = call()
             torch.cuda.synchronize()
             ms = _median_ms(call, args.reps)
             kms = _kernel_ms(call, _KERNEL[args.kernel], args.reps)
             clk = _clocks(call)
+        got = got if isinstance(got, tuple) else (got,)  # K1's (hi, lo) at n_psk 2 and 4
         ref = got if ref is None else ref
-        n_diff = int((got != ref).sum())
-        lines.append(f"{name} ({src} {' '.join(flags)}): wrapper {ms:.4f} ms, kernel alone {kms:.4f} ms; {n_diff} of "
-                     f"{got.numel()} outputs differ from {variants[0][0]}; {clk} | {card}")
+        n_diff = sum(int((g != f).sum()) for g, f in zip(got, ref))
+        n_out = sum(g.numel() for g in got)
         lines += [f"  {ln}" for ln in ptxas]
+        lines.append(f"{name} ({src} {' '.join(flags)}): wrapper {ms:.4f} ms, kernel alone {kms:.4f} ms; {n_diff} of "
+                     f"{n_out} outputs differ from {variants[0][0]}; {clk} | {card}")
         print("\n".join(lines[-1 - len(ptxas):]), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -35,6 +35,7 @@ from __future__ import annotations
 import collections
 import functools
 import math
+import weakref
 from typing import Tuple
 
 import numpy as np
@@ -208,6 +209,28 @@ def psk_project_decide_batch_plain(
     return tuple(o.reshape(b, r, _BLOCK_SYM) for o in out)
 
 
+_DECIDE_TEMPLATES: "collections.OrderedDict" = collections.OrderedDict()  # K1's, by template
+
+
+def _decide_template(w_all: torch.Tensor, spsym: int) -> torch.Tensor:
+    """:func:`_dual_basis` of ``w_all`` for K1, kept for the last 8
+    templates, so that a call with the template of an earlier one launches
+    K1 alone. An entry holds only a weak reference to its template (the
+    batch receivers make the blocked templates anew on each call, and each
+    is 10 MB at 9600 Bd), so it is used only while that very tensor is alive
+    and its version counter shows no write since."""
+    key = (w_all.data_ptr(), w_all._version, tuple(w_all.shape), w_all.device, spsym)
+    hit = _DECIDE_TEMPLATES.get(key)
+    if hit is not None and hit[0]() is w_all:
+        _DECIDE_TEMPLATES.move_to_end(key)
+        return hit[1]
+    tmpl = _dual_basis(w_all, spsym)
+    _DECIDE_TEMPLATES[key] = (weakref.ref(w_all), tmpl)
+    while len(_DECIDE_TEMPLATES) > 8:
+        _DECIDE_TEMPLATES.popitem(last=False)
+    return tmpl
+
+
 def psk_project_decide_batch(
     x3d: torch.Tensor,
     w_all: torch.Tensor,
@@ -230,7 +253,9 @@ def psk_project_decide_batch(
       n_psk: 4 (Gray dibits), 2 (sign bits of re, im) or 8 (π/4 sectors).
     Returns uint8 (hi, lo) of shape (B, R, 128) for ``n_psk`` 2 and 4, or one
     uint8 (B, R, 128) sector array for 8; entries past the modulated span
-    are garbage by contract.
+    are garbage by contract. On the card ``x3d`` must start on a 16-byte
+    boundary (the kernel stages 16-byte chunks); a view that does not is
+    refused.
     """
     _require(x3d.ndim == 3, f"x3d must be (B, R, row), got {tuple(x3d.shape)}")
     b, r, row = x3d.shape
@@ -251,9 +276,10 @@ def psk_project_decide_batch(
     if dev.type == "cpu":
         return psk_project_decide_batch_plain(x3d, w_all, best, rot, n_psk)
 
-    tmpl = torch.stack(
-        [w_all[:, : 2 * spsym, 0], w_all[:, : 2 * spsym, _BLOCK_SYM]], dim=-1
-    ).contiguous()  # (n_offsets, 2*spsym, 2)
+    _require(x3d.data_ptr() % 16 == 0,
+             "psk_project_decide_batch: the kernel stages 16-byte chunks, so the rows must start on a "
+             f"16-byte boundary (this view starts {x3d.data_ptr() % 16} bytes past one)")
+    tmpl = _decide_template(w_all, spsym)
     hi = torch.empty((b, r, _BLOCK_SYM), dtype=torch.uint8, device=dev)
     lo = None if n_psk == 8 else torch.empty_like(hi)
     _launch("amr_decide", dev, _ptr(x3d), _DECIDE_DTYPES[x3d.dtype], n_psk, _ptr(tmpl),
@@ -716,6 +742,7 @@ def psk8_relabel_pack_rows(
 
 _FSK_DTYPES = {torch.float32: 0, torch.int16: 1}
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on sm_90
+_K7_SMEM = 220 * 1024  # csrc/fsk_tile.cu kK7Smem: a K7 block's shared memory at most
 
 
 def _band_tables(w: torch.Tensor, groups: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
@@ -817,8 +844,14 @@ def _fsk_dual_launch(name: str, x3d, w_all, best, rows_per_capture: int, spr: in
         row_floats = 4 * (((n_rows + 6) >> 2) | 1)
         _require(16 * span * spr + 8 * row_floats <= _SMEM_LIMIT,
                  f"{name}: a {span} x {spr} band table and {n_rows}-sample rows exceed shared memory")
-    else:  # K7 stages the (4, span, spr) band table
-        _require(16 * span * spr <= _SMEM_LIMIT, f"{name}: a {span} x {spr} band table exceeds shared memory")
+    else:  # K7: the (spr, span) float4 weights and two buffers of at least one row's 16-byte chunks
+        per_chunk = 16 // x3d.element_size()
+        _require(c % per_chunk == 0 and x3d.data_ptr() % 16 == 0,
+                 f"{name}: the kernel stages 16-byte chunks of each row, so rows of {c} {x3d.dtype} samples "
+                 f"must fill whole chunks and start on a 16-byte boundary (this view starts "
+                 f"{x3d.data_ptr() % 16} bytes past one)")
+        _require(16 * span * spr + 32 * ((c // per_chunk) | 1) <= _K7_SMEM,
+                 f"{name}: a {span} x {spr} band table and {c}-sample rows exceed shared memory")
     bits = torch.empty((b, r * spr), dtype=torch.uint8, device=dev)
     _launch("amr_fsk_tile", dev, _ptr(x3d), _FSK_DTYPES[x3d.dtype], int(flat), _ptr(tab), _ptr(first),
             span, _ptr(best), _ptr(bits), b, r, c, spr, n_rows)
@@ -836,7 +869,10 @@ def fsk_tile_bits_batch(
         (``ops.fsk._fsk_blocked_templates``); the kernel reads each bit's band.
       best: (B,) int32 winning offset per capture.
     Returns uint8 bits (B, R*spr). Any spr and any R: the Pallas kernel's
-    ``128 % spr`` and block-row conditions were its lane layout's."""
+    ``128 % spr`` and block-row conditions were its lane layout's. On the
+    card each row must fill whole 16-byte chunks and start on a 16-byte
+    boundary (row+ov is a multiple of 128); a view that does not is
+    refused."""
     bits = _fsk_dual_launch("fsk_tile_bits_batch", x3d, w_all, best, rows_per_capture, spr, False)
     if x3d.is_cuda:
         fsk_tile_bits_batch.launches += 1

@@ -729,10 +729,15 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
             )
             del x
             x8 = _rows(_tiled(wave, n)[None], "int8", device, mode).expand(n_cap, -1, -1).contiguous()
-            t["psk_project_decide_batch@4 int8"] = (
+            key8 = "psk_project_decide_batch@4 int8"
+            bounds[key8] = _bound(x8.numel() + n_sym * 2, n_sym * (8 * SPSYM + 12))
+            t[key8] = (
                 _time_ms(lambda: tk.psk_project_decide_batch(x8, W8, best, rot, rows_per_capture=r)),
                 _time_ms(lambda: tk.psk_project_decide_batch_plain(x8, W8, best, rot)),
             )
+            say(f"[6 time] K1@4 on int8 rows {tuple(x8.shape)}: kernel {t[key8][0]:.4f} ms, plain "
+                f"{t[key8][1]:.4f} ms, bound {bounds[key8][0]:.4f} ms by {bounds[key8][1]}; int16 rows "
+                f"{t[key][0]:.4f} ms | {card}")
             del x8
         elif mode == "BPSK":
             re, im = out

@@ -14,6 +14,7 @@ import torch
 from audio_modem_radio_tpu_torch.framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2, crc32, pack_frame
 from audio_modem_radio_tpu_torch.modem import modulate
 from audio_modem_radio_tpu_torch.ops import kernels as tk
+from audio_modem_radio_tpu_torch.ops import psk as tpsk
 from audio_modem_radio_tpu_torch.ops.psk import _GRAY8_INV, _batch_pass1, _device_tables, blocked_row_shape
 
 pytestmark = pytest.mark.cuda
@@ -92,6 +93,117 @@ def test_decide_kernel_equals_plain_psk2_psk8(cuda, n_psk, dtype):
             got, ref, streams = [got], [ref], 1
         for g, p in list(zip(got, ref))[:streams]:
             assert torch.equal(g.reshape(b, -1)[:, :n_sig], p.reshape(b, -1)[:, :n_sig])
+
+
+def _decide64(x, tmpl, best, rot, n_psk):
+    """K1's decisions in float64 and each symbol's distance from a decision
+    boundary (relative to the largest product the differential sums), so a
+    comparison can set aside the near-ties where float32 summation order
+    decides. Returns (list of decision streams, relative margin), (B, n)."""
+    b, r, row = x.shape
+    spsym = row // 128
+    flat = torch.nn.functional.pad(x.reshape(b, -1).double(), (0, 2 * spsym))
+    win = flat.unfold(1, 2 * spsym, spsym)[:, : r * 128 + 1]  # (B, n+1, 2*spsym)
+    t = tmpl[best.long()].double()  # (B, 2*spsym, 2)
+    z = torch.einsum("bnj,bjc->bnc", win, t)
+    mag = torch.einsum("bnj,bjc->bnc", win.abs(), t.abs()).amax(dim=2)
+    r0, i0, r1, i1 = z[:, :-1, 0], z[:, :-1, 1], z[:, 1:, 0], z[:, 1:, 1]
+    d_re, d_im = r1 * r0 + i1 * i0, i1 * r0 - r1 * i0
+    c, s = rot[:, 0:1].double(), rot[:, 1:2].double()
+    dr, di = d_re * c + d_im * s, d_im * c - d_re * s
+    scale = 2 * mag[:, :-1] * mag[:, 1:] + 1e-30
+    ax, bx = dr.abs(), di.abs()
+    if n_psk == 2:
+        margin, out = torch.minimum(ax, bx), [dr < 0, di < 0]
+    elif n_psk == 4:  # the larger component's sign and which one is larger
+        swap = bx > ax
+        neg = torch.where(swap, di, dr) < 0
+        margin, out = torch.minimum((ax - bx).abs(), torch.maximum(ax, bx)), [neg, neg ^ swap]
+    else:  # the diagonal test, then both signs (diagonal) or as for 4 phases (axis)
+        tq = 0.41421356
+        diag = (bx > tq * ax) & (ax > tq * bx)
+        margin = torch.minimum((bx - tq * ax).abs(), (ax - tq * bx).abs())
+        margin = torch.minimum(margin, torch.where(diag, torch.minimum(ax, bx),
+                                                   torch.minimum((ax - bx).abs(), torch.maximum(ax, bx))))
+        out = [tk.psk8_sector_stream(dr.float(), di.float())]
+    return [o.to(torch.uint8) for o in out], margin / scale
+
+
+@pytest.mark.parametrize("n_psk", [2, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "int16", "int8"])
+@pytest.mark.parametrize("spsym", [3, 8, 10, 32])
+def test_decide_kernel_any_spsym_ragged_tile(cuda, spsym, dtype, n_psk):
+    """K1 at the specialised spsym (8, 10) and the generic ones (3, 32), on
+    258 rows (a last tile the rows do not fill for every sample type) of 3
+    random captures: the kernel equals the plain version on every symbol
+    whose float64 differential lies more than 1e-5 (relative) from a
+    decision boundary, where only the summation order could flip it; the
+    kernel writes only inside the capture (a canary after it)."""
+    g = torch.Generator(device=cuda).manual_seed(spsym * 31 + n_psk)
+    b, r = 3, 258
+    x = torch.randn((b, r, 128 * spsym), generator=g, device=cuda) * 0.3
+    if dtype != "float32":
+        scale = 32767.0 if dtype == "int16" else 127.0
+        x = (x.clamp(-1, 1) * scale).round().to(getattr(torch, dtype))
+    W8 = torch.from_numpy(tpsk._blocked_templates(spsym, 3000.0, 96000, 8).copy()).to(cuda)
+    best = torch.tensor([0, 3, 7], dtype=torch.int32, device=cuda)
+    theta = torch.tensor([0.1, -0.7, 2.0], device=cuda)
+    rot = torch.stack([torch.cos(theta), torch.sin(theta)], 1)
+    got = tk.psk_project_decide_batch(x, W8, best, rot, rows_per_capture=r, n_psk=n_psk, block_rows=2)
+    ref = tk.psk_project_decide_batch_plain(x, W8, best, rot, n_psk=n_psk)
+    got, ref = (list(got), list(ref)) if n_psk != 8 else ([got], [ref])
+    want, rel = _decide64(x, tk._dual_basis(W8, spsym), best, rot, n_psk)
+    clear = rel > 1e-5
+    torch.cuda.synchronize()
+    assert float(clear.float().mean()) > 0.99
+    for k, p, w in zip(got, ref, want):
+        k, p = k.reshape(b, -1), p.reshape(b, -1)
+        assert torch.equal(k[clear], p[clear])
+        assert torch.equal(k[clear], w[clear])
+
+
+def test_decide_kernel_more_captures_than_blocks(cuda):
+    """8 tiled QPSK captures of 512 rows cut into 2,048 captures of 2 rows
+    (one 256-symbol tile each), more than one wave of blocks: each block
+    then walks one capture. Equal to the plain version on every symbol off
+    a decision boundary, the last of each capture included (its window
+    reads zeros past the capture's 2 rows, as the plain version's does)."""
+    p = np.random.default_rng(5).integers(0, 256, 1500, dtype=np.uint8).tobytes()
+    wave = modulate("QPSK", pack_frame("c.bin", p, 0, 1, len(p), crc32(p)), 9600)
+    b, r, row = 8, 512, 1280
+    wave = np.tile(wave, -(-(r * row + 5 * b) // len(wave)))
+    x = np.stack([wave[5 * i : 5 * i + r * row] for i in range(b)]) * (32767.0 / np.abs(wave).max())
+    x = torch.from_numpy(np.round(x).astype(np.int16).reshape(b, r, row)).to(cuda)
+    _, _, best, theta = _batch_pass1(None, x, b, r * 128, 10, 3000.0, 96000, 8, r)
+    W8, _, _ = _device_tables(10, 3000.0, 96000, 8, x.device)
+    xs = x.reshape(-1, 2, row)
+    idx = torch.arange(xs.shape[0], device=cuda) // (r // 2)
+    bs = best[idx].contiguous()
+    rot = torch.stack([torch.cos(theta), torch.sin(theta)], 1)[idx].contiguous()
+    got = tk.psk_project_decide_batch(xs, W8, bs, rot, rows_per_capture=2, block_rows=2)
+    ref = tk.psk_project_decide_batch_plain(xs, W8, bs, rot)
+    want, rel = _decide64(xs, tk._dual_basis(W8, 10), bs, rot, 4)
+    clear = rel > 1e-5
+    torch.cuda.synchronize()
+    assert xs.shape[0] == 2048 and float(clear.float().mean()) > 0.99
+    for k, p, w in zip(got, ref, want):
+        k, p = k.reshape(xs.shape[0], -1), p.reshape(xs.shape[0], -1)
+        assert torch.equal(k[clear], p[clear]) and torch.equal(k[clear], w[clear])
+
+
+def test_decide_kernel_rejects_a_misaligned_view(cuda):
+    """The kernel stages 16-byte chunks: a view that starts 2 bytes past a
+    16-byte boundary is refused by the wrapper, never launched."""
+    r = 256
+    flat = torch.zeros(3 * r * 1280 + 1, dtype=torch.int16, device=cuda)
+    x = flat[1:].view(3, r, 1280)
+    W8, _, _ = _device_tables(10, 3000.0, 96000, 8, cuda)
+    best = torch.zeros(3, dtype=torch.int32, device=cuda)
+    rot = torch.tensor([[1.0, 0.0]] * 3, device=cuda)
+    before = tk.psk_project_decide_batch.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tk.psk_project_decide_batch(x, W8, best, rot, rows_per_capture=r)
+    assert tk.psk_project_decide_batch.launches == before
 
 
 @pytest.mark.parametrize("rows_scanned", [256, 512, 768])
@@ -301,6 +413,64 @@ def test_fsk_tile_kernel_equals_plain(cuda, mode, dtype):
     torch.cuda.synchronize()
     assert tk.fsk_tile_bits_batch.launches == before + 1
     assert torch.equal(got[:, :n_sig], ref[:, :n_sig])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("mode", ["FSK1200", "MSK@1000", "FT8"])
+def test_fsk_tile_kernel_ragged_tile_all_offsets(cuda, mode, dtype):
+    """K7 at spr 16, 12 and 1 on overlapped rows cut from a tiled wave, one
+    capture per offset k led by k's step, on a row count that leaves the
+    last tile ragged (3 full 32-row tiles and 5 rows; FT8's wider rows
+    take tiles of fewer rows): bits equal to the plain version's and to
+    K13's on the same samples, and not all one value."""
+    from audio_modem_radio_tpu_torch.ops.fsk import _device_tables, _fsk_geometry, _samples_per_bit
+
+    rate, baud, mark, space = _FSK[mode]
+    spb = _samples_per_bit(96000, baud)
+    spr, row, ov = _fsk_geometry(spb)
+    (W,) = _device_tables("dual", spb, baud, mark, space, 96000, 8, cuda)
+    r = 3 * 32 + 5
+    p = np.random.default_rng(23).integers(0, 256, 40 if mode == "FT8" else 900, dtype=np.uint8).tobytes()
+    wave = modulate(mode.split("@")[0], pack_frame("f.bin", p, 0, 1, len(p), crc32(p)), rate)
+    n = r * row + ov
+    wave = np.tile(wave, -(-(n + spb) // len(wave)))
+    flat = np.stack([wave[spb - spb // 8 * k : spb - spb // 8 * k + n] for k in range(8)])
+    if dtype == "int16":
+        flat = np.round(flat * 10000).astype(np.int16)
+    over = np.stack([flat[:, j * row : j * row + row + ov] for j in range(r)], axis=1)
+    x = torch.from_numpy(np.ascontiguousarray(over)).to(cuda)
+    best = torch.arange(8, dtype=torch.int32, device=cuda)
+    before = tk.fsk_tile_bits_batch.launches
+    got = tk.fsk_tile_bits_batch(x, W, best, rows_per_capture=r, spr=spr)
+    ref = tk.fsk_tile_bits_batch_plain(x, W, best, spr)
+    rows = torch.from_numpy(np.ascontiguousarray(flat[:, : r * row])).to(cuda).reshape(8, r, row)
+    torch.cuda.synchronize()
+    assert tk.fsk_tile_bits_batch.launches == before + 1
+    assert torch.equal(got, ref)
+    assert 0.2 < got.float().mean() < 0.8
+    # K13 reads row j's overlap from row j+1 and zeros after the last row:
+    # equal to K7 wherever the overlapped rows hold the same samples.
+    flat_bits = tk.fsk_project_bits_batch(rows, W, best, rows_per_capture=r, spr=spr)
+    over_zero = x.clone()
+    over_zero[:, -1, row:] = 0
+    tile_zero = tk.fsk_tile_bits_batch(over_zero, W, best, rows_per_capture=r, spr=spr)
+    torch.cuda.synchronize()
+    assert torch.equal(flat_bits, tile_zero)
+
+
+def test_fsk_tile_kernel_rejects_a_misaligned_view(cuda):
+    """K7 stages 16-byte chunks of each row: a view that starts 2 bytes past
+    a 16-byte boundary is refused by the wrapper, never launched."""
+    from audio_modem_radio_tpu_torch.ops.fsk import _device_tables
+
+    (W,) = _device_tables("dual", 80, 1200.0, 1200.0, 2200.0, 96000, 8, cuda)
+    flat = torch.zeros(2 * 40 * 1408 + 1, dtype=torch.int16, device=cuda)
+    x = flat[1:].view(2, 40, 1408)
+    best = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = tk.fsk_tile_bits_batch.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tk.fsk_tile_bits_batch(x, W, best, rows_per_capture=40, spr=16)
+    assert tk.fsk_tile_bits_batch.launches == before
 
 
 def test_fsk_project_kernel_equals_plain_and_tile(cuda):

@@ -205,6 +205,106 @@ def test_tile_kernel_arithmetic_mirrored(flat):
     assert np.array_equal(mirror, plain)
 
 
+# csrc/fsk_tile.cu's K7 constants: rows a thread sums for one bit, rows a
+# tile buffer holds at most, threads a block, the block's shared memory.
+_K7_ROWS_PER_ITEM, _K7_TILE_ROWS, _K7_SMEM = 4, 32, 220 * 1024
+_K7_THREADS = 16 * _K7_TILE_ROWS // _K7_ROWS_PER_ITEM
+
+
+def _k7_numpy(x3d, first, tab, span, best, per_sm=1, sms=132):
+    """csrc/fsk_tile.cu fsk_tile_kernel, block by block, for a 16-byte
+    aligned tensor: the one-wave grid's tile walk, each row's chunks of the
+    capture's band staged (the same chunks for every row, since rows start
+    on 16-byte boundaries) at an odd chunk stride, then each item (g, s),
+    bit s of rows g, g+G, .. read from it. Asserts that every staged word a
+    (bit, t) reads is sample first + t of its own row, that each bit is
+    written once, and that where a quarter-warp's 8 items share a bit they
+    read 8 different 16-byte bank groups. The sums are float64. Returns the
+    bits (B, R*spr)."""
+    b, r, cols = x3d.shape
+    spr = first.shape[1]
+    per_chunk = 16 // x3d.dtype.itemsize
+    assert cols % per_chunk == 0
+    rs_max = (cols // per_chunk) | 1
+    fit = (_K7_SMEM - 16 * spr * span) // (2 * 16 * rs_max)
+    tile_rows = max(1, min(_K7_TILE_ROWS, fit))
+    n_tiles = -(-r // tile_rows)
+    per_capture = min(n_tiles, max(1, per_sm * sms // b))
+    out = np.full((b, r * spr), 255, np.uint8)
+    t = np.arange(span)
+    shared_s = 0
+    for i in range(b):
+        k = best[i]
+        lo, hi = int(first[k].min()), int(first[k].max()) + span
+        c_lo = lo // per_chunk
+        phase = lo - c_lo * per_chunk
+        cpr = -(-hi // per_chunk) - c_lo
+        rs = cpr | 1
+        assert rs <= rs_max and (c_lo + cpr) * per_chunk <= cols
+        tiles = [tl for bx in range(per_capture) for tl in range(bx, n_tiles, per_capture)]
+        assert sorted(tiles) == list(range(n_tiles))
+        for tile in tiles:
+            j0 = tile * tile_rows
+            n_rows = min(tile_rows, r - j0)
+            buf = np.full(tile_rows * rs_max * per_chunk, np.nan)  # words no item may read stay NaN
+            for jj in range(n_rows):
+                src = x3d[i, j0 + jj, c_lo * per_chunk : (c_lo + cpr) * per_chunk].astype(np.float64)
+                buf[jj * rs * per_chunk : jj * rs * per_chunk + len(src)] = src
+            G = -(-n_rows // _K7_ROWS_PER_ITEM)
+            items = np.arange(G * spr)
+            g, s = items % G, items // G
+            e = phase + first[k, s] - lo  # (items,)
+            jj = g[:, None] + G * np.arange(_K7_ROWS_PER_ITEM)  # (items, rows)
+            ok = jj < n_rows
+            jj = np.where(ok, jj, g[:, None])
+            word = (jj * rs * per_chunk + e[:, None])[:, :, None] + t  # (items, rows, span)
+            want = x3d[i, (j0 + jj)[:, :, None], (first[k, s][:, None, None] + t)].astype(np.float64)
+            assert np.array_equal(buf[word], want)
+            # A quarter-warp: 8 consecutive items of one pass over the tile.
+            for q0 in range(0, len(items) - 7, 8):
+                if (s[q0 : q0 + 8] == s[q0]).all():
+                    shared_s += 1
+                    chunk = (word[q0 : q0 + 8, :, ::per_chunk] // per_chunk) % 8
+                    assert (np.sort(chunk, axis=0) == np.arange(8)[:, None, None]).all()  # no bank conflict
+            a = np.einsum("irt,gti->irg", buf[word], tab[k][:, :, s])
+            dec = ((a[..., 0] ** 2 + a[..., 1] ** 2) - (a[..., 2] ** 2 + a[..., 3] ** 2) > 0).astype(np.uint8)
+            bit = (j0 + jj) * spr + s[:, None]
+            assert (out[i, bit[ok]] == 255).all()  # each bit once
+            out[i, bit[ok]] = dec[ok]
+    assert (out != 255).all()
+    return out, shared_s
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int16])
+@pytest.mark.parametrize("geom", ["FSK1200", "MSK@1000", "FT8", "FSK1200 one block per capture"])
+def test_tile_kernel_staging_mirrored(geom, dtype):
+    """K7's new schedule in numpy against the plain version: FSK1200 (spr
+    16), MSK@1000 (spr 12) and FT8 (spr 1) overlapped rows, 101 rows (the
+    last tile ragged for every geometry), 2 captures at different timing
+    offsets; once with one multiprocessor, so each block walks a whole
+    capture. On int16 rows (the main path) a tile holds 32 rows, so every
+    quarter-warp reads one bit of 8 rows; float32 rows, twice the bytes,
+    fit 18 and share banks."""
+    baud, mark, space = {"MSK@1000": (1000.0, 6000.0, 7000.0), "FT8": (50.0, 3000.0, 3050.0)}.get(
+        geom, (1200.0, MARK, SPACE))
+    spb = jfsk._samples_per_bit(SR, baud)
+    spr, row, ov = jfsk._fsk_geometry(spb)
+    r = 3 * _K7_TILE_ROWS + 5
+    batch = _batch(baud, mark, space, r * row, (0, spb // 8 * 3 + 1), payload_len=30 if geom == "FT8" else 200)
+    x3d = np.ascontiguousarray(j_overlap_rows(batch, r, row, ov, dtype=dtype))
+    assert x3d.dtype == dtype
+    W = torch.from_numpy(jfsk._fsk_blocked_templates(spb, mark, space, SR, 8))
+    best = np.array([0, 3], np.int32)
+    first, tab, span = tk._band_tables(W, 4)
+    plain = tk.fsk_tile_bits_batch_plain(torch.from_numpy(x3d), W, torch.from_numpy(best), spr).numpy()
+    sms = 1 if "one block" in geom else 132
+    mirror, shared_s = _k7_numpy(x3d, first.numpy(), tab.numpy(), span, best, sms=sms)
+    assert np.array_equal(mirror, plain)
+    assert 0.2 < plain[:, : _n_sig(r * row, baud)].mean() < 0.8
+    if geom != "FT8" and dtype == np.int16:  # float32 rows fit tiles of under 29 rows: G < 8
+        assert shared_s > 0
+
+
 # csrc/fsk_tile.cu's K13 constants: threads a block, rows a tile buffer, the
 # shared memory a block may take, the multiprocessors of an H100.
 _FLAT_THREADS, _FLAT_TILE_ROWS, _FLAT_SMEM, _SMS = 128, 8, 112 * 1024, 132

@@ -260,6 +260,159 @@ def test_decide_kernel_formulation():
         assert np.array_equal(lo_p[i].reshape(-1)[:n_sig].numpy(), (neg ^ swap).astype(np.uint8))
 
 
+# csrc/decide.cu's constants: threads a block, the spsym values compiled as
+# constants (the rest take the generic path), the multiprocessors of an H100.
+_DECIDE_THREADS, _DECIDE_FIXED, _SMS = 256, (8, 10), 132
+
+
+def _decide_numpy(x3d, tmpl, best, rot, n_psk, per_sm, sms=_SMS):
+    """csrc/decide.cu decide_kernel, block by block, for a 16-byte aligned
+    tensor: the one-wave grid's tile walk (``per_sm`` blocks a
+    multiprocessor, split over the captures), each tile's 16-byte chunks
+    staged at their place in the buffer (a pad chunk after every spsym/2
+    where that is even, for the compiled spsym), zeros past the capture,
+    and each thread's window read from it: 16-byte reads of (K+2)*spsym
+    samples for a compiled spsym, scalar reads otherwise. Asserts that every
+    staged word a (symbol, j) reads is the capture's sample (or a zero past
+    its end), that the 8 threads of a quarter-warp read 8 different 16-byte
+    bank groups, and that each decision is written once. The projection is
+    float64. Returns hi (and lo) as (B, R*128) uint8."""
+    b, r, row = x3d.shape
+    spsym, item = row // 128, x3d.dtype.itemsize
+    k_sym = 8 // item
+    tile = _DECIDE_THREADS * k_sym
+    sym = r * 128
+    n_tiles = -(-sym // tile)
+    n_chunks = -(-((tile + 2) * spsym * item) // 16)
+    fixed = spsym in _DECIDE_FIXED
+    q = spsym // 2
+    pad = fixed and q % 2 == 0
+    place = (lambda c: c + c // q) if pad else (lambda c: c)
+    buf_chunks = place(n_chunks - 1) + 1
+    per_capture = min(n_tiles, max(1, per_sm * sms // b))
+    n_bytes = sym * spsym * item
+    raw = np.ascontiguousarray(x3d).reshape(b, -1).view(np.uint8)
+    flat = x3d.reshape(b, -1).astype(np.float64)
+    outs = [np.full((b, sym), 255, np.uint8) for _ in range(1 if n_psk == 8 else 2)]
+    th = np.arange(_DECIDE_THREADS)
+    n_s = (k_sym + 2) * spsym
+    for i in range(b):
+        tiles = [t for blk in range(per_capture) for t in range(blk, n_tiles, per_capture)]
+        assert sorted(tiles) == list(range(n_tiles))
+        tb = tmpl[best[i]].astype(np.float64)  # (2*spsym, 2)
+        for t in tiles:
+            g = t * tile * spsym * item + 16 * np.arange(n_chunks)
+            chunks = np.zeros((n_chunks, 16), np.uint8)
+            valid = g < n_bytes
+            chunks[valid] = raw[i, g[valid][:, None] + np.arange(16)]
+            buf = np.full((buf_chunks, 16), 0xA5, np.uint8)  # chunks no thread may read keep the marker
+            written = np.zeros(buf_chunks, bool)
+            dst = place(np.arange(n_chunks))
+            assert not written[dst].any() and len(set(dst.tolist())) == n_chunks
+            buf[dst], written[dst] = chunks, True
+            if fixed:
+                kc = -(-(n_s * item) // 16)
+                j = np.arange(kc)
+                idx = th[:, None] * (q | 1) + j + (j // q if pad else 0)
+                assert written[idx].all()
+                banks = np.sort(idx.reshape(-1, 8, kc) % 8, axis=1)
+                assert (banks == np.arange(8)[None, :, None]).all()  # no bank conflict
+                wbytes = buf[idx].reshape(_DECIDE_THREADS, -1)[:, : n_s * item]
+            else:
+                byte = (th * k_sym * spsym * item)[:, None] + np.arange(n_s * item)
+                assert written[byte // 16].all()
+                wbytes = buf.reshape(-1)[byte]
+            samples = np.ascontiguousarray(wbytes).view(x3d.dtype).astype(np.float64)
+            pos = t * tile * spsym + th[:, None] * k_sym * spsym + np.arange(n_s)
+            want = np.where(pos < sym * spsym, flat[i, np.minimum(pos, sym * spsym - 1)], 0.0)
+            assert np.array_equal(samples, want)
+            win = np.stack([samples[:, u * spsym : u * spsym + 2 * spsym] for u in range(k_sym + 1)], 1)
+            z = win @ tb  # (threads, K+1, 2)
+            r0, i0, r1, i1 = z[:, :-1, 0], z[:, :-1, 1], z[:, 1:, 0], z[:, 1:, 1]
+            d_re, d_im = r1 * r0 + i1 * i0, i1 * r0 - r1 * i0
+            c, s = float(rot[i, 0]), float(rot[i, 1])
+            dr, di = d_re * c + d_im * s, d_im * c - d_re * s
+            if n_psk == 4:
+                swap = np.abs(di) > np.abs(dr)
+                neg = np.where(swap, di, dr) < 0
+                dec = [neg, neg ^ swap]
+            elif n_psk == 2:
+                dec = [dr < 0, di < 0]
+            else:
+                dec = [tk.psk8_sector_stream(torch.from_numpy(dr), torch.from_numpy(di)).numpy()]
+            at = t * tile + th[:, None] * k_sym + np.arange(k_sym)
+            keep = at < sym
+            for o, d in zip(outs, dec):
+                assert (o[i, at[keep]] == 255).all()  # each decision once
+                o[i, at[keep]] = np.asarray(d, np.uint8)[keep]
+    assert all((o != 255).all() for o in outs)
+    return outs
+
+
+@pytest.mark.parametrize("spsym,n_psk,dtype,b,sms", [
+    (10, 4, np.int16, 2, _SMS), (10, 2, np.int8, 2, _SMS), (10, 8, np.float32, 1, _SMS),
+    (8, 4, np.int16, 3, 1), (8, 8, np.int8, 2, _SMS), (8, 2, np.float32, 2, _SMS),
+    (3, 4, np.int16, 2, _SMS), (3, 8, np.int8, 3, 1), (32, 2, np.int16, 1, _SMS),
+])
+def test_decide_kernel_tile_walk_mirrored(spsym, n_psk, dtype, b, sms):
+    """K1's new schedule in numpy against the plain version on clean
+    captures of 258 rows (every sample type's last tile ragged), at the
+    compiled spsym (10, 8: the pad layout) and the generic ones (3, 32),
+    with one capture, and with more captures than blocks (``sms`` 1)."""
+    from audio_modem_radio_tpu_torch.framing import crc32, pack_frame
+    from audio_modem_radio_tpu_torch.modem import modulate
+
+    mode, carrier = {2: ("BPSK", 3000.0), 4: ("QPSK", 3000.0), 8: ("8PSK", 12000.0)}[n_psk]
+    baud = 96000 // spsym
+    r, row = 258, 128 * spsym
+    rng = np.random.default_rng(spsym * 10 + n_psk)
+    x = np.zeros((b, r * row), np.float32)
+    n_sig = r * 128
+    for i in range(b):
+        p = rng.integers(0, 256, 400, dtype=np.uint8).tobytes()
+        wave = np.tile(modulate(mode, pack_frame("d.bin", p, 0, 1, len(p), crc32(p)), baud), 40)
+        x[i, 7 * i :] = wave[: r * row - 7 * i]
+        n_sig = min(n_sig, (r * row - 7 * i) // spsym - 2)
+    if dtype != np.float32:
+        scale = 32767.0 if dtype == np.int16 else 127.0
+        x = np.round(x * scale / np.abs(x).max()).astype(dtype)
+    x3d = x.reshape(b, r, row)
+    xt = torch.from_numpy(x3d)
+    W8 = torch.from_numpy(tpsk._blocked_templates(spsym, carrier, 96000, 8).copy())
+    _, _, best, theta = tpsk._batch_pass1(None, xt[:, :256].contiguous(), b, 256 * 128, spsym, carrier,
+                                          96000, 8, 256, n_psk=8 if n_psk == 8 else 4)
+    rots = [(theta, 1), (theta + np.pi / 4, 2)] if n_psk == 2 else [(theta, 2)]
+    for th, n_streams in rots:
+        rot = torch.stack([torch.cos(th), torch.sin(th)], 1)
+        plain = tk.psk_project_decide_batch(xt, W8, best, rot, rows_per_capture=r, n_psk=n_psk, block_rows=2)
+        plain = [plain] if n_psk == 8 else list(plain)
+        mirror = _decide_numpy(x3d, tk._dual_basis(W8, spsym).numpy(), best.numpy(), rot.numpy(), n_psk, 2, sms)
+        for m, p in list(zip(mirror, plain))[:n_streams]:
+            assert np.array_equal(m[:, :n_sig], p.reshape(b, -1)[:, :n_sig].numpy())
+
+
+def test_decide_template_kept_per_template_until_it_changes():
+    """K1's wrapper keeps the (n_offsets, 2*spsym, 2) dual basis per
+    template: the same tensor again reuses it, a write to the template or
+    another tensor makes it anew, and the cache does not keep a template
+    alive."""
+    import gc
+    import weakref
+
+    W8 = torch.from_numpy(tpsk._blocked_templates(10, 3000.0, 96000, 8).copy())
+    t1 = tk._decide_template(W8, 10)
+    assert torch.equal(t1, tk._dual_basis(W8, 10)) and tuple(t1.shape) == (8, 20, 2)
+    assert tk._decide_template(W8, 10) is t1
+    assert tk._decide_template(W8.clone(), 10) is not t1
+    W8[:, :, 0] *= 2.0
+    t2 = tk._decide_template(W8, 10)
+    assert t2 is not t1 and torch.equal(t2[..., 0], 2.0 * t1[..., 0])
+    ref = weakref.ref(W8)
+    del W8
+    gc.collect()
+    assert ref() is None
+
+
 def _small_inputs():
     r = 256
     hi = torch.zeros((2, r, 128), dtype=torch.uint8)
@@ -573,6 +726,9 @@ def test_psk8_relabel_pack_kernel_formulation():
 
 @pytest.mark.parametrize("argv", [
     ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "fsk_flat", "--variant", "d=csrc/fsk_tile.cu"],
+    ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "decide", "--dtype", "int8",
+     "--variant", "d=csrc/decide.cu"],
+    ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "fsk_tile", "--variant", "d=csrc/fsk_tile.cu"],
     ["-m", "audio_modem_radio_tpu_torch.profile_slice", "--mode", "FSK1200", "--flat"],
 ])
 def test_card_tools_fail_without_a_card(argv):
