@@ -72,6 +72,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "one_wave.cuh"
+
 namespace {
 
 constexpr int kRowsPerItem = 4;                      // K7 rows a thread sums for one bit
@@ -426,16 +428,12 @@ int launch_tile(const void* x, const float* tab, const int* first, int span, con
   const int buf_chunks = (int)(tile_rows * row_chunks);
   const size_t smem = w_bytes + 2 * 16 * (size_t)buf_chunks;
   auto kernel = fsk_tile_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTileThreads, smem);
+  long long wave = 0;
+  const cudaError_t err = one_wave_blocks(kernel, kTileThreads, smem, &wave);
   if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   // One wave: every block resident at once, each walking tiles of one capture.
   const long long n_tiles = (rows + (long long)tile_rows - 1) / tile_rows;
-  long long per_capture = (long long)per_sm * sms / n_captures;
+  long long per_capture = wave / n_captures;
   if (per_capture < 1) per_capture = 1;
   if (per_capture > n_tiles) per_capture = n_tiles;
   const long long n_blocks = per_capture * n_captures;

@@ -17,103 +17,129 @@
 // two float32 streams of R*128 entries per capture; z past the capture's end
 // is zero, so the last entry is 0. Zero samples past the end are what K11's
 // appended zero rows hold; K12's Pallas kernel reads the next capture's head
-// there instead, which its contract calls garbage.
+// there instead, which its contract calls garbage. Each z_t is two fmaf
+// chains in tap order from 0.f and the differential is round-to-nearest
+// products and sums in the plain version's order, so every output float
+// equals that of every earlier design of this kernel, and only the
+// projection's summation order differs from the plain PyTorch version.
 //
 // What bounds it on the H100: device memory. Per symbol it reads spsym samples
-// (40 B as float32 at 9600 Bd, spsym = 10; 20 B as int16) and writes 8 B,
-// against 4*spsym + 6 flops: about 1 flop/B, far below the card's ~20 flop/B
+// (20 B as int16 at 9600 Bd, spsym = 10; 40 B as float32) and writes 8 B,
+// against 8*spsym + 6 flops: 3-4 flop/B, far below the card's ~20 flop/B
 // float32 ridge (67 TFLOP/s over 3.35 TB/s, published H100 SXM peaks).
 //
-// Design: K1's (decide.cu) with the rotation and the decision removed. One
-// block owns 256 consecutive symbols of one capture; it stages the
-// (256 + 2)*spsym samples its windows touch in shared memory with coalesced
-// loads (int16 cast to float exactly, no scaling) and the winning offset's
-// (2*spsym, 2) template columns; each thread correlates one window, and the
-// successor phasor is read back from shared memory (the block also projects
-// symbol 256, the next block's first). The differential uses round-to-nearest
-// products and sums in the plain version's order, so only the projection's
-// summation order differs from the plain PyTorch version. One kernel body, two
-// entry points: amr_project_diff_batch reads best[b] per capture, as K1 does;
-// amr_project_diff is the B = 1 launch with the single template.
+// Design. The first design (one short-lived block per 256 symbols, scalar
+// staging with the conversion on the way in, windows read from shared memory
+// at a stride of spsym floats, a bank conflict on every tap at spsym 10, and
+// the successor phasor through shared memory behind a third barrier) moved
+// about 1.05 TB/s. This one is K1's (decide.cu) without the derotation and
+// the decision: the tile walk of psk_tile.cuh (a one-wave persistent grid,
+// split over the captures; with one capture, K11, the whole grid walks it)
+// stages tiles of 256*K symbols (K = 4 for int16, 2 for float32) in their
+// storage type by 16-byte cp.async into a two-buffer ring while the previous
+// tile is correlated; a thread reads its (K+2)*spsym samples with 16-byte
+// shared loads, converts each once, and projects K+1 symbols against template
+// columns in registers (spsym 10 and 8 compiled; any other spsym from 1 to 32
+// takes the scalar walk). It forms its K differentials in registers and
+// writes d_re and d_im with one 16-byte (int16) or 8-byte (float32) store
+// each, streaming (st.global.cs): the outputs are not read again by this
+// kernel and would only evict the samples staged through L2. Plain stores
+// took 15% longer on int16 rows and 1% on float32.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (kernel_variants.py
+// --kernel project_diff, PERF.md section 6), the 8PSK bench batch of 64 x
+// 13,312 rows: int16 rows 1.06 ms alone (86% of the 0.9115 ms bytes
+// bound), float32 rows 1.81 ms (86% of 1.56), from 2.78 and 2.90; one
+// 13,120-row float32 capture (K11) 0.030 ms alone, from 0.053; every float
+// equal to the first design's. 40 registers on int16 rows, 64 on float32,
+// no spills.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "psk_tile.cuh"
+
 namespace {
 
-constexpr int kSymPerBlock = 256;
-constexpr int kThreads = 256;
+// K floats from one thread as one streaming vector store (the address is
+// 4K-aligned).
+template <int K>
+__device__ __forceinline__ void store_floats(float* dst, const float (&v)[K]) {
+  static_assert(K == 2 || K == 4, "float32 and int16 rows only");
+  if constexpr (K == 4) __stcs(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+  else __stcs(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+}
 
-template <typename T>
-__global__ void project_diff_kernel(const T* __restrict__ x, const float* __restrict__ tmpl,
-                                    const int* __restrict__ best, float* __restrict__ d_re,
-                                    float* __restrict__ d_im, int blocks_per_capture,
-                                    long long sym_per_capture, int spsym) {
-  extern __shared__ float smem[];
-  const int win = 2 * spsym;
-  float* tw = smem;                             // (win, 2): re, im columns
-  float* xs = tw + 2 * win;                     // (kSymPerBlock + 2) * spsym samples
-  float* zr = xs + (kSymPerBlock + 2) * spsym;  // kSymPerBlock + 1 phasors
-  float* zi = zr + kSymPerBlock + 1;
-
-  const int b = blockIdx.x / blocks_per_capture;
-  const long long t0 = (long long)(blockIdx.x % blocks_per_capture) * kSymPerBlock;
-  const long long n_cap = sym_per_capture * spsym;
-  const T* xc = x + (long long)b * n_cap;
-
-  const float* tb = tmpl + (best == nullptr ? 0LL : (long long)best[b] * 2 * win);
-  for (int j = threadIdx.x; j < 2 * win; j += blockDim.x) tw[j] = tb[j];
-  const long long s0 = t0 * spsym;
-  const int n_load = (kSymPerBlock + 2) * spsym;
-  for (int j = threadIdx.x; j < n_load; j += blockDim.x) {
-    const long long g = s0 + j;
-    xs[j] = g < n_cap ? static_cast<float>(xc[g]) : 0.f;
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i <= kSymPerBlock; i += blockDim.x) {
-    const float* w = xs + i * spsym;
-    float ar = 0.f, ai = 0.f;
-    for (int j = 0; j < win; ++j) {
-      ar = fmaf(w[j], tw[2 * j], ar);
-      ai = fmaf(w[j], tw[2 * j + 1], ai);
+// S: spsym as a compile-time constant, or 0 for any spsym (the argument).
+// best == nullptr: one template for every capture (K11).
+template <typename T, int S>
+__global__ void __launch_bounds__(kTileThreads)
+    project_diff_kernel(const T* __restrict__ x, const float* __restrict__ tmpl,
+                        const int* __restrict__ best, float* __restrict__ d_re,
+                        float* __restrict__ d_im, int per_capture, int n_tiles,
+                        long long sym_per_capture, int spsym, int buf_chunks) {
+  constexpr int K = 8 / (int)sizeof(T);
+  const int b = blockIdx.x / per_capture;
+  const float* tb = tmpl + (best == nullptr ? 0LL : (long long)best[b] * 4 * spsym);
+  walk_tiles<T, S>(x, tb, b, blockIdx.x % per_capture, per_capture, n_tiles, sym_per_capture, spsym,
+                   buf_chunks, [&](long long t0, const float (&zr)[K + 1], const float (&zi)[K + 1]) {
+    float vr[K], vi[K];
+#pragma unroll
+    for (int u = 0; u < K; ++u) {
+      const float r0 = zr[u], i0 = zi[u], r1 = zr[u + 1], i1 = zi[u + 1];
+      vr[u] = __fadd_rn(__fmul_rn(r1, r0), __fmul_rn(i1, i0));
+      vi[u] = __fsub_rn(__fmul_rn(i1, r0), __fmul_rn(r1, i0));
     }
-    zr[i] = ar;  // 0 past the capture's end, whose samples read as zero
-    zi[i] = ai;
-  }
-  __syncthreads();
+    if (t0 < sym_per_capture) {
+      const long long o = b * sym_per_capture + t0;
+      store_floats<K>(d_re + o, vr);
+      store_floats<K>(d_im + o, vi);
+    }
+  });
+}
 
-  const long long out0 = (long long)b * sym_per_capture + t0;
-  for (int i = threadIdx.x; i < kSymPerBlock; i += blockDim.x) {
-    const float r0 = zr[i], i0 = zi[i], r1 = zr[i + 1], i1 = zi[i + 1];
-    d_re[out0 + i] = __fadd_rn(__fmul_rn(r1, r0), __fmul_rn(i1, i0));
-    d_im[out0 + i] = __fsub_rn(__fmul_rn(i1, r0), __fmul_rn(r1, i0));
-  }
+template <typename T, int S>
+int launch(const void* x, const float* tmpl, const int* best, float* d_re, float* d_im, int n_captures,
+           int rows, int spsym, cudaStream_t stream) {
+  constexpr int kTile = kTileThreads * (8 / (int)sizeof(T));
+  const long long sym_per_capture = (long long)rows * 128;
+  const int n_tiles = (int)((sym_per_capture + kTile - 1) / kTile);
+  const int buf_chunks = Layout<S>::buf_chunks(tile_chunks(kTile, spsym, (int)sizeof(T)));
+  const size_t smem = walk_smem_bytes<S>(buf_chunks);
+  auto kernel = project_diff_kernel<T, S>;
+  int per_capture = 0;
+  long long n_blocks = 0;
+  const cudaError_t err = wave_grid(kernel, smem, n_captures, n_tiles, &per_capture, &n_blocks);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)n_blocks, kTileThreads, smem, stream>>>(static_cast<const T*>(x), tmpl, best, d_re,
+                                                             d_im, per_capture, n_tiles, sym_per_capture,
+                                                             spsym, buf_chunks);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* x, const float* tmpl, const int* best, float* d_re, float* d_im,
-           int n_captures, int rows, int spsym, cudaStream_t stream) {
-  const long long sym_per_capture = (long long)rows * 128;
-  const int blocks_per_capture = (int)(sym_per_capture / kSymPerBlock);
-  const size_t smem =
-      sizeof(float) * (2 * 2 * spsym + (kSymPerBlock + 2) * spsym + 2 * (kSymPerBlock + 1));
-  const long long n_blocks = (long long)n_captures * blocks_per_capture;
-  project_diff_kernel<T><<<(unsigned)n_blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), tmpl, best, d_re, d_im, blocks_per_capture, sym_per_capture,
-      spsym);
-  return (int)cudaGetLastError();
+int launch_spsym(const void* x, const float* tmpl, const int* best, float* d_re, float* d_im,
+                 int n_captures, int rows, int spsym, cudaStream_t stream) {
+  switch (spsym) {
+    case 10:
+      return launch<T, 10>(x, tmpl, best, d_re, d_im, n_captures, rows, spsym, stream);
+    case 8:
+      return launch<T, 8>(x, tmpl, best, d_re, d_im, n_captures, rows, spsym, stream);
+    default:
+      return launch<T, 0>(x, tmpl, best, d_re, d_im, n_captures, rows, spsym, stream);
+  }
 }
 
 int dispatch(const void* x, int dtype, const float* tmpl, const int* best, float* d_re,
              float* d_im, int n_captures, int rows, int spsym, cudaStream_t stream) {
-  if (rows % 2 != 0 || spsym < 1 || spsym > 32 || n_captures < 1)
+  if (rows < 2 || rows % 2 != 0 || spsym < 1 || spsym > 32 || n_captures < 1 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return launch<float>(x, tmpl, best, d_re, d_im, n_captures, rows, spsym, stream);
+      return launch_spsym<float>(x, tmpl, best, d_re, d_im, n_captures, rows, spsym, stream);
     case 1:
-      return launch<int16_t>(x, tmpl, best, d_re, d_im, n_captures, rows, spsym, stream);
+      return launch_spsym<int16_t>(x, tmpl, best, d_re, d_im, n_captures, rows, spsym, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -122,10 +148,9 @@ int dispatch(const void* x, int dtype, const float* tmpl, const int* best, float
 }  // namespace
 
 // K12. dtype: 0 = float32, 1 = int16. x is (n_captures, rows, 128*spsym)
-// contiguous; tmpl is (n_offsets, 2*spsym, 2) float32; best (n_captures,)
-// int32; d_re/d_im (n_captures, rows, 128) float32. rows must be even (256
-// symbols per block); spsym <= 32 keeps shared memory under the 48 KB static
-// limit. Returns the cudaError_t of the launch.
+// contiguous and 16-byte aligned; tmpl is (n_offsets, 2*spsym, 2) float32;
+// best (n_captures,) int32; d_re/d_im (n_captures, rows, 128) float32. rows
+// must be even and 1 <= spsym <= 32. Returns the cudaError_t of the launch.
 extern "C" int amr_project_diff_batch(const void* x, int dtype, const float* tmpl, const int* best,
                                       float* d_re, float* d_im, int n_captures, int rows,
                                       int spsym, void* stream) {

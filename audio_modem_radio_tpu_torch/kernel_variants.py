@@ -4,8 +4,9 @@
         --variant parent=/path/to/parent/audio_modem_radio_tpu_torch/csrc/neural_extract.cu \\
         --variant new=csrc/neural_extract.cu [--reps 5] [--out FILE]
 
-``--kernel`` is ``decide`` (K1), ``fsk_tile`` (K7), ``neural_extract`` (K10)
-or ``fsk_flat`` (K13). Each ``--variant NAME=SOURCE[:FLAGS]`` compiles
+``--kernel`` is ``decide`` (K1), ``fsk_tile`` (K7), ``neural_extract`` (K10),
+``fsk_flat`` (K13), ``project_diff`` (K12, or K11 with ``--single``) or
+``sector_match`` (K5). Each ``--variant NAME=SOURCE[:FLAGS]`` compiles
 SOURCE alone (a path relative to the package, or absolute, such as another
 checkout's copy of the same file) with the build's nvcc flags plus FLAGS
 (space-separated ``-D`` options) into its own library under ``build/``; all
@@ -17,7 +18,15 @@ rows (``--dtype`` int16, int8 or float32) at pass 1's offsets and rotations,
 of QPSK (``--n-psk 4``), BPSK (2) or 8PSK (8); K7 on the FSK1200 bench
 batch's int16 overlapped rows at pass 1's offset; K10 on the NEURAL@9600
 bench batch's float32 rows synced by ``td_sync_batch``; K13 on the FSK1200
-bench capture's flat float32 rows at pass 1's offset. The report gives each
+bench capture's flat float32 rows at pass 1's offset; K12 on the 8PSK bench
+batch's rows (``--dtype`` int16 or float32) at pass 1's offsets, K11
+(``--single``) on one float32 capture in the single-capture layout (13,120
+rows); K5 on K1's 8PSK sectors of the bench batch (``--noise-last``: its
+last capture noise) over the first ``--rows-scanned`` rows (256, 1792 or
+full). A K5 source with the earlier C interface (``amr_sector_match``:
+first positions only, 2^30 where none matched, a fill launch before the
+kernel) is called as its wrapper called it, the condition sets built anew
+and the epilogue run in PyTorch. The report gives each
 variant's time (median of ``--reps`` CUDA-event timings after one warm-up),
 the kernel's own device time per call under ``torch.profiler`` (the
 wrapper's table work left out), the number of outputs that differ from
@@ -46,9 +55,15 @@ from .profile_slice import _card, _median_ms
 
 SR, N, B, PAYLOAD = 96000, 1 << 24, 64, 16384
 _ENTRY = {"decide": "amr_decide", "fsk_tile": "amr_fsk_tile", "neural_extract": "amr_neural_extract",
-          "fsk_flat": "amr_fsk_tile"}
+          "fsk_flat": "amr_fsk_tile", "project_diff": "amr_project_diff_batch", "sector_match": "amr_sector_first"}
 _KERNEL = {"decide": "decide_kernel", "fsk_tile": "fsk_tile_kernel", "neural_extract": "neural_extract_kernel",
-           "fsk_flat": "fsk_flat_kernel"}
+           "fsk_flat": "fsk_flat_kernel", "project_diff": "project_diff_kernel",
+           "sector_match": "sector_match_kernel"}
+# K5's earlier C entry point: (sec, masks on the card, n_hyp, tol, n_sym,
+# first, n_captures, rows, rows_scanned, stream).
+_SECTOR_MATCH_EARLIER = ("amr_sector_match", (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_void_p))
 _PSK = {2: ("BPSK", 3000.0), 4: ("QPSK", 3000.0), 8: ("8PSK", 12000.0)}
 _MANGLED = {"int16": "s", "int8": "a", "float32": "f"}  # a C++ type's code in a mangled name
 
@@ -132,11 +147,13 @@ def _ptxas_lines(log: str, kernel: str):
 
 @contextlib.contextmanager
 def _bound_to(lib_path: Path, entry: str):
-    """The port's wrappers call ``entry`` of ``lib_path`` inside the block."""
+    """The port's wrappers call ``entry`` of ``lib_path`` inside the block
+    (a K5 source may export the earlier entry point instead)."""
     lib = ctypes.CDLL(str(lib_path))
-    fn = getattr(lib, entry)
-    fn.argtypes = _build._SIGNATURES[entry]
-    fn.restype = ctypes.c_int
+    fn = getattr(lib, entry, None)
+    if fn is not None:
+        fn.argtypes = _build._SIGNATURES[entry]
+        fn.restype = ctypes.c_int
     old = _build._lib
     _build._lib = lib
     try:
@@ -221,12 +238,92 @@ def _flat_call(device):
     return lambda: tk.fsk_project_bits_batch(flat, W, best, rows_per_capture=r, spr=spr)
 
 
+def _psk8_rows(device, dtype: str, noise_last: bool = False):
+    """The 8PSK bench batch's rows, pass 1's offsets and rotations, and the
+    templates; with ``noise_last`` the last capture's samples are seeded
+    noise."""
+    from .ops.psk import _batch_pass1, _device_tables
+
+    x = _psk_rows("8PSK", dtype, device)
+    if noise_last:
+        g = torch.Generator(device=device).manual_seed(9)
+        noise = torch.randn(x.shape[1:], generator=g, device=device) * 0.3
+        x[-1] = (noise * 32767.0).round().clamp(-32768, 32767).to(x.dtype) if dtype == "int16" else noise
+    b, r, row = x.shape
+    spsym = row // 128
+    _, _, best, theta = _batch_pass1(None, x, b, r * 128, spsym, 12000.0, SR, 8, r, n_psk=8)
+    W8, _, _ = _device_tables(spsym, 12000.0, SR, 8, device)
+    return x, W8, best, theta
+
+
+def _project_diff_call(device, dtype: str, single: bool):
+    """K12 on the 8PSK bench batch, or K11 on its capture in the
+    single-capture receiver's layout (rows padded to a multiple of 64)."""
+    x, W8, best, _ = _psk8_rows(device, "float32" if single else dtype)
+    if not single:
+        return lambda: tk.psk_project_diff_batch(x, W8, best, rows_per_capture=x.shape[1])
+    row = x.shape[2]
+    del x
+    r = -(-(-(-N // (row // 128)) // 128) // 64) * 64
+    wave = torch.from_numpy(_wave("8PSK", 9600)).to(device)
+    x2d = torch.nn.functional.pad(wave, (0, r * row - N)).reshape(r, row)
+    w = W8[best[0]]
+    return lambda: tk.psk_project_diff(x2d, w, block_rows=64)
+
+
+def _sector_call(device, rows_scanned: str, noise_last: bool):
+    """K5 on K1's sectors of the 8PSK bench batch, through the wrapper, or
+    through the earlier C interface where the bound library has that one."""
+    from .framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
+
+    x, W8, best, theta = _psk8_rows(device, "int16", noise_last)
+    rot = torch.stack([torch.cos(theta), torch.sin(theta)], dim=1)
+    r = x.shape[1]
+    sec = tk.psk_project_decide_batch(x, W8, best, rot, rows_per_capture=r, n_psk=8)
+    del x
+    p = r if rows_scanned == "full" else int(rows_scanned)
+
+    def call():
+        if hasattr(_build._lib, _ENTRY["sector_match"]):
+            return tk.sector_match_batch(sec, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p)
+        return _sector_match_earlier(sec, MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2, r, p)
+    return call
+
+
+_EARLIER_MASKS: dict = {}
+
+
+def _sector_match_earlier(sec3, pattern: str, pattern2: str, r: int, p: int, tol: int = 3):
+    """K5 through its earlier C interface as its wrapper drove it: the
+    condition sets built anew, the mask table looked up by them, the call
+    (a fill launch, then the kernel), and the limit epilogue."""
+    conds, n_sym = tk.psk8_match_conditions.__wrapped__(pattern, pattern2)
+    masks = _EARLIER_MASKS.get(conds)
+    if masks is None:
+        table = tk._sector_mask_table.__wrapped__(pattern, pattern2)
+        masks = _EARLIER_MASKS[conds] = torch.from_numpy(table.copy()).to(sec3.device)
+    b = sec3.shape[0]
+    first = torch.empty((b, len(conds)), dtype=torch.int32, device=sec3.device)
+    name, argtypes = _SECTOR_MATCH_EARLIER
+    fn = getattr(_build._lib, name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    err = fn(sec3.data_ptr(), masks.data_ptr(), len(conds), tol, n_sym, first.data_ptr(), b, r, p,
+             torch.cuda.current_stream(sec3.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+    found = (first < (1 << 30)) & (first < p * 128 - (n_sym + 1))
+    return torch.where(found, first, 0), found
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=sorted(_ENTRY), required=True)
     ap.add_argument("--variant", action="append", required=True, help="NAME=SOURCE[:FLAGS]")
-    ap.add_argument("--dtype", choices=("int16", "int8", "float32"), default="int16", help="K1's rows")
+    ap.add_argument("--dtype", choices=("int16", "int8", "float32"), default="int16", help="K1's and K12's rows")
     ap.add_argument("--n-psk", type=int, choices=sorted(_PSK), default=4, help="K1's decision")
+    ap.add_argument("--single", action="store_true", help="project_diff: K11 on one float32 capture")
+    ap.add_argument("--rows-scanned", choices=("256", "1792", "full"), default="256", help="K5's scanned rows")
+    ap.add_argument("--noise-last", action="store_true", help="K5: the bench batch's last capture noise")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args()
@@ -241,21 +338,31 @@ def main() -> int:
     built = _build_variants(variants)
     device = torch.device("cuda")
     card = _card()
+    entry, what = _ENTRY[args.kernel], ""
     if args.kernel == "decide":
         call = _decide_call(device, args.dtype, args.n_psk)
+        what = f" ({args.dtype} rows, n_psk {args.n_psk})"
+    elif args.kernel == "project_diff":
+        call = _project_diff_call(device, args.dtype, args.single)
+        what = " (K11, one float32 capture)" if args.single else f" ({args.dtype} rows)"
+        entry = "amr_project_diff" if args.single else entry
+    elif args.kernel == "sector_match":
+        call = _sector_call(device, args.rows_scanned, args.noise_last)
+        what = f" (rows_scanned {args.rows_scanned}{', last capture noise' if args.noise_last else ''})"
     else:
         call = {"fsk_tile": _tile_call, "neural_extract": _neural_call, "fsk_flat": _flat_call}[args.kernel](device)
-    what = f" ({args.dtype} rows, n_psk {args.n_psk})" if args.kernel == "decide" else ""
     # The timed instantiation's mangled template arguments: K1's sample type,
-    # n_psk and spsym 10; K7's and K13's sample type.
-    instance = {"decide": f"I{_MANGLED[args.dtype]}Li{args.n_psk}ELi10E", "fsk_tile": "Is", "fsk_flat": "If"}.get(
-        args.kernel, "")
+    # n_psk and spsym 10; K12's sample type and spsym 10; K7's and K13's
+    # sample type.
+    k12_type = "f" if args.single else _MANGLED[args.dtype]
+    instance = {"decide": f"I{_MANGLED[args.dtype]}Li{args.n_psk}ELi10E", "fsk_tile": "Is", "fsk_flat": "If",
+                "project_diff": f"I{k12_type}Li10E"}.get(args.kernel, "")
     lines = [f"card: {card}", f"kernel: {args.kernel}{what}"]
     ref = None
     for name, src, flags in variants:
         lib, log = built[name]
         ptxas = _ptxas_lines(log, _KERNEL[args.kernel] + instance)
-        with _bound_to(lib, _ENTRY[args.kernel]):
+        with _bound_to(lib, entry):
             got = call()
             torch.cuda.synchronize()
             ms = _median_ms(call, args.reps)

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "amr_rotation_match": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P),
     "amr_relabel_pack": (_P, _P, _P, _P, _P, _I, _I, _P),
     "amr_bit_select_pack": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "amr_sector_match": (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P),
+    "amr_sector_first": (_P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P),
     "amr_psk8_pack": (_P, _P, _P, _P, _I, _I, _P),
     "amr_fsk_tile": (_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
     "amr_fsk_disc": (_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

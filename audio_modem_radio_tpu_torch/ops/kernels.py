@@ -57,22 +57,44 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _same_device(*ts: torch.Tensor) -> torch.device:
+    # The messages are built only on failure: the wrappers' checks run on
+    # every call, and the matchers' calls take tens of microseconds.
     dev = ts[0].device
-    _require(all(t.device == dev for t in ts), f"tensors on {[str(t.device) for t in ts]}")
+    if not all(t.device == dev for t in ts):
+        raise ValueError(f"tensors on {[str(t.device) for t in ts]}")
     _require(dev.type in ("cpu", "cuda"), f"unsupported device {dev}")
     return dev
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
-    """Call C entry point ``name`` on ``dev``'s current stream; raise on a
-    nonzero cudaError_t (a refused launch never runs and a later
+def _raw_stream(dev: torch.device) -> int:
+    """``dev``'s current stream as a ``cudaStream_t`` integer (what
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives, without building
+    a Stream object: the wrappers run this on every call)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def _launch(name: str, dev: torch.device, *args, stream: int = None) -> None:
+    """Call C entry point ``name`` on ``dev``'s current stream (``stream``,
+    where the caller has it already), with ``dev`` the current device; raise
+    on a nonzero cudaError_t (a refused launch never runs and a later
     synchronize would not report it)."""
     lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _raw_stream(dev) if stream is None else stream
+    if torch.cuda.current_device() == dev.index:
         err = getattr(lib, name)(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = getattr(lib, name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def _require_aligned(name: str, t: torch.Tensor) -> None:
+    """The kernels that read 16-byte chunks take tensors that start on a
+    16-byte boundary; a view that does not is refused."""
+    _require(t.data_ptr() % 16 == 0,
+             f"{name}: the kernel reads 16-byte chunks, so the tensor must start on a 16-byte boundary "
+             f"(this view starts {t.data_ptr() % 16} bytes past one)")
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -84,12 +106,13 @@ def _check_lanes(name: str, lanes, rows_per_capture: int, block_rows: int) -> Tu
     """(B, R) of equal-shaped (B, R, 128) uint8 lane tensors; raises on
     anything else."""
     shape = lanes[0].shape
-    _require(lanes[0].ndim == 3 and all(t.shape == shape for t in lanes),
-             f"{name}: lanes {[tuple(t.shape) for t in lanes]}")
+    if not (lanes[0].ndim == 3 and all(t.shape == shape for t in lanes)):
+        raise ValueError(f"{name}: lanes {[tuple(t.shape) for t in lanes]}")
     b, r, w = shape
-    _require(w == _BLOCK_SYM and r == rows_per_capture and r % block_rows == 0,
-             f"{name}: bad shapes {tuple(shape)} for rows_per_capture={rows_per_capture}")
-    _require(all(t.dtype == torch.uint8 for t in lanes), f"{name}: dtypes {[t.dtype for t in lanes]}")
+    if not (w == _BLOCK_SYM and r == rows_per_capture and r % block_rows == 0):
+        raise ValueError(f"{name}: bad shapes {tuple(shape)} for rows_per_capture={rows_per_capture}")
+    if not all(t.dtype == torch.uint8 for t in lanes):
+        raise ValueError(f"{name}: dtypes {[t.dtype for t in lanes]}")
     _require(b <= 65535, f"{name}: {b} captures exceed the kernel grid")
     return b, r
 
@@ -276,9 +299,7 @@ def psk_project_decide_batch(
     if dev.type == "cpu":
         return psk_project_decide_batch_plain(x3d, w_all, best, rot, n_psk)
 
-    _require(x3d.data_ptr() % 16 == 0,
-             "psk_project_decide_batch: the kernel stages 16-byte chunks, so the rows must start on a "
-             f"16-byte boundary (this view starts {x3d.data_ptr() % 16} bytes past one)")
+    _require_aligned("psk_project_decide_batch", x3d)
     tmpl = _decide_template(w_all, spsym)
     hi = torch.empty((b, r, _BLOCK_SYM), dtype=torch.uint8, device=dev)
     lo = None if n_psk == 8 else torch.empty_like(hi)
@@ -329,7 +350,9 @@ def psk_project_diff_batch(
       best: (B,) int32 winning timing offset per capture.
     Each capture's last entry is 0 (no successor); samples past a capture's
     end read as zero, where the Pallas kernel's lookahead reads the next
-    capture's head (garbage by its contract).
+    capture's head (garbage by its contract). On the card ``x3d`` must
+    start on a 16-byte boundary, and the dual basis is kept per template
+    as K1's is (:func:`_decide_template`).
     """
     _require(x3d.ndim == 3 and x3d.shape[1] == rows_per_capture,
              f"x3d {tuple(x3d.shape)} vs rows_per_capture={rows_per_capture}")
@@ -340,9 +363,10 @@ def psk_project_diff_batch(
     if dev.type == "cpu":
         d_re, d_im = psk_project_diff_batch_plain(x3d, w_all, best)
         return d_re.reshape(b, r, _BLOCK_SYM), d_im.reshape(b, r, _BLOCK_SYM)
+    _require_aligned("psk_project_diff_batch", x3d)
     d_re = torch.empty((b, r, _BLOCK_SYM), dtype=torch.float32, device=dev)
     d_im = torch.empty_like(d_re)
-    _launch("amr_project_diff_batch", dev, _ptr(x3d), _DIFF_DTYPES[x3d.dtype], _ptr(_dual_basis(w_all, spsym)),
+    _launch("amr_project_diff_batch", dev, _ptr(x3d), _DIFF_DTYPES[x3d.dtype], _ptr(_decide_template(w_all, spsym)),
             _ptr(best), _ptr(d_re), _ptr(d_im), b, r, spsym)
     psk_project_diff_batch.launches += 1
     return d_re, d_im
@@ -355,7 +379,8 @@ def psk_project_diff(
     int16 rows, R a multiple of ``block_rows``, and the winning offset's
     (128*spsym + OV, 256) template -> (d_re, d_im), each (R, 128) float32.
     Samples past the last row read as zero, as the Pallas kernel's appended
-    zero rows; the last entry is 0 (no successor)."""
+    zero rows; the last entry is 0 (no successor). On the card ``x2d``
+    must start on a 16-byte boundary."""
     _require(x2d.ndim == 2 and w.ndim == 2, f"x2d {tuple(x2d.shape)}, w {tuple(w.shape)}")
     _require(block_rows % 8 == 0, f"block_rows={block_rows} must be a multiple of 8")
     spsym = _check_diff("psk_project_diff", x2d, w[None], block_rows)
@@ -363,6 +388,7 @@ def psk_project_diff(
     dev = _same_device(x2d, w)
     if dev.type == "cpu":
         return psk_project_diff_plain(x2d, w)
+    _require_aligned("psk_project_diff", x2d)
     d_re = torch.empty((r, _BLOCK_SYM), dtype=torch.float32, device=dev)
     d_im = torch.empty_like(d_re)
     _launch("amr_project_diff", dev, _ptr(x2d), _DIFF_DTYPES[x2d.dtype], _ptr(_dual_basis(w[None], spsym)),
@@ -373,6 +399,7 @@ def psk_project_diff(
 
 # --- K2: rotation x parity (QPSK) or stream x inversion (BPSK) magic match -------
 
+@functools.lru_cache(maxsize=16)
 def rotation_match_conditions(pattern: str):
     """All 8 (rotation x bit-parity) magic hypotheses as uniform conditions.
 
@@ -382,6 +409,8 @@ def rotation_match_conditions(pattern: str):
     reduces, for every hypothesis, to an AND of 16 conditions of the single
     form ``(hi|lo)[t+offset] == bit``. Returns ``cond[h] = tuple of
     (is_hi, offset, bitval)`` for h = 4*parity + k, plus the max offset.
+    Built once per pattern (the tuples are immutable), so a matcher call
+    pays one cache lookup.
     """
     p = [1 if c == "1" else 0 for c in pattern]
     n_dib = len(p) // 2
@@ -414,6 +443,7 @@ def rotation_match_conditions(pattern: str):
     return tuple(conds), n_dib
 
 
+@functools.lru_cache(maxsize=16)
 def bpsk_match_conditions(pattern: str):
     """The 4 DBPSK magic hypotheses as uniform (is_hi, offset, bitval) conds.
 
@@ -600,6 +630,7 @@ def bit_select_pack_batch(
 
 # --- K5: D8PSK 8-rotation magic match on Gray planes of sectors ------------------
 
+@functools.lru_cache(maxsize=16)
 def psk8_match_conditions(pattern: str, pattern2: str = ""):
     """The 8 D8PSK π/4-rotation magic hypotheses as uniform plane conditions.
 
@@ -614,7 +645,7 @@ def psk8_match_conditions(pattern: str, pattern2: str = ""):
     ``pattern`` (must all match), the rest count toward the tolerance like
     the dibit matcher's validation region. Trailing bits of a partial final
     tribit are dropped — sector granularity, exactly like
-    ops.psk._psk8_expected_sectors.
+    ops.psk._psk8_expected_sectors. Built once per (pattern, pattern2).
     """
     from .psk import _GRAY8_INV
 
@@ -642,11 +673,13 @@ def _gray_planes(sec: torch.Tensor):
     return b2, b2 ^ b1, b1 ^ b0
 
 
-@functools.lru_cache(maxsize=8)
-def _sector_masks(conds, device: torch.device) -> torch.Tensor:
-    """(n_hyp, 4) int32 device table: per hypothesis [exact mask, exact
-    value, tolerant mask, tolerant value] over a window word holding Gray
-    plane q of window symbol j at bit 3j + q."""
+@functools.lru_cache(maxsize=16)
+def _sector_mask_table(pattern: str, pattern2: str) -> np.ndarray:
+    """(n_hyp, 4) int32 host table of :func:`psk8_match_conditions`: per
+    hypothesis [exact mask, exact value, tolerant mask, tolerant value]
+    over a window word holding Gray plane q of window symbol j at bit
+    3j + q. Built once per key; K5 takes it as a kernel parameter."""
+    conds, _ = psk8_match_conditions(pattern, pattern2)
     rows = []
     for c in conds:
         m = [0] * 4
@@ -657,7 +690,27 @@ def _sector_masks(conds, device: torch.device) -> torch.Tensor:
             m[base] |= 1 << j
             m[base + 1] |= bit << j
         rows.append(m)
-    return torch.tensor(rows, dtype=torch.int32, device=device)
+    table = np.array(rows, dtype=np.int32)
+    table.flags.writeable = False
+    return table
+
+
+# K5's launch state per (device, stream): a scratch row of 8 minima for each
+# block and one ticket per capture, zero between calls (the kernel's last
+# block of a capture resets its ticket). Sized for the most captures a call
+# takes, so a call allocates nothing.
+_SECTOR_STATE: dict = {}
+_MAX_CAPTURES = 65535
+
+
+def _sector_state(dev: torch.device, stream: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, stream)
+    state = _SECTOR_STATE.get(key)
+    if state is None:
+        scratch = torch.empty((_MAX_CAPTURES, 8), dtype=torch.int32, device=dev)
+        ticket = torch.zeros(_MAX_CAPTURES, dtype=torch.int32, device=dev)
+        state = _SECTOR_STATE[key] = (scratch, ticket)
+    return state
 
 
 def sector_match_batch_plain(sec3: torch.Tensor, conds, tol: int, rows_scanned: int) -> torch.Tensor:
@@ -683,7 +736,9 @@ def sector_match_batch(
     """(B, R, 128) uint8 raw sector rows -> per-capture (first_pos, found),
     shape (B, 8), for the 8 D8PSK rotation hypotheses; positions in symbols.
     ``rows_scanned`` limits the scan to each capture's first rows as in
-    :func:`rotation_match_batch`."""
+    :func:`rotation_match_batch`. On the card a call is one launch that
+    writes both outputs (no host read); ``sec3`` must start on a 16-byte
+    boundary."""
     b, r = _check_lanes("sector_match_batch", (sec3,), rows_per_capture, block_rows)
     p = r if rows_scanned is None else int(rows_scanned)
     _require(0 < p <= r and p % block_rows == 0, f"rows_scanned={p} for R={r}")
@@ -691,15 +746,19 @@ def sector_match_batch(
     dev = _same_device(sec3)
     if dev.type == "cpu":
         first = sector_match_batch_plain(sec3, conds, tol, p)
-    else:
-        masks = _sector_masks(conds, dev)
-        first = torch.empty((b, len(conds)), dtype=torch.int32, device=dev)
-        _launch("amr_sector_match", dev, _ptr(sec3), _ptr(masks), len(conds), tol, n_sym,
-                _ptr(first), b, r, p)
-        sector_match_batch.launches += 1
-    limit = p * _BLOCK_SYM - (n_sym + 1)
-    found = (first < _BIG) & (first < limit)
-    return torch.where(found, first, 0), found
+        limit = p * _BLOCK_SYM - (n_sym + 1)
+        found = (first < _BIG) & (first < limit)
+        return torch.where(found, first, 0), found
+    _require_aligned("sector_match_batch", sec3)
+    table_ptr = _sector_mask_table(pattern, pattern2).ctypes.data
+    stream = _raw_stream(dev)
+    scratch, ticket = _sector_state(dev, stream)
+    first = torch.empty((b, len(conds)), dtype=torch.int32, device=dev)
+    found = torch.empty((b, len(conds)), dtype=torch.bool, device=dev)
+    _launch("amr_sector_first", dev, _ptr(sec3), table_ptr, len(conds), tol, n_sym, _ptr(first),
+            _ptr(found), _ptr(scratch), scratch.shape[0], _ptr(ticket), b, r, p, stream=stream)
+    sector_match_batch.launches += 1
+    return first, found
 
 
 # --- K6: D8PSK relabel + Gray + mod-8-symbol alignment + byte pack ---------------

@@ -1,14 +1,18 @@
 """Where the device time of ``demod_pack_batch`` goes, on one CUDA card.
 
     python3 -m audio_modem_radio_tpu_torch.profile_slice \
-        [--mode QPSK|BPSK|8PSK|FSK1200|FSK9600|FSK19200|NEURAL] [--flat] [--out FILE]
+        [--mode QPSK|BPSK|8PSK|FSK1200|FSK9600|FSK19200|NEURAL] [--flat] [--noise-last] [--xla] [--out FILE]
 
 The workload is ``chip_smoke.py``'s timing batch for the mode (default
 QPSK): one 16 KiB-payload capture (PSK and NEURAL at 9600 Bd, FSK at its
 own rate) tiled to 2^24 samples, shaped as ``host_shape_batch`` ships it
 to the card (int16 rows; NEURAL flat float32), shipped once and copied 64
 times on the card. ``--flat`` (FSK1200) ships the flat float32 captures
-instead, the path of K13. The script prints:
+instead, the path of K13. ``--noise-last`` replaces the last capture by
+seeded noise (8PSK: no magic there, so K5 scans all three tiers; NEURAL:
+the full search); ``--xla`` runs the mode under CONFIG
+``tpu.demod_backend = "xla"`` (8PSK: K12, then the per-capture tails). The
+script prints:
 
 - ``demod_pack_batch`` (PSK: with ``cfo_retry`` on and off) and pass 1
   alone (NEURAL: the preamble sync, ``td_sync_batch``): median of 9 by
@@ -107,17 +111,25 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", choices=sorted(CARRIERS) + sorted(FSK_MODES) + ["NEURAL"], default="QPSK")
     ap.add_argument("--flat", action="store_true", help="FSK1200: flat (B, N) float32 captures (K13)")
+    ap.add_argument("--noise-last", action="store_true", help="the last capture seeded noise")
+    ap.add_argument("--xla", action="store_true", help="under CONFIG tpu.demod_backend = 'xla'")
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args()
     if args.flat and args.mode != "FSK1200":
         ap.error("--flat takes --mode FSK1200")
+    if args.xla:
+        from .config import CONFIG
+
+        CONFIG.set("tpu.demod_backend", "xla")
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: this profile needs a card")
         return 2
     device = torch.device("cuda")
     card = _card()
     mode = args.mode
-    lines = [f"card: {card}", f"mode: {mode}{' flat' if args.flat else ''}"]
+    what = "".join(f" {k}" for k, on in (("flat", args.flat), ("last capture noise", args.noise_last),
+                                          ("xla", args.xla)) if on)
+    lines = [f"card: {card}", f"mode: {mode}{what}"]
 
     def say(msg: str) -> None:
         print(msg, flush=True)
@@ -126,10 +138,14 @@ def main() -> int:
     rate = FSK_MODES[mode][0] if mode in FSK_MODES else BAUD
     x = _bench_rows(mode, rate, device, args.flat)
     b = x.shape[0]
+    if args.noise_last:
+        g = torch.Generator(device=device).manual_seed(31)
+        noise = torch.randn(x.shape[1:], generator=g, device=device) * 0.3
+        x[-1] = noise if x.dtype == torch.float32 else (noise * 32767).round().clamp(-32768, 32767).to(x.dtype)
     cfos = (True, False) if mode in CARRIERS else (True,)
     for cfo in cfos:
         ms = _median_ms(lambda: demod_pack_batch(x, mode, rate, cfo_retry=cfo))
-        say(f"{mode} demod_pack_batch cfo={cfo}: median {ms:.4f} ms of 9 = "
+        say(f"{mode}{what} demod_pack_batch cfo={cfo}: median {ms:.4f} ms of 9 = "
             f"{b * N / (ms * 1e-3) / 1e6:.2f} Msamples/s | {card}")
     if mode == "NEURAL":
         ms = _median_ms(lambda: td_sync_batch(x, 2))
@@ -147,7 +163,7 @@ def main() -> int:
         say(f"{mode} _batch_pass1 alone: median {ms:.4f} ms | {card}")
     for cfo in cfos:
         wall, busy, kernels, table = _profile(lambda: demod_pack_batch(x, mode, rate, cfo_retry=cfo))
-        say(f"--- {mode} profile cfo={cfo}: wall {wall:.4f} ms/rep (profiler on), device kernel sum "
+        say(f"--- {mode}{what} profile cfo={cfo}: wall {wall:.4f} ms/rep (profiler on), device kernel sum "
             f"{busy:.4f} ms/rep, idle share {1 - busy / wall:.3f} | {card}")
         for k_ms, n, name in kernels:
             say(f"  {k_ms:9.4f} ms  x{n:<3d} {name[:110]}")

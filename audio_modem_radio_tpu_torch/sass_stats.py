@@ -7,7 +7,9 @@ loads, barriers, the rest) in the whole function, and the same for its
 longest run of code in which no two FFMA lie more than ``--gap``
 instructions apart (an unrolled multiply-add loop), with the share of that
 run's instructions that are FFMA and how many of them take their
-multiplier from a uniform register or the constant bank.
+multiplier from a uniform register or the constant bank. ``--opcodes N``
+also lists the whole function's N most frequent opcodes (integer kernels
+such as K5 are bound by those, not by FFMA).
 
 Run it on a machine with the CUDA toolkit:
 
@@ -46,7 +48,8 @@ def _summary(ops) -> str:
 
 
 def kernel_stats(sass: str, wanted, gap: int):
-    """Yield ``(function name, whole-function summary, FFMA-run summary)``."""
+    """Yield ``(function name, whole-function summary, FFMA-run summary,
+    [(opcode, operands)])``."""
     for m in re.finditer(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
         name, body = m.group(1), m.group(2)
         if wanted and not any(w in name for w in wanted):
@@ -61,21 +64,25 @@ def kernel_stats(sass: str, wanted, gap: int):
             prev = i
             if prev - start > best[1] - best[0]:
                 best = (start, prev)
-        yield name, _summary(ops), _summary(ops[best[0] : best[1] + 1])
+        yield name, _summary(ops), _summary(ops[best[0] : best[1] + 1]), ops
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", action="append", default=[], help="substring of the kernel's (mangled) name")
     ap.add_argument("--gap", type=int, default=24, help="most non-FFMA instructions inside one FFMA run")
+    ap.add_argument("--opcodes", type=int, default=0, help="also list the N most frequent opcodes")
     ap.add_argument("--out", default=None, help="also write the report to this file")
     args = ap.parse_args()
     lib, _ = _build.compile_library()
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
     lines = []
-    for name, whole, run in kernel_stats(sass, args.kernel, args.gap):
+    for name, whole, run, ops in kernel_stats(sass, args.kernel, args.gap):
         lines += [name, f"  whole function: {whole}", f"  longest FFMA run: {run}"]
+        if args.opcodes:
+            top = Counter(op.split(".")[0] for op, _ in ops).most_common(args.opcodes)
+            lines.append("  opcodes: " + ", ".join(f"{op} {n}" for op, n in top))
     report = "\n".join(lines)
     print(report)
     if args.out:

@@ -79,12 +79,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    at NEURAL@1200 (the FFT path): the file reassembles, no kernel launches;
 6. timing with CUDA events (one warm-up, median of 5): ``demod_pack_batch``
    of each mode on its 64 x 2^24 int16 batch staged on the card (PSK with
-   cfo_retry on and off; FSK1200 also on flat float32 captures, the path of
-   K13; NEURAL on float32, on the prefix branch and, with one noise
-   capture, the full search), and each kernel and variant beside
-   its plain version (K1@4 also on int8 rows; the plain K8, K9 and K10 at 8
-   captures, where their float32 intermediates fit; K11 on one float32
-   capture, K12 on 64 x 2^24 int16 rows); and each mode's single-capture
+   cfo_retry on and off; 8PSK also with its last capture noise, which
+   takes K5 to a later tier until the noise false-matches, and under CONFIG
+   ``tpu.demod_backend = "xla"``, K12's path; FSK1200 also on flat float32
+   captures, the path of K13; NEURAL on float32, on the prefix branch and,
+   with one noise capture, the full search), and each kernel and variant
+   beside its plain version and its bound (K1@4 also on int8 rows; the
+   matchers K2 and K5 at each tier, 256 rows, 1792 and all 13,312; the
+   plain K8, K9 and K10 at 8 captures, where their float32 intermediates
+   fit; K11 on one float32 capture, K12 on 64 x 2^24 int16 rows); one
+   ``sector_match_batch`` call under ``torch.profiler`` must show exactly
+   one device kernel and no copy; and each mode's single-capture
    ``decode_wav_file`` (the PSK modes and NEURAL@9600) by the host clock
    (median of 3) with its device kernel time under ``torch.profiler``.
 
@@ -686,6 +691,8 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
         x = one.expand(n_cap, -1, -1).contiguous()  # ship once, tile on the card
         del one
         b, r, row = x.shape
+        # The sync tail's tiers (parallel/batch.py _scan_tiered): 256 rows, an eighth, all.
+        tiers = tuple(p for p in sorted({256, -(-r // 8 // 256) * 256}) if 2 * p <= r) + (r,)
         msps[mode] = {}
         for cfo in (True, False):
             ms = _time_ms(lambda: demod_pack_batch(x, mode, BAUD, cfo_retry=cfo))
@@ -694,6 +701,8 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
                 f"{'on' if cfo else 'off'}: {ms:.3f} ms = {msps[mode][cfo]:.2f} Msamples/s | {card}")
         _, _, found = demod_pack_batch(x, mode, BAUD, cfo_retry=True)
         check(bool(found.all()), f"{mode} bench batch: a capture found no magic")
+        if mode == "8PSK":
+            _time_psk8_paths(x, n, tiers, card)
 
         _, _, best, theta = _batch_pass1(None, x, b, r * 128, SPSYM, carrier, SR, 8, r,
                                          n_psk=8 if n_psk == 8 else 4)
@@ -714,9 +723,9 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
             conds, _ = tk.rotation_match_conditions(pattern)
             first, _ = tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r,
                                                pattern2=MAGIC_BIT_PATTERN2, rows_scanned=256)
-            bounds["rotation_match_batch:qpsk"] = _bound(2 * b * 256 * 128, b * 256 * 128 * 8 * 12)
             bounds["relabel_pack_batch"] = _bound(n_sym * 2 + b * r * 32, n_sym * 8)
-            for p in (256, r):
+            for p in tiers:
+                bounds[f"rotation_match_batch:qpsk@{p}"] = _bound(2 * b * p * 128, b * p * 128 * 8 * 12)
                 t[f"rotation_match_batch:qpsk@{p}"] = (
                     _time_ms(lambda: tk.rotation_match_batch(
                         hi, lo, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p)),
@@ -744,9 +753,9 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
             conds, _ = tk.bpsk_match_conditions(pattern)
             first, _ = tk.rotation_match_batch(re, im, MAGIC_BIT_PATTERN, r, family="bpsk",
                                                pattern2=MAGIC_BIT_PATTERN2, rows_scanned=256)
-            bounds["rotation_match_batch:bpsk"] = _bound(2 * b * 256 * 128, b * 256 * 128 * 4 * 12)
             bounds["bit_select_pack_batch"] = _bound(n_sym + b * r * 16, n_sym * 3)
-            for p in (256, r):
+            for p in tiers:
+                bounds[f"rotation_match_batch:bpsk@{p}"] = _bound(2 * b * p * 128, b * p * 128 * 4 * 12)
                 t[f"rotation_match_batch:bpsk@{p}"] = (
                     _time_ms(lambda: tk.rotation_match_batch(
                         re, im, MAGIC_BIT_PATTERN, r, family="bpsk", pattern2=MAGIC_BIT_PATTERN2,
@@ -764,14 +773,17 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
             conds, _ = tk.psk8_match_conditions(MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2)
             first, found8 = tk.sector_match_batch(sec, MAGIC_BIT_PATTERN, r,
                                                   pattern2=MAGIC_BIT_PATTERN2, rows_scanned=256)
-            bounds["sector_match_batch"] = _bound(b * 256 * 128, b * 256 * 128 * 8 * 6)
             bounds["psk8_relabel_pack_rows"] = _bound(n_sym + b * r * 48, n_sym * 6)
-            for p in (256, r):
+            for p in tiers:
+                bounds[f"sector_match_batch@{p}"] = _bound(b * p * 128, b * p * 128 * 8 * 6)
                 t[f"sector_match_batch@{p}"] = (
                     _time_ms(lambda: tk.sector_match_batch(
                         sec, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p)),
                     _time_ms(lambda: tk.sector_match_batch_plain(sec, conds, 3, p)),
                 )
+            _check_one_launch(lambda: tk.sector_match_batch(
+                sec, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2, rows_scanned=256),
+                "sector_match_kernel", card)
             ksel = torch.argmax(found8.to(torch.uint8), dim=1).to(torch.int32)
             r8 = (torch.gather(first, 1, ksel[:, None].long())[:, 0] % 8).to(torch.int32)
             t["psk8_relabel_pack_rows"] = (
@@ -783,8 +795,83 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
         torch.cuda.empty_cache()
         say(f"[6 time] {mode}: {time.perf_counter() - t0:.1f} s | {card}")
     for name, (ms, plain) in t.items():
-        say(f"[6 time] {name} B={n_cap} R={r}: kernel {ms:.4f} ms, plain {plain:.4f} ms | {card}")
+        bound = f", bound {bounds[name][0]:.4f} ms by {bounds[name][1]}" if name in bounds else ""
+        say(f"[6 time] {name} B={n_cap} R={r}: kernel {ms:.4f} ms, plain {plain:.4f} ms{bound} | {card}")
+    for entry in ("rotation_match_batch:qpsk", "rotation_match_batch:bpsk", "sector_match_batch"):
+        bounds[entry] = bounds[f"{entry}@256"]  # the kernels line reports the first tier
     return t, msps, bounds
+
+
+def _time_psk8_paths(x, n: int, tiers, card: str) -> None:
+    """8PSK ``demod_pack_batch`` on the bench batch ``x`` with its last
+    capture seeded noise, and under CONFIG ``tpu.demod_backend = "xla"``
+    (the staged float path: K12 once, then the per-capture tails). The
+    noise capture has no magic, so the sync tail takes the next tier until
+    a false match in the noise satisfies it: with cfo_retry on a match of
+    any of the 8 hypotheses does, with it off only one of hypothesis 0.
+    Each run's K5 launches are printed."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.config import CONFIG
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.parallel.batch import demod_pack_batch
+
+    b = x.shape[0]
+    xn = x.clone()
+    g = torch.Generator(device=x.device).manual_seed(31)
+    xn[-1] = (torch.randn(x.shape[1:], generator=g, device=x.device) * (0.3 * 32767)).round().clamp(
+        -32768, 32767).to(x.dtype)
+    for cfo in (True, False):
+        tk.reset_launch_counts()
+        _, _, found = demod_pack_batch(xn, "8PSK", BAUD, cfo_retry=cfo)
+        k5 = tk.launch_counts()["sector_match_batch"]
+        check(bool(found[:-1].all()), "8PSK with a noise capture: a signal capture found no magic")
+        check(1 <= k5 <= len(tiers), f"8PSK with a noise capture: {k5} K5 launches for {len(tiers)} tiers")
+        ms = _time_ms(lambda: demod_pack_batch(xn, "8PSK", BAUD, cfo_retry=cfo))
+        say(f"[6 time] demod_pack_batch 8PSK {b} x {n} int16 rows, last capture noise, cfo_retry="
+            f"{'on' if cfo else 'off'}: {ms:.3f} ms = {b * n / (ms * 1e-3) / 1e6:.2f} Msamples/s; K5 launches "
+            f"{k5} (rows_scanned {', '.join(map(str, tiers[:k5]))}) | {card}")
+    del xn
+    CONFIG.set("tpu.demod_backend", "xla")
+    try:
+        tk.reset_launch_counts()
+        _, _, found = demod_pack_batch(x, "8PSK", BAUD, cfo_retry=True)
+        counts = tk.launch_counts()
+        check(bool(found.all()), "8PSK under xla: a capture found no magic")
+        check(counts["psk_project_diff_batch"] == 1 and sum(counts.values()) == 1,
+              f"8PSK under xla must launch K12 once and nothing else: {counts}")
+        ms = _time_ms(lambda: demod_pack_batch(x, "8PSK", BAUD, cfo_retry=True), reps=3)
+    finally:
+        CONFIG.set("tpu.demod_backend", "auto")
+    say(f"[6 time] demod_pack_batch 8PSK {b} x {n} int16 rows under tpu.demod_backend=xla (K12, then the "
+        f"per-capture tails), cfo_retry=on, median of 3: {ms:.3f} ms = {b * n / (ms * 1e-3) / 1e6:.2f} "
+        f"Msamples/s | {card}")
+
+
+def _check_one_launch(fn, kernel: str, card: str, reps: int = 5) -> None:
+    """``reps`` calls of ``fn()`` under ``torch.profiler`` (after a warm-up
+    call) run exactly ``reps`` device kernels, each ``kernel``, and no copy
+    or fill. A session that recorded no device activity at all is the
+    profiler's fault (it happened in one of three runs on an H100, in the
+    process's first session), so up to three sessions are taken."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    copies = [nm for nm in names if nm.startswith(("Memcpy", "Memset"))]
+    kernels = [nm for nm in names if nm not in copies]
+    check(len(kernels) == reps and all(kernel in k for k in kernels) and not copies,
+          f"{reps} calls must be {reps} device kernels {kernel} and no copy: {names}")
+    say(f"[6 time] {reps} calls under torch.profiler: one device kernel each ({kernels[0][:60]}), no copy | {card}")
 
 
 _RAGGED_BOXCAR_ROWS = 53  # 265 FIR rows: 16 passes of 16 and one of 9

@@ -274,6 +274,58 @@ def test_sector_match_kernel_equals_plain(cuda, rows_scanned):
     assert bool(found_k[0, 0])
 
 
+def _psk8_planted(rng, r: int, leads):
+    """Random received sectors (len(leads) + 1, r, 128): capture k holds the
+    magic + validation pattern as rotation-k sectors at symbol leads[k]; the
+    last capture is noise."""
+    pat = np.array([int(c) for c in MAGIC_BIT_PATTERN + MAGIC_BIT_PATTERN2], np.uint8)
+    sec = []
+    for k, lead in enumerate(leads):
+        bits = rng.integers(0, 2, 3 * r * 128, dtype=np.uint8)
+        bits[3 * lead : 3 * lead + len(pat)] = pat
+        tri = bits[0::3] * 4 + bits[1::3] * 2 + bits[2::3]
+        sec.append(((_GRAY8_INV[tri].astype(np.int64) + k) % 8).astype(np.uint8))
+    sec.append(rng.integers(0, 8, r * 128, dtype=np.uint8))
+    return np.stack(sec).reshape(-1, r, 128)
+
+
+def test_sector_match_kernel_boundaries_and_alternating_tiers(cuda):
+    """K5 with each hypothesis planted on its own capture at a thread
+    range's first and last position (16 a thread), a block's first and last
+    (4096 a block), the 256-row scan's last valid position and the one
+    after it, plus a noise capture; called again and again with the tier
+    changing between calls (each call's last block resets its ticket):
+    (first, found) equal plain's after its epilogue every time."""
+    r = 768
+    n_pos_256 = 256 * 128 - 11
+    leads = [160, 175, 4096, 8191, n_pos_256 - 1, n_pos_256, 3 * 4096 - 1, 70001]
+    sec = torch.from_numpy(_psk8_planted(np.random.default_rng(11), r, leads)).to(cuda)
+    conds, n_sym = tk.psk8_match_conditions(MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2)
+    for p in (256, 768, 256, 512, 768, 256, 512, 256):
+        before = tk.sector_match_batch.launches
+        first_k, found_k = tk.sector_match_batch(
+            sec, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p)
+        first_p = tk.sector_match_batch_plain(sec, conds, 3, p)
+        n_pos = p * 128 - (n_sym + 1)
+        found_p = (first_p < (1 << 30)) & (first_p < n_pos)
+        torch.cuda.synchronize()
+        assert tk.sector_match_batch.launches == before + 1
+        assert found_k.dtype == torch.bool and first_k.dtype == torch.int32
+        assert torch.equal(found_k, found_p), p
+        assert torch.equal(first_k, torch.where(found_p, first_p, torch.zeros_like(first_p))), p
+        for k, lead in enumerate(leads):
+            assert bool(found_k[k, k]) == (lead < n_pos) and int(first_k[k, k]) == (lead if lead < n_pos else 0)
+
+
+def test_sector_match_kernel_rejects_a_misaligned_view(cuda):
+    flat = torch.zeros(2 * 256 * 128 + 1, dtype=torch.uint8, device=cuda)
+    sec = flat[1:].view(2, 256, 128)
+    before = tk.sector_match_batch.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tk.sector_match_batch(sec, MAGIC_BIT_PATTERN, 256, pattern2=MAGIC_BIT_PATTERN2)
+    assert tk.sector_match_batch.launches == before
+
+
 def test_relabel_pack_kernel_equals_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(3)
     b, r = 16, 512
@@ -668,6 +720,84 @@ def test_project_diff_kernel_equals_plain(cuda):
     assert got[0].shape == (r, 128)
     err, rms = _diff_close([g[None] for g in got], [p[None] for p in ref], n_sig)
     assert err <= 1e-5 * rms, (err, rms)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("spsym", [3, 8, 10, 32])
+def test_project_diff_kernel_any_spsym_ragged_tile(cuda, spsym, dtype):
+    """K12 at the specialised spsym (8, 10) and the generic ones (3, 32) on
+    258 rows of 3 random captures (a last tile the rows do not fill for
+    either sample type), and K11 on one capture's first 256 rows: within
+    1e-5 of the plain stream's RMS over every entry, the last of each
+    capture 0; the kernel writes only inside its outputs."""
+    g = torch.Generator(device=cuda).manual_seed(spsym * 13)
+    b, r = 3, 258
+    x = torch.randn((b, r, 128 * spsym), generator=g, device=cuda) * 0.3
+    if dtype == "int16":
+        x = (x.clamp(-1, 1) * 32767.0).round().to(torch.int16)
+    W8 = torch.from_numpy(tpsk._blocked_templates(spsym, 12000.0, 96000, 8).copy()).to(cuda)
+    best = torch.tensor([0, 3, 7], dtype=torch.int32, device=cuda)
+    got = tk.psk_project_diff_batch(x, W8, best, rows_per_capture=r, block_rows=2)
+    ref = tk.psk_project_diff_batch_plain(x, W8, best)
+    torch.cuda.synchronize()
+    err, rms = _diff_close(got, ref, r * 128)
+    assert err <= 1e-5 * rms, (err, rms)
+    assert all(float(d[i, -1, -1]) == 0.0 for d in got for i in range(b))
+    got1 = tk.psk_project_diff(x[1, :256], W8[3], block_rows=8)
+    ref1 = tk.psk_project_diff_plain(x[1, :256], W8[3])
+    torch.cuda.synchronize()
+    err, rms = _diff_close([d[None] for d in got1], [d[None] for d in ref1], 256 * 128)
+    assert err <= 1e-5 * rms, (err, rms)
+
+
+def test_project_diff_kernel_alternating_shared_memory_sizes(cuda):
+    """K12's generic walk at spsym 32 (about 131 KB of shared memory a
+    block), then 3 (a few KB), then 32 and 3 again: the kernel's shared
+    memory limit, a property of the function, must still fit each launch
+    after a smaller one; each call within 1e-5 of the plain stream's RMS."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    best = torch.tensor([1, 6], dtype=torch.int32, device=cuda)
+    for spsym in (32, 3, 32, 3):
+        x = (torch.randn((2, 4, 128 * spsym), generator=g, device=cuda).clamp(-1, 1) * 32767).round().to(torch.int16)
+        W8 = torch.from_numpy(tpsk._blocked_templates(spsym, 12000.0, 96000, 8).copy()).to(cuda)
+        got = tk.psk_project_diff_batch(x, W8, best, rows_per_capture=4, block_rows=2)
+        ref = tk.psk_project_diff_batch_plain(x, W8, best)
+        torch.cuda.synchronize()
+        err, rms = _diff_close(got, ref, 4 * 128)
+        assert err <= 1e-5 * rms, (spsym, err, rms)
+
+
+def test_project_diff_kernel_more_captures_than_blocks(cuda):
+    """K12 on 2,048 captures of 2 rows (one tile each, more than one wave of
+    blocks): within 1e-5 of the plain stream's RMS, each capture's last
+    entry 0."""
+    x, n_sig = _rows(8, 1 << 19, "int16", "8PSK")
+    x = torch.from_numpy(x).to(cuda)
+    b, r, row = x.shape
+    _, _, best, _ = _batch_pass1(None, x, b, r * 128, 10, 12000.0, 96000, 8, r, n_psk=8)
+    W8, _, _ = _device_tables(10, 12000.0, 96000, 8, x.device)
+    xs = x.reshape(-1, 2, row)
+    bs = best[torch.arange(xs.shape[0], device=cuda) // (r // 2)].contiguous()
+    got = tk.psk_project_diff_batch(xs, W8, bs, rows_per_capture=2, block_rows=2)
+    ref = tk.psk_project_diff_batch_plain(xs, W8, bs)
+    torch.cuda.synchronize()
+    assert xs.shape[0] == 2048
+    err, rms = _diff_close(got, ref, 256)
+    assert err <= 1e-5 * rms, (err, rms)
+    assert bool((got[0][:, -1, -1] == 0).all())
+
+
+def test_project_diff_kernels_reject_a_misaligned_view(cuda):
+    r = 256
+    flat = torch.zeros(3 * r * 1280 + 1, dtype=torch.int16, device=cuda)
+    W8, _, _ = _device_tables(10, 12000.0, 96000, 8, cuda)
+    best = torch.zeros(3, dtype=torch.int32, device=cuda)
+    before = (tk.psk_project_diff_batch.launches, tk.psk_project_diff.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        tk.psk_project_diff_batch(flat[1:].view(3, r, 1280), W8, best, rows_per_capture=r)
+    with pytest.raises(ValueError, match="16-byte"):
+        tk.psk_project_diff(flat[1 : 1 + r * 1280].view(r, 1280), W8[0])
+    assert (tk.psk_project_diff_batch.launches, tk.psk_project_diff.launches) == before
 
 
 def test_single_capture_decode_on_card(cuda):

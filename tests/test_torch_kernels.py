@@ -266,17 +266,19 @@ _DECIDE_THREADS, _DECIDE_FIXED, _SMS = 256, (8, 10), 132
 
 
 def _decide_numpy(x3d, tmpl, best, rot, n_psk, per_sm, sms=_SMS):
-    """csrc/decide.cu decide_kernel, block by block, for a 16-byte aligned
-    tensor: the one-wave grid's tile walk (``per_sm`` blocks a
-    multiprocessor, split over the captures), each tile's 16-byte chunks
-    staged at their place in the buffer (a pad chunk after every spsym/2
-    where that is even, for the compiled spsym), zeros past the capture,
-    and each thread's window read from it: 16-byte reads of (K+2)*spsym
-    samples for a compiled spsym, scalar reads otherwise. Asserts that every
-    staged word a (symbol, j) reads is the capture's sample (or a zero past
-    its end), that the 8 threads of a quarter-warp read 8 different 16-byte
-    bank groups, and that each decision is written once. The projection is
-    float64. Returns hi (and lo) as (B, R*128) uint8."""
+    """csrc/psk_tile.cuh walk_tiles, block by block, for a 16-byte aligned
+    tensor, with decide.cu's emit (``n_psk`` 2, 4, 8: K1) or
+    project_diff.cu's (``n_psk`` 0: K12, and K11 with one capture): the
+    one-wave grid's tile walk (``per_sm`` blocks a multiprocessor, split
+    over the captures), each tile's 16-byte chunks staged at their place in
+    the buffer (a pad chunk after every spsym/2 where that is even, for the
+    compiled spsym), zeros past the capture, and each thread's window read
+    from it: 16-byte reads of (K+2)*spsym samples for a compiled spsym,
+    scalar reads otherwise. Asserts that every staged word a (symbol, j)
+    reads is the capture's sample (or a zero past its end), that the 8
+    threads of a quarter-warp read 8 different 16-byte bank groups, and that
+    each output is written once. The projection is float64. Returns hi (and
+    lo) as (B, R*128) uint8, or (d_re, d_im) as (B, R*128) float64."""
     b, r, row = x3d.shape
     spsym, item = row // 128, x3d.dtype.itemsize
     k_sym = 8 // item
@@ -293,7 +295,10 @@ def _decide_numpy(x3d, tmpl, best, rot, n_psk, per_sm, sms=_SMS):
     n_bytes = sym * spsym * item
     raw = np.ascontiguousarray(x3d).reshape(b, -1).view(np.uint8)
     flat = x3d.reshape(b, -1).astype(np.float64)
-    outs = [np.full((b, sym), 255, np.uint8) for _ in range(1 if n_psk == 8 else 2)]
+    if n_psk == 0:
+        outs = [np.full((b, sym), np.nan) for _ in range(2)]
+    else:
+        outs = [np.full((b, sym), 255, np.uint8) for _ in range(1 if n_psk == 8 else 2)]
     th = np.arange(_DECIDE_THREADS)
     n_s = (k_sym + 2) * spsym
     for i in range(b):
@@ -330,22 +335,25 @@ def _decide_numpy(x3d, tmpl, best, rot, n_psk, per_sm, sms=_SMS):
             z = win @ tb  # (threads, K+1, 2)
             r0, i0, r1, i1 = z[:, :-1, 0], z[:, :-1, 1], z[:, 1:, 0], z[:, 1:, 1]
             d_re, d_im = r1 * r0 + i1 * i0, i1 * r0 - r1 * i0
-            c, s = float(rot[i, 0]), float(rot[i, 1])
-            dr, di = d_re * c + d_im * s, d_im * c - d_re * s
-            if n_psk == 4:
-                swap = np.abs(di) > np.abs(dr)
-                neg = np.where(swap, di, dr) < 0
-                dec = [neg, neg ^ swap]
-            elif n_psk == 2:
-                dec = [dr < 0, di < 0]
+            if n_psk == 0:
+                dec = [d_re, d_im]
             else:
-                dec = [tk.psk8_sector_stream(torch.from_numpy(dr), torch.from_numpy(di)).numpy()]
+                c, s = float(rot[i, 0]), float(rot[i, 1])
+                dr, di = d_re * c + d_im * s, d_im * c - d_re * s
+                if n_psk == 4:
+                    swap = np.abs(di) > np.abs(dr)
+                    neg = np.where(swap, di, dr) < 0
+                    dec = [neg, neg ^ swap]
+                elif n_psk == 2:
+                    dec = [dr < 0, di < 0]
+                else:
+                    dec = [tk.psk8_sector_stream(torch.from_numpy(dr), torch.from_numpy(di)).numpy()]
             at = t * tile + th[:, None] * k_sym + np.arange(k_sym)
             keep = at < sym
             for o, d in zip(outs, dec):
-                assert (o[i, at[keep]] == 255).all()  # each decision once
-                o[i, at[keep]] = np.asarray(d, np.uint8)[keep]
-    assert all((o != 255).all() for o in outs)
+                assert (np.isnan(o[i, at[keep]]) if n_psk == 0 else o[i, at[keep]] == 255).all()  # each once
+                o[i, at[keep]] = np.asarray(d, o.dtype)[keep]
+    assert all(not np.isnan(o).any() if n_psk == 0 else (o != 255).all() for o in outs)
     return outs
 
 
@@ -353,16 +361,21 @@ def _decide_numpy(x3d, tmpl, best, rot, n_psk, per_sm, sms=_SMS):
     (10, 4, np.int16, 2, _SMS), (10, 2, np.int8, 2, _SMS), (10, 8, np.float32, 1, _SMS),
     (8, 4, np.int16, 3, 1), (8, 8, np.int8, 2, _SMS), (8, 2, np.float32, 2, _SMS),
     (3, 4, np.int16, 2, _SMS), (3, 8, np.int8, 3, 1), (32, 2, np.int16, 1, _SMS),
+    (10, 0, np.int16, 2, _SMS), (10, 0, np.float32, 1, _SMS), (8, 0, np.int16, 3, 1),
+    (8, 0, np.float32, 1, _SMS), (3, 0, np.float32, 3, 1), (32, 0, np.int16, 1, _SMS),
 ])
 def test_decide_kernel_tile_walk_mirrored(spsym, n_psk, dtype, b, sms):
-    """K1's new schedule in numpy against the plain version on clean
+    """The shared tile walk in numpy against the plain versions on clean
     captures of 258 rows (every sample type's last tile ragged), at the
     compiled spsym (10, 8: the pad layout) and the generic ones (3, 32),
-    with one capture, and with more captures than blocks (``sms`` 1)."""
+    with one capture, and with more captures than blocks (``sms`` 1): K1's
+    decisions (``n_psk`` 2, 4, 8) equal; K12's float streams (``n_psk`` 0,
+    8PSK rows; with one capture, the launch K11 makes) within 1e-6 of their
+    RMS, the float64 mirror against the float32 plain version."""
     from audio_modem_radio_tpu_torch.framing import crc32, pack_frame
     from audio_modem_radio_tpu_torch.modem import modulate
 
-    mode, carrier = {2: ("BPSK", 3000.0), 4: ("QPSK", 3000.0), 8: ("8PSK", 12000.0)}[n_psk]
+    mode, carrier = {0: ("8PSK", 12000.0), 2: ("BPSK", 3000.0), 4: ("QPSK", 3000.0), 8: ("8PSK", 12000.0)}[n_psk]
     baud = 96000 // spsym
     r, row = 258, 128 * spsym
     rng = np.random.default_rng(spsym * 10 + n_psk)
@@ -380,7 +393,15 @@ def test_decide_kernel_tile_walk_mirrored(spsym, n_psk, dtype, b, sms):
     xt = torch.from_numpy(x3d)
     W8 = torch.from_numpy(tpsk._blocked_templates(spsym, carrier, 96000, 8).copy())
     _, _, best, theta = tpsk._batch_pass1(None, xt[:, :256].contiguous(), b, 256 * 128, spsym, carrier,
-                                          96000, 8, 256, n_psk=8 if n_psk == 8 else 4)
+                                          96000, 8, 256, n_psk=8 if n_psk in (0, 8) else 4)
+    if n_psk == 0:
+        mirror = _decide_numpy(x3d, tk._dual_basis(W8, spsym).numpy(), best.numpy(), None, 0, 2, sms)
+        got = tk.psk_project_diff_batch(xt, W8, best, rows_per_capture=r, block_rows=2)
+        rms = np.sqrt(np.mean(mirror[0] ** 2 + mirror[1] ** 2))
+        assert rms > 0
+        for m, g in zip(mirror, got):
+            assert np.max(np.abs(m - g.reshape(b, -1).double().numpy())) <= 1e-6 * rms
+        return
     rots = [(theta, 1), (theta + np.pi / 4, 2)] if n_psk == 2 else [(theta, 2)]
     for th, n_streams in rots:
         rot = torch.stack([torch.cos(th), torch.sin(th)], 1)
@@ -654,7 +675,7 @@ def test_sector_match_kernel_formulation(rows_scanned):
     sec = np.stack([_psk8_stream(rng, r, k, 100 + 7000 * k) for k in range(8)]
                    + [rng.integers(0, 8, (r, 128), dtype=np.uint8)])
     conds, n_sym = tk.psk8_match_conditions(MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2)
-    masks = tk._sector_masks(conds, torch.device("cpu")).numpy().astype(np.int64)
+    masks = tk._sector_mask_table(MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2).astype(np.int64)
     n_pos = rows_scanned * 128 - (n_sym + 1)
     first_n = np.full((sec.shape[0], 8), 1 << 30, np.int64)
     for i in range(sec.shape[0]):
@@ -675,6 +696,137 @@ def test_sector_match_kernel_formulation(rows_scanned):
     assert np.array_equal(found_t.numpy(), found_n)
     assert np.array_equal(first_t.numpy(), np.where(found_n, first_n, 0))
     assert all(found_n[k, k] for k in range(8) if 100 + 7000 * k < n_pos)
+
+
+# csrc/sector_match.cu's constants: threads a block, positions a thread,
+# 16-byte chunks a thread reads, blocks a multiprocessor at its occupancy.
+_K5_THREADS, _K5_POS, _K5_CHUNKS, _K5_PER_SM = 256, 16, 2, 8
+
+
+def _gray4(x):
+    x = x & np.uint32(0x07070707)
+    y = x ^ ((x >> np.uint32(1)) & np.uint32(0x03030303))
+    return (((y >> np.uint32(2)) & np.uint32(0x01010101)) | (y & np.uint32(0x02020202))
+            | ((y & np.uint32(0x01010101)) << np.uint32(2)))
+
+
+def _pack12(g):
+    g = (g | (g >> np.uint32(5))) & np.uint32(0x003F003F)
+    return (g | (g >> np.uint32(10))) & np.uint32(0xFFF)
+
+
+def _sector_match_numpy(sec, table, tol, n_sym, rows_scanned, sms, rng):
+    """csrc/sector_match.cu in numpy, block by block in a shuffled order:
+    the one-wave grid split over the captures, each thread's 16-byte chunks
+    (zeros past the scanned prefix), Gray planes 4 sectors a word, the
+    12-bit groups packed into a bit stream, each position's window by a
+    funnel shift (the slow pass's, by 64-bit shifts, equal to it); the fast
+    pass over the exact parts, the warp vote, the slow pass with the loose
+    popcount and the limit, the block's shared
+    minima, its scratch row and ticket, and the last block's reduction and
+    ticket reset. Asserts that the slow pass only ever finds positions the
+    fast pass flagged, and that every ticket is back at 0. Returns (first,
+    found) as the kernel writes them."""
+    b, r, _ = sec.shape
+    n_hyp = table.shape[0]
+    big = 1 << 30
+    masks = np.zeros((8, 4), np.uint32)
+    masks[:] = table.view(np.uint32)[[h if h < n_hyp else 0 for h in range(8)]]
+    n_pos = rows_scanned * 128 - (n_sym + 1)
+    span = _K5_THREADS * _K5_POS
+    n_iters = -(-n_pos // span) if n_pos > 0 else 0
+    per_capture = max(1, min(_K5_PER_SM * sms // b, n_iters, 65535 // b))
+    scratch = np.full((b * per_capture, 8), -1, np.int64)
+    ticket = np.zeros(b, np.int64)
+    first = np.full((b, n_hyp), -1, np.int64)
+    found = np.zeros((b, n_hyp), bool)
+    flat = np.ascontiguousarray(sec).reshape(b, -1)
+    th = np.arange(_K5_THREADS)
+    for blk_id in rng.permutation(b * per_capture):
+        cap, blk = divmod(int(blk_id), per_capture)
+        s_first = np.full(8, big, np.int64)
+        for it in range(blk, n_iters, per_capture):
+            p0 = (it * _K5_THREADS + th) * _K5_POS
+            at = p0[:, None] + np.arange(16 * _K5_CHUNKS)
+            raw = np.where(at < rows_scanned * 128, flat[cap, np.minimum(at, r * 128 - 1)], 0).astype(np.uint8)
+            words = np.ascontiguousarray(raw).view("<u4").astype(np.uint32)  # (threads, 4 * chunks)
+            g = np.zeros((_K5_THREADS, (12 * 4 * _K5_CHUNKS + 31) // 32), np.uint64)
+            for e in range(words.shape[1]):
+                o = 12 * e
+                v = _pack12(_gray4(words[:, e])).astype(np.uint64)
+                g[:, o // 32] |= (v << np.uint64(o % 32)) & np.uint64(0xFFFFFFFF)
+                if o % 32 > 20:
+                    g[:, o // 32 + 1] |= v >> np.uint64(32 - o % 32)
+            w = np.stack([((g[:, 3 * i // 32] | (g[:, 3 * i // 32 + 1] << np.uint64(32))) >> np.uint64(3 * i % 32))
+                          & np.uint64(0xFFFFFFFF) for i in range(_K5_POS)], 1).astype(np.uint32)  # (threads, P)
+            # The slow pass takes the same words by shifting one of two 64-bit words.
+            lo, hi = g[:, 0] | (g[:, 1] << np.uint64(32)), g[:, 1] | (g[:, 2] << np.uint64(32))
+            w_slow = np.stack([(lo >> np.uint64(3 * i) if 3 * i < 32 else hi >> np.uint64(3 * i - 32))
+                               & np.uint64(0xFFFFFFFF) for i in range(_K5_POS)], 1).astype(np.uint32)
+            assert np.array_equal(w_slow, w)
+            exact = ((w[:, :, None] ^ masks[:, 1]) & masks[:, 0]) == 0  # (threads, P, 8)
+            vote = exact.reshape(_K5_THREADS // 32, -1).any(axis=1)  # one a warp
+            loose = np.bitwise_count((w[:, :, None] ^ masks[:, 3]) & masks[:, 2]) <= tol
+            pos = p0[:, None] + np.arange(_K5_POS)
+            hit = exact & loose & (pos < n_pos)[:, :, None] & np.repeat(vote, 32)[:, None, None]
+            assert not (exact & loose & (pos < n_pos)[:, :, None] & ~hit).any()  # no hit outside a vote
+            for h in range(n_hyp):
+                if hit[:, :, h].any():
+                    s_first[h] = min(s_first[h], int(pos[hit[:, :, h]].min()))
+        scratch[cap * per_capture + blk] = s_first
+        ticket[cap] += 1
+        if ticket[cap] == per_capture:
+            m = scratch[cap * per_capture : (cap + 1) * per_capture].min(axis=0)[:n_hyp]
+            assert (first[cap] == -1).all()  # one last block a capture
+            found[cap] = m < big
+            first[cap] = np.where(found[cap], m, 0)
+            ticket[cap] = 0
+    assert (ticket == 0).all() and (first >= 0).all()
+    return first, found
+
+
+@pytest.mark.parametrize("rows_scanned", [256, 512, 768])
+@pytest.mark.parametrize("sms", [_SMS, 1])
+def test_sector_match_kernel_walk_mirrored(rows_scanned, sms):
+    """K5's new position walk in numpy against the plain version at 256,
+    512 and all 768 rows, with a block per capture or several: matches
+    planted at a thread range's first and last position, at a block's first
+    and last (4096 positions a block), at the 256-row scan's last valid
+    position n_pos - 1 and at n_pos itself (rejected there, found on the
+    longer scans), and one capture of noise."""
+    rng = np.random.default_rng(rows_scanned + sms)
+    r = 768
+    n_pos_256 = 256 * 128 - 11
+    leads = [160, 175, 4096, 8191, n_pos_256 - 1, n_pos_256, 3 * 4096 - 16 + 15, 70001]
+    sec = np.stack([_psk8_stream(rng, r, k, lead) for k, lead in enumerate(leads)]
+                   + [rng.integers(0, 8, (r, 128), dtype=np.uint8)])
+    conds, n_sym = tk.psk8_match_conditions(MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2)
+    first_m, found_m = _sector_match_numpy(sec, tk._sector_mask_table(MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2),
+                                           3, n_sym, rows_scanned, sms, rng)
+    first_t, found_t = tk.sector_match_batch(torch.from_numpy(sec), MAGIC_BIT_PATTERN, r,
+                                             pattern2=MAGIC_BIT_PATTERN2, rows_scanned=rows_scanned)
+    assert np.array_equal(found_m, found_t.numpy()) and np.array_equal(first_m, first_t.numpy())
+    n_pos = rows_scanned * 128 - (n_sym + 1)
+    for k, lead in enumerate(leads):
+        assert found_m[k, k] == (lead < n_pos) and first_m[k, k] == (lead if lead < n_pos else 0)
+
+
+def test_match_conditions_built_once_per_key():
+    """The matchers' condition sets and K5's mask table are cached per key:
+    a second call returns the very same objects, equal to a fresh build."""
+    pattern, pattern2 = MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
+    for build, args in ((tk.psk8_match_conditions, (pattern, pattern2)),
+                        (tk.rotation_match_conditions, (pattern + pattern2,)),
+                        (tk.bpsk_match_conditions, (pattern + pattern2,)),
+                        (tk._sector_mask_table, (pattern, pattern2))):
+        got = build(*args)
+        assert build(*args) is got
+        fresh = build.__wrapped__(*args)
+        if isinstance(got, np.ndarray):
+            assert np.array_equal(got, fresh) and not got.flags.writeable
+        else:
+            assert got == fresh
+    assert tk.psk8_match_conditions(pattern, "") != tk.psk8_match_conditions(pattern, pattern2)
 
 
 @pytest.mark.parametrize("pairs", [((0, 0), (3, 5)), ((6, 1), (7, 7)), ((1, 2), (2, 4))])
@@ -729,7 +881,12 @@ def test_psk8_relabel_pack_kernel_formulation():
     ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "decide", "--dtype", "int8",
      "--variant", "d=csrc/decide.cu"],
     ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "fsk_tile", "--variant", "d=csrc/fsk_tile.cu"],
+    ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "project_diff", "--single",
+     "--variant", "d=csrc/project_diff.cu"],
+    ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "sector_match", "--rows-scanned", "full",
+     "--noise-last", "--variant", "d=csrc/sector_match.cu"],
     ["-m", "audio_modem_radio_tpu_torch.profile_slice", "--mode", "FSK1200", "--flat"],
+    ["-m", "audio_modem_radio_tpu_torch.profile_slice", "--mode", "8PSK", "--noise-last", "--xla"],
 ])
 def test_card_tools_fail_without_a_card(argv):
     """The timing tools measure only on a card: without one they print FAIL
