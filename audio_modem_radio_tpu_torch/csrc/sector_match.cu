@@ -42,10 +42,9 @@
 // * The hypotheses' masks travel as a kernel parameter, so they sit in the
 //   constant bank and the compares read them from there.
 // * A one-wave persistent grid, split over the captures, walks each
-//   capture's positions in strides of kThreads*kPos. Each block writes its 8
-//   minima to a scratch row, fences, and takes a ticket; the capture's last
-//   block reduces the rows, writes first and found, and resets the ticket to
-//   0 for the next call. A call is one launch, with no host read.
+//   capture's positions in strides of kThreads*kPos; the capture's last
+//   block reduces the blocks' minima (match_first.cuh, shared with K2). A
+//   call is one launch, with no host read.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (kernel_variants.py
 // --kernel sector_match, PERF.md section 6), K1's sectors of the 8PSK bench
@@ -60,15 +59,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "one_wave.cuh"
+#include "match_first.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPos = 16;     // positions a thread
 constexpr int kMaxSym = 10;  // 3 * 10 = 30 window bits
-constexpr int kMaxHyp = 8;
-constexpr int kBig = 1 << 30;
+constexpr int kMaxHyp = kMatchHyp;
+constexpr int kBig = kMatchBig;
 // A thread's sectors, [p0, p0 + kPos + kMaxSym - 1), as whole 16-byte chunks,
 // and the 3-bit-a-sector stream they make.
 constexpr int kChunks = (kPos + kMaxSym - 1 + 15) / 16;
@@ -102,7 +101,6 @@ __global__ void __launch_bounds__(kThreads)
                         int* __restrict__ scratch, int* __restrict__ ticket, int per_capture, int n_iters,
                         long long sym_per_capture, long long scan_bytes, long long n_pos) {
   __shared__ int s_first[kMaxHyp];
-  __shared__ bool s_last;
   const int b = blockIdx.x / per_capture;
   const int blk = blockIdx.x % per_capture;
   if (threadIdx.x < kMaxHyp) s_first[threadIdx.x] = kBig;
@@ -114,8 +112,7 @@ __global__ void __launch_bounds__(kThreads)
     uint32_t g[kWords] = {};
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
-      const long long at = p0 + 16 * c;
-      const uint4 q = at < scan_bytes ? __ldg(reinterpret_cast<const uint4*>(sc + at)) : make_uint4(0, 0, 0, 0);
+      const uint4 q = match_chunk(sc, p0 + 16 * c, scan_bytes);
       const uint32_t w4[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -152,38 +149,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  // This block's minima to its scratch row; the capture's last block reduces.
-  __syncthreads();
-  int* row = scratch + ((long long)b * per_capture + blk) * kMaxHyp;
-  if (threadIdx.x < kMaxHyp) row[threadIdx.x] = s_first[threadIdx.x];
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(ticket + b, 1) == per_capture - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  if (threadIdx.x < kMaxHyp) s_first[threadIdx.x] = kBig;
-  __syncthreads();
-  int m[kMaxHyp];
-#pragma unroll
-  for (int h = 0; h < kMaxHyp; ++h) m[h] = kBig;
-  const int* rows = scratch + (long long)b * per_capture * kMaxHyp;
-  for (int j = threadIdx.x; j < per_capture; j += kThreads) {
-#pragma unroll
-    for (int h = 0; h < kMaxHyp; ++h) m[h] = min(m[h], __ldcg(rows + j * kMaxHyp + h));
-  }
-#pragma unroll
-  for (int h = 0; h < kMaxHyp; ++h) {
-    const int v = __reduce_min_sync(0xffffffffu, m[h]);
-    if ((threadIdx.x & 31) == 0 && v < kBig) atomicMin(s_first + h, v);
-  }
-  __syncthreads();
-  if (threadIdx.x < n_hyp) {
-    const int v = s_first[threadIdx.x];
-    first[b * n_hyp + threadIdx.x] = v < kBig ? v : 0;
-    found[b * n_hyp + threadIdx.x] = v < kBig;
-  }
-  if (threadIdx.x == 0) ticket[b] = 0;
+  match_publish<kThreads>(s_first, n_hyp, first, found, scratch, ticket, b, blk, per_capture);
 }
 
 }  // namespace
@@ -207,16 +173,12 @@ extern "C" int amr_sector_first(const uint8_t* sec, const int* masks, int n_hyp,
     for (int e = 0; e < 4; ++e) m.v[h][e] = (unsigned)masks[4 * (h < n_hyp ? h : 0) + e];
   const long long n_pos = (long long)rows_scanned * 128 - (n_sym + 1);
   const int n_iters = n_pos > 0 ? (int)((n_pos + kThreads * kPos - 1) / (kThreads * kPos)) : 0;
-  long long wave = 0;
-  const cudaError_t err = one_wave_blocks(sector_match_kernel, kThreads, 0, &wave);
+  int per_capture = 1;
+  const cudaError_t err = match_per_capture(sector_match_kernel, kThreads, n_captures, n_iters, scratch_blocks,
+                                            &per_capture);
   if (err != cudaSuccess) return (int)err;
-  // One wave, split over the captures; every capture gets at least one block.
-  long long per_capture = wave / n_captures;
-  if (per_capture > n_iters) per_capture = n_iters;
-  if (per_capture > scratch_blocks / n_captures) per_capture = scratch_blocks / n_captures;
-  if (per_capture < 1) per_capture = 1;
   sector_match_kernel<<<(unsigned)(per_capture * n_captures), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      sec, m, n_hyp, tol, first, found, scratch, ticket, (int)per_capture, n_iters, (long long)rows * 128,
+      sec, m, n_hyp, tol, first, found, scratch, ticket, per_capture, n_iters, (long long)rows * 128,
       (long long)rows_scanned * 128, n_pos);
   return (int)cudaGetLastError();
 }

@@ -5,8 +5,9 @@
         --variant new=csrc/neural_extract.cu [--reps 5] [--out FILE]
 
 ``--kernel`` is ``decide`` (K1), ``fsk_tile`` (K7), ``neural_extract`` (K10),
-``fsk_flat`` (K13), ``project_diff`` (K12, or K11 with ``--single``) or
-``sector_match`` (K5). Each ``--variant NAME=SOURCE[:FLAGS]`` compiles
+``fsk_flat`` (K13), ``project_diff`` (K12, or K11 with ``--single``),
+``sector_match`` (K5), ``rotation_match`` (K2) or ``psk8_pack`` (K6). Each
+``--variant NAME=SOURCE[:FLAGS]`` compiles
 SOURCE alone (a path relative to the package, or absolute, such as another
 checkout's copy of the same file) with the build's nvcc flags plus FLAGS
 (space-separated ``-D`` options) into its own library under ``build/``; all
@@ -21,19 +22,24 @@ bench batch's float32 rows synced by ``td_sync_batch``; K13 on the FSK1200
 bench capture's flat float32 rows at pass 1's offset; K12 on the 8PSK bench
 batch's rows (``--dtype`` int16 or float32) at pass 1's offsets, K11
 (``--single``) on one float32 capture in the single-capture layout (13,120
-rows); K5 on K1's 8PSK sectors of the bench batch (``--noise-last``: its
-last capture noise) over the first ``--rows-scanned`` rows (256, 1792 or
-full). A K5 source with the earlier C interface (``amr_sector_match``:
-first positions only, 2^30 where none matched, a fill launch before the
-kernel) is called as its wrapper called it, the condition sets built anew
-and the epilogue run in PyTorch. The report gives each
+rows); K5 on K1's 8PSK sectors of the bench batch, K2 on K1's QPSK
+(``--family qpsk``) or BPSK (``--family bpsk``) decision lanes of it
+(``--noise-last``: the batch's last capture noise) over the first
+``--rows-scanned`` rows (256, 1792 or full); K6 on K1's 8PSK sectors with
+capture i at ksel i % 8 and r8 (i // 8) % 8, every pair once. A K5 or K2
+source with the earlier C interface (``amr_sector_match``,
+``amr_rotation_match``: first positions only, 2^30 where none matched, a
+fill launch before the kernel, the masks a device table) is called as its
+wrapper called it, the epilogue run in PyTorch. The report gives each
 variant's time (median of ``--reps`` CUDA-event timings after one warm-up),
 the kernel's own device time per call under ``torch.profiler`` (the
-wrapper's table work left out), the number of outputs that differ from
-the first variant's, the card's SM clock and power draw while the variant
-runs back to back for two seconds (``nvidia-smi``), ``nvcc``'s register
-and spill lines of the kernel's instantiations, and the card's name and
-power limit.
+wrapper's table work left out; an earlier K2's fill launch counted in),
+the host time per call (50 calls back to back, before the synchronize),
+the number of outputs that differ from the first variant's (K2, K6: and
+from the plain version's on the same inputs), the card's SM
+clock and power draw while the variant runs back to back for two seconds
+(``nvidia-smi``), ``nvcc``'s register and spill lines of the kernel's
+instantiations, and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import argparse
 import contextlib
 import ctypes
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
@@ -55,22 +62,30 @@ from .profile_slice import _card, _median_ms
 
 SR, N, B, PAYLOAD = 96000, 1 << 24, 64, 16384
 _ENTRY = {"decide": "amr_decide", "fsk_tile": "amr_fsk_tile", "neural_extract": "amr_neural_extract",
-          "fsk_flat": "amr_fsk_tile", "project_diff": "amr_project_diff_batch", "sector_match": "amr_sector_first"}
-_KERNEL = {"decide": "decide_kernel", "fsk_tile": "fsk_tile_kernel", "neural_extract": "neural_extract_kernel",
-           "fsk_flat": "fsk_flat_kernel", "project_diff": "project_diff_kernel",
-           "sector_match": "sector_match_kernel"}
-# K5's earlier C entry point: (sec, masks on the card, n_hyp, tol, n_sym,
-# first, n_captures, rows, rows_scanned, stream).
-_SECTOR_MATCH_EARLIER = ("amr_sector_match", (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                              ctypes.c_int, ctypes.c_void_p))
+          "fsk_flat": "amr_fsk_tile", "project_diff": "amr_project_diff_batch", "sector_match": "amr_sector_first",
+          "rotation_match": "amr_rotation_first", "psk8_pack": "amr_psk8_pack"}
+# The names of each kernel's device functions (the profiler's "alone" time
+# sums them; the first also picks nvcc's register lines).
+_KERNEL = {"decide": ("decide_kernel",), "fsk_tile": ("fsk_tile_kernel",),
+           "neural_extract": ("neural_extract_kernel",), "fsk_flat": ("fsk_flat_kernel",),
+           "project_diff": ("project_diff_kernel",), "sector_match": ("sector_match_kernel",),
+           "rotation_match": ("rotmatch_kernel", "fill_big"), "psk8_pack": ("psk8_pack_kernel",)}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The earlier C entry points of K5, (sec, masks on the card, n_hyp, tol,
+# n_sym, first, n_captures, rows, rows_scanned, stream), and of K2, (hi,
+# lo, masks on the card, n_hyp, span, tol, n_pat, first, n_captures, rows,
+# rows_scanned, stream).
+_SECTOR_MATCH_EARLIER = ("amr_sector_match", (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P))
+_ROTATION_MATCH_EARLIER = ("amr_rotation_match", (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P))
 _PSK = {2: ("BPSK", 3000.0), 4: ("QPSK", 3000.0), 8: ("8PSK", 12000.0)}
+_N_PSK = {mode: n for n, (mode, _c) in _PSK.items()}
 _MANGLED = {"int16": "s", "int8": "a", "float32": "f"}  # a C++ type's code in a mangled name
 
 
-def _kernel_ms(call, name: str, reps: int) -> float:
-    """Device time per call of the kernels whose name holds ``name``, under
-    ``torch.profiler`` over ``reps`` calls (the wrapper's other work left out)."""
+def _kernel_ms(call, names, reps: int) -> float:
+    """Device time per call of the kernels whose name holds one of ``names``,
+    under ``torch.profiler`` over ``reps`` calls (the wrapper's other work
+    left out)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -78,8 +93,20 @@ def _kernel_ms(call, name: str, reps: int) -> float:
             call()
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name)
+             if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names))
     return us / 1e3 / reps
+
+
+def _host_us(call, n: int = 50) -> float:
+    """Host time per call in us: ``n`` calls back to back by the host clock,
+    before the synchronize (the wrapper's checks, allocations and launch)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _clocks(call, seconds: float = 2.0) -> str:
@@ -87,7 +114,6 @@ def _clocks(call, seconds: float = 2.0) -> str:
     back for about ``seconds``, from ``nvidia-smi`` every quarter second."""
     import statistics
     import threading
-    import time
 
     samples, stop = [], threading.Event()
 
@@ -199,17 +225,9 @@ def _psk_rows(mode: str, dtype: str, device):
 
 
 def _decide_call(device, dtype: str, n_psk: int):
-    from .ops.psk import _batch_pass1, _device_tables
-
-    mode, carrier = _PSK[n_psk]
-    x = _psk_rows(mode, dtype, device)
-    b, r, row = x.shape
-    spsym = row // 128
-    _, _, best, theta = _batch_pass1(None, x, b, r * 128, spsym, carrier, SR, 8, r,
-                                     n_psk=8 if n_psk == 8 else 4)
-    W8, _, _ = _device_tables(spsym, carrier, SR, 8, device)
+    x, W8, best, theta = _pass1_rows(_PSK[n_psk][0], device, dtype)
     rot = torch.stack([torch.cos(theta), torch.sin(theta)], dim=1)
-    return lambda: tk.psk_project_decide_batch(x, W8, best, rot, rows_per_capture=r, n_psk=n_psk)
+    return lambda: tk.psk_project_decide_batch(x, W8, best, rot, rows_per_capture=x.shape[1], n_psk=n_psk)
 
 
 def _tile_call(device):
@@ -238,28 +256,39 @@ def _flat_call(device):
     return lambda: tk.fsk_project_bits_batch(flat, W, best, rows_per_capture=r, spr=spr)
 
 
-def _psk8_rows(device, dtype: str, noise_last: bool = False):
-    """The 8PSK bench batch's rows, pass 1's offsets and rotations, and the
+def _pass1_rows(mode: str, device, dtype: str, noise_last: bool = False):
+    """The PSK bench batch's rows, pass 1's offsets and rotations, and the
     templates; with ``noise_last`` the last capture's samples are seeded
     noise."""
     from .ops.psk import _batch_pass1, _device_tables
 
-    x = _psk_rows("8PSK", dtype, device)
+    n_psk = _N_PSK[mode]
+    carrier = _PSK[n_psk][1]
+    x = _psk_rows(mode, dtype, device)
     if noise_last:
         g = torch.Generator(device=device).manual_seed(9)
         noise = torch.randn(x.shape[1:], generator=g, device=device) * 0.3
         x[-1] = (noise * 32767.0).round().clamp(-32768, 32767).to(x.dtype) if dtype == "int16" else noise
     b, r, row = x.shape
     spsym = row // 128
-    _, _, best, theta = _batch_pass1(None, x, b, r * 128, spsym, 12000.0, SR, 8, r, n_psk=8)
-    W8, _, _ = _device_tables(spsym, 12000.0, SR, 8, device)
+    _, _, best, theta = _batch_pass1(None, x, b, r * 128, spsym, carrier, SR, 8, r,
+                                     n_psk=8 if n_psk == 8 else 4)
+    W8, _, _ = _device_tables(spsym, carrier, SR, 8, device)
     return x, W8, best, theta
+
+
+def _decisions(mode: str, device, noise_last: bool = False):
+    """K1's decisions of the PSK bench batch (int16 rows): (hi, lo) for QPSK
+    and BPSK, the sectors for 8PSK."""
+    x, W8, best, theta = _pass1_rows(mode, device, "int16", noise_last)
+    rot = torch.stack([torch.cos(theta), torch.sin(theta)], dim=1)
+    return tk.psk_project_decide_batch(x, W8, best, rot, rows_per_capture=x.shape[1], n_psk=_N_PSK[mode])
 
 
 def _project_diff_call(device, dtype: str, single: bool):
     """K12 on the 8PSK bench batch, or K11 on its capture in the
     single-capture receiver's layout (rows padded to a multiple of 64)."""
-    x, W8, best, _ = _psk8_rows(device, "float32" if single else dtype)
+    x, W8, best, _ = _pass1_rows("8PSK", device, "float32" if single else dtype)
     if not single:
         return lambda: tk.psk_project_diff_batch(x, W8, best, rows_per_capture=x.shape[1])
     row = x.shape[2]
@@ -276,11 +305,8 @@ def _sector_call(device, rows_scanned: str, noise_last: bool):
     through the earlier C interface where the bound library has that one."""
     from .framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
 
-    x, W8, best, theta = _psk8_rows(device, "int16", noise_last)
-    rot = torch.stack([torch.cos(theta), torch.sin(theta)], dim=1)
-    r = x.shape[1]
-    sec = tk.psk_project_decide_batch(x, W8, best, rot, rows_per_capture=r, n_psk=8)
-    del x
+    sec = _decisions("8PSK", device, noise_last)
+    r = sec.shape[1]
     p = r if rows_scanned == "full" else int(rows_scanned)
 
     def call():
@@ -288,6 +314,41 @@ def _sector_call(device, rows_scanned: str, noise_last: bool):
             return tk.sector_match_batch(sec, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p)
         return _sector_match_earlier(sec, MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2, r, p)
     return call
+
+
+def _rotation_call(device, family: str, rows_scanned: str, noise_last: bool):
+    """(call, plain): K2 on K1's QPSK or BPSK decision lanes of the bench
+    batch, through the wrapper, or through the earlier C interface where
+    the bound library has that one; and the plain version's (first, found)
+    on the same lanes."""
+    from .framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
+
+    hi, lo = _decisions("QPSK" if family == "qpsk" else "BPSK", device, noise_last)
+    r = hi.shape[1]
+    p = r if rows_scanned == "full" else int(rows_scanned)
+
+    def call():
+        if hasattr(_build._lib, _ENTRY["rotation_match"]):
+            return tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r, family=family,
+                                           pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p)
+        return _rotation_match_earlier(hi, lo, MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2, family, r, p)
+
+    def plain():
+        conds, n_pat = tk._MATCH_FAMILIES[family](MAGIC_BIT_PATTERN + MAGIC_BIT_PATTERN2)
+        first = tk.rotation_match_batch_plain(hi, lo, conds, len(MAGIC_BIT_PATTERN), 3, p)
+        found = (first < (1 << 30)) & (first < p * 128 - (n_pat + 1))
+        return torch.where(found, first, 0), found
+    return call, plain
+
+
+def _psk8_pack_call(device):
+    """(call, plain): K6 on K1's sectors of the 8PSK bench batch, capture i
+    at ksel i % 8 and r8 (i // 8) % 8, and its plain version."""
+    sec = _decisions("8PSK", device)
+    i = torch.arange(sec.shape[0], device=device)
+    ksel, r8 = (i % 8).to(torch.int32), (i // 8 % 8).to(torch.int32)
+    return (lambda: tk.psk8_relabel_pack_rows(sec, ksel, r8, rows_per_capture=sec.shape[1]),
+            lambda: tk.psk8_relabel_pack_rows_plain(sec, ksel, r8))
 
 
 _EARLIER_MASKS: dict = {}
@@ -315,6 +376,44 @@ def _sector_match_earlier(sec3, pattern: str, pattern2: str, r: int, p: int, tol
     return torch.where(found, first, 0), found
 
 
+def _earlier_rotation_masks(conds, n_exact: int, device) -> torch.Tensor:
+    """The earlier K2's (n_hyp, 8) device table: per hypothesis [hi mask, hi
+    value, lo mask, lo value] of the exact part, then of the tolerant part,
+    bit j for window offset j."""
+    rows = []
+    for c in conds:
+        m = [0] * 8
+        for idx, (is_hi, off, bit) in enumerate(c):
+            base = (0 if idx < n_exact else 4) + (0 if is_hi else 2)
+            m[base] |= 1 << off
+            m[base + 1] |= bit << off
+        rows.append(m)
+    return torch.from_numpy(np.array(rows, dtype=np.uint32).view(np.int32)).to(device)
+
+
+def _rotation_match_earlier(hi, lo, pattern: str, pattern2: str, family: str, r: int, p: int, tol: int = 3):
+    """K2 through its earlier C interface as its wrapper drove it: the
+    cached condition sets and device mask table, the call (a fill launch,
+    then the kernel), and the limit epilogue."""
+    conds, n_pat = tk._MATCH_FAMILIES[family](pattern + pattern2)
+    key = (conds, len(pattern))
+    masks = _EARLIER_MASKS.get(key)
+    if masks is None:
+        masks = _EARLIER_MASKS[key] = _earlier_rotation_masks(conds, len(pattern), hi.device)
+    span = max(off for c in conds for (_s, off, _b) in c) + 1
+    b = hi.shape[0]
+    first = torch.empty((b, len(conds)), dtype=torch.int32, device=hi.device)
+    name, argtypes = _ROTATION_MATCH_EARLIER
+    fn = getattr(_build._lib, name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    err = fn(hi.data_ptr(), lo.data_ptr(), masks.data_ptr(), len(conds), span, tol, n_pat, first.data_ptr(), b, r, p,
+             torch.cuda.current_stream(hi.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+    found = (first < (1 << 30)) & (first < p * 128 - (n_pat + 1))
+    return torch.where(found, first, 0), found
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=sorted(_ENTRY), required=True)
@@ -322,8 +421,9 @@ def main() -> int:
     ap.add_argument("--dtype", choices=("int16", "int8", "float32"), default="int16", help="K1's and K12's rows")
     ap.add_argument("--n-psk", type=int, choices=sorted(_PSK), default=4, help="K1's decision")
     ap.add_argument("--single", action="store_true", help="project_diff: K11 on one float32 capture")
-    ap.add_argument("--rows-scanned", choices=("256", "1792", "full"), default="256", help="K5's scanned rows")
-    ap.add_argument("--noise-last", action="store_true", help="K5: the bench batch's last capture noise")
+    ap.add_argument("--rows-scanned", choices=("256", "1792", "full"), default="256", help="K5's and K2's scanned rows")
+    ap.add_argument("--noise-last", action="store_true", help="K5, K2: the bench batch's last capture noise")
+    ap.add_argument("--family", choices=("qpsk", "bpsk"), default="qpsk", help="K2's hypotheses")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args()
@@ -338,7 +438,7 @@ def main() -> int:
     built = _build_variants(variants)
     device = torch.device("cuda")
     card = _card()
-    entry, what = _ENTRY[args.kernel], ""
+    entry, what, plain = _ENTRY[args.kernel], "", None
     if args.kernel == "decide":
         call = _decide_call(device, args.dtype, args.n_psk)
         what = f" ({args.dtype} rows, n_psk {args.n_psk})"
@@ -349,6 +449,13 @@ def main() -> int:
     elif args.kernel == "sector_match":
         call = _sector_call(device, args.rows_scanned, args.noise_last)
         what = f" (rows_scanned {args.rows_scanned}{', last capture noise' if args.noise_last else ''})"
+    elif args.kernel == "rotation_match":
+        call, plain = _rotation_call(device, args.family, args.rows_scanned, args.noise_last)
+        what = (f" (family {args.family}, rows_scanned {args.rows_scanned}"
+                f"{', last capture noise' if args.noise_last else ''})")
+    elif args.kernel == "psk8_pack":
+        call, plain = _psk8_pack_call(device)
+        what = " (every ksel x r8)"
     else:
         call = {"fsk_tile": _tile_call, "neural_extract": _neural_call, "fsk_flat": _flat_call}[args.kernel](device)
     # The timed instantiation's mangled template arguments: K1's sample type,
@@ -359,22 +466,27 @@ def main() -> int:
                 "project_diff": f"I{k12_type}Li10E"}.get(args.kernel, "")
     lines = [f"card: {card}", f"kernel: {args.kernel}{what}"]
     ref = None
+    ref_plain = plain() if plain is not None else None
+    ref_plain = ref_plain if ref_plain is None or isinstance(ref_plain, tuple) else (ref_plain,)
     for name, src, flags in variants:
         lib, log = built[name]
-        ptxas = _ptxas_lines(log, _KERNEL[args.kernel] + instance)
+        ptxas = _ptxas_lines(log, _KERNEL[args.kernel][0] + instance)
         with _bound_to(lib, entry):
             got = call()
             torch.cuda.synchronize()
             ms = _median_ms(call, args.reps)
             kms = _kernel_ms(call, _KERNEL[args.kernel], args.reps)
+            host = _host_us(call)
             clk = _clocks(call)
         got = got if isinstance(got, tuple) else (got,)  # K1's (hi, lo) at n_psk 2 and 4
         ref = got if ref is None else ref
         n_diff = sum(int((g != f).sum()) for g, f in zip(got, ref))
-        n_out = sum(g.numel() for g in got)
+        diff = f"{n_diff} of {sum(g.numel() for g in got)} outputs differ from {variants[0][0]}"
+        if ref_plain is not None:
+            diff += f", {sum(int((g != f).sum()) for g, f in zip(got, ref_plain))} from the plain version's"
         lines += [f"  {ln}" for ln in ptxas]
-        lines.append(f"{name} ({src} {' '.join(flags)}): wrapper {ms:.4f} ms, kernel alone {kms:.4f} ms; {n_diff} of "
-                     f"{n_out} outputs differ from {variants[0][0]}; {clk} | {card}")
+        lines.append(f"{name} ({src} {' '.join(flags)}): wrapper {ms:.4f} ms, kernel alone {kms:.4f} ms, host "
+                     f"{host:.1f} us a call; {diff}; {clk} | {card}")
         print("\n".join(lines[-1 - len(ptxas):]), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -37,7 +37,7 @@ _I = ctypes.c_int
 # C entry points: (argtypes) -> int cudaError_t.
 _SIGNATURES = {
     "amr_decide": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "amr_rotation_match": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P),
+    "amr_rotation_first": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P),
     "amr_relabel_pack": (_P, _P, _P, _P, _P, _I, _I, _P),
     "amr_bit_select_pack": (_P, _P, _P, _P, _P, _I, _I, _P),
     "amr_sector_first": (_P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P),

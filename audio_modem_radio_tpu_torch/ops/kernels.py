@@ -47,7 +47,7 @@ from . import _build
 _BLOCK_SYM = 128  # symbols per lane row (matches ops.psk)
 _BIG = 1 << 30  # "no match" sentinel of the magic matchers
 _DECIDE_DTYPES = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
-_MATCH_SPAN = 32  # K2's widest window: bit offsets 0..31 (csrc/rotmatch.cu)
+_MATCH_SPAN = 32  # K2's widest window: offsets 0..31 (csrc/rotmatch.cu)
 _BYTE_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
@@ -399,6 +399,25 @@ def psk_project_diff(
 
 # --- K2: rotation x parity (QPSK) or stream x inversion (BPSK) magic match -------
 
+# The matchers' (K2's and K5's) launch state per (device, stream): a scratch
+# row of 8 minima for each block and one ticket per capture, zero between
+# calls (the kernel's last block of a capture resets its ticket). Sized for
+# the most captures a call takes, so a call allocates nothing; calls on one
+# stream run one after another, so K2 and K5 share it.
+_MATCH_STATE: dict = {}
+_MAX_CAPTURES = 65535
+
+
+def _match_state(dev: torch.device, stream: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, stream)
+    state = _MATCH_STATE.get(key)
+    if state is None:
+        scratch = torch.empty((_MAX_CAPTURES, 8), dtype=torch.int32, device=dev)
+        ticket = torch.zeros(_MAX_CAPTURES, dtype=torch.int32, device=dev)
+        state = _MATCH_STATE[key] = (scratch, ticket)
+    return state
+
+
 @functools.lru_cache(maxsize=16)
 def rotation_match_conditions(pattern: str):
     """All 8 (rotation x bit-parity) magic hypotheses as uniform conditions.
@@ -464,23 +483,33 @@ def bpsk_match_conditions(pattern: str):
 _MATCH_FAMILIES = {"qpsk": rotation_match_conditions, "bpsk": bpsk_match_conditions}
 
 
-@functools.lru_cache(maxsize=8)
-def _condition_masks(conds, n_exact: int, device: torch.device) -> torch.Tensor:
-    """(n_hyp, 8) device table of uint32 bit patterns (stored as int32): per
-    hypothesis [hi mask, hi value, lo mask, lo value] of the exact part, then
-    of the tolerant part, with bit j standing for window offset j. A
-    hypothesis is then ``popc((window ^ value) & mask)`` per stream and part."""
+@functools.lru_cache(maxsize=16)
+def _rotation_mask_table(family: str, pattern: str, pattern2: str) -> np.ndarray:
+    """(n_hyp, 6) int32 host table of K2's condition sets (uint32 bit
+    patterns): per hypothesis [exact mask, exact value] over W0, then
+    [tolerant mask, tolerant value] over W0 and over W1. The kernel
+    interleaves hi and lo into one stream, hi[pos + off] at bit 2*off and
+    lo[pos + off] at bit 2*off + 1, and W0, W1 are its 32-bit words over
+    offsets 0..15 and 16..31. The exact part (the first ``len(pattern)``
+    conditions) must lie in W0. Built once per key; K2 takes it as a
+    kernel parameter."""
+    conds, _ = _MATCH_FAMILIES[family](pattern + pattern2)
     rows = []
     for c in conds:
-        m = [0] * 8
+        m = [0] * 6
+        _require(len({(is_hi, off) for is_hi, off, _b in c}) == len(c), "a condition set repeats a (stream, offset)")
         for idx, (is_hi, off, bit) in enumerate(c):
-            base = (0 if idx < n_exact else 4) + (0 if is_hi else 2)
-            _require(0 <= off < _MATCH_SPAN, f"condition offset {off} outside the {_MATCH_SPAN}-bit window")
-            _require(not m[base] >> off & 1, "a condition set repeats a (stream, offset)")
-            m[base] |= 1 << off
-            m[base + 1] |= bit << off
+            _require(0 <= off < _MATCH_SPAN, f"condition offset {off} outside the {_MATCH_SPAN}-entry window")
+            j = 2 * off + (0 if is_hi else 1)
+            exact = idx < len(pattern)
+            _require(not exact or j < 32, f"exact condition at offset {off} outside the first word")
+            base = 0 if exact else (2 if j < 32 else 4)
+            m[base] |= 1 << j % 32
+            m[base + 1] |= bit << j % 32
         rows.append(m)
-    return torch.from_numpy(np.array(rows, dtype=np.uint32).view(np.int32)).to(device)
+    table = np.array(rows, dtype=np.uint32).view(np.int32)
+    table.flags.writeable = False
+    return table
 
 
 def rotation_match_batch_plain(
@@ -516,7 +545,9 @@ def rotation_match_batch(
 
     ``rows_scanned`` (default R) limits the scan to each capture's first
     rows without a copy; the end-of-scan limit follows it exactly as the JAX
-    call with ``rows_per_capture=rows_scanned`` does.
+    call with ``rows_per_capture=rows_scanned`` does. On the card a call is
+    one launch that writes both outputs (no host read); ``hi`` and ``lo``
+    must start on a 16-byte boundary.
     """
     if family not in _MATCH_FAMILIES:
         raise NotImplementedError(f"family={family!r}: the matcher has {sorted(_MATCH_FAMILIES)}")
@@ -524,22 +555,24 @@ def rotation_match_batch(
     p = r if rows_scanned is None else int(rows_scanned)
     _require(0 < p <= r and p % block_rows == 0, f"rows_scanned={p} for R={r}")
     conds, n_pat = _MATCH_FAMILIES[family](pattern + pattern2)
-    n_exact = len(pattern)
     dev = _same_device(hi, lo)
     if dev.type == "cpu":
-        first = rotation_match_batch_plain(hi, lo, conds, n_exact, tol, p)
-    else:
-        masks = _condition_masks(conds, n_exact, dev)
-        span = max(off for c in conds for (_s, off, _b) in c) + 1
-        first = torch.empty((b, len(conds)), dtype=torch.int32, device=dev)
-        _launch("amr_rotation_match", dev, _ptr(hi), _ptr(lo), _ptr(masks), len(conds), span,
-                tol, n_pat, _ptr(first), b, r, p)
-        rotation_match_batch.launches += 1
-    # Windows starting in the last n_pat+1 entries of the scan can reach
-    # past it; the matcher accepts only L = m - (n_pat+1) positions.
-    limit = p * _BLOCK_SYM - (n_pat + 1)
-    found = (first < _BIG) & (first < limit)
-    return torch.where(found, first, 0), found
+        first = rotation_match_batch_plain(hi, lo, conds, len(pattern), tol, p)
+        # Windows starting in the last n_pat+1 entries of the scan can reach
+        # past it; the matcher accepts only L = m - (n_pat+1) positions.
+        found = (first < _BIG) & (first < p * _BLOCK_SYM - (n_pat + 1))
+        return torch.where(found, first, 0), found
+    _require_aligned("rotation_match_batch", hi)
+    _require_aligned("rotation_match_batch", lo)
+    table_ptr = _rotation_mask_table(family, pattern, pattern2).ctypes.data
+    stream = _raw_stream(dev)
+    scratch, ticket = _match_state(dev, stream)
+    first = torch.empty((b, len(conds)), dtype=torch.int32, device=dev)
+    found = torch.empty((b, len(conds)), dtype=torch.bool, device=dev)
+    _launch("amr_rotation_first", dev, _ptr(hi), _ptr(lo), table_ptr, len(conds), tol, n_pat, _ptr(first),
+            _ptr(found), _ptr(scratch), scratch.shape[0], _ptr(ticket), b, r, p, stream=stream)
+    rotation_match_batch.launches += 1
+    return first, found
 
 
 # --- K3: inverse-Gray relabel + mod-8 alignment + byte pack ---------------------
@@ -695,22 +728,6 @@ def _sector_mask_table(pattern: str, pattern2: str) -> np.ndarray:
     return table
 
 
-# K5's launch state per (device, stream): a scratch row of 8 minima for each
-# block and one ticket per capture, zero between calls (the kernel's last
-# block of a capture resets its ticket). Sized for the most captures a call
-# takes, so a call allocates nothing.
-_SECTOR_STATE: dict = {}
-_MAX_CAPTURES = 65535
-
-
-def _sector_state(dev: torch.device, stream: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    key = (dev.index, stream)
-    state = _SECTOR_STATE.get(key)
-    if state is None:
-        scratch = torch.empty((_MAX_CAPTURES, 8), dtype=torch.int32, device=dev)
-        ticket = torch.zeros(_MAX_CAPTURES, dtype=torch.int32, device=dev)
-        state = _SECTOR_STATE[key] = (scratch, ticket)
-    return state
 
 
 def sector_match_batch_plain(sec3: torch.Tensor, conds, tol: int, rows_scanned: int) -> torch.Tensor:
@@ -752,7 +769,7 @@ def sector_match_batch(
     _require_aligned("sector_match_batch", sec3)
     table_ptr = _sector_mask_table(pattern, pattern2).ctypes.data
     stream = _raw_stream(dev)
-    scratch, ticket = _sector_state(dev, stream)
+    scratch, ticket = _match_state(dev, stream)
     first = torch.empty((b, len(conds)), dtype=torch.int32, device=dev)
     found = torch.empty((b, len(conds)), dtype=torch.bool, device=dev)
     _launch("amr_sector_first", dev, _ptr(sec3), table_ptr, len(conds), tol, n_sym, _ptr(first),
@@ -785,12 +802,14 @@ def psk8_relabel_pack_rows(
     """Whole-batch D8PSK relabel + byte pack: (B, R, 128) uint8 received
     sectors -> (B, R*48) uint8. ``ksel`` is the winning rotation and ``r8``
     the sync shift in symbols, already reduced mod 8: the frame starts at
-    byte ``3 * (s // 8)``, which the parser's magic scan absorbs."""
+    byte ``3 * (s // 8)``, which the parser's magic scan absorbs. On the
+    card ``sec3`` must start on a 16-byte boundary."""
     b, r = _check_lanes("psk8_relabel_pack_rows", (sec3,), rows_per_capture, block_rows)
     _check_per_capture("psk8_relabel_pack_rows", b, ksel, r8)
     dev = _same_device(sec3, ksel, r8)
     if dev.type == "cpu":
         return psk8_relabel_pack_rows_plain(sec3, ksel, r8)
+    _require_aligned("psk8_relabel_pack_rows", sec3)
     out = torch.empty((b, r * 48), dtype=torch.uint8, device=dev)
     _launch("amr_psk8_pack", dev, _ptr(sec3), _ptr(ksel), _ptr(r8), _ptr(out), b, r)
     psk8_relabel_pack_rows.launches += 1

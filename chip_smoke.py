@@ -42,9 +42,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    all-zero capture;
 4. the matchers and packs vs plain at the main path's row count: K2 (qpsk
    and bpsk families), K5 on streams built under every hypothesis plus a
-   noise capture, (first, found) equal on the 256-row prefix and on the
-   full scan; K3, K4 and K6 packed bytes equal on every byte, for every
-   shift;
+   noise capture, (first, found) equal at each tier of the sync tail (256
+   rows, an eighth, all); K3, K4 and K6 packed bytes equal on every byte,
+   for every shift (K6: every ksel x r8 pair);
 5. the slices at real size, 5 QPSK, 5b BPSK, 5c 8PSK, 5d FSK1200, 5e
    FSK9600, 5f FSK19200: 64 captures x 2^24 samples each (one seeded 16 KiB
    payload per capture, 0-2 bytes shorter for 8PSK so that the tiled frames
@@ -79,17 +79,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    at NEURAL@1200 (the FFT path): the file reassembles, no kernel launches;
 6. timing with CUDA events (one warm-up, median of 5): ``demod_pack_batch``
    of each mode on its 64 x 2^24 int16 batch staged on the card (PSK with
-   cfo_retry on and off; 8PSK also with its last capture noise, which
-   takes K5 to a later tier until the noise false-matches, and under CONFIG
-   ``tpu.demod_backend = "xla"``, K12's path; FSK1200 also on flat float32
-   captures, the path of K13; NEURAL on float32, on the prefix branch and,
-   with one noise capture, the full search), and each kernel and variant
+   cfo_retry on and off, and again with its last capture noise, which
+   takes K2 or K5 to a later tier until the noise false-matches; 8PSK
+   also under CONFIG ``tpu.demod_backend = "xla"``, K12's path; FSK1200
+   also on flat float32 captures, the path of K13; NEURAL on float32, on
+   the prefix branch and, with one noise capture, the full search), and
+   each kernel and variant
    beside its plain version and its bound (K1@4 also on int8 rows; the
    matchers K2 and K5 at each tier, 256 rows, 1792 and all 13,312; the
    plain K8, K9 and K10 at 8 captures, where their float32 intermediates
-   fit; K11 on one float32 capture, K12 on 64 x 2^24 int16 rows); one
-   ``sector_match_batch`` call under ``torch.profiler`` must show exactly
-   one device kernel and no copy; and each mode's single-capture
+   fit; K11 on one float32 capture, K12 on 64 x 2^24 int16 rows); 5 calls
+   of ``sector_match_batch`` and of ``rotation_match_batch`` (each family)
+   at 256 rows under ``torch.profiler`` must show exactly 5 device kernels
+   and no copy or fill; and each mode's single-capture
    ``decode_wav_file`` (the PSK modes and NEURAL@9600) by the host clock
    (median of 3) with its device kernel time under ``torch.profiler``.
 
@@ -484,6 +486,8 @@ def phase_match_pack(device, r: int, card: str) -> dict:
     pattern = MAGIC_BIT_PATTERN + MAGIC_BIT_PATTERN2
     rng = np.random.default_rng(7)
     errs = {}
+    # The sync tail's tiers (parallel/batch.py _scan_tiered): 256 rows, an eighth, all.
+    tiers = tuple(p for p in sorted({256, -(-r // 8 // 256) * 256}) if 2 * p <= r) + (r,)
 
     def lanes(caps):
         caps = caps + [tuple(rng.integers(0, 2, (r, 128), dtype=np.uint8) for _ in caps[0])]
@@ -498,7 +502,7 @@ def phase_match_pack(device, r: int, card: str) -> dict:
             hi, lo, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p),
             tk.rotation_match_batch_plain(hi, lo, conds, 16, 3, p), p * 128 - 17,
             [(h, h, starts[h]) for h in range(8)], card, p, r, hi.shape[0])
-        for p in (256, r)))
+        for p in tiers))
     # K3 on the same lanes: every s8 in 0..7 x every k.
     b = hi.shape[0]
     k3 = 0
@@ -522,7 +526,7 @@ def phase_match_pack(device, r: int, card: str) -> dict:
             re, im, MAGIC_BIT_PATTERN, r, family="bpsk", pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p),
             tk.rotation_match_batch_plain(re, im, conds, 16, 3, p), p * 128 - 33,
             [(h, h, starts[h]) for h in range(4)], card, p, r, re.shape[0])
-        for p in (256, r)))
+        for p in tiers))
     b = re.shape[0]
     k4 = 0
     for j in range(8):
@@ -548,12 +552,12 @@ def phase_match_pack(device, r: int, card: str) -> dict:
             sec, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p),
             tk.sector_match_batch_plain(sec, conds, 3, p), p * 128 - (n_sym + 1),
             [(k, k, starts[k]) for k in range(8)], card, p, r, sec.shape[0])
-        for p in (256, r)))
+        for p in tiers))
     b = sec.shape[0]
     k6 = 0
-    for j in range(8):
-        ksel = ((torch.arange(b, device=device) + j) % 8).to(torch.int32)
-        r8 = ((3 * torch.arange(b, device=device) + j) % 8).to(torch.int32)
+    for j in range(8):  # capture i at ksel i % 8 and every r8 in turn: every pair
+        ksel = (torch.arange(b, device=device) % 8).to(torch.int32)
+        r8 = ((torch.arange(b, device=device) + j) % 8).to(torch.int32)
         got = tk.psk8_relabel_pack_rows(sec, ksel, r8, rows_per_capture=r)
         ref = tk.psk8_relabel_pack_rows_plain(sec, ksel, r8)
         k6 = max(k6, int((got.int() - ref.int()).abs().max()))
@@ -701,8 +705,9 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
                 f"{'on' if cfo else 'off'}: {ms:.3f} ms = {msps[mode][cfo]:.2f} Msamples/s | {card}")
         _, _, found = demod_pack_batch(x, mode, BAUD, cfo_retry=True)
         check(bool(found.all()), f"{mode} bench batch: a capture found no magic")
+        _time_noise_last(x, mode, n, tiers, card)
         if mode == "8PSK":
-            _time_psk8_paths(x, n, tiers, card)
+            _time_psk8_xla(x, n, card)
 
         _, _, best, theta = _batch_pass1(None, x, b, r * 128, SPSYM, carrier, SR, 8, r,
                                          n_psk=8 if n_psk == 8 else 4)
@@ -731,6 +736,9 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
                         hi, lo, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p)),
                     _time_ms(lambda: tk.rotation_match_batch_plain(hi, lo, conds, 16, 3, p)),
                 )
+            _check_one_launch(lambda: tk.rotation_match_batch(
+                hi, lo, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2, rows_scanned=256),
+                "rotmatch_kernel", card)
             s = (2 * first[:, 0]).to(torch.int32)
             t["relabel_pack_batch"] = (
                 _time_ms(lambda: tk.relabel_pack_batch(hi, lo, s, zeros, rows_per_capture=r)),
@@ -762,6 +770,9 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
                         rows_scanned=p)),
                     _time_ms(lambda: tk.rotation_match_batch_plain(re, im, conds, 16, 3, p)),
                 )
+            _check_one_launch(lambda: tk.rotation_match_batch(
+                re, im, MAGIC_BIT_PATTERN, r, family="bpsk", pattern2=MAGIC_BIT_PATTERN2, rows_scanned=256),
+                "rotmatch_kernel", card)
             s = first[:, 0].contiguous()
             t["bit_select_pack_batch"] = (
                 _time_ms(lambda: tk.bit_select_pack_batch(re, im, s, zeros, rows_per_capture=r)),
@@ -802,36 +813,49 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
     return t, msps, bounds
 
 
-def _time_psk8_paths(x, n: int, tiers, card: str) -> None:
-    """8PSK ``demod_pack_batch`` on the bench batch ``x`` with its last
-    capture seeded noise, and under CONFIG ``tpu.demod_backend = "xla"``
-    (the staged float path: K12 once, then the per-capture tails). The
-    noise capture has no magic, so the sync tail takes the next tier until
-    a false match in the noise satisfies it: with cfo_retry on a match of
-    any of the 8 hypotheses does, with it off only one of hypothesis 0.
-    Each run's K5 launches are printed."""
+_MATCHER = {"QPSK": ("rotation_match_batch", "K2"), "BPSK": ("rotation_match_batch", "K2"),
+            "8PSK": ("sector_match_batch", "K5")}
+
+
+def _time_noise_last(x, mode: str, n: int, tiers, card: str) -> None:
+    """PSK ``demod_pack_batch`` on the bench batch ``x`` with its last
+    capture seeded noise. The noise capture has no magic, so the sync tail
+    takes the next tier until a false match in the noise satisfies it
+    (QPSK: hypothesis 0 at either parity; BPSK: hypothesis 0; 8PSK: with
+    cfo_retry on any of the 8, with it off hypothesis 0). Each run's matcher
+    launches (K2 or K5) are printed."""
     import torch
 
-    from audio_modem_radio_tpu_torch.config import CONFIG
     from audio_modem_radio_tpu_torch.ops import kernels as tk
     from audio_modem_radio_tpu_torch.parallel.batch import demod_pack_batch
 
     b = x.shape[0]
+    matcher, label = _MATCHER[mode]
     xn = x.clone()
     g = torch.Generator(device=x.device).manual_seed(31)
     xn[-1] = (torch.randn(x.shape[1:], generator=g, device=x.device) * (0.3 * 32767)).round().clamp(
         -32768, 32767).to(x.dtype)
     for cfo in (True, False):
         tk.reset_launch_counts()
-        _, _, found = demod_pack_batch(xn, "8PSK", BAUD, cfo_retry=cfo)
-        k5 = tk.launch_counts()["sector_match_batch"]
-        check(bool(found[:-1].all()), "8PSK with a noise capture: a signal capture found no magic")
-        check(1 <= k5 <= len(tiers), f"8PSK with a noise capture: {k5} K5 launches for {len(tiers)} tiers")
-        ms = _time_ms(lambda: demod_pack_batch(xn, "8PSK", BAUD, cfo_retry=cfo))
-        say(f"[6 time] demod_pack_batch 8PSK {b} x {n} int16 rows, last capture noise, cfo_retry="
-            f"{'on' if cfo else 'off'}: {ms:.3f} ms = {b * n / (ms * 1e-3) / 1e6:.2f} Msamples/s; K5 launches "
-            f"{k5} (rows_scanned {', '.join(map(str, tiers[:k5]))}) | {card}")
-    del xn
+        _, _, found = demod_pack_batch(xn, mode, BAUD, cfo_retry=cfo)
+        k = tk.launch_counts()[matcher]
+        check(bool(found[:-1].all()), f"{mode} with a noise capture: a signal capture found no magic")
+        check(1 <= k <= len(tiers), f"{mode} with a noise capture: {k} {label} launches for {len(tiers)} tiers")
+        ms = _time_ms(lambda: demod_pack_batch(xn, mode, BAUD, cfo_retry=cfo))
+        say(f"[6 time] demod_pack_batch {mode} {b} x {n} int16 rows, last capture noise, cfo_retry="
+            f"{'on' if cfo else 'off'}: {ms:.3f} ms = {b * n / (ms * 1e-3) / 1e6:.2f} Msamples/s; {label} launches "
+            f"{k} (rows_scanned {', '.join(map(str, tiers[:k]))}) | {card}")
+
+
+def _time_psk8_xla(x, n: int, card: str) -> None:
+    """8PSK ``demod_pack_batch`` on the bench batch ``x`` under CONFIG
+    ``tpu.demod_backend = "xla"`` (the staged float path: K12 once, then
+    the per-capture tails)."""
+    from audio_modem_radio_tpu_torch.config import CONFIG
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.parallel.batch import demod_pack_batch
+
+    b = x.shape[0]
     CONFIG.set("tpu.demod_backend", "xla")
     try:
         tk.reset_launch_counts()

@@ -250,6 +250,64 @@ def test_rotation_match_bpsk_kernel_equals_plain(cuda, rows_scanned):
     assert bool(found_k[0, 0])
 
 
+def _rotation_planted(cuda, family: str, r: int, leads, seed: int):
+    """Random (hi, lo) lanes (len(leads) + 1, r, 128) on the card: capture i
+    holds hypothesis i % n_hyp's conditions at position leads[i]; the last
+    capture is noise."""
+    build = tk.rotation_match_conditions if family == "qpsk" else tk.bpsk_match_conditions
+    conds, _ = build(MAGIC_BIT_PATTERN + MAGIC_BIT_PATTERN2)
+    rng = np.random.default_rng(seed)
+    hi = rng.integers(0, 2, (len(leads) + 1, r * 128), dtype=np.uint8)
+    lo = rng.integers(0, 2, (len(leads) + 1, r * 128), dtype=np.uint8)
+    for i, lead in enumerate(leads):
+        for is_hi, off, bit in conds[i % len(conds)]:
+            (hi if is_hi else lo)[i, lead + off] = bit
+    return (torch.from_numpy(x.reshape(-1, r, 128)).to(cuda) for x in (hi, lo)), conds
+
+
+@pytest.mark.parametrize("family", ["qpsk", "bpsk"])
+def test_rotation_match_kernel_boundaries_and_alternating_tiers(cuda, family):
+    """K2 with hypotheses planted on their own captures at a thread run's
+    first and last position (16 a thread), a block's first and last (4096 a
+    block), the 256-row scan's last valid position and the one after it,
+    plus a noise capture; called again and again with the tier and the
+    number of captures changing between calls (each call's last block
+    resets its ticket; the one-wave grid splits anew): (first, found) equal
+    plain's after its epilogue every time, one launch a call."""
+    r = 768
+    n_pat = 16 if family == "qpsk" else 32
+    n_pos_256 = 256 * 128 - (n_pat + 1)
+    leads = [160, 175, 4096, 8191, n_pos_256 - 1, n_pos_256, 3 * 4096 - 1, 70001]
+    (hi, lo), conds = _rotation_planted(cuda, family, r, leads, 12)
+    for p, nb in ((256, 9), (768, 9), (256, 3), (512, 9), (768, 1), (256, 9), (512, 5), (256, 9)):
+        before = tk.rotation_match_batch.launches
+        first_k, found_k = tk.rotation_match_batch(hi[:nb], lo[:nb], MAGIC_BIT_PATTERN, r, family=family,
+                                                   pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p)
+        first_p = tk.rotation_match_batch_plain(hi[:nb], lo[:nb], conds, 16, 3, p)
+        n_pos = p * 128 - (n_pat + 1)
+        found_p = (first_p < (1 << 30)) & (first_p < n_pos)
+        torch.cuda.synchronize()
+        assert tk.rotation_match_batch.launches == before + 1
+        assert found_k.dtype == torch.bool and first_k.dtype == torch.int32
+        assert tuple(found_k.shape) == (nb, len(conds))
+        assert torch.equal(found_k, found_p), (p, nb)
+        assert torch.equal(first_k, torch.where(found_p, first_p, torch.zeros_like(first_p))), (p, nb)
+        for i, lead in enumerate(leads[:nb]):
+            h = i % len(conds)
+            assert bool(found_k[i, h]) == (lead < n_pos) and int(first_k[i, h]) == (lead if lead < n_pos else 0)
+
+
+def test_rotation_match_kernel_rejects_a_misaligned_view(cuda):
+    flat = torch.zeros(2 * 256 * 128 + 1, dtype=torch.uint8, device=cuda)
+    good = torch.zeros(2, 256, 128, dtype=torch.uint8, device=cuda)
+    bad = flat[1:].view(2, 256, 128)
+    before = tk.rotation_match_batch.launches
+    for hi, lo in ((bad, good), (good, bad)):
+        with pytest.raises(ValueError, match="16-byte"):
+            tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, 256, pattern2=MAGIC_BIT_PATTERN2)
+    assert tk.rotation_match_batch.launches == before
+
+
 @pytest.mark.parametrize("rows_scanned", [256, 768])
 def test_sector_match_kernel_equals_plain(cuda, rows_scanned):
     rng = np.random.default_rng(rows_scanned)
@@ -350,6 +408,32 @@ def test_bit_select_pack_kernel_equals_plain(cuda):
     ref = tk.bit_select_pack_batch_plain(re, im, s, ksel)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("r", [13, 300])
+def test_psk8_pack_kernel_every_shift_ragged_grid(cuda, r):
+    """K6 at every (ksel, r8), one capture each, on row counts whose runs
+    (4 a row) leave the last warp and the last block of a capture partial;
+    each capture's last run has no neighbour: bytes equal plain's."""
+    g = torch.Generator(device=cuda).manual_seed(r)
+    b = 64
+    sec = torch.randint(0, 8, (b, r, 128), generator=g, device=cuda, dtype=torch.uint8)
+    i = torch.arange(b, device=cuda)
+    ksel, r8 = (i % 8).to(torch.int32), (i // 8).to(torch.int32)
+    got = tk.psk8_relabel_pack_rows(sec, ksel, r8, rows_per_capture=r, block_rows=1)
+    ref = tk.psk8_relabel_pack_rows_plain(sec, ksel, r8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_psk8_pack_kernel_rejects_a_misaligned_view(cuda):
+    flat = torch.zeros(2 * 256 * 128 + 1, dtype=torch.uint8, device=cuda)
+    sec = flat[1:].view(2, 256, 128)
+    zero = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = tk.psk8_relabel_pack_rows.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        tk.psk8_relabel_pack_rows(sec, zero, zero, rows_per_capture=256)
+    assert tk.psk8_relabel_pack_rows.launches == before
 
 
 def test_psk8_pack_kernel_equals_plain(cuda):

@@ -118,27 +118,29 @@ def test_rotation_match_prefix_of_longer_capture(start):
 
 
 def _kernel_rotmatch_numpy(hi, lo, pattern, n_exact, tol, rows_scanned, family="qpsk"):
-    """The CUDA kernel's formulation: span-bit hi/lo windows per position
-    (17 bits for "qpsk", 32 for "bpsk"), two (mask, value) pairs per
-    hypothesis and part, popcounts, and only positions below the scan limit
-    evaluated."""
+    """The CUDA kernel's formulation: hi and lo interleaved into one bit
+    stream (hi[j] at bit 2j, lo[j] at 2j + 1), each position's window as
+    the two 32-bit words W0 (offsets 0..15) and W1 (16..31), zeros past the
+    scanned prefix, the exact part one (mask, value) pair over W0 and the
+    tolerant part popcounts over W0 and W1 (``_rotation_mask_table``), and
+    only positions below the scan limit evaluated."""
     build = tk.rotation_match_conditions if family == "qpsk" else tk.bpsk_match_conditions
     conds, n_pat = build(pattern)
-    masks = tk._condition_masks(conds, n_exact, torch.device("cpu")).numpy().view(np.uint32)
-    span = max(off for c in conds for (_s, off, _b) in c) + 1
+    masks = tk._rotation_mask_table(family, pattern[:n_exact], pattern[n_exact:]).view(np.uint32).astype(np.int64)
     b = hi.shape[0]
     n_pos = rows_scanned * 128 - (n_pat + 1)
-    w = 1 << np.arange(span, dtype=np.int64)
+    w = 1 << np.arange(32, dtype=np.int64)
     first = np.full((b, len(conds)), 1 << 30, np.int64)
     for i in range(b):
-        h = hi[i, :rows_scanned].reshape(-1).astype(np.int64)
-        l = lo[i, :rows_scanned].reshape(-1).astype(np.int64)
-        hw = np.lib.stride_tricks.sliding_window_view(h, span)[:n_pos] @ w
-        lw = np.lib.stride_tricks.sliding_window_view(l, span)[:n_pos] @ w
-        for k, m in enumerate(masks.astype(np.int64)):
-            exact = np.bitwise_count((hw ^ m[1]) & m[0]) + np.bitwise_count((lw ^ m[3]) & m[2])
-            loose = np.bitwise_count((hw ^ m[5]) & m[4]) + np.bitwise_count((lw ^ m[7]) & m[6])
-            hit = np.nonzero((exact == 0) & (loose <= tol))[0]
+        h = np.pad(hi[i, :rows_scanned].reshape(-1).astype(np.int64) & 1, (0, 32))
+        l = np.pad(lo[i, :rows_scanned].reshape(-1).astype(np.int64) & 1, (0, 32))
+        bits = np.stack([h, l], 1).reshape(-1)
+        win = np.lib.stride_tricks.sliding_window_view(bits, 64)[0 : 2 * n_pos : 2]
+        w0, w1 = win[:, :32] @ w, win[:, 32:] @ w
+        for k, m in enumerate(masks):
+            exact = (w0 & m[0]) == m[1]
+            loose = np.bitwise_count((w0 ^ m[3]) & m[2]) + np.bitwise_count((w1 ^ m[5]) & m[4])
+            hit = np.nonzero(exact & (loose <= tol))[0]
             if len(hit):
                 first[i, k] = hit[0]
     found = first < (1 << 30)
@@ -571,6 +573,122 @@ def test_rotation_match_bpsk_kernel_formulation(rows_scanned):
     assert np.array_equal(first_t.numpy(), first_n)
 
 
+# csrc/rotmatch.cu's constants: threads a block, positions a thread, the
+# 16-byte chunks of hi and lo a thread reads (the fast pass the first 2),
+# blocks a multiprocessor at its occupancy.
+_K2_THREADS, _K2_POS, _K2_FAST, _K2_WORDS, _K2_PER_SM = 256, 16, 2, 3, 8
+
+
+def _interleave16(h, lo):
+    """csrc/rotmatch.cu interleave16 on (..., 4) uint32 words of 16 hi and
+    16 lo bytes: one 2-bit field a byte, the multiply by 0x01041040 moving
+    field a to bits 24 + 2a, the four top bytes into one word."""
+    x = ((h & np.uint32(0x01010101)) | ((lo & np.uint32(0x01010101)) << np.uint32(1))).astype(np.uint64)
+    top = ((x * np.uint64(0x01041040)) & np.uint64(0xFFFFFFFF)) >> np.uint64(24)
+    return (top[..., 0] | top[..., 1] << np.uint64(8) | top[..., 2] << np.uint64(16)
+            | top[..., 3] << np.uint64(24))
+
+
+def _rotation_match_numpy(hi, lo, table, tol, n_pat, rows_scanned, sms, rng):
+    """csrc/rotmatch.cu in numpy, block by block in a shuffled order: the
+    one-wave grid split over the captures, each thread's 16-byte chunks of
+    hi and lo (zeros past the scanned prefix) interleaved by the multiply,
+    each position's W0 by a funnel shift of the fast pass's two words and W1
+    from the third, the fast pass over the exact parts, the warp vote, the
+    slow pass with the tolerant popcounts and the limit, the block's shared
+    minima, its scratch row and ticket, and the last block's reduction and
+    ticket reset (match_first.cuh). Asserts that the slow pass only ever
+    finds positions the fast pass flagged, and that every ticket is back at
+    0. Returns (first, found) as the kernel writes them."""
+    b, r, _ = hi.shape
+    n_hyp = table.shape[0]
+    big = 1 << 30
+    m = table.view(np.uint32).astype(np.uint64)
+    n_pos = rows_scanned * 128 - (n_pat + 1)
+    span = _K2_THREADS * _K2_POS
+    n_iters = -(-n_pos // span) if n_pos > 0 else 0
+    per_capture = max(1, min(_K2_PER_SM * sms // b, n_iters, 65535 // b))
+    scratch = np.full((b * per_capture, 8), -1, np.int64)
+    ticket = np.zeros(b, np.int64)
+    first = np.full((b, n_hyp), -1, np.int64)
+    found = np.zeros((b, n_hyp), bool)
+    hflat, lflat = (np.ascontiguousarray(x).reshape(b, -1) for x in (hi, lo))
+    th = np.arange(_K2_THREADS)
+    mask32 = np.uint64(0xFFFFFFFF)
+    for blk_id in rng.permutation(b * per_capture):
+        cap, blk = divmod(int(blk_id), per_capture)
+        s_first = np.full(8, big, np.int64)
+        for it in range(blk, n_iters, per_capture):
+            p0 = (it * _K2_THREADS + th) * _K2_POS
+            g = []
+            for c in range(_K2_WORDS):
+                at = p0[:, None] + 16 * c + np.arange(16)
+                inside = at < rows_scanned * 128
+                hb, lb = (np.ascontiguousarray(np.where(inside, f[cap, np.minimum(at, r * 128 - 1)], 0)
+                                               .astype(np.uint8)).view("<u4").astype(np.uint32)
+                          for f in (hflat, lflat))
+                g.append(_interleave16(hb, lb))
+            q0 = g[0] | (g[1] << np.uint64(32))
+            q1 = g[1] | (g[2] << np.uint64(32))
+            i2 = np.uint64(2) * np.arange(_K2_POS, dtype=np.uint64)
+            w0 = (q0[:, None] >> i2) & mask32  # the fast pass's funnel shifts of words 0 and 1
+            w1 = (q1[:, None] >> i2) & mask32
+            exact = (w0[:, :, None] & m[:, 0]) == m[:, 1]  # (threads, P, n_hyp)
+            vote = exact.reshape(_K2_THREADS // 32, -1).any(axis=1)  # one a warp
+            loose = (np.bitwise_count((w0[:, :, None] ^ m[:, 3]) & m[:, 2])
+                     + np.bitwise_count((w1[:, :, None] ^ m[:, 5]) & m[:, 4])) <= tol
+            pos = p0[:, None] + np.arange(_K2_POS)
+            hit = exact & loose & (pos < n_pos)[:, :, None] & np.repeat(vote, 32)[:, None, None]
+            assert not (exact & loose & (pos < n_pos)[:, :, None] & ~hit).any()  # no hit outside a vote
+            for h in range(n_hyp):
+                if hit[:, :, h].any():
+                    s_first[h] = min(s_first[h], int(pos[hit[:, :, h]].min()))
+        scratch[cap * per_capture + blk] = s_first
+        ticket[cap] += 1
+        if ticket[cap] == per_capture:
+            mins = scratch[cap * per_capture : (cap + 1) * per_capture].min(axis=0)[:n_hyp]
+            assert (first[cap] == -1).all()  # one last block a capture
+            found[cap] = mins < big
+            first[cap] = np.where(found[cap], mins, 0)
+            ticket[cap] = 0
+    assert (ticket == 0).all() and (first >= 0).all()
+    return first, found
+
+
+@pytest.mark.parametrize("rows_scanned", [256, 512, 768])
+@pytest.mark.parametrize("sms", [_SMS, 1])
+@pytest.mark.parametrize("family", ["qpsk", "bpsk"])
+def test_rotation_match_kernel_walk_mirrored(family, sms, rows_scanned):
+    """K2's new position walk in numpy against the plain version at 256,
+    512 and all 768 rows, for both families, with a block per capture or
+    several: matches planted at a thread run's first and last position (16
+    a thread), at a block's first and last (4096 positions a block), at the
+    256-row scan's last valid position n_pos - 1 and at n_pos itself
+    (rejected there, found on the longer scans), and one capture of noise."""
+    rng = np.random.default_rng(rows_scanned + sms + (family == "bpsk"))
+    r = 768
+    n_hyp, n_pat = (8, 16) if family == "qpsk" else (4, 32)
+    n_pos_256 = 256 * 128 - (n_pat + 1)
+    leads = [160, 175, 4096, 8191, n_pos_256 - 1, n_pos_256, 3 * 4096 - 1, 70001]
+    if family == "qpsk":
+        caps = [_magic_streams(rng, r, i % 4, i // 4, lead) for i, lead in enumerate(leads)]
+    else:
+        caps = [_bpsk_streams(rng, r, i % 4, lead) for i, lead in enumerate(leads)]
+    caps.append(_noise_streams(rng, r))
+    hi, lo = np.stack([c[0] for c in caps]), np.stack([c[1] for c in caps])
+    table = tk._rotation_mask_table(family, MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2)
+    first_m, found_m = _rotation_match_numpy(hi, lo, table, 3, n_pat, rows_scanned, sms, rng)
+    first_t, found_t = tk.rotation_match_batch(torch.from_numpy(hi), torch.from_numpy(lo), MAGIC_BIT_PATTERN, r,
+                                               family=family, pattern2=MAGIC_BIT_PATTERN2,
+                                               rows_scanned=rows_scanned)
+    assert first_m.shape == (len(caps), n_hyp)
+    assert np.array_equal(found_m, found_t.numpy()) and np.array_equal(first_m, first_t.numpy())
+    n_pos = rows_scanned * 128 - (n_pat + 1)
+    for i, lead in enumerate(leads):
+        h = i % n_hyp
+        assert found_m[i, h] == (lead < n_pos) and first_m[i, h] == (lead if lead < n_pos else 0)
+
+
 @pytest.mark.parametrize("ksel", [0, 1, 2, 3])
 def test_bit_select_pack_plain_equals_pallas(ksel):
     """Every s & 7 (one capture each) under hypothesis ksel, on bytes
@@ -812,13 +930,16 @@ def test_sector_match_kernel_walk_mirrored(rows_scanned, sms):
 
 
 def test_match_conditions_built_once_per_key():
-    """The matchers' condition sets and K5's mask table are cached per key:
-    a second call returns the very same objects, equal to a fresh build."""
+    """The matchers' condition sets and K5's and K2's host mask tables are
+    cached per key: a second call returns the very same objects, equal to a
+    fresh build."""
     pattern, pattern2 = MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
     for build, args in ((tk.psk8_match_conditions, (pattern, pattern2)),
                         (tk.rotation_match_conditions, (pattern + pattern2,)),
                         (tk.bpsk_match_conditions, (pattern + pattern2,)),
-                        (tk._sector_mask_table, (pattern, pattern2))):
+                        (tk._sector_mask_table, (pattern, pattern2)),
+                        (tk._rotation_mask_table, ("qpsk", pattern, pattern2)),
+                        (tk._rotation_mask_table, ("bpsk", pattern, pattern2))):
         got = build(*args)
         assert build(*args) is got
         fresh = build.__wrapped__(*args)
@@ -827,6 +948,8 @@ def test_match_conditions_built_once_per_key():
         else:
             assert got == fresh
     assert tk.psk8_match_conditions(pattern, "") != tk.psk8_match_conditions(pattern, pattern2)
+    assert not np.array_equal(tk._rotation_mask_table("qpsk", pattern, pattern2),
+                              tk._rotation_mask_table("qpsk", pattern2, pattern))
 
 
 @pytest.mark.parametrize("pairs", [((0, 0), (3, 5)), ((6, 1), (7, 7)), ((1, 2), (2, 4))])
@@ -850,30 +973,63 @@ def test_psk8_relabel_pack_plain_equals_pallas(pairs):
         assert np.array_equal(got.numpy()[i, : n_valid[i] - 1], ref[i, : n_valid[i] - 1]), i
 
 
-def test_psk8_relabel_pack_kernel_formulation():
-    """K6's CUDA formulation: per output byte, the 4 symbols its bits can
-    touch, relabelled and Gray-coded into a 12-bit window, shifted by the
-    bit's place in its symbol; zero past the end."""
-    rng = np.random.default_rng(80)
-    b, r = 8, 256
-    m = r * 128
+def _psk8_pack_numpy(sec, ksel, r8):
+    """csrc/psk8_pack.cu in numpy: a run of 32 symbols a thread (its two
+    16-byte loads as 8 little-endian words), the SWAR relabel
+    ((x & 7) + 8 - k) & 7 per byte, the Gray code, the byte reversal and the
+    12-bit pack, the 96-bit big-endian stream of a run, the next run's first
+    word (from the next lane's stream, or for a warp's last lane from an
+    8-byte load; zero past the capture's end), the funnel shifts by 3*r8 and
+    the byte swap of each stored word."""
+    b, r, _ = sec.shape
+    runs = 4 * r
+    u = np.uint64
+    x = np.ascontiguousarray(sec).reshape(b, runs, 32).view("<u4").astype(np.uint64)  # (b, runs, 8)
+    add = ((8 - ksel.astype(np.uint64)) * u(0x01010101))[:, None, None]
+
+    def gray12(x):
+        x = ((x & u(0x07070707)) + add) & u(0x07070707)
+        x ^= (x >> u(1)) & u(0x03030303)
+        x = ((x & u(0xFF)) << u(24)) | ((x & u(0xFF00)) << u(8)) | ((x >> u(8)) & u(0xFF00)) | (x >> u(24))
+        x = (x | (x >> u(5))) & u(0x003F003F)
+        return (x | (x >> u(10))) & u(0xFFF)
+
+    v = gray12(x)
+    w = np.zeros((b, runs, 4), np.uint64)
+    for e in range(8):
+        o = 12 * e
+        if o % 32 <= 20:
+            w[:, :, o // 32] |= v[:, :, e] << u(20 - o % 32)
+        else:
+            w[:, :, o // 32] |= v[:, :, e] >> u(o % 32 - 20)
+            w[:, :, o // 32 + 1] |= (v[:, :, e] << u(52 - o % 32)) & u(0xFFFFFFFF)
+    head24 = (v[:, :, 0] << u(20)) | (v[:, :, 1] << u(8))  # the last lane's load, from the next run's 8 bytes
+    assert np.array_equal(head24 >> u(8), w[:, :, 0] >> u(8))
+    last_lane = (np.arange(runs) % 32 == 31)[None, :]
+    nxt = np.where(last_lane[:, :-1], head24[:, 1:], w[:, 1:, 0])
+    w[:, :, 3] = np.concatenate([nxt, np.zeros((b, 1), np.uint64)], axis=1)
+    s = (3 * r8.astype(np.uint64))[:, None]
+    out = np.zeros((b, runs, 3), np.uint64)
+    for j in range(3):
+        out[:, :, j] = (((w[:, :, j] << u(32)) | w[:, :, j + 1]) << s >> u(32)) & u(0xFFFFFFFF)
+    return out.astype(">u4").view(np.uint8).reshape(b, runs * 12)
+
+
+@pytest.mark.parametrize("r", [256, 13])
+def test_psk8_relabel_pack_kernel_formulation(r):
+    """K6's CUDA formulation (``_psk8_pack_numpy``) against the plain
+    version at every (ksel, r8), one capture each; at 13 rows a capture
+    holds 52 runs, so its last warp is partial and its last run's neighbour
+    lies past the capture's end."""
+    rng = np.random.default_rng(80 + r)
+    b = 64
     sec = rng.integers(0, 8, (b, r, 128), dtype=np.uint8)
     ksel = (np.arange(b) % 8).astype(np.int32)
-    r8 = ((3 * np.arange(b)) % 8).astype(np.int32)
+    r8 = (np.arange(b) // 8).astype(np.int32)
     got = tk.psk8_relabel_pack_rows(
-        torch.from_numpy(sec), torch.from_numpy(ksel), torch.from_numpy(r8), rows_per_capture=r,
+        torch.from_numpy(sec), torch.from_numpy(ksel), torch.from_numpy(r8), rows_per_capture=r, block_rows=1,
     ).numpy()
-    c = np.arange(r * 48)
-    for i in range(b):
-        x = np.pad(sec[i].reshape(-1).astype(np.int64), (0, 8))
-        p = 8 * c + 3 * int(r8[i])
-        t0, q0 = p // 3, p % 3
-        v = np.zeros_like(c)
-        for j in range(4):
-            t = t0 + j
-            y = (x[t] + 8 - ksel[i]) & 7
-            v = (v << 3) | np.where(t < m, y ^ (y >> 1), 0)
-        assert np.array_equal(got[i], ((v >> (4 - q0)) & 0xFF).astype(np.uint8))
+    assert np.array_equal(_psk8_pack_numpy(sec, ksel, r8), got)
 
 
 @pytest.mark.parametrize("argv", [
@@ -885,6 +1041,9 @@ def test_psk8_relabel_pack_kernel_formulation():
      "--variant", "d=csrc/project_diff.cu"],
     ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "sector_match", "--rows-scanned", "full",
      "--noise-last", "--variant", "d=csrc/sector_match.cu"],
+    ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "rotation_match", "--family", "bpsk",
+     "--rows-scanned", "1792", "--noise-last", "--variant", "d=csrc/rotmatch.cu"],
+    ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "psk8_pack", "--variant", "d=csrc/psk8_pack.cu"],
     ["-m", "audio_modem_radio_tpu_torch.profile_slice", "--mode", "FSK1200", "--flat"],
     ["-m", "audio_modem_radio_tpu_torch.profile_slice", "--mode", "8PSK", "--noise-last", "--xla"],
 ])
