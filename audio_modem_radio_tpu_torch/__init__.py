@@ -1,15 +1,16 @@
 """audio_modem_radio_tpu_torch — the PyTorch and CUDA port of audio_modem_radio_tpu.
 
 It sits beside the JAX package, which stays the reference, and imports
-``torch`` and numpy, never JAX. It carries batched DQPSK, DBPSK, D8PSK and
-FSK (FSK1200, FSK9600, FSK19200, MSK, FT8) receive end to end: host
-shaping into sample rows or FIR windows, the pass-1 timing (and, for PSK,
-rotation) estimate, the PSK decide stage with a magic matcher and a pack
-per PSK mode, and the FSK dual-tone, discriminator and quadrature
-detectors; and the single-capture PSK receive (``decoder.decode_wav_file``
--> ``modem.demodulate`` -> the recovery ladder) for BPSK, QPSK, 8PSK,
-APSK16, SSTV and PSK31. Twelve hand-written CUDA kernels for the NVIDIA
-H100 (``csrc/``) do the work on the card. Entry points run on the card
+``torch`` and numpy, never JAX. It carries batched DQPSK, DBPSK, D8PSK,
+FSK (FSK1200, FSK9600, FSK19200, MSK, FT8) and NEURAL receive end to end:
+host shaping into sample rows or FIR windows, the pass-1 timing (and, for
+PSK, rotation) estimate, the PSK decide stage with a magic matcher and a
+pack per PSK mode, the FSK dual-tone, discriminator and quadrature
+detectors, and NEURAL's sync and codebook scoring; and the single-capture
+receive (``decoder.decode_wav_file`` -> ``modem.demodulate`` -> the
+recovery ladder) for BPSK, QPSK, 8PSK, APSK16, SSTV, PSK31 and NEURAL.
+Thirteen hand-written CUDA kernels for the NVIDIA H100 (``csrc/``), one
+for each Pallas kernel of the JAX package, do the work on the card. Entry points run on the card
 unless the caller passes ``device="cpu"``; on tensors that lie on the CPU
 each kernel's wrapper runs its plain PyTorch version.
 """

@@ -6,7 +6,8 @@
 
 ``--kernel`` is ``decide`` (K1), ``fsk_tile`` (K7), ``neural_extract`` (K10),
 ``fsk_flat`` (K13), ``project_diff`` (K12, or K11 with ``--single``),
-``sector_match`` (K5), ``rotation_match`` (K2) or ``psk8_pack`` (K6). Each
+``sector_match`` (K5), ``rotation_match`` (K2), ``psk8_pack`` (K6),
+``relabel_pack`` (K3) or ``bit_select_pack`` (K4). Each
 ``--variant NAME=SOURCE[:FLAGS]`` compiles
 SOURCE alone (a path relative to the package, or absolute, such as another
 checkout's copy of the same file) with the build's nvcc flags plus FLAGS
@@ -26,7 +27,9 @@ rows); K5 on K1's 8PSK sectors of the bench batch, K2 on K1's QPSK
 (``--family qpsk``) or BPSK (``--family bpsk``) decision lanes of it
 (``--noise-last``: the batch's last capture noise) over the first
 ``--rows-scanned`` rows (256, 1792 or full); K6 on K1's 8PSK sectors with
-capture i at ksel i % 8 and r8 (i // 8) % 8, every pair once. A K5 or K2
+capture i at ksel i % 8 and r8 (i // 8) % 8, every pair once; K3 on K1's
+QPSK lanes and K4 on K1's BPSK lanes of the bench batch, capture i at ksel
+i % 4 and s8 (i // 4) % 8, every pair twice. A K5 or K2
 source with the earlier C interface (``amr_sector_match``,
 ``amr_rotation_match``: first positions only, 2^30 where none matched, a
 fill launch before the kernel, the masks a device table) is called as its
@@ -35,7 +38,7 @@ variant's time (median of ``--reps`` CUDA-event timings after one warm-up),
 the kernel's own device time per call under ``torch.profiler`` (the
 wrapper's table work left out; an earlier K2's fill launch counted in),
 the host time per call (50 calls back to back, before the synchronize),
-the number of outputs that differ from the first variant's (K2, K6: and
+the number of outputs that differ from the first variant's (K2, K3, K4, K6: and
 from the plain version's on the same inputs), the card's SM
 clock and power draw while the variant runs back to back for two seconds
 (``nvidia-smi``), ``nvcc``'s register and spill lines of the kernel's
@@ -63,13 +66,15 @@ from .profile_slice import _card, _median_ms
 SR, N, B, PAYLOAD = 96000, 1 << 24, 64, 16384
 _ENTRY = {"decide": "amr_decide", "fsk_tile": "amr_fsk_tile", "neural_extract": "amr_neural_extract",
           "fsk_flat": "amr_fsk_tile", "project_diff": "amr_project_diff_batch", "sector_match": "amr_sector_first",
-          "rotation_match": "amr_rotation_first", "psk8_pack": "amr_psk8_pack"}
+          "rotation_match": "amr_rotation_first", "psk8_pack": "amr_psk8_pack",
+          "relabel_pack": "amr_relabel_pack", "bit_select_pack": "amr_bit_select_pack"}
 # The names of each kernel's device functions (the profiler's "alone" time
 # sums them; the first also picks nvcc's register lines).
 _KERNEL = {"decide": ("decide_kernel",), "fsk_tile": ("fsk_tile_kernel",),
            "neural_extract": ("neural_extract_kernel",), "fsk_flat": ("fsk_flat_kernel",),
            "project_diff": ("project_diff_kernel",), "sector_match": ("sector_match_kernel",),
-           "rotation_match": ("rotmatch_kernel", "fill_big"), "psk8_pack": ("psk8_pack_kernel",)}
+           "rotation_match": ("rotmatch_kernel", "fill_big"), "psk8_pack": ("psk8_pack_kernel",),
+           "relabel_pack": ("relabel_pack_kernel",), "bit_select_pack": ("bit_select_pack_kernel",)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The earlier C entry points of K5, (sec, masks on the card, n_hyp, tol,
 # n_sym, first, n_captures, rows, rows_scanned, stream), and of K2, (hi,
@@ -82,18 +87,22 @@ _N_PSK = {mode: n for n, (mode, _c) in _PSK.items()}
 _MANGLED = {"int16": "s", "int8": "a", "float32": "f"}  # a C++ type's code in a mangled name
 
 
-def _kernel_ms(call, names, reps: int) -> float:
+def _kernel_ms(call, names, reps: int, tries: int = 3) -> float:
     """Device time per call of the kernels whose name holds one of ``names``,
     under ``torch.profiler`` over ``reps`` calls (the wrapper's other work
-    left out)."""
+    left out). A profile that caught none of the kernels' launches is taken
+    again, up to ``tries`` times in all; 0 if none caught them."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names))
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names))
+        if us > 0:
+            break
     return us / 1e3 / reps
 
 
@@ -351,6 +360,20 @@ def _psk8_pack_call(device):
             lambda: tk.psk8_relabel_pack_rows_plain(sec, ksel, r8))
 
 
+def _pack_call(device, kernel: str):
+    """(call, plain): K3 on K1's QPSK lanes or K4 on K1's BPSK lanes of the
+    bench batch, capture i at ksel i % 4 and s8 (i // 4) % 8, and its plain
+    version."""
+    wrapper, plain, mode = {"relabel_pack": (tk.relabel_pack_batch, tk.relabel_pack_batch_plain, "QPSK"),
+                            "bit_select_pack": (tk.bit_select_pack_batch, tk.bit_select_pack_batch_plain,
+                                                "BPSK")}[kernel]
+    a, b = _decisions(mode, device)
+    i = torch.arange(a.shape[0], device=device)
+    s, ksel = (i // 4 % 8).to(torch.int32), (i % 4).to(torch.int32)
+    return (lambda: wrapper(a, b, s, ksel, rows_per_capture=a.shape[1]),
+            lambda: plain(a, b, s, ksel))
+
+
 _EARLIER_MASKS: dict = {}
 
 
@@ -456,6 +479,9 @@ def main() -> int:
     elif args.kernel == "psk8_pack":
         call, plain = _psk8_pack_call(device)
         what = " (every ksel x r8)"
+    elif args.kernel in ("relabel_pack", "bit_select_pack"):
+        call, plain = _pack_call(device, args.kernel)
+        what = " (every ksel x s8)"
     else:
         call = {"fsk_tile": _tile_call, "neural_extract": _neural_call, "fsk_flat": _flat_call}[args.kernel](device)
     # The timed instantiation's mangled template arguments: K1's sample type,

@@ -16,6 +16,9 @@ capture incomplete) and, for 8PSK, its probe-gated alias fallback. It runs
 on the card unless the caller passes ``device="cpu"``. The FSK modes' single-capture receiver is not
 ported (they decode through ``parallel.batch``), nor are the modes the
 registry lacks; both raise NotImplementedError naming their ROADMAP.md item.
+The compatibility aliases of modes the registry lacks are honoured:
+DSSS under CONFIG ``modem.dsss_compat_alias`` (plain DBPSK, 3 kHz) and
+OFDM4/OFDM8 under ``modem.ofdm_compat_alias`` (plain DQPSK, 12 kHz).
 """
 
 from __future__ import annotations
@@ -43,6 +46,35 @@ from .ops.psk import (
 from .utils.torchenv import DeviceLike
 from .utils.wavio import SAMPLE_RATE, wav_from_array  # noqa: F401  (re-export)
 
+# The JAX package's ``modem.__all__`` less the names whose modules are not
+# ported yet (the FSK receivers, HELL).
+__all__ = [
+    "SAMPLE_RATE",
+    "wav_from_array",
+    "MODES",
+    "ModeSpec",
+    "modulate",
+    "demodulate",
+    "fsk_modulate",
+    "bpsk_modulate",
+    "bpsk_demodulate",
+    "qpsk_modulate",
+    "qpsk_demodulate",
+    "psk8_modulate",
+    "psk8_demodulate",
+    "fsk_high_speed_modulate",
+    "ofdm_modulate_simple",
+    "ofdm_demodulate_simple",
+    "apsk16_modulate",
+    "apsk16_demodulate",
+    "dsss_modulate",
+    "dsss_demodulate",
+    "msk_modulate",
+    "ft8_modulate",
+    "psk31_modulate",
+    "psk31_demodulate",
+]
+
 # The single-capture FSK receiver (fsk_demod_bits with MLSE).
 FSK_SINGLE_ITEM = "ROADMAP.md queue 1, item 1 (single-capture FSK receiver)"
 # Modes of the JAX registry the port does not carry -> their ROADMAP.md item.
@@ -65,6 +97,23 @@ class ModeSpec:
     demodulate: Callable[..., bytes]
     bytes_per_sec: Callable[[int], float]
     fixed_baud: Optional[float] = None
+
+
+def adaptive_gain_control(data: np.ndarray, peak: float = 0.95) -> np.ndarray:
+    """Normalize a waveform to ``peak``."""
+    arr = np.asarray(data, dtype=np.float32)
+    m = float(np.max(np.abs(arr))) if arr.size else 0.0
+    return arr / m * peak if m > 0 else arr
+
+
+class AdvancedModem:
+    """API-parity shell around the mode registry."""
+
+    def __init__(self, sample_rate: int = SAMPLE_RATE):
+        self.sample_rate = sample_rate
+
+    def _adaptive_gain_control(self, data: np.ndarray) -> np.ndarray:
+        return adaptive_gain_control(data)
 
 
 def psk8_modulate(d, b=1200, c=3000.0, s=96000):
@@ -196,6 +245,26 @@ def _psk8_mode_demodulate(x, b, c, sr=96000, device: DeviceLike = None):
     return raw
 
 
+def ofdm_modulate_simple(d, baud, carrier, num_subcarriers, samp_rate=96000):
+    """OFDM alias: DQPSK; the subcarrier count is accepted and ignored."""
+    del num_subcarriers
+    return qpsk_modulate(d, baud, carrier, samp_rate)
+
+
+def ofdm_demodulate_simple(x, baud, carrier, num_subcarriers, samp_rate=96000, device: DeviceLike = None):
+    del num_subcarriers
+    return qpsk_demodulate(x, baud, carrier, samp_rate, device=device)
+
+
+def dsss_modulate(d, b, c, s=96000):
+    """DSSS alias: DBPSK, no spreading."""
+    return bpsk_modulate(d, b, c, s)
+
+
+def dsss_demodulate(x, b, c, s=96000, device: DeviceLike = None):
+    return bpsk_demodulate(x, b, c, s, device=device)
+
+
 def apsk16_modulate(d, b, c, s=96000):
     return qpsk_modulate(d, b, c, s)
 
@@ -275,9 +344,34 @@ DIGITAL_MODES = ["FSK1200", "FSK9600", "BPSK", "QPSK", "8PSK", "FSK19200", "APSK
 ANALOG_MODES = ["SSTV"]
 
 
+# Modes the registry lacks that a CONFIG alias sends to a carried wire
+# format: mode -> (CONFIG key in section "modem", modulate, demodulate).
+_ALIASES = {
+    "DSSS": ("dsss_compat_alias", lambda d, r: dsss_modulate(d, r, 3000.0),
+             lambda x, r, device=None: dsss_demodulate(x, r, 3000.0, device=device)),
+    "OFDM4": ("ofdm_compat_alias", lambda d, r: ofdm_modulate_simple(d, r, 12000.0, 4),
+              lambda x, r, device=None: ofdm_demodulate_simple(x, r, 12000.0, 4, device=device)),
+    "OFDM8": ("ofdm_compat_alias", lambda d, r: ofdm_modulate_simple(d, r, 12000.0, 8),
+              lambda x, r, device=None: ofdm_demodulate_simple(x, r, 12000.0, 8, device=device)),
+}
+
+
+def _alias(mode: str):
+    """``(modulate, demodulate)`` of ``mode``'s compatibility alias where
+    its CONFIG flag is on, else None."""
+    entry = _ALIASES.get(mode)
+    if entry is None or not CONFIG.get(f"modem.{entry[0]}", False):
+        return None
+    return entry[1:]
+
+
 def modulate(mode: str, framed: bytes, symbol_rate: int) -> np.ndarray:
     """Dispatch modulation by mode name; unknown or unported modes raise
-    ValueError."""
+    ValueError (DSSS and OFDM4/8 modulate under their compatibility
+    aliases)."""
+    alias = _alias(mode)
+    if alias is not None:
+        return alias[0](framed, symbol_rate)
     spec = MODES.get(mode)
     if spec is None:
         raise ValueError(f"Unknown mode: {mode} (the PyTorch port carries {sorted(MODES)})")
@@ -289,9 +383,12 @@ def demodulate(mode: str, samples: np.ndarray, symbol_rate: int, device: DeviceL
     (default: the card). Unknown modes fall back to QPSK, like the
     reference decoder; modes of the JAX registry the port does not carry
     raise NotImplementedError naming their ROADMAP.md item (DSSS under CONFIG
-    ``modem.dsss_compat_alias`` is plain DBPSK at 3 kHz and decodes)."""
-    if mode == "DSSS" and CONFIG.get("modem.dsss_compat_alias", False):
-        return bpsk_demodulate(samples, symbol_rate, 3000.0, device=device)
+    ``modem.dsss_compat_alias`` is plain DBPSK at 3 kHz and OFDM4/8 under
+    ``modem.ofdm_compat_alias`` plain DQPSK at 12 kHz, without the coherent
+    escalation, and both decode)."""
+    alias = _alias(mode)
+    if alias is not None:
+        return alias[1](samples, symbol_rate, device=device)
     if mode in _UNPORTED_MODES:
         raise NotImplementedError(
             f"mode {mode!r} is not ported to PyTorch yet: ROADMAP.md queue 1, {_UNPORTED_MODES[mode]}"

@@ -605,7 +605,8 @@ def relabel_pack_batch(
     """Whole-batch rotation relabel + byte pack: (B, R, 128) uint8 lanes ->
     (B, R*32) uint8. The stream is aligned only mod 8 bits: the frame starts
     at byte ``s // 8``, which the frame parser's magic scan absorbs. The last
-    byte of each capture is garbage by contract."""
+    byte of each capture is garbage by contract. On the card ``hi3`` and
+    ``lo3`` must start on a 16-byte boundary."""
     if variant != "weights":
         raise NotImplementedError(f"variant={variant!r}: only 'weights' is ported")
     b, r = _check_lanes("relabel_pack_batch", (hi3, lo3), rows_per_capture, block_rows)
@@ -613,6 +614,8 @@ def relabel_pack_batch(
     dev = _same_device(hi3, lo3, s, ksel)
     if dev.type == "cpu":
         return relabel_pack_batch_plain(hi3, lo3, s, ksel)
+    _require_aligned("relabel_pack_batch", hi3)
+    _require_aligned("relabel_pack_batch", lo3)
     out = torch.empty((b, r * 32), dtype=torch.uint8, device=dev)
     _launch("amr_relabel_pack", dev, _ptr(hi3), _ptr(lo3), _ptr(s), _ptr(ksel), _ptr(out), b, r)
     relabel_pack_batch.launches += 1
@@ -647,7 +650,8 @@ def bit_select_pack_batch(
     uint8 sign-bit lanes -> (B, R*16) uint8. ``ksel`` is the hypothesis in
     :func:`bpsk_match_conditions` order (0 re, 1 im, 2 re inverted, 3 im
     inverted). The frame starts at byte ``s // 8``; bytes at or past
-    ``(R*128 - (s & 7)) // 8`` are garbage by contract."""
+    ``(R*128 - (s & 7)) // 8`` are garbage by contract. On the card ``re3``
+    and ``im3`` must start on a 16-byte boundary."""
     if variant != "weights":
         raise NotImplementedError(f"variant={variant!r}: only 'weights' is ported")
     b, r = _check_lanes("bit_select_pack_batch", (re3, im3), rows_per_capture, block_rows)
@@ -655,6 +659,8 @@ def bit_select_pack_batch(
     dev = _same_device(re3, im3, s, ksel)
     if dev.type == "cpu":
         return bit_select_pack_batch_plain(re3, im3, s, ksel)
+    _require_aligned("bit_select_pack_batch", re3)
+    _require_aligned("bit_select_pack_batch", im3)
     out = torch.empty((b, r * 16), dtype=torch.uint8, device=dev)
     _launch("amr_bit_select_pack", dev, _ptr(re3), _ptr(im3), _ptr(s), _ptr(ksel), _ptr(out), b, r)
     bit_select_pack_batch.launches += 1

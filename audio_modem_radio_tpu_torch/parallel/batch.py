@@ -347,7 +347,8 @@ def demod_pack_batch(
     (B, max_bytes), n_valid (B,), found (B,)), on the input's device.
 
     Demod + magic sync + byte pack for the whole batch. Ported kinds: 'psk4'
-    (QPSK, APSK16, SSTV, and 8PSK under ``modem.psk8_compat_alias``), 'psk2'
+    (QPSK, APSK16, SSTV, 8PSK under ``modem.psk8_compat_alias`` and OFDM4/8
+    under ``modem.ofdm_compat_alias``), 'psk2'
     (BPSK, PSK31, and DSSS under ``modem.dsss_compat_alias``), 'psk8'
     (8PSK), 'fsk' (FSK1200, FSK9600, FSK19200, MSK, FT8; flat input only
     for dual tones) and 'neural' (flat input; the bytes after the preamble,
@@ -363,6 +364,12 @@ def demod_pack_batch(
     port them.
     """
     kind, params = _receive_kind(mode, symbol_rate)
+    if kind == "ofdm" and CONFIG.get("modem.ofdm_compat_alias", False):
+        # The alias wire format is DQPSK at the same carrier. Only this
+        # function rewrites it, as the JAX package's does: host_shape_batch
+        # keeps the kind, so OFDM captures reach here flat (ROADMAP.md
+        # queue 1, item 4).
+        kind, params = "psk4", params[:2]
     if kind not in _PORTED_KINDS:
         raise NotImplementedError(
             f"mode {mode!r} (demodulator kind {kind!r}) is not ported to PyTorch yet: "

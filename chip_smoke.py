@@ -86,7 +86,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the prefix branch and, with one noise capture, the full search), and
    each kernel and variant
    beside its plain version and its bound (K1@4 also on int8 rows; the
-   matchers K2 and K5 at each tier, 256 rows, 1792 and all 13,312; the
+   matchers K2 and K5 at each tier, 256 rows, 1792 and all 13,312; K3 and
+   K4 also on K1's lanes of the bench batch at every (ksel, s8) pair,
+   bytes equal to the plain version's; the
    plain K8, K9 and K10 at 8 captures, where their float32 intermediates
    fit; K11 on one float32 capture, K12 on 64 x 2^24 int16 rows); 5 calls
    of ``sector_match_batch`` and of ``rotation_match_batch`` (each family)
@@ -744,6 +746,7 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
                 _time_ms(lambda: tk.relabel_pack_batch(hi, lo, s, zeros, rows_per_capture=r)),
                 _time_ms(lambda: tk.relabel_pack_batch_plain(hi, lo, s, zeros)),
             )
+            _check_pack_every_pair("K3", tk.relabel_pack_batch, tk.relabel_pack_batch_plain, hi, lo, s, card)
             del x
             x8 = _rows(_tiled(wave, n)[None], "int8", device, mode).expand(n_cap, -1, -1).contiguous()
             key8 = "psk_project_decide_batch@4 int8"
@@ -778,6 +781,7 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
                 _time_ms(lambda: tk.bit_select_pack_batch(re, im, s, zeros, rows_per_capture=r)),
                 _time_ms(lambda: tk.bit_select_pack_batch_plain(re, im, s, zeros)),
             )
+            _check_pack_every_pair("K4", tk.bit_select_pack_batch, tk.bit_select_pack_batch_plain, re, im, s, card)
             del x
         else:
             sec = out
@@ -811,6 +815,24 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
     for entry in ("rotation_match_batch:qpsk", "rotation_match_batch:bpsk", "sector_match_batch"):
         bounds[entry] = bounds[f"{entry}@256"]  # the kernels line reports the first tier
     return t, msps, bounds
+
+
+def _check_pack_every_pair(label: str, kernel, plain, a, b, s, card: str) -> None:
+    """K3 or K4 on K1's lanes ``a``, ``b`` of the bench batch with capture
+    i at ksel i % 4 and s8 (i // 4) % 8 (the sync's ``s`` otherwise), so
+    that the 64 captures take every (ksel, s8) pair twice: bytes equal to
+    the plain version's, and the kernel's time at those pairs."""
+    import torch
+
+    i = torch.arange(a.shape[0], device=a.device)
+    s_pairs = (s - (s & 7) + (i // 4) % 8).to(torch.int32)
+    ksel = (i % 4).to(torch.int32)
+    got = kernel(a, b, s_pairs, ksel, rows_per_capture=a.shape[1])
+    n_diff = int((got != plain(a, b, s_pairs, ksel)).sum())
+    check(n_diff == 0, f"{label} on the bench lanes at every (ksel, s8): {n_diff} bytes differ from plain")
+    ms = _time_ms(lambda: kernel(a, b, s_pairs, ksel, rows_per_capture=a.shape[1]))
+    say(f"[6 {label}] bench lanes {tuple(a.shape)}, every (ksel, s8) pair: 0 of {got.numel()} bytes differ "
+        f"from plain; kernel {ms:.4f} ms | {card}")
 
 
 _MATCHER = {"QPSK": ("rotation_match_batch", "K2"), "BPSK": ("rotation_match_batch", "K2"),

@@ -108,3 +108,50 @@ def test_observability_helpers_match_jax(tmp_path):
     x = np.random.default_rng(5).normal(0, 0.2, 500).astype(np.float32)
     assert tdec.debug_demodulation(x, "QPSK", 9600) == jdec.debug_demodulation(x, "QPSK", 9600)
     assert tdec.debug_demodulation(x[:0], "QPSK", 9600) == jdec.debug_demodulation(x[:0], "QPSK", 9600)
+
+
+def test_modem_all_is_the_carried_part_of_the_jax_list():
+    carried = [n for n in jmodem.__all__ if hasattr(tmodem, n)]
+    assert tmodem.__all__ == carried
+    assert {"ofdm_modulate_simple", "ofdm_demodulate_simple", "dsss_modulate", "dsss_demodulate"} <= set(carried)
+
+
+@pytest.mark.parametrize("data", [
+    np.random.default_rng(11).normal(0, 0.4, 777).astype(np.float32),
+    np.random.default_rng(12).uniform(-3, 3, 64).astype(np.float64),
+    np.zeros(9, np.float32),
+    np.zeros(0, np.float32),
+    [0.25, -0.5, 0.125],
+])
+def test_adaptive_gain_control_and_advanced_modem_match_jax(data):
+    for peak in (0.95, 0.5):
+        got, want = tmodem.adaptive_gain_control(data, peak), jmodem.adaptive_gain_control(data, peak)
+        assert got.dtype == want.dtype == np.float32 and np.array_equal(got, want)
+    ours, theirs = tmodem.AdvancedModem(), jmodem.AdvancedModem()
+    assert ours.sample_rate == theirs.sample_rate == tmodem.SAMPLE_RATE
+    assert tmodem.AdvancedModem(48000).sample_rate == jmodem.AdvancedModem(48000).sample_rate == 48000
+    assert np.array_equal(ours._adaptive_gain_control(data), theirs._adaptive_gain_control(data))
+
+
+@pytest.mark.parametrize("name,args", [
+    ("dsss", (9600, 3000.0)),
+    ("dsss", (4800, 1500.0)),
+    ("ofdm", (9600, 12000.0, 4)),
+    ("ofdm", (4800, 12000.0, 8)),
+])
+def test_alias_helpers_match_jax(name, args):
+    """``dsss_*`` and ``ofdm_*_simple``: the waveforms within 1e-6 (the
+    QPSK modulate test's tolerance), the streams byte-equal on the JAX
+    package's capture, with the frame recovered."""
+    p = np.random.default_rng(args[0]).integers(0, 256, 240, dtype=np.uint8).tobytes()
+    framed = pack_frame("h.bin", p, 0, 1, len(p), crc32(p))
+    mod, demod = (f"{name}_modulate", f"{name}_demodulate") if name == "dsss" else (
+        "ofdm_modulate_simple", "ofdm_demodulate_simple")
+    ref = np.asarray(getattr(jmodem, mod)(framed, *args), np.float32)
+    got = getattr(tmodem, mod)(framed, *args)
+    assert got.dtype == np.float32 and got.shape == ref.shape and np.max(np.abs(got - ref)) <= 1e-6
+    x = np.zeros(len(ref) + 4096, np.float32)
+    x[300 : 300 + len(ref)] = ref
+    stream = getattr(tmodem, demod)(x, *args, device="cpu")
+    assert stream == getattr(jmodem, demod)(x, *args)
+    assert [f.data for f in tpkg.parse_frames(stream)] == [p]

@@ -36,6 +36,10 @@ from audio_modem_radio_tpu_torch.ops.psk import (
 from audio_modem_radio_tpu_torch.parallel import batch as tb
 from audio_modem_radio_tpu_torch.utils.wavio import write_wav
 
+# Parallel test workers share the cores: one intra-op thread each keeps
+# torch from oversubscribing them.
+torch.set_num_threads(1)
+
 _QT_TO_DIBIT = np.array([[0, 0], [0, 1], [1, 1], [1, 0]], np.uint8)
 
 

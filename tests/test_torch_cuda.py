@@ -384,13 +384,18 @@ def test_sector_match_kernel_rejects_a_misaligned_view(cuda):
     assert tk.sector_match_batch.launches == before
 
 
+def _every_pair(cuda, b: int = 32):
+    """Per-capture (s, ksel) with every (ksel, s & 7) pair once."""
+    i = torch.arange(b, device=cuda)
+    return (8 * 37 * i + i % 8).to(torch.int32), (i // 8).to(torch.int32)
+
+
 def test_relabel_pack_kernel_equals_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(3)
-    b, r = 16, 512
+    b, r = 32, 512
     hi = torch.randint(0, 2, (b, r, 128), generator=g, device=cuda, dtype=torch.uint8)
     lo = torch.randint(0, 2, (b, r, 128), generator=g, device=cuda, dtype=torch.uint8)
-    s = (8 * torch.arange(b, device=cuda) * 37 + torch.arange(b, device=cuda) % 8).to(torch.int32)
-    ksel = (torch.arange(b, device=cuda) % 4).to(torch.int32)
+    s, ksel = _every_pair(cuda, b)
     got = tk.relabel_pack_batch(hi, lo, s, ksel, rows_per_capture=r)
     ref = tk.relabel_pack_batch_plain(hi, lo, s, ksel)
     torch.cuda.synchronize()
@@ -399,15 +404,45 @@ def test_relabel_pack_kernel_equals_plain(cuda):
 
 def test_bit_select_pack_kernel_equals_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(4)
-    b, r = 16, 512
+    b, r = 32, 512
     re = torch.randint(0, 2, (b, r, 128), generator=g, device=cuda, dtype=torch.uint8)
     im = torch.randint(0, 2, (b, r, 128), generator=g, device=cuda, dtype=torch.uint8)
-    s = (8 * torch.arange(b, device=cuda) * 41 + torch.arange(b, device=cuda) % 8).to(torch.int32)
-    ksel = (torch.arange(b, device=cuda) % 4).to(torch.int32)
+    s, ksel = _every_pair(cuda, b)
     got = tk.bit_select_pack_batch(re, im, s, ksel, rows_per_capture=r)
     ref = tk.bit_select_pack_batch_plain(re, im, s, ksel)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("r", [13, 300])
+def test_relabel_and_bit_select_pack_kernels_every_pair_ragged_grid(cuda, r):
+    """K3 and K4 at every (ksel, s8), one capture each, on row counts whose
+    runs leave the last warp (13 rows) or the last block (300) of a capture
+    partial; each capture's last run has no neighbour: bytes equal plain's."""
+    g = torch.Generator(device=cuda).manual_seed(40 + r)
+    b = 32
+    hi = torch.randint(0, 2, (b, r, 128), generator=g, device=cuda, dtype=torch.uint8)
+    lo = torch.randint(0, 2, (b, r, 128), generator=g, device=cuda, dtype=torch.uint8)
+    s, ksel = _every_pair(cuda, b)
+    got3 = tk.relabel_pack_batch(hi, lo, s, ksel, rows_per_capture=r, block_rows=1)
+    got4 = tk.bit_select_pack_batch(hi, lo, s, ksel, rows_per_capture=r, block_rows=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got3, tk.relabel_pack_batch_plain(hi, lo, s, ksel))
+    assert torch.equal(got4, tk.bit_select_pack_batch_plain(hi, lo, s, ksel))
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_relabel_and_bit_select_pack_kernels_reject_a_misaligned_view(cuda, which):
+    flat = torch.zeros(2 * 256 * 128 + 1, dtype=torch.uint8, device=cuda)
+    bad = flat[1:].view(2, 256, 128)
+    good = torch.zeros(2, 256, 128, dtype=torch.uint8, device=cuda)
+    lanes = (bad, good) if which == 0 else (good, bad)
+    zero = torch.zeros(2, dtype=torch.int32, device=cuda)
+    for fn in (tk.relabel_pack_batch, tk.bit_select_pack_batch):
+        before = fn.launches
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(*lanes, zero, zero, rows_per_capture=256)
+        assert fn.launches == before
 
 
 @pytest.mark.parametrize("r", [13, 300])

@@ -30,6 +30,10 @@ from audio_modem_radio_tpu_torch.ops.tables import tables_from_reference
 from audio_modem_radio_tpu_torch.parallel import batch as tb
 from audio_modem_radio_tpu_torch.utils.wavio import write_wav
 
+# Parallel test workers share the cores: one intra-op thread each keeps
+# torch from oversubscribing them.
+torch.set_num_threads(1)
+
 SR = 96000
 # Configuration -> (mode, symbol rate, baud, mark, space).
 CONFIGS = {

@@ -28,6 +28,10 @@ from audio_modem_radio_tpu.parallel.batch import _overlap_rows as j_overlap_rows
 from audio_modem_radio_tpu_torch.ops import fsk as tfsk
 from audio_modem_radio_tpu_torch.ops import kernels as tk
 
+# Parallel test workers share the cores: one intra-op thread each keeps
+# torch from oversubscribing them.
+torch.set_num_threads(1)
+
 SR = 96000
 MARK, SPACE = 1200.0, 2200.0
 

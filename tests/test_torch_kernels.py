@@ -29,6 +29,10 @@ from audio_modem_radio_tpu.ops.pallas_kernels import (
 from audio_modem_radio_tpu_torch.ops import kernels as tk
 from audio_modem_radio_tpu_torch.ops import psk as tpsk
 
+# Parallel test workers share the cores: one intra-op thread each keeps
+# torch from oversubscribing them.
+torch.set_num_threads(1)
+
 _QT_TO_DIBIT = np.array([[0, 0], [0, 1], [1, 1], [1, 0]], np.uint8)
 _PATTERN = MAGIC_BIT_PATTERN + MAGIC_BIT_PATTERN2
 
@@ -222,6 +226,105 @@ def test_relabel_pack_kernel_formulation():
         torch.from_numpy(ksel), rows_per_capture=r,
     ).numpy()
     assert np.array_equal(got, _kernel_relabel_pack_numpy(hi, lo, s, ksel))
+
+
+_U32 = np.uint64(0xFFFFFFFF)
+
+
+def _byte_perm(x, y, sel: int):
+    """CUDA's ``__byte_perm(x, y, sel)`` on uint64 arrays of 32-bit words:
+    result byte n is byte ``(sel >> 4n) & 7`` of the 8 bytes {y, x}."""
+    src = [(x >> np.uint64(8 * n)) & np.uint64(0xFF) for n in range(4)]
+    src += [(y >> np.uint64(8 * n)) & np.uint64(0xFF) for n in range(4)]
+    return sum(src[(sel >> 4 * n) & 7] << np.uint64(8 * n) for n in range(4))
+
+
+def _words(lane, n_runs: int, per_run: int):
+    """(r, 128) uint8 lane -> (n_runs, per_run) little-endian 32-bit words
+    as uint64: each run's 16-byte loads as words."""
+    return np.ascontiguousarray(lane).reshape(n_runs, per_run * 4).view("<u4").astype(np.uint64)
+
+
+def _shift_pack_runs(w, heads, s8: int):
+    """The shared epilogue of K3's and K4's CUDA kernels: w (n_runs, kw)
+    big-endian stream words of each run; the next run's first word, from
+    the next lane's w[:, 0] or, for a warp's last lane (run % 32 == 31),
+    ``heads`` (its own load); zero past the capture's end; the funnel shift
+    by s8 and the byte swap of each stored word."""
+    n_runs, kw = w.shape
+    last_lane = np.arange(n_runs - 1) % 32 == 31
+    nxt = np.concatenate([np.where(last_lane, heads[1:], w[1:, 0]), [np.uint64(0)]])
+    ext = np.concatenate([w, nxt[:, None]], axis=1)
+    out = ((((ext[:, :-1] << np.uint64(32)) | ext[:, 1:]) << np.uint64(s8)) >> np.uint64(32)) & _U32
+    return out.astype(">u4").view(np.uint8).reshape(-1)
+
+
+def _relabel_pack_runs_numpy(hi, lo, s, ksel, run: int = 32):
+    """csrc/relabel_pack.cu in numpy: per capture the plane swap (rh from lo
+    where ksel is odd) and the XOR mask of the relabel table; per run of
+    ``run`` dibits (the kernel's 32), each word of 4 dibits compacted by the multiply
+    0x40100401 to 8 MSB-first stream bits, three byte permutes a 16-dibit
+    stream word; the next run's head (a warp's last lane: its first 4 bytes
+    of each lane, top 8 bits), the funnel shift and the byte swap."""
+    b, r, _ = hi.shape
+    n_runs, kw = r * 128 // run, run // 16
+    out = np.empty((b, r * 32), np.uint8)
+
+    def dibits4(h, l):
+        m = np.uint64(0x01010101)
+        return ((((h & m) << np.uint64(1)) | (l & m)) * np.uint64(0x40100401)) & _U32
+
+    for i in range(b):
+        k = int(ksel[i]) & 3
+        rh, rl = (lo[i], hi[i]) if k & 1 else (hi[i], lo[i])
+        flip = np.uint64((0xAAAAAAAA if k in (1, 2) else 0) | (0x55555555 if k >= 2 else 0))
+        h = _words(rh, n_runs, 4 * kw).reshape(n_runs, kw, 4)
+        l = _words(rl, n_runs, 4 * kw).reshape(n_runs, kw, 4)
+        d = [dibits4(h[:, :, e], l[:, :, e]) for e in range(4)]
+        w = _byte_perm(_byte_perm(d[0], d[1], 0x3700), _byte_perm(d[2], d[3], 0x3700), 0x3276) ^ flip
+        heads = (d[0][:, 0] & np.uint64(0xFF000000)) ^ (flip & np.uint64(0xFF000000))
+        assert np.array_equal(heads >> np.uint64(24), w[:, 0] >> np.uint64(24))
+        out[i] = _shift_pack_runs(w, heads, int(s[i]) & 7)
+    return out
+
+
+def test_relabel_plane_swap_table():
+    """K3's relabel as bit-plane algebra: (rh, rl) = (H, L), (~L, H),
+    (~H, ~L), (L, ~H) for k = 0..3, on every dibit, as the plain version
+    relabels."""
+    h, l = np.array([0, 0, 1, 1], np.uint8), np.array([0, 1, 0, 1], np.uint8)
+    table = {0: (h, l), 1: (1 - l, h), 2: (1 - h, 1 - l), 3: (l, 1 - h)}
+    for k in range(4):
+        bits = tk.relabel_pack_batch_plain(
+            torch.from_numpy(np.tile(h, 32).reshape(1, 1, 128)), torch.from_numpy(np.tile(l, 32).reshape(1, 1, 128)),
+            torch.zeros(1, dtype=torch.int32), torch.full((1,), k, dtype=torch.int32))
+        want = np.stack(table[k], axis=1).reshape(-1)  # rh[t], rl[t] flat, 8 bits a byte
+        assert np.array_equal(np.unpackbits(bits.numpy()[0])[:8], want), k
+
+
+@pytest.mark.parametrize("r", [96, 13, 300])
+def test_relabel_pack_run_formulation(r):
+    """K3's CUDA formulation at every (ksel, s8), one capture each: equal
+    to the plain version everywhere and, where the Pallas kernel takes the
+    rows (multiples of its 32-row blocks), to the Pallas kernel on
+    [0, n_valid - 1). At 13 rows a capture's last warp is partial; at 96
+    and 300 its last block."""
+    rng = np.random.default_rng(90 + r)
+    b = 32
+    hi = rng.integers(0, 2, (b, r, 128), dtype=np.uint8)
+    lo = rng.integers(0, 2, (b, r, 128), dtype=np.uint8)
+    s = (8 * rng.integers(0, 40, b) + np.arange(b) % 8).astype(np.int32)
+    ksel = (np.arange(b) // 8).astype(np.int32)
+    got = _relabel_pack_runs_numpy(hi, lo, s, ksel)
+    plain = tk.relabel_pack_batch(torch.from_numpy(hi), torch.from_numpy(lo), torch.from_numpy(s),
+                                  torch.from_numpy(ksel), rows_per_capture=r, block_rows=1).numpy()
+    assert np.array_equal(got, plain)
+    if r % 32 == 0:
+        ref = np.asarray(j_relabel_pack(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(s), jnp.asarray(ksel),
+                                        rows_per_capture=r, block_rows=32, interpret=True, variant="weights"))
+        n_valid = (2 * r * 128 - (s & 7)) // 8
+        for i in range(b):
+            assert np.array_equal(got[i, : n_valid[i] - 1], ref[i, : n_valid[i] - 1]), i
 
 
 def test_decide_kernel_formulation():
@@ -734,6 +837,58 @@ def test_bit_select_pack_kernel_formulation():
         assert np.array_equal(got[i], (bits << (7 - np.arange(8))).sum(1).astype(np.uint8))
 
 
+def _bit_select_pack_runs_numpy(re, im, s, ksel, run: int = 64):
+    """csrc/bit_select_pack.cu in numpy: per capture the selected lane (im
+    where ksel is odd) and the complement mask (~0 where ksel >= 2); per run
+    of ``run`` bits (the kernel's 64), each word of 4 bytes compacted by the multiply
+    0x80402010 to 4 MSB-first stream bits, two words a byte, three byte
+    permutes a 32-bit stream word; the next run's head (a warp's last lane:
+    its first 8 bytes, top 8 bits), the funnel shift and the byte swap."""
+    b, r, _ = re.shape
+    n_runs, kw = r * 128 // run, run // 32
+    out = np.empty((b, r * 16), np.uint8)
+
+    def bits8(x0, x1):
+        def bits4(x):
+            return ((x & np.uint64(0x01010101)) * np.uint64(0x80402010)) & _U32
+        return (bits4(x0) & np.uint64(0xF0000000)) | ((bits4(x1) >> np.uint64(4)) & np.uint64(0x0F000000))
+
+    for i in range(b):
+        k = int(ksel[i])
+        flip = np.uint64(0xFFFFFFFF if k >= 2 else 0)
+        x = _words(im[i] if k & 1 else re[i], n_runs, 8 * kw).reshape(n_runs, kw, 8)
+        p = [bits8(x[:, :, 2 * e], x[:, :, 2 * e + 1]) for e in range(4)]
+        w = _byte_perm(_byte_perm(p[0], p[1], 0x3700), _byte_perm(p[2], p[3], 0x3700), 0x3276) ^ flip
+        heads = (p[0][:, 0] ^ flip) & np.uint64(0xFF000000)
+        assert np.array_equal(heads >> np.uint64(24), w[:, 0] >> np.uint64(24))
+        out[i] = _shift_pack_runs(w, heads, int(s[i]) & 7)
+    return out
+
+
+@pytest.mark.parametrize("r", [96, 13, 300])
+def test_bit_select_pack_run_formulation(r):
+    """K4's CUDA formulation at every (ksel, s8), one capture each: equal
+    to the plain version everywhere and, where the Pallas kernel takes the
+    rows, to the Pallas kernel on [0, n_valid). At 13 rows a capture's
+    last warp is partial; at 96 and 300 its last block."""
+    rng = np.random.default_rng(120 + r)
+    b = 32
+    re = rng.integers(0, 2, (b, r, 128), dtype=np.uint8)
+    im = rng.integers(0, 2, (b, r, 128), dtype=np.uint8)
+    s = (8 * rng.integers(0, 40, b) + np.arange(b) % 8).astype(np.int32)
+    ksel = (np.arange(b) // 8).astype(np.int32)
+    got = _bit_select_pack_runs_numpy(re, im, s, ksel)
+    plain = tk.bit_select_pack_batch(torch.from_numpy(re), torch.from_numpy(im), torch.from_numpy(s),
+                                     torch.from_numpy(ksel), rows_per_capture=r, block_rows=1).numpy()
+    assert np.array_equal(got, plain)
+    if r % 32 == 0:
+        ref = np.asarray(j_bit_select_pack(jnp.asarray(re), jnp.asarray(im), jnp.asarray(s), jnp.asarray(ksel),
+                                           rows_per_capture=r, block_rows=32, interpret=True, variant="weights"))
+        n_valid = (r * 128 - (s & 7)) // 8
+        for i in range(b):
+            assert np.array_equal(got[i, : n_valid[i]], ref[i, : n_valid[i]]), i
+
+
 # --- D8PSK: K5 and K6 --------------------------------------------------------------
 
 def _psk8_stream(rng, r: int, k: int, lead: int):
@@ -1044,6 +1199,10 @@ def test_psk8_relabel_pack_kernel_formulation(r):
     ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "rotation_match", "--family", "bpsk",
      "--rows-scanned", "1792", "--noise-last", "--variant", "d=csrc/rotmatch.cu"],
     ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "psk8_pack", "--variant", "d=csrc/psk8_pack.cu"],
+    ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "relabel_pack", "--variant",
+     "d=csrc/relabel_pack.cu"],
+    ["-m", "audio_modem_radio_tpu_torch.kernel_variants", "--kernel", "bit_select_pack", "--variant",
+     "d=csrc/bit_select_pack.cu"],
     ["-m", "audio_modem_radio_tpu_torch.profile_slice", "--mode", "FSK1200", "--flat"],
     ["-m", "audio_modem_radio_tpu_torch.profile_slice", "--mode", "8PSK", "--noise-last", "--xla"],
 ])

@@ -36,6 +36,10 @@ from audio_modem_radio_tpu_torch.ops.tables import tables_from_reference
 from audio_modem_radio_tpu_torch.parallel import batch as tb
 from audio_modem_radio_tpu_torch.utils.wavio import write_wav
 
+# Parallel test workers share the cores: one intra-op thread each keeps
+# torch from oversubscribing them.
+torch.set_num_threads(1)
+
 N = 1 << 17
 _TIE = 1e-5  # relative top-two score margin under which a symbol may flip
 

@@ -22,6 +22,10 @@ from audio_modem_radio_tpu.ops.pallas_kernels import psk_project_diff_batch as j
 from audio_modem_radio_tpu_torch.ops import kernels as tk
 from audio_modem_radio_tpu_torch.ops import psk as tpsk
 
+# Parallel test workers share the cores: one intra-op thread each keeps
+# torch from oversubscribing them.
+torch.set_num_threads(1)
+
 SR = 96000
 
 

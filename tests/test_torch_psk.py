@@ -24,6 +24,10 @@ from audio_modem_radio_tpu_torch.ops import kernels as tk
 from audio_modem_radio_tpu_torch.ops import psk as tpsk
 from audio_modem_radio_tpu_torch.ops.tables import tables_from_reference
 
+# Parallel test workers share the cores: one intra-op thread each keeps
+# torch from oversubscribing them.
+torch.set_num_threads(1)
+
 SR = 96000
 N_OFF = 8
 

@@ -35,6 +35,10 @@ from audio_modem_radio_tpu_torch.ops import psk as tpsk
 from audio_modem_radio_tpu_torch.parallel import batch as tb
 from audio_modem_radio_tpu_torch.utils.wavio import write_wav
 
+# Parallel test workers share the cores: one intra-op thread each keeps
+# torch from oversubscribing them.
+torch.set_num_threads(1)
+
 SR = 96000
 N = 1 << 16
 _CARRIER = {"QPSK": 3000.0, "BPSK": 3000.0, "8PSK": 12000.0, "APSK16": 12000.0, "SSTV": 3000.0}
