@@ -8,9 +8,11 @@ PSK, rotation) estimate, the PSK decide stage with a magic matcher and a
 pack per PSK mode, the FSK dual-tone, discriminator and quadrature
 detectors, and NEURAL's sync and codebook scoring; and the single-capture
 receive (``decoder.decode_wav_file`` -> ``modem.demodulate`` -> the
-recovery ladder) for BPSK, QPSK, 8PSK, APSK16, SSTV, PSK31 and NEURAL.
-Thirteen hand-written CUDA kernels for the NVIDIA H100 (``csrc/``), one
-for each Pallas kernel of the JAX package, do the work on the card. Entry points run on the card
+recovery ladder) for BPSK, QPSK, 8PSK, APSK16, SSTV, PSK31, NEURAL and the
+FSK modes, with FSK9600's MLSE. Thirteen hand-written CUDA kernels for the
+NVIDIA H100 (``csrc/``), one for each Pallas kernel of the JAX package,
+and a fourteenth for the MLSE's Viterbi (two ``lax.scan``s in the JAX
+package) do the work on the card. Entry points run on the card
 unless the caller passes ``device="cpu"``; on tensors that lie on the CPU
 each kernel's wrapper runs its plain PyTorch version.
 """

@@ -9,13 +9,14 @@ CONFIG ``modem.psk8_compat_alias`` the reference's DQPSK alias), APSK16
 (DQPSK, 12 kHz), SSTV (DQPSK, 3 kHz), PSK31 (DBPSK at 31.25 Bd, 3 kHz) and
 NEURAL (the learned codebook, 1 byte per symbol, 24 kHz).
 
-:func:`demodulate` is the single-capture receive of NEURAL and of every
-PSK mode, the latter with the JAX package's coherent escalation (the
-Viterbi&Viterbi-tracked receiver when differential detection leaves the
-capture incomplete) and, for 8PSK, its probe-gated alias fallback. It runs
-on the card unless the caller passes ``device="cpu"``. The FSK modes' single-capture receiver is not
-ported (they decode through ``parallel.batch``), nor are the modes the
-registry lacks; both raise NotImplementedError naming their ROADMAP.md item.
+:func:`demodulate` is the single-capture receive of every carried mode: the
+FSK modes through ``ops.fsk.fsk_demodulate`` (MLSE first on close tones,
+the equalizer-only stream as its fallback), NEURAL, and the PSK modes with
+the JAX package's coherent escalation (the Viterbi&Viterbi-tracked receiver
+when differential detection leaves the capture incomplete) and, for 8PSK,
+its probe-gated alias fallback. It runs on the card unless the caller
+passes ``device="cpu"``. The modes the registry lacks raise
+NotImplementedError naming their ROADMAP.md item.
 The compatibility aliases of modes the registry lacks are honoured:
 DSSS under CONFIG ``modem.dsss_compat_alias`` (plain DBPSK, 3 kHz) and
 OFDM4/OFDM8 under ``modem.ofdm_compat_alias`` (plain DQPSK, 12 kHz).
@@ -30,7 +31,7 @@ import numpy as np
 
 from .config import CONFIG
 from .framing import MAGIC, pack_frame, parse_frames_detailed
-from .ops.fsk import fsk_high_speed_modulate, fsk_modulate
+from .ops.fsk import fsk_demodulate, fsk_high_speed_demodulate, fsk_high_speed_modulate, fsk_modulate
 from .ops.neural import _chip_len as _neural_chip_len, neural_mode_demodulate, neural_mode_modulate
 from .ops.psk import (
     bpsk_demodulate,
@@ -47,7 +48,7 @@ from .utils.torchenv import DeviceLike
 from .utils.wavio import SAMPLE_RATE, wav_from_array  # noqa: F401  (re-export)
 
 # The JAX package's ``modem.__all__`` less the names whose modules are not
-# ported yet (the FSK receivers, HELL).
+# ported yet (HELL).
 __all__ = [
     "SAMPLE_RATE",
     "wav_from_array",
@@ -56,6 +57,7 @@ __all__ = [
     "modulate",
     "demodulate",
     "fsk_modulate",
+    "fsk_demodulate",
     "bpsk_modulate",
     "bpsk_demodulate",
     "qpsk_modulate",
@@ -63,6 +65,7 @@ __all__ = [
     "psk8_modulate",
     "psk8_demodulate",
     "fsk_high_speed_modulate",
+    "fsk_high_speed_demodulate",
     "ofdm_modulate_simple",
     "ofdm_demodulate_simple",
     "apsk16_modulate",
@@ -70,13 +73,13 @@ __all__ = [
     "dsss_modulate",
     "dsss_demodulate",
     "msk_modulate",
+    "msk_demodulate",
     "ft8_modulate",
+    "ft8_demodulate",
     "psk31_modulate",
     "psk31_demodulate",
 ]
 
-# The single-capture FSK receiver (fsk_demod_bits with MLSE).
-FSK_SINGLE_ITEM = "ROADMAP.md queue 1, item 1 (single-capture FSK receiver)"
 # Modes of the JAX registry the port does not carry -> their ROADMAP.md item.
 _UNPORTED_MODES = {
     "OFDM4": "item 4 (OFDM)", "OFDM8": "item 4 (OFDM)", "DSSS": "item 5 (DSSS)",
@@ -278,10 +281,19 @@ def msk_modulate(d, b, c, s=96000):
     return fsk_modulate(d, b, c, c + b, s)
 
 
+def msk_demodulate(x, b, c, s=96000, device: DeviceLike = None):
+    return fsk_demodulate(x, b, c, c + b, s, device=device)
+
+
 def ft8_modulate(d, b, c, s=96000):
     """FT8 alias: 50-baud FSK, mark = carrier, space = carrier + 50."""
     del b
     return fsk_modulate(d, 50, c, c + 50, s)
+
+
+def ft8_demodulate(x, b, c, sr=96000, device: DeviceLike = None):
+    del b
+    return fsk_demodulate(x, 50, c, c + 50, sr, device=device)
 
 
 def psk31_modulate(d, b, c, s=96000):
@@ -295,15 +307,15 @@ def psk31_demodulate(x, b, c, sr=96000, device: DeviceLike = None):
     return bpsk_demodulate(x, 31.25, c, sr, device=device)
 
 
-def _fsk_single(x, r, device=None):
-    raise NotImplementedError(f"single-capture FSK demodulation is not ported: {FSK_SINGLE_ITEM}")
-
-
 MODES: Dict[str, ModeSpec] = {
-    "FSK1200": ModeSpec("FSK1200", lambda d, r: fsk_modulate(d, 1200, 1200.0, 2200.0), _fsk_single,
+    "FSK1200": ModeSpec("FSK1200", lambda d, r: fsk_modulate(d, 1200, 1200.0, 2200.0),
+                        lambda x, r, device=None: fsk_demodulate(x, 1200, 1200.0, 2200.0, device=device),
                         lambda r: 100, fixed_baud=1200),
-    "FSK9600": ModeSpec("FSK9600", lambda d, r: fsk_modulate(d, 9600), _fsk_single, lambda r: 800, fixed_baud=9600),
-    "FSK19200": ModeSpec("FSK19200", lambda d, r: fsk_high_speed_modulate(d, 19200), _fsk_single,
+    "FSK9600": ModeSpec("FSK9600", lambda d, r: fsk_modulate(d, 9600),
+                        lambda x, r, device=None: fsk_demodulate(x, 9600, device=device),
+                        lambda r: 800, fixed_baud=9600),
+    "FSK19200": ModeSpec("FSK19200", lambda d, r: fsk_high_speed_modulate(d, 19200),
+                         lambda x, r, device=None: fsk_high_speed_demodulate(x, 19200, device=device),
                          lambda r: 1600, fixed_baud=19200),
     "BPSK": ModeSpec("BPSK", lambda d, r: bpsk_modulate(d, r, 3000.0),
                      lambda x, r, device=None: _psk_mode_demodulate(x, r, 3000.0, n_psk=2, device=device),
@@ -322,8 +334,10 @@ MODES: Dict[str, ModeSpec] = {
     "SSTV": ModeSpec("SSTV", lambda d, r: qpsk_modulate(d, r, 3000.0),
                      lambda x, r, device=None: qpsk_demodulate(x, r, 3000.0, device=device),
                      lambda r: 50),
-    "MSK": ModeSpec("MSK", lambda d, r: msk_modulate(d, r, 6000.0), _fsk_single, lambda r: r // 4),
-    "FT8": ModeSpec("FT8", lambda d, r: ft8_modulate(d, r, 3000.0), _fsk_single,
+    "MSK": ModeSpec("MSK", lambda d, r: msk_modulate(d, r, 6000.0),
+                    lambda x, r, device=None: msk_demodulate(x, r, 6000.0, device=device), lambda r: r // 4),
+    "FT8": ModeSpec("FT8", lambda d, r: ft8_modulate(d, r, 3000.0),
+                    lambda x, r, device=None: ft8_demodulate(x, r, 3000.0, device=device),
                     lambda r: 6, fixed_baud=50),  # 50 baud / 8 bits
     "PSK31": ModeSpec("PSK31", lambda d, r: psk31_modulate(d, r, 3000.0),
                       lambda x, r, device=None: psk31_demodulate(x, r, 3000.0, device=device),

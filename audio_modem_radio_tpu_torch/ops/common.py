@@ -10,8 +10,15 @@ Counterpart of ``audio_modem_radio_tpu/ops/common.py``:
   PyTorch: :func:`find_bit_pattern_validated`, :func:`dibit_sync_and_pack`,
   :func:`dibit_sync_and_pack_rotations`, :func:`relabel_shift_pack`,
   :func:`bit_sync_and_pack_rotations`;
+* :func:`bit_sync_and_pack`, :354, the single-capture FSK sync tail;
 * the numpy builders of the analytic band-pass FIR, :419-462, copied so the
-  two packages hold bitwise-equal templates.
+  two packages hold bitwise-equal templates, and the decimating analytic
+  FIR front end of the single-capture FSK receiver,
+  :func:`analytic_bandpass_fir_dec` :468 and :func:`analytic_fir_dec_rows`
+  :533: one float32 ``torch.matmul`` of overlapped rows against
+  :func:`_fir_dec_template`. The FFT front ends (``analytic_bandpass`` :370,
+  ``analytic_bandpass_fir`` :567) serve only the JAX package's A/B switches
+  and are not ported.
 
 The batched PSK sync tails run on their own kernels (``ops/kernels.py``).
 """
@@ -216,6 +223,15 @@ def dibit_sync_and_pack_rotations(
     return (*relabel_shift_pack(hi, lo, s, ksel), found)
 
 
+def bit_sync_and_pack(bits: torch.Tensor, pattern: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Align the 1-D bit stream on the first exact ``pattern`` (offset 0
+    where it is absent, as the reference does) and pack it to bytes.
+    Returns ``(packed, n_valid, found)``."""
+    start, found = find_bit_pattern(bits[None], pattern)
+    packed, n_valid = pack_bits_from(bits[None], start)
+    return packed[0], n_valid[0], found[0]
+
+
 def bit_sync_and_pack_rotations(
     bits_re: torch.Tensor, bits_im: torch.Tensor, pattern: str, pattern2: str = "", tol: int = 3
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -267,3 +283,51 @@ def _fir_dec_template(
         W[m * dec : m * dec + taps, m] = rev_re
         W[m * dec : m * dec + taps, L + m] = rev_im
     return W
+
+
+@functools.lru_cache(maxsize=16)
+def _fir_dec_matrix(low_hz: float, high_hz: float, sample_rate: int, taps: int, dec: int,
+                    device: torch.device) -> torch.Tensor:
+    """:func:`_fir_dec_template` at 128 output lanes as a tensor on ``device``."""
+    return torch.from_numpy(_fir_dec_template(low_hz, high_hz, sample_rate, taps, dec, 128)).to(device)
+
+
+def analytic_bandpass_fir_dec(
+    samples: torch.Tensor, low_hz: float, high_hz: float, sample_rate: int, decimate: int, taps: int = 513,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decimated band-limited analytic signal of a 1-D capture as one matrix
+    product: ``z[m] = sum_k h[k] * x[m*decimate + (taps-1)//2 - k]`` with
+    the complex band-pass FIR of :func:`_analytic_fir_taps`, blocked as
+    overlapped rows of ``128*decimate + taps - decimate`` samples times
+    :func:`_fir_dec_template` (128 outputs a row: re lanes | im lanes).
+    Returns ``(z_re, z_im)`` of length ``ceil(n / decimate)``."""
+    n = samples.shape[-1]
+    D, T, L = decimate, taps, 128
+    if T - D > L * D:
+        raise ValueError("taps - decimate must be <= 128*decimate (row overlap)")
+    c = (T - 1) // 2
+    nd_out = -(-n // D)
+    r = -(-nd_out // L)
+    ov = T - D
+    xpad = F.pad(samples.to(torch.float32), (c, r * L * D + ov - c - n))
+    main = xpad[: r * L * D].reshape(r, L * D)
+    nxt = torch.cat([main[1:, :ov], xpad[r * L * D : r * L * D + ov][None, :]], dim=0)
+    z2 = torch.cat([main, nxt], dim=1) @ _fir_dec_matrix(
+        float(low_hz), float(high_hz), int(sample_rate), T, D, samples.device)
+    return z2[:, :L].reshape(r * L)[:nd_out], z2[:, L:].reshape(r * L)[:nd_out]
+
+
+def analytic_fir_dec_rows(
+    rows: torch.Tensor, low_hz: float, high_hz: float, sample_rate: int, decimate: int, taps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`analytic_bandpass_fir_dec` on host-built (r, 128*decimate +
+    taps - decimate) windows of ``[zeros((taps-1)//2), x]``, the same
+    windows the flat form builds, so the outputs are equal. Returns flat
+    ``(z_re, z_im)`` of length ``r*128``."""
+    D, T, L = decimate, taps, 128
+    if rows.shape[-1] != L * D + T - D:
+        raise ValueError("rows must be (r, 128*decimate + taps - decimate)")
+    z2 = rows.to(torch.float32) @ _fir_dec_matrix(float(low_hz), float(high_hz), int(sample_rate), T, D,
+                                                 rows.device)
+    r = rows.shape[0]
+    return z2[:, :L].reshape(r * L), z2[:, L:].reshape(r * L)

@@ -26,10 +26,22 @@ written out:
   (``fsk_quad_margin_batch``): the analytic FIR at full rate, the per-bit
   tone quadratures and the noncoherent margin E_mark - E_space.
 
+The single-capture receiver :func:`fsk_demod_bits` takes one capture,
+flat or in host-shaped rows, through the same three detectors: the dual
+tone as a batch of one through pass 1 and K7, the quadrature and
+discriminator paths in plain torch (the JAX package runs them as plain
+XLA) behind the decimating analytic FIR of
+``ops.common.analytic_bandpass_fir_dec``. On the
+discriminator path :func:`_mlse_refine` then runs a maximum-likelihood
+sequence detector over the CPFSK phase trellis on the raw samples' local
+tone quadratures; its Viterbi (two ``lax.scan``s in the JAX package, one
+device-side loop each) is the hand-written kernel
+``ops.kernels.mlse_viterbi_blocks`` (``csrc/mlse_viterbi.cu``).
+:func:`fsk_demodulate` wraps it with the sync tail and the equalizer-only
+fallback.
+
 The tables are numpy, built with the JAX package's formulas (the equalizer
-calibration included), so both packages hold bitwise-equal tables. The
-single-capture ``fsk_demod_bits`` with its MLSE refinement is not ported
-(ROADMAP.md queue 1, item 1).
+calibration included), so both packages hold bitwise-equal tables.
 """
 
 from __future__ import annotations
@@ -40,19 +52,37 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .common import _analytic_fir_taps, _fir_dec_template, bytes_to_bits
+from ..framing import MAGIC_BIT_PATTERN, parse_frames
+from ..utils.torchenv import DeviceLike
+from .common import (
+    _analytic_fir_taps,
+    _fir_dec_template,
+    analytic_bandpass_fir_dec,
+    analytic_fir_dec_rows,
+    bit_sync_and_pack,
+    bytes_to_bits,
+)
 from .kernels import (
     disc_phasor_rows,
     fsk_disc_sums_batch,
     fsk_project_bits_batch,
     fsk_quad_margin_batch,
     fsk_tile_bits_batch,
+    mlse_viterbi_blocks,
     quad_analytic_rows,
     quad_margins,
 )
+from .psk import _to_device
 
 FSK_PREAMBLE = b"\xAA\xAA\xAA\xAA"
+
+# Block-parallel MLSE geometry: Viterbi blocks of CORE bits with OVERLAP-bit
+# warm-up and cool-down on each side (survivor paths merge within a few
+# hundred bits).
+_MLSE_BLOCK_CORE = 1 << 13
+_MLSE_BLOCK_OVERLAP = 1 << 10
 
 
 def _mm_taps(dec: int) -> int:
@@ -475,16 +505,28 @@ def _quad_templates(spb: int, baud: float, mark: float, space: float, sample_rat
     return plan, wf_pad, wq
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=64)
 def _device_tables(kind: str, spb: int, baud: float, mark: float, space: float,
                    sample_rate: int, n_offsets: int, device: torch.device):
     """The path's tables as float32 tensors on ``device``: ("dual", W),
-    ("disc", plan, W_fir, W_box, coef) or ("quad", plan, W_fir, W_quad)."""
+    ("disc", plan, W_fir, W_box, coef) or ("quad", plan, W_fir, W_quad) for
+    the batch; for the single-capture receiver ("quad1", W_quad) and
+    ("local", W_local) on the dual-tone geometry, and ("disc1", W_box,
+    coef) on the decimated one."""
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     if kind == "dual":
         return dev(_fsk_blocked_templates(spb, mark, space, sample_rate, n_offsets)),
+    if kind == "quad1":
+        return dev(_fsk_quadrature_templates(spb, mark, space, sample_rate, n_offsets)),
+    if kind == "local":
+        return dev(_fsk_local_quadrature_templates(spb, mark, space, sample_rate, n_offsets)),
+    if kind == "disc1":
+        blo, bhi, dec, taps = _fir_frontend_plan(baud, mark, space, sample_rate)
+        coef = _discriminator_calibration(spb, baud, mark, space, sample_rate, float(blo), float(bhi),
+                                          fir_taps=taps, dec=dec)
+        return dev(_fsk_boxcar_templates_dec(spb, n_offsets, dec)), coef
     if kind == "disc":
         plan, wf, wb, blo, bhi = _disc_templates(spb, baud, mark, space, sample_rate, n_offsets)
         coef = _discriminator_calibration(spb, baud, mark, space, sample_rate, float(blo), float(bhi),
@@ -494,11 +536,18 @@ def _device_tables(kind: str, spb: int, baud: float, mark: float, space: float,
     return plan, dev(wf), dev(wq)
 
 
+def _window_starts(r: int) -> Tuple[int, list]:
+    """Pass 1's row windows: (wr, starts) of up to 3 windows of 32 rows."""
+    wr = min(32, r)
+    return wr, sorted({0, max(0, r // 2 - wr // 2), max(0, r - wr)})
+
+
 # --- dual tone: K7 on host-overlapped rows, K13 on flat captures -------------------
 
-def _dual_scores(wins: torch.Tensor, W: torch.Tensor, spr: int) -> torch.Tensor:
-    """(B, nw, row+ov) float32 windows -> (B,) int32 best offset: the sum of
-    |E_mark - E_space| over every window bit, per offset."""
+def _dual_scores(wins: torch.Tensor, W: torch.Tensor, spr: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, nw, row+ov) float32 windows -> (best (B,) int32 offset, score
+    (B, n_offsets)): the sum of |E_mark - E_space| over every window bit,
+    per offset."""
     b = wins.shape[0]
     n_offsets, c, _ = W.shape
     W_all = W.permute(1, 0, 2).reshape(c, -1)
@@ -506,15 +555,14 @@ def _dual_scores(wins: torch.Tensor, W: torch.Tensor, spr: int) -> torch.Tensor:
     em = pj[..., 0, :] ** 2 + pj[..., 1, :] ** 2
     es = pj[..., 2, :] ** 2 + pj[..., 3, :] ** 2
     score = torch.sum(torch.abs(em - es), dim=(1, 3))
-    return torch.argmax(score, dim=1).to(torch.int32)
+    return torch.argmax(score, dim=1).to(torch.int32), score
 
 
-def fsk_dual_pass1(
-    x3d: torch.Tensor, baud: float, mark: float, space: float, sample_rate: int,
-    n_offsets: int = 8,
+def _dual_pass1(
+    x3d: torch.Tensor, baud: float, mark: float, space: float, sample_rate: int, n_offsets: int,
 ):
-    """Pass 1 over host-overlapped (B, r, row+ov) rows: the offsets scored on
-    three 32-row windows. Returns ``(best (B,) int32, W, spr)``."""
+    """:func:`fsk_dual_pass1` that also returns the per-offset scores:
+    ``(best, score (B, n_offsets), W, spr)``."""
     spb = _samples_per_bit(sample_rate, baud)
     if _separation_cycles(baud, mark, space, sample_rate) < 0.8:
         raise ValueError("fsk_dual_bits_rows_batch requires a dual-tone config")
@@ -524,10 +572,20 @@ def fsk_dual_pass1(
         raise ValueError("pre-shaped dual-tone rows must have row+ov columns")
     (W,) = _device_tables("dual", spb, float(baud), float(mark), float(space), sample_rate,
                           n_offsets, x3d.device)
-    wr = min(32, r)
-    starts = sorted({0, max(0, r // 2 - wr // 2), max(0, r - wr)})
+    wr, starts = _window_starts(r)
     wins = torch.cat([x3d[:, s : s + wr] for s in starts], dim=1).to(torch.float32)
-    return _dual_scores(wins, W, spr), W, spr
+    best, score = _dual_scores(wins, W, spr)
+    return best, score, W, spr
+
+
+def fsk_dual_pass1(
+    x3d: torch.Tensor, baud: float, mark: float, space: float, sample_rate: int,
+    n_offsets: int = 8,
+):
+    """Pass 1 over host-overlapped (B, r, row+ov) rows: the offsets scored on
+    three 32-row windows. Returns ``(best (B,) int32, W, spr)``."""
+    best, _score, W, spr = _dual_pass1(x3d, baud, mark, space, sample_rate, n_offsets)
+    return best, W, spr
 
 
 def fsk_dual_bits_rows_batch(
@@ -564,14 +622,13 @@ def fsk_demod_bits_batch(
     x3d = torch.nn.functional.pad(x, (0, r * row - n_bits * spb)).reshape(b, r, row)
     (W,) = _device_tables("dual", spb, float(baud), float(mark), float(space), sample_rate,
                           n_offsets, samples.device)
-    wr = min(32, r0)
-    starts = sorted({0, max(0, r0 // 2 - wr // 2), max(0, r0 - wr)})
+    wr, starts = _window_starts(r0)
     wins = torch.cat(
         [torch.cat([x3d[:, s : s + wr], x3d[:, min(s + 1, r - wr) : min(s + 1, r - wr) + wr, :ov]], dim=2)
          for s in starts],
         dim=1,
     )
-    best = _dual_scores(wins, W, spr)
+    best, _score = _dual_scores(wins, W, spr)
     bits = fsk_project_bits_batch(x3d, W, best, rows_per_capture=r, spr=spr)
     return bits[:, :n_bits]
 
@@ -701,3 +758,376 @@ def fsk_quad_bits_rows_batch(
         ov2=plan["ov2"], spr2=plan["spr2"],
     )
     return (margin > 0).to(torch.uint8)
+
+
+# --- the single-capture receiver ----------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _fsk_quadrature_templates(spb: int, mark: float, space: float, sample_rate: int, n_offsets: int) -> np.ndarray:
+    """(n_offsets, row+ov, 4*spr) plain tone quadratures [cos_m | sin_m |
+    cos_s | sin_s] on the dual-tone geometry, for matched filtering of the
+    analytic signal."""
+    return _fsk_quadrature_templates_geom(spb, mark, space, sample_rate, n_offsets, *_fsk_geometry(spb))
+
+
+@functools.lru_cache(maxsize=64)
+def _fsk_local_quadrature_templates(
+    spb: int, mark: float, space: float, sample_rate: int, n_offsets: int
+) -> np.ndarray:
+    """(n_offsets, row+ov, 4*spr) tone quadratures [cos_m | sin_m | cos_s |
+    sin_s] in each bit's LOCAL time (the arguments restart at every bit
+    window, as the modulator's per-bit phase does), for MLSE."""
+    spr, row, ov = _fsk_geometry(spb)
+    tl = np.arange(spb, dtype=np.float64) / sample_rate
+    W = np.zeros((n_offsets, row + ov, 4 * spr), dtype=np.float32)
+    for i in range(n_offsets):
+        o = i * spb // n_offsets
+        for s in range(spr):
+            sl = slice(s * spb + o, s * spb + o + spb)
+            W[i, sl, s] = np.cos(2 * np.pi * mark * tl)
+            W[i, sl, spr + s] = np.sin(2 * np.pi * mark * tl)
+            W[i, sl, 2 * spr + s] = np.cos(2 * np.pi * space * tl)
+            W[i, sl, 3 * spr + s] = np.sin(2 * np.pi * space * tl)
+    return W
+
+
+def _cpfsk_trellis(spb: int, mark: float, space: float, sample_rate: int):
+    """(n_states, adv_mark, adv_space) of the CPFSK phase trellis, or None
+    beyond 96 states: the per-bit phase advances in integer 1/sample_rate
+    cycle units on their common grid."""
+    inc_m = int(round(mark * spb)) % sample_rate
+    inc_s = int(round(space * spb)) % sample_rate
+    g = math.gcd(math.gcd(inc_m, inc_s), sample_rate)
+    n_states = sample_rate // g
+    if n_states > 96 or n_states < 2:
+        return None
+    return n_states, (inc_m // g) % n_states, (inc_s // g) % n_states
+
+
+def _rows_with_overlap(x: torch.Tensor, n_used: int, r: int, row: int, ov: int) -> torch.Tensor:
+    """1-D samples -> (r, row+ov) overlapped rows, zero-padded."""
+    x_pad = F.pad(x[:n_used], (0, r * row + ov - n_used))
+    xr = x_pad[: r * row].reshape(r, row)
+    nxt = torch.cat([xr[1:, :ov], x_pad[r * row : r * row + ov][None, :]], dim=0)
+    return torch.cat([xr, nxt], dim=1)
+
+
+def _mlse_tables(
+    s_corr: torch.Tensor, c_corr: torch.Tensor, eq_bits: torch.Tensor, n_states: int, spb: int,
+    mark: float, space: float, sample_rate: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The host part of :func:`_mlse_refine` for one capture: ``(x4 (4,
+    n_bits), aec (2, S), cos_t, sin_t)``, the θ-corrected correlations
+    [S_m, C_m, S_s, C_s], the hypothesis energies times â/2 and the state
+    phases."""
+    dev = s_corr.device
+    n_bits = s_corr.shape[1]
+
+    def t32(a) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    phases_np = 2 * np.pi * np.arange(n_states) / n_states
+    sin_t, cos_t = t32(np.sin(phases_np)), t32(np.cos(phases_np))
+    tl = np.arange(spb) / sample_rate
+    kc = t32([np.cos(4 * np.pi * f * tl).sum() for f in (mark, space)])
+    ks = t32([np.sin(4 * np.pi * f * tl).sum() for f in (mark, space)])
+    d_consts = [np.exp(-4j * np.pi * f * tl).sum() for f in (mark, space)]
+    a_const = spb / 2.0
+    b_re = t32([d.real / 2 for d in d_consts])[:, None]
+    b_im = t32([d.imag / 2 for d in d_consts])[:, None]
+    denom = t32([a_const**2 - abs(d / 2) ** 2 for d in d_consts])[:, None]
+    v_re = (a_const * s_corr + b_re * s_corr + b_im * c_corr) / denom
+    v_im = (a_const * c_corr + b_im * s_corr - b_re * c_corr) / denom
+
+    is_mark = eq_bits[:n_bits] == 1
+    u_re = torch.where(is_mark, v_re[0], v_re[1])
+    u_im = torch.where(is_mark, v_im[0], v_im[1])
+    psi = torch.atan2(u_im, u_re)
+    mag = torch.sqrt(u_re**2 + u_im**2)
+    theta = torch.atan2(torch.sum(mag * torch.sin(n_states * psi)),
+                        torch.sum(mag * torch.cos(n_states * psi))) / n_states
+    ct, st = torch.cos(theta), torch.sin(theta)
+    sp = s_corr * ct + c_corr * st  # Re(u e^{-jθ})
+    cp = c_corr * ct - s_corr * st  # Im(u e^{-jθ})
+    a_half = torch.clamp(torch.sum(mag * mag) / torch.clamp(torch.sum(mag), min=1e-9), min=2e-6) / 2
+    ang2 = 2 * (t32(phases_np)[None, :] + theta)
+    ec = spb / 2 - (torch.cos(ang2) * kc[:, None] - torch.sin(ang2) * ks[:, None]) / 2  # (2, S)
+    x4 = torch.stack([sp[0], cp[0], sp[1], cp[1]])
+    return x4, a_half * ec, cos_t, sin_t
+
+
+def _mlse_viterbi(
+    x4: torch.Tensor, aec: torch.Tensor, cos_t: torch.Tensor, sin_t: torch.Tensor, adv_mark: int,
+    adv_space: int,
+) -> torch.Tensor:
+    """The Viterbi of :func:`_mlse_refine` for B captures of one length in
+    one :func:`ops.kernels.mlse_viterbi_blocks` call: ``x4`` (B, 4, n_bits),
+    ``aec`` (B, 2, S) -> (B, n_bits) uint8 bits. Blocks of
+    ``_MLSE_BLOCK_CORE`` bits with ``_MLSE_BLOCK_OVERLAP`` bits of overlap
+    each side, the cores kept; one pass when a capture fits one block."""
+    b, _, n_bits = x4.shape
+    core, ov = _MLSE_BLOCK_CORE, _MLSE_BLOCK_OVERLAP
+    if n_bits <= core + 2 * ov:
+        return mlse_viterbi_blocks(x4.contiguous(), cos_t, sin_t, aec.contiguous(), adv_mark, adv_space)
+    n_blocks = -(-n_bits // core)
+    padded = F.pad(x4, (ov, n_blocks * core - n_bits + ov))
+    blocks = padded.unfold(2, core + 2 * ov, core).permute(0, 2, 1, 3).reshape(b * n_blocks, 4, -1)
+    aec_b = aec.repeat_interleave(n_blocks, dim=0)
+    bits = mlse_viterbi_blocks(blocks.contiguous(), cos_t, sin_t, aec_b.contiguous(), adv_mark, adv_space)
+    return bits[:, ov : ov + core].reshape(b, -1)[:, :n_bits]
+
+
+def _mlse_refine(
+    s_corr: torch.Tensor, c_corr: torch.Tensor, eq_bits: torch.Tensor, n_states: int, adv_mark: int,
+    adv_space: int, spb: int, mark: float, space: float, sample_rate: int,
+) -> torch.Tensor:
+    """Maximum-likelihood sequence detection over the CPFSK phase trellis.
+
+    ``s_corr``/``c_corr`` (2, n_bits) are each bit's local-time sums x·sin
+    and x·cos per tone, rows [mark, space], of the RAW samples: on a clean
+    or white-noise channel a bit is the hypothesis ``a·sin(2π f_b t +
+    φ_s)``, so the branch metric is ``m(s, b) - (a/2)·||h_{s,b}||²`` with
+    ``m = S_b cos φ_s + C_b sin φ_s``. ``eq_bits`` seed the channel phase
+    θ and amplitude a: each bit's quadrature ellipse is inverted to
+    ``v = a·e^{jψ}``, θ is the angle of Σ|v|·e^{j·n_states·ψ} over
+    n_states (true phases lie on the state grid, so the power erases them
+    and seed errors cannot rotate the estimate), â the energy-weighted
+    Σ|v|²/Σ|v| (robust to a long quiet lead), and the hypothesis energies
+    follow the θ-shifted grid (:func:`_mlse_tables`). The Viterbi runs on
+    θ-corrected correlations (:func:`_mlse_viterbi`). Returns the refined
+    (n_bits,) uint8 bits."""
+    x4, aec, cos_t, sin_t = _mlse_tables(s_corr, c_corr, eq_bits, n_states, spb, mark, space, sample_rate)
+    return _mlse_viterbi(x4[None], aec[None], cos_t, sin_t, adv_mark, adv_space)[0]
+
+
+def fsk_demod_bits(
+    samples: torch.Tensor,
+    baud: float,
+    mark: float,
+    space: float,
+    sample_rate: int,
+    n_offsets: int = 8,
+    mlse: bool = True,
+    frontend: str = "matmul",
+    want_soft: bool = False,
+):
+    """Demodulate one CPFSK capture to bits: ``(bits (n_bits,) uint8,
+    best-offset score)``, or with ``want_soft`` ``(bits, score, margin)``,
+    the per-bit signed statistic (positive = mark = bit 1).
+
+    ``samples`` is a flat float capture, or host-shaped rows: (r, row+ov)
+    overlapped rows for dual tones (:func:`fsk_blocked_row_shape`), the
+    FIR windows of :func:`fsk_fir_row_shape` for close and mid tones
+    (without MLSE, which correlates the raw samples). The detector follows
+    the tone separation in cycles per bit:
+
+    * >= 0.8 (FSK1200, MSK, FT8): the least-squares dual basis of the
+      {mark, space} x {sin, cos} subspace on the raw samples; pass 1 scores
+      the timing offsets on three row windows, pass 2 (K7) takes
+      E_mark > E_space at the best offset;
+    * 0.4 - 0.8 (FSK19200): the decimating analytic FIR at dec 1 (129 taps),
+      then plain tone quadratures of the analytic signal;
+    * < 0.4 (FSK9600): the decimated analytic signal, the phasor
+      z[n+1]·conj z[n], per-bit fractional boxcars, the energy-weighted
+      deviation-clamped offset score, atan2, the calibrated 9-tap equalizer
+      and the nearer tone; then, with ``mlse``, :func:`_mlse_refine` on the
+      raw samples' local quadratures. Its soft margin carries the
+      (refined) decisions' signs and the equalizer's magnitudes.
+
+    ``frontend`` is "matmul" only: the JAX package's "fft" and "fir" front
+    ends are A/B switches and are not ported."""
+    bits, score, margin, mlse_in = _fsk_detect(samples, baud, mark, space, sample_rate, n_offsets, mlse,
+                                               frontend, want_soft)
+    if mlse_in is not None:
+        bits = _mlse_refine(*mlse_in[:2], bits, *mlse_in[2:], _samples_per_bit(sample_rate, baud), float(mark),
+                            float(space), sample_rate)
+        if want_soft:
+            margin = torch.where(bits > 0, torch.abs(margin), -torch.abs(margin))
+    return (bits, score, margin) if want_soft else (bits, score)
+
+
+def fsk_demod_bits_each(
+    samples: torch.Tensor, baud: float, mark: float, space: float, sample_rate: int,
+    n_offsets: int = 8, mlse: bool = True,
+) -> torch.Tensor:
+    """:func:`fsk_demod_bits` over each capture of a batch (flat (B, N), or
+    (B, r, cols) rows of the single-capture layouts), with the MLSE Viterbi
+    of every capture in one kernel launch. Returns uint8 bits (B, n_bits)."""
+    outs = [_fsk_detect(x, baud, mark, space, sample_rate, n_offsets, mlse, "matmul", False) for x in samples]
+    if outs[0][3] is None:
+        return torch.stack([o[0] for o in outs])
+    n_states, adv_m, adv_s = outs[0][3][2:]
+    spb = _samples_per_bit(sample_rate, baud)
+    tables = [_mlse_tables(s_corr, c_corr, bits, n_states, spb, float(mark), float(space), sample_rate)
+              for bits, _score, _margin, (s_corr, c_corr, *_trellis) in outs]
+    x4 = torch.stack([t[0] for t in tables])
+    aec = torch.stack([t[1] for t in tables])
+    return _mlse_viterbi(x4, aec, tables[0][2], tables[0][3], adv_m, adv_s)
+
+
+def _fsk_detect(
+    samples: torch.Tensor, baud: float, mark: float, space: float, sample_rate: int, n_offsets: int,
+    mlse: bool, frontend: str, want_soft: bool,
+):
+    """:func:`fsk_demod_bits` up to its Viterbi: ``(bits, score, margin,
+    mlse_in)``. ``margin`` is the family's signed statistic (None for dual
+    tones without ``want_soft``); ``mlse_in`` is None, or with ``mlse`` on
+    the discriminator path ``(s_corr, c_corr, n_states, adv_mark,
+    adv_space)``, the arguments of :func:`_mlse_refine` besides ``bits``,
+    which are then the equalizer's seed."""
+    if frontend not in ("matmul", "fft", "fir"):
+        raise ValueError(f"unknown frontend {frontend!r}")
+    if frontend != "matmul":
+        raise NotImplementedError(
+            f"frontend={frontend!r} is one of the JAX package's A/B-only front ends (whole-capture FFT, "
+            "full-rate overlap-save FIR) and is not ported; the production front end is 'matmul'")
+    spb = _samples_per_bit(sample_rate, baud)
+    spr, row, ov = _fsk_geometry(spb)
+    sep = _separation_cycles(baud, mark, space, sample_rate)
+    dev = samples.device
+    pre_shaped = samples.ndim == 2
+    fir_rows = None
+    if pre_shaped and sep >= 0.8:
+        if samples.shape[1] != row + ov:
+            raise ValueError("pre-shaped dual-tone rows must have row+ov columns")
+        r = samples.shape[0]
+        n_bits = r * spr
+        xov = samples.to(torch.float32)
+    elif pre_shaped:
+        if mlse:
+            raise ValueError(
+                "pre-shaped FIR rows are incompatible with MLSE refinement "
+                "(it correlates the raw samples); pass flat samples"
+            )
+        _plo, _phi, dec_p, taps_p = _fir_frontend_plan(baud, mark, space, sample_rate)
+        if samples.shape[1] != 128 * dec_p + taps_p - dec_p:
+            raise ValueError("pre-shaped FIR rows have the wrong column count")
+        fir_rows = samples.to(torch.float32)
+        n_bits = (fir_rows.shape[0] * 128 * dec_p) // spb
+        r = -(-n_bits // spr)
+    else:
+        n_bits = samples.shape[-1] // spb
+        if n_bits < 2:
+            raise ValueError("signal shorter than two bit periods")
+        r = -(-n_bits // spr)
+        x = samples.to(torch.float32)
+    keep = max(n_bits, 1)
+
+    if sep >= 0.8:
+        if not pre_shaped:
+            xov = _rows_with_overlap(x, n_bits * spb, r, row, ov)
+        best, score, W, spr = _dual_pass1(xov[None], baud, mark, space, sample_rate, n_offsets)
+        bits = fsk_tile_bits_batch(xov[None], W, best, rows_per_capture=r, spr=spr)[0, :keep]
+        margin = None
+        if want_soft:
+            pj = (xov @ W[best[0].long()]).reshape(r, 4, spr)
+            margin = ((pj[:, 0] ** 2 + pj[:, 1] ** 2) - (pj[:, 2] ** 2 + pj[:, 3] ** 2)).reshape(-1)[:keep]
+        return bits, score[0, best[0]], margin, None
+
+    band_lo, band_hi, dec, taps = _fir_frontend_plan(baud, mark, space, sample_rate)
+    if fir_rows is not None:
+        zr, zi = analytic_fir_dec_rows(fir_rows, band_lo, band_hi, sample_rate, dec, taps)
+    else:
+        zr, zi = analytic_bandpass_fir_dec(x, band_lo, band_hi, sample_rate, dec, taps=taps)
+
+    if sep >= 0.4:
+        (W,) = _device_tables("quad1", spb, float(baud), float(mark), float(space), sample_rate, n_offsets, dev)
+        rr = _rows_with_overlap(zr, n_bits * spb, r, row, ov)
+        ri = _rows_with_overlap(zi, n_bits * spb, r, row, ov)
+        wr, starts = _window_starts(r)
+        W_all = W.permute(1, 0, 2).reshape(row + ov, -1)
+        m = (torch.cat([rr[s : s + wr] for s in starts], dim=0) @ W_all).reshape(-1, n_offsets, 4, spr)
+        n_ = (torch.cat([ri[s : s + wr] for s in starts], dim=0) @ W_all).reshape(-1, n_offsets, 4, spr)
+        score = torch.sum(torch.abs(quad_margins(m, n_)), dim=(0, 2))
+        best = torch.argmax(score)
+        margin = quad_margins((rr @ W[best]).reshape(r, 4, spr), (ri @ W[best]).reshape(r, 4, spr))
+        bits = (margin > 0).to(torch.uint8).reshape(-1)[:keep]
+        return bits, score[best], margin.reshape(-1)[:keep], None
+
+    # Discriminator on the decimated analytic signal.
+    lo_f, hi_f = min(mark, space), max(mark, space)
+    spr_d, row_d, ov_d = _fsk_geometry_dec(spb, dec)
+    r_d = -(-n_bits // spr_d)
+    zero = torch.zeros(1, dtype=torch.float32, device=dev)
+    p_re = torch.cat([zr[1:] * zr[:-1] + zi[1:] * zi[:-1], zero])
+    p_im = torch.cat([zi[1:] * zr[:-1] - zr[1:] * zi[:-1], zero])
+    Wb, coef = _device_tables("disc1", spb, float(baud), float(mark), float(space), sample_rate, n_offsets, dev)
+    n_used_d = min(int(p_re.shape[-1]), -(-(n_bits * spb) // dec))
+    pr = _rows_with_overlap(p_re, n_used_d, r_d, row_d, ov_d)
+    pi = _rows_with_overlap(p_im, n_used_d, r_d, row_d, ov_d)
+    wr, starts = _window_starts(r_d)
+    mid = (mark + space) / 2.0
+    scale = sample_rate / dec / (2 * math.pi)
+    Wb_all = Wb.permute(1, 0, 2).reshape(row_d + ov_d, -1)
+    wins_r = torch.cat([pr[s : s + wr] for s in starts], dim=0) @ Wb_all
+    wins_i = torch.cat([pi[s : s + wr] for s in starts], dim=0) @ Wb_all
+    f_win = torch.atan2(wins_i, wins_r) * scale
+    mag_w = torch.sqrt(wins_r**2 + wins_i**2)
+    score = torch.sum((mag_w * torch.clamp(torch.abs(f_win - mid), max=(hi_f - lo_f) / 2.0)).reshape(
+        -1, n_offsets, spr_d), dim=(0, 2))
+    best = torch.argmax(score)
+    f = (torch.atan2(pi @ Wb[best], pr @ Wb[best]) * scale).reshape(-1)
+    pad = _EQ_TAPS // 2
+    fm = torch.cat([f[:1].expand(pad), f, f[-1:].expand(pad)])
+    eq = torch.full_like(f, float(coef[-1]))
+    for j in range(_EQ_TAPS):
+        eq = eq + float(coef[j]) * fm[j : j + f.shape[0]]
+    bits = (torch.abs(eq - mark) < torch.abs(eq - space)).to(torch.uint8)[:keep]
+    margin_d = (torch.abs(eq - space) - torch.abs(eq - mark))[:keep]
+    trellis = _cpfsk_trellis(spb, float(mark), float(space), sample_rate) if mlse else None
+    if trellis is None:
+        return bits, score[best], margin_d, None
+    n_states, adv_m, adv_s = trellis
+    (Wl,) = _device_tables("local", spb, float(baud), float(mark), float(space), sample_rate, n_offsets, dev)
+    pj = (_rows_with_overlap(x, n_bits * spb, r, row, ov) @ Wl[best]).reshape(r, 4, spr)  # [C_m, S_m, C_s, S_s]
+    s_corr = torch.stack([pj[:, 1].reshape(-1)[:n_bits], pj[:, 3].reshape(-1)[:n_bits]])
+    c_corr = torch.stack([pj[:, 0].reshape(-1)[:n_bits], pj[:, 2].reshape(-1)[:n_bits]])
+    return bits, score[best], margin_d, (s_corr, c_corr, n_states, adv_m, adv_s)
+
+
+def fsk_demodulate(
+    samples,
+    baud: float = 1200,
+    mark_freq: float = 1200.0,
+    space_freq: float = 2200.0,
+    samp_rate: int = 96000,
+    device: DeviceLike = None,
+) -> bytes:
+    """CPFSK receive chain on ``device`` (default: the card): bits, the
+    first exact magic, magic-aligned bytes. Close tones run the
+    MLSE-refined stream first; if it parses no valid frame, the
+    equalizer-only stream is returned when that one does."""
+    x = _to_device(samples, device)
+
+    def _run(use_mlse: bool) -> bytes:
+        bits, _ = fsk_demod_bits(x, float(baud), float(mark_freq), float(space_freq), int(samp_rate),
+                                 mlse=use_mlse)
+        packed, n_valid, _found = bit_sync_and_pack(bits, MAGIC_BIT_PATTERN)
+        return packed.cpu().numpy()[: int(n_valid)].tobytes()
+
+    raw = _run(True)
+    if _separation_cycles(baud, mark_freq, space_freq, samp_rate) < 0.4 and not parse_frames(raw):
+        eq_raw = _run(False)
+        if parse_frames(eq_raw):
+            return eq_raw
+    return raw
+
+
+def fsk_soft_bits(samples, baud: float, mark: float, space: float, samp_rate: int,
+                  device: DeviceLike = None) -> np.ndarray:
+    """Soft bits in [0, 1] from the family's signed margins (MLSE signs with
+    equalizer magnitudes on the close-tone path), scaled by twice their
+    mean magnitude around 0.5, as ``ops.psk.psk_soft_bits`` scales."""
+    _bits, _score, margin = fsk_demod_bits(
+        _to_device(samples, device), float(baud), float(mark), float(space), int(samp_rate),
+        mlse=True, want_soft=True,
+    )
+    margin = margin.cpu().numpy()
+    scale = 2.0 * np.mean(np.abs(margin)) + 1e-9
+    return np.clip(0.5 + margin / scale, 0.0, 1.0).astype(np.float32)
+
+
+def fsk_high_speed_demodulate(samples, baud: float = 19200, samp_rate: int = 96000,
+                              device: DeviceLike = None) -> bytes:
+    """High-rate FSK receive: 8/16 kHz tones."""
+    return fsk_demodulate(samples, baud, 8000.0, 16000.0, samp_rate, device=device)

@@ -21,7 +21,12 @@ with the JAX names and argument order:
   the dense (c_pad, 256) FIR matrix only, not the Pallas banded form,
 * K10 :func:`neural_extract_batch` (``csrc/neural_extract.cu``), which
   takes the (256, 16) codebook in place of the Pallas chip table and
-  block-diagonal scorer.
+  block-diagonal scorer;
+
+and one kernel with no Pallas counterpart: :func:`mlse_viterbi_blocks`
+(``csrc/mlse_viterbi.cu``), the Viterbi of the single-capture FSK
+receiver's MLSE, which the JAX package runs as two ``lax.scan``s
+(``ops/fsk.py:_mlse_refine``).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. For tensors on the CPU it runs the plain version
@@ -1244,11 +1249,93 @@ def neural_extract_batch(
     return out
 
 
+# --- the MLSE Viterbi of the single-capture FSK receiver ---------------------------
+
+_MLSE_MAX_STATES = 96  # three states a lane of one warp
+
+
+def _check_viterbi(x: torch.Tensor, cos_t: torch.Tensor, sin_t: torch.Tensor, aec: torch.Tensor,
+                   adv_mark: int, adv_space: int) -> Tuple[int, int, int]:
+    """(n_blocks, L, S) of a :func:`mlse_viterbi_blocks` call; raises on
+    anything the kernel does not take."""
+    _require(x.ndim == 3 and x.shape[1] == 4 and x.shape[2] >= 1, f"mlse_viterbi_blocks: x {tuple(x.shape)}")
+    s = cos_t.shape[0] if cos_t.ndim == 1 else -1
+    _require(2 <= s <= _MLSE_MAX_STATES, f"mlse_viterbi_blocks: {s} states (2..{_MLSE_MAX_STATES})")
+    _require(tuple(sin_t.shape) == (s,) and tuple(aec.shape) == (x.shape[0], 2, s),
+             f"mlse_viterbi_blocks: tables {tuple(cos_t.shape)}, {tuple(sin_t.shape)}, {tuple(aec.shape)}")
+    _require(all(t.dtype == torch.float32 for t in (x, cos_t, sin_t, aec)), "mlse_viterbi_blocks: float32 only")
+    _require(0 <= adv_mark < s and 0 <= adv_space < s, "mlse_viterbi_blocks: phase advances out of range")
+    _require(x.shape[0] <= 65535, f"mlse_viterbi_blocks: {x.shape[0]} blocks exceed the kernel grid")
+    return x.shape[0], x.shape[2], s
+
+
+def mlse_viterbi_blocks_plain(
+    x: torch.Tensor, cos_t: torch.Tensor, sin_t: torch.Tensor, aec: torch.Tensor, adv_mark: int, adv_space: int,
+) -> torch.Tensor:
+    """Plain Viterbi over the CPFSK phase trellis, batched over blocks, one
+    Python step at a time (the JAX package's ``step`` and ``back`` scans).
+
+    ``x`` (n_blocks, 4, L): each step's θ-corrected correlations [S_m, C_m,
+    S_s, C_s]; ``cos_t``/``sin_t`` (S,) the state phases; ``aec``
+    (n_blocks, 2, S) the hypothesis energies times â/2 of each block's
+    capture, rows [mark, space]. From pm = 0,
+    each step takes for state s the better of its predecessors
+    p1 = s - adv_mark (bit 1) and p0 = s - adv_space (bit 0), mod S, with
+    ``m = (S·cos_t + C·sin_t) - aec``, ``cand = pm[p] + m[p]``, bit 1
+    only where cand1 > cand0, then subtracts the step's maximum. The
+    traceback starts at the first maximum of the final metrics. Returns
+    (n_blocks, L) uint8 bits."""
+    nb, _, L = x.shape
+    S = cos_t.shape[0]
+    idx = torch.arange(S, device=x.device)
+    p1, p0 = (idx - adv_mark) % S, (idx - adv_space) % S
+    xt = x.permute(2, 0, 1)[..., None]  # (L, nb, 4, 1)
+    m1 = (xt[:, :, 0] * cos_t + xt[:, :, 1] * sin_t - aec[:, 0])[..., p1]  # (L, nb, S) at each predecessor
+    m0 = (xt[:, :, 2] * cos_t + xt[:, :, 3] * sin_t - aec[:, 1])[..., p0]
+    pm = torch.zeros((nb, S), dtype=torch.float32, device=x.device)
+    take = torch.empty((L, nb, S), dtype=torch.bool, device=x.device)
+    for t in range(L):
+        cand1 = pm[:, p1] + m1[t]
+        cand0 = pm[:, p0] + m0[t]
+        torch.gt(cand1, cand0, out=take[t])
+        pm = torch.where(take[t], cand1, cand0)
+        pm = pm - pm.max(dim=1, keepdim=True).values
+    state = torch.argmax(pm, dim=1)
+    rows = torch.arange(nb, device=x.device)
+    bits = torch.empty((nb, L), dtype=torch.uint8, device=x.device)
+    for t in range(L - 1, -1, -1):
+        bit = take[t, rows, state]
+        bits[:, t] = bit
+        state = torch.where(bit, (state - adv_mark) % S, (state - adv_space) % S)
+    return bits
+
+
+def mlse_viterbi_blocks(
+    x: torch.Tensor, cos_t: torch.Tensor, sin_t: torch.Tensor, aec: torch.Tensor, adv_mark: int, adv_space: int,
+) -> torch.Tensor:
+    """The Viterbi of :func:`mlse_viterbi_blocks_plain` for every block in
+    one launch (one warp a block, ``csrc/mlse_viterbi.cu``; the blocks may
+    come from several captures, each with its own ``aec`` rows): (n_blocks,
+    4, L) float32 -> (n_blocks, L) uint8 bits, equal to the plain version's
+    bit for bit. The survivors, one ballot word per 32 states a step, live
+    in a scratch of n_blocks * L * ceil(S/32) * 4 bytes."""
+    nb, L, S = _check_viterbi(x, cos_t, sin_t, aec, adv_mark, adv_space)
+    dev = _same_device(x, cos_t, sin_t, aec)
+    if dev.type == "cpu":
+        return mlse_viterbi_blocks_plain(x, cos_t, sin_t, aec, adv_mark, adv_space)
+    surv = torch.empty((nb, L, -(-S // 32)), dtype=torch.int32, device=dev)
+    out = torch.empty((nb, L), dtype=torch.uint8, device=dev)
+    _launch("amr_mlse_viterbi", dev, _ptr(x), _ptr(cos_t), _ptr(sin_t), _ptr(aec), S, adv_mark, adv_space,
+            _ptr(surv), _ptr(out), nb, L)
+    mlse_viterbi_blocks.launches += 1
+    return out
+
+
 KERNELS = (
     psk_project_decide_batch, rotation_match_batch, relabel_pack_batch,
     bit_select_pack_batch, sector_match_batch, psk8_relabel_pack_rows,
     fsk_tile_bits_batch, fsk_project_bits_batch, fsk_disc_sums_batch, fsk_quad_margin_batch,
-    psk_project_diff, psk_project_diff_batch, neural_extract_batch,
+    psk_project_diff, psk_project_diff_batch, neural_extract_batch, mlse_viterbi_blocks,
 )
 
 

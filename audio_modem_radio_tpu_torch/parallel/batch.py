@@ -21,8 +21,12 @@ FT8) and NEURAL (kind ``neural``). The pipeline:
                 (relabel + Gray + mod-8-symbol alignment + byte pack).
           FSK: pass 1 (timing offset, plain torch), then K7 (dual tone), K8
           (discriminator, followed by atan2 + equalizer + decision) or K9
-          (quadrature margin); K13 for flat dual-tone input; then the
-          plain-torch sync tail: first exact magic, shift, byte pack.
+          (quadrature margin); K13 for flat dual-tone input; the
+          single-capture receiver per capture for every other input (flat
+          close and mid tones, FIR-window rows, CONFIG ``modem.batch_mlse``,
+          whose MLSE Viterbi is a kernel of its own, one launch for every
+          capture's blocks); then the plain-torch
+          sync tail: first exact magic, shift, byte pack.
           PSK captures without a blocked path (PSK31, symbols over 32
           samples, captures under 256 symbols) run the single-capture
           receiver per capture (K11, rotation, decision) and the
@@ -35,8 +39,8 @@ FT8) and NEURAL (kind ``neural``). The pipeline:
           argmax) at 9600 Bd, the plain-torch extraction at chip length 4,
           or the FFT matched filter per capture at other rates
   host:   the recovery ladder per capture (strict FBPC parse,
-          header-tolerant recovery, no-sync rescue), the coherent and
-          clock-drift escalations of lost captures, decompression,
+          header-tolerant recovery, no-sync rescue), the MLSE, coherent
+          and clock-drift escalations of lost captures, decompression,
           assembly, save
 
 ``jit`` and ``vmap`` have no counterpart here: the batch dimension is
@@ -56,7 +60,7 @@ import torch.nn.functional as F
 from ..assembly import AssemblyRegistry
 from ..config import CONFIG
 from ..framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
-from ..modem import FSK_SINGLE_ITEM, SAMPLE_RATE
+from ..modem import SAMPLE_RATE
 from ..ops.common import (
     bit_sync_and_pack_rotations,
     dibit_sync_and_pack,
@@ -73,10 +77,12 @@ from ..ops.fsk import (
     _separation_cycles,
     fsk_blocked_row_shape,
     fsk_demod_bits_batch,
+    fsk_demod_bits_each,
     fsk_disc_bits_rows_batch,
     fsk_disc_row_shape,
     fsk_dual_bits_rows_batch,
     fsk_dual_rows_batch_plan,
+    fsk_fir_row_shape,
     fsk_quad_bits_rows_batch,
     fsk_quad_row_shape,
 )
@@ -109,8 +115,6 @@ _UNPORTED_KINDS = {
     "hell": "HELL",
 }
 _PORTED_KINDS = ("psk2", "psk4", "psk8", "fsk", "neural")
-# What the single-capture FSK receiver (fsk_demod_bits, MLSE) would take.
-_FSK_SINGLE = f"the single-capture FSK receiver (fsk_demod_bits with MLSE) is not ported: {FSK_SINGLE_ITEM}"
 
 
 def resolve_demod_plan(mode: str, symbol_rate: int) -> Tuple[str, tuple]:
@@ -312,9 +316,16 @@ def psk8_kernel_sync_tail(
     return packed, n_valid.to(torch.int32), found
 
 
-def _fsk_bits(samples: torch.Tensor, baud: float, mark: float, space: float) -> torch.Tensor:
-    """FSK bits (B, n_bits) uint8 from host-shaped rows (the layout
-    :func:`host_shape_batch` picks) or flat (B, N) dual-tone captures."""
+def _fsk_bits(samples: torch.Tensor, baud: float, mark: float, space: float, mlse: bool,
+              xla: bool) -> torch.Tensor:
+    """FSK bits (B, n_bits) uint8, dispatched on the input's layout as the
+    JAX package dispatches it: host-overlapped dual-tone rows to pass 1 and
+    K7 (under ``xla`` too, on the unpadded float32 rows), the fused FIR-window
+    layouts to K8 or K9, flat dual-tone captures long enough for two rows
+    to K13 (not under ``xla``), and everything else (flat close and mid
+    tones, the FIR windows of ``fsk_fir_row_shape``, shorter captures) to
+    the single-capture receiver per capture, with MLSE when ``mlse`` (one
+    Viterbi launch for the batch)."""
     sep = _separation_cycles(baud, mark, space, SAMPLE_RATE)
     spb = _samples_per_bit(SAMPLE_RATE, baud)
     if samples.ndim == 3 and sep >= 0.8:
@@ -325,15 +336,15 @@ def _fsk_bits(samples: torch.Tensor, baud: float, mark: float, space: float) -> 
     if samples.ndim == 3:
         _lo, _hi, dec, taps = _fir_frontend_plan(baud, mark, space, SAMPLE_RATE)
         plan = _fsk_disc_kernel_plan(spb, dec, taps)
+        if plan is not None and sep >= 0.4 and plan["spr2"] % 128:
+            plan = None  # K9 takes 128-aligned spr2 only
         if (plan is not None and samples.shape[2] == plan["c_pad"]
                 and samples.shape[1] % plan["fb"] == 0):
             fn = fsk_disc_bits_rows_batch if sep < 0.4 else fsk_quad_bits_rows_batch
             return fn(samples, baud, mark, space, SAMPLE_RATE)
-    elif sep >= 0.8 and samples.shape[1] // spb >= 2 * _fsk_geometry(spb)[0]:
+    elif not xla and sep >= 0.8 and samples.shape[1] // spb >= 2 * _fsk_geometry(spb)[0]:
         return fsk_demod_bits_batch(samples, baud, mark, space, SAMPLE_RATE)
-    raise NotImplementedError(
-        f"FSK {baud:g} Bd {mark:g}/{space:g} Hz on {tuple(samples.shape)} input: {_FSK_SINGLE}"
-    )
+    return fsk_demod_bits_each(samples, baud, mark, space, SAMPLE_RATE, mlse=mlse)
 
 
 def demod_pack_batch(
@@ -350,18 +361,19 @@ def demod_pack_batch(
     (QPSK, APSK16, SSTV, 8PSK under ``modem.psk8_compat_alias`` and OFDM4/8
     under ``modem.ofdm_compat_alias``), 'psk2'
     (BPSK, PSK31, and DSSS under ``modem.dsss_compat_alias``), 'psk8'
-    (8PSK), 'fsk' (FSK1200, FSK9600, FSK19200, MSK, FT8; flat input only
-    for dual tones) and 'neural' (flat input; the bytes after the preamble,
+    (8PSK), 'fsk' (FSK1200, FSK9600, FSK19200, MSK, FT8; any layout
+    :func:`host_shape_batch` builds, and flat input) and 'neural' (flat
+    input; the bytes after the preamble,
     n_valid their count, found all true). The PSK kinds take the kernel
     sync tails (K2 + K3/K4, K5 + K6) on blocked streams and the per-capture plain-torch tails on the
     single-capture streams of captures without a blocked path, as the JAX
     package picks them by stream length; D8PSK zero-pads to the kernels'
     grain and keeps K5 + K6 there. Under CONFIG ``tpu.demod_backend =
-    "xla"`` D8PSK runs the staged float path (K12, rotation, sectors) and
-    every PSK kind the per-capture tails. Other kinds, ``fsk_mlse``, FSK
-    under ``"xla"`` and FSK inputs that only the single-capture receiver
-    takes raise NotImplementedError naming the ROADMAP.md item that will
-    port them.
+    "xla"`` D8PSK runs the staged float path (K12, rotation, sectors),
+    every PSK kind the per-capture tails and dual-tone FSK K7 on the
+    unpadded float32 rows. ``fsk_mlse`` refines close-tone FSK captures that
+    arrive flat by MLSE. Other kinds raise NotImplementedError naming the
+    ROADMAP.md item that will port them.
     """
     kind, params = _receive_kind(mode, symbol_rate)
     if kind == "ofdm" and CONFIG.get("modem.ofdm_compat_alias", False):
@@ -379,13 +391,9 @@ def demod_pack_batch(
         return _neural_pack(samples, int(params[0]))
     xla = CONFIG.get("tpu.demod_backend", "auto") == "xla"
     if kind == "fsk":
-        if xla:
-            raise NotImplementedError(f"FSK under CONFIG tpu.demod_backend='xla': {_FSK_SINGLE}")
-        if fsk_mlse:
-            raise NotImplementedError(f"MLSE (CONFIG modem.batch_mlse): {_FSK_SINGLE}")
         # The JAX package's sync tail as it is: the first exact magic (no
         # validation pattern, no rotations), unvalidated, then the pack.
-        bits = _fsk_bits(samples, *params)
+        bits = _fsk_bits(samples, *params, mlse=fsk_mlse, xla=xla)
         start, found = find_bit_pattern(bits, MAGIC_BIT_PATTERN)
         packed, n_valid = pack_bits_from(bits, start)
         return packed, n_valid, found
@@ -477,27 +485,38 @@ def _int16_rows(device: DeviceLike) -> bool:
     return bool(i16)
 
 
-def _fsk_host_shape(batch: np.ndarray, params: tuple, device: DeviceLike) -> np.ndarray:
+def _fsk_host_shape(batch: np.ndarray, params: tuple, device: DeviceLike, mlse: bool) -> np.ndarray:
     """FSK rows in the layout of the JAX package's TPU path, on every device:
     dual tones as overlapped rows, padded to 256-row blocks (int16 on CUDA)
     where ``fsk_dual_rows_batch_plan`` maps, else unpadded float32 rows;
-    close and mid tones as the fused FIR windows (int16 on CUDA); anything
-    else flat. ``tpu.int8_rows`` does not apply to FSK."""
+    close and mid tones as the fused FIR windows (int16 on CUDA), else as
+    the float32 FIR windows of ``fsk_fir_row_shape``, else flat. With
+    ``mlse`` close and mid tones stay flat (MLSE correlates the raw
+    samples). Under CONFIG ``tpu.demod_backend = "xla"`` the layouts are
+    the JAX package's XLA ones: unpadded float32 dual-tone rows and the
+    FIR windows. ``tpu.int8_rows`` does not apply to FSK."""
     baud, mark, space = params
     n = batch.shape[1]
+    xla = CONFIG.get("tpu.demod_backend", "auto") == "xla"
     dtype = np.int16 if _int16_rows(device) else np.float32
     shape = fsk_blocked_row_shape(n, baud, mark, space, SAMPLE_RATE)
     if shape is not None:
         r, row, ov = shape
         r_pad = -(-r // 256) * 256
-        if fsk_dual_rows_batch_plan(_samples_per_bit(SAMPLE_RATE, baud), r_pad) is not None:
+        if not xla and fsk_dual_rows_batch_plan(_samples_per_bit(SAMPLE_RATE, baud), r_pad) is not None:
             return _overlap_rows(batch, r_pad, row, ov, dtype=dtype)
         return _overlap_rows(batch, r, row, ov)
-    dshape = (fsk_disc_row_shape(n, baud, mark, space, SAMPLE_RATE)
-              or fsk_quad_row_shape(n, baud, mark, space, SAMPLE_RATE))
+    if mlse:
+        return batch
+    dshape = None if xla else (fsk_disc_row_shape(n, baud, mark, space, SAMPLE_RATE)
+                               or fsk_quad_row_shape(n, baud, mark, space, SAMPLE_RATE))
     if dshape is not None:
         r, row, ov, lead = dshape
         return _overlap_rows(batch, r, row, ov, lead=lead, dtype=dtype)
+    fshape = fsk_fir_row_shape(n, baud, mark, space, SAMPLE_RATE)
+    if fshape is not None:
+        r, row, ov, lead = fshape
+        return _overlap_rows(batch, r, row, ov, lead=lead)
     return batch
 
 
@@ -523,7 +542,8 @@ def _overlap_rows(
 
 
 def host_shape_batch(
-    batch: np.ndarray, mode: str, symbol_rate: int, device: DeviceLike = None
+    batch: np.ndarray, mode: str, symbol_rate: int, device: DeviceLike = None,
+    fsk_mlse: Optional[bool] = None,
 ) -> np.ndarray:
     """Pre-shape (B, N) captures into the layout ``demod_pack_batch`` takes
     on ``device`` (default: the card): PSK captures (kinds psk2, psk4, psk8,
@@ -537,13 +557,15 @@ def host_shape_batch(
     sources, which read_wav divides by 32768), float32 otherwise. CONFIG
     ``tpu.int16_rows`` overrides that choice; CONFIG ``tpu.int8_rows`` (off
     by default) ships PSK rows as int8 at scale 128 instead, a quarter of
-    the float32 read at about -50 dB of quantization noise.
+    the float32 read at about -50 dB of quantization noise. ``fsk_mlse``
+    (None: CONFIG ``modem.batch_mlse``) keeps close- and mid-tone FSK
+    captures flat for the MLSE path.
     """
     batch = np.asarray(batch, dtype=np.float32)
     b = batch.shape[0]
     kind, params = _receive_kind(mode, symbol_rate)
     if kind == "fsk":
-        return _fsk_host_shape(batch, params, device)
+        return _fsk_host_shape(batch, params, device, _batch_mlse(fsk_mlse))
     if kind not in ("psk2", "psk4", "psk8"):
         return batch
     shape = blocked_row_shape(batch.shape[1], params[0], SAMPLE_RATE)
@@ -568,19 +590,24 @@ def host_shape_batch(
     return shaped.reshape(b, r, row)
 
 
+def _batch_mlse(fsk_mlse: Optional[bool]) -> bool:
+    return bool(CONFIG.get("modem.batch_mlse", False)) if fsk_mlse is None else bool(fsk_mlse)
+
+
 def decode_sample_batch(
-    batch: np.ndarray, mode: str, symbol_rate: int, device: DeviceLike = None
+    batch: np.ndarray, mode: str, symbol_rate: int, device: DeviceLike = None,
+    fsk_mlse: Optional[bool] = None,
 ) -> List[bytes]:
     """Demodulate a (B, N) batch to per-capture raw byte streams on
-    ``device`` (default: the card; the CPU only when named). FSK under
-    CONFIG ``modem.batch_mlse`` raises NotImplementedError (ROADMAP.md
-    queue 1, item 1)."""
+    ``device`` (default: the card; the CPU only when named). ``fsk_mlse``
+    overrides CONFIG ``modem.batch_mlse`` (the MLSE escalation of
+    :func:`decode_wav_batch` sets it); None defers to CONFIG."""
     dev = resolve_device(device)
-    shaped = host_shape_batch(batch, mode, symbol_rate, device=dev)
+    mlse = _batch_mlse(fsk_mlse)
+    shaped = host_shape_batch(batch, mode, symbol_rate, device=dev, fsk_mlse=mlse)
     x = torch.from_numpy(np.ascontiguousarray(shaped)).to(dev)
     packed, n_valid, _found = demod_pack_batch(
-        x, mode, int(symbol_rate), cfo_retry=bool(CONFIG.get("modem.cfo_retry", True)),
-        fsk_mlse=bool(CONFIG.get("modem.batch_mlse", False)),
+        x, mode, int(symbol_rate), cfo_retry=bool(CONFIG.get("modem.cfo_retry", True)), fsk_mlse=mlse,
     )
     packed = packed.cpu().numpy()
     n_valid = n_valid.cpu().numpy()
@@ -619,13 +646,13 @@ def decode_wav_batch(
     transfer spread across several captures reassembles here. Every capture
     runs ``decoder.run_recovery_ladder`` (strict parse, header-tolerant
     recovery, the no-sync rescue on total loss); then the captures that
-    yielded nothing go through the coherent escalation (the carrier-tracked
-    single-capture receiver; psk2, psk4 and psk8 outside the compatibility
-    aliases) and, with ``drift_retry``, the ±5% clock-drift hypotheses as
-    one extra batched dispatch. The JAX package's MLSE re-dispatch of lost
-    close-tone FSK captures is not ported (ROADMAP.md queue 1, item 1):
-    such captures stay lost, with a warning. ``stream_fec`` and ``denoise``
-    raise NotImplementedError (the FEC item).
+    yielded nothing go through the MLSE escalation (close- and mid-tone
+    FSK without CONFIG ``modem.batch_mlse``: the lost captures again as one
+    batch through the MLSE-refined path), the coherent escalation (the
+    carrier-tracked single-capture receiver; psk2, psk4 and psk8 outside
+    the compatibility aliases) and, with ``drift_retry``, the ±5%
+    clock-drift hypotheses as one extra batched dispatch. ``stream_fec``
+    and ``denoise`` raise NotImplementedError (the FEC item).
     """
     from ..decoder import RETRY_FACTORS, default_registry, drift_rows, run_recovery_ladder, save_decoded_files
     from ..ops.psk import bpsk_tracked_demodulate, psk8_tracked_demodulate, qpsk_tracked_demodulate
@@ -657,11 +684,26 @@ def decode_wav_batch(
         # the assembly is progress).
         if not out[-1] and not frames:
             lost.append(i)
-    if lost and _fsk_close_tones(mode, symbol_rate):
-        for i in lost:
-            logger.warning("%s: no frame; the MLSE re-dispatch is not ported (%s)", paths[i], _FSK_SINGLE)
 
     kind, params = resolve_demod_plan(mode, symbol_rate)
+    if (lost and kind == "fsk" and not CONFIG.get("modem.batch_mlse", False)
+            and _separation_cycles(*params, SAMPLE_RATE) < 0.8):
+        # The batch skips the MLSE refinement by default; re-dispatch only
+        # the captures that parsed nothing through the MLSE-refined path,
+        # so the batch never decodes worse than the single-capture receiver.
+        esc = np.zeros((len(lost), n), dtype=np.float32)
+        for j, i in enumerate(lost):
+            esc[j, : min(len(arrays[i]), n)] = arrays[i][:n]
+        esc_raws = decode_sample_batch(esc, mode, symbol_rate, device=device, fsk_mlse=True)
+        still_lost = []
+        for j, i in enumerate(lost):
+            frames, damaged = ladder(esc_raws[j], arrays[i], rescue=True)
+            saved = save_decoded_files(frames, recv_dir, registry, damaged=damaged or None)
+            if saved:
+                out[i] = saved
+            elif not frames:
+                still_lost.append(i)
+        lost = still_lost
     if (
         lost
         and kind in ("psk2", "psk4", "psk8")
@@ -707,8 +749,3 @@ def decode_wav_batch(
                     out[i] = saved
                     break
     return out
-
-
-def _fsk_close_tones(mode: str, symbol_rate: int) -> bool:
-    kind, params = _receive_kind(mode, symbol_rate)
-    return kind == "fsk" and _separation_cycles(*params, SAMPLE_RATE) < 0.8

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's receive once on one NVIDIA GPU: the batched PSK
 (DQPSK, DBPSK, D8PSK), FSK (FSK1200, FSK9600, FSK19200, with MSK and FT8
-on the dual-tone kernel) and NEURAL slices, and the single-capture PSK and
-NEURAL receive (``decode_wav_file`` -> ``modem.demodulate`` -> the recovery
-ladder).
+on the dual-tone kernel) and NEURAL slices, and the single-capture PSK,
+NEURAL and FSK receive (``decode_wav_file`` -> ``modem.demodulate`` -> the
+recovery ladder; for FSK9600 the MLSE Viterbi kernel).
 
     python3 chip_smoke.py    # one card, full size, about 4 minutes on an H100
 
@@ -40,6 +40,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    port's ``td_sync_batch``, float32 and int16 rows: symbols equal on clean
    captures, at most 1e-4 different with AWGN at 6 dB, all zeros on an
    all-zero capture;
+3e. the MLSE Viterbi kernel (``mlse_viterbi.cu``) vs plain on the blocks
+   the single-capture receiver gives it for one 2^24-sample capture at
+   9600 Bd, clean and with AWGN at 15 dB, on three trellises: 48 states
+   (1200/2200 Hz, FSK9600), 96 (1100/2200 Hz) and 8 (1200/2400 Hz): bits
+   equal on every block;
 4. the matchers and packs vs plain at the main path's row count: K2 (qpsk
    and bpsk families), K5 on streams built under every hypothesis plus a
    noise capture, (first, found) equal at each tier of the sync tail (256
@@ -77,6 +82,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
 5k. ``decode_wav_file(device="cuda")`` of a 2^24-sample NEURAL@9600 WAV
    carrying the 128 KiB file in 8 parts (the time-domain path) and of one
    at NEURAL@1200 (the FFT path): the file reassembles, no kernel launches;
+5l. the single-capture FSK receive: ``decode_wav_file(device="cuda")`` of
+   one 2^24-sample WAV each for FSK1200, FSK9600, FSK19200, MSK@9600 and
+   FT8, carrying the largest random file in 16 KiB parts (each compressed
+   on its own) that fits, up to 128 KiB (FT8: one 512-byte part): the file
+   reassembles; FSK9600 launches the Viterbi kernel once, FSK1200, MSK
+   and FT8 K7 once, FSK19200 no kernel; 2 FSK1200 captures under CONFIG
+   ``tpu.demod_backend = "xla"`` launch K7 once and keep their frames; a
+   noise WAV saves nothing. Then the marginal FSK9600 capture of
+   the JAX package's ``tests/test_batch_ladder.py`` (300 bytes, AWGN
+   sigma 0.08): ``decode_from_buffer`` saves it, the equalizer-only batch
+   parses nothing, and ``decode_wav_batch`` of a healthy WAV and it saves
+   both, the Viterbi kernel launched once, for the escalated capture only;
+   and ``decode_sample_batch`` of 8 x 2^24 FSK9600 captures (one
+   continuous transmission of 16 KiB frames at 8 leads) under CONFIG
+   ``modem.batch_mlse``: every capture all its frames, one Viterbi launch
+   for the batch;
 6. timing with CUDA events (one warm-up, median of 5): ``demod_pack_batch``
    of each mode on its 64 x 2^24 int16 batch staged on the card (PSK with
    cfo_retry on and off, and again with its last capture noise, which
@@ -95,7 +116,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    at 256 rows under ``torch.profiler`` must show exactly 5 device kernels
    and no copy or fill; and each mode's single-capture
    ``decode_wav_file`` (the PSK modes and NEURAL@9600) by the host clock
-   (median of 3) with its device kernel time under ``torch.profiler``.
+   (median of 3) with its device kernel time under ``torch.profiler``,
+   the FSK modes' too; the Viterbi kernel on the FSK9600 capture's 205
+   blocks of 10,240 steps beside its plain version (one run) and its bound,
+   and on the ``batch_mlse`` batch's one launch of 1,640 blocks.
 
 The line before the last is one JSON object with the kernels' names,
 sources, launch counts, errors, times and bounds (one entry per kernel and
@@ -104,7 +128,8 @@ over 3.35 TB/s and its operations over 67 T/s (the H100 SXM's published
 memory rate and float32 CUDA-core rate; integer operations are counted
 against the same rate), from the shapes and templates of the timed call.
 No single PyTorch call computes any of these functions, so ``library_ms``
-is null throughout. The last line is ``{"ok": true, "device": {...}}``. It
+is null throughout. The Viterbi kernel's bound by bytes and operations is
+far below its real floor, the chain of 10,240 dependent steps a block. The last line is ``{"ok": true, "device": {...}}``. It
 imports nothing of JAX.
 """
 
@@ -145,6 +170,18 @@ _FSK_SLICES = {
     "FSK9600": dict(rate=9600, wav=True, kernels=("fsk_disc_sums_batch",)),
     "FSK19200": dict(rate=19200, wav=False, kernels=("fsk_quad_margin_batch",)),
 }
+# The single-capture FSK decodes of phase 5l: mode -> symbol rate.
+_FSK_SINGLE = {"FSK1200": 1200, "FSK9600": 9600, "FSK19200": 19200, "MSK": 9600, "FT8": 50}
+# The kernel each of those single-capture decodes launches once (FSK19200's
+# quadrature receiver is plain torch).
+_FSK_SINGLE_KERNEL = {"FSK1200": "fsk_tile_bits_batch", "FSK9600": "mlse_viterbi_blocks",
+                      "MSK": "fsk_tile_bits_batch", "FT8": "fsk_tile_bits_batch"}
+# The Viterbi trellises of phase 3e at 9600 Bd: label -> (mark, space).
+_TRELLISES = {"48 states": (1200.0, 2200.0), "96 states": (1100.0, 2200.0), "8 states": (1200.0, 2400.0)}
+# The Viterbi kernel's operations per state and step, from its code: two
+# metrics of 2 products, a sum and a difference, two candidate sums, the
+# compare, the select, the step maximum and the subtraction.
+_VITERBI_OPS = 14
 # K7's geometries in phase 3b: label -> (mode, symbol rate, payload bytes).
 _K7_CASES = {
     "FSK1200": ("FSK1200", 1200, 16384),
@@ -172,6 +209,9 @@ _ENTRIES = {
     "psk_project_diff": ("psk_project_diff", "QPSK single", "project_diff.cu", 199),
     "psk_project_diff_batch": ("psk_project_diff_batch", "8PSK xla", "project_diff.cu", 126),
     "neural_extract_batch": ("neural_extract_batch", "NEURAL", "neural_extract.cu", 1083),
+    # No Pallas kernel: the lax.scan pair of _mlse_refine.
+    "mlse_viterbi_blocks": ("mlse_viterbi_blocks", "FSK9600 single", "mlse_viterbi.cu",
+                            "audio_modem_radio_tpu/ops/fsk.py:375"),
 }
 # K10's operations per symbol, from its code: 256 codewords x 16 FMAs, 256
 # compares, 16 chips of 4 (two mask products, a sum, the half) and 16
@@ -1688,6 +1728,239 @@ def phase_neural_timing(device, n_cap: int, n: int, payload_bytes: int, card: st
     return t, msps, bounds
 
 
+# --- the single-capture FSK receive: the MLSE Viterbi and decode_wav_file -----------
+
+def _viterbi_calls(fn):
+    """Run ``fn()``; return its result and the arguments of every
+    ``mlse_viterbi_blocks`` call the FSK receiver made in it (the main
+    path's inputs)."""
+    from audio_modem_radio_tpu_torch.ops import fsk as tf
+
+    calls, real = [], tf.mlse_viterbi_blocks
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    tf.mlse_viterbi_blocks = record
+    try:
+        out = fn()
+    finally:
+        tf.mlse_viterbi_blocks = real
+    return out, calls
+
+
+def phase_viterbi_kernel(device, n: int, card: str):
+    """The Viterbi kernel vs its plain version on the blocks
+    ``fsk_demod_bits`` gives it for one 2^n-sample capture of random bytes
+    at 9600 Bd, clean and at 15 dB AWGN, on three trellises. Returns
+    ((the most bit mismatches of any call, None), the clean 48-state call's
+    arguments)."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.ops import fsk as tf
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+
+    keep, worst = None, 0
+    for label, (mark, space) in _TRELLISES.items():
+        t0 = time.perf_counter()
+        clean = _tiled(tf.fsk_modulate(_payload(500, 200_000), BAUD, mark, space, SR), n, lead=211)
+        for tag, x in (("clean", clean), ("awgn15dB", _awgn(clean, 15.0, device))):
+            xt = torch.from_numpy(x).to(device)
+            _, calls = _viterbi_calls(lambda: tf.fsk_demod_bits(xt, float(BAUD), mark, space, SR))
+            check(len(calls) == 1, f"{label} {tag}: {len(calls)} Viterbi calls, not 1")
+            args = calls[0]
+            got = tk.mlse_viterbi_blocks(*args)
+            ref = tk.mlse_viterbi_blocks_plain(*args)
+            torch.cuda.synchronize()
+            n_bad = int((got != ref).sum())
+            worst = max(worst, n_bad)
+            say(f"[3e Viterbi] {label} ({mark:g}/{space:g} Hz) {tag}: {args[0].shape[0]} blocks x "
+                f"{args[0].shape[2]} steps, {args[1].shape[0]} states, advances {args[4]}/{args[5]}: "
+                f"bit mismatches {n_bad} of {got.numel()} | {card}")
+            check(n_bad == 0, f"the Viterbi kernel differs from plain on {label} {tag}")
+            if label == "48 states" and tag == "clean":
+                keep = args
+            del xt, got, ref
+        say(f"[3e Viterbi] {label}: {time.perf_counter() - t0:.1f} s | {card}")
+    return (float(worst), None), keep
+
+
+def _fsk_transmission(mode: str, rate: int, seed: int, n: int, lead: int):
+    """(file, wave) of the largest random file in 16 KiB parts, up to 128
+    KiB, whose multi-part transmission fits ``n - lead`` samples (FT8: one
+    512-byte part), each part compressed on its own and framed as the JAX
+    ``encoder.py`` frames a multi-part file."""
+    from audio_modem_radio_tpu_torch.framing import crc32, pack_frame
+    from audio_modem_radio_tpu_torch.modem import modulate
+    from audio_modem_radio_tpu_torch.utils.compression import adaptive_compress
+
+    sizes = [(1, 512)] if mode == "FT8" else [(k, _FILE_BYTES // _N_PARTS) for k in range(_N_PARTS, 0, -1)]
+    for n_parts, part in sizes:
+        data = _payload(seed, n_parts * part)
+        framed = b"".join(
+            pack_frame(f"{mode.lower()}{seed}.bin.part{i + 1}", adaptive_compress(data[i * part : (i + 1) * part], mode),
+                       i, n_parts, len(data), crc32(data))
+            for i in range(n_parts)
+        )
+        wave = modulate(mode, framed, rate)
+        if lead + len(wave) <= n:
+            return data, wave
+    raise PhaseError(f"{mode}: no file fits {n} samples")
+
+
+def phase_fsk_single(device, n: int, work: str, card: str):
+    """Phase 5l; returns ({mode: WAV path} for phase 6, the launch counts of
+    the FSK9600 decode, the arguments of the ``batch_mlse`` batch's Viterbi
+    launch)."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.assembly import AssemblyRegistry
+    from audio_modem_radio_tpu_torch.config import CONFIG
+    from audio_modem_radio_tpu_torch.decoder import decode_from_buffer
+    from audio_modem_radio_tpu_torch.framing import crc32, pack_frame, parse_frames
+    from audio_modem_radio_tpu_torch.modem import modulate
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch, decode_wav_batch
+    from audio_modem_radio_tpu_torch.utils.wavio import write_wav
+
+    rng = np.random.default_rng(79)
+    wavs, fsk9600 = {}, None
+    for k, (mode, rate) in enumerate(_FSK_SINGLE.items()):
+        t0 = time.perf_counter()
+        lead = int(rng.integers(0, 96000))
+        data, wave = _fsk_transmission(mode, rate, 60 + k, n, lead)
+        x = np.zeros(n, np.float32)
+        x[lead : lead + len(wave)] = wave
+        path = os.path.join(work, f"{mode}_single.wav")
+        write_wav(path, x)
+        saved, counts, _reads, wall = _decode_wav(device, path, mode, rate, work, f"{mode}single")
+        say(f"[5l {mode}@{rate}] decode_wav_file, a {len(data)}-byte file, {len(wave) / SR:.1f} s of signal in "
+            f"{n / SR:.1f} s: wall {wall:.3f} s, saved {len(saved)}, launches={counts} | {card}")
+        check(len(saved) == 1, f"{mode}: {len(saved)} files saved")
+        with open(saved[0], "rb") as f:
+            check(f.read() == data, f"{mode}: the reassembled file differs")
+        want = _FSK_SINGLE_KERNEL.get(mode)
+        check({k: v for k, v in counts.items() if v} == ({want: 1} if want else {}),
+              f"{mode}: the single capture must launch {want or 'no kernel'} once and nothing else: {counts}")
+        if mode == "FSK9600":
+            fsk9600 = counts
+        wavs[mode] = path
+        say(f"[5l {mode}] {time.perf_counter() - t0:.1f} s | {card}")
+
+    # Dual tones under CONFIG tpu.demod_backend = "xla": the JAX package's
+    # XLA layout (unpadded float32 rows), still through K7.
+    t0 = time.perf_counter()
+    data = _payload(62, 1500)
+    wave = _mode_wave(data, "xla.bin", "FSK1200", 1200)
+    batch = np.zeros((2, n), np.float32)
+    for i in range(2):
+        batch[i, 333 * i : 333 * i + len(wave)] = wave
+    CONFIG.set("tpu.demod_backend", "xla")
+    try:
+        tk.reset_launch_counts()
+        raws = decode_sample_batch(batch, "FSK1200", 1200, device=device)
+        counts = tk.launch_counts()
+    finally:
+        CONFIG.set("tpu.demod_backend", "auto")
+    say(f"[5l xla] decode_sample_batch of 2 x {n} FSK1200 captures under tpu.demod_backend=xla: "
+        f"{time.perf_counter() - t0:.1f} s, launches={counts} | {card}")
+    check([[f.data for f in parse_frames(r)] for r in raws] == [[data]] * 2, "FSK1200 under xla lost a frame")
+    check({k: v for k, v in counts.items() if v} == {"fsk_tile_bits_batch": 1},
+          f"FSK1200 under xla must launch K7 once and nothing else: {counts}")
+
+    path = os.path.join(work, "fsk_noise.wav")
+    write_wav(path, np.clip(rng.normal(0.0, 0.3, n), -1, 1).astype(np.float32))
+    saved, counts, _reads, wall = _decode_wav(device, path, "FSK9600", 9600, work, "fsknoise")
+    say(f"[5l noise] decode_wav_file FSK9600 on a noise-only WAV: wall {wall:.3f} s, saved {len(saved)}, "
+        f"launches={counts} | {card}")
+    check(saved == [], "a noise-only FSK9600 WAV saved files")
+
+    t0 = time.perf_counter()
+    data = np.random.default_rng(5).integers(0, 256, 300, dtype=np.uint8).tobytes()
+    wave = modulate("FSK9600", pack_frame("m.bin", data, 0, 1, len(data), crc32(data)), 9600)
+    marginal = (wave + np.random.default_rng(2001).normal(0, 0.08, len(wave))).astype(np.float32)
+    tk.reset_launch_counts()
+    single = decode_from_buffer(marginal, "FSK9600", 9600, recv_dir=os.path.join(work, "recv_marginal"),
+                                registry=AssemblyRegistry(journal_dir=""), device=device)
+    check(len(single) == 1 and open(single[0], "rb").read() == data, "the marginal capture: single decode failed")
+    raws = decode_sample_batch(marginal[None], "FSK9600", 9600, device=device, fsk_mlse=False)
+    check(not parse_frames(raws[0]), "the marginal capture must defeat the equalizer-only batch")
+    healthy = b"healthy capture " * 30
+    paths = [os.path.join(work, "healthy.wav"), os.path.join(work, "marginal.wav")]
+    write_wav(paths[0], modulate("FSK9600", pack_frame("ok.bin", healthy, 0, 1, len(healthy), crc32(healthy)), 9600))
+    write_wav(paths[1], marginal)
+    tk.reset_launch_counts()
+    results = decode_wav_batch(paths, "FSK9600", 9600, recv_dir=os.path.join(work, "recv_escalation"),
+                               registry=AssemblyRegistry(journal_dir=""), device=device)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    say(f"[5l escalation] decode_wav_batch of a healthy and the marginal FSK9600 WAV: saved "
+        f"{[len(r) for r in results]}, launches={counts} | {card}")
+    check([[open(q, "rb").read() for q in r] for r in results] == [[healthy], [data]],
+          "decode_wav_batch did not save both captures")
+    check(counts["mlse_viterbi_blocks"] == 1, f"the escalation must launch the Viterbi kernel once: {counts}")
+
+    # One continuous-phase transmission of as many 16 KiB frames as fit: the
+    # MLSE's trellis follows the phase across frames, so tiled copies of one
+    # frame (a phase restart at every copy) would lose frames in both
+    # packages.
+    payload = _payload(61, 16384)
+    n_frames = (n - 8 * 13) // len(_mode_wave(payload, "mlse.bin", "FSK9600", 9600))
+    wave = modulate("FSK9600", b"".join(pack_frame(f"mlse{j}.bin", payload, 0, 1, len(payload), crc32(payload))
+                                        for j in range(n_frames)), 9600)
+    batch = np.zeros((8, n), np.float32)
+    for i in range(8):
+        batch[i, 13 * i : 13 * i + len(wave)] = wave
+    CONFIG.set("modem.batch_mlse", True)
+    try:
+        tk.reset_launch_counts()
+        t1 = time.perf_counter()
+        raws, calls = _viterbi_calls(lambda: decode_sample_batch(batch, "FSK9600", 9600, device=device))
+        wall = time.perf_counter() - t1
+        counts = tk.launch_counts()
+    finally:
+        CONFIG.set("modem.batch_mlse", False)
+    got = [[f.data for f in parse_frames(r)] for r in raws]
+    say(f"[5l batch_mlse] decode_sample_batch of 8 x {n} FSK9600 captures under modem.batch_mlse: wall "
+        f"{wall:.3f} s, frames per capture {[len(g) for g in got]} of {n_frames}, launches={counts} | {card}")
+    check(got == [[payload] * n_frames] * 8, "modem.batch_mlse: a capture lost frames")
+    check(counts["mlse_viterbi_blocks"] == 1 and sum(counts.values()) == 1,
+          f"modem.batch_mlse must launch the Viterbi once for the batch: {counts}")
+    say(f"[5l] marginal, escalation and batch_mlse: {time.perf_counter() - t0:.1f} s | {card}")
+    return wavs, fsk9600, calls[0]
+
+
+def phase_viterbi_timing(args, batch_args, card: str):
+    """The Viterbi kernel on the FSK9600 capture's blocks (median of 5 by
+    CUDA events) and its plain version (one run), and the kernel on the
+    ``batch_mlse`` batch's one launch; returns ({entry: (ms, plain_ms, 1)},
+    {entry: (bound_ms, bound_by)})."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+
+    x = args[0]
+    nb, _, L = x.shape
+    S = args[1].shape[0]
+    ms = _time_ms(lambda: tk.mlse_viterbi_blocks(*args))
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    tk.mlse_viterbi_blocks_plain(*args)
+    b.record()
+    torch.cuda.synchronize()
+    plain = a.elapsed_time(b)
+    bound = _bound((x.numel() + 2 * S + args[3].numel()) * 4 + nb * L, nb * L * S * _VITERBI_OPS)
+    say(f"[6 time] mlse_viterbi_blocks ({nb} blocks x {L} steps, {S} states): kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms (one run), bound {bound[0]:.4f} ms by {bound[1]} | {card}")
+    nb_batch = batch_args[0].shape[0]
+    ms_batch = _time_ms(lambda: tk.mlse_viterbi_blocks(*batch_args))
+    say(f"[6 time] mlse_viterbi_blocks, the modem.batch_mlse batch's one launch ({nb_batch} blocks x {L} steps, "
+        f"{S} states): kernel {ms_batch:.4f} ms, {ms_batch * nb / nb_batch:.4f} ms per {nb} blocks | {card}")
+    return {"mlse_viterbi_blocks": (ms, plain, 1)}, {"mlse_viterbi_blocks": bound}
+
+
 def main() -> int:
     n, n_k1, n_slice, payload_bytes = 1 << 24, 8, 64, 16384
     # One card: the first visible one (set before torch initialises CUDA).
@@ -1725,6 +1998,9 @@ def main() -> int:
         errs.update(phase_project_diff(device, n_k1, n, payload_bytes, card))
         phase = "3d K10"
         errs.update(phase_neural_kernel(device, n_k1, n, payload_bytes, card))
+        phase = "3e Viterbi"
+        viterbi_err, viterbi_args = phase_viterbi_kernel(device, n, card)
+        errs["mlse_viterbi_blocks"] = viterbi_err
         phase = "4 match/pack"
         r = blocked_row_shape(n, BAUD, SR)[0]
         errs.update({k: (v, None) for k, v in phase_match_pack(device, r, card).items()})
@@ -1752,6 +2028,9 @@ def main() -> int:
         phase_neural_slice(device, 3000, n_k1, n, payload_bytes, "5j", card)
         phase = "5k NEURAL single-capture decodes"
         single["wavs"]["NEURAL"] = phase_neural_single(device, n, single["work"], card)
+        phase = "5l FSK single-capture decodes"
+        fsk_wavs, counts["FSK9600 single"], mlse_batch_args = phase_fsk_single(device, n, single["work"], card)
+        single["wavs"].update(fsk_wavs)
         phase = "6 timing"
         psk_times, _, bounds = phase_timing(device, n_slice, n, payload_bytes, card)
         times = {k: (ms, plain, n_slice) for k, (ms, plain) in psk_times.items()}
@@ -1765,6 +2044,9 @@ def main() -> int:
                                                          single["work"], card)
         times.update(diff_times)
         bounds.update(diff_bounds)
+        viterbi_times, viterbi_bounds = phase_viterbi_timing(viterbi_args, mlse_batch_args, card)
+        times.update(viterbi_times)
+        bounds.update(viterbi_bounds)
     except Exception as e:  # any failure: report the phase, print no result
         import traceback
 
@@ -1781,7 +2063,8 @@ def main() -> int:
         err_abs, err_rel = errs[entry]
         item = {
             "name": entry, "route": "cuda", "source": f"{_CSRC}/{src}",
-            "replaces": f"{_PALLAS}:{line}", "launches": counts[run][wrapper],
+            "replaces": line if isinstance(line, str) else f"{_PALLAS}:{line}",
+            "launches": counts[run][wrapper],
             "max_abs_err": err_abs, "ms": timed[0], "plain_ms": timed[1],
             "bound_ms": bounds[entry][0], "bound_by": bounds[entry][1], "library_ms": None,
         }

@@ -114,6 +114,10 @@ def test_modem_all_is_the_carried_part_of_the_jax_list():
     carried = [n for n in jmodem.__all__ if hasattr(tmodem, n)]
     assert tmodem.__all__ == carried
     assert {"ofdm_modulate_simple", "ofdm_demodulate_simple", "dsss_modulate", "dsss_demodulate"} <= set(carried)
+    assert {"fsk_demodulate", "fsk_high_speed_demodulate", "msk_demodulate", "ft8_demodulate"} <= set(carried)
+    # Only the HELL names wait (ROADMAP.md queue 1, item 6).
+    assert set(jmodem.__all__) - set(carried) == {
+        "feld_hell_modulate", "feld_hell_demodulate", "hellschreiber_modulate", "hellschreiber_demodulate"}
 
 
 @pytest.mark.parametrize("data", [

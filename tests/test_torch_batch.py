@@ -160,16 +160,18 @@ def test_host_shape_rule_and_unported_kinds():
     assert tb.host_shape_batch(batch, "QPSK", 9600, device="cpu").dtype == np.float32
     assert tb.host_shape_batch(batch, "FSK1200", 1200, device="cpu") is not None
     assert tb.resolve_demod_plan("NOPE", 9600) == tb.resolve_demod_plan("QPSK", 9600)
-    # Flat close-tone FSK needs the single-capture receiver (flat dual-tone
-    # FSK runs K13's path, tests/test_torch_fsk.py).
-    for mode in ("FSK9600", "OFDM4", "DSSS", "HELLSCHREIBER"):
+    # The kinds still to port name their ROADMAP.md item.
+    for mode in ("OFDM4", "DSSS", "HELLSCHREIBER"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tb.demod_pack_batch(torch.zeros((1, 1 << 16)), mode, 9600)
-    # PSK31 has no blocked path: the single-capture receiver per capture,
-    # equal to the JAX package's on a silent capture.
-    ref = [np.asarray(a) for a in j_demod_pack_batch(jnp.zeros((1, 1 << 16)), "PSK31", 31)]
-    got = [a.numpy() for a in tb.demod_pack_batch(torch.zeros((1, 1 << 16)), "PSK31", 31)]
-    assert all(np.array_equal(g, r) for g, r in zip(got, ref))
+    # PSK31 has no blocked path and flat close-tone FSK no fused layout: the
+    # single-capture receiver per capture (flat dual-tone FSK runs K13's
+    # path, tests/test_torch_fsk.py), equal to the JAX package's on a
+    # silent capture.
+    for mode, rate in (("PSK31", 31), ("FSK9600", 9600)):
+        ref = [np.asarray(a) for a in j_demod_pack_batch(jnp.zeros((1, 1 << 16)), mode, rate)]
+        got = [a.numpy() for a in tb.demod_pack_batch(torch.zeros((1, 1 << 16)), mode, rate)]
+        assert all(np.array_equal(g, r) for g, r in zip(got, ref)), mode
 
 
 def test_decode_wav_batch_matches_jax(workdir):

@@ -1043,3 +1043,102 @@ def test_neural_decode_sample_batch_on_card(cuda):
         counts = tk.launch_counts()
         assert {k for k, v in counts.items() if v > 0} == want and sum(counts.values()) == len(want)
         assert [[f.data for f in parse_frames(r)] for r in raws] == [[p], [p], []]
+
+
+# --- the MLSE Viterbi of the single-capture FSK receiver ------------------------------
+
+def _viterbi_inputs(cuda, n_states: int, nb: int, L: int, seed: int):
+    """Correlations of a real capture's scale, noisy, and the trellis tables
+    of ``n_states`` states, on the card."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0.0, 3.0, (nb, 4, L)).astype(np.float32)).to(cuda)
+    ph = 2 * np.pi * np.arange(n_states) / n_states
+    cos_t = torch.from_numpy(np.cos(ph).astype(np.float32)).to(cuda)
+    sin_t = torch.from_numpy(np.sin(ph).astype(np.float32)).to(cuda)
+    aec = torch.from_numpy(rng.uniform(1.0, 3.0, (nb, 2, n_states)).astype(np.float32)).to(cuda)
+    return x, cos_t, sin_t, aec
+
+
+@pytest.mark.parametrize("n_states,adv", [(8, (1, 2)), (48, (6, 11)), (96, (11, 22))])
+@pytest.mark.parametrize("nb,L", [(1, 37), (3, 10240), (5, 1000)])
+def test_mlse_viterbi_kernel_equals_plain(cuda, n_states, adv, nb, L):
+    """The Viterbi kernel's bits equal the plain version's bit for bit at 8,
+    48 and 96 states (one warp lane holding one, two or three states), on
+    a ragged short block, full-length blocks and a traceback stage that
+    ends inside a block; one launch a call."""
+    x, cos_t, sin_t, aec = _viterbi_inputs(cuda, n_states, nb, L, n_states + L)
+    before = tk.mlse_viterbi_blocks.launches
+    got = tk.mlse_viterbi_blocks(x, cos_t, sin_t, aec, *adv)
+    ref = tk.mlse_viterbi_blocks_plain(x, cos_t, sin_t, aec, *adv)
+    torch.cuda.synchronize()
+    assert tk.mlse_viterbi_blocks.launches == before + 1
+    assert got.dtype == torch.uint8 and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("mark,space", [(1200.0, 2200.0), (1100.0, 2200.0), (1200.0, 2400.0)])
+def test_fsk_demod_bits_mlse_on_card_equals_cpu(cuda, mark, space):
+    """``fsk_demod_bits`` with MLSE on the card (the kernel, 48, 96 and 8
+    states) against the same capture on the CPU (the plain Viterbi): the
+    bits over the signal are equal."""
+    from audio_modem_radio_tpu_torch.ops import fsk as tfsk
+
+    rng = np.random.default_rng(7)
+    wave = tfsk.fsk_modulate(rng.integers(0, 256, 2600, dtype=np.uint8).tobytes(), 9600, mark, space)
+    x = np.zeros(1 << 18, np.float32)
+    x[97 : 97 + len(wave)] = wave
+    n_sig = (97 + len(wave)) // 10
+    tk.reset_launch_counts()
+    got = tfsk.fsk_demod_bits(torch.from_numpy(x).to(cuda), 9600.0, mark, space, 96000)[0].cpu().numpy()
+    assert tk.launch_counts()["mlse_viterbi_blocks"] == 1
+    ref = tfsk.fsk_demod_bits(torch.from_numpy(x), 9600.0, mark, space, 96000)[0].numpy()
+    assert np.array_equal(got[:n_sig], ref[:n_sig])
+
+
+def _decode_batch_on(device, batch, mode, rate, **config):
+    """``decode_sample_batch`` on ``device`` under the CONFIG values in
+    ``config`` (dotted keys with ``__`` for ``.``), restored after."""
+    from audio_modem_radio_tpu_torch.config import CONFIG
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
+
+    keys = {k.replace("__", "."): v for k, v in config.items()}
+    old = {k: CONFIG.get(k) for k in keys}
+    try:
+        for k, v in keys.items():
+            CONFIG.set(k, v)
+        return decode_sample_batch(batch, mode, rate, device=device)
+    finally:
+        for k, v in old.items():
+            CONFIG.set(k, v)
+
+
+@pytest.mark.parametrize("mode", ["FSK1200", "MSK@9600"])
+def test_fsk_dual_rows_under_xla_launch_k7(cuda, mode):
+    """Under CONFIG ``tpu.demod_backend = "xla"`` dual-tone captures arrive
+    as unpadded float32 rows and still go through K7, once for the batch;
+    the bytes equal the CPU's."""
+    from audio_modem_radio_tpu_torch.framing import parse_frames
+
+    batch, _ = _fsk_batch(mode)
+    name, rate = mode.split("@")[0], _FSK[mode][0]
+    tk.reset_launch_counts()
+    got = _decode_batch_on(cuda, batch, name, rate, tpu__demod_backend="xla")
+    counts = tk.launch_counts()
+    assert counts["fsk_tile_bits_batch"] == 1 and sum(counts.values()) == 1, counts
+    ref = _decode_batch_on("cpu", batch, name, rate, tpu__demod_backend="xla")
+    assert got == ref and all(parse_frames(r) for r in got)
+
+
+def test_batch_mlse_one_viterbi_launch(cuda):
+    """Under CONFIG ``modem.batch_mlse`` every FSK9600 capture's MLSE blocks
+    share one Viterbi launch (per-capture energy rows), and the bytes equal
+    the CPU's plain Viterbi."""
+    from audio_modem_radio_tpu_torch.framing import parse_frames
+
+    batch, _ = _fsk_batch("FSK9600")
+    batch = np.pad(batch, ((0, 0), (0, (1 << 18) - batch.shape[1])))  # 26,214 bits: 4 blocks a capture
+    tk.reset_launch_counts()
+    got = _decode_batch_on(cuda, batch, "FSK9600", 9600, modem__batch_mlse=True)
+    counts = tk.launch_counts()
+    assert counts["mlse_viterbi_blocks"] == 1 and sum(counts.values()) == 1, counts
+    ref = _decode_batch_on("cpu", batch, "FSK9600", 9600, modem__batch_mlse=True)
+    assert got == ref and all(parse_frames(r) for r in got)

@@ -1,7 +1,8 @@
 """The PyTorch port's batched FSK receive vs the JAX package's, on the CPU:
 geometry, plans and tables (bitwise), transmit, the sync tail, host shaping,
 the slice through ``decode_sample_batch`` and ``decode_wav_batch``, the
-refusals, the device rule and the tables carried across."""
+inputs that take the single-capture receiver per capture, the device rule
+and the tables carried across."""
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from audio_modem_radio_tpu.parallel.batch import (
     _overlap_rows as j_overlap_rows,
     decode_sample_batch as j_decode_sample_batch,
     decode_wav_batch as j_decode_wav_batch,
+    demod_pack_batch as j_demod_pack_batch,
 )
 
 from audio_modem_radio_tpu_torch import modulate as t_modulate
@@ -264,27 +266,50 @@ def test_decode_wav_batch_fsk1200_matches_jax(workdir):
     assert read(got) == read(ref) == sorted(contents)
 
 
+def _assert_pack_equal(got, ref):
+    """demod_pack_batch outputs: n_valid and found equal, packed bytes equal
+    within n_valid."""
+    packed_t, n_valid_t, found_t = (a.numpy() for a in got)
+    packed_j, n_valid_j, found_j = (np.asarray(a) for a in ref)
+    assert np.array_equal(n_valid_t, n_valid_j) and np.array_equal(found_t, found_j)
+    for i in range(len(n_valid_j)):
+        assert np.array_equal(packed_t[i, : n_valid_j[i]], packed_j[i, : n_valid_j[i]])
+
+
 def test_flat_dual_tone_input_runs_k13_path():
     """Flat (B, N) dual-tone captures go through fsk_demod_bits_batch (K13's
     path) and decode the same frames as the row path; flat close-tone input
-    needs the single-capture receiver and is refused."""
+    takes the single-capture receiver per capture, as the JAX package's
+    vmapped ``fsk_demod_bits``, and packs the same bytes."""
     batch, payloads = _capture_batch("FSK1200", 21)
     packed, n_valid, found = tb.demod_pack_batch(torch.from_numpy(batch), "FSK1200", 1200)
     raws = [packed[i, : int(n_valid[i])].numpy().tobytes() for i in range(len(batch))]
     assert [[f.data for f in t_parse(r)] for r in raws] == [[p] if p else [] for p in payloads]
     assert bool(found[0]) and bool(found[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 1"):
-        tb.demod_pack_batch(torch.zeros((1, 1 << 16)), "FSK9600", 9600)
+    batch, payloads = _capture_batch("FSK9600", 23, noise=False)
+    got = tb.demod_pack_batch(torch.from_numpy(batch), "FSK9600", 9600)
+    _assert_pack_equal(got, j_demod_pack_batch(jnp.asarray(batch), "FSK9600", 9600))
+    raws = [got[0][i, : int(got[1][i])].numpy().tobytes() for i in range(len(batch))]
+    assert [[f.data for f in t_parse(r)] for r in raws] == [[p] for p in payloads]
 
 
 def test_batch_mlse_refused(configs):
+    """CONFIG modem.batch_mlse: close-tone captures stay flat and run the
+    MLSE-refined single-capture receiver per capture (the same byte stream
+    as the JAX package's), dual tones keep their rows (the same frames).
+    The PSK kinds ignore the FSK-only knob."""
     configs("modem", "batch_mlse", True)
-    batch = np.zeros((1, 1 << 16), np.float32)
-    for mode, rate in (("FSK9600", 9600), ("FSK1200", 1200)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 1"):
-            tb.decode_sample_batch(batch, mode, rate, device="cpu")
-    # The PSK kinds ignore the FSK-only knob.
-    assert len(tb.decode_sample_batch(batch, "QPSK", 9600, device="cpu")) == 1
+    for cfg in ("FSK9600", "FSK1200"):
+        mode, rate = CONFIGS[cfg][:2]
+        batch, payloads = _capture_batch(cfg, 24, leads=(0,), noise=False)
+        got = tb.decode_sample_batch(batch, mode, rate, device="cpu")
+        ref = j_decode_sample_batch(batch, mode, rate)
+        assert _frames(got, t_parse) == _frames(ref, j_parse)
+        if cfg == "FSK9600":  # the same receiver on the same flat capture: the same stream
+            assert got == ref
+        assert [[f.data for f in t_parse(r)] for r in got] == [[p] for p in payloads]
+    assert tb.host_shape_batch(batch, "FSK9600", 9600, device="cpu").shape == batch.shape
+    assert len(tb.decode_sample_batch(np.zeros((1, 1 << 16), np.float32), "QPSK", 9600, device="cpu")) == 1
 
 
 def test_default_device_is_the_card():
@@ -338,9 +363,18 @@ def test_tables_from_reference_fsk():
 
 
 def test_unported_fsk_shapes_refused():
-    """Pre-shaped rows in another layout and captures too short for any row
-    layout need the single-capture receiver."""
-    with pytest.raises(NotImplementedError, match="item 1"):
-        tb.demod_pack_batch(torch.zeros((1, 10, 637)), "FSK9600", 9600)
-    with pytest.raises(NotImplementedError, match="item 1"):
+    """FIR-window rows (``fsk_fir_row_shape``: 637 columns for FSK9600) and
+    captures too short for any row layout take the single-capture receiver
+    per capture, as in the JAX package: ten FIR rows of a real capture pack
+    the same bytes, and a 100-sample FSK1200 capture (one bit) raises the
+    same ValueError."""
+    batch, _ = _capture_batch("FSK9600", 25, leads=(0,), noise=False)
+    r, row, ov, lead = jfsk.fsk_fir_row_shape(batch.shape[1], 9600.0, 1200.0, 2200.0, SR)
+    assert row + ov == 637
+    rows = j_overlap_rows(batch, r, row, ov, lead=lead)[:, :10]
+    got = tb.demod_pack_batch(torch.from_numpy(rows), "FSK9600", 9600)
+    _assert_pack_equal(got, j_demod_pack_batch(jnp.asarray(rows), "FSK9600", 9600))
+    with pytest.raises(ValueError, match="shorter than two bit periods"):
+        j_demod_pack_batch(jnp.zeros((1, 100)), "FSK1200", 1200)
+    with pytest.raises(ValueError, match="shorter than two bit periods"):
         tb.demod_pack_batch(torch.zeros((1, 100)), "FSK1200", 1200)

@@ -588,7 +588,8 @@ def test_dual_tables_kept_per_template_until_it_changes():
     """The K7/K13 wrapper's tables: K13's are K7's laid out (n_off, spr,
     span, 4); a second call with the same template reuses them; a write to
     the template, or another tensor with equal values, makes them anew."""
-    W = torch.from_numpy(jfsk._fsk_blocked_templates(80, MARK, SPACE, SR, 8))
+    # A copy: the write below must not reach the JAX package's cached table.
+    W = torch.from_numpy(jfsk._fsk_blocked_templates(80, MARK, SPACE, SR, 8).copy())
     first, tab, span = tk._band_tables(W, 4)
     f7, t7, s7 = tk._dual_tables(W, False)
     f13, t13, s13 = tk._dual_tables(W, True)

@@ -168,13 +168,14 @@ def test_8psk_alias_flag_and_probe_match_jax(captures, configs):
 
 
 def test_demodulate_unknown_and_unported_modes():
+    """Unknown modes fall back to QPSK; OFDM4, DSSS and HELLSCHREIBER raise
+    naming their open items; FSK1200 decodes as the JAX package does."""
     x = np.zeros(N, np.float32)
     assert tmodem.demodulate("NOPE", x, 9600, device="cpu") == tmodem.demodulate("QPSK", x, 9600, device="cpu")
-    for mode in ("OFDM4", "DSSS", "HELLSCHREIBER"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
+    for mode, item in (("OFDM4", "item 4"), ("DSSS", "item 5"), ("HELLSCHREIBER", "item 6")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
             tmodem.demodulate(mode, x, 9600, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 1"):
-        tmodem.demodulate("FSK1200", x, 1200, device="cpu")
+    assert tmodem.demodulate("FSK1200", x, 1200, device="cpu") == jmodem.demodulate("FSK1200", x, 1200)
 
 
 @pytest.mark.parametrize("name", ["BPSK noisy", "QPSK +60Hz", "8PSK +60Hz"])
@@ -272,10 +273,16 @@ def test_decode_with_retry_degenerate_captures_save_nothing(tmp_path, mode, n):
 
 
 def test_decode_with_retry_fallback_keeps_not_implemented(tmp_path):
-    """The sequential fallback re-raises what the port has not ported
-    instead of logging it away."""
-    with pytest.raises(NotImplementedError, match="item 1"):
-        tdec.decode_with_retry(np.zeros(1, np.float32), "FSK9600", 9600, recv_dir=str(tmp_path), device="cpu")
+    """What the port has not ported (DSSS outside its alias, ROADMAP.md
+    queue 1 item 5) is re-raised instead of logged away; a one-sample
+    FSK9600 capture, too short for every attempt, saves nothing in both
+    packages."""
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tdec.decode_with_retry(np.zeros(1, np.float32), "DSSS", 9600, recv_dir=str(tmp_path), device="cpu")
+    x = np.zeros(1, np.float32)
+    assert jdec.decode_with_retry(x, "FSK9600", 9600, recv_dir=str(tmp_path / "j"), registry=JRegistry()) == []
+    assert tdec.decode_with_retry(x, "FSK9600", 9600, recv_dir=str(tmp_path / "t"), registry=TRegistry(),
+                                  device="cpu") == []
 
 
 def test_save_decoded_files_damaged_fec_frames_left_unsaved(tmp_path, caplog):
@@ -367,9 +374,19 @@ def test_psk8_xla_backend_matches_jax_demod_pack(cfo_retry, configs):
 
 
 def test_fsk_refused_under_xla_backend(configs):
+    """Under CONFIG tpu.demod_backend = "xla" flat FSK1200 captures take the
+    single-capture receiver per capture, as the JAX package's XLA body
+    does, and pack the same bytes."""
     configs("tpu", "demod_backend", "xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 1"):
-        tb.demod_pack_batch(torch.zeros((1, N)), "FSK1200", 1200)
+    data = b"xla fsk " * 4
+    wave = np.asarray(jmodem.modulate("FSK1200", pack_frame("x.bin", data, 0, 1, len(data), crc32(data)), 1200))
+    batch = np.stack([_place(wave, N, 0), _place(wave, N, 333)]).astype(np.float32)
+    got = [a.numpy() for a in tb.demod_pack_batch(torch.from_numpy(batch), "FSK1200", 1200)]
+    ref = [np.asarray(a) for a in jb.demod_pack_batch(jnp.asarray(batch), "FSK1200", 1200)]
+    assert np.array_equal(got[1], ref[1]) and np.array_equal(got[2], ref[2])
+    for i in range(2):
+        assert np.array_equal(got[0][i, : got[1][i]], ref[0][i, : ref[1][i]])
+        assert [f[2] for f in _frames(got[0][i, : got[1][i]].tobytes())] == [data]
 
 
 def test_decode_wav_batch_rescues_lost_captures(tmp_path, captures):
