@@ -7,7 +7,8 @@
 ``--kernel`` is ``decide`` (K1), ``fsk_tile`` (K7), ``neural_extract`` (K10),
 ``fsk_flat`` (K13), ``project_diff`` (K12, or K11 with ``--single``),
 ``sector_match`` (K5), ``rotation_match`` (K2), ``psk8_pack`` (K6),
-``relabel_pack`` (K3) or ``bit_select_pack`` (K4). Each
+``relabel_pack`` (K3), ``bit_select_pack`` (K4) or ``mlse_viterbi`` (the
+single-capture FSK receiver's MLSE Viterbi). Each
 ``--variant NAME=SOURCE[:FLAGS]`` compiles
 SOURCE alone (a path relative to the package, or absolute, such as another
 checkout's copy of the same file) with the build's nvcc flags plus FLAGS
@@ -29,7 +30,13 @@ rows); K5 on K1's 8PSK sectors of the bench batch, K2 on K1's QPSK
 ``--rows-scanned`` rows (256, 1792 or full); K6 on K1's 8PSK sectors with
 capture i at ksel i % 8 and r8 (i // 8) % 8, every pair once; K3 on K1's
 QPSK lanes and K4 on K1's BPSK lanes of the bench batch, capture i at ksel
-i % 4 and s8 (i // 4) % 8, every pair twice. A K5 or K2
+i % 4 and s8 (i // 4) % 8, every pair twice; the Viterbi on the 205
+48-state blocks that ``fsk_demod_bits`` gives it for ``chip_smoke.py``
+phase 3e's clean 2^24-sample capture (random bytes at 9600 Bd, 1200/2200
+Hz) or, with ``--batch``, on the 1,640 blocks of one launch for 8 FSK9600
+captures of one continuous transmission (phase 5l's ``modem.batch_mlse``
+batch, through ``fsk_demod_bits_each``), with cycles a step at the SM clock
+read. A K5 or K2
 source with the earlier C interface (``amr_sector_match``,
 ``amr_rotation_match``: first positions only, 2^30 where none matched, a
 fill launch before the kernel, the masks a device table) is called as its
@@ -67,14 +74,16 @@ SR, N, B, PAYLOAD = 96000, 1 << 24, 64, 16384
 _ENTRY = {"decide": "amr_decide", "fsk_tile": "amr_fsk_tile", "neural_extract": "amr_neural_extract",
           "fsk_flat": "amr_fsk_tile", "project_diff": "amr_project_diff_batch", "sector_match": "amr_sector_first",
           "rotation_match": "amr_rotation_first", "psk8_pack": "amr_psk8_pack",
-          "relabel_pack": "amr_relabel_pack", "bit_select_pack": "amr_bit_select_pack"}
+          "relabel_pack": "amr_relabel_pack", "bit_select_pack": "amr_bit_select_pack",
+          "mlse_viterbi": "amr_mlse_viterbi"}
 # The names of each kernel's device functions (the profiler's "alone" time
 # sums them; the first also picks nvcc's register lines).
 _KERNEL = {"decide": ("decide_kernel",), "fsk_tile": ("fsk_tile_kernel",),
            "neural_extract": ("neural_extract_kernel",), "fsk_flat": ("fsk_flat_kernel",),
            "project_diff": ("project_diff_kernel",), "sector_match": ("sector_match_kernel",),
            "rotation_match": ("rotmatch_kernel", "fill_big"), "psk8_pack": ("psk8_pack_kernel",),
-           "relabel_pack": ("relabel_pack_kernel",), "bit_select_pack": ("bit_select_pack_kernel",)}
+           "relabel_pack": ("relabel_pack_kernel",), "bit_select_pack": ("bit_select_pack_kernel",),
+           "mlse_viterbi": ("mlse_viterbi_kernel",)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The earlier C entry points of K5, (sec, masks on the card, n_hyp, tol,
 # n_sym, first, n_captures, rows, rows_scanned, stream), and of K2, (hi,
@@ -90,8 +99,9 @@ _MANGLED = {"int16": "s", "int8": "a", "float32": "f"}  # a C++ type's code in a
 def _kernel_ms(call, names, reps: int, tries: int = 3) -> float:
     """Device time per call of the kernels whose name holds one of ``names``,
     under ``torch.profiler`` over ``reps`` calls (the wrapper's other work
-    left out). A profile that caught none of the kernels' launches is taken
-    again, up to ``tries`` times in all; 0 if none caught them."""
+    left out). A profile that caught fewer of the kernels' launches than
+    ``reps`` is taken again, up to ``tries`` times in all; 0 if none caught
+    them all."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
@@ -99,11 +109,11 @@ def _kernel_ms(call, names, reps: int, tries: int = 3) -> float:
             for _ in range(reps):
                 call()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names))
-        if us > 0:
-            break
-    return us / 1e3 / reps
+        hits = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in names)]
+        if len(hits) >= reps:
+            return sum(e.time_range.elapsed_us() for e in hits) / 1e3 / reps
+    return 0.0
 
 
 def _host_us(call, n: int = 50) -> float:
@@ -118,9 +128,10 @@ def _host_us(call, n: int = 50) -> float:
     return us
 
 
-def _clocks(call, seconds: float = 2.0) -> str:
-    """The card's median SM clock and power draw while ``call`` runs back to
-    back for about ``seconds``, from ``nvidia-smi`` every quarter second."""
+def clock_samples(call, seconds: float = 2.0):
+    """(median SM clock in MHz, median power draw in W, number of reads) of
+    ``nvidia-smi`` every quarter second while ``call`` runs back to back for
+    about ``seconds``; (nan, nan, 0) if none was read."""
     import statistics
     import threading
 
@@ -143,9 +154,8 @@ def _clocks(call, seconds: float = 2.0) -> str:
     stop.set()
     th.join()
     if not samples:
-        return "clocks not read"
-    return (f"SM clock {statistics.median(c for c, _ in samples):.0f} MHz, power "
-            f"{statistics.median(p for _, p in samples):.1f} W (median of {len(samples)} reads)")
+        return float("nan"), float("nan"), 0
+    return statistics.median(c for c, _ in samples), statistics.median(p for _, p in samples), len(samples)
 
 
 def _build_variants(variants):
@@ -374,6 +384,42 @@ def _pack_call(device, kernel: str):
             lambda: plain(a, b, s, ksel))
 
 
+def viterbi_args(device, batch: bool):
+    """The arguments of the ``mlse_viterbi_blocks`` call ``fsk_demod_bits``
+    makes for ``chip_smoke.py`` phase 3e's clean 48-state capture, or with
+    ``batch`` the one ``fsk_demod_bits_each`` makes for 8 FSK9600 captures
+    of one continuous transmission of 16 KiB frames at leads 13 i."""
+    from .ops import fsk as tf
+
+    calls, real = [], tf.mlse_viterbi_blocks
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    tf.mlse_viterbi_blocks = record
+    try:
+        if not batch:
+            payload = np.random.default_rng(500).integers(0, 256, 200_000, dtype=np.uint8).tobytes()
+            wave = tf.fsk_modulate(payload, 9600, 1200.0, 2200.0, SR)
+            x = np.zeros(N, np.float32)
+            x[211:] = np.tile(wave, -(-(N - 211) // len(wave)))[: N - 211]
+            tf.fsk_demod_bits(torch.from_numpy(x).to(device), 9600.0, 1200.0, 2200.0, SR)
+        else:
+            payload = np.random.default_rng(61).integers(0, 256, PAYLOAD, dtype=np.uint8).tobytes()
+            frame = pack_frame("mlse0.bin", payload, 0, 1, len(payload), crc32(payload))
+            n_frames = (N - 8 * 13) // len(modulate("FSK9600", frame, 9600))
+            wave = modulate("FSK9600", b"".join(pack_frame(f"mlse{j}.bin", payload, 0, 1, len(payload), crc32(payload))
+                                                for j in range(n_frames)), 9600)
+            x = np.zeros((8, N), np.float32)
+            for i in range(8):
+                x[i, 13 * i : 13 * i + len(wave)] = wave
+            tf.fsk_demod_bits_each(torch.from_numpy(x).to(device), 9600.0, 1200.0, 2200.0, SR)
+    finally:
+        tf.mlse_viterbi_blocks = real
+    return calls[0]
+
+
 _EARLIER_MASKS: dict = {}
 
 
@@ -447,6 +493,7 @@ def main() -> int:
     ap.add_argument("--rows-scanned", choices=("256", "1792", "full"), default="256", help="K5's and K2's scanned rows")
     ap.add_argument("--noise-last", action="store_true", help="K5, K2: the bench batch's last capture noise")
     ap.add_argument("--family", choices=("qpsk", "bpsk"), default="qpsk", help="K2's hypotheses")
+    ap.add_argument("--batch", action="store_true", help="mlse_viterbi: the 8-capture batch's 1,640 blocks")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args()
@@ -482,6 +529,11 @@ def main() -> int:
     elif args.kernel in ("relabel_pack", "bit_select_pack"):
         call, plain = _pack_call(device, args.kernel)
         what = " (every ksel x s8)"
+    elif args.kernel == "mlse_viterbi":
+        vargs = viterbi_args(device, args.batch)
+        call, plain = (lambda: tk.mlse_viterbi_blocks(*vargs)), (lambda: tk.mlse_viterbi_blocks_plain(*vargs))
+        steps = vargs[0].shape[2]
+        what = f" ({vargs[0].shape[0]} blocks x {steps} steps, {vargs[1].shape[0]} states)"
     else:
         call = {"fsk_tile": _tile_call, "neural_extract": _neural_call, "fsk_flat": _flat_call}[args.kernel](device)
     # The timed instantiation's mangled template arguments: K1's sample type,
@@ -503,7 +555,11 @@ def main() -> int:
             ms = _median_ms(call, args.reps)
             kms = _kernel_ms(call, _KERNEL[args.kernel], args.reps)
             host = _host_us(call)
-            clk = _clocks(call)
+            mhz, watts, n_reads = clock_samples(call)
+            clk = (f"SM clock {mhz:.0f} MHz, power {watts:.1f} W (median of {n_reads} reads)" if n_reads
+                   else "clocks not read")
+            if args.kernel == "mlse_viterbi" and n_reads:
+                clk += f"; {kms * 1e-3 * mhz * 1e6 / steps:.1f} cycles a step (kernel alone)"
         got = got if isinstance(got, tuple) else (got,)  # K1's (hi, lo) at n_psk 2 and 4
         ref = got if ref is None else ref
         n_diff = sum(int((g != f).sum()) for g, f in zip(got, ref))

@@ -1317,13 +1317,14 @@ def mlse_viterbi_blocks(
     one launch (one warp a block, ``csrc/mlse_viterbi.cu``; the blocks may
     come from several captures, each with its own ``aec`` rows): (n_blocks,
     4, L) float32 -> (n_blocks, L) uint8 bits, equal to the plain version's
-    bit for bit. The survivors, one ballot word per 32 states a step, live
-    in a scratch of n_blocks * L * ceil(S/32) * 4 bytes."""
+    bit for bit. The survivors, one ballot word per 32 states a step, and
+    the traceback's guessed states, one byte a step, live in a scratch of
+    n_blocks * ceil(L/32) * (32 * ceil(S/32) + 8) * 4 bytes."""
     nb, L, S = _check_viterbi(x, cos_t, sin_t, aec, adv_mark, adv_space)
     dev = _same_device(x, cos_t, sin_t, aec)
     if dev.type == "cpu":
         return mlse_viterbi_blocks_plain(x, cos_t, sin_t, aec, adv_mark, adv_space)
-    surv = torch.empty((nb, L, -(-S // 32)), dtype=torch.int32, device=dev)
+    surv = torch.empty((nb, -(-L // 32) * (32 * -(-S // 32) + 8)), dtype=torch.int32, device=dev)
     out = torch.empty((nb, L), dtype=torch.uint8, device=dev)
     _launch("amr_mlse_viterbi", dev, _ptr(x), _ptr(cos_t), _ptr(sin_t), _ptr(aec), S, adv_mark, adv_space,
             _ptr(surv), _ptr(out), nb, L)

@@ -118,8 +118,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``decode_wav_file`` (the PSK modes and NEURAL@9600) by the host clock
    (median of 3) with its device kernel time under ``torch.profiler``,
    the FSK modes' too; the Viterbi kernel on the FSK9600 capture's 205
-   blocks of 10,240 steps beside its plain version (one run) and its bound,
-   and on the ``batch_mlse`` batch's one launch of 1,640 blocks.
+   blocks of 10,240 steps beside its plain version (one run), and on the
+   ``batch_mlse`` batch's one launch of 1,640 blocks, each with its bound,
+   its cycles a step at the SM clock read during the run and its bound by
+   the chain (10,240 forward and 320 traceback steps at their dependent
+   cycles, from the kernel's SASS and latencies measured on the card).
 
 The line before the last is one JSON object with the kernels' names,
 sources, launch counts, errors, times and bounds (one entry per kernel and
@@ -129,7 +132,8 @@ memory rate and float32 CUDA-core rate; integer operations are counted
 against the same rate), from the shapes and templates of the timed call.
 No single PyTorch call computes any of these functions, so ``library_ms``
 is null throughout. The Viterbi kernel's bound by bytes and operations is
-far below its real floor, the chain of 10,240 dependent steps a block. The last line is ``{"ok": true, "device": {...}}``. It
+far below its real floor, the chain of 10,240 dependent steps a block,
+which phase 6 prints beside it. The last line is ``{"ok": true, "device": {...}}``. It
 imports nothing of JAX.
 """
 
@@ -1931,13 +1935,31 @@ def phase_fsk_single(device, n: int, work: str, card: str):
     return wavs, fsk9600, calls[0]
 
 
+def _viterbi_bound(args):
+    """(ms, by) of one Viterbi call: each input read once, the bits written
+    once, _VITERBI_OPS a state and step."""
+    x, S = args[0], args[1].shape[0]
+    nb, _, L = x.shape
+    return _bound((x.numel() + 2 * S + args[3].numel()) * 4 + nb * L, nb * L * S * _VITERBI_OPS)
+
+
 def phase_viterbi_timing(args, batch_args, card: str):
     """The Viterbi kernel on the FSK9600 capture's blocks (median of 5 by
     CUDA events) and its plain version (one run), and the kernel on the
-    ``batch_mlse`` batch's one launch; returns ({entry: (ms, plain_ms, 1)},
-    {entry: (bound_ms, bound_by)})."""
+    ``batch_mlse`` batch's one launch; each beside its bound by bytes and
+    operations, its cycles a step at the SM clock ``nvidia-smi`` reads while
+    it runs, and the bound by the chain: L forward steps and L / 32
+    traceback steps (phase A: the lanes walk their stages side by side; the
+    data-dependent merge walk of phase B left out) at the cycles of their
+    dependent chains, read from the kernel's SASS
+    (``sass_stats.chain_cycles``, each instruction at its latency measured
+    on this card by ``csrc/probe/latency.cu``). Returns ({entry:
+    (ms, plain_ms, 1)}, {entry: (bound_ms, bound_by)})."""
     import torch
 
+    from audio_modem_radio_tpu_torch import sass_stats
+    from audio_modem_radio_tpu_torch.kernel_variants import clock_samples
+    from audio_modem_radio_tpu_torch.ops import _build
     from audio_modem_radio_tpu_torch.ops import kernels as tk
 
     x = args[0]
@@ -1951,13 +1973,29 @@ def phase_viterbi_timing(args, batch_args, card: str):
     b.record()
     torch.cuda.synchronize()
     plain = a.elapsed_time(b)
-    bound = _bound((x.numel() + 2 * S + args[3].numel()) * 4 + nb * L, nb * L * S * _VITERBI_OPS)
-    say(f"[6 time] mlse_viterbi_blocks ({nb} blocks x {L} steps, {S} states): kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms (one run), bound {bound[0]:.4f} ms by {bound[1]} | {card}")
+    bound = _viterbi_bound(args)
+    lat = sass_stats.probe_latencies()
+    instance = f"mlse_viterbi_kernelILi{-(-S // 32)}E"
+    fwd, fwd_path, back, back_path = sass_stats.chain_cycles(
+        sass_stats.library_sass(_build.library_path()), lat, instance)
+    say(f"[6 chain] latencies on this card (SM cycles): "
+        f"{', '.join(f'{op} {c:.2f}' for op, c in lat.items())} | {card}")
+    say(f"[6 chain] {instance}: forward step {fwd:.1f} cycles ({' -> '.join(fwd_path)}); traceback step "
+        f"{back:.1f} cycles ({' -> '.join(back_path)}) | {card}")
     nb_batch = batch_args[0].shape[0]
     ms_batch = _time_ms(lambda: tk.mlse_viterbi_blocks(*batch_args))
-    say(f"[6 time] mlse_viterbi_blocks, the modem.batch_mlse batch's one launch ({nb_batch} blocks x {L} steps, "
-        f"{S} states): kernel {ms_batch:.4f} ms, {ms_batch * nb / nb_batch:.4f} ms per {nb} blocks | {card}")
+    bound_batch = _viterbi_bound(batch_args)
+    for label, t, bd, call_args in ((f"{nb} blocks", ms, bound, args),
+                                    (f"the modem.batch_mlse batch's one launch, {nb_batch} blocks", ms_batch,
+                                     bound_batch, batch_args)):
+        mhz, watts, n_reads = clock_samples(lambda: tk.mlse_viterbi_blocks(*call_args))
+        check(n_reads > 0, "nvidia-smi read no SM clock")
+        chain_ms = (L * fwd + -(-L // 32) * back) / (mhz * 1e3)
+        say(f"[6 time] mlse_viterbi_blocks ({label} x {L} steps, {S} states): kernel {t:.4f} ms, "
+            f"{t * mhz * 1e3 / L:.1f} cycles a step at SM {mhz:.0f} MHz ({watts:.1f} W); bound {bd[0]:.4f} ms by "
+            f"{bd[1]}, {chain_ms:.4f} ms by the chain ({L} x {fwd:.1f} + {-(-L // 32)} x {back:.1f} cycles)"
+            + (f"; plain {plain:.4f} ms (one run)" if call_args is args else
+               f"; {t * nb / nb_batch:.4f} ms per {nb} blocks") + f" | {card}")
     return {"mlse_viterbi_blocks": (ms, plain, 1)}, {"mlse_viterbi_blocks": bound}
 
 

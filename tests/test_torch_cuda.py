@@ -1075,7 +1075,105 @@ def test_mlse_viterbi_kernel_equals_plain(cuda, n_states, adv, nb, L):
     assert got.dtype == torch.uint8 and torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("mark,space", [(1200.0, 2200.0), (1100.0, 2200.0), (1200.0, 2400.0)])
+def _viterbi_case(cuda, kind: str, n_states: int, nb: int, L: int, seed: int):
+    """Inputs where the kernel's maximum, normalisation and selection meet
+    exact ties and exact zeros: ``zero`` all-zero correlations (the
+    zero-padded overlap of a capture's first and last block); ``zero_edges``
+    the first block's first third and the last block's last third zero;
+    ``equal_rows`` equal ``aec`` rows and equal mark and space correlations;
+    ``tie`` zero correlations and one energy for every state and row, so
+    every cand1 == cand0 and every normalised metric is 0 at every step;
+    ``integer`` correlations and tables in {-1, 0, 1} and energies in {0,
+    1}, so sums tie and zeros (and -0 products) occur all through."""
+    x, cos_t, sin_t, aec = (t.cpu().numpy() for t in _viterbi_inputs("cpu", n_states, nb, L, seed))
+    rng = np.random.default_rng(seed + 1)
+    if kind == "zero":
+        x[:] = 0
+    elif kind == "zero_edges":
+        x[0, :, : L // 3] = 0
+        x[-1, :, -(L // 3) :] = 0
+    elif kind == "equal_rows":
+        aec[:, 1] = aec[:, 0]
+        x[:, 2:] = x[:, :2]
+    elif kind == "tie":
+        x[:] = 0
+        aec[:] = 1.5
+    elif kind == "integer":
+        x = rng.integers(-1, 2, x.shape).astype(np.float32)
+        cos_t = rng.integers(-1, 2, n_states).astype(np.float32)
+        sin_t = rng.integers(-1, 2, n_states).astype(np.float32)
+        aec = rng.integers(0, 2, aec.shape).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (x, cos_t, sin_t, aec))
+
+
+_VITERBI_ADV = {8: (1, 2), 48: (6, 11), 96: (11, 22)}
+
+
+@pytest.mark.parametrize("kind", ["zero", "zero_edges", "equal_rows", "tie", "integer"])
+@pytest.mark.parametrize("n_states", [8, 48, 96])
+def test_mlse_viterbi_kernel_ties_and_zeros(cuda, n_states, kind):
+    """Bitwise equal to the plain version where the REDUX maximum, the
+    normalisation at the receiver and fmaxf's selection meet exact ties and
+    zeros, on full-length blocks and a ragged last stage."""
+    for nb, L in ((3, 10240), (2, 1000)):
+        args = _viterbi_case(cuda, kind, n_states, nb, L, n_states + L)
+        got = tk.mlse_viterbi_blocks(*args, *_VITERBI_ADV[n_states])
+        ref = tk.mlse_viterbi_blocks_plain(*args, *_VITERBI_ADV[n_states])
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (nb, L, int((got != ref).sum()))
+
+
+@pytest.mark.parametrize("kind", ["noise", "zero_edges"])
+@pytest.mark.parametrize("n_states", [8, 48, 96])
+def test_mlse_viterbi_kernel_large_launch(cuda, n_states, kind):
+    """One launch of 1,640 blocks (a batch of eight 2^24-sample captures
+    under CONFIG ``modem.batch_mlse``: three and four warps a scheduler),
+    bitwise equal to the plain version; short blocks keep the plain loop
+    quick."""
+    args = _viterbi_case(cuda, kind, n_states, 1640, 300, n_states) if kind != "noise" else \
+        _viterbi_inputs(cuda, n_states, 1640, 300, n_states)
+    before = tk.mlse_viterbi_blocks.launches
+    got = tk.mlse_viterbi_blocks(*args, *_VITERBI_ADV[n_states])
+    ref = tk.mlse_viterbi_blocks_plain(*args, *_VITERBI_ADV[n_states])
+    torch.cuda.synchronize()
+    assert tk.mlse_viterbi_blocks.launches == before + 1
+    assert torch.equal(got, ref), int((got != ref).sum())
+
+
+@pytest.mark.parametrize("n_states,adv", [
+    (2, (0, 1)), (32, (31, 0)), (33, (1, 32)), (35, (4, 9)), (64, (3, 60)), (65, (64, 2)), (75, (5, 11)),
+    (80, (7, 13)), (96, (10, 33)),
+])
+@pytest.mark.parametrize("kind", ["noise", "integer"])
+def test_mlse_viterbi_kernel_state_layouts(cuda, n_states, adv, kind):
+    """Every lane layout of the kernel: K = 1, 2 or 3 states a lane (lane l
+    holding states l + 32 j), every slot live (32, 64, 96) or lanes whose
+    last slot is dead and must never win the maximum nor set a bit (2, 33,
+    35, 65, 75, 80), with advances that wrap across the slots; bitwise
+    equal to the plain version."""
+    args = _viterbi_case(cuda, kind, n_states, 3, 2000, 7) if kind != "noise" else \
+        _viterbi_inputs(cuda, n_states, 3, 2000, 7)
+    got = tk.mlse_viterbi_blocks(*args, *adv)
+    ref = tk.mlse_viterbi_blocks_plain(*args, *adv)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), int((got != ref).sum())
+
+
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 64, 95, 1023, 1024, 1025, 10257])
+@pytest.mark.parametrize("n_states", [8, 48, 96])
+def test_mlse_viterbi_kernel_traceback_segments(cuda, n_states, L):
+    """The traceback's paths: one stage of 32 steps (lane 31 alone, from the
+    true final state), fewer stages than lanes (empty segments), a ragged
+    last stage, and many stages a lane, where phase B walks each segment
+    until it meets the guessed path; bitwise equal to the plain version."""
+    args = _viterbi_inputs(cuda, n_states, 2, L, L)
+    got = tk.mlse_viterbi_blocks(*args, *_VITERBI_ADV[n_states])
+    ref = tk.mlse_viterbi_blocks_plain(*args, *_VITERBI_ADV[n_states])
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), int((got != ref).sum())
+
+
+@pytest.mark.parametrize("mark,space",[(1200.0, 2200.0), (1100.0, 2200.0), (1200.0, 2400.0)])
 def test_fsk_demod_bits_mlse_on_card_equals_cpu(cuda, mark, space):
     """``fsk_demod_bits`` with MLSE on the card (the kernel, 48, 96 and 8
     states) against the same capture on the CPU (the plain Viterbi): the
