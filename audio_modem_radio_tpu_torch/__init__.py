@@ -1,20 +1,25 @@
 """audio_modem_radio_tpu_torch — the PyTorch and CUDA port of audio_modem_radio_tpu.
 
 It sits beside the JAX package, which stays the reference, and imports
-``torch`` and numpy, never JAX. It carries batched DQPSK, DBPSK, D8PSK,
-FSK (FSK1200, FSK9600, FSK19200, MSK, FT8) and NEURAL receive end to end:
-host shaping into sample rows or FIR windows, the pass-1 timing (and, for
-PSK, rotation) estimate, the PSK decide stage with a magic matcher and a
-pack per PSK mode, the FSK dual-tone, discriminator and quadrature
-detectors, and NEURAL's sync and codebook scoring; and the single-capture
-receive (``decoder.decode_wav_file`` -> ``modem.demodulate`` -> the
-recovery ladder) for BPSK, QPSK, 8PSK, APSK16, SSTV, PSK31, NEURAL and the
-FSK modes, with FSK9600's MLSE. Thirteen hand-written CUDA kernels for the
-NVIDIA H100 (``csrc/``), one for each Pallas kernel of the JAX package,
-and a fourteenth for the MLSE's Viterbi (two ``lax.scan``s in the JAX
-package) do the work on the card. Entry points run on the card
-unless the caller passes ``device="cpu"``; on tensors that lie on the CPU
-each kernel's wrapper runs its plain PyTorch version.
+``torch`` and numpy, never JAX. It carries the transmit pipeline
+(``encoder.encode_file``: file -> compress -> optional payload FEC
+container -> frame -> optional stream FEC -> modulate -> WAV) and batched
+DQPSK, DBPSK, D8PSK, FSK (FSK1200, FSK9600, FSK19200, MSK, FT8) and NEURAL
+receive end to end: host shaping into sample rows or FIR windows, the
+pass-1 timing (and, for PSK, rotation) estimate, the PSK decide stage with
+a magic matcher and a pack per PSK mode, the FSK dual-tone, discriminator
+and quadrature detectors, and NEURAL's sync and codebook scoring; and the
+single-capture receive (``decoder.decode_wav_file`` -> ``modem.demodulate``
+-> the recovery ladder with its FEC rungs, ``stream_fec=`` and
+``denoise=``) for BPSK, QPSK, 8PSK, APSK16, SSTV, PSK31, NEURAL and the FSK
+modes, with FSK9600's MLSE. Thirteen hand-written CUDA kernels for the
+NVIDIA H100 (``csrc/``), one for each Pallas kernel of the JAX package, and
+two more for the MLSE's Viterbi and the convolutional code's Viterbi
+decoder (``lax.scan``s in the JAX package) do the work on the card; the
+native C++ host runtime (``native.py``) scans frames, loads WAV batches and
+sweeps long Viterbi inputs. Entry points run on the card unless the caller
+passes ``device="cpu"``; on tensors that lie on the CPU each kernel's
+wrapper runs its plain PyTorch version.
 """
 
 from .utils import torchenv  # noqa: F401  (pins float32 products to IEEE float32)

@@ -12,13 +12,15 @@ Counterpart of ``audio_modem_radio_tpu/decoder.py``:
 * ``save_decoded_files``: single parts directly, multi-part files through
   the assembly registry.
 
-The FEC decoder (``fec.py``) is not ported (ROADMAP.md queue 1, item 2): a
-frame whose payload carries an ``FECP``/``FECV`` container is logged and
-left unsaved, the header-tolerant rung proves candidates by their as-read
-payload CRC only (proofs 2-4 of the JAX package need FEC), the soft
-payload-FEC rung logs damaged ``FECV`` frames and leaves them, and stream
-FEC and the spectral-gate denoiser raise NotImplementedError. On every
-transmission without FEC containers the results equal the JAX package's.
+Payload FEC containers (``FECP``/``FECV``) unwrap on save, damaged ones
+included; the header-tolerant rung proves candidates by their payload CRC,
+by re-encoding a Viterbi decode, by the parity container's CRC trailer or by
+the whole-file CRC of a self-terminating decompress; damaged ``FECV``
+frames take the soft-decision Viterbi (``recover_payload_fec_soft``);
+``stream_fec=True`` Viterbi-decodes the demodulated stream (with the soft
+escalation) and ``denoise=True`` runs the spectral gate first. The Viterbi
+runs on the card (``fec.viterbi_decode_bits``) or, for long containers, in
+the native C++ sweep where that library built.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 
 from .assembly import AssemblyRegistry, registry as default_registry
 from .config import CONFIG
+from .fec import unwrap_fec
 from .framing import Frame, crc32, parse_frames, parse_frames_detailed, scan_frame_candidates
 from .modem import SAMPLE_RATE, demodulate
 from .utils.compression import intelligent_decompress
@@ -41,8 +44,6 @@ from .utils.wavio import read_wav, resample
 logger = logging.getLogger("audio_modem_radio_tpu_torch")
 
 RECV_DIR = "recv"
-_FEC_TAGS = (b"FECP", b"FECV")
-_FEC_ITEM = "ROADMAP.md queue 1, item 2 (FEC)"
 
 
 def pad_to_bucket(samples: np.ndarray) -> np.ndarray:
@@ -79,28 +80,52 @@ def _safe_name(name: str) -> str:
     return "".join(c for c in name if c.isalnum() or c in (" ", "-", "_", "."))
 
 
-def recover_header_damaged(raw: bytes, already: List[Frame], stats: Optional[dict] = None) -> List[Frame]:
-    """Recover frames whose header carries bit errors, the strict parser's
-    blind spot: ``framing.scan_frame_candidates`` proposes candidates
-    (fuzzy magic, tag anchors, CRC-recovered lengths) and one is promoted
-    only when its as-read payload CRC matches (the JAX package's proof 1: the
-    header alone was corrupt). Candidates with an FEC container wait for
-    the FEC item and are skipped.
+def _defec(payload: bytes, device: DeviceLike = None) -> bytes:
+    """Transparently unwrap a tagged FEC container, if present."""
+    decoded = unwrap_fec(payload, device=device)
+    return payload if decoded is None else decoded
 
-    ``already`` is the strict parser's valid frames; their (name, part)
-    keys are never re-emitted, nor a frame equal to one already emitted
-    (related names, same part, same payload or whole-file CRC). When the
-    stream yields nothing at all, every bit shift under every quarter-turn
-    relabeling (and the complemented stream, DBPSK's inversion) is scanned
-    too: a corrupt magic defeats the demodulator's sync, which then packs
-    from offset 0.
+
+def recover_header_damaged(
+    raw: bytes, already: List[Frame], stats: Optional[dict] = None, device: DeviceLike = None
+) -> List[Frame]:
+    """Recover frames whose header carries bit errors, the strict parser's
+    blind spot: ``framing.scan_frame_candidates`` proposes candidates (fuzzy
+    magic, FEC-tag anchors, CRC-recovered lengths) and one is promoted only
+    on an exact integrity proof:
+
+    1. the as-read payload CRC matches (only the header was corrupt);
+    2. a Viterbi decode re-ENCODES to exactly the header's payload CRC;
+    3. the parity container's CRC trailer verifies; or
+    4. single-part frames: a self-terminating decompress of the FEC output
+       matches the header's whole-file CRC (rescues a corrupt ``pcrc``).
+
+    Validation work is bounded: a span cap on FEC decodes (4 MB where the
+    native Viterbi sweep built, else 512 KB, which goes to the card's block
+    decoder) and a budget of 4 decodes a call. ``already`` is the strict
+    parser's valid frames; their (name, part) keys are never re-emitted, nor
+    a frame equal to one already emitted (related names, same part, same
+    payload or whole-file CRC). When the stream yields nothing at all, every
+    bit shift under every quarter-turn relabeling (and the complemented
+    stream, DBPSK's inversion) is scanned too: a corrupt magic defeats the
+    demodulator's sync, which then packs from offset 0. Viterbi decodes run
+    on ``device`` (default: the card).
     """
+    from . import native as _native
+    from .fec import TAG_PARITY, TAG_VITERBI, ConvolutionalEncoder, ReedSolomonFEC, ViterbiDecoder
+    from .utils.compression import TAG_RAW, decompress_prefix
+
     seen = {(f.name, f.part_number) for f in already}
     out: List[Frame] = []
+    max_fec_validate = (1 << 22) if _native.viterbi_available() else (1 << 19)
+    budget = [4]
 
     def emit(frame: Frame, how: str) -> None:
         if (frame.name, frame.part_number) in seen:
             return
+        # One frame, many anchor geometries: the first (longest-name,
+        # strongest-proof) variant wins; names related as suffixes with the
+        # same part and payload or whole-file CRC are the same frame.
         for f in list(already) + out:
             names_related = f.name.endswith(frame.name) or frame.name.endswith(f.name)
             if names_related and f.part_number == frame.part_number and (
@@ -122,22 +147,67 @@ def recover_header_damaged(raw: bytes, already: List[Frame], stats: Optional[dic
             key=lambda c: not all(32 <= ord(ch) < 127 for ch in c.frame.name),
         )
         validated_spans: List[Tuple[int, int]] = []
+
+        def validated(cand, payload) -> None:
+            if cand.payload_off >= 0:
+                validated_spans.append((cand.payload_off, cand.payload_off + len(payload)))
+
         for cand in cands:
             f = cand.frame
             payload = f.data
+            # Cheap rejections first: a key already valid, or a span already
+            # validated in this scan (anchor variants of one frame).
             if (f.name, f.part_number) in seen:
                 continue
             if cand.payload_off >= 0 and any(
                 cand.payload_off < e and s < cand.payload_off + len(payload) for s, e in validated_spans
             ):
                 continue
-            if crc32(payload) == cand.pcrc:
-                emit(f, "pcrc")
-                if cand.payload_off >= 0:
-                    validated_spans.append((cand.payload_off, cand.payload_off + len(payload)))
-            elif payload[:4] in _FEC_TAGS:
-                logger.info("header-recovery candidate %s part %d carries an FEC container; its "
-                            "proofs wait for %s", f.name, f.part_number, _FEC_ITEM)
+            try:
+                if crc32(payload) == cand.pcrc:  # 1.
+                    emit(f, "pcrc")
+                    validated(cand, payload)
+                    continue
+                if payload[:4] not in (TAG_VITERBI, TAG_PARITY):
+                    continue  # no FEC container: nothing left to prove with
+                if len(payload) > max_fec_validate:
+                    logger.info("header-recovery candidate %s part %d skipped: %d-byte span exceeds the "
+                                "FEC-validation cap (%d)", f.name, f.part_number, len(payload), max_fec_validate)
+                    continue
+                if budget[0] <= 0:
+                    logger.info("header-recovery FEC-validation budget exhausted")
+                    continue
+                # Only candidates that reach a decoder consume the budget.
+                budget[0] -= 1
+                if payload[:4] == TAG_VITERBI:
+                    decoded = ViterbiDecoder(device=device).decode(payload[4:])
+                    if not decoded:
+                        continue
+                    rewrap = TAG_VITERBI + ConvolutionalEncoder().encode(decoded)
+                    if crc32(rewrap) == cand.pcrc:  # 2.
+                        emit(Frame(f.name, rewrap, f.part_number, f.total_parts, f.file_size, f.file_crc),
+                             "fec-reencode")
+                        validated(cand, payload)
+                        continue
+                else:
+                    rs = ReedSolomonFEC()
+                    decoded = rs.decode(payload[4:])
+                    if getattr(rs, "last_crc_ok", False):  # 3.
+                        emit(Frame(f.name, TAG_PARITY + rs.encode(decoded), f.part_number, f.total_parts,
+                                   f.file_size, f.file_crc), "fec-crc")
+                        validated(cand, payload)
+                        continue
+                # 4. pcrc corrupt too: the FEC output's self-terminating
+                #    decompress against the whole-file CRC.
+                if f.is_multipart or not f.file_crc:
+                    continue
+                final = decompress_prefix(decoded, f.file_size)
+                if final is not None and crc32(final) == f.file_crc:
+                    emit(Frame(f.name, TAG_RAW + final, f.part_number, f.total_parts, f.file_size, f.file_crc),
+                         "fcrc")
+                    validated(cand, payload)
+            except Exception:
+                logger.debug("candidate validation failed", exc_info=True)
 
     scan_one(raw)
     if not out and not already and len(raw) > 8:
@@ -171,32 +241,35 @@ def save_decoded_files(
     recv_dir: str = RECV_DIR,
     registry: Optional[AssemblyRegistry] = None,
     damaged: Optional[List[Frame]] = None,
+    device: DeviceLike = None,
 ) -> List[str]:
     """Persist parsed frames: single-part directly, multi-part via assembly.
 
     Completed multi-part files decompress-then-save just like single parts;
-    expired assemblies are purged on every call. ``damaged`` frames (header
-    intact, payload CRC failed) that carry an FEC container join the list,
-    as in the JAX package, and like every FEC-tagged frame are logged and
-    left unsaved until the FEC item lands.
+    expired assemblies are purged on every call. Payloads in an FEC
+    container unwrap first (a ``FECV`` container's Viterbi on ``device``,
+    default the card). ``damaged`` frames (header intact, payload CRC
+    failed) join the list when their payload carries an FEC container tag,
+    each counted in the registry's ``fec_recovery_attempts``.
     """
     reg = registry or default_registry
     os.makedirs(recv_dir, exist_ok=True)
     saved: List[str] = []
-    frames = list(frames) + [f for f in damaged or [] if f.data[:4] in _FEC_TAGS]
+
+    frames = list(frames)
+    for frame in damaged or []:
+        if frame.data[:4] in (b"FECP", b"FECV"):
+            logger.info("attempting FEC recovery of damaged frame %s", frame.name)
+            frames.append(frame)
+            reg.stats.setdefault("fec_recovery_attempts", 0)
+            reg.stats["fec_recovery_attempts"] += 1
 
     for frame in frames:
-        if frame.data[:4] in _FEC_TAGS:
-            logger.warning(
-                "frame %s carries an FEC container, which the PyTorch port does not "
-                "decode yet; left unsaved", frame.name,
-            )
-            continue
         try:
             if frame.is_multipart:
                 # Parts are compressed one by one at encode time, so each is
                 # decompressed before it joins the assembly.
-                part_data = intelligent_decompress(frame.data)
+                part_data = intelligent_decompress(_defec(frame.data, device))
                 complete = reg.offer(
                     Frame(
                         frame.name,
@@ -212,7 +285,7 @@ def save_decoded_files(
                 final = complete
                 base = frame.name.rsplit(".part", 1)[0]
             else:
-                final = intelligent_decompress(frame.data)
+                final = intelligent_decompress(_defec(frame.data, device))
                 base = frame.name
                 reg.stats["total_files"] += 1
                 reg.stats["total_bytes"] += len(final)
@@ -256,6 +329,199 @@ def _nosync_streams(samples: np.ndarray, mode: str, symbol_rate: int, device: De
         return []
 
 
+def recover_payload_fec_soft(
+    raw: bytes,
+    samples: np.ndarray,
+    mode: str,
+    symbol_rate: int,
+    damaged: List[Frame],
+    stats: Optional[dict] = None,
+    device: DeviceLike = None,
+) -> List[Frame]:
+    """Soft-decision recovery of damaged FECV payloads (every carried
+    non-text family), on ``device`` (default: the card).
+
+    The damaged frame's header parsed intact, so its exact header bytes are
+    located in ``raw`` (for the true pcrc field), then re-found in the soft
+    stream's thresholded bits at each bit shift and residual-rotation
+    hypothesis. The payload's coded soft pairs run through the soft Viterbi,
+    and a candidate is accepted ONLY on an exact proof: re-encoding the
+    decode must reproduce a container whose CRC32 equals the header's
+    payload CRC. Returns repaired (now CRC-valid) frames; callers drop the
+    matching damaged entries.
+    """
+    from .fec import TAG_VITERBI, ConvolutionalEncoder, ViterbiDecoder
+    from .framing import MAGIC, _META
+
+    def _fecv_like(blob: bytes) -> bool:
+        # The container tag rides the same noisy channel as the payload: a
+        # <=8-of-32-bit Hamming gate admits it (random 4 bytes pass with
+        # p~3e-3), and the exact re-encode CRC proof rules out the rest.
+        if len(blob) < 4:
+            return False
+        dist = int(np.unpackbits(np.frombuffer(blob[:4], np.uint8) ^ np.frombuffer(TAG_VITERBI, np.uint8)).sum())
+        return dist <= 8
+
+    todo = [d for d in damaged if _fecv_like(d.data)]
+    if not todo:
+        return []
+    try:
+        got = _soft_bit_stream(np.asarray(samples, np.float32), mode, symbol_rate, device)
+        if got is None:
+            return []
+        rotations, _n_psk = got
+    except NotImplementedError:
+        raise
+    except Exception:
+        logger.exception("soft payload-FEC demod failed")
+        return []
+
+    out: List[Frame] = []
+    for frame in todo:
+        # The header bytes, verbatim from the hard stream (incl. true pcrc).
+        nb = frame.name.encode("utf-8", "ignore")
+        probe = MAGIC + bytes([len(nb)]) + nb
+        h_start = raw.find(probe)
+        header = None
+        while h_start != -1:
+            meta_start = h_start + len(probe)
+            if meta_start + _META.size <= len(raw):
+                part, total, fsize, fcrc, dlen, pcrc = _META.unpack(raw[meta_start : meta_start + _META.size])
+                if (part, total, dlen) == (frame.part_number, frame.total_parts, len(frame.data)):
+                    header = raw[h_start : meta_start + _META.size]
+                    break
+            h_start = raw.find(probe, h_start + 1)
+        if header is None:
+            continue
+        n_data = max(0, (dlen - 4 - 2) // 2)
+        n_coded_bits = 16 * n_data + 12
+        if n_data == 0 or 4 * 8 + n_coded_bits > dlen * 8:
+            continue
+        done = False
+        for s_k in rotations:
+            if done:
+                break
+            hard = (s_k > 0.5).astype(np.uint8)
+            for shift in range(8):
+                usable = (len(hard) - shift) // 8 * 8
+                packed = np.packbits(hard[shift : shift + usable]).tobytes()
+                idx = packed.find(header)
+                if idx == -1:
+                    continue
+                pos = shift + (idx + len(header)) * 8 + 4 * 8  # skip the FECV tag
+                n_full = (n_coded_bits // 8) * 8
+                rem = n_coded_bits - n_full
+                if pos + n_full + 8 > len(s_k):
+                    continue
+                # Reference-style packing: the trailing partial byte keeps its
+                # bits in the LOW positions -> wire offset (8 - rem) into the byte.
+                coded = np.concatenate(
+                    [s_k[pos : pos + n_full], s_k[pos + n_full + (8 - rem) : pos + n_full + 8]]
+                )
+                bits = ViterbiDecoder(device=device).decode_pairs(coded.reshape(-1, 2))
+                data = np.packbits(bits[: n_data * 8]).tobytes()
+                rebuilt = TAG_VITERBI + ConvolutionalEncoder().encode(data)
+                if len(rebuilt) == dlen and crc32(rebuilt) == pcrc:
+                    out.append(Frame(frame.name, rebuilt, frame.part_number, frame.total_parts,
+                                     frame.file_size, frame.file_crc))
+                    if stats is not None:
+                        stats["soft_fec_recoveries"] = stats.get("soft_fec_recoveries", 0) + 1
+                    logger.info("soft payload-FEC recovery: %s part %d/%d",
+                                frame.name, frame.part_number + 1, frame.total_parts)
+                    done = True
+                    break
+    return out
+
+
+def _soft_rotation_variants(soft: np.ndarray, n_psk: int) -> List[np.ndarray]:
+    """Expand one soft stream into its residual-rotation hypotheses.
+
+    The blind CFO derotation leaves a k·π/2 (DQPSK) or inversion (DBPSK)
+    ambiguity; on soft values a quarter turn is exactly ``(hi, lo) ->
+    (1-lo, hi)`` and an inversion is ``1-x``. Element 0 is the as-produced
+    (k=0) stream."""
+    rotations = [soft]
+    s_k = soft
+    for _k in range(3 if n_psk == 4 else (1 if n_psk == 2 else 0)):
+        if n_psk == 4:
+            hi, lo = s_k[0::2], s_k[1::2]
+            nxt = np.empty_like(s_k)
+            nxt[0::2], nxt[1::2] = 1.0 - lo, hi
+            s_k = nxt
+        else:
+            s_k = 1.0 - s_k
+        rotations.append(s_k)
+    return rotations
+
+
+def _soft_bit_stream(samples: np.ndarray, mode: str, symbol_rate: int, device: DeviceLike = None):
+    """Soft bit streams of the carried families on ``device``, else None.
+
+    Returns ``(rotations, n_psk)``: a list of [0,1] soft streams, one per
+    residual-rotation hypothesis of the family (element 0 = k=0), and the
+    family's constellation order (1 for FSK: no ambiguity). D8PSK
+    enumerates its 8 π/4 hypotheses at the producer. The compatibility
+    aliases map to the wire format they transmit; OFDM and DSSS outside
+    them raise NotImplementedError naming their ROADMAP.md item; NEURAL
+    and HELL have no soft stream (None), as in the JAX package."""
+    from .ops.fsk import fsk_soft_bits
+    from .ops.psk import psk8_soft_bits_rotations, psk_soft_bits
+    from .parallel.batch import resolve_demod_plan
+
+    kind, params = resolve_demod_plan(mode, symbol_rate)
+    if kind == "ofdm" and CONFIG.get("modem.ofdm_compat_alias", False):
+        kind, params = "psk4", (params[0], params[1])
+    if kind == "psk8" and CONFIG.get("modem.psk8_compat_alias", False):
+        kind = "psk4"
+    if kind == "dsss" and CONFIG.get("modem.dsss_compat_alias", False):
+        kind = "psk2"
+    if kind in ("psk2", "psk4"):
+        baud, carrier = params
+        n_psk = 2 if kind == "psk2" else 4
+        soft = psk_soft_bits(pad_to_bucket(samples), baud, carrier, SAMPLE_RATE, n_psk, device=device)
+        return _soft_rotation_variants(soft, n_psk), n_psk
+    if kind == "psk8":
+        baud, carrier = params
+        return psk8_soft_bits_rotations(pad_to_bucket(samples), baud, carrier, SAMPLE_RATE, device=device), 8
+    if kind == "fsk":
+        baud, mark, space = params
+        return [fsk_soft_bits(pad_to_bucket(samples), baud, mark, space, SAMPLE_RATE, device=device)], 1
+    if kind in ("ofdm", "dsss"):
+        item = "item 4 (OFDM)" if kind == "ofdm" else "item 5 (DSSS)"
+        raise NotImplementedError(f"soft bits of {mode!r} are not ported to PyTorch yet: ROADMAP.md queue 1, {item}")
+    return None
+
+
+def _stream_fec_soft(samples: np.ndarray, mode: str, symbol_rate: int, device: DeviceLike = None):
+    """Soft-decision stream-FEC decode for any carried non-text family, else None."""
+    from .fec import stream_fec_decode_soft
+
+    try:
+        got = _soft_bit_stream(samples, mode, symbol_rate, device)
+        if got is None:
+            return None
+        rotations, _n_psk = got
+        # Rotation gate: the coded stream leads with a plaintext sync magic;
+        # a residual rotation scrambles it, so only the hypothesis whose
+        # thresholded bits contain the magic is worth a full Viterbi pass
+        # (k=0 when none does: the decoder still self-aligns on its own scan).
+        magic = np.unpackbits(np.frombuffer(b"FBPC", np.uint8))
+        pick = rotations[0]
+        for soft in rotations:
+            hard = (soft > 0.5).astype(np.uint8)
+            if len(hard) > len(magic):
+                win = np.lib.stride_tricks.sliding_window_view(hard, len(magic))
+                if (win == magic).all(axis=1).any():
+                    pick = soft
+                    break
+        return stream_fec_decode_soft(pick, device=device)
+    except NotImplementedError:
+        raise
+    except Exception:
+        logger.exception("soft stream-FEC decode failed")
+        return None
+
+
 def run_recovery_ladder(
     raw: bytes,
     samples: np.ndarray,
@@ -269,41 +535,62 @@ def run_recovery_ladder(
     """The post-demod recovery policy, shared by :func:`decode_from_buffer`
     and ``parallel.batch.decode_wav_batch``:
 
-    1. stream FEC (``stream_fec``): raises NotImplementedError (FEC item);
-    2. strict parse (``framing.parse_frames_detailed``; damaged frames are
-       the header-intact, payload-CRC-failed ones);
+    1. stream-FEC decode (when ``stream_fec``), and the soft-decision
+       Viterbi escalation when the hard decode yields no leading magic;
+    2. strict parse: the native scanner when it built (the same contract as
+       ``framing.parse_frames_detailed``; damaged frames are the
+       header-intact, payload-CRC-failed ones);
     3. header-tolerant recovery (:func:`recover_header_damaged`); a
        validated recovery supersedes a damaged frame of the same (name,
        part);
     4. the no-sync rescue when nothing above found anything and ``rescue``
-       is set: re-pack with no sync and sweep bit shifts x rotations;
-    5. soft payload FEC: damaged ``FECV`` frames are logged and left (FEC
-       item).
+       is set: re-pack with no sync and sweep bit shifts x rotations
+       (skipped under ``stream_fec``: those streams are pre-FEC wire bytes);
+    5. soft payload FEC for damaged ``FECV`` frames
+       (:func:`recover_payload_fec_soft`).
 
-    Returns ``(frames_to_save, remaining_damaged, total_loss, counts)`` with
-    ``counts = (n_valid, n_header_recovered, n_soft_recovered)``.
+    Every Viterbi and soft demodulation runs on ``device`` (default: the
+    card). Returns ``(frames_to_save, remaining_damaged, total_loss,
+    counts)`` with ``counts = (n_valid, n_header_recovered,
+    n_soft_recovered)``.
     """
+    from .native import NATIVE_AVAILABLE, scan_frames
+
     if stream_fec:
-        raise NotImplementedError(f"stream FEC decoding is not ported: {_FEC_ITEM}")
-    frames, damaged = parse_frames_detailed(raw)
-    recovered = recover_header_damaged(raw, frames, stats=stats)
+        from .fec import stream_fec_decode
+
+        raw = stream_fec_decode(raw, device=device)
+        if not raw.startswith(b"FBPC"):
+            soft_raw = _stream_fec_soft(samples, mode, symbol_rate, device)
+            if soft_raw is not None and soft_raw.startswith(b"FBPC"):
+                raw = soft_raw
+    if NATIVE_AVAILABLE:
+        frames, damaged = scan_frames(raw)
+        frames, damaged = list(frames), list(damaged)
+    else:
+        frames, damaged = parse_frames_detailed(raw)
+    recovered = recover_header_damaged(raw, frames, stats=stats, device=device)
     total_loss = not frames and not damaged and not recovered
-    if total_loss and rescue:
+    if total_loss and rescue and not stream_fec:
         for raw2 in _nosync_streams(samples, mode, symbol_rate, device=device):
-            recovered = recover_header_damaged(raw2, [], stats=stats)
+            recovered = recover_header_damaged(raw2, [], stats=stats, device=device)
             if recovered:
                 total_loss = False
                 break
     rec_keys = {(f.name, f.part_number) for f in recovered}
     damaged = [d for d in damaged if (d.name, d.part_number) not in rec_keys]
-    for d in damaged:
-        if d.data[:4] == b"FECV":
-            logger.info("damaged FECV frame %s part %d: the soft payload-FEC rung waits for %s",
-                        d.name, d.part_number, _FEC_ITEM)
-    return list(frames) + recovered, damaged, total_loss, (len(frames), len(recovered), 0)
+    soft_rec = recover_payload_fec_soft(raw, samples, mode, symbol_rate, damaged, stats=stats, device=device)
+    soft_keys = {(f.name, f.part_number) for f in soft_rec}
+    damaged = [d for d in damaged if (d.name, d.part_number) not in soft_keys]
+    counts = (len(frames), len(recovered), len(soft_rec))
+    return list(frames) + recovered + soft_rec, damaged, total_loss, counts
 
 
-def _prepare(data: np.ndarray, sample_rate: int, denoise: Optional[bool]) -> np.ndarray:
+def _prepare(data: np.ndarray, sample_rate: int, denoise: Optional[bool], device: DeviceLike) -> np.ndarray:
+    """Mono-ize, resample to 96 kHz and, with ``denoise`` (None: CONFIG
+    ``modem.noise_reduction``), run the spectral gate on ``device``."""
+    from .utils.denoise import spectral_gate
+
     samples = np.asarray(data, dtype=np.float32)
     if samples.ndim > 1:
         samples = samples[:, 0]
@@ -312,7 +599,7 @@ def _prepare(data: np.ndarray, sample_rate: int, denoise: Optional[bool]) -> np.
     if denoise is None:
         denoise = bool(CONFIG.get("modem.noise_reduction", False))
     if denoise:
-        raise NotImplementedError(f"the spectral-gate denoiser (utils/denoise.py) is not ported: {_FEC_ITEM}")
+        samples = spectral_gate(samples, device=device)
     return samples
 
 
@@ -328,24 +615,25 @@ def decode_from_buffer(
     device: DeviceLike = None,
 ) -> List[str]:
     """Demodulate a sample buffer on ``device`` (default: the card) and save
-    every recovered file: mono-ize, resample to 96 kHz, bucket-pad,
-    ``modem.demodulate``, :func:`run_recovery_ladder`, save. A failure in
-    demodulation is logged and saves nothing, as in the JAX package."""
-    samples = _prepare(data, sample_rate, denoise)
-    if stream_fec:
-        raise NotImplementedError(f"stream FEC decoding is not ported: {_FEC_ITEM}")
+    every recovered file: mono-ize, resample to 96 kHz, with ``denoise`` the
+    spectral gate (None defers to CONFIG ``modem.noise_reduction``),
+    bucket-pad, ``modem.demodulate``, :func:`run_recovery_ladder` (with
+    ``stream_fec``, the stream Viterbi-decoded first: transmissions made
+    with ``fec_type="stream"``), save. A failure in demodulation is logged
+    and saves nothing, as in the JAX package."""
+    samples = _prepare(data, sample_rate, denoise, device)
     try:
         raw = demodulate(mode, pad_to_bucket(samples), symbol_rate, device=device)
         reg = registry or default_registry
         frames, damaged, _total_loss, counts = run_recovery_ladder(
-            raw, samples, mode, symbol_rate, stats=reg.stats, rescue=True, device=device,
+            raw, samples, mode, symbol_rate, stats=reg.stats, rescue=True, stream_fec=stream_fec, device=device,
         )
         logger.info(
             "demodulated %d bytes -> %d valid / %d damaged / %d header-recovered"
             " / %d soft-FEC-recovered frames",
             len(raw), counts[0], len(damaged), counts[1], counts[2],
         )
-        return save_decoded_files(frames, recv_dir, registry, damaged=damaged)
+        return save_decoded_files(frames, recv_dir, registry, damaged=damaged, device=device)
     except NotImplementedError:
         raise
     except Exception:
@@ -402,17 +690,22 @@ def decode_with_retry(
 ) -> List[str]:
     """Decode with up to 3 clock-drift hypotheses (1.0, 0.95, 1.05): the
     nominal hypothesis through the full single-capture receiver (with the
-    no-sync rescue on total loss), then the others as rows of one
-    ``decode_sample_batch`` dispatch, each capture resampled by the exact
-    inverse of its drift. Each attempt's raw bytes are dumped to
+    no-sync rescue on total loss, except under ``stream_fec``), then the
+    others as rows of one ``decode_sample_batch`` dispatch, each capture
+    resampled by the exact inverse of its drift. With ``stream_fec`` each
+    attempt's stream is Viterbi-decoded before parsing. Each attempt's raw
+    bytes (before that decode) are dumped to
     ``<recv_dir>/demodulated_attempt_N.bin``."""
     from .parallel.batch import decode_sample_batch
 
-    if stream_fec:
-        raise NotImplementedError(f"stream FEC decoding is not ported: {_FEC_ITEM}")
+    from .fec import stream_fec_decode
+
     samples = np.asarray(data, dtype=np.float32)
     factors = RETRY_FACTORS[:max_retries]
     reg = registry or default_registry
+
+    def _post(raw_bytes: bytes) -> bytes:
+        return stream_fec_decode(raw_bytes, device=device) if stream_fec else raw_bytes
 
     def _dump(attempt: int, blob: bytes) -> None:
         if not dump_attempts:
@@ -429,24 +722,25 @@ def decode_with_retry(
         total_loss)``, total loss meaning nothing parsed, damaged or
         recovered."""
         frames, damaged = parse_frames_detailed(raw_bytes)
-        recovered = recover_header_damaged(raw_bytes, frames, stats=reg.stats)
+        recovered = recover_header_damaged(raw_bytes, frames, stats=reg.stats, device=device)
         rec_keys = {(f.name, f.part_number) for f in recovered}
         damaged = [d for d in damaged if (d.name, d.part_number) not in rec_keys]
         if not frames and not damaged and not recovered:
             return [], True
-        return save_decoded_files(frames + recovered, recv_dir, registry, damaged=damaged or None), False
+        return save_decoded_files(frames + recovered, recv_dir, registry, damaged=damaged or None,
+                                  device=device), False
 
     try:
         raw0 = demodulate(mode, pad_to_bucket(samples), symbol_rate, device=device)
         _dump(1, raw0)
-        saved, total_loss = _parse_and_save(raw0)
+        saved, total_loss = _parse_and_save(_post(raw0))
         if saved:
             return saved
-        if total_loss:
+        if total_loss and not stream_fec:
             for raw2 in _nosync_streams(samples, mode, symbol_rate, device=device):
-                recovered = recover_header_damaged(raw2, [], stats=reg.stats)
+                recovered = recover_header_damaged(raw2, [], stats=reg.stats, device=device)
                 if recovered:
-                    saved = save_decoded_files(recovered, recv_dir, registry)
+                    saved = save_decoded_files(recovered, recv_dir, registry, device=device)
                     if saved:
                         return saved
     except NotImplementedError:
@@ -478,7 +772,7 @@ def decode_with_retry(
     for i, raw in enumerate(raws):
         attempt = i + 2  # attempt 1 was the nominal full decode above
         _dump(attempt, raw)
-        saved, _loss = _parse_and_save(raw)
+        saved, _loss = _parse_and_save(_post(raw))
         if saved:
             logger.info("retry hypothesis %d (clock factor %.2f) succeeded", attempt, drift[i])
             return saved

@@ -23,10 +23,12 @@ with the JAX names and argument order:
   takes the (256, 16) codebook in place of the Pallas chip table and
   block-diagonal scorer;
 
-and one kernel with no Pallas counterpart: :func:`mlse_viterbi_blocks`
+and two kernels with no Pallas counterpart: :func:`mlse_viterbi_blocks`
 (``csrc/mlse_viterbi.cu``), the Viterbi of the single-capture FSK
 receiver's MLSE, which the JAX package runs as two ``lax.scan``s
-(``ops/fsk.py:_mlse_refine``).
+(``ops/fsk.py:_mlse_refine``), and :func:`fec_viterbi_blocks`
+(``csrc/fec_viterbi.cu``), the Viterbi decoder of the convolutional code,
+two ``lax.scan``s of ``fec.py:_viterbi_block`` there.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. For tensors on the CPU it runs the plain version
@@ -1332,11 +1334,93 @@ def mlse_viterbi_blocks(
     return out
 
 
+# --- the Viterbi decoder of the K = 7, rate-1/2 convolutional code ----------------
+
+@functools.lru_cache(maxsize=None)
+def _fec_tables(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(p0, p1, code0, code1)`` on ``device``: new state s's predecessors
+    s >> 1 and (s >> 1) | 32 (``fec._trellis_tables``), and the expected
+    output pair of each transition as a code 2 e0 + e1."""
+    from ..fec import _trellis_tables
+
+    p0, p1, exp0, exp1 = _trellis_tables()
+    codes = [(2 * e[:, 0] + e[:, 1]).astype(np.int64) for e in (exp0, exp1)]
+    return tuple(torch.as_tensor(np.asarray(a, np.int64), device=device) for a in (p0, p1, *codes))
+
+
+def fec_viterbi_blocks_plain(pairs: torch.Tensor, known_start: bool, from_best_end: bool) -> torch.Tensor:
+    """Plain Viterbi decoder of the K = 7, rate-1/2 code, batched over
+    blocks, one Python step at a time (the JAX package's ``step`` and
+    ``back`` scans of ``fec._viterbi_block``).
+
+    ``pairs`` (n_blocks, L, 2) float32, hard bits or soft values. The branch
+    metric of a transition is |r0 - e0| + |r1 - e1| against its expected
+    output pair; each step takes ``cand = pm[p] + bm`` for the predecessors
+    p0 = s >> 1 and p1 = (s >> 1) | 32 of new state s, keeps p1 only where
+    cand1 < cand0, and subtracts the step's minimum. The metrics start at 0,
+    or with ``known_start`` at 0 for state 0 and 1e9 for the others; the
+    traceback starts at state 0, or with ``from_best_end`` at the first
+    state holding the final minimum. Returns (n_blocks, L) uint8 bits."""
+    nb, L, _ = pairs.shape
+    dev = pairs.device
+    p0, p1, code0, code1 = _fec_tables(dev)
+    r0, r1 = pairs[..., 0], pairs[..., 1]
+    # The four branch metrics a step, by code 2 e0 + e1, then each state's
+    # two: (L, nb, 64) each.
+    m4 = torch.stack([(r0 - e0).abs() + (r1 - e1).abs() for e0 in (0.0, 1.0) for e1 in (0.0, 1.0)], -1)
+    m4 = m4.transpose(0, 1)
+    bm0, bm1 = m4[..., code0].contiguous(), m4[..., code1].contiguous()
+    pm = torch.zeros((nb, 64), dtype=torch.float32, device=dev)
+    if known_start:
+        pm[:, 1:] = 1e9
+    take = torch.empty((L, nb, 64), dtype=torch.bool, device=dev)
+    for t in range(L):
+        cand0 = torch.index_select(pm, 1, p0).add_(bm0[t])
+        cand1 = torch.index_select(pm, 1, p1).add_(bm1[t])
+        torch.lt(cand1, cand0, out=take[t])
+        pm = torch.where(take[t], cand1, cand0)
+        pm.sub_(pm.amin(dim=1, keepdim=True))
+    if from_best_end:
+        state = torch.argmin(pm, dim=1)  # the first minimum
+    else:
+        state = torch.zeros(nb, dtype=torch.int64, device=dev)
+    rows = torch.arange(nb, device=dev)
+    states = torch.empty((L, nb), dtype=torch.int64, device=dev)
+    for t in range(L - 1, -1, -1):
+        states[t] = state
+        state = torch.where(take[t, rows, state], (state >> 1) | 32, state >> 1)
+    return (states & 1).to(torch.uint8).T.contiguous()  # each step's input bit
+
+
+def fec_viterbi_blocks(pairs: torch.Tensor, known_start: bool, from_best_end: bool) -> torch.Tensor:
+    """The decoder of :func:`fec_viterbi_blocks_plain` for every block in
+    one launch (one warp a block, ``csrc/fec_viterbi.cu``): (n_blocks, L, 2)
+    float32 finite pairs -> (n_blocks, L) uint8 bits, equal to the plain
+    version's bit for bit. The survivors, two ballot words a step, live in a
+    scratch of n_blocks * ceil(L/32) * 256 bytes."""
+    _require(pairs.ndim == 3 and pairs.shape[2] == 2 and pairs.shape[1] >= 1,
+             f"fec_viterbi_blocks: pairs {tuple(pairs.shape)}, want (n_blocks, L, 2)")
+    _require(pairs.dtype == torch.float32, f"fec_viterbi_blocks: pairs {pairs.dtype}, want float32")
+    nb, L, _ = pairs.shape
+    dev = _same_device(pairs)
+    if dev.type == "cpu":
+        return fec_viterbi_blocks_plain(pairs, known_start, from_best_end)
+    _require(pairs.data_ptr() % 8 == 0, "fec_viterbi_blocks: the kernel reads 8-byte pairs; the tensor must "
+             "start on an 8-byte boundary")
+    surv = torch.empty((nb, -(-L // 32) * 64), dtype=torch.int32, device=dev)
+    out = torch.empty((nb, L), dtype=torch.uint8, device=dev)
+    _launch("amr_fec_viterbi", dev, _ptr(pairs), int(bool(known_start)), int(bool(from_best_end)),
+            _ptr(surv), _ptr(out), nb, L)
+    fec_viterbi_blocks.launches += 1
+    return out
+
+
 KERNELS = (
     psk_project_decide_batch, rotation_match_batch, relabel_pack_batch,
     bit_select_pack_batch, sector_match_batch, psk8_relabel_pack_rows,
     fsk_tile_bits_batch, fsk_project_bits_batch, fsk_disc_sums_batch, fsk_quad_margin_batch,
     psk_project_diff, psk_project_diff_batch, neural_extract_batch, mlse_viterbi_blocks,
+    fec_viterbi_blocks,
 )
 
 

@@ -918,6 +918,71 @@ def psk8_nosync_streams(samples, baud: float, carrier: float, samp_rate: int,
     return [_stream_bytes(p, n) for p, n in pairs]
 
 
+# --- soft bits for the soft-decision FEC decoders ----------------------------------
+
+def psk_soft_bits(samples, baud: float, carrier: float, samp_rate: int, n_psk: int,
+                  device: DeviceLike = None) -> np.ndarray:
+    """Soft bit stream in [0, 1] (P(bit=1)-ish) from capture start, on
+    ``device`` (K11 on the card), as numpy float32.
+
+    For DQPSK the diagonal rotation makes both Gray bits independent signs:
+    with diff phasor (u, v), hi = sign(-(u+v)) and lo = sign(v-u), so each
+    bit's soft value is a linear scaling of its own component. DBPSK uses
+    -d_re. The blind CFO derotation applies as in the hard path; the k·π/2
+    ambiguity is left to the caller (``decoder._soft_rotation_variants``).
+    """
+    d_re, d_im, _ = psk_demod_streams(_to_device(samples, device), float(baud), float(carrier), int(samp_rate))
+    d_re, d_im = derotate(d_re, d_im, estimate_common_rotation(d_re, d_im))
+    d_re, d_im = d_re.cpu().numpy(), d_im.cpu().numpy()
+    scale = np.mean(np.abs(d_re) + np.abs(d_im)) + 1e-9
+    if n_psk == 2:
+        return np.clip(0.5 - d_re / scale, 0.0, 1.0).astype(np.float32)
+    a = d_re + d_im  # hi = 1 when a < 0
+    b = d_im - d_re  # lo = 1 when b > 0
+    soft = np.empty(2 * len(a), np.float32)
+    soft[0::2] = np.clip(0.5 - a / scale, 0.0, 1.0)
+    soft[1::2] = np.clip(0.5 + b / scale, 0.0, 1.0)
+    return soft
+
+
+def _psk8_soft_core(samples: torch.Tensor, baud: float, carrier: float, sample_rate: int) -> torch.Tensor:
+    """Derotated D8PSK differential phasors -> per-sector scores (n, 8)."""
+    d_re, d_im, _ = psk_demod_streams(samples, baud, carrier, sample_rate, n_psk=8)
+    d_re, d_im = derotate(d_re, d_im, estimate_common_rotation8(d_re, d_im))
+    dirs = torch.tensor(np.stack([_ET_COS, _ET_SIN]), dtype=torch.float32, device=d_re.device)  # (2, 8)
+    return torch.stack([d_re, d_im], dim=1) @ dirs  # (n, 8)
+
+
+def psk8_soft_bits_rotations(samples, baud: float, carrier: float, samp_rate: int,
+                             device: DeviceLike = None) -> list:
+    """D8PSK soft Gray tribit streams under all 8 π/4-rotation hypotheses,
+    on ``device``, as numpy float32.
+
+    Per symbol, the per-sector score is the projection of the differential
+    phasor onto each k·π/4 direction; each Gray bit's soft value is the
+    max-log LLR (max score over sectors labeling the bit 1 minus max over
+    sectors labeling it 0) mapped to [0,1]. A channel rotation of k·π/4 is a
+    column permutation of the score matrix, so all 8 hypotheses come from
+    one device pass. Element 0 is the k=0 stream.
+    """
+    scores = _psk8_soft_core(_to_device(samples, device), float(baud), float(carrier),
+                             int(samp_rate)).cpu().numpy()  # (n, 8): column t = transmitted sector t under k=0
+    n = scores.shape[0]
+    g = _GRAY8.astype(np.int64)
+    bit_is_one = np.stack([(g >> 2) & 1, (g >> 1) & 1, g & 1]).astype(bool)  # (3, 8)
+    out = []
+    for k in range(8):
+        # Under hypothesis k, transmitted sector t was received as (t+k)%8.
+        s_k = scores[:, (np.arange(8) + k) % 8]  # (n, 8) indexed by t
+        scale = np.mean(np.abs(s_k)) * 2.0 + 1e-9
+        soft = np.empty(3 * n, np.float32)
+        for j in range(3):
+            llr = np.max(s_k[:, bit_is_one[j]], axis=1) - np.max(s_k[:, ~bit_is_one[j]], axis=1)
+            soft[j::3] = np.clip(0.5 + llr / scale, 0.0, 1.0)
+        out.append(soft)
+    return out
+
+
 # --- the carrier-tracked (coherent) receivers ------------------------------------
 
 def _jmod(x: torch.Tensor, y: float) -> torch.Tensor:

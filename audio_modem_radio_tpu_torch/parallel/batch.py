@@ -643,25 +643,43 @@ def decode_wav_batch(
 
     Returns, per input WAV, the list of file paths recovered from it.
     Frames from all captures feed one assembly registry, so a multi-part
-    transfer spread across several captures reassembles here. Every capture
-    runs ``decoder.run_recovery_ladder`` (strict parse, header-tolerant
-    recovery, the no-sync rescue on total loss); then the captures that
-    yielded nothing go through the MLSE escalation (close- and mid-tone
-    FSK without CONFIG ``modem.batch_mlse``: the lost captures again as one
-    batch through the MLSE-refined path), the coherent escalation (the
-    carrier-tracked single-capture receiver; psk2, psk4 and psk8 outside
-    the compatibility aliases) and, with ``drift_retry``, the ±5%
-    clock-drift hypotheses as one extra batched dispatch. ``stream_fec``
-    and ``denoise`` raise NotImplementedError (the FEC item).
+    transfer spread across several captures reassembles here. WAVs load
+    through the native multi-threaded loader where it built (files at other
+    rates than 96 kHz, and unreadable ones, through ``utils.wavio``); with
+    ``denoise`` (None defers to CONFIG ``modem.noise_reduction``) each
+    capture runs the spectral gate on the device. Every capture runs
+    ``decoder.run_recovery_ladder`` (with ``stream_fec``, the stream FEC
+    decode and its soft escalation first; strict parse, header-tolerant
+    recovery, the no-sync rescue on total loss, soft payload FEC); then the
+    captures that yielded nothing go through the MLSE escalation (close-
+    and mid-tone FSK without CONFIG ``modem.batch_mlse``: the lost captures
+    again as one batch through the MLSE-refined path), the coherent
+    escalation (the carrier-tracked single-capture receiver; psk2, psk4 and
+    psk8 outside the compatibility aliases) and, with ``drift_retry``, the
+    ±5% clock-drift hypotheses as one extra batched dispatch.
     """
-    from ..decoder import RETRY_FACTORS, default_registry, drift_rows, run_recovery_ladder, save_decoded_files
-    from ..ops.psk import bpsk_tracked_demodulate, psk8_tracked_demodulate, qpsk_tracked_demodulate
+    import os
 
+    from ..decoder import RETRY_FACTORS, default_registry, drift_rows, run_recovery_ladder, save_decoded_files
+    from ..native import NATIVE_AVAILABLE, load_wav_batch
+    from ..ops.psk import bpsk_tracked_demodulate, psk8_tracked_demodulate, qpsk_tracked_demodulate
+    from ..utils.denoise import spectral_gate
+
+    if NATIVE_AVAILABLE:
+        # The native loader reads headers and samples in parallel; a probe
+        # over file sizes picks the bucket.
+        est_len = max((os.path.getsize(p) // 2 for p in paths if os.path.exists(p)), default=1)
+        samples, rates, counts = load_wav_batch(
+            list(paths), _bucket_length([est_len]), max_threads=int(CONFIG.get("performance.max_workers", 0)),
+        )
+        arrays = [samples[i, : counts[i]] if rates[i] == SAMPLE_RATE else _read_wav_row(p)
+                  for i, p in enumerate(paths)]
+    else:
+        arrays = [_read_wav_row(p) for p in paths]
     if denoise is None:
         denoise = bool(CONFIG.get("modem.noise_reduction", False))
-    if stream_fec or denoise:
-        raise NotImplementedError("stream FEC and the denoiser are not ported: ROADMAP.md queue 1, item 2 (FEC)")
-    arrays = [_read_wav_row(p) for p in paths]
+    if denoise:
+        arrays = [spectral_gate(a, device=device) for a in arrays]
     n = _bucket_length([max(len(a), 1) for a in arrays])
     batch = np.zeros((len(arrays), n), dtype=np.float32)
     for i, a in enumerate(arrays):
@@ -672,14 +690,15 @@ def decode_wav_batch(
 
     def ladder(raw: bytes, samples_i: np.ndarray, rescue: bool):
         frames, damaged, _loss, _counts = run_recovery_ladder(
-            raw, samples_i, mode, symbol_rate, stats=reg.stats, rescue=rescue, device=device)
+            raw, samples_i, mode, symbol_rate, stats=reg.stats, rescue=rescue, stream_fec=stream_fec,
+            device=device)
         return frames, damaged
 
     out: List[List[str]] = []
     lost: List[int] = []
     for i, raw in enumerate(raws):
         frames, damaged = ladder(raw, arrays[i], rescue=True)
-        out.append(save_decoded_files(frames, recv_dir, registry, damaged=damaged or None))
+        out.append(save_decoded_files(frames, recv_dir, registry, damaged=damaged or None, device=device))
         # Lost: nothing saved and no CRC-valid frame (a valid part banked in
         # the assembly is progress).
         if not out[-1] and not frames:
@@ -698,7 +717,7 @@ def decode_wav_batch(
         still_lost = []
         for j, i in enumerate(lost):
             frames, damaged = ladder(esc_raws[j], arrays[i], rescue=True)
-            saved = save_decoded_files(frames, recv_dir, registry, damaged=damaged or None)
+            saved = save_decoded_files(frames, recv_dir, registry, damaged=damaged or None, device=device)
             if saved:
                 out[i] = saved
             elif not frames:
@@ -723,7 +742,7 @@ def decode_wav_batch(
                 still_lost.append(i)
                 continue
             frames, damaged = ladder(traw, arrays[i], rescue=False)
-            saved = save_decoded_files(frames, recv_dir, registry, damaged=damaged or None)
+            saved = save_decoded_files(frames, recv_dir, registry, damaged=damaged or None, device=device)
             if saved:
                 out[i] = saved
             elif not frames:
@@ -744,7 +763,7 @@ def decode_wav_batch(
                 frames, damaged = ladder(retry_raws[row], retry[row], rescue=False)
                 if not frames and not damaged:
                     continue
-                saved = save_decoded_files(frames, recv_dir, registry, damaged=damaged or None)
+                saved = save_decoded_files(frames, recv_dir, registry, damaged=damaged or None, device=device)
                 if saved or frames:  # a spurious damaged parse must not end the sweep
                     out[i] = saved
                     break

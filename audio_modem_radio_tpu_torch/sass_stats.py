@@ -15,7 +15,9 @@ such as K5 are bound by those, not by FFMA).
 per-step dependent chains from its SASS: the forward step (the longest
 path between two steps' REDUX.MAX instructions in the unrolled loop) and the
 traceback's step (between two bits' stores in phase A's unrolled walk),
-each in cycles, with the instructions on it. An instruction's
+each in cycles, with the instructions on it (``chain_cycles`` takes other
+anchors for ``csrc/fec_viterbi.cu``). A shared-memory load depends on the
+store before it. An instruction's
 weight is its dependent-issue latency on the card, measured by
 ``csrc/probe/latency.cu`` (built alone and run here; cycles a probe trip
 over the probe's own count of that opcode in its SASS, less the
@@ -126,6 +128,13 @@ def _instructions(body: str):
             first = int(defs[-1][len(prefix):])
             defs = defs[:-1] + [f"{prefix}{first + i}" for i in range(width)]
         uses = _REG.findall(guard) + [r for a in parts[n_def:] for r in _REG.findall(a)]
+        # A shared-memory load waits for the store before it: where values
+        # travel through shared memory (fec_viterbi.cu's exchange), the
+        # pseudo-register SMEM puts the store and the load on the chain.
+        if base == "STS":
+            defs = defs + ["SMEM"]
+        elif base == "LDS":
+            uses = uses + ["SMEM"]
         out.append((op, defs, uses))
         if base in _ENDS_BLOCK:
             starts.append(len(out))
@@ -164,13 +173,17 @@ def _path(block, finish, crit, end: int, span: float):
     return list(reversed(ops))
 
 
-def chain_cycles(sass: str, latency: dict, instance: str = "mlse_viterbi_kernelILi2E"):
+def chain_cycles(sass: str, latency: dict, instance: str = "mlse_viterbi_kernelILi2E",
+                 forward: str = "REDUX.MAX", back: str = "STG.U8"):
     """(forward cycles a step, its instructions, traceback cycles a step,
     its instructions) of the Viterbi kernel instantiation whose mangled name
     holds ``instance`` (K = 2: 33-64 states). The forward step is the
-    longest path from one step's REDUX.MAX to the next's in the unrolled loop;
-    the traceback step that from one bit's byte store to the next's in the
-    unrolled 32-step walk of phase A (each lane its own stages)."""
+    longest path from one step's ``forward`` instruction (REDUX.MAX) to the
+    next's in the unrolled loop; the traceback step that from one ``back``
+    instruction to the next's in an unrolled 32-step walk (a bit's byte
+    store in phase A, each lane its own stages). For ``fec_viterbi.cu``
+    (instance ``fec_viterbi_kernel``) the anchors are the step minimum's
+    REDUX.MIN and the traceback's SHFL."""
     body = next(b for name, b in _functions(sass) if instance in name)
     instrs, starts = _instructions(body)
     blocks = [instrs[a:b] for a, b in zip(starts, starts[1:] + [len(instrs)]) if b > a]
@@ -184,9 +197,13 @@ def chain_cycles(sass: str, latency: dict, instance: str = "mlse_viterbi_kernelI
         cycles = (finish[at[-1]] - finish[at[0]]) / (len(at) - 1)
         return cycles, _path(block, finish, crit, at[-1], cycles)
 
-    fwd, fwd_path = per_step(lambda op: op.startswith("REDUX.MAX"))
-    back, back_path = per_step(lambda op: op.startswith("STG") and ".U8" in op)
-    return fwd, fwd_path, back, back_path
+    def anchor(name):
+        head, _, tail = name.partition(".")
+        return lambda op: op.startswith(head) and (not tail or f".{tail}" in op)
+
+    fwd, fwd_path = per_step(anchor(forward))
+    back_cycles, back_path = per_step(anchor(back))
+    return fwd, fwd_path, back_cycles, back_path
 
 
 def probe_latencies(trips: int = 1000) -> dict:

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's receive once on one NVIDIA GPU: the batched PSK
 (DQPSK, DBPSK, D8PSK), FSK (FSK1200, FSK9600, FSK19200, with MSK and FT8
-on the dual-tone kernel) and NEURAL slices, and the single-capture PSK,
-NEURAL and FSK receive (``decode_wav_file`` -> ``modem.demodulate`` -> the
-recovery ladder; for FSK9600 the MLSE Viterbi kernel).
+on the dual-tone kernel) and NEURAL slices, the single-capture PSK, NEURAL
+and FSK receive (``decode_wav_file`` -> ``modem.demodulate`` -> the
+recovery ladder; for FSK9600 the MLSE Viterbi kernel), and the FEC slice
+from the port's own encoder to the card's Viterbi decoder (file ->
+``encode_file`` -> FEC-coded WAV -> ``decode_wav_file`` -> saved file).
 
-    python3 chip_smoke.py    # one card, full size, about 4 minutes on an H100
+    python3 chip_smoke.py    # one card, full size, about 6 minutes on an H100
 
 It runs only on a CUDA card; the CPU checks of the same code are the tests
 ``tests/test_torch_*.py``. On a host with several cards it uses the first
@@ -45,6 +47,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    9600 Bd, clean and with AWGN at 15 dB, on three trellises: 48 states
    (1200/2200 Hz, FSK9600), 96 (1100/2200 Hz) and 8 (1200/2400 Hz): bits
    equal on every block;
+3f. the FEC Viterbi kernel (``fec_viterbi.cu``) vs plain: on the 205
+   blocks of 9,216 steps that the stream-FEC decode of the largest file
+   fitting one 2^24-sample QPSK@9600 WAV (written by the port's
+   ``encode_file``, ``fec_type="stream"``) gives it, hard bits from the
+   demodulator and soft values of the same WAV at -2 dB full-band SNR
+   (the soft escalation); on one short block with known boundaries (a 1
+   KiB ``FECV`` container); on all-0.5 input (every candidate ties), both
+   boundaries: bits equal on every block;
 4. the matchers and packs vs plain at the main path's row count: K2 (qpsk
    and bpsk families), K5 on streams built under every hypothesis plus a
    noise capture, (first, found) equal at each tier of the sync tail (256
@@ -98,6 +108,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    continuous transmission of 16 KiB frames at 8 leads) under CONFIG
    ``modem.batch_mlse``: every capture all its frames, one Viterbi launch
    for the batch;
+5m. the FEC slice through the port's own encoder, every check
+   byte-equality with the source file: ``decode_wav_file(stream_fec=True)``
+   of phase 3f's WAV (the FEC Viterbi launched once or twice, K11 and
+   nothing else); the same WAV at -2 dB through ``decode_from_buffer``
+   (the soft escalation runs, the soft decode gets fewer frame bits wrong
+   than the hard one, nothing wrong is saved); a 1,200-byte file at
+   QPSK@4800 and -2 dB that the soft escalation recovers; 8 such
+   stream-FEC WAVs through ``decode_wav_batch(stream_fec=True)`` (K1, K2,
+   K3, then the Viterbi per capture); ``convolutional`` payload FEC in 1
+   KiB parts (each container decoded by the card's kernel) and in 16 KiB
+   parts (the native sweep where the port's native library built, else
+   the card), and ``reed_solomon``, each file's part WAVs as one capture;
+   one FSK9600 stream-FEC WAV (the MLSE, then the FEC Viterbi);
+   ``decode_wav_file(denoise=True)`` of a clean QPSK transmission after a
+   lead of silence; and whether the native library built;
 6. timing with CUDA events (one warm-up, median of 5): ``demod_pack_batch``
    of each mode on its 64 x 2^24 int16 batch staged on the card (PSK with
    cfo_retry on and off, and again with its last capture noise, which
@@ -122,7 +147,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``batch_mlse`` batch's one launch of 1,640 blocks, each with its bound,
    its cycles a step at the SM clock read during the run and its bound by
    the chain (10,240 forward and 320 traceback steps at their dependent
-   cycles, from the kernel's SASS and latencies measured on the card).
+   cycles, from the kernel's SASS and latencies measured on the card); the
+   FEC Viterbi kernel on phase 3f's 205 blocks beside its plain version
+   (one run), its bound and its bound by the chain (9,216 forward and
+   9,216 traceback steps), the stream-FEC ``decode_wav_file`` of QPSK and
+   FSK9600 (wall, median of 3, and device time) and ``spectral_gate`` on a
+   2^24-sample capture.
 
 The line before the last is one JSON object with the kernels' names,
 sources, launch counts, errors, times and bounds (one entry per kernel and
@@ -131,9 +161,9 @@ over 3.35 TB/s and its operations over 67 T/s (the H100 SXM's published
 memory rate and float32 CUDA-core rate; integer operations are counted
 against the same rate), from the shapes and templates of the timed call.
 No single PyTorch call computes any of these functions, so ``library_ms``
-is null throughout. The Viterbi kernel's bound by bytes and operations is
-far below its real floor, the chain of 10,240 dependent steps a block,
-which phase 6 prints beside it. The last line is ``{"ok": true, "device": {...}}``. It
+is null throughout. The two Viterbi kernels' bounds by bytes and
+operations are far below their real floor, the chain of 10,240 (MLSE) or
+9,216 (FEC) dependent steps a block, which phase 6 prints beside them. The last line is ``{"ok": true, "device": {...}}``. It
 imports nothing of JAX.
 """
 
@@ -186,6 +216,10 @@ _TRELLISES = {"48 states": (1200.0, 2200.0), "96 states": (1100.0, 2200.0), "8 s
 # metrics of 2 products, a sum and a difference, two candidate sums, the
 # compare, the select, the step maximum and the subtraction.
 _VITERBI_OPS = 14
+# The FEC Viterbi kernel's operations, from its code: per state and step two
+# candidate sums, the compare, the select, the step minimum and the
+# subtraction; per step the four distinct branch metrics of 5 operations.
+_FEC_OPS_STATE, _FEC_OPS_STEP = 6, 20
 # K7's geometries in phase 3b: label -> (mode, symbol rate, payload bytes).
 _K7_CASES = {
     "FSK1200": ("FSK1200", 1200, 16384),
@@ -216,6 +250,9 @@ _ENTRIES = {
     # No Pallas kernel: the lax.scan pair of _mlse_refine.
     "mlse_viterbi_blocks": ("mlse_viterbi_blocks", "FSK9600 single", "mlse_viterbi.cu",
                             "audio_modem_radio_tpu/ops/fsk.py:375"),
+    # No Pallas kernel: the lax.scan pair of fec._viterbi_block.
+    "fec_viterbi_blocks": ("fec_viterbi_blocks", "QPSK stream", "fec_viterbi.cu",
+                           "audio_modem_radio_tpu/fec.py:203"),
 }
 # K10's operations per symbol, from its code: 256 codewords x 16 FMAs, 256
 # compares, 16 chips of 4 (two mask products, a sum, the half) and 16
@@ -1371,9 +1408,10 @@ def phase_project_diff(device, n_cap: int, n: int, payload_bytes: int, card: str
     return errs
 
 
-def _decode_wav(device, path: str, mode: str, rate: int, work: str, label: str):
-    """decode_wav_file on ``device`` with the launch counts and the ladder's
-    host reads reset first: (saved paths, counts, host reads, wall s)."""
+def _decode_wav(device, path: str, mode: str, rate: int, work: str, label: str, **options):
+    """decode_wav_file on ``device`` (with ``options``: stream_fec, denoise)
+    with the launch counts and the ladder's host reads reset first: (saved
+    paths, counts, host reads, wall s)."""
     import torch
 
     from audio_modem_radio_tpu_torch.assembly import AssemblyRegistry
@@ -1385,7 +1423,7 @@ def _decode_wav(device, path: str, mode: str, rate: int, work: str, label: str):
     tpsk._found.host_reads = 0
     t0 = time.perf_counter()
     saved = decode_wav_file(path, mode, rate, recv_dir=os.path.join(work, "recv_" + label),
-                            registry=AssemblyRegistry(journal_dir=""), device=device)
+                            registry=AssemblyRegistry(journal_dir=""), device=device, **options)
     torch.cuda.synchronize()
     return saved, tk.launch_counts(), tpsk._found.host_reads, time.perf_counter() - t0
 
@@ -1476,7 +1514,6 @@ def phase_single_timing(device, n_cap: int, n: int, payload_bytes: int, wavs: di
     2*spsym-tap correlations) + 6 (the differential)."""
     import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from audio_modem_radio_tpu_torch.ops import kernels as tk
     from audio_modem_radio_tpu_torch.ops.psk import _batch_pass1, _device_tables
@@ -1511,23 +1548,34 @@ def phase_single_timing(device, n_cap: int, n: int, payload_bytes: int, wavs: di
             f"bound {bounds[name][0]:.4f} ms by {bounds[name][1]} | {card}")
 
     for mode, path in wavs.items():
-        walls = [_decode_wav(device, path, mode, BAUD, work, f"t{mode}{i}")[3] for i in range(3)]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _decode_wav(device, path, mode, BAUD, work, f"p{mode}")
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                ms_n = by_name.setdefault(e.name, [0.0, 0])
-                ms_n[0] += e.time_range.elapsed_us() / 1e3
-                ms_n[1] += 1
-        dev_ms = sum(ms for ms, _ in by_name.values())
-        decodes[mode] = (statistics.median(walls), dev_ms)
-        say(f"[6 time] decode_wav_file {mode} 2^24 samples: wall median of 3 {decodes[mode][0]:.3f} s "
-            f"({', '.join(f'{v:.3f}' for v in walls)}); device kernel time under the profiler {dev_ms:.3f} ms "
-            f"in {sum(c for _, c in by_name.values())} kernels, host and copies the rest | {card}")
-        for name, (ms, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
-            say(f"[6 time]   {ms:9.4f} ms x{c:<5d} {name[:100]}")
+        decodes[mode] = _profile_decode(device, path, mode, BAUD, work, mode, card)
     return t, bounds, decodes
+
+
+def _profile_decode(device, path: str, mode: str, rate: int, work: str, label: str, card: str, **options):
+    """``decode_wav_file`` of one WAV by the host clock (median of 3) and
+    once under ``torch.profiler`` (device kernel time, the six largest
+    kernels printed): (wall s, device ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = [_decode_wav(device, path, mode, rate, work, f"t{label}{i}", **options)[3] for i in range(3)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _decode_wav(device, path, mode, rate, work, f"p{label}", **options)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms_n = by_name.setdefault(e.name, [0.0, 0])
+            ms_n[0] += e.time_range.elapsed_us() / 1e3
+            ms_n[1] += 1
+    dev_ms = sum(ms for ms, _ in by_name.values())
+    wall = statistics.median(walls)
+    say(f"[6 time] decode_wav_file {label} 2^24 samples{' ' + str(options) if options else ''}: wall median of 3 "
+        f"{wall:.3f} s ({', '.join(f'{v:.3f}' for v in walls)}); device kernel time under the profiler "
+        f"{dev_ms:.3f} ms in {sum(c for _, c in by_name.values())} kernels, host and copies the rest | {card}")
+    for name, (ms, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        say(f"[6 time]   {ms:9.4f} ms x{c:<5d} {name[:100]}")
+    return wall, dev_ms
 
 
 # --- NEURAL: K10, the batched slices, the single-capture decodes --------------------
@@ -1734,24 +1782,28 @@ def phase_neural_timing(device, n_cap: int, n: int, payload_bytes: int, card: st
 
 # --- the single-capture FSK receive: the MLSE Viterbi and decode_wav_file -----------
 
-def _viterbi_calls(fn):
-    """Run ``fn()``; return its result and the arguments of every
-    ``mlse_viterbi_blocks`` call the FSK receiver made in it (the main
-    path's inputs)."""
-    from audio_modem_radio_tpu_torch.ops import fsk as tf
-
-    calls, real = [], tf.mlse_viterbi_blocks
+def _calls(module, name: str, fn):
+    """Run ``fn()``; return its result and the arguments of every call of
+    ``module.name`` in it (the main path's inputs to a kernel wrapper)."""
+    calls, real = [], getattr(module, name)
 
     def record(*args):
         calls.append(args)
         return real(*args)
 
-    tf.mlse_viterbi_blocks = record
+    setattr(module, name, record)
     try:
         out = fn()
     finally:
-        tf.mlse_viterbi_blocks = real
+        setattr(module, name, real)
     return out, calls
+
+
+def _viterbi_calls(fn):
+    """``_calls`` of ``mlse_viterbi_blocks`` as the FSK receiver calls it."""
+    from audio_modem_radio_tpu_torch.ops import fsk as tf
+
+    return _calls(tf, "mlse_viterbi_blocks", fn)
 
 
 def phase_viterbi_kernel(device, n: int, card: str):
@@ -1999,6 +2051,334 @@ def phase_viterbi_timing(args, batch_args, card: str):
     return {"mlse_viterbi_blocks": (ms, plain, 1)}, {"mlse_viterbi_blocks": bound}
 
 
+# --- FEC: the convolutional code's Viterbi kernel and the encoder-to-decoder slice ---
+
+def _fec_calls(fn):
+    """``_calls`` of ``fec_viterbi_blocks`` as the port's ``fec`` module calls it."""
+    from audio_modem_radio_tpu_torch import fec as tfec
+
+    return _calls(tfec, "fec_viterbi_blocks", fn)
+
+
+_STREAM_SIZES = {}  # (mode, rate, n) -> the file size _stream_fec_wav found
+
+
+def _stream_fec_wav(mode: str, rate: int, n: int, work: str, seed: int):
+    """(file, WAV path, framed bytes) of the largest random file that the
+    port's ``encode_file`` (stream FEC, one WAV) fits into ``n`` samples;
+    the framed bytes are the frame before its stream FEC."""
+    from audio_modem_radio_tpu_torch.encoder import encode_file
+    from audio_modem_radio_tpu_torch.fec import stream_fec_encode
+    from audio_modem_radio_tpu_torch.framing import crc32, pack_frame
+    from audio_modem_radio_tpu_torch.modem import modulate
+    from audio_modem_radio_tpu_torch.utils.compression import intelligent_compress
+
+    name = f"{mode.lower()}_stream{seed}.bin"
+
+    def framed_wave(size: int):
+        data = _payload(seed, size)
+        framed = pack_frame(name, intelligent_compress(data), 0, 1, len(data), crc32(data))
+        return data, framed, len(modulate(mode, stream_fec_encode(framed), rate))
+
+    size = _STREAM_SIZES.get((mode, rate, n))
+    if size is None:
+        size = n // 200
+        _, _, length = framed_wave(size)
+        per_byte = SR * 16 // (rate * (2 if mode == "QPSK" else 1))  # samples a coded data byte
+        size += (n - length) // per_byte
+    data, framed, length = framed_wave(size)
+    while length > n:
+        size -= 1
+        data, framed, length = framed_wave(size)
+    _STREAM_SIZES[(mode, rate, n)] = size
+    src = os.path.join(work, name)
+    with open(src, "wb") as f:
+        f.write(data)
+    path = encode_file(src, mode, True, rate, split_large_files=False, cache_dir=os.path.join(work, "cache"),
+                       use_fec=True, fec_type="stream")
+    return data, path, framed
+
+
+def _noisy(samples: np.ndarray, snr_db: float, seed: int) -> np.ndarray:
+    """``samples`` plus white Gaussian noise at ``snr_db`` over their power
+    (full band, unclipped)."""
+    p = float(np.mean(samples.astype(np.float64) ** 2))
+    noise = np.random.default_rng(seed).normal(0.0, (p / 10 ** (snr_db / 10)) ** 0.5, len(samples))
+    return (samples + noise).astype(np.float32)
+
+
+def _bit_errors(out: bytes, framed: bytes) -> int:
+    """Bits of ``framed`` that ``out`` (a decoded stream) gets wrong, a
+    missing tail counted wrong."""
+    want = np.unpackbits(np.frombuffer(framed, np.uint8))
+    got = np.unpackbits(np.frombuffer(out[: len(framed)], np.uint8))
+    return int((got != want[: len(got)]).sum()) + len(want) - len(got)
+
+
+def phase_fec_kernel(device, n: int, work: str, card: str):
+    """Phase 3f: the Viterbi kernel vs its plain version on the blocks the
+    port's stream-FEC decode gives it for the largest file that fits one
+    2^n-sample QPSK@9600 WAV (hard bits from ``demodulate``, and soft values
+    of the same WAV at -2 dB full-band SNR through the soft escalation), on
+    one short block with known boundaries (a 1 KiB FECV container) and on
+    all-0.5 input. Returns ((the most bit mismatches of any call, None), the
+    clean call's arguments, the inputs of phase 5m)."""
+    import torch
+
+    from audio_modem_radio_tpu_torch import fec as tfec
+    from audio_modem_radio_tpu_torch.decoder import _stream_fec_soft, pad_to_bucket
+    from audio_modem_radio_tpu_torch.modem import demodulate
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.utils.wavio import read_wav
+
+    t0 = time.perf_counter()
+    data, path, framed = _stream_fec_wav("QPSK", BAUD, n, work, 81)
+    samples, _ = read_wav(path)
+    say(f"[3f FEC Viterbi] encode_file of a {len(data)}-byte file, stream FEC, QPSK@{BAUD}: {len(samples)} "
+        f"samples, {time.perf_counter() - t0:.1f} s | {card}")
+    raw = demodulate("QPSK", pad_to_bucket(samples), BAUD, device=device)
+    out, hard = _fec_calls(lambda: tfec.stream_fec_decode(raw, device=device))
+    check(out[: len(framed)] == framed, "the clean stream-FEC capture did not decode to its frame")
+    noisy = _noisy(samples, -2.0, 82)
+    _, soft = _fec_calls(lambda: _stream_fec_soft(noisy, "QPSK", BAUD, device))
+    blob = tfec.wrap_fec(_payload(83, 1024), "convolutional")
+    _, short = _fec_calls(lambda: tfec.ViterbiDecoder(device=device).decode(blob[4:]))
+    half = torch.full((205, 9216, 2), 0.5, dtype=torch.float32, device=device)
+    cases = (("clean capture, hard bits", hard[0]), ("-2 dB soft values", soft[0]),
+             ("a 1 KiB FECV container", short[0]), ("all 0.5, free boundaries", (half, False, True)),
+             ("all 0.5, known boundaries", (half[:1], True, False)))
+    worst = 0
+    for label, args in cases:
+        got = tk.fec_viterbi_blocks(*args)
+        ref = tk.fec_viterbi_blocks_plain(*args)
+        torch.cuda.synchronize()
+        n_bad = int((got != ref).sum())
+        say(f"[3f FEC Viterbi] {label}: {args[0].shape[0]} blocks x {args[0].shape[1]} steps, known start "
+            f"{args[1]}, best end {args[2]}: bit mismatches {n_bad} of {got.numel()} | {card}")
+        worst = max(worst, n_bad)
+        check(n_bad == 0, f"the FEC Viterbi kernel differs from plain on {label}")
+    n_pairs = 8 * (len(raw) - 4) // 2  # the coded stream after its plaintext sync
+    check(tuple(hard[0][0].shape) == (-(-n_pairs // 8192), 9216, 2),
+          f"{n_pairs} pairs gave blocks of {tuple(hard[0][0].shape)}")
+    say(f"[3f FEC Viterbi] {time.perf_counter() - t0:.1f} s | {card}")
+    return (float(worst), None), hard[0], (data, path, framed, samples, noisy)
+
+
+def _concat_wavs(paths, out: str) -> None:
+    """One capture of several WAVs back to back, 1,000 zero samples between."""
+    from audio_modem_radio_tpu_torch.utils.wavio import read_wav, write_wav
+
+    gap = np.zeros(1000, np.float32)
+    write_wav(out, np.concatenate([np.concatenate([read_wav(p)[0], gap]) for p in paths]))
+
+
+def _parts(name: str, data: bytes, part: int):
+    """The encoder's FilePart tuples of ``data`` in parts of ``part`` bytes."""
+    from audio_modem_radio_tpu_torch.framing import crc32
+
+    total = -(-len(data) // part)
+    return [(f"{name}.part{i + 1}", data[i * part : (i + 1) * part], i, total, len(data), crc32(data))
+            for i in range(total)]
+
+
+def phase_fec_single(device, n: int, work: str, fec_in, card: str) -> dict:
+    """Phase 5m: the encoder-to-decoder slice on the card, through the
+    port's own encoder; every check is byte-equality with the source file.
+    Returns {"QPSK stream": the launch counts of the stream-FEC decode,
+    "wav": its WAV path, "FSK9600 stream": the FSK9600 WAV path}."""
+    import torch
+
+    from audio_modem_radio_tpu_torch import native
+    from audio_modem_radio_tpu_torch.assembly import AssemblyRegistry
+    from audio_modem_radio_tpu_torch.decoder import _stream_fec_soft, decode_from_buffer, pad_to_bucket
+    from audio_modem_radio_tpu_torch.encoder import encode_file, encode_file_parts
+    from audio_modem_radio_tpu_torch.fec import stream_fec_decode
+    from audio_modem_radio_tpu_torch.modem import demodulate
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_wav_batch
+    from audio_modem_radio_tpu_torch.utils.wavio import read_wav, write_wav
+
+    def same(saved, data) -> bool:
+        return len(saved) == 1 and open(saved[0], "rb").read() == data
+
+    out = {}
+    data, path, framed, samples, noisy = fec_in
+    say(f"[5m native] the port's native library built: {native.NATIVE_AVAILABLE}"
+        + ("" if native.NATIVE_AVAILABLE else "; the long-span Viterbi route is the card kernel") + f" | {card}")
+    saved, counts, _reads, wall = _decode_wav(device, path, "QPSK", BAUD, work, "fecstream", stream_fec=True)
+    say(f"[5m stream] decode_wav_file(stream_fec=True) of the {len(data)}-byte file's QPSK@{BAUD} WAV: wall "
+        f"{wall:.3f} s, saved {len(saved)}, launches={counts} | {card}")
+    check(same(saved, data), "stream FEC: the saved file differs")
+    check(counts["fec_viterbi_blocks"] in (1, 2) and counts["psk_project_diff"] >= 1
+          and sum(counts.values()) == counts["fec_viterbi_blocks"] + counts["psk_project_diff"],
+          f"the stream-FEC decode must launch the Viterbi once or twice, K11 and nothing else: {counts}")
+    out["QPSK stream"], out["wav"] = counts, path
+
+    t0 = time.perf_counter()
+    tk.reset_launch_counts()
+    saved = decode_from_buffer(noisy, "QPSK", BAUD, recv_dir=os.path.join(work, "recv_fec_noisy"),
+                               registry=AssemblyRegistry(journal_dir=""), stream_fec=True, device=device)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    hard = _bit_errors(stream_fec_decode(demodulate("QPSK", pad_to_bucket(noisy), BAUD, device=device),
+                                         device=device), framed)
+    soft = _bit_errors(_stream_fec_soft(noisy, "QPSK", BAUD, device) or b"", framed)
+    say(f"[5m -2 dB] decode_from_buffer(stream_fec=True) of the same WAV at -2 dB full-band SNR: saved "
+        f"{len(saved)}, launches={counts}; frame bits wrong after the hard decode {hard}, after the soft "
+        f"{soft} of {8 * len(framed)} ({time.perf_counter() - t0:.1f} s) | {card}")
+    check(saved == [] or same(saved, data), "-2 dB: a saved file differs")
+    check(counts["fec_viterbi_blocks"] >= 3, f"-2 dB: the soft escalation did not run: {counts}")
+    check(soft < hard, "-2 dB: the soft decode is no better than the hard one")
+
+    t0 = time.perf_counter()
+    small = _payload(41, 1200)
+    src = os.path.join(work, "s4800.bin")
+    with open(src, "wb") as f:
+        f.write(small)
+    wav = encode_file(src, "QPSK", True, 4800, cache_dir=os.path.join(work, "cache"), use_fec=True,
+                      fec_type="stream")
+    x, _ = read_wav(wav)
+    tk.reset_launch_counts()
+    saved = decode_from_buffer(_noisy(x, -2.0, 26), "QPSK", 4800, recv_dir=os.path.join(work, "recv_4800"),
+                               registry=AssemblyRegistry(journal_dir=""), stream_fec=True, device=device)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    say(f"[5m -2 dB] a 1,200-byte file, stream FEC at QPSK@4800, -2 dB (the noise draw where the JAX "
+        f"package's soft escalation recovers it on the CPU): saved {len(saved)}, launches={counts} "
+        f"({time.perf_counter() - t0:.1f} s) | {card}")
+    check(same(saved, small), "-2 dB at 4800 Bd: the soft escalation did not recover the file")
+
+    t0 = time.perf_counter()
+    batch_paths, batch_data = [], []
+    for i in range(8):
+        d, p, _ = _stream_fec_wav("QPSK", BAUD, n, work, 90 + i)
+        batch_paths.append(p)
+        batch_data.append(d)
+    t1 = time.perf_counter()
+    tk.reset_launch_counts()
+    results = decode_wav_batch(batch_paths, "QPSK", BAUD, recv_dir=os.path.join(work, "recv_fec_batch"),
+                               registry=AssemblyRegistry(journal_dir=""), device=device, stream_fec=True)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    say(f"[5m batch] decode_wav_batch(stream_fec=True) of 8 stream-FEC WAVs of up to {n} samples: wall "
+        f"{time.perf_counter() - t1:.3f} s (encoding {t1 - t0:.1f} s), saved {[len(r) for r in results]}, "
+        f"launches={counts} | {card}")
+    check(all(same(r, d) for r, d in zip(results, batch_data)), "the stream-FEC batch: a saved file differs")
+    check(counts["psk_project_decide_batch"] == 1 and counts["relabel_pack_batch"] == 1
+          and counts["rotation_match_batch"] >= 1 and 8 <= counts["fec_viterbi_blocks"] <= 16,
+          f"the stream-FEC batch must launch K1, K2, K3, then the Viterbi per capture: {counts}")
+    for p in batch_paths:
+        os.remove(p)
+
+    # At 2^24 samples: 64 KiB in 64 parts, 128 KiB in 8 and 64 KiB in 4.
+    cases = (("convolutional, 1 KiB parts", "convolutional", n // 256, 1024),
+             ("convolutional, 16 KiB parts", "convolutional", n // 128, 16384),
+             ("reed_solomon, 16 KiB parts", "reed_solomon", n // 256, 16384))
+    for k, (label, ftype, size, part) in enumerate(cases):
+        t0 = time.perf_counter()
+        d = _payload(95 + k, size)
+        wavs = encode_file_parts(_parts(f"fec{k}.bin", d, part), "QPSK", True, BAUD,
+                                 cache_dir=os.path.join(work, f"cache_parts{k}"), use_fec=True, fec_type=ftype)
+        one = os.path.join(work, f"fec_parts{k}.wav")
+        _concat_wavs(wavs, one)
+        saved, counts, _reads, wall = _decode_wav(device, one, "QPSK", BAUD, work, f"fecparts{k}")
+        say(f"[5m payload] {label}: a {size}-byte file in {len(wavs)} WAVs, one capture, decode_wav_file: wall "
+            f"{wall:.3f} s, saved {len(saved)}, launches={counts} ({time.perf_counter() - t0:.1f} s) | {card}")
+        check(same(saved, d), f"{label}: the saved file differs")
+        if part == 1024:
+            check(counts["fec_viterbi_blocks"] == len(wavs),
+                  f"{label}: each container (at most 9,216 pairs) must decode on the card: {counts}")
+        elif ftype == "convolutional":
+            want = 0 if native.viterbi_available() else len(wavs)
+            check(counts["fec_viterbi_blocks"] == want, f"{label}: the long route launched {counts}")
+        else:
+            check(counts["fec_viterbi_blocks"] == 0, f"{label}: the parity code launched the Viterbi: {counts}")
+
+    t0 = time.perf_counter()
+    d, p, _ = _stream_fec_wav("FSK9600", 9600, n, work, 96)
+    saved, counts, _reads, wall = _decode_wav(device, p, "FSK9600", 9600, work, "fskstream", stream_fec=True)
+    say(f"[5m FSK9600] decode_wav_file(stream_fec=True) of a {len(d)}-byte file's FSK9600 WAV: wall {wall:.3f} s, "
+        f"saved {len(saved)}, launches={counts} ({time.perf_counter() - t0:.1f} s) | {card}")
+    check(same(saved, d), "FSK9600 stream FEC: the saved file differs")
+    check(counts["mlse_viterbi_blocks"] == 1 and counts["fec_viterbi_blocks"] in (1, 2),
+          f"FSK9600 stream FEC must launch the MLSE Viterbi once and the FEC Viterbi once or twice: {counts}")
+    out["FSK9600 stream"] = p
+
+    t0 = time.perf_counter()
+    d = _payload(97, n // 128)  # 128 KiB at 2^24 samples
+    src = os.path.join(work, "denoise.bin")
+    with open(src, "wb") as f:
+        f.write(d)
+    wave, _ = read_wav(encode_file(src, "QPSK", True, BAUD, split_large_files=False,
+                                   cache_dir=os.path.join(work, "cache")))
+    # A recording: the transmission after a lead of silence. (Where the
+    # signal fills most of the capture, the gate's wideband floor is the
+    # signal's own level and both packages' gates cut its band.)
+    p = os.path.join(work, "denoise.wav")
+    capture = np.zeros(n, np.float32)
+    capture[77777 : 77777 + len(wave)] = wave
+    write_wav(p, capture)
+    saved, counts, _reads, wall = _decode_wav(device, p, "QPSK", BAUD, work, "denoise", denoise=True)
+    say(f"[5m denoise] decode_wav_file(denoise=True) of a clean {len(d)}-byte QPSK transmission ({len(wave)} samples "
+        f"after 77,777 of silence, {n} in all): wall {wall:.3f} s, saved {len(saved)}, launches={counts} "
+        f"({time.perf_counter() - t0:.1f} s) | {card}")
+    check(same(saved, d), "denoise: the saved file differs")
+    return out
+
+
+def phase_fec_timing(args, fec_out: dict, work: str, device, card: str):
+    """The FEC Viterbi kernel on the clean capture's 205 blocks (median of 5
+    by CUDA events) beside its plain version (one run), its bound by bytes
+    and operations and by the chain (9,216 forward and 9,216 traceback
+    steps at the cycles of their dependent chains, from the kernel's SASS
+    and latencies measured on this card); the stream-FEC decode_wav_file of
+    QPSK and FSK9600 (wall and device time); spectral_gate on a 2^24-sample
+    capture. Returns ({entry: (ms, plain_ms, 1)}, {entry: (bound_ms, by)})."""
+    import torch
+
+    from audio_modem_radio_tpu_torch import sass_stats
+    from audio_modem_radio_tpu_torch.kernel_variants import clock_samples
+    from audio_modem_radio_tpu_torch.ops import _build
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.utils.denoise import _gate, spectral_gate
+    from audio_modem_radio_tpu_torch.utils.wavio import read_wav
+
+    pairs = args[0]
+    nb, L, _ = pairs.shape
+    ms = _time_ms(lambda: tk.fec_viterbi_blocks(*args))
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    tk.fec_viterbi_blocks_plain(*args)
+    b.record()
+    torch.cuda.synchronize()
+    plain = a.elapsed_time(b)
+    bound = _bound(pairs.numel() * 4 + nb * L, nb * L * (64 * _FEC_OPS_STATE + _FEC_OPS_STEP))
+    lat = sass_stats.probe_latencies()
+    fwd, fwd_path, back, back_path = sass_stats.chain_cycles(
+        sass_stats.library_sass(_build.library_path()), lat, "fec_viterbi_kernel", forward="REDUX.MIN", back="SHFL")
+    mhz, watts, n_reads = clock_samples(lambda: tk.fec_viterbi_blocks(*args))
+    check(n_reads > 0, "nvidia-smi read no SM clock")
+    chain_ms = L * (fwd + back) / (mhz * 1e3)
+    say(f"[6 chain] fec_viterbi_kernel: forward step {fwd:.1f} cycles ({' -> '.join(fwd_path)}); traceback step "
+        f"{back:.1f} cycles ({' -> '.join(back_path)}) | {card}")
+    say(f"[6 time] fec_viterbi_blocks ({nb} blocks x {L} steps, 64 states): kernel {ms:.4f} ms, "
+        f"{ms * mhz * 1e3 / L:.1f} cycles a step at SM {mhz:.0f} MHz ({watts:.1f} W); bound {bound[0]:.4f} ms by "
+        f"{bound[1]}, {chain_ms:.4f} ms by the chain ({L} x ({fwd:.1f} + {back:.1f}) cycles); plain "
+        f"{plain:.4f} ms (one run) | {card}")
+    _profile_decode(device, fec_out["wav"], "QPSK", BAUD, work, "QPSK stream", card, stream_fec=True)
+    _profile_decode(device, fec_out["FSK9600 stream"], "FSK9600", 9600, work, "FSK9600 stream", card,
+                    stream_fec=True)
+    x, _ = read_wav(fec_out["wav"])
+    xp = torch.from_numpy(np.pad(x, (0, (-len(x)) % 1024 + 2048))).to(device)
+    gate_ms = _time_ms(lambda: _gate(xp))
+    t0 = time.perf_counter()
+    spectral_gate(x, device=device)
+    say(f"[6 time] spectral_gate of {len(x)} samples: the gate on the card {gate_ms:.4f} ms (CUDA events, "
+        f"median of 5); with the copies to and from the host {1e3 * (time.perf_counter() - t0):.1f} ms | {card}")
+    return {"fec_viterbi_blocks": (ms, plain, 1)}, {"fec_viterbi_blocks": bound}
+
+
 def main() -> int:
     n, n_k1, n_slice, payload_bytes = 1 << 24, 8, 64, 16384
     # One card: the first visible one (set before torch initialises CUDA).
@@ -2023,7 +2403,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     phase = "1 env"
-    single = None
+    single = fec_work = None
     try:
         device, card = phase_environment()
         phase = "2 build"
@@ -2039,6 +2419,11 @@ def main() -> int:
         phase = "3e Viterbi"
         viterbi_err, viterbi_args = phase_viterbi_kernel(device, n, card)
         errs["mlse_viterbi_blocks"] = viterbi_err
+        phase = "3f FEC Viterbi"
+        scratch = os.path.join(HERE, "build", "chip_smoke")
+        os.makedirs(scratch, exist_ok=True)
+        fec_work = tempfile.mkdtemp(dir=scratch)
+        errs["fec_viterbi_blocks"], fec_args, fec_in = phase_fec_kernel(device, n, fec_work, card)
         phase = "4 match/pack"
         r = blocked_row_shape(n, BAUD, SR)[0]
         errs.update({k: (v, None) for k, v in phase_match_pack(device, r, card).items()})
@@ -2069,6 +2454,9 @@ def main() -> int:
         phase = "5l FSK single-capture decodes"
         fsk_wavs, counts["FSK9600 single"], mlse_batch_args = phase_fsk_single(device, n, single["work"], card)
         single["wavs"].update(fsk_wavs)
+        phase = "5m FEC, encoder to decoder"
+        fec_out = phase_fec_single(device, n, fec_work, fec_in, card)
+        counts["QPSK stream"] = fec_out["QPSK stream"]
         phase = "6 timing"
         psk_times, _, bounds = phase_timing(device, n_slice, n, payload_bytes, card)
         times = {k: (ms, plain, n_slice) for k, (ms, plain) in psk_times.items()}
@@ -2085,6 +2473,9 @@ def main() -> int:
         viterbi_times, viterbi_bounds = phase_viterbi_timing(viterbi_args, mlse_batch_args, card)
         times.update(viterbi_times)
         bounds.update(viterbi_bounds)
+        fec_times, fec_bounds = phase_fec_timing(fec_args, fec_out, fec_work, device, card)
+        times.update(fec_times)
+        bounds.update(fec_bounds)
     except Exception as e:  # any failure: report the phase, print no result
         import traceback
 
@@ -2094,6 +2485,8 @@ def main() -> int:
     finally:
         if single is not None:
             shutil.rmtree(single["work"], ignore_errors=True)
+        if fec_work is not None:
+            shutil.rmtree(fec_work, ignore_errors=True)
 
     kernels = []
     for entry, (wrapper, run, src, line) in _ENTRIES.items():

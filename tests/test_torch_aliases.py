@@ -32,15 +32,22 @@ N = 1 << 16
 @pytest.fixture
 def alias_on(monkeypatch):
     """Turn ``mode``'s compatibility alias on in both packages' CONFIG for
-    one test; monkeypatch restores both."""
+    one test; monkeypatch restores both. The JAX ``demod_pack_batch`` reads
+    the flag while it traces, and its trace cache is keyed by mode, rate
+    and shape only, so the cache is cleared when the flag turns on (a trace
+    of the same call without the alias, left by an earlier test in the
+    process, would answer instead) and again at teardown (so the alias's
+    traces do not answer later tests)."""
     from audio_modem_radio_tpu.config import CONFIG as JCONFIG
     from audio_modem_radio_tpu_torch.config import CONFIG as TCONFIG
 
     def turn_on(mode):
         for cfg in (JCONFIG, TCONFIG):
             monkeypatch.setitem(cfg._config["modem"], _ALIAS_FLAG[mode], True)
+        j_demod_pack_batch.clear_cache()
 
-    return turn_on
+    yield turn_on
+    j_demod_pack_batch.clear_cache()
 
 
 def _framed(seed: int):

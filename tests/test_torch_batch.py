@@ -228,11 +228,24 @@ def test_port_wav_roundtrip_and_corrupt_file(workdir):
 
 
 def test_fec_tagged_frame_left_unsaved(workdir):
+    """A CRC-valid frame whose payload is an FEC container unwraps and
+    saves, as the JAX package's ``save_decoded_files`` does: ``FECV``
+    through the Viterbi (on the CPU here), ``FECP`` through the parity
+    code. (The name dates from when the port left such frames unsaved.)"""
+    from audio_modem_radio_tpu.decoder import save_decoded_files as j_save
+    from audio_modem_radio_tpu.fec import wrap_fec
+    from audio_modem_radio_tpu.framing import Frame as JFrame
+    from audio_modem_radio_tpu.utils.compression import intelligent_compress
     from audio_modem_radio_tpu_torch.decoder import save_decoded_files
     from audio_modem_radio_tpu_torch.framing import Frame
 
-    frame = Frame("x.bin", b"FECV" + b"\x00" * 20, 0, 1, 24, 0)
-    assert save_decoded_files([frame], "recv", TRegistry()) == []
+    data = b"fec tagged " * 25
+    for i, ftype in enumerate(("convolutional", "reed_solomon")):
+        blob = wrap_fec(intelligent_compress(data), ftype)
+        got = save_decoded_files([Frame(f"x{i}.bin", blob, 0, 1, len(data), crc32(data))], "recv_t",
+                                 TRegistry(), device="cpu")
+        ref = j_save([JFrame(f"x{i}.bin", blob, 0, 1, len(data), crc32(data))], "recv_j", JRegistry())
+        assert [open(p, "rb").read() for p in got] == [open(p, "rb").read() for p in ref] == [data]
 
 
 # --- DBPSK and D8PSK -------------------------------------------------------------

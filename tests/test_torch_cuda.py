@@ -1240,3 +1240,86 @@ def test_batch_mlse_one_viterbi_launch(cuda):
     assert counts["mlse_viterbi_blocks"] == 1 and sum(counts.values()) == 1, counts
     ref = _decode_batch_on("cpu", batch, "FSK9600", 9600, modem__batch_mlse=True)
     assert got == ref and all(parse_frames(r) for r in got)
+
+
+# --- the convolutional code's Viterbi decoder (fec_viterbi.cu) -------------------
+
+def _fec_pairs(kind: str, nb: int, L: int, seed: int) -> np.ndarray:
+    """(nb, L, 2) float32 pairs: ``hard`` random bits; ``coded`` a
+    convolutionally coded random stream with 2% of its bits flipped;
+    ``soft`` uniform in [0, 1]; ``half`` all 0.5 (every branch metric 1, so
+    every candidate ties at every step); ``quarter`` soft values k/4 (sums
+    tie often); ``integer`` values in {-1, 0, 1, 2} (integer metrics, ties
+    and zeros at almost every step)."""
+    from audio_modem_radio_tpu_torch.fec import ConvolutionalEncoder
+
+    rng = np.random.default_rng(seed)
+    if kind == "hard":
+        return rng.integers(0, 2, (nb, L, 2)).astype(np.float32)
+    if kind == "coded":
+        pairs = ConvolutionalEncoder().encode_bits(rng.integers(0, 2, max(nb * L - 6, 1)).astype(np.uint8))
+        pairs = pairs[: nb * L] ^ (rng.random((nb * L, 2)) < 0.02).astype(np.uint8)
+        return pairs.reshape(nb, L, 2).astype(np.float32)
+    if kind == "soft":
+        return rng.random((nb, L, 2)).astype(np.float32)
+    if kind == "half":
+        return np.full((nb, L, 2), 0.5, np.float32)
+    if kind == "quarter":
+        return (rng.integers(0, 5, (nb, L, 2)) / 4).astype(np.float32)
+    return rng.integers(-1, 3, (nb, L, 2)).astype(np.float32)
+
+
+def _fec_check(cuda, pairs: np.ndarray, known_start: bool, from_best_end: bool) -> None:
+    x = torch.from_numpy(pairs).to(cuda)
+    before = tk.fec_viterbi_blocks.launches
+    got = tk.fec_viterbi_blocks(x, known_start, from_best_end)
+    ref = tk.fec_viterbi_blocks_plain(x, known_start, from_best_end)
+    torch.cuda.synchronize()
+    assert tk.fec_viterbi_blocks.launches == before + 1
+    assert got.dtype == torch.uint8 and torch.equal(got, ref), int((got != ref).sum())
+
+
+@pytest.mark.parametrize("kind", ["hard", "coded", "soft", "half", "quarter", "integer"])
+@pytest.mark.parametrize("start", [(True, False), (False, True), (True, True), (False, False)])
+@pytest.mark.parametrize("L", [1, 31, 33, 700, 9216])
+def test_fec_viterbi_kernel_short_blocks(cuda, kind, start, L):
+    """One block, as the short path of ``fec.viterbi_decode_bits`` gives it
+    (known boundaries: state 0 at both ends; free: zero metrics and the
+    first minimum at the end), and the other two combinations; lengths
+    covering a single step, ragged last stages and the longest short input:
+    bits equal to the plain version's."""
+    _fec_check(cuda, _fec_pairs(kind, 1, L, L), *start)
+
+
+@pytest.mark.parametrize("kind", ["coded", "soft", "half", "integer"])
+def test_fec_viterbi_kernel_stream_blocks(cuda, kind):
+    """205 blocks of 9,216 steps, the block-parallel call of a stream-FEC
+    decode of one 2^24-sample QPSK@9600 capture (zero start, best end)."""
+    _fec_check(cuda, _fec_pairs(kind, 205, 9216, 205), False, True)
+
+
+@pytest.mark.parametrize("kind", ["coded", "quarter", "integer"])
+@pytest.mark.parametrize("nb,L", [(1, 5000), (2000, 200)])
+def test_fec_viterbi_kernel_block_counts(cuda, kind, nb, L):
+    """One block alone and 2,000 blocks in one launch (several warps a
+    scheduler), both starts."""
+    _fec_check(cuda, _fec_pairs(kind, nb, L, nb), False, True)
+    _fec_check(cuda, _fec_pairs(kind, nb, L, nb + 1), True, False)
+
+
+def test_fec_viterbi_decode_bits_on_the_card(cuda):
+    """``fec.viterbi_decode_bits`` on the card equals its CPU run (the plain
+    version) on short, edge and multi-block inputs, both boundaries; the
+    stream-FEC round trip decodes on the card with one launch a phase."""
+    from audio_modem_radio_tpu_torch import fec
+
+    rng = np.random.default_rng(3)
+    for T in (100, 9216, 9217, 30000):
+        p = rng.random((T, 2)).astype(np.float32)
+        for kb in (True, False):
+            assert np.array_equal(fec.viterbi_decode_bits(p, kb, device=cuda),
+                                  fec.viterbi_decode_bits(p, kb, device="cpu")), (T, kb)
+    framed = bytes(rng.integers(0, 256, 3000, dtype=np.uint8))
+    before = tk.fec_viterbi_blocks.launches
+    assert fec.stream_fec_decode(fec.stream_fec_encode(framed), device=cuda)[: len(framed)] == framed
+    assert tk.fec_viterbi_blocks.launches in (before + 1, before + 2)

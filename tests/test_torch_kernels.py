@@ -574,12 +574,13 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
     tk.psk_project_diff(x3d[0], W8[0])
     tk.neural_extract_batch(torch.zeros((2 * r, 128)), torch.zeros((256, 16)), rot, s, rows_per_capture=r)
     tk.mlse_viterbi_blocks(torch.zeros((2, 4, 9)), torch.ones(8), torch.zeros(8), torch.zeros((2, 2, 8)), 1, 2)
+    tk.fec_viterbi_blocks(torch.full((2, 9, 2), 0.5), False, True)
     assert tk.launch_counts() == {
         "psk_project_decide_batch": 0, "rotation_match_batch": 0, "relabel_pack_batch": 0,
         "bit_select_pack_batch": 0, "sector_match_batch": 0, "psk8_relabel_pack_rows": 0,
         "fsk_tile_bits_batch": 0, "fsk_project_bits_batch": 0, "fsk_disc_sums_batch": 0,
         "fsk_quad_margin_batch": 0, "psk_project_diff": 0, "psk_project_diff_batch": 0,
-        "neural_extract_batch": 0, "mlse_viterbi_blocks": 0,
+        "neural_extract_batch": 0, "mlse_viterbi_blocks": 0, "fec_viterbi_blocks": 0,
     }
 
 

@@ -285,25 +285,52 @@ def test_decode_with_retry_fallback_keeps_not_implemented(tmp_path):
                                   device="cpu") == []
 
 
-def test_save_decoded_files_damaged_fec_frames_left_unsaved(tmp_path, caplog):
+def test_save_decoded_files_damaged_fec_frames_left_unsaved(tmp_path):
+    """Damaged frames are attempted through FEC exactly where their payload
+    carries an FEC container, as in the JAX package: a damaged ``FECV``
+    container whose payload took bit errors decodes and saves, a damaged
+    ``FECP`` container saves its parity decode, and a damaged frame without
+    a container is left unsaved; the saved files and the registry stats
+    (``fec_recovery_attempts``, ``success_rate``) equal the JAX
+    package's. (The name dates from when the port left every FEC-tagged
+    frame unsaved; only the damaged frame without a container is now.)"""
+    from audio_modem_radio_tpu.fec import wrap_fec
+    from audio_modem_radio_tpu.framing import Frame as JFrame
     from audio_modem_radio_tpu_torch.framing import Frame
 
-    good = Frame("g.bin", intelligent_compress(b"good"), 0, 1, 4, crc32(b"good"))
-    bad = Frame("x.bin", b"FECV" + b"\x00" * 20, 0, 1, 24, 0)
-    plain_bad = Frame("y.bin", b"\x01" * 20, 0, 1, 20, 0)
-    reg = TRegistry()
-    with caplog.at_level("WARNING"):
-        saved = tdec.save_decoded_files([good], str(tmp_path), reg, damaged=[bad, plain_bad])
-    assert _read_all(saved) == [b"good"]
-    assert "x.bin carries an FEC container" in caplog.text and "left unsaved" in caplog.text
-    assert reg.stats["success_rate"] == 50.0
+    good = (b"good", intelligent_compress(b"good"))
+    fecv = bytearray(wrap_fec(intelligent_compress(b"viterbi " * 30), "convolutional"))
+    for i in (90, 300, 777):
+        fecv[i // 8] ^= 0x80 >> (i % 8)
+    fecp = wrap_fec(intelligent_compress(b"parity " * 20), "reed_solomon")
+    damaged = [("x.bin", bytes(fecv)), ("p.bin", fecp), ("y.bin", b"\x01" * 20)]
+    saved = {}
+    for tag, frame_cls, save, reg, kw in (
+        ("j", JFrame, jdec.save_decoded_files, JRegistry(journal_dir=""), {}),
+        ("t", Frame, tdec.save_decoded_files, TRegistry(journal_dir=""), {"device": "cpu"}),
+    ):
+        out = save([frame_cls("g.bin", good[1], 0, 1, 4, crc32(b"good"))], str(tmp_path / tag), reg,
+                   damaged=[frame_cls(n, d, 0, 1, len(d), 0) for n, d in damaged], **kw)
+        saved[tag] = (_read_all(out), {k: v for k, v in reg.stats.items() if k != "last_reception"})
+    assert saved["t"] == saved["j"]
+    assert saved["t"][0] == sorted([b"good", b"viterbi " * 30, b"parity " * 20])
+    assert saved["t"][1]["fec_recovery_attempts"] == 2 and saved["t"][1]["success_rate"] == 100.0
 
 
-def test_ladder_refuses_unported_rungs():
-    with pytest.raises(NotImplementedError, match="FEC"):
-        tdec.run_recovery_ladder(b"", np.zeros(10, np.float32), "QPSK", 9600, stream_fec=True)
-    with pytest.raises(NotImplementedError, match="denois"):
-        tdec.decode_from_buffer(np.zeros(N, np.float32), "QPSK", 9600, denoise=True, device="cpu")
+def test_ladder_refuses_unported_rungs(tmp_path):
+    """The rungs that raised before FEC was ported now run as in the JAX
+    package: ``run_recovery_ladder(stream_fec=True)`` on an empty stream
+    and ``decode_from_buffer(denoise=True)`` on a silent capture return
+    what the JAX package's return (nothing), and raise nothing. (The name
+    dates from when the port refused these rungs.)"""
+    x = np.zeros(10, np.float32)
+    got = tdec.run_recovery_ladder(b"", x, "QPSK", 9600, stream_fec=True, device="cpu")
+    assert got == jdec.run_recovery_ladder(b"", x, "QPSK", 9600, stream_fec=True) == ([], [], True, (0, 0, 0))
+    x = np.zeros(N, np.float32)
+    assert tdec.decode_from_buffer(x, "QPSK", 9600, recv_dir=str(tmp_path / "t"), registry=TRegistry(),
+                                   denoise=True, device="cpu") == []
+    assert jdec.decode_from_buffer(x, "QPSK", 9600, recv_dir=str(tmp_path / "j"), registry=JRegistry(),
+                                   denoise=True) == []
 
 
 # --- the batched escape, the xla backend and decode_wav_batch ---------------------
