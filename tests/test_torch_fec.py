@@ -7,6 +7,9 @@ encoder, the containers and stream FEC, byte for byte.
 Inputs are made with numpy from seeds and handed to both packages.
 """
 
+import pathlib
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +27,45 @@ from audio_modem_radio_tpu_torch.ops import kernels as tk
 # Parallel test workers share the cores: one intra-op thread each keeps
 # torch from oversubscribing them.
 torch.set_num_threads(1)
+
+
+# How long a case waits for the JAX package's native library (a build takes
+# about a second; several test workers may be building it at once).
+_JAX_NATIVE_DEADLINE_S = 60.0
+
+
+def _jax_native_loaded(monkeypatch) -> None:
+    """Make sure the JAX package's native library is built and loaded in this
+    process before a case reads it; fail the case, with the reason, if it
+    never loads.
+
+    That package builds the library in place (``g++ -o
+    native/libamr_native.so``) when its module is first imported, and keeps
+    a failed load for the life of the process. Under parallel test workers,
+    one worker can ``CDLL`` the file while another worker's linker is
+    rewriting it (``file too short``), and then holds no library. So where
+    none is held, this waits until the file reads the same twice a quarter
+    second apart (no linker is writing it) and loads it afresh through the
+    package's own loader, which builds it where it is missing."""
+    path = pathlib.Path(jnative._LIB)
+    deadline = time.monotonic() + _JAX_NATIVE_DEADLINE_S
+    last = seen = None
+    while not jnative._lib:
+        try:
+            st = path.stat()
+            seen = (st.st_size, st.st_mtime_ns)
+        except FileNotFoundError:
+            seen = None
+        if seen == last:
+            monkeypatch.setattr(jnative, "_lib", None)  # forget the failed load
+            if jnative._load():
+                break
+        if time.monotonic() > deadline:
+            pytest.fail(f"the JAX package's native library {path} did not load within "
+                        f"{_JAX_NATIVE_DEADLINE_S:.0f} s (size and mtime: {seen})")
+        last = seen
+        time.sleep(0.25)
+    assert jnative.viterbi_available(), f"{path} loaded without amr_viterbi_decode"
 
 
 def _pairs(kind: str, T: int, seed: int) -> np.ndarray:
@@ -101,7 +143,8 @@ def test_viterbi_decoder_decode_equals_jax(route, n_bytes, flips, monkeypatch):
         monkeypatch.setattr(jnative, "viterbi_decode_pairs", lambda *a, **k: None)
         monkeypatch.setattr(tnative, "viterbi_decode_pairs", lambda *a, **k: None)
     else:
-        assert tnative.viterbi_available() and jnative.viterbi_available()
+        _jax_native_loaded(monkeypatch)
+        assert tnative.viterbi_available()
     blob = _fecv_payload(n_bytes, flips, n_bytes)
     got = tfec.ViterbiDecoder(device="cpu").decode(blob)
     assert got == jfec.ViterbiDecoder().decode(blob)

@@ -8,6 +8,8 @@ fallbacks.
 
 import pathlib
 import re
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -22,6 +24,46 @@ from audio_modem_radio_tpu_torch.utils.wavio import write_wav
 # Parallel test workers share the cores: one intra-op thread each keeps
 # torch from oversubscribing them.
 torch.set_num_threads(1)
+
+
+# How long a case waits for the JAX package's native library (a build takes
+# about a second; several test workers may be building it at once).
+_JAX_NATIVE_DEADLINE_S = 60.0
+
+
+def _jax_native_loaded(monkeypatch) -> None:
+    """Make sure the JAX package's native library is built and loaded in this
+    process before a case reads it; fail the case, with the reason, if it
+    never loads.
+
+    That package builds the library in place (``g++ -o
+    native/libamr_native.so``) when its module is first imported, and keeps
+    a failed load for the life of the process. Under parallel test workers,
+    one worker can ``CDLL`` the file while another worker's linker is
+    rewriting it (``file too short``), and then holds no library. So where
+    none is held, this waits until the file reads the same twice a quarter
+    second apart (no linker is writing it) and loads it afresh through the
+    package's own loader, which builds it where it is missing."""
+    path = pathlib.Path(jnative._LIB)
+    deadline = time.monotonic() + _JAX_NATIVE_DEADLINE_S
+    last = seen = None
+    while not jnative._lib:
+        try:
+            st = path.stat()
+            seen = (st.st_size, st.st_mtime_ns)
+        except FileNotFoundError:
+            seen = None
+        if seen == last:
+            monkeypatch.setattr(jnative, "_lib", None)  # forget the failed load
+            if jnative._load():
+                break
+        if time.monotonic() > deadline:
+            pytest.fail(f"the JAX package's native library {path} did not load within "
+                        f"{_JAX_NATIVE_DEADLINE_S:.0f} s (size and mtime: {seen})")
+        last = seen
+        time.sleep(0.25)
+    assert jnative.viterbi_available(), f"{path} loaded without amr_viterbi_decode"
+
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -64,6 +106,7 @@ def test_scan_and_crc_prefix_equal_jax(native, monkeypatch):
     """``scan_frames`` (valid and damaged frames) and ``crc32_prefix_find``
     with the library, and through the Python fallbacks (the library made
     unavailable): the JAX package's native results."""
+    _jax_native_loaded(monkeypatch)
     if not native:
         monkeypatch.setattr(tnative, "_lib", False)
     raw = _stream(1)
@@ -82,6 +125,7 @@ def test_load_wav_batch_equals_jax(tmp_path, native, monkeypatch):
     """Three 96 kHz WAVs of different lengths (one longer than the row), a
     48 kHz one and a corrupt file: samples, rates and counts equal the JAX
     package's native loader's, with the library and through the fallback."""
+    _jax_native_loaded(monkeypatch)
     if not native:
         monkeypatch.setattr(tnative, "_lib", False)
     rng = np.random.default_rng(2)
@@ -104,8 +148,32 @@ def test_load_wav_batch_equals_jax(tmp_path, native, monkeypatch):
 def test_viterbi_decode_pairs_equals_jax(known_boundaries, monkeypatch):
     """The full-length sweep on 30,000 soft pairs, both boundaries; None
     without the library."""
+    _jax_native_loaded(monkeypatch)
     p = np.random.default_rng(3).random((30000, 2)).astype(np.float32)
     got = tnative.viterbi_decode_pairs(p, known_boundaries)
     assert got.dtype == np.uint8 and np.array_equal(got, jnative.viterbi_decode_pairs(p, known_boundaries))
     monkeypatch.setattr(tnative, "_lib", False)
     assert tnative.viterbi_decode_pairs(p, known_boundaries) is None and not tnative.viterbi_available()
+
+
+def test_jax_native_helper_waits_out_a_rewrite(tmp_path, monkeypatch):
+    """``_jax_native_loaded`` in the state a test worker is left in when its
+    load read the file while another worker's linker was writing it: the
+    JAX package's load of the empty file fails (and would be kept), the
+    helper waits until the whole file is in place, then loads it."""
+    _jax_native_loaded(monkeypatch)
+    whole = pathlib.Path(jnative._LIB).read_bytes()
+    lib = tmp_path / "libamr_native.so"
+    lib.write_bytes(b"")
+    monkeypatch.setattr(jnative, "_LIB", str(lib))
+    monkeypatch.setattr(jnative, "_lib", None)
+    assert jnative._load() is False and jnative._lib is False
+    writer = threading.Timer(1.0, lib.write_bytes, (whole,))
+    writer.start()
+    try:
+        _jax_native_loaded(monkeypatch)
+    finally:
+        writer.join()
+    assert jnative._lib._name == str(lib) and lib.stat().st_size == len(whole)
+    p = np.random.default_rng(4).random((500, 2)).astype(np.float32)
+    assert np.array_equal(jnative.viterbi_decode_pairs(p), tnative.viterbi_decode_pairs(p))
