@@ -241,14 +241,14 @@ def viterbi_decode_bits(pairs, known_boundaries: bool = True, device: DeviceLike
     if T == 0:
         return np.zeros(0, np.uint8)
     if T <= _VIT_CORE + 2 * _VIT_OV:
-        bits = fec_viterbi_blocks(p[None].contiguous(), known_boundaries, not known_boundaries)
+        bits = fec_viterbi_blocks(p[None].contiguous(), known_boundaries)
         return bits[0].cpu().numpy()
 
     core, ov = _VIT_CORE, _VIT_OV
     n_blocks = -(-T // core)
     padded = F.pad(p, (0, 0, ov, n_blocks * core - T + ov), value=0.5)
     idx = torch.arange(core + 2 * ov, device=dev)[None, :] + core * torch.arange(n_blocks, device=dev)[:, None]
-    bits = fec_viterbi_blocks(padded[idx], False, True)  # blocks (n_blocks, core + 2ov, 2)
+    bits = fec_viterbi_blocks(padded[idx], False)  # blocks (n_blocks, core + 2ov, 2)
     return bits[:, ov : ov + core].reshape(-1)[:T].cpu().numpy()
 
 

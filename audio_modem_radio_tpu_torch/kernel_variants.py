@@ -7,8 +7,9 @@
 ``--kernel`` is ``decide`` (K1), ``fsk_tile`` (K7), ``neural_extract`` (K10),
 ``fsk_flat`` (K13), ``project_diff`` (K12, or K11 with ``--single``),
 ``sector_match`` (K5), ``rotation_match`` (K2), ``psk8_pack`` (K6),
-``relabel_pack`` (K3), ``bit_select_pack`` (K4) or ``mlse_viterbi`` (the
-single-capture FSK receiver's MLSE Viterbi). Each
+``relabel_pack`` (K3), ``bit_select_pack`` (K4), ``mlse_viterbi`` (the
+single-capture FSK receiver's MLSE Viterbi) or ``fec_viterbi`` (the
+convolutional code's Viterbi). Each
 ``--variant NAME=SOURCE[:FLAGS]`` compiles
 SOURCE alone (a path relative to the package, or absolute, such as another
 checkout's copy of the same file) with the build's nvcc flags plus FLAGS
@@ -36,11 +37,18 @@ phase 3e's clean 2^24-sample capture (random bytes at 9600 Bd, 1200/2200
 Hz) or, with ``--batch``, on the 1,640 blocks of one launch for 8 FSK9600
 captures of one continuous transmission (phase 5l's ``modem.batch_mlse``
 batch, through ``fsk_demod_bits_each``), with cycles a step at the SM clock
-read. A K5 or K2
+read; the FEC Viterbi on the 205 blocks of 9,216 steps that the stream-FEC
+decode of one 2^24-sample QPSK@9600 capture gives it (a random 208,915-byte
+file, framed, stream-FEC coded, modulated and demodulated on the card: zero
+start, best end) or, with ``--container``, on one block of 9,216 steps with known
+boundaries (a coded random stream, 2% of its bits flipped), with cycles a
+step. A K5 or K2
 source with the earlier C interface (``amr_sector_match``,
 ``amr_rotation_match``: first positions only, 2^30 where none matched, a
 fill launch before the kernel, the masks a device table) is called as its
-wrapper called it, the epilogue run in PyTorch. The report gives each
+wrapper called it, the epilogue run in PyTorch; so is an FEC Viterbi source
+whose ``amr_fec_viterbi`` takes the earlier pair of flags (``known_start,
+from_best_end``, 64 survivor words a stage of scratch). The report gives each
 variant's time (median of ``--reps`` CUDA-event timings after one warm-up),
 the kernel's own device time per call under ``torch.profiler`` (the
 wrapper's table work left out; an earlier K2's fill launch counted in),
@@ -75,7 +83,7 @@ _ENTRY = {"decide": "amr_decide", "fsk_tile": "amr_fsk_tile", "neural_extract": 
           "fsk_flat": "amr_fsk_tile", "project_diff": "amr_project_diff_batch", "sector_match": "amr_sector_first",
           "rotation_match": "amr_rotation_first", "psk8_pack": "amr_psk8_pack",
           "relabel_pack": "amr_relabel_pack", "bit_select_pack": "amr_bit_select_pack",
-          "mlse_viterbi": "amr_mlse_viterbi"}
+          "mlse_viterbi": "amr_mlse_viterbi", "fec_viterbi": "amr_fec_viterbi"}
 # The names of each kernel's device functions (the profiler's "alone" time
 # sums them; the first also picks nvcc's register lines).
 _KERNEL = {"decide": ("decide_kernel",), "fsk_tile": ("fsk_tile_kernel",),
@@ -83,7 +91,7 @@ _KERNEL = {"decide": ("decide_kernel",), "fsk_tile": ("fsk_tile_kernel",),
            "project_diff": ("project_diff_kernel",), "sector_match": ("sector_match_kernel",),
            "rotation_match": ("rotmatch_kernel", "fill_big"), "psk8_pack": ("psk8_pack_kernel",),
            "relabel_pack": ("relabel_pack_kernel",), "bit_select_pack": ("bit_select_pack_kernel",),
-           "mlse_viterbi": ("mlse_viterbi_kernel",)}
+           "mlse_viterbi": ("mlse_viterbi_kernel",), "fec_viterbi": ("fec_viterbi_kernel",)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The earlier C entry points of K5, (sec, masks on the card, n_hyp, tol,
 # n_sym, first, n_captures, rows, rows_scanned, stream), and of K2, (hi,
@@ -91,6 +99,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # rows_scanned, stream).
 _SECTOR_MATCH_EARLIER = ("amr_sector_match", (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P))
 _ROTATION_MATCH_EARLIER = ("amr_rotation_match", (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P))
+# The earlier C entry point of the FEC Viterbi, (pairs, known_start,
+# from_best_end, scratch, out, n_blocks, L, stream).
+_FEC_VITERBI_EARLIER = (_P, _I, _I, _P, _P, _I, _I, _P)
 _PSK = {2: ("BPSK", 3000.0), 4: ("QPSK", 3000.0), 8: ("8PSK", 12000.0)}
 _N_PSK = {mode: n for n, (mode, _c) in _PSK.items()}
 _MANGLED = {"int16": "s", "int8": "a", "float32": "f"}  # a C++ type's code in a mangled name
@@ -191,13 +202,14 @@ def _ptxas_lines(log: str, kernel: str):
 
 
 @contextlib.contextmanager
-def _bound_to(lib_path: Path, entry: str):
+def _bound_to(lib_path: Path, entry: str, argtypes=None):
     """The port's wrappers call ``entry`` of ``lib_path`` inside the block
-    (a K5 source may export the earlier entry point instead)."""
+    (a K5 source may export the earlier entry point instead), with
+    ``argtypes`` where the source has an earlier signature of it."""
     lib = ctypes.CDLL(str(lib_path))
     fn = getattr(lib, entry, None)
     if fn is not None:
-        fn.argtypes = _build._SIGNATURES[entry]
+        fn.argtypes = argtypes or _build._SIGNATURES[entry]
         fn.restype = ctypes.c_int
     old = _build._lib
     _build._lib = lib
@@ -420,6 +432,72 @@ def viterbi_args(device, batch: bool):
     return calls[0]
 
 
+def fec_viterbi_args(device, container: bool, n: int = N):
+    """The arguments of the ``fec_viterbi_blocks`` call that the port's
+    stream-FEC decode makes for one ``n``-sample QPSK@9600 capture of a
+    random file of n / 80 - 800 bytes (80 samples a byte; at 2^24 samples
+    205 blocks of 9,216 steps, free boundaries), or with ``container`` one
+    block of 9,216 coded pairs of random bits, 2% flipped, with known
+    boundaries."""
+    from . import fec as tfec
+    from .modem import demodulate
+    from .utils.compression import intelligent_compress
+
+    rng = np.random.default_rng(83)
+    if container:
+        pairs = tfec.ConvolutionalEncoder().encode_bits(rng.integers(0, 2, 9216 - 6).astype(np.uint8))
+        pairs = pairs ^ (rng.random(pairs.shape) < 0.02).astype(np.uint8)
+        return torch.from_numpy(pairs.astype(np.float32)[None]).to(device), True
+    data = rng.integers(0, 256, n // 80 - 800, dtype=np.uint8).tobytes()
+    framed = pack_frame("fecv.bin", intelligent_compress(data), 0, 1, len(data), crc32(data))
+    wave = modulate("QPSK", tfec.stream_fec_encode(framed), 9600)
+    x = np.zeros(n, np.float32)
+    x[: len(wave)] = wave[:n]
+    raw = demodulate("QPSK", x, 9600, device=device)
+    calls, real = [], tfec.fec_viterbi_blocks
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    tfec.fec_viterbi_blocks = record
+    try:
+        out = tfec.stream_fec_decode(raw, device=device)
+    finally:
+        tfec.fec_viterbi_blocks = real
+    if out[: len(framed)] != framed:
+        raise RuntimeError("the stream-FEC capture did not decode to its frame")
+    return calls[0]
+
+
+def _fec_viterbi_earlier(src: str) -> bool:
+    """Whether the FEC Viterbi source ``src`` has the earlier C interface."""
+    text = Path(src if Path(src).is_absolute() else _build._PKG_DIR / src).read_text()
+    head = text[text.index('extern "C" int amr_fec_viterbi'):]
+    return "from_best_end" in head[: head.index(")")]
+
+
+def _fec_viterbi_call(fargs, earlier: bool):
+    """The FEC Viterbi on ``fargs`` through the wrapper, or through the
+    earlier C interface as its wrapper called it (the two flags, a scratch
+    of 64 words a stage)."""
+    pairs, known = fargs
+    if not earlier:
+        return lambda: tk.fec_viterbi_blocks(pairs, known)
+    nb, L, _ = pairs.shape
+
+    def call():
+        fn = _build._lib.amr_fec_viterbi  # bound by _bound_to with the earlier argtypes
+        surv = torch.empty((nb, -(-L // 32) * 64), dtype=torch.int32, device=pairs.device)
+        out = torch.empty((nb, L), dtype=torch.uint8, device=pairs.device)
+        err = fn(pairs.data_ptr(), int(known), int(not known), surv.data_ptr(), out.data_ptr(), nb, L,
+                 torch.cuda.current_stream(pairs.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"amr_fec_viterbi (earlier interface): cudaError_t {err}")
+        return out
+    return call
+
+
 _EARLIER_MASKS: dict = {}
 
 
@@ -494,6 +572,8 @@ def main() -> int:
     ap.add_argument("--noise-last", action="store_true", help="K5, K2: the bench batch's last capture noise")
     ap.add_argument("--family", choices=("qpsk", "bpsk"), default="qpsk", help="K2's hypotheses")
     ap.add_argument("--batch", action="store_true", help="mlse_viterbi: the 8-capture batch's 1,640 blocks")
+    ap.add_argument("--container", action="store_true",
+                    help="fec_viterbi: one 9,216-step block with known boundaries")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args()
@@ -534,6 +614,11 @@ def main() -> int:
         call, plain = (lambda: tk.mlse_viterbi_blocks(*vargs)), (lambda: tk.mlse_viterbi_blocks_plain(*vargs))
         steps = vargs[0].shape[2]
         what = f" ({vargs[0].shape[0]} blocks x {steps} steps, {vargs[1].shape[0]} states)"
+    elif args.kernel == "fec_viterbi":
+        fargs = fec_viterbi_args(device, args.container)
+        call, plain = None, (lambda: tk.fec_viterbi_blocks_plain(*fargs))
+        steps = fargs[0].shape[1]
+        what = f" ({fargs[0].shape[0]} blocks x {steps} steps, known boundaries {fargs[1]})"
     else:
         call = {"fsk_tile": _tile_call, "neural_extract": _neural_call, "fsk_flat": _flat_call}[args.kernel](device)
     # The timed instantiation's mangled template arguments: K1's sample type,
@@ -549,7 +634,10 @@ def main() -> int:
     for name, src, flags in variants:
         lib, log = built[name]
         ptxas = _ptxas_lines(log, _KERNEL[args.kernel][0] + instance)
-        with _bound_to(lib, entry):
+        if args.kernel == "fec_viterbi":
+            earlier = _fec_viterbi_earlier(src)
+            call = _fec_viterbi_call(fargs, earlier)
+        with _bound_to(lib, entry, _FEC_VITERBI_EARLIER if args.kernel == "fec_viterbi" and earlier else None):
             got = call()
             torch.cuda.synchronize()
             ms = _median_ms(call, args.reps)
@@ -558,7 +646,7 @@ def main() -> int:
             mhz, watts, n_reads = clock_samples(call)
             clk = (f"SM clock {mhz:.0f} MHz, power {watts:.1f} W (median of {n_reads} reads)" if n_reads
                    else "clocks not read")
-            if args.kernel == "mlse_viterbi" and n_reads:
+            if args.kernel in ("mlse_viterbi", "fec_viterbi") and n_reads:
                 clk += f"; {kms * 1e-3 * mhz * 1e6 / steps:.1f} cycles a step (kernel alone)"
         got = got if isinstance(got, tuple) else (got,)  # K1's (hi, lo) at n_psk 2 and 4
         ref = got if ref is None else ref

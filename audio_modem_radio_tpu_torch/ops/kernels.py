@@ -1348,7 +1348,7 @@ def _fec_tables(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch
     return tuple(torch.as_tensor(np.asarray(a, np.int64), device=device) for a in (p0, p1, *codes))
 
 
-def fec_viterbi_blocks_plain(pairs: torch.Tensor, known_start: bool, from_best_end: bool) -> torch.Tensor:
+def fec_viterbi_blocks_plain(pairs: torch.Tensor, known_boundaries: bool) -> torch.Tensor:
     """Plain Viterbi decoder of the K = 7, rate-1/2 code, batched over
     blocks, one Python step at a time (the JAX package's ``step`` and
     ``back`` scans of ``fec._viterbi_block``).
@@ -1357,10 +1357,12 @@ def fec_viterbi_blocks_plain(pairs: torch.Tensor, known_start: bool, from_best_e
     metric of a transition is |r0 - e0| + |r1 - e1| against its expected
     output pair; each step takes ``cand = pm[p] + bm`` for the predecessors
     p0 = s >> 1 and p1 = (s >> 1) | 32 of new state s, keeps p1 only where
-    cand1 < cand0, and subtracts the step's minimum. The metrics start at 0,
-    or with ``known_start`` at 0 for state 0 and 1e9 for the others; the
-    traceback starts at state 0, or with ``from_best_end`` at the first
-    state holding the final minimum. Returns (n_blocks, L) uint8 bits."""
+    cand1 < cand0, and subtracts the step's minimum. With
+    ``known_boundaries`` (the encoder starts and ends in state 0) the
+    metrics start at 0 for state 0 and 1e9 for the others and the traceback
+    starts at state 0; without, the metrics start at 0 and the traceback
+    starts at the first state holding the final minimum. Returns (n_blocks,
+    L) uint8 bits."""
     nb, L, _ = pairs.shape
     dev = pairs.device
     p0, p1, code0, code1 = _fec_tables(dev)
@@ -1371,7 +1373,7 @@ def fec_viterbi_blocks_plain(pairs: torch.Tensor, known_start: bool, from_best_e
     m4 = m4.transpose(0, 1)
     bm0, bm1 = m4[..., code0].contiguous(), m4[..., code1].contiguous()
     pm = torch.zeros((nb, 64), dtype=torch.float32, device=dev)
-    if known_start:
+    if known_boundaries:
         pm[:, 1:] = 1e9
     take = torch.empty((L, nb, 64), dtype=torch.bool, device=dev)
     for t in range(L):
@@ -1380,10 +1382,10 @@ def fec_viterbi_blocks_plain(pairs: torch.Tensor, known_start: bool, from_best_e
         torch.lt(cand1, cand0, out=take[t])
         pm = torch.where(take[t], cand1, cand0)
         pm.sub_(pm.amin(dim=1, keepdim=True))
-    if from_best_end:
-        state = torch.argmin(pm, dim=1)  # the first minimum
-    else:
+    if known_boundaries:
         state = torch.zeros(nb, dtype=torch.int64, device=dev)
+    else:
+        state = torch.argmin(pm, dim=1)  # the first minimum
     rows = torch.arange(nb, device=dev)
     states = torch.empty((L, nb), dtype=torch.int64, device=dev)
     for t in range(L - 1, -1, -1):
@@ -1392,25 +1394,25 @@ def fec_viterbi_blocks_plain(pairs: torch.Tensor, known_start: bool, from_best_e
     return (states & 1).to(torch.uint8).T.contiguous()  # each step's input bit
 
 
-def fec_viterbi_blocks(pairs: torch.Tensor, known_start: bool, from_best_end: bool) -> torch.Tensor:
+def fec_viterbi_blocks(pairs: torch.Tensor, known_boundaries: bool) -> torch.Tensor:
     """The decoder of :func:`fec_viterbi_blocks_plain` for every block in
     one launch (one warp a block, ``csrc/fec_viterbi.cu``): (n_blocks, L, 2)
     float32 finite pairs -> (n_blocks, L) uint8 bits, equal to the plain
-    version's bit for bit. The survivors, two ballot words a step, live in a
-    scratch of n_blocks * ceil(L/32) * 256 bytes."""
+    version's bit for bit. The survivors, two ballot words a step, and the
+    traceback's guessed state at each 32-step stage live in a scratch of
+    n_blocks * ceil(L/32) * 260 bytes."""
     _require(pairs.ndim == 3 and pairs.shape[2] == 2 and pairs.shape[1] >= 1,
              f"fec_viterbi_blocks: pairs {tuple(pairs.shape)}, want (n_blocks, L, 2)")
     _require(pairs.dtype == torch.float32, f"fec_viterbi_blocks: pairs {pairs.dtype}, want float32")
     nb, L, _ = pairs.shape
     dev = _same_device(pairs)
     if dev.type == "cpu":
-        return fec_viterbi_blocks_plain(pairs, known_start, from_best_end)
+        return fec_viterbi_blocks_plain(pairs, known_boundaries)
     _require(pairs.data_ptr() % 8 == 0, "fec_viterbi_blocks: the kernel reads 8-byte pairs; the tensor must "
              "start on an 8-byte boundary")
-    surv = torch.empty((nb, -(-L // 32) * 64), dtype=torch.int32, device=dev)
+    surv = torch.empty((nb, -(-L // 32) * 65), dtype=torch.int32, device=dev)
     out = torch.empty((nb, L), dtype=torch.uint8, device=dev)
-    _launch("amr_fec_viterbi", dev, _ptr(pairs), int(bool(known_start)), int(bool(from_best_end)),
-            _ptr(surv), _ptr(out), nb, L)
+    _launch("amr_fec_viterbi", dev, _ptr(pairs), int(bool(known_boundaries)), _ptr(surv), _ptr(out), nb, L)
     fec_viterbi_blocks.launches += 1
     return out
 

@@ -183,7 +183,7 @@ def chain_cycles(sass: str, latency: dict, instance: str = "mlse_viterbi_kernelI
     instruction to the next's in an unrolled 32-step walk (a bit's byte
     store in phase A, each lane its own stages). For ``fec_viterbi.cu``
     (instance ``fec_viterbi_kernel``) the anchors are the step minimum's
-    REDUX.MIN and the traceback's SHFL."""
+    REDUX.MIN and the same bit stores of its phase A."""
     body = next(b for name, b in _functions(sass) if instance in name)
     instrs, starts = _instructions(body)
     blocks = [instrs[a:b] for a, b in zip(starts, starts[1:] + [len(instrs)]) if b > a]

@@ -149,8 +149,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the chain (10,240 forward and 320 traceback steps at their dependent
    cycles, from the kernel's SASS and latencies measured on the card); the
    FEC Viterbi kernel on phase 3f's 205 blocks beside its plain version
-   (one run), its bound and its bound by the chain (9,216 forward and
-   9,216 traceback steps), the stream-FEC ``decode_wav_file`` of QPSK and
+   (one run), its bound and its bound by the chain (9,216 forward and 288
+   traceback steps), and on phase 3f's 1 KiB ``FECV`` container (one block,
+   known boundaries), the stream-FEC ``decode_wav_file`` of QPSK and
    FSK9600 (wall, median of 3, and device time) and ``spectral_gate`` on a
    2^24-sample capture.
 
@@ -2122,7 +2123,8 @@ def phase_fec_kernel(device, n: int, work: str, card: str):
     of the same WAV at -2 dB full-band SNR through the soft escalation), on
     one short block with known boundaries (a 1 KiB FECV container) and on
     all-0.5 input. Returns ((the most bit mismatches of any call, None), the
-    clean call's arguments, the inputs of phase 5m)."""
+    clean call's and the container call's arguments, the inputs of phase
+    5m)."""
     import torch
 
     from audio_modem_radio_tpu_torch import fec as tfec
@@ -2145,23 +2147,23 @@ def phase_fec_kernel(device, n: int, work: str, card: str):
     _, short = _fec_calls(lambda: tfec.ViterbiDecoder(device=device).decode(blob[4:]))
     half = torch.full((205, 9216, 2), 0.5, dtype=torch.float32, device=device)
     cases = (("clean capture, hard bits", hard[0]), ("-2 dB soft values", soft[0]),
-             ("a 1 KiB FECV container", short[0]), ("all 0.5, free boundaries", (half, False, True)),
-             ("all 0.5, known boundaries", (half[:1], True, False)))
+             ("a 1 KiB FECV container", short[0]), ("all 0.5, free boundaries", (half, False)),
+             ("all 0.5, known boundaries", (half[:1], True)))
     worst = 0
     for label, args in cases:
         got = tk.fec_viterbi_blocks(*args)
         ref = tk.fec_viterbi_blocks_plain(*args)
         torch.cuda.synchronize()
         n_bad = int((got != ref).sum())
-        say(f"[3f FEC Viterbi] {label}: {args[0].shape[0]} blocks x {args[0].shape[1]} steps, known start "
-            f"{args[1]}, best end {args[2]}: bit mismatches {n_bad} of {got.numel()} | {card}")
+        say(f"[3f FEC Viterbi] {label}: {args[0].shape[0]} blocks x {args[0].shape[1]} steps, known boundaries "
+            f"{args[1]}: bit mismatches {n_bad} of {got.numel()} | {card}")
         worst = max(worst, n_bad)
         check(n_bad == 0, f"the FEC Viterbi kernel differs from plain on {label}")
     n_pairs = 8 * (len(raw) - 4) // 2  # the coded stream after its plaintext sync
     check(tuple(hard[0][0].shape) == (-(-n_pairs // 8192), 9216, 2),
           f"{n_pairs} pairs gave blocks of {tuple(hard[0][0].shape)}")
     say(f"[3f FEC Viterbi] {time.perf_counter() - t0:.1f} s | {card}")
-    return (float(worst), None), hard[0], (data, path, framed, samples, noisy)
+    return (float(worst), None), (hard[0], short[0]), (data, path, framed, samples, noisy)
 
 
 def _concat_wavs(paths, out: str) -> None:
@@ -2326,12 +2328,14 @@ def phase_fec_single(device, n: int, work: str, fec_in, card: str) -> dict:
     return out
 
 
-def phase_fec_timing(args, fec_out: dict, work: str, device, card: str):
+def phase_fec_timing(fec_args, fec_out: dict, work: str, device, card: str):
     """The FEC Viterbi kernel on the clean capture's 205 blocks (median of 5
     by CUDA events) beside its plain version (one run), its bound by bytes
-    and operations and by the chain (9,216 forward and 9,216 traceback
-    steps at the cycles of their dependent chains, from the kernel's SASS
-    and latencies measured on this card); the stream-FEC decode_wav_file of
+    and operations and by the chain (9,216 forward steps and, in the
+    traceback's first phase, 9,216 / 32 walk steps a lane, at the cycles of
+    their dependent chains, from the kernel's SASS and latencies measured on
+    this card); the kernel on the 1 KiB FECV container's one block (known
+    boundaries: one warp is the launch); the stream-FEC decode_wav_file of
     QPSK and FSK9600 (wall and device time); spectral_gate on a 2^24-sample
     capture. Returns ({entry: (ms, plain_ms, 1)}, {entry: (bound_ms, by)})."""
     import torch
@@ -2343,9 +2347,11 @@ def phase_fec_timing(args, fec_out: dict, work: str, device, card: str):
     from audio_modem_radio_tpu_torch.utils.denoise import _gate, spectral_gate
     from audio_modem_radio_tpu_torch.utils.wavio import read_wav
 
+    args, container = fec_args
     pairs = args[0]
     nb, L, _ = pairs.shape
     ms = _time_ms(lambda: tk.fec_viterbi_blocks(*args))
+    ms_container = _time_ms(lambda: tk.fec_viterbi_blocks(*container))
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     a.record()
@@ -2356,16 +2362,19 @@ def phase_fec_timing(args, fec_out: dict, work: str, device, card: str):
     bound = _bound(pairs.numel() * 4 + nb * L, nb * L * (64 * _FEC_OPS_STATE + _FEC_OPS_STEP))
     lat = sass_stats.probe_latencies()
     fwd, fwd_path, back, back_path = sass_stats.chain_cycles(
-        sass_stats.library_sass(_build.library_path()), lat, "fec_viterbi_kernel", forward="REDUX.MIN", back="SHFL")
+        sass_stats.library_sass(_build.library_path()), lat, "fec_viterbi_kernel", forward="REDUX.MIN")
     mhz, watts, n_reads = clock_samples(lambda: tk.fec_viterbi_blocks(*args))
     check(n_reads > 0, "nvidia-smi read no SM clock")
-    chain_ms = L * (fwd + back) / (mhz * 1e3)
+    chain_ms = (L * fwd + -(-L // 32) * back) / (mhz * 1e3)
     say(f"[6 chain] fec_viterbi_kernel: forward step {fwd:.1f} cycles ({' -> '.join(fwd_path)}); traceback step "
         f"{back:.1f} cycles ({' -> '.join(back_path)}) | {card}")
     say(f"[6 time] fec_viterbi_blocks ({nb} blocks x {L} steps, 64 states): kernel {ms:.4f} ms, "
         f"{ms * mhz * 1e3 / L:.1f} cycles a step at SM {mhz:.0f} MHz ({watts:.1f} W); bound {bound[0]:.4f} ms by "
-        f"{bound[1]}, {chain_ms:.4f} ms by the chain ({L} x ({fwd:.1f} + {back:.1f}) cycles); plain "
+        f"{bound[1]}, {chain_ms:.4f} ms by the chain ({L} x {fwd:.1f} + {-(-L // 32)} x {back:.1f} cycles); plain "
         f"{plain:.4f} ms (one run) | {card}")
+    steps = container[0].shape[1]
+    say(f"[6 time] fec_viterbi_blocks on a 1 KiB FECV container (1 block x {steps} steps, known boundaries): kernel "
+        f"{ms_container:.4f} ms, {ms_container * mhz * 1e3 / steps:.1f} cycles a step | {card}")
     _profile_decode(device, fec_out["wav"], "QPSK", BAUD, work, "QPSK stream", card, stream_fec=True)
     _profile_decode(device, fec_out["FSK9600 stream"], "FSK9600", 9600, work, "FSK9600 stream", card,
                     stream_fec=True)

@@ -1269,42 +1269,62 @@ def _fec_pairs(kind: str, nb: int, L: int, seed: int) -> np.ndarray:
     return rng.integers(-1, 3, (nb, L, 2)).astype(np.float32)
 
 
-def _fec_check(cuda, pairs: np.ndarray, known_start: bool, from_best_end: bool) -> None:
+def _fec_check(cuda, pairs: np.ndarray, known_boundaries: bool) -> None:
     x = torch.from_numpy(pairs).to(cuda)
     before = tk.fec_viterbi_blocks.launches
-    got = tk.fec_viterbi_blocks(x, known_start, from_best_end)
-    ref = tk.fec_viterbi_blocks_plain(x, known_start, from_best_end)
+    got = tk.fec_viterbi_blocks(x, known_boundaries)
+    ref = tk.fec_viterbi_blocks_plain(x, known_boundaries)
     torch.cuda.synchronize()
     assert tk.fec_viterbi_blocks.launches == before + 1
     assert got.dtype == torch.uint8 and torch.equal(got, ref), int((got != ref).sum())
 
 
 @pytest.mark.parametrize("kind", ["hard", "coded", "soft", "half", "quarter", "integer"])
-@pytest.mark.parametrize("start", [(True, False), (False, True), (True, True), (False, False)])
+@pytest.mark.parametrize("known_boundaries", [True, False])
 @pytest.mark.parametrize("L", [1, 31, 33, 700, 9216])
-def test_fec_viterbi_kernel_short_blocks(cuda, kind, start, L):
+def test_fec_viterbi_kernel_short_blocks(cuda, kind, known_boundaries, L):
     """One block, as the short path of ``fec.viterbi_decode_bits`` gives it
     (known boundaries: state 0 at both ends; free: zero metrics and the
-    first minimum at the end), and the other two combinations; lengths
-    covering a single step, ragged last stages and the longest short input:
-    bits equal to the plain version's."""
-    _fec_check(cuda, _fec_pairs(kind, 1, L, L), *start)
+    first minimum at the end); lengths covering a single step, ragged last
+    stages, fewer stages than lanes and the longest short input: bits equal
+    to the plain version's."""
+    _fec_check(cuda, _fec_pairs(kind, 1, L, L), known_boundaries)
 
 
 @pytest.mark.parametrize("kind", ["coded", "soft", "half", "integer"])
 def test_fec_viterbi_kernel_stream_blocks(cuda, kind):
     """205 blocks of 9,216 steps, the block-parallel call of a stream-FEC
     decode of one 2^24-sample QPSK@9600 capture (zero start, best end)."""
-    _fec_check(cuda, _fec_pairs(kind, 205, 9216, 205), False, True)
+    _fec_check(cuda, _fec_pairs(kind, 205, 9216, 205), False)
 
 
-@pytest.mark.parametrize("kind", ["coded", "quarter", "integer"])
+@pytest.mark.parametrize("kind", ["half", "integer", "soft"])
+def test_fec_viterbi_kernel_stream_blocks_known_boundaries(cuda, kind):
+    """205 blocks of 9,216 steps with known boundaries. All 0.5 ties every
+    candidate at every step; integer and uniform soft pairs keep the
+    traceback's guessed paths apart from the true one for whole stages, so
+    its second phase walks many of them."""
+    _fec_check(cuda, _fec_pairs(kind, 205, 9216, 206), True)
+
+
+@pytest.mark.parametrize("kind", ["coded", "soft", "half", "integer"])
+@pytest.mark.parametrize("known_boundaries", [True, False])
+@pytest.mark.parametrize("L", [5, 200, 993, 1024, 1056, 2017])
+def test_fec_viterbi_kernel_segment_layouts(cuda, kind, known_boundaries, L):
+    """37 blocks whose stages split over the 32 lanes of the traceback in
+    every way: fewer stages than lanes (1 and 7: most lanes hold none), 32
+    (one each; 993: the last of one step), 33 (32 x 33 steps: lane 31 holds
+    two) and 64 with a ragged last."""
+    _fec_check(cuda, _fec_pairs(kind, 37, L, L + 1), known_boundaries)
+
+
+@pytest.mark.parametrize("kind", ["coded", "soft", "half", "quarter", "integer"])
 @pytest.mark.parametrize("nb,L", [(1, 5000), (2000, 200)])
 def test_fec_viterbi_kernel_block_counts(cuda, kind, nb, L):
     """One block alone and 2,000 blocks in one launch (several warps a
-    scheduler), both starts."""
-    _fec_check(cuda, _fec_pairs(kind, nb, L, nb), False, True)
-    _fec_check(cuda, _fec_pairs(kind, nb, L, nb + 1), True, False)
+    scheduler), both boundaries."""
+    _fec_check(cuda, _fec_pairs(kind, nb, L, nb), False)
+    _fec_check(cuda, _fec_pairs(kind, nb, L, nb + 1), True)
 
 
 def test_fec_viterbi_decode_bits_on_the_card(cuda):

@@ -227,11 +227,12 @@ def test_stream_fec_decode_soft_equals_jax(noise):
 
 
 def test_sass_chain_goes_through_shared_memory():
-    """``sass_stats.chain_cycles`` on a SASS listing shaped like
-    ``fec_viterbi.cu``'s step (the metrics travel through shared memory
-    between two REDUX.MIN): the chain a step is REDUX, the uniform move (no
-    cost), FADD, STS and the LDS that waits for it; the traceback's SHFL
-    anchors its own chain."""
+    """``sass_stats.chain_cycles`` on a SASS listing whose step passes its
+    normalised metrics through shared memory between two REDUX.MIN (the
+    exchange on the chain, as a Viterbi step that normalises before its
+    exchange has it): the chain a step is REDUX, the uniform move (no
+    cost), FADD, STS and the LDS that waits for it; a serial traceback's
+    SHFL anchors its own chain."""
     from audio_modem_radio_tpu_torch import sass_stats
 
     step = ("REDUX.MIN.S32 UR4, R0 ;", "IMAD.U32 R1, RZ, RZ, UR4 ;", "FADD R2, R1, R3 ;", "STS [R5], R2 ;",
@@ -244,3 +245,26 @@ def test_sass_chain_goes_through_shared_memory():
     assert fwd == pytest.approx(44.0 + 4.0 + 3.75 + 23.0)
     assert fwd_path == ["FADD", "STS", "LDS", "REDUX.MIN.S32"]
     assert back == pytest.approx(26.0 + 4.0) and back_path == ["SEL", "SHFL.IDX"]
+
+
+def test_sass_chain_of_a_step_normalised_at_the_receiver():
+    """``sass_stats.chain_cycles`` on a listing shaped like
+    ``fec_viterbi.cu``'s step with the chip's anchors (``chip_smoke.py``
+    phase 6): the raw metrics go through shared memory beside the REDUX,
+    so the chain a step is REDUX.MIN, the uniform move (no cost), FADD
+    (pm_raw - mn), FADD (+ bm), FMNMX, FMNMX; phase A's bit stores
+    (STG.U8) anchor the traceback step, SHF and LOP3."""
+    from audio_modem_radio_tpu_torch import sass_stats
+
+    step = ("REDUX.MIN.S32 UR4, R0 ;", "IMAD.U32 R1, RZ, RZ, UR4 ;", "FADD R2, R10, -R1 ;", "FADD R3, R2, R11 ;",
+            "FMNMX R4, R3, R12, PT ;", "STS.64 [R5], R4 ;", "FMNMX R0, R4, R13, PT ;", "LDS R10, [R6] ;")
+    walk = ("STG.E.U8 desc[UR6][R20.64], R21 ;", "SHF.R.U32.HI R22, RZ, R21, R30 ;",
+            "LOP3.LUT R21, R22, 0x1, RZ, 0xc0, !PT ;")
+    lines = [f"        /*{16 * i:04x}*/                   {ins}" for i, ins in enumerate(step * 3 + ("BRA 0x10 ;",)
+                                                                                    + walk * 3)]
+    sass = "Function : _ZN16fec_viterbi_kernelE\n" + "\n".join(lines) + "\n"
+    lat = {"REDUX": 44.0, "FADD": 4.0, "FMNMX": 4.0, "LDS": 23.0, "LOP3": 3.75, "SHF": 4.25}
+    fwd, fwd_path, back, back_path = sass_stats.chain_cycles(sass, lat, "fec_viterbi_kernel", forward="REDUX.MIN")
+    assert fwd == pytest.approx(44.0 + 4 * 4.0)
+    assert fwd_path == ["FADD", "FADD", "FMNMX", "FMNMX", "REDUX.MIN.S32"]
+    assert back == pytest.approx(4.25 + 3.75) and back_path == ["SHF.R.U32.HI", "LOP3.LUT", "STG.E.U8"]

@@ -574,7 +574,7 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
     tk.psk_project_diff(x3d[0], W8[0])
     tk.neural_extract_batch(torch.zeros((2 * r, 128)), torch.zeros((256, 16)), rot, s, rows_per_capture=r)
     tk.mlse_viterbi_blocks(torch.zeros((2, 4, 9)), torch.ones(8), torch.zeros(8), torch.zeros((2, 2, 8)), 1, 2)
-    tk.fec_viterbi_blocks(torch.full((2, 9, 2), 0.5), False, True)
+    tk.fec_viterbi_blocks(torch.full((2, 9, 2), 0.5), False)
     assert tk.launch_counts() == {
         "psk_project_decide_batch": 0, "rotation_match_batch": 0, "relabel_pack_batch": 0,
         "bit_select_pack_batch": 0, "sector_match_batch": 0, "psk8_relabel_pack_rows": 0,
