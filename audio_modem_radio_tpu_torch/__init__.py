@@ -3,16 +3,18 @@
 It sits beside the JAX package, which stays the reference, and imports
 ``torch`` and numpy, never JAX. It carries the transmit pipeline
 (``encoder.encode_file``: file -> compress -> optional payload FEC
-container -> frame -> optional stream FEC -> modulate -> WAV) and batched
-DQPSK, DBPSK, D8PSK, FSK (FSK1200, FSK9600, FSK19200, MSK, FT8) and NEURAL
-receive end to end: host shaping into sample rows or FIR windows, the
-pass-1 timing (and, for PSK, rotation) estimate, the PSK decide stage with
-a magic matcher and a pack per PSK mode, the FSK dual-tone, discriminator
-and quadrature detectors, and NEURAL's sync and codebook scoring; and the
-single-capture receive (``decoder.decode_wav_file`` -> ``modem.demodulate``
--> the recovery ladder with its FEC rungs, ``stream_fec=`` and
-``denoise=``) for BPSK, QPSK, 8PSK, APSK16, SSTV, PSK31, NEURAL and the FSK
-modes, with FSK9600's MLSE. Thirteen hand-written CUDA kernels for the
+container -> frame -> optional stream FEC -> modulate -> WAV) and the
+receive of every mode of the JAX registry, batched and single capture:
+DQPSK, DBPSK, D8PSK, FSK (FSK1200, FSK9600, FSK19200, MSK, FT8), OFDM4 and
+OFDM8, DSSS, NEURAL and the Hellschreiber text modes. Batched: host shaping
+into sample rows, overlapped rows, FIR or pixel windows, the pass-1 timing
+(and, for PSK and OFDM, rotation) estimate, the PSK decide stage with a
+magic matcher and a pack per PSK mode (OFDM's dibits take the DQPSK ones),
+the FSK dual-tone, discriminator and quadrature detectors, DSSS's despread,
+NEURAL's sync and codebook scoring and the glyph match. Single capture:
+``decoder.decode_wav_file`` -> ``modem.demodulate`` -> the recovery ladder
+with its FEC rungs, ``stream_fec=`` and ``denoise=``, with FSK9600's MLSE
+and the coherent escalations. Thirteen hand-written CUDA kernels for the
 NVIDIA H100 (``csrc/``), one for each Pallas kernel of the JAX package, and
 two more for the MLSE's Viterbi and the convolutional code's Viterbi
 decoder (``lax.scan``s in the JAX package) do the work on the card; the

@@ -10,7 +10,8 @@ Counterpart of ``audio_modem_radio_tpu/decoder.py``:
 * ``run_recovery_ladder``: strict parse, header-tolerant recovery
   (``recover_header_damaged``), and the no-sync rescue on total loss;
 * ``save_decoded_files``: single parts directly, multi-part files through
-  the assembly registry.
+  the assembly registry; ``save_decoded_text`` for the text modes
+  (``TEXT_MODES``, whose receive is the batched glyph match).
 
 Payload FEC containers (``FECP``/``FECV``) unwrap on save, damaged ones
 included; the header-tolerant rung proves candidates by their payload CRC,
@@ -44,6 +45,11 @@ from .utils.wavio import read_wav, resample
 logger = logging.getLogger("audio_modem_radio_tpu_torch")
 
 RECV_DIR = "recv"
+
+
+def _ensure_recv_dir(recv_dir: str = RECV_DIR) -> str:
+    os.makedirs(recv_dir, exist_ok=True)
+    return recv_dir
 
 
 def pad_to_bucket(samples: np.ndarray) -> np.ndarray:
@@ -236,6 +242,25 @@ def recover_header_damaged(
     return out
 
 
+# The glyph-fax modes decode to text, not an FBPC byte stream: both receive
+# paths (decode_from_buffer and parallel.batch.decode_wav_batch) take the
+# batched glyph match and save the text.
+TEXT_MODES = ("HELLSCHREIBER", "FELD_HELL", "SLOW_HELL")
+
+
+def save_decoded_text(text: str, recv_dir: str = RECV_DIR, stem: str = "hell") -> str:
+    """Persist a decoded text-mode transmission as recv_<ts>_<stem>.txt."""
+    out_dir = _ensure_recv_dir(recv_dir)
+    path = os.path.join(out_dir, f"recv_{int(time.time())}_{_safe_name(stem)}.txt")
+    k = 0
+    while os.path.exists(path):
+        k += 1
+        path = os.path.join(out_dir, f"recv_{int(time.time())}_{k}_{_safe_name(stem)}.txt")
+    with open(path, "w", encoding="ascii") as f:
+        f.write(text)
+    return path
+
+
 def save_decoded_files(
     frames: List[Frame],
     recv_dir: str = RECV_DIR,
@@ -308,18 +333,19 @@ def save_decoded_files(
 
 
 def _nosync_streams(samples: np.ndarray, mode: str, symbol_rate: int, device: DeviceLike = None) -> List[bytes]:
-    """Full no-sync byte streams for the header-tolerant rescue (PSK
-    family; DSSS waits for its item and gives none)."""
+    """Full no-sync byte streams for the header-tolerant rescue (the PSK
+    family and DSSS)."""
+    from .ops.dsss import dsss_nosync_streams
     from .ops.psk import psk8_nosync_streams, psk_nosync_streams
     from .parallel.batch import resolve_demod_plan
 
     try:
         kind, params = resolve_demod_plan(mode, symbol_rate)
-        if kind not in ("psk2", "psk4", "psk8"):
-            if kind == "dsss":
-                logger.info("no-sync rescue of DSSS waits for ROADMAP.md queue 1, item 5 (DSSS)")
+        if kind not in ("psk2", "psk4", "psk8", "dsss"):
             return []
         baud, carrier = params
+        if kind == "dsss":
+            return dsss_nosync_streams(pad_to_bucket(samples), baud, carrier, SAMPLE_RATE, device=device)
         if kind == "psk8":
             return psk8_nosync_streams(pad_to_bucket(samples), baud, carrier, SAMPLE_RATE, device=device)
         return psk_nosync_streams(pad_to_bucket(samples), baud, carrier, SAMPLE_RATE,
@@ -370,8 +396,6 @@ def recover_payload_fec_soft(
         if got is None:
             return []
         rotations, _n_psk = got
-    except NotImplementedError:
-        raise
     except Exception:
         logger.exception("soft payload-FEC demod failed")
         return []
@@ -455,40 +479,35 @@ def _soft_rotation_variants(soft: np.ndarray, n_psk: int) -> List[np.ndarray]:
 
 
 def _soft_bit_stream(samples: np.ndarray, mode: str, symbol_rate: int, device: DeviceLike = None):
-    """Soft bit streams of the carried families on ``device``, else None.
+    """Soft bit streams of every non-text family on ``device``, else None.
 
     Returns ``(rotations, n_psk)``: a list of [0,1] soft streams, one per
     residual-rotation hypothesis of the family (element 0 = k=0), and the
-    family's constellation order (1 for FSK: no ambiguity). D8PSK
-    enumerates its 8 π/4 hypotheses at the producer. The compatibility
-    aliases map to the wire format they transmit; OFDM and DSSS outside
-    them raise NotImplementedError naming their ROADMAP.md item; NEURAL
-    and HELL have no soft stream (None), as in the JAX package."""
+    family's constellation order (1 for FSK: no ambiguity). OFDM dibits take
+    the DQPSK diagonal mapping and DSSS bits the DBPSK one; D8PSK enumerates
+    its 8 π/4 hypotheses at the producer. The compatibility aliases map to
+    the wire format they transmit. NEURAL and HELL have no soft stream
+    (None), as in the JAX package."""
+    from .ops.dsss import dsss_soft_bits
     from .ops.fsk import fsk_soft_bits
+    from .ops.ofdm import ofdm_soft_bits
     from .ops.psk import psk8_soft_bits_rotations, psk_soft_bits
-    from .parallel.batch import resolve_demod_plan
+    from .parallel.batch import _receive_kind
 
-    kind, params = resolve_demod_plan(mode, symbol_rate)
-    if kind == "ofdm" and CONFIG.get("modem.ofdm_compat_alias", False):
-        kind, params = "psk4", (params[0], params[1])
-    if kind == "psk8" and CONFIG.get("modem.psk8_compat_alias", False):
-        kind = "psk4"
-    if kind == "dsss" and CONFIG.get("modem.dsss_compat_alias", False):
-        kind = "psk2"
+    kind, params = _receive_kind(mode, symbol_rate)
+    x = pad_to_bucket(samples)
     if kind in ("psk2", "psk4"):
-        baud, carrier = params
         n_psk = 2 if kind == "psk2" else 4
-        soft = psk_soft_bits(pad_to_bucket(samples), baud, carrier, SAMPLE_RATE, n_psk, device=device)
-        return _soft_rotation_variants(soft, n_psk), n_psk
+        return _soft_rotation_variants(psk_soft_bits(x, *params, SAMPLE_RATE, n_psk, device=device), n_psk), n_psk
+    if kind == "ofdm":
+        baud, carrier, n_sub = params
+        return _soft_rotation_variants(ofdm_soft_bits(x, baud, carrier, int(n_sub), SAMPLE_RATE, device=device), 4), 4
+    if kind == "dsss":
+        return _soft_rotation_variants(dsss_soft_bits(x, *params, SAMPLE_RATE, device=device), 2), 2
     if kind == "psk8":
-        baud, carrier = params
-        return psk8_soft_bits_rotations(pad_to_bucket(samples), baud, carrier, SAMPLE_RATE, device=device), 8
+        return psk8_soft_bits_rotations(x, *params, SAMPLE_RATE, device=device), 8
     if kind == "fsk":
-        baud, mark, space = params
-        return [fsk_soft_bits(pad_to_bucket(samples), baud, mark, space, SAMPLE_RATE, device=device)], 1
-    if kind in ("ofdm", "dsss"):
-        item = "item 4 (OFDM)" if kind == "ofdm" else "item 5 (DSSS)"
-        raise NotImplementedError(f"soft bits of {mode!r} are not ported to PyTorch yet: ROADMAP.md queue 1, {item}")
+        return [fsk_soft_bits(x, *params, SAMPLE_RATE, device=device)], 1
     return None
 
 
@@ -515,8 +534,6 @@ def _stream_fec_soft(samples: np.ndarray, mode: str, symbol_rate: int, device: D
                     pick = soft
                     break
         return stream_fec_decode_soft(pick, device=device)
-    except NotImplementedError:
-        raise
     except Exception:
         logger.exception("soft stream-FEC decode failed")
         return None
@@ -620,8 +637,18 @@ def decode_from_buffer(
     bucket-pad, ``modem.demodulate``, :func:`run_recovery_ladder` (with
     ``stream_fec``, the stream Viterbi-decoded first: transmissions made
     with ``fec_type="stream"``), save. A failure in demodulation is logged
-    and saves nothing, as in the JAX package."""
+    and saves nothing, as in the JAX package. The text modes take the
+    batched glyph match (its sync gate and first-all-on-row stop rule on
+    the bucket-padded capture) and save the text, when there is any."""
     samples = _prepare(data, sample_rate, denoise, device)
+    if mode in TEXT_MODES:
+        from .ops.hell import hellschreiber_demodulate_batch
+
+        baud = 61.25 if mode == "SLOW_HELL" else 122.5
+        text = hellschreiber_demodulate_batch(pad_to_bucket(samples)[None, :], baud, device=device)[0]
+        if not text.strip():
+            return []
+        return [save_decoded_text(text, recv_dir, mode.lower())]
     try:
         raw = demodulate(mode, pad_to_bucket(samples), symbol_rate, device=device)
         reg = registry or default_registry
@@ -634,8 +661,6 @@ def decode_from_buffer(
             len(raw), counts[0], len(damaged), counts[1], counts[2],
         )
         return save_decoded_files(frames, recv_dir, registry, damaged=damaged, device=device)
-    except NotImplementedError:
-        raise
     except Exception:
         logger.exception("demodulation failed")
         return []
@@ -743,8 +768,6 @@ def decode_with_retry(
                     saved = save_decoded_files(recovered, recv_dir, registry, device=device)
                     if saved:
                         return saved
-    except NotImplementedError:
-        raise
     except Exception:
         logger.exception("nominal decode attempt failed; trying drift hypotheses")
 
@@ -754,8 +777,6 @@ def decode_with_retry(
         if drift:
             m = int(np.ceil(len(samples) * max(drift)))
             raws = decode_sample_batch(drift_rows(samples, drift, m), mode, symbol_rate, device=device)
-    except NotImplementedError:
-        raise
     except Exception:
         # Captures too short to batch (0 or 1 samples, under two symbols):
         # one single-capture decode per hypothesis at the scaled symbol rate.
@@ -765,8 +786,6 @@ def decode_with_retry(
             rate = max(1, int(symbol_rate * factor))
             try:
                 raws.append(demodulate(mode, pad_to_bucket(samples), rate, device=device))
-            except NotImplementedError:
-                raise
             except Exception:
                 raws.append(b"")
     for i, raw in enumerate(raws):

@@ -18,10 +18,8 @@ port's modulators:
 ``use_fec`` wraps each payload in an ``FECP``/``FECV`` container
 (``fec_type`` "reed_solomon" or "convolutional"), or with ``fec_type=
 "stream"`` convolutionally codes the whole framed transmission; receivers
-then decode with ``stream_fec=True``. Modes of the JAX registry the port
-does not carry (outside their compatibility aliases) raise
-NotImplementedError naming their ROADMAP.md item, before the fallback
-ladder could encode them as another mode.
+then decode with ``stream_fec=True``. ``encode_hellschreiber_text`` writes
+plain text as a Hellschreiber WAV.
 """
 
 from __future__ import annotations
@@ -39,7 +37,7 @@ import numpy as np
 from .config import CONFIG
 from .fec import stream_fec_encode, wrap_fec
 from .framing import crc32, pack_frame
-from .modem import _UNPORTED_MODES, MODES, SAMPLE_RATE, _alias, modulate, wav_from_array
+from .modem import MODES, SAMPLE_RATE, modulate, wav_from_array
 from .ops.psk import bpsk_modulate
 from .utils.compression import (  # noqa: F401  (the JAX module's namespace)
     adaptive_compress,
@@ -94,20 +92,11 @@ def clear_encoding_cache() -> None:
 
 # --- throughput model ---------------------------------------------------------
 
-def _unported_bytes_per_sec(mode: str, r: int) -> float:
-    """The JAX registry's design throughput of the modes the port lacks."""
-    if mode == "DSSS":
-        return (r // 16) if CONFIG.get("modem.dsss_compat_alias", False) else max(1, r // 128)
-    return {"OFDM4": r // 2, "OFDM8": r, "HELLSCHREIBER": 15, "FELD_HELL": 15, "SLOW_HELL": 7}[mode]
-
-
 def _bytes_per_sec(mode: str, symbol_rate: int) -> float:
     spec = MODES.get(mode)
-    if spec is not None:
-        return max(1.0, float(spec.bytes_per_sec(symbol_rate)))
-    if mode in _UNPORTED_MODES:
-        return max(1.0, float(_unported_bytes_per_sec(mode, symbol_rate)))
-    return symbol_rate / 4
+    if spec is None:
+        return symbol_rate / 4
+    return max(1.0, float(spec.bytes_per_sec(symbol_rate)))
 
 
 def calculate_transmission_stats(
@@ -193,16 +182,9 @@ def _modulate_with_fallback(
     """Modulate; on invalid audio fall back to BPSK<=4800, then a test tone.
 
     ``min_duration`` is 0 on the single-file path (short payloads make
-    legitimately short audio). A mode of the JAX registry the port does not
-    carry raises NotImplementedError here, before either fallback (the
-    unknown-mode arm and the BPSK ladder would otherwise encode it as QPSK
-    or BPSK); under its compatibility alias it modulates.
+    legitimately short audio).
     """
-    if mode in _UNPORTED_MODES and _alias(mode) is None:
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported to PyTorch yet: ROADMAP.md queue 1, {_UNPORTED_MODES[mode]}"
-        )
-    if mode not in MODES and _alias(mode) is None:
+    if mode not in MODES:
         # Reference parity: its encode dispatch sends unknown mode names to
         # QPSK rather than erroring.
         logger.warning("unknown mode %s; encoding as QPSK like the reference", mode)
@@ -284,10 +266,16 @@ def encode_file_parts(
 def encode_hellschreiber_text(
     text: str, cache_dir: str = CACHE_DIR, baud: float = 122.5, carrier: float = 1000.0
 ) -> str:
-    """Encode plain text as a Hellschreiber WAV: not ported yet."""
-    raise NotImplementedError(
-        "Hellschreiber transmit is not ported to PyTorch yet: ROADMAP.md queue 1, item 6 (HELL)"
-    )
+    """Encode plain text as a Hellschreiber WAV,
+    ``cache/hellschreiber_<crc24 of the text>.wav``."""
+    from .ops.hell import hellschreiber_modulate
+
+    out_dir = _ensure_cache_dir(cache_dir)
+    arr = hellschreiber_modulate(text, baud, carrier)
+    outname = os.path.join(out_dir, f"hellschreiber_{crc32(text.encode('utf-8')) & 0xFFFFFF:06x}.wav")
+    with open(outname, "wb") as f:
+        f.write(wav_from_array(arr, SAMPLE_RATE))
+    return outname
 
 
 def encode_file(

@@ -1,25 +1,27 @@
 """Mode registry, modulation and single-capture demodulation of the PyTorch port.
 
-Counterpart of ``audio_modem_radio_tpu/modem.py`` for the modes the port
-carries: FSK1200 (1200/2200 Hz tones at 1200 Bd), FSK9600 (the same tones
-at 9600 Bd), FSK19200 (8/16 kHz at 19200 Bd), MSK (FSK with mark 6 kHz,
-space 6 kHz + the rate), FT8 (50 Bd FSK, 3000/3050 Hz), BPSK (DBPSK on a
-3 kHz carrier), QPSK (DQPSK, 3 kHz), 8PSK (real D8PSK on 12 kHz, or under
-CONFIG ``modem.psk8_compat_alias`` the reference's DQPSK alias), APSK16
-(DQPSK, 12 kHz), SSTV (DQPSK, 3 kHz), PSK31 (DBPSK at 31.25 Bd, 3 kHz) and
-NEURAL (the learned codebook, 1 byte per symbol, 24 kHz).
+Counterpart of ``audio_modem_radio_tpu/modem.py``, with its 18 modes:
+FSK1200 (1200/2200 Hz tones at 1200 Bd), FSK9600 (the same tones at 9600
+Bd), FSK19200 (8/16 kHz at 19200 Bd), MSK (FSK with mark 6 kHz, space 6 kHz
++ the rate), FT8 (50 Bd FSK, 3000/3050 Hz), BPSK (DBPSK on a 3 kHz
+carrier), QPSK (DQPSK, 3 kHz), 8PSK (real D8PSK on 12 kHz), OFDM4 and OFDM8
+(multicarrier DQPSK on 4 and 8 subcarriers around 12 kHz), APSK16 (DQPSK,
+12 kHz), DSSS (DBPSK spread over a 16-chip PN, 3 kHz), SSTV (DQPSK, 3
+kHz), PSK31 (DBPSK at 31.25 Bd, 3 kHz), NEURAL (the learned codebook, 1
+byte per symbol, 24 kHz) and the Hellschreiber text modes HELLSCHREIBER,
+FELD_HELL (122.5 pixels/s) and SLOW_HELL (61.25).
 
-:func:`demodulate` is the single-capture receive of every carried mode: the
-FSK modes through ``ops.fsk.fsk_demodulate`` (MLSE first on close tones,
-the equalizer-only stream as its fallback), NEURAL, and the PSK modes with
-the JAX package's coherent escalation (the Viterbi&Viterbi-tracked receiver
-when differential detection leaves the capture incomplete) and, for 8PSK,
-its probe-gated alias fallback. It runs on the card unless the caller
-passes ``device="cpu"``. The modes the registry lacks raise
-NotImplementedError naming their ROADMAP.md item.
-The compatibility aliases of modes the registry lacks are honoured:
-DSSS under CONFIG ``modem.dsss_compat_alias`` (plain DBPSK, 3 kHz) and
-OFDM4/OFDM8 under ``modem.ofdm_compat_alias`` (plain DQPSK, 12 kHz).
+8PSK, OFDM4/OFDM8 and DSSS honour their CONFIG compatibility aliases
+(``modem.psk8_compat_alias``, ``modem.ofdm_compat_alias``,
+``modem.dsss_compat_alias``): the reference's DQPSK or DBPSK wire format.
+
+:func:`demodulate` is the single-capture receive of every mode: the FSK
+modes through ``ops.fsk.fsk_demodulate`` (MLSE first on close tones, the
+equalizer-only stream as its fallback), NEURAL, the text modes, and the PSK
+family (OFDM and DSSS included) with the JAX package's coherent escalation
+(the Viterbi&Viterbi-tracked receiver when differential detection leaves
+the capture incomplete) and, for 8PSK, OFDM and DSSS, its probe-gated alias
+fallback. It runs on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -31,8 +33,11 @@ import numpy as np
 
 from .config import CONFIG
 from .framing import MAGIC, pack_frame, parse_frames_detailed
+from .ops.dsss import dsss_real_demodulate, dsss_real_modulate, dsss_tracked_demodulate
 from .ops.fsk import fsk_demodulate, fsk_high_speed_demodulate, fsk_high_speed_modulate, fsk_modulate
+from .ops.hell import hellschreiber_demodulate, hellschreiber_modulate
 from .ops.neural import _chip_len as _neural_chip_len, neural_mode_demodulate, neural_mode_modulate
+from .ops.ofdm import ofdm_demodulate, ofdm_modulate, ofdm_tracked_demodulate
 from .ops.psk import (
     bpsk_demodulate,
     bpsk_modulate,
@@ -47,8 +52,6 @@ from .ops.psk import (
 from .utils.torchenv import DeviceLike
 from .utils.wavio import SAMPLE_RATE, wav_from_array  # noqa: F401  (re-export)
 
-# The JAX package's ``modem.__all__`` less the names whose modules are not
-# ported yet (HELL).
 __all__ = [
     "SAMPLE_RATE",
     "wav_from_array",
@@ -78,13 +81,11 @@ __all__ = [
     "ft8_demodulate",
     "psk31_modulate",
     "psk31_demodulate",
+    "feld_hell_modulate",
+    "feld_hell_demodulate",
+    "hellschreiber_modulate",
+    "hellschreiber_demodulate",
 ]
-
-# Modes of the JAX registry the port does not carry -> their ROADMAP.md item.
-_UNPORTED_MODES = {
-    "OFDM4": "item 4 (OFDM)", "OFDM8": "item 4 (OFDM)", "DSSS": "item 5 (DSSS)",
-    "HELLSCHREIBER": "item 6 (HELL)", "FELD_HELL": "item 6 (HELL)", "SLOW_HELL": "item 6 (HELL)",
-}
 
 
 @dataclass(frozen=True)
@@ -233,19 +234,31 @@ def _psk_mode_demodulate(x, b, c, sr=96000, n_psk=4, device: DeviceLike = None):
     return raw
 
 
-def _psk8_mode_demodulate(x, b, c, sr=96000, device: DeviceLike = None):
-    """Real-D8PSK receive with the probe-gated alias fallback (run before
-    the tracked escalation when no magic decodes) and coherent escalation."""
-    if CONFIG.get("modem.psk8_compat_alias", False):
-        return psk8_demodulate(x, b, c, sr, device=device)
-    raw = psk8_real_demodulate(x, b, c, sr, device=device)
-    if MAGIC not in raw and _alias_probe_hits(np.asarray(x, np.float32), b, c, sr, device=device):
-        return psk8_demodulate(x, b, c, sr, device=device)
+def _alias_gated_demodulate(flag: str, x, b, c, sr, real, alias, tracked, device: DeviceLike,
+                            probe_demod=None):
+    """Receive of a mode with a compatibility alias: ``alias()`` under
+    CONFIG ``modem.<flag>``; otherwise ``real()``, then, when no magic
+    decodes and a short alias-layer probe (DQPSK, or ``probe_demod``) finds
+    one, ``alias()``, before the coherent escalation with ``tracked``."""
+    if CONFIG.get(f"modem.{flag}", False):
+        return alias()
+    raw = real()
+    if MAGIC not in raw and _alias_probe_hits(np.asarray(x, np.float32), b, c, sr, probe_demod, device=device):
+        return alias()
     if CONFIG.get("modem.psk_coherent_escalation", True):
-        out = _coherent_escalate(raw, lambda: psk8_tracked_demodulate(x, b, c, sr, device=device))
+        out = _coherent_escalate(raw, tracked)
         if out is not None:
             return out
     return raw
+
+
+def _psk8_mode_demodulate(x, b, c, sr=96000, device: DeviceLike = None):
+    """Real-D8PSK receive with the probe-gated alias fallback and coherent
+    escalation."""
+    return _alias_gated_demodulate(
+        "psk8_compat_alias", x, b, c, sr, lambda: psk8_real_demodulate(x, b, c, sr, device=device),
+        lambda: psk8_demodulate(x, b, c, sr, device=device),
+        lambda: psk8_tracked_demodulate(x, b, c, sr, device=device), device)
 
 
 def ofdm_modulate_simple(d, baud, carrier, num_subcarriers, samp_rate=96000):
@@ -259,6 +272,24 @@ def ofdm_demodulate_simple(x, baud, carrier, num_subcarriers, samp_rate=96000, d
     return qpsk_demodulate(x, baud, carrier, samp_rate, device=device)
 
 
+def _ofdm_mode_modulate(d, baud, carrier, num_subcarriers, samp_rate=96000):
+    """OFDM transmit: multicarrier DQPSK unless CONFIG
+    ``modem.ofdm_compat_alias`` selects the alias wire format, DQPSK."""
+    if CONFIG.get("modem.ofdm_compat_alias", False):
+        return ofdm_modulate_simple(d, baud, carrier, num_subcarriers, samp_rate)
+    return ofdm_modulate(d, baud, carrier, num_subcarriers, samp_rate)
+
+
+def _ofdm_mode_demodulate(x, baud, carrier, num_subcarriers, samp_rate=96000, device: DeviceLike = None):
+    """Multicarrier receive with the probe-gated alias fallback and the
+    per-subcarrier coherent escalation."""
+    return _alias_gated_demodulate(
+        "ofdm_compat_alias", x, baud, carrier, samp_rate,
+        lambda: ofdm_demodulate(x, baud, carrier, num_subcarriers, samp_rate, device=device),
+        lambda: ofdm_demodulate_simple(x, baud, carrier, num_subcarriers, samp_rate, device=device),
+        lambda: ofdm_tracked_demodulate(x, baud, carrier, num_subcarriers, samp_rate, device=device), device)
+
+
 def dsss_modulate(d, b, c, s=96000):
     """DSSS alias: DBPSK, no spreading."""
     return bpsk_modulate(d, b, c, s)
@@ -266,6 +297,23 @@ def dsss_modulate(d, b, c, s=96000):
 
 def dsss_demodulate(x, b, c, s=96000, device: DeviceLike = None):
     return bpsk_demodulate(x, b, c, s, device=device)
+
+
+def _dsss_mode_modulate(d, b, c, s=96000):
+    """DSSS transmit: the 16-chip spread spectrum unless CONFIG
+    ``modem.dsss_compat_alias`` selects the alias wire format, DBPSK."""
+    if CONFIG.get("modem.dsss_compat_alias", False):
+        return dsss_modulate(d, b, c, s)
+    return dsss_real_modulate(d, b, c, s)
+
+
+def _dsss_mode_demodulate(x, b, c, sr=96000, device: DeviceLike = None):
+    """Spread-spectrum receive with the probe-gated alias fallback (a DBPSK
+    probe) and the coherent escalation on the despread bit stream."""
+    return _alias_gated_demodulate(
+        "dsss_compat_alias", x, b, c, sr, lambda: dsss_real_demodulate(x, b, c, sr, device=device),
+        lambda: dsss_demodulate(x, b, c, sr, device=device),
+        lambda: dsss_tracked_demodulate(x, b, c, sr, device=device), device, probe_demod=bpsk_demodulate)
 
 
 def apsk16_modulate(d, b, c, s=96000):
@@ -307,6 +355,15 @@ def psk31_demodulate(x, b, c, sr=96000, device: DeviceLike = None):
     return bpsk_demodulate(x, 31.25, c, sr, device=device)
 
 
+def feld_hell_modulate(d: bytes, b=122.5, c=1000.0, s=96000):
+    """Feld-Hell: frame bytes -> lossy utf-8 text -> Hellschreiber."""
+    return hellschreiber_modulate(d.decode("utf-8", "ignore"), b, c, s)
+
+
+def feld_hell_demodulate(x, b=122.5, c=1000.0, sr=96000, device: DeviceLike = None) -> bytes:
+    return hellschreiber_demodulate(x, b, c, sr, device=device).encode("utf-8")
+
+
 MODES: Dict[str, ModeSpec] = {
     "FSK1200": ModeSpec("FSK1200", lambda d, r: fsk_modulate(d, 1200, 1200.0, 2200.0),
                         lambda x, r, device=None: fsk_demodulate(x, 1200, 1200.0, 2200.0, device=device),
@@ -326,14 +383,20 @@ MODES: Dict[str, ModeSpec] = {
     "8PSK": ModeSpec("8PSK", lambda d, r: _psk8_mode_modulate(d, r, 12000.0),
                      lambda x, r, device=None: _psk8_mode_demodulate(x, r, 12000.0, device=device),
                      lambda r: (r * 3) // 8),
+    "OFDM4": ModeSpec("OFDM4", lambda d, r: _ofdm_mode_modulate(d, r, 12000.0, 4),
+                      lambda x, r, device=None: _ofdm_mode_demodulate(x, r, 12000.0, 4, device=device),
+                      lambda r: r // 2),
+    "OFDM8": ModeSpec("OFDM8", lambda d, r: _ofdm_mode_modulate(d, r, 12000.0, 8),
+                      lambda x, r, device=None: _ofdm_mode_demodulate(x, r, 12000.0, 8, device=device),
+                      lambda r: r),
     "APSK16": ModeSpec("APSK16", lambda d, r: apsk16_modulate(d, r, 12000.0),
                        lambda x, r, device=None: apsk16_demodulate(x, r, 12000.0, device=device),
                        lambda r: r // 2),
-    # The reference GUI lists SSTV but ships no SSTV modulator; payloads ride
-    # a DQPSK carrier.
-    "SSTV": ModeSpec("SSTV", lambda d, r: qpsk_modulate(d, r, 3000.0),
-                     lambda x, r, device=None: qpsk_demodulate(x, r, 3000.0, device=device),
-                     lambda r: 50),
+    # Spread spectrum: r chips/s / 16 chips a bit / 8 = r/128 B/s; the
+    # alias (plain DBPSK) keeps the reference's r/16 estimate.
+    "DSSS": ModeSpec("DSSS", lambda d, r: _dsss_mode_modulate(d, r, 3000.0),
+                     lambda x, r, device=None: _dsss_mode_demodulate(x, r, 3000.0, device=device),
+                     lambda r: (r // 16) if CONFIG.get("modem.dsss_compat_alias", False) else max(1, r // 128)),
     "MSK": ModeSpec("MSK", lambda d, r: msk_modulate(d, r, 6000.0),
                     lambda x, r, device=None: msk_demodulate(x, r, 6000.0, device=device), lambda r: r // 4),
     "FT8": ModeSpec("FT8", lambda d, r: ft8_modulate(d, r, 3000.0),
@@ -342,70 +405,49 @@ MODES: Dict[str, ModeSpec] = {
     "PSK31": ModeSpec("PSK31", lambda d, r: psk31_modulate(d, r, 3000.0),
                       lambda x, r, device=None: psk31_demodulate(x, r, 3000.0, device=device),
                       lambda r: 4, fixed_baud=31.25),  # 31.25 baud / 8 bits
+    "HELLSCHREIBER": ModeSpec(
+        "HELLSCHREIBER", lambda d, r: hellschreiber_modulate(d.decode("utf-8", "ignore")),
+        lambda x, r, device=None: hellschreiber_demodulate(x, device=device).encode("utf-8"),
+        lambda r: 15, fixed_baud=122.5),
+    "FELD_HELL": ModeSpec("FELD_HELL", lambda d, r: feld_hell_modulate(d, 122.5, 1000.0),
+                          lambda x, r, device=None: feld_hell_demodulate(x, 122.5, 1000.0, device=device),
+                          lambda r: 15, fixed_baud=122.5),
     # Learned codebook, 1 byte per symbol on a 24 kHz carrier (ops/neural.py).
     "NEURAL": ModeSpec("NEURAL", lambda d, r: neural_mode_modulate(d, r),
                        lambda x, r, device=None: neural_mode_demodulate(x, r, device=device),
                        lambda r: SAMPLE_RATE / (8 * _neural_chip_len(r))),
+    # Hellschreiber glyphs at half the pixel rate.
+    "SLOW_HELL": ModeSpec(
+        "SLOW_HELL", lambda d, r: hellschreiber_modulate(d.decode("utf-8", "ignore"), baud=61.25),
+        lambda x, r, device=None: hellschreiber_demodulate(x, baud=61.25, device=device).encode("utf-8"),
+        lambda r: 7, fixed_baud=61.25),
+    # The reference GUI lists SSTV but ships no SSTV modulator; payloads ride
+    # a DQPSK carrier.
+    "SSTV": ModeSpec("SSTV", lambda d, r: qpsk_modulate(d, r, 3000.0),
+                     lambda x, r, device=None: qpsk_demodulate(x, r, 3000.0, device=device),
+                     lambda r: 50),
 }
 
 
-# Display-only mode catalogs of the reference GUI, restricted to the modes
-# this registry carries. Of the JAX package's lists, OFDM4 and OFDM8 wait
-# for ROADMAP.md queue 1 item 4, DSSS for item 5, and HELLSCHREIBER,
-# FELD_HELL and SLOW_HELL for item 6; its 37 labels no package can transmit
-# (FT4 ... LORA) come back with the UI (item 8).
-DIGITAL_MODES = ["FSK1200", "FSK9600", "BPSK", "QPSK", "8PSK", "FSK19200", "APSK16", "MSK", "FT8", "PSK31"]
-ANALOG_MODES = ["SSTV"]
-
-
-# Modes the registry lacks that a CONFIG alias sends to a carried wire
-# format: mode -> (CONFIG key in section "modem", modulate, demodulate).
-_ALIASES = {
-    "DSSS": ("dsss_compat_alias", lambda d, r: dsss_modulate(d, r, 3000.0),
-             lambda x, r, device=None: dsss_demodulate(x, r, 3000.0, device=device)),
-    "OFDM4": ("ofdm_compat_alias", lambda d, r: ofdm_modulate_simple(d, r, 12000.0, 4),
-              lambda x, r, device=None: ofdm_demodulate_simple(x, r, 12000.0, 4, device=device)),
-    "OFDM8": ("ofdm_compat_alias", lambda d, r: ofdm_modulate_simple(d, r, 12000.0, 8),
-              lambda x, r, device=None: ofdm_demodulate_simple(x, r, 12000.0, 8, device=device)),
-}
-
-
-def _alias(mode: str):
-    """``(modulate, demodulate)`` of ``mode``'s compatibility alias where
-    its CONFIG flag is on, else None."""
-    entry = _ALIASES.get(mode)
-    if entry is None or not CONFIG.get(f"modem.{entry[0]}", False):
-        return None
-    return entry[1:]
+# Display catalogs of the reference GUI: the JAX package's lists less its
+# 37 labels no package can transmit (FT4 ... LORA), which come back with
+# the UI (ROADMAP.md queue 1, item 8).
+DIGITAL_MODES = ["FSK1200", "FSK9600", "BPSK", "QPSK", "8PSK", "FSK19200", "OFDM4", "OFDM8",
+                 "APSK16", "DSSS", "MSK", "FT8", "PSK31"]
+ANALOG_MODES = ["SSTV", "HELLSCHREIBER", "FELD_HELL", "SLOW_HELL"]
 
 
 def modulate(mode: str, framed: bytes, symbol_rate: int) -> np.ndarray:
-    """Dispatch modulation by mode name; unknown or unported modes raise
-    ValueError (DSSS and OFDM4/8 modulate under their compatibility
-    aliases)."""
-    alias = _alias(mode)
-    if alias is not None:
-        return alias[0](framed, symbol_rate)
+    """Dispatch modulation by mode name; unknown modes raise ValueError."""
     spec = MODES.get(mode)
     if spec is None:
-        raise ValueError(f"Unknown mode: {mode} (the PyTorch port carries {sorted(MODES)})")
+        raise ValueError(f"Unknown mode: {mode}")
     return spec.modulate(framed, symbol_rate)
 
 
 def demodulate(mode: str, samples: np.ndarray, symbol_rate: int, device: DeviceLike = None) -> bytes:
-    """Single-capture demodulation to the raw byte stream, on ``device``
-    (default: the card). Unknown modes fall back to QPSK, like the
-    reference decoder; modes of the JAX registry the port does not carry
-    raise NotImplementedError naming their ROADMAP.md item (DSSS under CONFIG
-    ``modem.dsss_compat_alias`` is plain DBPSK at 3 kHz and OFDM4/8 under
-    ``modem.ofdm_compat_alias`` plain DQPSK at 12 kHz, without the coherent
-    escalation, and both decode)."""
-    alias = _alias(mode)
-    if alias is not None:
-        return alias[1](samples, symbol_rate, device=device)
-    if mode in _UNPORTED_MODES:
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported to PyTorch yet: ROADMAP.md queue 1, {_UNPORTED_MODES[mode]}"
-        )
+    """Single-capture demodulation to the raw byte stream (the text modes:
+    the decoded text as utf-8), on ``device`` (default: the card). Unknown
+    modes fall back to QPSK, like the reference decoder."""
     spec = MODES.get(mode, MODES["QPSK"])
     return spec.demodulate(samples, symbol_rate, device=device)

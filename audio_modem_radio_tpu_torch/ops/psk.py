@@ -708,6 +708,47 @@ def psk_demod_streams_batch(
     return d_re.reshape(b, -1)[:, :n_out], d_im.reshape(b, -1)[:, :n_out]
 
 
+def _blocked_project_xla(x3d: torch.Tensor, W8: torch.Tensor, best: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2 without a kernel, for a batch: the overlapped rows (each
+    row's successor's first ``ov`` samples appended, zeros after the last)
+    times each capture's winning-offset template, one ``torch.bmm``. Raw
+    per-symbol phasors ``(re_f, im_f)``, each (B, r*128)."""
+    b = x3d.shape[0]
+    ov = W8.shape[1] - x3d.shape[2]
+    x3d = x3d.to(torch.float32)
+    x_next = F.pad(x3d[:, 1:, :ov], (0, 0, 0, 1))
+    out = torch.bmm(torch.cat([x3d, x_next], dim=2), W8[best.long()])  # (B, r, 256)
+    return out[:, :, :_BLOCK_SYM].reshape(b, -1), out[:, :, _BLOCK_SYM:].reshape(b, -1)
+
+
+def psk_raw_streams_batch(
+    samples: torch.Tensor,
+    baud: float,
+    carrier: float,
+    sample_rate: int,
+    n_offsets: int = 8,
+    n_psk: int = 2,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched raw (pre-differential) per-symbol phasors ``(re_f, im_f)``,
+    each (B, n_out), on the input's device: the DSSS despreader's front end,
+    which sums chips before any differential, so K12 (which folds the
+    differential in) cannot serve. The batched pass 1, then
+    :func:`_blocked_project_xla`, on flat (B, N) captures or pre-shaped
+    (B, r, 128*spsym) rows; without a blocked path :func:`psk_symbol_streams`
+    per capture. Entries past each capture's signal are zero-pad garbage."""
+    spsym = _samples_per_symbol(sample_rate, baud)
+    setup = _batch_block_setup(samples, spsym)
+    if setup is None:
+        streams = [psk_symbol_streams(s, baud, carrier, sample_rate, n_offsets, n_psk) for s in samples]
+        return torch.stack([s[0] for s in streams]), torch.stack([s[1] for s in streams])
+    b, n_frames, x3d, r = setup
+    x3d, r, best, _theta = _batch_pass1(
+        samples, x3d, b, n_frames, spsym, carrier, sample_rate, n_offsets, r, n_psk
+    )
+    W8, _, _ = _device_tables(spsym, float(carrier), sample_rate, n_offsets, x3d.device)
+    return _blocked_project_xla(x3d, W8, best)
+
+
 # --- D8PSK sync + pack on one sector stream -----------------------------------------
 
 def _psk8_expected_sectors(pattern: str, k: int) -> list:

@@ -1,14 +1,17 @@
 """Batched demodulation of many captures on one device — the throughput layer.
 
-Counterpart of ``audio_modem_radio_tpu/parallel/batch.py`` for the batched
-PSK slices, DBPSK (kind ``psk2``), DQPSK (``psk4``) and D8PSK (``psk8``),
-the batched FSK slices (kind ``fsk``: FSK1200, FSK9600, FSK19200, MSK,
-FT8) and NEURAL (kind ``neural``). The pipeline:
+Counterpart of ``audio_modem_radio_tpu/parallel/batch.py`` for every mode
+of the registry: DBPSK (kind ``psk2``), DQPSK (``psk4``), D8PSK (``psk8``),
+FSK (``fsk``: FSK1200, FSK9600, FSK19200, MSK, FT8), OFDM4 and OFDM8
+(``ofdm``), DSSS (``dsss``), NEURAL (``neural``) and the Hellschreiber text
+modes (``hell``). The pipeline:
 
   host:   read WAVs, pad to one bucket length, shape each capture into
-          rows: blocked (r, 128*spsym) sample rows for PSK, overlapped
-          (r, row+ov) rows for dual-tone FSK, padded FIR windows for the
-          FSK discriminator and quadrature paths (int16 for a CUDA device);
+          rows: blocked (r, 128*spsym) sample rows for PSK (float32 for
+          DSSS), overlapped (r, row+ov) rows for dual-tone FSK and OFDM
+          (float32), padded FIR windows for the FSK discriminator and
+          quadrature paths, pixel windows for the text modes (int16 for a
+          CUDA device where the kernels or the text path take it);
           NEURAL captures stay flat float32
   device: PSK: pass 1 (timing offset + blind rotation, plain torch), kernel
           K1 (projection + differential + derotation + decision), then the
@@ -19,6 +22,15 @@ FT8) and NEURAL (kind ``neural``). The pipeline:
                 complement + mod-8 alignment + byte pack);
           psk8: K5 (8-rotation sector match), earliest-position fold, K6
                 (relabel + Gray + mod-8-symbol alignment + byte pack).
+          OFDM: pass 1 over every sample offset, the row-shifted blocked
+          duals (one ``torch.bmm``), the K-lane differentials, rotation and
+          Gray decisions (plain torch), then the psk4 tail (K2, K3) on the
+          card and the per-capture tails elsewhere.
+          DSSS: the PSK pass 1 and the raw chip phasors (one ``torch.bmm``),
+          the banded despread, then the DBPSK sync tail per capture on the
+          bit-rate stream (plain torch, as the JAX package's).
+          HELL: pixel energies, the glyph match as one product and argmax
+          (plain torch): the "bytes" are the decoded text.
           FSK: pass 1 (timing offset, plain torch), then K7 (dual tone), K8
           (discriminator, followed by atan2 + equalizer + decision) or K9
           (quadrature margin); K13 for flat dual-tone input; the
@@ -32,7 +44,7 @@ FT8) and NEURAL (kind ``neural``). The pipeline:
           receiver per capture (K11, rotation, decision) and the
           per-capture plain-torch sync tails; CONFIG
           ``tpu.demod_backend = "xla"`` selects the staged D8PSK path (K12)
-          and the per-capture tails for every PSK kind.
+          and the per-capture tails for every PSK kind and OFDM.
           NEURAL: the preamble matched filter (one blocked matmul, prefix
           lags first, the full search for the whole batch when a capture
           fails the prefix test), then K10 (chips + unrotation + codebook
@@ -41,7 +53,7 @@ FT8) and NEURAL (kind ``neural``). The pipeline:
   host:   the recovery ladder per capture (strict FBPC parse,
           header-tolerant recovery, no-sync rescue), the MLSE, coherent
           and clock-drift escalations of lost captures, decompression,
-          assembly, save
+          assembly, save; the text modes save their text
 
 ``jit`` and ``vmap`` have no counterpart here: the batch dimension is
 written out and each tier of the prefix scan is one scalar read to the host
@@ -69,6 +81,7 @@ from ..ops.common import (
     find_bit_pattern_validated,
     pack_bits_from,
 )
+from ..ops.dsss import dsss_bits_cfo_batch
 from ..ops.fsk import (
     _fir_frontend_plan,
     _fsk_disc_kernel_plan,
@@ -93,7 +106,9 @@ from ..ops.kernels import (
     rotation_match_batch,
     sector_match_batch,
 )
+from ..ops.hell import hell_demod_text_batch
 from ..ops.neural import PREAMBLE_LEN, _chip_len, _demod, _fft_len, _td_supported, demod_td_batch
+from ..ops.ofdm import ofdm_blocked_row_shape, ofdm_decision_streams_batch
 from ..ops.psk import (
     blocked_row_shape,
     psk8_sector_rows_batch,
@@ -107,15 +122,6 @@ from ..utils.wavio import read_wav, resample
 logger = logging.getLogger("audio_modem_radio_tpu_torch")
 
 # --- per-mode demodulator plan -------------------------------------------------
-
-# Demodulator kind -> the ROADMAP.md queue-1 item that will port it.
-_UNPORTED_KINDS = {
-    "ofdm": "OFDM",
-    "dsss": "DSSS",
-    "hell": "HELL",
-}
-_PORTED_KINDS = ("psk2", "psk4", "psk8", "fsk", "neural")
-
 
 def resolve_demod_plan(mode: str, symbol_rate: int) -> Tuple[str, tuple]:
     """Mode name -> ('psk2'|'psk4'|'psk8'|'fsk'|'ofdm'|'dsss'|'neural'|'hell',
@@ -149,10 +155,13 @@ def resolve_demod_plan(mode: str, symbol_rate: int) -> Tuple[str, tuple]:
 
 def _receive_kind(mode: str, symbol_rate: int) -> Tuple[str, tuple]:
     """:func:`resolve_demod_plan` with the compatibility aliases applied:
-    under CONFIG ``modem.psk8_compat_alias`` the 8PSK wire format is DQPSK
-    at the same carrier (kind psk4), under ``modem.dsss_compat_alias`` the
-    DSSS wire format is plain DBPSK (kind psk2)."""
+    under CONFIG ``modem.ofdm_compat_alias`` the OFDM wire format is DQPSK
+    at the same carrier and under ``modem.psk8_compat_alias`` the 8PSK one
+    (kind psk4), under ``modem.dsss_compat_alias`` the DSSS wire format is
+    plain DBPSK (kind psk2)."""
     kind, params = resolve_demod_plan(mode, symbol_rate)
+    if kind == "ofdm" and CONFIG.get("modem.ofdm_compat_alias", False):
+        kind, params = "psk4", params[:2]
     if kind == "psk8" and CONFIG.get("modem.psk8_compat_alias", False):
         kind = "psk4"
     if kind == "dsss" and CONFIG.get("modem.dsss_compat_alias", False):
@@ -357,38 +366,32 @@ def demod_pack_batch(
     """(B, N) samples or host-shaped (B, r, cols) rows -> (packed bytes
     (B, max_bytes), n_valid (B,), found (B,)), on the input's device.
 
-    Demod + magic sync + byte pack for the whole batch. Ported kinds: 'psk4'
-    (QPSK, APSK16, SSTV, 8PSK under ``modem.psk8_compat_alias`` and OFDM4/8
-    under ``modem.ofdm_compat_alias``), 'psk2'
-    (BPSK, PSK31, and DSSS under ``modem.dsss_compat_alias``), 'psk8'
-    (8PSK), 'fsk' (FSK1200, FSK9600, FSK19200, MSK, FT8; any layout
-    :func:`host_shape_batch` builds, and flat input) and 'neural' (flat
-    input; the bytes after the preamble,
-    n_valid their count, found all true). The PSK kinds take the kernel
-    sync tails (K2 + K3/K4, K5 + K6) on blocked streams and the per-capture plain-torch tails on the
-    single-capture streams of captures without a blocked path, as the JAX
-    package picks them by stream length; D8PSK zero-pads to the kernels'
-    grain and keeps K5 + K6 there. Under CONFIG ``tpu.demod_backend =
-    "xla"`` D8PSK runs the staged float path (K12, rotation, sectors),
-    every PSK kind the per-capture tails and dual-tone FSK K7 on the
-    unpadded float32 rows. ``fsk_mlse`` refines close-tone FSK captures that
-    arrive flat by MLSE. Other kinds raise NotImplementedError naming the
-    ROADMAP.md item that will port them.
+    Demod + magic sync + byte pack for the whole batch, every kind of
+    :func:`resolve_demod_plan` after the compatibility aliases: 'psk4'
+    (QPSK, APSK16, SSTV, and 8PSK and OFDM4/8 under their aliases), 'psk2'
+    (BPSK, PSK31, and DSSS under its alias), 'psk8' (8PSK), 'ofdm' (OFDM4,
+    OFDM8), 'dsss' (DSSS; float rows or flat input), 'fsk' (FSK1200,
+    FSK9600, FSK19200, MSK, FT8; any layout :func:`host_shape_batch`
+    builds, and flat input), 'neural' (flat input; the bytes after the
+    preamble, n_valid their count, found all true) and 'hell' (the decoded
+    text's character codes, n_valid their count, found the sync gate). The
+    PSK kinds take the kernel sync tails (K2 + K3/K4, K5 + K6) on blocked
+    streams and the per-capture plain-torch tails on the single-capture
+    streams of captures without a blocked path, as the JAX package picks
+    them by stream length; D8PSK zero-pads to the kernels' grain and keeps
+    K5 + K6 there, and so does OFDM with K2 + K3 on a CUDA device. Under
+    CONFIG ``tpu.demod_backend = "xla"`` D8PSK runs the staged float path
+    (K12, rotation, sectors), every PSK kind and OFDM the per-capture tails
+    and dual-tone FSK K7 on the unpadded float32 rows. ``fsk_mlse`` refines
+    close-tone FSK captures that arrive flat by MLSE.
     """
     kind, params = _receive_kind(mode, symbol_rate)
-    if kind == "ofdm" and CONFIG.get("modem.ofdm_compat_alias", False):
-        # The alias wire format is DQPSK at the same carrier. Only this
-        # function rewrites it, as the JAX package's does: host_shape_batch
-        # keeps the kind, so OFDM captures reach here flat (ROADMAP.md
-        # queue 1, item 4).
-        kind, params = "psk4", params[:2]
-    if kind not in _PORTED_KINDS:
-        raise NotImplementedError(
-            f"mode {mode!r} (demodulator kind {kind!r}) is not ported to PyTorch yet: "
-            f"ROADMAP.md queue 1, {_UNPORTED_KINDS[kind]}"
-        )
     if kind == "neural":
         return _neural_pack(samples, int(params[0]))
+    if kind == "hell":
+        return hell_demod_text_batch(samples, int(round(SAMPLE_RATE / params[0])))
+    if kind == "dsss":
+        return dsss_bits_cfo_batch(samples, *params, SAMPLE_RATE, MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2)
     xla = CONFIG.get("tpu.demod_backend", "auto") == "xla"
     if kind == "fsk":
         # The JAX package's sync tail as it is: the first exact magic (no
@@ -397,6 +400,16 @@ def demod_pack_batch(
         start, found = find_bit_pattern(bits, MAGIC_BIT_PATTERN)
         packed, n_valid = pack_bits_from(bits, start)
         return packed, n_valid, found
+    if kind == "ofdm":
+        baud, carrier, n_sub = params
+        hi, lo = ofdm_decision_streams_batch(samples, baud, carrier, int(n_sub), SAMPLE_RATE, cfo=cfo_retry)
+        if not xla and samples.device.type == "cuda":
+            # The DQPSK tail on the kernels: zero dibits up to the 128*256
+            # grain decode to a tail the frame parser ignores.
+            grain = 128 * _MATCH_BLOCK_ROWS
+            pad = -hi.shape[1] % grain
+            return psk4_kernel_sync_tail(F.pad(hi, (0, pad)), F.pad(lo, (0, pad)), cfo_retry)
+        return _per_capture(_psk_capture_tail("psk4", cfo_retry), hi, lo)
     baud, carrier = params
     if kind == "psk8":
         if xla:
@@ -546,40 +559,58 @@ def host_shape_batch(
     fsk_mlse: Optional[bool] = None,
 ) -> np.ndarray:
     """Pre-shape (B, N) captures into the layout ``demod_pack_batch`` takes
-    on ``device`` (default: the card): PSK captures (kinds psk2, psk4, psk8,
-    after the compatibility aliases) into blocked (B, r, 128*spsym) rows,
-    FSK captures as :func:`_fsk_host_shape` says; NEURAL captures, which the
-    JAX package ships flat, and the mode families not ported yet pass
-    through unchanged as float32.
+    on ``device`` (default: the card), the JAX package's layouts after the
+    compatibility aliases: PSK captures (kinds psk2, psk4, psk8, dsss) into
+    blocked (B, r, 128*spsym) rows, FSK captures as :func:`_fsk_host_shape`
+    says, OFDM captures into float32 (B, r, L*S+S) overlapped rows (one
+    S-sample symbol of overlap), text-mode captures into (B, n_pix, spp)
+    pixel windows; NEURAL captures, and captures too short for a layout,
+    pass through unchanged as float32.
 
-    Rows are int16 at scale 32768 when the target device is CUDA (half the
-    host-to-device copy and half the kernels' read; exact for int16-PCM
-    sources, which read_wav divides by 32768), float32 otherwise. CONFIG
-    ``tpu.int16_rows`` overrides that choice; CONFIG ``tpu.int8_rows`` (off
-    by default) ships PSK rows as int8 at scale 128 instead, a quarter of
-    the float32 read at about -50 dB of quantization noise. ``fsk_mlse``
-    (None: CONFIG ``modem.batch_mlse``) keeps close- and mid-tone FSK
-    captures flat for the MLSE path.
+    PSK rows and pixel windows are int16 at scale 32768 when the target
+    device is CUDA (half the host-to-device copy and half the kernels'
+    read; exact for int16-PCM sources, which read_wav divides by 32768),
+    float32 otherwise. CONFIG ``tpu.int16_rows`` overrides that choice;
+    CONFIG ``tpu.int8_rows`` (off by default) ships PSK rows as int8 at
+    scale 128 instead, a quarter of the float32 read at about -50 dB of
+    quantization noise. DSSS rows are always float32: its chip front end
+    is a float product, not K1. ``fsk_mlse`` (None: CONFIG
+    ``modem.batch_mlse``) keeps close- and mid-tone FSK captures flat for
+    the MLSE path.
     """
     batch = np.asarray(batch, dtype=np.float32)
     b = batch.shape[0]
     kind, params = _receive_kind(mode, symbol_rate)
     if kind == "fsk":
         return _fsk_host_shape(batch, params, device, _batch_mlse(fsk_mlse))
-    if kind not in ("psk2", "psk4", "psk8"):
+    if kind == "ofdm":
+        shape = ofdm_blocked_row_shape(batch.shape[1], params[0], int(params[2]), SAMPLE_RATE)
+        return batch if shape is None else _overlap_rows(batch, *shape)
+    if kind == "hell":
+        spp = int(round(SAMPLE_RATE / params[0]))
+        n_pix = batch.shape[1] // spp
+        if n_pix < 1:
+            return batch
+        view = batch[:, : n_pix * spp].reshape(b, n_pix, spp)
+        if _int16_rows(device):
+            return np.clip(np.round(view * 32768.0), -32768, 32767).astype(np.int16)
+        return view
+    if kind not in ("psk2", "psk4", "psk8", "dsss"):
         return batch
     shape = blocked_row_shape(batch.shape[1], params[0], SAMPLE_RATE)
     if shape is None:
         return batch
     r, row = shape
     keep = min(batch.shape[1], r * row)
-    i16 = _int16_rows(device)
-    if CONFIG.get("tpu.int8_rows", False):
+    if kind == "dsss":
+        shaped = np.zeros((b, r * row), dtype=np.float32)
+        shaped[:, :keep] = batch[:, :keep]
+    elif CONFIG.get("tpu.int8_rows", False):
         shaped = np.zeros((b, r * row), dtype=np.int8)
         shaped[:, :keep] = np.clip(
             np.round(batch[:, :keep] * 128.0), -128, 127
         ).astype(np.int8)
-    elif i16:
+    elif _int16_rows(device):
         shaped = np.zeros((b, r * row), dtype=np.int16)
         shaped[:, :keep] = np.clip(
             np.round(batch[:, :keep] * 32768.0), -32768, 32767
@@ -643,7 +674,9 @@ def decode_wav_batch(
 
     Returns, per input WAV, the list of file paths recovered from it.
     Frames from all captures feed one assembly registry, so a multi-part
-    transfer spread across several captures reassembles here. WAVs load
+    transfer spread across several captures reassembles here. The text
+    modes save each capture's decoded text (``decoder.save_decoded_text``)
+    and skip the ladder and the escalations. WAVs load
     through the native multi-threaded loader where it built (files at other
     rates than 96 kHz, and unreadable ones, through ``utils.wavio``); with
     ``denoise`` (None defers to CONFIG ``modem.noise_reduction``) each
@@ -654,14 +687,24 @@ def decode_wav_batch(
     captures that yielded nothing go through the MLSE escalation (close-
     and mid-tone FSK without CONFIG ``modem.batch_mlse``: the lost captures
     again as one batch through the MLSE-refined path), the coherent
-    escalation (the carrier-tracked single-capture receiver; psk2, psk4 and
-    psk8 outside the compatibility aliases) and, with ``drift_retry``, the
+    escalation (the carrier-tracked single-capture receiver; psk2, psk4,
+    psk8, OFDM and DSSS outside the compatibility aliases) and, with
+    ``drift_retry``, the
     ±5% clock-drift hypotheses as one extra batched dispatch.
     """
     import os
 
-    from ..decoder import RETRY_FACTORS, default_registry, drift_rows, run_recovery_ladder, save_decoded_files
+    from ..decoder import (
+        RETRY_FACTORS,
+        default_registry,
+        drift_rows,
+        run_recovery_ladder,
+        save_decoded_files,
+        save_decoded_text,
+    )
     from ..native import NATIVE_AVAILABLE, load_wav_batch
+    from ..ops.dsss import dsss_tracked_demodulate
+    from ..ops.ofdm import ofdm_tracked_demodulate
     from ..ops.psk import bpsk_tracked_demodulate, psk8_tracked_demodulate, qpsk_tracked_demodulate
     from ..utils.denoise import spectral_gate
 
@@ -686,6 +729,16 @@ def decode_wav_batch(
         batch[i, : min(len(a), n)] = a[:n]
 
     raws = decode_sample_batch(batch, mode, symbol_rate, device=device)
+    kind, params = resolve_demod_plan(mode, symbol_rate)
+    if kind == "hell":
+        # The text modes' "bytes" are the decoded text, empty where the sync
+        # gate rejected the capture: saved as recv_<ts>_<stem>.txt.
+        texts = []
+        for path, raw in zip(paths, raws):
+            text = raw.decode("ascii", "replace")
+            stem = os.path.splitext(os.path.basename(path))[0]
+            texts.append([save_decoded_text(text, recv_dir, stem)] if text.strip() else [])
+        return texts
     reg = registry or default_registry
 
     def ladder(raw: bytes, samples_i: np.ndarray, rescue: bool):
@@ -704,7 +757,6 @@ def decode_wav_batch(
         if not out[-1] and not frames:
             lost.append(i)
 
-    kind, params = resolve_demod_plan(mode, symbol_rate)
     if (lost and kind == "fsk" and not CONFIG.get("modem.batch_mlse", False)
             and _separation_cycles(*params, SAMPLE_RATE) < 0.8):
         # The batch skips the MLSE refinement by default; re-dispatch only
@@ -725,12 +777,14 @@ def decode_wav_batch(
         lost = still_lost
     if (
         lost
-        and kind in ("psk2", "psk4", "psk8")
+        and kind in ("psk2", "psk4", "psk8", "ofdm", "dsss")
         and CONFIG.get("modem.psk_coherent_escalation", True)
-        and not (kind == "psk8" and CONFIG.get("modem.psk8_compat_alias", False))
+        and _receive_kind(mode, symbol_rate)[0] == kind  # not under a compatibility alias
     ):
         tfn = {"psk2": bpsk_tracked_demodulate, "psk4": qpsk_tracked_demodulate,
-               "psk8": psk8_tracked_demodulate}[kind]
+               "psk8": psk8_tracked_demodulate, "dsss": dsss_tracked_demodulate,
+               "ofdm": lambda x, b, c, sr, device: ofdm_tracked_demodulate(x, b, c, int(params[2]), sr,
+                                                                            device=device)}[kind]
         still_lost = []
         for i in lost:
             if len(arrays[i]) < 2 * int(SAMPLE_RATE // params[0]):

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's receive once on one NVIDIA GPU: the batched PSK
 (DQPSK, DBPSK, D8PSK), FSK (FSK1200, FSK9600, FSK19200, with MSK and FT8
-on the dual-tone kernel) and NEURAL slices, the single-capture PSK, NEURAL
-and FSK receive (``decode_wav_file`` -> ``modem.demodulate`` -> the
-recovery ladder; for FSK9600 the MLSE Viterbi kernel), and the FEC slice
-from the port's own encoder to the card's Viterbi decoder (file ->
-``encode_file`` -> FEC-coded WAV -> ``decode_wav_file`` -> saved file).
+on the dual-tone kernel), NEURAL, OFDM (OFDM4, OFDM8) and DSSS slices, the
+single-capture PSK, NEURAL and FSK receive (``decode_wav_file`` ->
+``modem.demodulate`` -> the recovery ladder; for FSK9600 the MLSE Viterbi
+kernel), the Hellschreiber text modes, and the round trips from the port's
+own encoder to the card (file -> ``encode_file`` -> WAV, FEC-coded or not
+-> ``decode_wav_file`` -> saved file).
 
-    python3 chip_smoke.py    # one card, full size, about 6 minutes on an H100
+    python3 chip_smoke.py    # one card, full size, about 7 minutes on an H100
 
 It runs only on a CUDA card; the CPU checks of the same code are the tests
 ``tests/test_torch_*.py``. On a host with several cards it uses the first
@@ -123,6 +124,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
    one FSK9600 stream-FEC WAV (the MLSE, then the FEC Viterbi);
    ``decode_wav_file(denoise=True)`` of a clean QPSK transmission after a
    lead of silence; and whether the native library built;
+5n, 5o. the OFDM4 and OFDM8 slices at 9600 Bd: 64 captures x 2^24 samples
+   (one seeded 16 KiB payload per capture, tiled from a lead of i mod S
+   samples plus a random number of whole symbols, S = 32 and 64, so that
+   every timing offset class occurs, OFDM8's 64th aside; captures 1 and 2
+   at the carrier +-100 Hz, the last noise) through
+   ``decode_sample_batch``: every signal capture only its own frames, at
+   least floor(2^24/len(wave)) - 1, noise none, K2 and K3 launched and no
+   other kernel; ``decode_wav_batch`` of 4 WAVs written by the port; K2 at
+   each tier and K3 at every (ksel, s8) pair on the dibit streams of a
+   bench batch with its last capture noise, equal to their plain versions;
+5p. the DSSS slice: 64 x 2^24 at 9600 chips/s, 4 KiB payloads, the same
+   gate, no kernel launched;
+5q. the text modes HELLSCHREIBER, FELD_HELL and SLOW_HELL: a 37-character
+   text (the port's ``encode_hellschreiber_text``, FELD_HELL through
+   ``modulate``) and a noise WAV through ``decode_wav_batch`` and
+   ``decode_wav_file``: the text, nothing from noise, no kernel;
+5r. round trips through the port's ``encode_file`` and
+   ``decode_wav_file``: OFDM4 (24 KiB), OFDM8 with stream FEC (the FEC
+   Viterbi kernel) and DSSS (1.5 KiB): the same bytes;
 6. timing with CUDA events (one warm-up, median of 5): ``demod_pack_batch``
    of each mode on its 64 x 2^24 int16 batch staged on the card (PSK with
    cfo_retry on and off, and again with its last capture noise, which
@@ -153,7 +173,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    traceback steps), and on phase 3f's 1 KiB ``FECV`` container (one block,
    known boundaries), the stream-FEC ``decode_wav_file`` of QPSK and
    FSK9600 (wall, median of 3, and device time) and ``spectral_gate`` on a
-   2^24-sample capture.
+   2^24-sample capture; last, on the OFDM4, OFDM8 and DSSS bench batches
+   (float32 rows), ``demod_pack_batch`` by CUDA events and, for OFDM, its
+   stages alone by CUDA events and under ``torch.profiler`` and the whole
+   call under the profiler (idle share, largest kernels).
 
 The line before the last is one JSON object with the kernels' names,
 sources, launch counts, errors, times and bounds (one entry per kernel and
@@ -1142,7 +1165,7 @@ def phase_fsk_kernels(device, n_cap: int, n: int, card: str) -> dict:
     return errs
 
 
-def _check_fsk_frames(mode: str, raws, payloads, min_frames, tag: str, card: str, what: str) -> None:
+def _check_frames(mode: str, raws, payloads, min_frames, tag: str, card: str, what: str) -> None:
     from audio_modem_radio_tpu_torch.framing import parse_frames
 
     n_frames = []
@@ -1204,7 +1227,7 @@ def phase_fsk_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, t
     say(f"[{tag} {mode}] decode_sample_batch wall {wall:.3f} s (host shaping, copy, device, copy back) "
         f"launches={counts[mode]} | {card}")
     _check_launches(counts[mode], _FSK_SLICES[mode]["kernels"], mode, "decode_sample_batch")
-    _check_fsk_frames(mode, raws, payloads, min_frames, tag, card, "decode_sample_batch")
+    _check_frames(mode, raws, payloads, min_frames, tag, card, "decode_sample_batch")
     del raws
 
     if mode == "FSK1200":
@@ -1219,7 +1242,7 @@ def phase_fsk_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, t
             f"launches={counts['FSK1200 flat']} | {card}")
         _check_launches(counts["FSK1200 flat"], ("fsk_project_bits_batch",), mode, "flat")
         raws = [packed[i, : int(n_valid[i])].tobytes() for i in range(n_cap)]
-        _check_fsk_frames(mode, raws, payloads, min_frames, tag, card, "flat demod_pack_batch")
+        _check_frames(mode, raws, payloads, min_frames, tag, card, "flat demod_pack_batch")
         del flat, packed, raws
     del batch
     torch.cuda.empty_cache()
@@ -1685,7 +1708,7 @@ def phase_neural_slice(device, rate: int, n_cap: int, n: int, payload_bytes: int
     check(sum(counts.values()) == len(want), f"{label}: a kernel launched more than once: {counts}")
     check(searched[-1] == -(-n // 128), f"{label}: the noise capture did not escalate the batch to the full search")
     check(peak < 40e9, f"{label}: peak device memory {peak / 1e9:.1f} GB is not under 40 GB")
-    _check_fsk_frames(label, raws, payloads, min_frames, tag, card, "decode_sample_batch")
+    _check_frames(label, raws, payloads, min_frames, tag, card, "decode_sample_batch")
     del batch, raws
     torch.cuda.empty_cache()
     if want:
@@ -2388,6 +2411,297 @@ def phase_fec_timing(fec_args, fec_out: dict, work: str, device, card: str):
     return {"fec_viterbi_blocks": (ms, plain, 1)}, {"fec_viterbi_blocks": bound}
 
 
+# --- OFDM, DSSS and Hellschreiber: the batches, the text modes, the round trips ---
+
+# OFDM slices: mode -> (subcarriers, symbol length S at 9600 Bd).
+_OFDM_SLICES = {"OFDM4": (4, 32), "OFDM8": (8, 64)}
+
+
+def _slice_batch(mode: str, n_cap: int, n: int, payload_bytes: int, carrier: float, lead_of, seed: int):
+    """``n_cap`` captures of ``n`` samples: capture i one seeded payload
+    framed and modulated by the port's modulator on ``carrier`` (+100 Hz for
+    capture 1, -100 Hz for capture 2), tiled from sample ``lead_of(i)``;
+    the last capture seeded noise. Returns (batch, payloads, min_frames),
+    None and 0 for the noise capture."""
+    from audio_modem_radio_tpu_torch.framing import crc32, pack_frame
+    from audio_modem_radio_tpu_torch.ops.dsss import dsss_real_modulate
+    from audio_modem_radio_tpu_torch.ops.ofdm import ofdm_modulate
+
+    rng = np.random.default_rng(seed)
+    batch = np.empty((n_cap, n), np.float32)
+    batch[-1] = np.clip(rng.normal(0.0, 0.3, n), -1, 1)
+    payloads, min_frames = [], []
+    for i in range(n_cap - 1):
+        p = _payload(seed + i, payload_bytes)
+        framed = pack_frame(f"cap{i}.bin", p, 0, 1, len(p), crc32(p))
+        c = carrier + {1: 100.0, 2: -100.0}.get(i, 0.0)
+        if mode == "DSSS":
+            wave = dsss_real_modulate(framed, BAUD, c)
+        else:
+            wave = ofdm_modulate(framed, BAUD, c, _OFDM_SLICES[mode][0])
+        batch[i] = _tiled(wave, n, lead=lead_of(i))
+        payloads.append(p)
+        min_frames.append(max(1, n // len(wave) - 1))
+    return batch, payloads + [None], min_frames + [0]
+
+
+def _launched(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _profiled(fn):
+    """One call of ``fn()`` under ``torch.profiler`` after a warm-up call
+    and a warm-up session (the first session of a process can record no
+    device activity, or its own start-up as wall time): ({kernel name:
+    [ms, count]}, wall ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms_n = by_name.setdefault(e.name, [0.0, 0])
+            ms_n[0] += e.time_range.elapsed_us() / 1e3
+            ms_n[1] += 1
+    return by_name, wall_ms
+
+
+def _stage_ms(x, mode: str, card: str, tag: str) -> None:
+    """OFDM ``demod_pack_batch`` on the staged batch ``x``: Msamples/s by
+    CUDA events (median of 5); each stage alone (passes 1 and 2, the
+    differentials and decisions, the K2 + K3 tail) by CUDA events (median
+    of 5) and by its device kernel time under ``torch.profiler``; the whole
+    call under the profiler, its idle share and its largest kernels."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.ops.kernels import _decide
+    from audio_modem_radio_tpu_torch.ops.ofdm import _ofdm_differentials, _ofdm_front
+    from audio_modem_radio_tpu_torch.parallel.batch import demod_pack_batch, psk4_kernel_sync_tail
+
+    k = _OFDM_SLICES[mode][0]
+    b, n = x.shape[0], x.shape[1] * (x.shape[2] - _OFDM_SLICES[mode][1])
+    ms = _time_ms(lambda: demod_pack_batch(x, mode, BAUD))
+    say(f"[{tag} time] demod_pack_batch {mode} {b} x {n} float32 rows {tuple(x.shape)}: {ms:.3f} ms = "
+        f"{b * n / (ms * 1e-3) / 1e6:.2f} Msamples/s (CUDA events, median of 5) | {card}")
+    front = _ofdm_front(x, BAUD, 12000.0, k, SR)
+    dr, di, _g = _ofdm_differentials(front)
+    hi, lo = _decide(dr, di, 4)
+    del dr, di
+    pad = -hi.shape[1] % (128 * 256)
+    hi, lo = torch.nn.functional.pad(hi, (0, pad)), torch.nn.functional.pad(lo, (0, pad))
+    stages = {
+        "passes 1 and 2 (windows, offset score, the row-shifted table bmm)": lambda: _ofdm_front(x, BAUD, 12000.0, k, SR),
+        "differentials, gains, rotation, Gray decisions": lambda: _decide(*_ofdm_differentials(front)[:2], 4),
+        "the DQPSK tail on the padded streams (K2 tiers, fold, K3)": lambda: psk4_kernel_sync_tail(hi, lo, True),
+    }
+    for label, fn in stages.items():
+        by_name, _wall = _profiled(fn)
+        say(f"[{tag} time]   {_time_ms(fn):9.3f} ms by CUDA events, {sum(v[0] for v in by_name.values()):9.3f} ms "
+            f"of device kernels ({sum(v[1] for v in by_name.values())}) under the profiler: {label} | {card}")
+    del front, hi, lo
+    by_name, wall_ms = _profiled(lambda: demod_pack_batch(x, mode, BAUD))
+    dev_ms = sum(v[0] for v in by_name.values())
+    say(f"[{tag} time] one demod_pack_batch under torch.profiler: device kernels {dev_ms:.3f} ms in "
+        f"{sum(v[1] for v in by_name.values())} kernels, wall {wall_ms:.3f} ms, idle share "
+        f"{1 - dev_ms / wall_ms:.3f} | {card}")
+    for name, (ms_k, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        say(f"[{tag} time]   {ms_k:9.4f} ms x{c:<5d} {name[:100]}")
+
+
+def phase_ofdm_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, tag: str, card: str) -> dict:
+    """One OFDM slice at full width through ``decode_sample_batch`` (K2 and
+    K3 and no other kernel), the frames gate, ``decode_wav_batch`` of 4 WAVs
+    written by the port, and K2 and K3 against their plain versions on
+    OFDM dibit streams (the bench batch with its last capture noise).
+    Returns the launch counts."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.ops.ofdm import ofdm_decision_streams_batch
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
+
+    k, S = _OFDM_SLICES[mode]
+    t_phase = t0 = time.perf_counter()
+    rng = np.random.default_rng(2026)
+    # Capture i starts at i mod S (every offset class once over the signal
+    # captures, OFDM8's last class aside) plus a random whole number of symbols.
+    batch, payloads, min_frames = _slice_batch(mode, n_cap, n, payload_bytes, 12000.0,
+                                               lambda i: i % S + S * int(rng.integers(0, 40)), 7000)
+    say(f"[{tag} {mode}] built {n_cap} x {n} captures (S={S}, leads 0..{min(S, n_cap - 1) - 1} mod S, captures 1 "
+        f"and 2 at +-100 Hz, capture {n_cap - 1} noise) in {time.perf_counter() - t0:.1f} s | {card}")
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    raws = decode_sample_batch(batch, mode, BAUD, device=device)
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    say(f"[{tag} {mode}] decode_sample_batch wall {wall:.3f} s (host shaping, copy, device, copy back) "
+        f"launches={_launched(counts)} | {card}")
+    _check_launches(counts, ("rotation_match_batch", "relabel_pack_batch"), mode, "decode_sample_batch")
+    _check_frames(mode, raws, payloads, min_frames, tag, card, "decode_sample_batch, captures 1 and 2 at +-100 Hz")
+    del batch, raws
+    torch.cuda.empty_cache()
+    _wav_roundtrip(device, mode, payload_bytes, tag)
+
+    # The bench batch: one capture shaped and shipped once, copied on the card.
+    wave = _mode_wave(_payload(0, payload_bytes), "bench.bin", mode, BAUD)
+    xn = _rows(_tiled(wave, n)[None], "f32", device, mode).expand(n_cap, -1, -1).contiguous()
+    g = torch.Generator(device=device).manual_seed(32)
+    xn[-1] = torch.randn(xn.shape[1:], generator=g, device=device) * 0.3
+    hi, lo = ofdm_decision_streams_batch(xn, BAUD, 12000.0, k, SR)
+    pad = -hi.shape[1] % (128 * 256)
+    hi3 = torch.nn.functional.pad(hi, (0, pad)).reshape(n_cap, -1, 128)
+    lo3 = torch.nn.functional.pad(lo, (0, pad)).reshape(n_cap, -1, 128)
+    r = hi3.shape[1]
+    conds, _ = tk.rotation_match_conditions(MAGIC_BIT_PATTERN + MAGIC_BIT_PATTERN2)
+    tiers = tuple(p for p in sorted({256, -(-r // 8 // 256) * 256}) if 2 * p <= r) + (r,)
+    for p in tiers:
+        _check_match(f"K2 qpsk on {mode} streams", tk.rotation_match_batch(
+            hi3, lo3, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p),
+            tk.rotation_match_batch_plain(hi3, lo3, conds, 16, 3, p), p * 128 - 17, [], card, p, r, n_cap)
+    first, found = tk.rotation_match_batch(hi3, lo3, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2,
+                                           rows_scanned=r)
+    check(bool(found[:-1, 0].all()), f"{mode} bench streams: a signal capture has no k=0 magic")
+    _check_pack_every_pair(f"K3 on {mode} streams", tk.relabel_pack_batch, tk.relabel_pack_batch_plain,
+                           hi3, lo3, (2 * first[:, 0]).to(torch.int32), card)
+    del hi, lo, hi3, lo3, xn
+    torch.cuda.empty_cache()
+    say(f"[{tag} {mode}] {time.perf_counter() - t_phase:.1f} s | {card}")
+    return counts
+
+
+def phase_dsss_slice(device, n_cap: int, n: int, payload_bytes: int, card: str) -> dict:
+    """DSSS at 9600 chips/s at full width through ``decode_sample_batch``:
+    no hand-written kernel, the frames gate. Returns the launch counts."""
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
+
+    tag, mode = "5p", "DSSS"
+    t_phase = t0 = time.perf_counter()
+    rng = np.random.default_rng(2027)
+    batch, payloads, min_frames = _slice_batch(mode, n_cap, n, payload_bytes, 3000.0,
+                                               lambda i: int(rng.integers(0, 1281)), 8000)
+    say(f"[{tag} {mode}] built {n_cap} x {n} captures ({payload_bytes}-byte payloads, 16 chips a bit, captures "
+        f"1 and 2 at +-100 Hz, capture {n_cap - 1} noise) in {time.perf_counter() - t0:.1f} s | {card}")
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    raws = decode_sample_batch(batch, mode, BAUD, device=device)
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    say(f"[{tag} {mode}] decode_sample_batch wall {wall:.3f} s launches={_launched(counts)} | {card}")
+    check(sum(counts.values()) == 0, f"DSSS launched a hand-written kernel: {counts}")
+    _check_frames(mode, raws, payloads, min_frames, tag, card, "decode_sample_batch, captures 1 and 2 at +-100 Hz")
+    say(f"[{tag} {mode}] {time.perf_counter() - t_phase:.1f} s | {card}")
+    return counts
+
+
+def phase_ofdm_dsss_timing(device, n_cap: int, n: int, payload_bytes: int, card: str) -> None:
+    """Phase 6's OFDM and DSSS times on their bench batches (one capture
+    tiled to ``n`` samples, shaped as ``host_shape_batch`` ships it, float32,
+    shipped once and copied ``n_cap`` times on the card): OFDM4 and OFDM8
+    by :func:`_stage_ms`, DSSS (``payload_bytes // 4``) ``demod_pack_batch``
+    by CUDA events (median of 5). Run last: the profiler sessions of
+    :func:`_stage_ms` come after every launch check."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.parallel.batch import demod_pack_batch
+
+    for mode in (*_OFDM_SLICES, "DSSS"):
+        t0 = time.perf_counter()
+        p = _payload(0, payload_bytes // 4 if mode == "DSSS" else payload_bytes)
+        x = _rows(_tiled(_mode_wave(p, "bench.bin", mode, BAUD), n)[None], "f32", device, mode)
+        x = x.expand(n_cap, -1, -1).contiguous()
+        check(x.dtype == torch.float32, f"{mode} rows must ship as float32")
+        _, _, found = demod_pack_batch(x, mode, BAUD)
+        check(bool(found.all()), f"{mode} bench batch: a capture found no magic")
+        if mode == "DSSS":
+            ms = _time_ms(lambda: demod_pack_batch(x, mode, BAUD))
+            say(f"[6 time] demod_pack_batch DSSS {n_cap} x {n} float32 rows {tuple(x.shape)}: {ms:.3f} ms = "
+                f"{n_cap * n / (ms * 1e-3) / 1e6:.2f} Msamples/s (CUDA events, median of 5) | {card}")
+        else:
+            _stage_ms(x, mode, card, "6")
+        del x
+        torch.cuda.empty_cache()
+        say(f"[6 time] {mode}: {time.perf_counter() - t0:.1f} s | {card}")
+
+
+_HELL_TEXT = "CQ CQ DE H100 PYTORCH PORT 0123456789"
+
+
+def phase_hell(device, work: str, card: str) -> None:
+    """The text modes: for HELLSCHREIBER and SLOW_HELL a WAV from the port's
+    ``encode_hellschreiber_text``, for FELD_HELL one from ``modulate``, and a
+    noise WAV, through ``decode_wav_batch`` and ``decode_wav_file``: the
+    text saved equals the text sent, noise saves nothing, no hand-written
+    kernel launches."""
+    from audio_modem_radio_tpu_torch.assembly import AssemblyRegistry
+    from audio_modem_radio_tpu_torch.decoder import decode_wav_file
+    from audio_modem_radio_tpu_torch.encoder import encode_hellschreiber_text
+    from audio_modem_radio_tpu_torch.modem import modulate
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_wav_batch
+    from audio_modem_radio_tpu_torch.utils.wavio import write_wav
+
+    noise = os.path.join(work, "hell_noise.wav")
+    write_wav(noise, np.clip(np.random.default_rng(9).normal(0.0, 0.3, 1 << 22), -1, 1).astype(np.float32))
+    for mode, baud in (("HELLSCHREIBER", 122.5), ("FELD_HELL", 122.5), ("SLOW_HELL", 61.25)):
+        t0 = time.perf_counter()
+        if mode == "FELD_HELL":
+            path = os.path.join(work, "feld_hell.wav")
+            write_wav(path, modulate(mode, _HELL_TEXT.encode(), 9600))
+        else:
+            path = encode_hellschreiber_text(_HELL_TEXT, cache_dir=os.path.join(work, "cache_" + mode), baud=baud)
+        tk.reset_launch_counts()
+        saved = decode_wav_batch([path, noise], mode, 9600, recv_dir=os.path.join(work, "recv_b" + mode),
+                                 registry=AssemblyRegistry(journal_dir=""), device=device)
+        check(len(saved[0]) == 1 and open(saved[0][0]).read() == _HELL_TEXT and saved[1] == [],
+              f"{mode}: decode_wav_batch saved {saved}")
+        single = decode_wav_file(path, mode, 9600, recv_dir=os.path.join(work, "recv_f" + mode), device=device)
+        check(len(single) == 1 and open(single[0]).read() == _HELL_TEXT, f"{mode}: decode_wav_file saved {single}")
+        check(decode_wav_file(noise, mode, 9600, recv_dir=os.path.join(work, "recv_n" + mode), device=device) == [],
+              f"{mode}: a noise WAV saved text")
+        counts = tk.launch_counts()
+        check(sum(counts.values()) == 0, f"{mode} launched a hand-written kernel: {counts}")
+        say(f"[5q {mode}] {len(_HELL_TEXT)} characters through decode_wav_batch and decode_wav_file: the text, "
+            f"nothing from noise, no kernel; {time.perf_counter() - t0:.1f} s | {card}")
+
+
+def phase_roundtrips(device, work: str, card: str) -> None:
+    """file -> the port's ``encode_file`` -> WAV -> ``decode_wav_file`` on the
+    card -> the same bytes, for OFDM4, OFDM8 (stream FEC) and DSSS."""
+    from audio_modem_radio_tpu_torch.assembly import AssemblyRegistry
+    from audio_modem_radio_tpu_torch.decoder import decode_wav_file
+    from audio_modem_radio_tpu_torch.encoder import encode_file
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+
+    for mode, size, fec in (("OFDM4", 24576, None), ("OFDM8", 24576, "stream"), ("DSSS", 1536, None)):
+        t0 = time.perf_counter()
+        data = _payload(300 + size, size // 2) + b"round trip on the card " * (size // 46)
+        src = os.path.join(work, f"rt_{mode}.bin")
+        with open(src, "wb") as f:
+            f.write(data)
+        wav = encode_file(src, mode, symbol_rate=BAUD, cache_dir=os.path.join(work, "cache_rt"),
+                          use_fec=fec is not None, fec_type=fec)
+        t_enc = time.perf_counter() - t0
+        tk.reset_launch_counts()
+        t1 = time.perf_counter()
+        saved = decode_wav_file(wav, mode, BAUD, recv_dir=os.path.join(work, "recv_rt" + mode),
+                                registry=AssemblyRegistry(journal_dir=""), stream_fec=fec == "stream",
+                                device=device)
+        wall = time.perf_counter() - t1
+        check(len(saved) == 1 and open(saved[0], "rb").read() == data, f"{mode} round trip: saved {saved}")
+        say(f"[5r {mode}] {len(data)} bytes{' with stream FEC' if fec else ''}: encode_file {t_enc:.3f} s, "
+            f"decode_wav_file {wall:.3f} s, launches={_launched(tk.launch_counts())}, the same bytes | {card}")
+
+
 def main() -> int:
     n, n_k1, n_slice, payload_bytes = 1 << 24, 8, 64, 16384
     # One card: the first visible one (set before torch initialises CUDA).
@@ -2466,6 +2780,15 @@ def main() -> int:
         phase = "5m FEC, encoder to decoder"
         fec_out = phase_fec_single(device, n, fec_work, fec_in, card)
         counts["QPSK stream"] = fec_out["QPSK stream"]
+        for tag, mode in (("5n", "OFDM4"), ("5o", "OFDM8")):
+            phase = f"{tag} {mode} slice"
+            counts[mode] = phase_ofdm_slice(device, mode, n_slice, n, payload_bytes, tag, card)
+        phase = "5p DSSS slice"
+        counts["DSSS"] = phase_dsss_slice(device, n_slice, n, payload_bytes // 4, card)
+        phase = "5q Hellschreiber"
+        phase_hell(device, fec_work, card)
+        phase = "5r round trips"
+        phase_roundtrips(device, fec_work, card)
         phase = "6 timing"
         psk_times, _, bounds = phase_timing(device, n_slice, n, payload_bytes, card)
         times = {k: (ms, plain, n_slice) for k, (ms, plain) in psk_times.items()}
@@ -2485,6 +2808,7 @@ def main() -> int:
         fec_times, fec_bounds = phase_fec_timing(fec_args, fec_out, fec_work, device, card)
         times.update(fec_times)
         bounds.update(fec_bounds)
+        phase_ofdm_dsss_timing(device, n_slice, n, payload_bytes, card)
     except Exception as e:  # any failure: report the phase, print no result
         import traceback
 

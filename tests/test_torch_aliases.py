@@ -1,8 +1,8 @@
-"""The compatibility aliases of modes the port's registry lacks, against the
-JAX package's, on the CPU: DSSS under CONFIG ``modem.dsss_compat_alias``
-(plain DBPSK, 3 kHz) and OFDM4/OFDM8 under ``modem.ofdm_compat_alias``
-(plain DQPSK, 12 kHz), through ``modulate``, ``demodulate``,
-``demod_pack_batch`` and ``decode_sample_batch``."""
+"""The compatibility aliases of DSSS and OFDM against the JAX package's, on
+the CPU: DSSS under CONFIG ``modem.dsss_compat_alias`` (plain DBPSK, 3 kHz)
+and OFDM4/OFDM8 under ``modem.ofdm_compat_alias`` (plain DQPSK, 12 kHz),
+through ``modulate``, ``demodulate``, ``demod_pack_batch`` and
+``decode_sample_batch``."""
 
 import numpy as np
 import pytest
@@ -137,15 +137,19 @@ def test_ofdm_alias_demod_pack_batch_flat_matches_jax(alias_on, monkeypatch, bac
 
 
 def test_ofdm_alias_decode_sample_batch_differs_from_jax(alias_on):
-    """The one difference the alias leaves (ROADMAP.md queue 1, item 4):
-    the JAX package's host shaping builds OFDM rows that its psk4 rewrite
-    then refuses, while the port's keeps OFDM captures flat, so the port
-    decodes them through flat psk4."""
+    """The one difference the alias leaves (ROADMAP.md queue 3, traps of
+    the reference): the JAX package's host shaping builds OFDM rows that
+    its psk4 rewrite then refuses, while the port's host shaping applies
+    the rewrite too, as both packages do for the 8PSK and DSSS aliases: the
+    alias captures get psk4 blocked rows (those of APSK16, the carried mode
+    on the same wire format) and decode."""
     alias_on("OFDM4")
     payload, framed = _framed(4)
     batch = _capture(np.asarray(jmodem.modulate("OFDM4", framed, 9600), np.float32))[None]
     with pytest.raises(ValueError, match="row width"):
         j_decode_sample_batch(batch, "OFDM4", 9600)
-    assert tb.host_shape_batch(batch, "OFDM4", 9600, device="cpu").shape == batch.shape
+    shaped = tb.host_shape_batch(batch, "OFDM4", 9600, device="cpu")
+    assert shaped.shape == (1, 256, 1280) and shaped.dtype == np.float32
+    assert np.array_equal(shaped, tb.host_shape_batch(batch, "APSK16", 9600, device="cpu"))
     raws = tb.decode_sample_batch(batch, "OFDM4", 9600, device="cpu")
     assert [f.data for f in parse_frames(raws[0])] == [payload]

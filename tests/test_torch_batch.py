@@ -160,10 +160,13 @@ def test_host_shape_rule_and_unported_kinds():
     assert tb.host_shape_batch(batch, "QPSK", 9600, device="cpu").dtype == np.float32
     assert tb.host_shape_batch(batch, "FSK1200", 1200, device="cpu") is not None
     assert tb.resolve_demod_plan("NOPE", 9600) == tb.resolve_demod_plan("QPSK", 9600)
-    # The kinds still to port name their ROADMAP.md item.
+    # The kinds once refused (ROADMAP.md queue 1 items 4-6) demodulate a
+    # silent capture as the JAX package's do.
     for mode in ("OFDM4", "DSSS", "HELLSCHREIBER"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tb.demod_pack_batch(torch.zeros((1, 1 << 16)), mode, 9600)
+        ref = [np.asarray(a) for a in j_demod_pack_batch(jnp.zeros((1, 1 << 16)), mode, 9600)]
+        got = [a.numpy() for a in tb.demod_pack_batch(torch.zeros((1, 1 << 16)), mode, 9600)]
+        assert np.array_equal(got[1], ref[1]) and np.array_equal(got[2], ref[2]), mode
+        assert np.array_equal(got[0][0, : got[1][0]], ref[0][0, : ref[1][0]]), mode
     # PSK31 has no blocked path and flat close-tone FSK no fused layout: the
     # single-capture receiver per capture (flat dual-tone FSK runs K13's
     # path, tests/test_torch_fsk.py), equal to the JAX package's on a

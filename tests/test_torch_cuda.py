@@ -1343,3 +1343,80 @@ def test_fec_viterbi_decode_bits_on_the_card(cuda):
     before = tk.fec_viterbi_blocks.launches
     assert fec.stream_fec_decode(fec.stream_fec_encode(framed), device=cuda)[: len(framed)] == framed
     assert tk.fec_viterbi_blocks.launches in (before + 1, before + 2)
+
+
+# --- OFDM, DSSS and Hellschreiber: K2 and K3 on OFDM streams, the batch paths' launches ---
+
+def _ofdm_streams(cuda, mode: str, noise_last: bool = True):
+    """The Gray dibit lanes (B, r, 128) of 3 OFDM captures of 2^19 samples at
+    odd leads (the last one noise), zero-padded to the 128*256 grain as
+    ``demod_pack_batch`` pads them on the card."""
+    from audio_modem_radio_tpu_torch.ops.ofdm import ofdm_decision_streams_batch
+
+    rng = np.random.default_rng(11)
+    n = 1 << 19
+    x = np.zeros((3, n), np.float32)
+    for i in range(2):
+        p = rng.integers(0, 256, 3000, dtype=np.uint8).tobytes()
+        wave = modulate(mode, pack_frame(f"o{i}.bin", p, 0, 1, len(p), crc32(p)), 9600)
+        x[i, 13 + 97 * i : 13 + 97 * i + len(wave)] = wave
+    x[2] = rng.normal(0, 0.3, n)
+    hi, lo = ofdm_decision_streams_batch(torch.from_numpy(x).to(cuda), 9600.0, 12000.0, int(mode[-1]), 96000)
+    pad = -hi.shape[1] % (128 * 256)
+    pad3 = lambda t: torch.nn.functional.pad(t, (0, pad)).reshape(3, -1, 128)  # noqa: E731
+    return pad3(hi), pad3(lo)
+
+
+@pytest.mark.parametrize("mode", ["OFDM4", "OFDM8"])
+def test_rotation_match_and_relabel_pack_kernels_on_ofdm_streams(cuda, mode):
+    """K2 (qpsk family) at every tier and K3 at every (ksel, s8) pair on
+    OFDM dibit streams: equal to their plain versions."""
+    hi, lo = _ofdm_streams(cuda, mode)
+    b, r, _ = hi.shape
+    conds, _ = tk.rotation_match_conditions(MAGIC_BIT_PATTERN + MAGIC_BIT_PATTERN2)
+    for rows in sorted({256, r}):
+        first, found = tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2,
+                                               rows_scanned=rows)
+        ref = tk.rotation_match_batch_plain(hi, lo, conds, 16, 3, rows)
+        found_p = ref < min(1 << 30, rows * 128 - 17)
+        assert torch.equal(found, found_p)
+        assert torch.equal(first, torch.where(found_p, ref, torch.zeros_like(ref)))
+    assert bool(found[:2, 0].all())
+    i = torch.arange(b, device=cuda)
+    for j in range(8):
+        s = (2 * first[:, 0] - (2 * first[:, 0]) % 8 + (i + j) % 8).to(torch.int32)
+        ksel = ((i + j) % 4).to(torch.int32)
+        assert torch.equal(tk.relabel_pack_batch(hi, lo, s, ksel, rows_per_capture=r),
+                           tk.relabel_pack_batch_plain(hi, lo, s, ksel))
+
+
+@pytest.mark.parametrize("mode", ["OFDM4", "OFDM8", "DSSS", "HELLSCHREIBER"])
+def test_new_batch_paths_launch_only_their_kernels(cuda, mode):
+    """``decode_sample_batch`` on the card: OFDM launches K2 and K3 and no
+    other hand-written kernel, DSSS and the text mode none; every signal
+    capture decodes and noise yields nothing."""
+    from audio_modem_radio_tpu_torch.framing import parse_frames
+    from audio_modem_radio_tpu_torch.ops.hell import hellschreiber_modulate
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
+
+    rng = np.random.default_rng(12)
+    n = 1 << 19
+    batch = np.zeros((3, n), np.float32)
+    batch[2] = rng.normal(0, 0.3, n)
+    if mode == "HELLSCHREIBER":
+        wave = hellschreiber_modulate("CQ")
+        batch[0, : len(wave)] = batch[1, : len(wave)] = wave
+        want = [b"CQ", b"CQ", b""]
+    else:
+        p = rng.integers(0, 256, 300 if mode == "DSSS" else 3000, dtype=np.uint8).tobytes()
+        wave = modulate(mode, pack_frame("n.bin", p, 0, 1, len(p), crc32(p)), 9600)
+        batch[0, 7 : 7 + len(wave)] = wave
+        batch[1, 1000 : 1000 + len(wave)] = wave
+    tk.reset_launch_counts()
+    raws = decode_sample_batch(batch, mode, 9600, device=cuda)
+    launched = {k for k, v in tk.launch_counts().items() if v > 0}
+    assert launched == ({"rotation_match_batch", "relabel_pack_batch"} if mode.startswith("OFDM") else set())
+    if mode == "HELLSCHREIBER":
+        assert raws == want
+    else:
+        assert [[f.data for f in parse_frames(r)] for r in raws] == [[p], [p], []]

@@ -2,8 +2,8 @@
 (``streaming.py``) vs the JAX package's, on the CPU: WAVs written by
 ``encode_file``, ``encode_file_paths`` and ``encode_file_parts`` for QPSK,
 BPSK, FSK9600 and NEURAL under no FEC, ``reed_solomon``, ``convolutional``
-and ``stream``; the modes the port does not carry; the fallback ladder; the
-throughput model; and ``StreamingDecoder``.
+and ``stream``; OFDM, DSSS and the Hellschreiber modes; the fallback ladder;
+the throughput model; and ``StreamingDecoder``.
 
 The modulated float waveforms are compared as the modulator tests compare
 them: bit for bit for BPSK and NEURAL, within 1e-6 for QPSK and FSK9600
@@ -133,22 +133,31 @@ def configs(monkeypatch):
     return set_both
 
 
-@pytest.mark.parametrize("mode,item", [("OFDM4", "item 4"), ("OFDM8", "item 4"), ("DSSS", "item 5"),
-                                       ("HELLSCHREIBER", "item 6"), ("SLOW_HELL", "item 6")])
-def test_unported_modes_raise_and_are_never_encoded_as_another(tmp_path, mode, item):
-    """A mode of the JAX registry the port does not carry raises
-    NotImplementedError naming its ROADMAP.md item, on the single-file and
-    the multi-part path, and writes no WAV (the unknown-mode arm would have
-    encoded it as QPSK, the fallback ladder as BPSK)."""
-    src = _file(tmp_path, 300, 5)
-    with pytest.raises(NotImplementedError, match=item):
-        tenc.encode_file(src, mode, cache_dir=str(tmp_path / "t"))
-    with pytest.raises(NotImplementedError, match=item):
-        tenc.encode_file_parts(tenc.split_file_for_transmission(src, mode, 9600), mode, True, 9600,
-                               cache_dir=str(tmp_path / "t"))
-    assert os.listdir(tmp_path / "t") == []
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tenc.encode_hellschreiber_text("CQ", cache_dir=str(tmp_path / "t"))
+@pytest.mark.parametrize("mode,rate,size", [("OFDM4", 1200, 700), ("OFDM8", 1200, 1300), ("DSSS", 9600, 100),
+                                            ("HELLSCHREIBER", 9600, 30), ("SLOW_HELL", 9600, 16)])
+def test_unported_modes_raise_and_are_never_encoded_as_another(tmp_path, waves, mode, rate, size):
+    """The modes the port once refused (ROADMAP.md queue 1, items 4-6) now
+    encode as the JAX package's, on the single-file and the multi-part
+    path (a file of two or three parts at 1 s on air), each as itself (never as
+    QPSK or BPSK: the same WAVs within the QPSK tolerance);
+    ``encode_hellschreiber_text`` writes the JAX package's WAV. (The name
+    dates from when they raised NotImplementedError.)"""
+    src = _file(tmp_path, size, 5)
+    jp = jenc.encode_file(src, mode, True, rate, cache_dir=str(tmp_path / "j"))
+    tp = tenc.encode_file(src, mode, True, rate, cache_dir=str(tmp_path / "t"))
+    _compare([jp], [tp], waves, mode)
+    parts = tenc.split_file_for_transmission(src, mode, rate, 1)
+    assert parts == jenc.split_file_for_transmission(src, mode, rate, 1) and len(parts) > 1
+    waves["j"].clear()
+    waves["t"].clear()
+    jp = jenc.encode_file_parts(parts, mode, True, rate, cache_dir=str(tmp_path / "jp"))
+    tp = tenc.encode_file_parts(parts, mode, True, rate, cache_dir=str(tmp_path / "tp"))
+    _compare(jp, tp, waves, mode)
+    waves["j"].clear()
+    waves["t"].clear()
+    jh = jenc.encode_hellschreiber_text("CQ", cache_dir=str(tmp_path / "jh"))
+    th = tenc.encode_hellschreiber_text("CQ", cache_dir=str(tmp_path / "th"))
+    _compare([jh], [th], waves, "HELLSCHREIBER")
 
 
 @pytest.mark.parametrize("mode,key", [("OFDM4", "ofdm_compat_alias"), ("DSSS", "dsss_compat_alias")])

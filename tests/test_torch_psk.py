@@ -68,7 +68,7 @@ def test_qpsk_modulate_matches_jax(baud):
 
 def test_modulate_unknown_mode_raises():
     with pytest.raises(ValueError):
-        tmodem.modulate("OFDM4", b"x", 1200)
+        tmodem.modulate("NO_SUCH_MODE", b"x", 1200)
 
 
 @pytest.mark.parametrize("baud", [9600, 1200])
