@@ -22,6 +22,14 @@ native C++ host runtime (``native.py``) scans frames, loads WAV batches and
 sweeps long Viterbi inputs. Entry points run on the card unless the caller
 passes ``device="cpu"``; on tensors that lie on the CPU each kernel's
 wrapper runs its plain PyTorch version.
+
+The front ends are the JAX package's, carried over: the command line
+(``cli.py``, ``amr-torch``), the console app (``app.py``,
+``amr-torch-app``), the curses TUI (``tui.py``, ``amr-torch-tui``) and
+the tkinter GUI (``gui.py``, ``amr-torch-gui``), with their host modules
+``audio_io`` (playback, capture, ``ReceiveSession``), ``ptt``,
+``observability``, ``intelligence`` and ``diagrams``. Their decodes take
+``--device`` (``device=``): the card unless ``cpu`` is named.
 """
 
 from .utils import torchenv  # noqa: F401  (pins float32 products to IEEE float32)

@@ -21,7 +21,7 @@ from typing import Dict, List, Optional
 
 from .framing import Frame, crc32
 
-logger = logging.getLogger("audio_modem_radio_tpu")
+logger = logging.getLogger("audio_modem_radio_tpu_torch")
 
 
 class FileAssembly:

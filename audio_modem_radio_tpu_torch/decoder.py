@@ -39,7 +39,7 @@ from .fec import unwrap_fec
 from .framing import Frame, crc32, parse_frames, parse_frames_detailed, scan_frame_candidates
 from .modem import SAMPLE_RATE, demodulate
 from .utils.compression import intelligent_decompress
-from .utils.torchenv import DeviceLike
+from .utils.torchenv import DeviceLike, resolve_device
 from .utils.wavio import read_wav, resample
 
 logger = logging.getLogger("audio_modem_radio_tpu_torch")
@@ -637,9 +637,11 @@ def decode_from_buffer(
     bucket-pad, ``modem.demodulate``, :func:`run_recovery_ladder` (with
     ``stream_fec``, the stream Viterbi-decoded first: transmissions made
     with ``fec_type="stream"``), save. A failure in demodulation is logged
-    and saves nothing, as in the JAX package. The text modes take the
+    and saves nothing, as in the JAX package; a missing card is not such a
+    failure and raises (``utils.torchenv.resolve_device``). The text modes take the
     batched glyph match (its sync gate and first-all-on-row stop rule on
     the bucket-padded capture) and save the text, when there is any."""
+    device = resolve_device(device)  # no card: raise here, never decode on the CPU
     samples = _prepare(data, sample_rate, denoise, device)
     if mode in TEXT_MODES:
         from .ops.hell import hellschreiber_demodulate_batch
@@ -725,6 +727,7 @@ def decode_with_retry(
 
     from .fec import stream_fec_decode
 
+    device = resolve_device(device)  # no card: raise here, never decode on the CPU
     samples = np.asarray(data, dtype=np.float32)
     factors = RETRY_FACTORS[:max_retries]
     reg = registry or default_registry

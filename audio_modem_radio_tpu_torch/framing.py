@@ -27,7 +27,7 @@ from typing import List, Set, Tuple
 
 import numpy as np
 
-logger = logging.getLogger("audio_modem_radio_tpu")
+logger = logging.getLogger("audio_modem_radio_tpu_torch")
 
 MAGIC = b"FBPC"
 # First 16 bits of the magic, used by the demodulators for bit alignment

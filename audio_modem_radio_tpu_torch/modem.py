@@ -429,12 +429,18 @@ MODES: Dict[str, ModeSpec] = {
 }
 
 
-# Display catalogs of the reference GUI: the JAX package's lists less its
-# 37 labels no package can transmit (FT4 ... LORA), which come back with
-# the UI (ROADMAP.md queue 1, item 8).
-DIGITAL_MODES = ["FSK1200", "FSK9600", "BPSK", "QPSK", "8PSK", "FSK19200", "OFDM4", "OFDM8",
-                 "APSK16", "DSSS", "MSK", "FT8", "PSK31"]
-ANALOG_MODES = ["SSTV", "HELLSCHREIBER", "FELD_HELL", "SLOW_HELL"]
+# Display-only mode catalogs (reference filebeep_advanced_v2.py:80-87): the
+# reference GUI lists 45+ ham modes it cannot transmit; they are kept verbatim
+# as labels for UI parity. Transmittable modes are exactly MODES above.
+DIGITAL_MODES = [
+    "FSK1200", "FSK9600", "BPSK", "QPSK", "8PSK", "FSK19200", "OFDM4", "OFDM8",
+    "APSK16", "DSSS", "MSK", "FT8", "FT4", "JT65", "JT9", "MSK144", "WSPR",
+    "JS8", "PSK31", "PSK63", "BPSK31", "RTTY", "FSK", "MFSK8", "MFSK16",
+    "AFSK1200", "AFSK2400", "AX25", "PACTOR", "ARDOP", "VARA", "WINLINK",
+    "DMR", "DSTAR", "NXDN", "P25", "YSF", "TETRA", "OLIVIA", "THOR", "MT63",
+    "FSQ", "ALE", "CLOVER", "CHIRP", "COFDM", "LRPT", "DVB_S2", "LORA",
+]
+ANALOG_MODES = ["SSTV", "HELLSCHREIBER", "FELD_HELL", "SLOW_HELL"]  # all real here
 
 
 def modulate(mode: str, framed: bytes, symbol_rate: int) -> np.ndarray:

@@ -4,9 +4,10 @@
 on the dual-tone kernel), NEURAL, OFDM (OFDM4, OFDM8) and DSSS slices, the
 single-capture PSK, NEURAL and FSK receive (``decode_wav_file`` ->
 ``modem.demodulate`` -> the recovery ladder; for FSK9600 the MLSE Viterbi
-kernel), the Hellschreiber text modes, and the round trips from the port's
+kernel), the Hellschreiber text modes, the round trips from the port's
 own encoder to the card (file -> ``encode_file`` -> WAV, FEC-coded or not
--> ``decode_wav_file`` -> saved file).
+-> ``decode_wav_file`` -> saved file), and the front ends (the command
+line, the console app, the GUI's view model, live reception).
 
     python3 chip_smoke.py    # one card, full size, about 7 minutes on an H100
 
@@ -143,6 +144,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
 5r. round trips through the port's ``encode_file`` and
    ``decode_wav_file``: OFDM4 (24 KiB), OFDM8 with stream FEC (the FEC
    Viterbi kernel) and DSSS (1.5 KiB): the same bytes;
+5s. the front ends on the card, through the entry points a user calls and
+   with no device named: a 100 KiB random file through ``cli encode-file``
+   (QPSK@9600), decoded by ``gui.GuiViewModel.start_decode`` (first: a
+   worker thread's decode), ``decode_wav_file``, the GUI again, ``cli
+   decode-wav``, the console app (scripted input) and
+   ``audio_io.ReceiveSession`` over a ``FileRecorder`` of the WAV at 48 kHz,
+   each the same bytes with K11 launched; ``decode-wav --batch`` of 8 such
+   WAVs (K1, K2, K3), ``--stream-fec`` of 32 KiB (the FEC Viterbi), an
+   FSK9600 file of 16 KiB (the MLSE Viterbi), ``decode-stream --wav`` (K11)
+   and a noise WAV (exit 1); ``PerformanceMonitor`` names the card; each
+   front end's host wall beside ``decode_wav_file``'s;
 6. timing with CUDA events (one warm-up, median of 5): ``demod_pack_batch``
    of each mode on its 64 x 2^24 int16 batch staged on the card (PSK with
    cfo_retry on and off, and again with its last capture noise, which
@@ -2702,6 +2714,227 @@ def phase_roundtrips(device, work: str, card: str) -> None:
             f"decode_wav_file {wall:.3f} s, launches={_launched(tk.launch_counts())}, the same bytes | {card}")
 
 
+# Phase 5s: the size of the QPSK file the front ends decode, of the
+# stream-FEC file and of the FSK9600 file; the batch's WAV count.
+_FRONT_BYTES, _FRONT_FEC_BYTES, _FRONT_FSK_BYTES, _FRONT_BATCH = 100 * 1024, 32 * 1024, 16 * 1024, 8
+# Each front-end decode -> the kernels it must launch.
+_FRONT_KERNELS = {
+    "single": ("psk_project_diff",),
+    "batch": ("psk_project_decide_batch", "rotation_match_batch", "relabel_pack_batch"),
+    "stream FEC": ("fec_viterbi_blocks",),
+    "FSK9600": ("mlse_viterbi_blocks",),
+}
+
+# The phase's decodes of the QPSK WAV that decode_wav_file also decodes.
+_FRONT_SAME_WAV = ("gui start_decode (first)", "gui start_decode", "cli decode-wav", "console app decode", "ReceiveSession (48 kHz)",
+                   "cli decode-stream --wav")
+
+
+def _front_file(work: str, name: str, n_bytes: int, seed: int) -> bytes:
+    data = np.random.default_rng(seed).integers(0, 256, n_bytes, dtype=np.uint8).tobytes()
+    with open(os.path.join(work, name), "wb") as f:
+        f.write(data)
+    return data
+
+
+def _cli(argv):
+    """The port's ``cli.main(argv)``: (exit code, stdout lines, host seconds)."""
+    import contextlib
+    import io
+
+    from audio_modem_radio_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def _read_all(paths):
+    out = []
+    for p in paths:
+        with open(p, "rb") as f:
+            out.append(f.read())
+    return out
+
+
+def phase_front_ends(work: str, card: str) -> None:
+    """The port's front ends on the card, each through the entry point a
+    user calls, with no device named (the card): a ~100 KiB
+    random file through ``cli encode-file`` (QPSK@9600), then decoded by the
+    GUI view model on its worker thread (first: the first front-end decode
+    of the process is a worker thread's), ``decode_wav_file`` (the
+    reference wall), ``cli decode-wav``, the console app (scripted input)
+    and ``ReceiveSession`` over a ``FileRecorder`` of the WAV at 48 kHz; then
+    ``decode-wav --batch`` of 8 such WAVs, ``--stream-fec``, an FSK9600 WAV,
+    ``decode-stream --wav`` and a noise WAV (exit 1). Each decode saves the
+    source's bytes and launches its kernels; each front end's host wall is
+    printed beside ``decode_wav_file``'s."""
+    import builtins
+    import contextlib
+    import io
+    import logging
+    import queue
+
+    import torch
+
+    from audio_modem_radio_tpu_torch.app import ConsoleApp
+    from audio_modem_radio_tpu_torch.audio_io import FileRecorder, ReceiveSession
+    from audio_modem_radio_tpu_torch.decoder import decode_wav_file
+    from audio_modem_radio_tpu_torch.gui import GuiViewModel
+    from audio_modem_radio_tpu_torch.observability import LOGGER_NAME, AnalyticsStore, PerformanceMonitor
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.utils.wavio import read_wav, resample, write_wav
+
+    t_phase = time.perf_counter()
+    qpsk = ["--mode", "QPSK", "--symbol-rate", str(BAUD)]
+    walls, launches = {}, {}
+
+    def launched(label: str, kind: str) -> None:
+        counts = _launched(tk.launch_counts())
+        launches[label] = counts
+        missing = [k for k in _FRONT_KERNELS[kind] if not counts.get(k)]
+        check(not missing, f"{label}: kernels {missing} not launched ({counts})")
+
+    root = os.path.join(work, "front")
+    os.makedirs(root, exist_ok=True)
+    old_cwd, old_input = os.getcwd(), builtins.input
+    os.chdir(root)  # the front ends write their analytics, playlist and log here
+    try:
+        data = _front_file(root, "front.bin", _FRONT_BYTES, 501)
+        rc, out, walls["cli encode-file"] = _cli(["encode-file", "front.bin", *qpsk])
+        check(rc == 0 and out[-1].endswith(".wav"), f"cli encode-file: rc {rc}, {out}")
+        wav = os.path.abspath(out[-1])
+        n_samples = len(read_wav(wav)[0])
+
+        vm = GuiViewModel(playlist_path=os.path.join(root, "playlist.json"))
+        vm.mode, vm.symbol_rate = "QPSK", BAUD
+
+        def gui_decode(label: str) -> None:
+            tk.reset_launch_counts()
+            t0 = time.perf_counter()
+            vm.start_decode(wav).join(timeout=600)
+            walls[label] = time.perf_counter() - t0
+            events = []
+            while True:
+                try:
+                    events.append(vm.events.get_nowait())
+                except queue.Empty:
+                    break
+            errors = [e for e in events if e[0] == "error"]
+            decoded = [e for e in events if e[0] == "decoded"]
+            check(not errors and len(decoded) == 1 and _read_all(decoded[0][1]) == [data],
+                  f"{label}: events {events}")
+            launched(label, "single")
+
+        gui_decode("gui start_decode (first)")
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        saved = decode_wav_file(wav, "QPSK", BAUD, recv_dir=os.path.join(root, "recv_ref"))
+        walls["decode_wav_file"] = time.perf_counter() - t0
+        check(_read_all(saved) == [data], f"decode_wav_file saved {saved}")
+        launched("decode_wav_file", "single")
+        gui_decode("gui start_decode")
+
+        tk.reset_launch_counts()
+        rc, out, walls["cli decode-wav"] = _cli(["decode-wav", wav, *qpsk, "--recv-dir", "recv_cli"])
+        check(rc == 0 and out[0] == f"{wav}: 1 file(s)" and _read_all(out[1:]) == [data],
+              f"cli decode-wav: rc {rc}, {out}")
+        launched("cli decode-wav", "single")
+
+        tk.reset_launch_counts()
+        script = iter(["decode", wav, "QPSK", str(BAUD), "quit"])
+        builtins.input = lambda *_: next(script)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            ConsoleApp(analytics=AnalyticsStore(os.path.join(root, "app_analytics.json"))).run()
+        walls["console app decode"] = time.perf_counter() - t0
+        builtins.input = old_input
+        lines = buf.getvalue().splitlines()
+        check("1 file(s) recovered" in lines, f"console app: {lines}")
+        got = _read_all([lines[lines.index("1 file(s) recovered") + 1].strip()])
+        check(got == [data], "console app: saved other bytes")
+        launched("console app decode", "single")
+
+        mic = os.path.join(root, "mic48k.wav")
+        x, sr = read_wav(wav)
+        write_wav(mic, resample(x, sr, 48000), 48000)
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        saved = ReceiveSession("QPSK", BAUD, FileRecorder(mic), recv_dir=os.path.join(root, "recv_live")).run(60.0)
+        walls["ReceiveSession (48 kHz)"] = time.perf_counter() - t0
+        check(_read_all(saved) == [data], f"ReceiveSession saved {saved}")
+        launched("ReceiveSession (48 kHz)", "single")
+
+        batch_data, batch_wavs = [], []
+        for i in range(_FRONT_BATCH):
+            batch_data.append(_front_file(root, f"batch{i}.bin", _FRONT_BYTES, 510 + i))
+            rc, out, _ = _cli(["encode-file", f"batch{i}.bin", *qpsk, "--cache-dir", "cache_batch"])
+            check(rc == 0, f"cli encode-file batch{i}: rc {rc}")
+            batch_wavs.append(os.path.abspath(out[-1]))
+        tk.reset_launch_counts()
+        label = f"cli decode-wav --batch ({_FRONT_BATCH})"
+        rc, out, walls[label] = _cli(
+            ["decode-wav", *batch_wavs, *qpsk, "--batch", "--recv-dir", "recv_batch"])
+        check(rc == 0 and out[:_FRONT_BATCH] == [f"{w}: 1 file(s)" for w in batch_wavs]
+              and _read_all(out[_FRONT_BATCH:]) == batch_data, f"cli decode-wav --batch: rc {rc}, {out}")
+        launched(label, "batch")
+
+        fec_data = _front_file(root, "fec.bin", _FRONT_FEC_BYTES, 520)
+        rc, out, _ = _cli(["encode-file", "fec.bin", *qpsk, "--fec", "--fec-type", "stream", "--cache-dir",
+                           "cache_fec"])
+        check(rc == 0, f"cli encode-file --fec-type stream: rc {rc}")
+        tk.reset_launch_counts()
+        rc, out, walls["cli decode-wav --stream-fec"] = _cli(
+            ["decode-wav", out[-1], *qpsk, "--stream-fec", "--recv-dir", "recv_fec"])
+        check(rc == 0 and _read_all(out[1:]) == [fec_data], f"cli decode-wav --stream-fec: rc {rc}, {out}")
+        launched("cli decode-wav --stream-fec", "stream FEC")
+
+        fsk_data = _front_file(root, "fsk.bin", _FRONT_FSK_BYTES, 530)
+        fsk = ["--mode", "FSK9600", "--symbol-rate", "9600"]
+        rc, out, _ = _cli(["encode-file", "fsk.bin", *fsk, "--cache-dir", "cache_fsk"])
+        check(rc == 0, f"cli encode-file FSK9600: rc {rc}")
+        tk.reset_launch_counts()
+        rc, out, walls["cli decode-wav FSK9600"] = _cli(["decode-wav", out[-1], *fsk, "--recv-dir", "recv_fsk"])
+        check(rc == 0 and _read_all(out[1:]) == [fsk_data], f"cli decode-wav FSK9600: rc {rc}, {out}")
+        launched("cli decode-wav FSK9600", "FSK9600")
+
+        tk.reset_launch_counts()
+        window = str(1 << max(20, n_samples.bit_length()))  # one window holds the whole frame
+        rc, out, walls["cli decode-stream --wav"] = _cli(
+            ["decode-stream", "--wav", wav, *qpsk, "--window", window, "--recv-dir", "recv_stream"])
+        check(rc == 0 and _read_all([ln.split(": ", 1)[1] for ln in out]) == [data],
+              f"cli decode-stream: rc {rc}, {out}")
+        launched("cli decode-stream --wav", "single")
+
+        noise = os.path.join(root, "noise.wav")
+        write_wav(noise, np.clip(np.random.default_rng(540).normal(0.0, 0.3, n_samples), -1, 1).astype(np.float32))
+        rc, out, walls["cli decode-wav (noise)"] = _cli(["decode-wav", noise, *qpsk, "--recv-dir", "recv_noise"])
+        check(rc == 1 and out == [f"{noise}: 0 file(s)"], f"cli decode-wav of noise: rc {rc}, {out}")
+
+        devices = PerformanceMonitor().sample().get("devices", [])
+        check(devices and torch.cuda.get_device_name(0) in devices[0],
+              f"PerformanceMonitor lists {devices}, not the card")
+    finally:
+        builtins.input = old_input
+        os.chdir(old_cwd)
+        logger = logging.getLogger(LOGGER_NAME)  # the app's file handler
+        for h in logger.handlers:
+            h.close()
+        logger.handlers.clear()
+    ref = walls["decode_wav_file"]
+    say(f"[5s front ends] {len(data)}-byte QPSK@{BAUD} file, {n_samples} samples; PerformanceMonitor devices "
+        f"{devices} | {card}")
+    for label, wall in walls.items():
+        # The front ends that decode the same WAV as decode_wav_file: their
+        # host overhead is the difference.
+        beside = f", decode_wav_file {ref:.3f} s, overhead {wall - ref:+.3f} s" if label in _FRONT_SAME_WAV else ""
+        say(f"[5s front ends] {label}: wall {wall:.3f} s{beside}, launches={launches.get(label, {})} | {card}")
+    say(f"[5s front ends] phase {time.perf_counter() - t_phase:.1f} s | {card}")
+
+
 def main() -> int:
     n, n_k1, n_slice, payload_bytes = 1 << 24, 8, 64, 16384
     # One card: the first visible one (set before torch initialises CUDA).
@@ -2789,6 +3022,8 @@ def main() -> int:
         phase_hell(device, fec_work, card)
         phase = "5r round trips"
         phase_roundtrips(device, fec_work, card)
+        phase = "5s front ends"
+        phase_front_ends(fec_work, card)
         phase = "6 timing"
         psk_times, _, bounds = phase_timing(device, n_slice, n, payload_bytes, card)
         times = {k: (ms, plain, n_slice) for k, (ms, plain) in psk_times.items()}

@@ -23,6 +23,17 @@ batch = np.zeros((1, 1 << 16), np.float32)
 batch[0, : len(wave)] = wave
 raw = decode_sample_batch(batch, "QPSK", 9600, device="cpu")[0]
 assert [f.data for f in amt.parse_frames(raw)] == [data]
+
+# The command line, in a scratch directory (it writes its analytics file
+# there), and the other front ends and host modules imported.
+import os, tempfile
+from audio_modem_radio_tpu_torch import app, audio_io, cli, diagrams, gui, intelligence, observability, ptt, tui
+from audio_modem_radio_tpu_torch.utils.wavio import write_wav
+scratch = tempfile.TemporaryDirectory()
+os.chdir(scratch.name)
+write_wav("j.wav", wave)
+assert cli.main(["decode-wav", "j.wav", "--device", "cpu", "--recv-dir", "r"]) == 0
+assert [open(os.path.join("r", f), "rb").read() for f in os.listdir("r") if f.startswith("recv_")] == [data]
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "audio_modem_radio_tpu.")))
 print("LEAKED", leaked)
 """
