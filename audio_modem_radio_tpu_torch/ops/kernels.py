@@ -34,7 +34,8 @@ Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. For tensors on the CPU it runs the plain version
 beside it; for CUDA tensors it launches the hand-written kernel on the
 current stream (there is no fallback), checks the launch's error code and
-adds one to its ``launches`` attribute.
+adds one to its ``launches`` attribute, under one lock, so that the
+shard threads of a data-parallel mesh count every launch.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from __future__ import annotations
 import collections
 import functools
 import math
+import threading
 import weakref
 from typing import Tuple
 
@@ -56,6 +58,16 @@ _BIG = 1 << 30  # "no match" sentinel of the magic matchers
 _DECIDE_DTYPES = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
 _MATCH_SPAN = 32  # K2's widest window: offsets 0..31 (csrc/rotmatch.cu)
 _BYTE_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+_COUNT_LOCK = threading.Lock()
+_CACHE_LOCK = threading.Lock()
+
+
+def _count(fn) -> None:
+    """One launch of ``fn``'s kernel."""
+    with _COUNT_LOCK:
+        fn.launches += 1
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -250,14 +262,16 @@ def _decide_template(w_all: torch.Tensor, spsym: int) -> torch.Tensor:
     is 10 MB at 9600 Bd), so it is used only while that very tensor is alive
     and its version counter shows no write since."""
     key = (w_all.data_ptr(), w_all._version, tuple(w_all.shape), w_all.device, spsym)
-    hit = _DECIDE_TEMPLATES.get(key)
-    if hit is not None and hit[0]() is w_all:
-        _DECIDE_TEMPLATES.move_to_end(key)
-        return hit[1]
+    with _CACHE_LOCK:
+        hit = _DECIDE_TEMPLATES.get(key)
+        if hit is not None and hit[0]() is w_all:
+            _DECIDE_TEMPLATES.move_to_end(key)
+            return hit[1]
     tmpl = _dual_basis(w_all, spsym)
-    _DECIDE_TEMPLATES[key] = (weakref.ref(w_all), tmpl)
-    while len(_DECIDE_TEMPLATES) > 8:
-        _DECIDE_TEMPLATES.popitem(last=False)
+    with _CACHE_LOCK:
+        _DECIDE_TEMPLATES[key] = (weakref.ref(w_all), tmpl)
+        while len(_DECIDE_TEMPLATES) > 8:
+            _DECIDE_TEMPLATES.popitem(last=False)
     return tmpl
 
 
@@ -312,7 +326,7 @@ def psk_project_decide_batch(
     lo = None if n_psk == 8 else torch.empty_like(hi)
     _launch("amr_decide", dev, _ptr(x3d), _DECIDE_DTYPES[x3d.dtype], n_psk, _ptr(tmpl),
             _ptr(best), _ptr(rot), _ptr(hi), None if lo is None else _ptr(lo), b, r, spsym)
-    psk_project_decide_batch.launches += 1
+    _count(psk_project_decide_batch)
     return hi if n_psk == 8 else (hi, lo)
 
 
@@ -375,7 +389,7 @@ def psk_project_diff_batch(
     d_im = torch.empty_like(d_re)
     _launch("amr_project_diff_batch", dev, _ptr(x3d), _DIFF_DTYPES[x3d.dtype], _ptr(_decide_template(w_all, spsym)),
             _ptr(best), _ptr(d_re), _ptr(d_im), b, r, spsym)
-    psk_project_diff_batch.launches += 1
+    _count(psk_project_diff_batch)
     return d_re, d_im
 
 
@@ -400,7 +414,7 @@ def psk_project_diff(
     d_im = torch.empty_like(d_re)
     _launch("amr_project_diff", dev, _ptr(x2d), _DIFF_DTYPES[x2d.dtype], _ptr(_dual_basis(w[None], spsym)),
             _ptr(d_re), _ptr(d_im), r, spsym)
-    psk_project_diff.launches += 1
+    _count(psk_project_diff)
     return d_re, d_im
 
 
@@ -417,11 +431,12 @@ _MAX_CAPTURES = 65535
 
 def _match_state(dev: torch.device, stream: int) -> Tuple[torch.Tensor, torch.Tensor]:
     key = (dev.index, stream)
-    state = _MATCH_STATE.get(key)
-    if state is None:
-        scratch = torch.empty((_MAX_CAPTURES, 8), dtype=torch.int32, device=dev)
-        ticket = torch.zeros(_MAX_CAPTURES, dtype=torch.int32, device=dev)
-        state = _MATCH_STATE[key] = (scratch, ticket)
+    with _CACHE_LOCK:
+        state = _MATCH_STATE.get(key)
+        if state is None:
+            scratch = torch.empty((_MAX_CAPTURES, 8), dtype=torch.int32, device=dev)
+            ticket = torch.zeros(_MAX_CAPTURES, dtype=torch.int32, device=dev)
+            state = _MATCH_STATE[key] = (scratch, ticket)
     return state
 
 
@@ -578,7 +593,7 @@ def rotation_match_batch(
     found = torch.empty((b, len(conds)), dtype=torch.bool, device=dev)
     _launch("amr_rotation_first", dev, _ptr(hi), _ptr(lo), table_ptr, len(conds), tol, n_pat, _ptr(first),
             _ptr(found), _ptr(scratch), scratch.shape[0], _ptr(ticket), b, r, p, stream=stream)
-    rotation_match_batch.launches += 1
+    _count(rotation_match_batch)
     return first, found
 
 
@@ -625,7 +640,7 @@ def relabel_pack_batch(
     _require_aligned("relabel_pack_batch", lo3)
     out = torch.empty((b, r * 32), dtype=torch.uint8, device=dev)
     _launch("amr_relabel_pack", dev, _ptr(hi3), _ptr(lo3), _ptr(s), _ptr(ksel), _ptr(out), b, r)
-    relabel_pack_batch.launches += 1
+    _count(relabel_pack_batch)
     return out
 
 
@@ -670,7 +685,7 @@ def bit_select_pack_batch(
     _require_aligned("bit_select_pack_batch", im3)
     out = torch.empty((b, r * 16), dtype=torch.uint8, device=dev)
     _launch("amr_bit_select_pack", dev, _ptr(re3), _ptr(im3), _ptr(s), _ptr(ksel), _ptr(out), b, r)
-    bit_select_pack_batch.launches += 1
+    _count(bit_select_pack_batch)
     return out
 
 
@@ -787,7 +802,7 @@ def sector_match_batch(
     found = torch.empty((b, len(conds)), dtype=torch.bool, device=dev)
     _launch("amr_sector_first", dev, _ptr(sec3), table_ptr, len(conds), tol, n_sym, _ptr(first),
             _ptr(found), _ptr(scratch), scratch.shape[0], _ptr(ticket), b, r, p, stream=stream)
-    sector_match_batch.launches += 1
+    _count(sector_match_batch)
     return first, found
 
 
@@ -825,7 +840,7 @@ def psk8_relabel_pack_rows(
     _require_aligned("psk8_relabel_pack_rows", sec3)
     out = torch.empty((b, r * 48), dtype=torch.uint8, device=dev)
     _launch("amr_psk8_pack", dev, _ptr(sec3), _ptr(ksel), _ptr(r8), _ptr(out), b, r)
-    psk8_relabel_pack_rows.launches += 1
+    _count(psk8_relabel_pack_rows)
     return out
 
 
@@ -872,16 +887,18 @@ def _dual_tables(w: torch.Tensor, flat: bool) -> Tuple[torch.Tensor, torch.Tenso
     tensor can take its address, and is used only while the template's
     version counter shows no write since."""
     key = (w.data_ptr(), w._version, tuple(w.shape), w.device, flat)
-    hit = _DUAL_TABLES.get(key)
-    if hit is not None and hit[0] is w:
-        _DUAL_TABLES.move_to_end(key)
-        return hit[1]
+    with _CACHE_LOCK:
+        hit = _DUAL_TABLES.get(key)
+        if hit is not None and hit[0] is w:
+            _DUAL_TABLES.move_to_end(key)
+            return hit[1]
     first, tab, span = _band_tables(w, 4)
     if flat:
         tab = tab.permute(0, 3, 2, 1).contiguous()
-    _DUAL_TABLES[key] = (w, (first, tab, span))
-    while len(_DUAL_TABLES) > 8:
-        _DUAL_TABLES.popitem(last=False)
+    with _CACHE_LOCK:
+        _DUAL_TABLES[key] = (w, (first, tab, span))
+        while len(_DUAL_TABLES) > 8:
+            _DUAL_TABLES.popitem(last=False)
     return first, tab, span
 
 
@@ -966,7 +983,7 @@ def fsk_tile_bits_batch(
     refused."""
     bits = _fsk_dual_launch("fsk_tile_bits_batch", x3d, w_all, best, rows_per_capture, spr, False)
     if x3d.is_cuda:
-        fsk_tile_bits_batch.launches += 1
+        _count(fsk_tile_bits_batch)
     return bits
 
 
@@ -978,7 +995,7 @@ def fsk_project_bits_batch(
     capture's last row. Returns uint8 bits (B, R*spr)."""
     bits = _fsk_dual_launch("fsk_project_bits_batch", x3d, w_all, best, rows_per_capture, spr, True)
     if x3d.is_cuda:
-        fsk_project_bits_batch.launches += 1
+        _count(fsk_project_bits_batch)
     return bits
 
 
@@ -1139,7 +1156,7 @@ def fsk_disc_sums_batch(
     sr = torch.empty((b, n), dtype=torch.float32, device=dev)
     si = torch.empty_like(sr)
     _fir_launch("amr_fsk_disc", x3d, w_fir, w_box, 1, best, (sr, si), row2, ov2, spr2)
-    fsk_disc_sums_batch.launches += 1
+    _count(fsk_disc_sums_batch)
     return sr, si
 
 
@@ -1159,7 +1176,7 @@ def fsk_quad_margin_batch(
         return fsk_quad_margin_batch_plain(x3d, w_fir, w_quad, best, row2, ov2, spr2)
     margin = torch.empty((b, r * _BLOCK_SYM // row2 * spr2), dtype=torch.float32, device=dev)
     _fir_launch("amr_fsk_quad", x3d, w_fir, w_quad, 4, best, (margin,), row2, ov2, spr2)
-    fsk_quad_margin_batch.launches += 1
+    _count(fsk_quad_margin_batch)
     return margin
 
 
@@ -1247,7 +1264,7 @@ def neural_extract_batch(
     out = torch.empty((b, r * _NEURAL_SPR), dtype=torch.uint8, device=dev)
     _launch("amr_neural_extract", dev, _ptr(x2d), _NEURAL_DTYPES[x2d.dtype], _ptr(codebook), _ptr(phasors),
             _ptr(s), _ptr(out), b, r)
-    neural_extract_batch.launches += 1
+    _count(neural_extract_batch)
     return out
 
 
@@ -1330,7 +1347,7 @@ def mlse_viterbi_blocks(
     out = torch.empty((nb, L), dtype=torch.uint8, device=dev)
     _launch("amr_mlse_viterbi", dev, _ptr(x), _ptr(cos_t), _ptr(sin_t), _ptr(aec), S, adv_mark, adv_space,
             _ptr(surv), _ptr(out), nb, L)
-    mlse_viterbi_blocks.launches += 1
+    _count(mlse_viterbi_blocks)
     return out
 
 
@@ -1413,7 +1430,7 @@ def fec_viterbi_blocks(pairs: torch.Tensor, known_boundaries: bool) -> torch.Ten
     surv = torch.empty((nb, -(-L // 32) * 65), dtype=torch.int32, device=dev)
     out = torch.empty((nb, L), dtype=torch.uint8, device=dev)
     _launch("amr_fec_viterbi", dev, _ptr(pairs), int(bool(known_boundaries)), _ptr(surv), _ptr(out), nb, L)
-    fec_viterbi_blocks.launches += 1
+    _count(fec_viterbi_blocks)
     return out
 
 
@@ -1427,12 +1444,14 @@ KERNELS = (
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    with _COUNT_LOCK:
+        for k in KERNELS:
+            k.launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    with _COUNT_LOCK:
+        return {k.__name__: k.launches for k in KERNELS}
 
 
 reset_launch_counts()

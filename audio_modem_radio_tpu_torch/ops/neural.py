@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import agree_all
 from ..utils.torchenv import DeviceLike, resolve_device
 from .kernels import neural_extract_batch
 
@@ -349,14 +350,15 @@ def td_sync_batch(samples: torch.Tensor, chip_len: int):
     that test to the host replaces the JAX package's ``lax.cond``. Otherwise
     the whole batch escalates to the full-lag search, as the cond outside
     the JAX package's capture vmap does. Captures too short for a prefix
-    take the full search directly."""
+    take the full search directly. Under a data-parallel mesh the test is
+    one for every shard's captures (``parallel.mesh.agree_all``)."""
     r3 = -(-samples.shape[1] // 128)
     r_pre = max(1, r3 // 8)
     nb = PREAMBLE_LEN * CHIPS_PER_SYMBOL * chip_len // 128
     if 2 * r_pre <= r3:
         span = min(r3 * 128, (r_pre + nb + 1) * 128)  # the samples the prefix lags read
         k0, pr, pi, rho = _peaks(samples[:, :span], chip_len, r_pre, True)
-        if bool(torch.all(rho >= TD_PREFIX_RHO)):
+        if agree_all(bool(torch.all(rho >= TD_PREFIX_RHO))):  # the global batch under a mesh
             return k0, pr, pi
     k0, pr, pi, _ = _peaks(samples, chip_len, r3, False)
     return k0, pr, pi

@@ -280,12 +280,26 @@ def _eighth_power(d_re: torch.Tensor, d_im: torch.Tensor) -> Tuple[torch.Tensor,
     return (r4 * r4 - i4 * i4) / w, (2 * r4 * i4) / w
 
 
+def _coherence_parts_pow(d_re: torch.Tensor, d_im: torch.Tensor, dim, n_psk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The summed complex parts (Σ re, Σ im) of :func:`_coherence_score`
+    at the data-cancelling power (8 for D8PSK, 4 otherwise). Sequence-
+    parallel callers sum the parts over the shards before the magnitude:
+    summing the shards' magnitudes would over-count a shard whose phasors
+    are incoherent with the rest."""
+    re_p, im_p = (_eighth_power if n_psk == 8 else _fourth_power)(d_re, d_im)
+    return torch.sum(re_p, dim=dim), torch.sum(im_p, dim=dim)
+
+
+def _coherence_parts(d_re: torch.Tensor, d_im: torch.Tensor, dim) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_coherence_parts_pow` at the 4th power."""
+    return _coherence_parts_pow(d_re, d_im, dim, 4)
+
+
 def _coherence_score(d_re: torch.Tensor, d_im: torch.Tensor, dim, n_psk: int = 4) -> torch.Tensor:
     """Energy-weighted phase coherence |Σ |z|² e^{jpθ}| at the power p that
     cancels the data (8 for D8PSK, 4 otherwise); the magnitude is
     rotation-invariant, so timing selection survives CFO."""
-    re_p, im_p = (_eighth_power if n_psk == 8 else _fourth_power)(d_re, d_im)
-    return torch.hypot(torch.sum(re_p, dim=dim), torch.sum(im_p, dim=dim))
+    return torch.hypot(*_coherence_parts_pow(d_re, d_im, dim, n_psk))
 
 
 def _gram_scale(

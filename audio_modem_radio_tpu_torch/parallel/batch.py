@@ -118,6 +118,7 @@ from ..ops.psk import (
 )
 from ..utils.torchenv import DeviceLike, resolve_device
 from ..utils.wavio import read_wav, resample
+from .mesh import DATA_AXIS, Mesh, agree_all, get_mesh, pad_batch, run_shards
 
 logger = logging.getLogger("audio_modem_radio_tpu_torch")
 
@@ -181,12 +182,14 @@ def _scan_tiered(r: int, match, fold, accept):
     near the stream start, so scan one matcher block first, then ~1/8 of
     the rows, then everything. ``match(rows) -> (first, found)``; a tier is
     taken when ``accept(found)`` holds for every capture (one scalar read to
-    the host), and its ``fold(first, found) -> (s, ksel, found)`` returned."""
+    the host; under a data-parallel mesh, every capture of every shard), and
+    its ``fold(first, found) -> (s, ksel, found)`` returned."""
     r_pre = -(-r // 8 // _MATCH_BLOCK_ROWS) * _MATCH_BLOCK_ROWS
     tiers = [p for p in sorted({_MATCH_BLOCK_ROWS, r_pre}) if 2 * p <= r]
     for p in tiers:
         first_p, found_p = match(p)
-        if bool(torch.all(accept(found_p))):
+        # Under a data-parallel mesh the tier is taken for the global batch.
+        if agree_all(bool(torch.all(accept(found_p)))):
             return fold(first_p, found_p)
     return fold(*match(r))
 
@@ -627,22 +630,40 @@ def _batch_mlse(fsk_mlse: Optional[bool]) -> bool:
 
 def decode_sample_batch(
     batch: np.ndarray, mode: str, symbol_rate: int, device: DeviceLike = None,
-    fsk_mlse: Optional[bool] = None,
+    fsk_mlse: Optional[bool] = None, mesh: Optional[Mesh] = None,
 ) -> List[bytes]:
     """Demodulate a (B, N) batch to per-capture raw byte streams on
     ``device`` (default: the card; the CPU only when named). ``fsk_mlse``
     overrides CONFIG ``modem.batch_mlse`` (the MLSE escalation of
-    :func:`decode_wav_batch` sets it); None defers to CONFIG."""
-    dev = resolve_device(device)
+    :func:`decode_wav_batch` sets it); None defers to CONFIG.
+
+    With a ``mesh`` (in place of ``device``; by default, when no device is
+    named and more than one card is visible, all of them) the batch axis is
+    sharded over the mesh's data axis: the host-shaped batch is zero-padded
+    to a multiple of the mesh's size, each shard's rows run
+    :func:`demod_pack_batch` on its own device and thread, and the result is
+    cut back to B. The batch-wide decisions (the sync tails' tiers, NEURAL's
+    prefix or full search) are taken once for the global batch, so the
+    bytes equal the unsharded call's."""
+    if mesh is None and device is None and torch.cuda.is_available() and torch.cuda.device_count() > 1:
+        mesh = get_mesh()
+    if mesh is None:
+        devs, size = [resolve_device(device)], 1
+    else:
+        n_data = mesh.shape[DATA_AXIS]
+        devs, size = list(mesh.devices.reshape(n_data, -1)[:, 0]), mesh.size  # the model axis would replicate
     mlse = _batch_mlse(fsk_mlse)
-    shaped = host_shape_batch(batch, mode, symbol_rate, device=dev, fsk_mlse=mlse)
-    x = torch.from_numpy(np.ascontiguousarray(shaped)).to(dev)
-    packed, n_valid, _found = demod_pack_batch(
-        x, mode, int(symbol_rate), cfo_retry=bool(CONFIG.get("modem.cfo_retry", True)), fsk_mlse=mlse,
-    )
-    packed = packed.cpu().numpy()
-    n_valid = n_valid.cpu().numpy()
-    return [packed[i, : int(n_valid[i])].tobytes() for i in range(packed.shape[0])]
+    cfo_retry = bool(CONFIG.get("modem.cfo_retry", True))
+    padded = pad_batch(host_shape_batch(batch, mode, symbol_rate, device=devs[0], fsk_mlse=mlse), size)
+    per = padded.shape[0] // len(devs)
+
+    def shard(i: int, dev: torch.device) -> List[bytes]:
+        x = torch.from_numpy(np.ascontiguousarray(padded[i * per : (i + 1) * per])).to(dev)
+        packed, n_valid, _found = demod_pack_batch(x, mode, int(symbol_rate), cfo_retry=cfo_retry, fsk_mlse=mlse)
+        packed, n_valid = packed.cpu().numpy(), n_valid.cpu().numpy()
+        return [packed[j, : int(n_valid[j])].tobytes() for j in range(packed.shape[0])]
+
+    return [raw for part in run_shards(shard, devs) for raw in part][: batch.shape[0]]
 
 
 def _read_wav_row(path: str) -> np.ndarray:
@@ -669,6 +690,7 @@ def decode_wav_batch(
     stream_fec: bool = False,
     denoise: Optional[bool] = None,
     drift_retry: bool = True,
+    mesh: Optional[Mesh] = None,
 ) -> List[List[str]]:
     """Decode many WAV files in one device batch.
 
@@ -690,7 +712,10 @@ def decode_wav_batch(
     escalation (the carrier-tracked single-capture receiver; psk2, psk4,
     psk8, OFDM and DSSS outside the compatibility aliases) and, with
     ``drift_retry``, the
-    ±5% clock-drift hypotheses as one extra batched dispatch.
+    ±5% clock-drift hypotheses as one extra batched dispatch. With a
+    ``mesh`` every batched dispatch is sharded over it
+    (:func:`decode_sample_batch`), and the per-capture rungs run on its
+    first device unless ``device`` names another.
     """
     import os
 
@@ -708,6 +733,8 @@ def decode_wav_batch(
     from ..ops.psk import bpsk_tracked_demodulate, psk8_tracked_demodulate, qpsk_tracked_demodulate
     from ..utils.denoise import spectral_gate
 
+    if mesh is not None and device is None:
+        device = mesh.flat[0]
     if NATIVE_AVAILABLE:
         # The native loader reads headers and samples in parallel; a probe
         # over file sizes picks the bucket.
@@ -728,7 +755,7 @@ def decode_wav_batch(
     for i, a in enumerate(arrays):
         batch[i, : min(len(a), n)] = a[:n]
 
-    raws = decode_sample_batch(batch, mode, symbol_rate, device=device)
+    raws = decode_sample_batch(batch, mode, symbol_rate, device=device, mesh=mesh)
     kind, params = resolve_demod_plan(mode, symbol_rate)
     if kind == "hell":
         # The text modes' "bytes" are the decoded text, empty where the sync
@@ -765,7 +792,7 @@ def decode_wav_batch(
         esc = np.zeros((len(lost), n), dtype=np.float32)
         for j, i in enumerate(lost):
             esc[j, : min(len(arrays[i]), n)] = arrays[i][:n]
-        esc_raws = decode_sample_batch(esc, mode, symbol_rate, device=device, fsk_mlse=True)
+        esc_raws = decode_sample_batch(esc, mode, symbol_rate, device=device, fsk_mlse=True, mesh=mesh)
         still_lost = []
         for j, i in enumerate(lost):
             frames, damaged = ladder(esc_raws[j], arrays[i], rescue=True)
@@ -810,7 +837,7 @@ def decode_wav_batch(
         for j, i in enumerate(lost):
             if len(arrays[i]) >= 2:  # an unreadable WAV keeps empty rows
                 retry[j * len(drift) : (j + 1) * len(drift)] = drift_rows(arrays[i], drift, m)
-        retry_raws = decode_sample_batch(retry, mode, symbol_rate, device=device)
+        retry_raws = decode_sample_batch(retry, mode, symbol_rate, device=device, mesh=mesh)
         for j, i in enumerate(lost):
             for k in range(len(drift)):
                 row = j * len(drift) + k

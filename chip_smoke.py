@@ -6,8 +6,10 @@ single-capture PSK, NEURAL and FSK receive (``decode_wav_file`` ->
 ``modem.demodulate`` -> the recovery ladder; for FSK9600 the MLSE Viterbi
 kernel), the Hellschreiber text modes, the round trips from the port's
 own encoder to the card (file -> ``encode_file`` -> WAV, FEC-coded or not
--> ``decode_wav_file`` -> saved file), and the front ends (the command
-line, the console app, the GUI's view model, live reception).
+-> ``decode_wav_file`` -> saved file), the front ends (the command
+line, the console app, the GUI's view model, live reception), and the
+scale-out and training (the data- and sequence-parallel meshes, the dry
+run of ``entry.py``, the learned modem's ``train_and_export``).
 
     python3 chip_smoke.py    # one card, full size, about 7 minutes on an H100
 
@@ -155,6 +157,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    FSK9600 file of 16 KiB (the MLSE Viterbi), ``decode-stream --wav`` (K11)
    and a noise WAV (exit 1); ``PerformanceMonitor`` names the card; each
    front end's host wall beside ``decode_wav_file``'s;
+5t. scale-out and training on a virtual mesh of 4 shards of the card (the
+   script hides every other card): the QPSK slice batch (5) through
+   ``decode_sample_batch(mesh=)``, bytes equal to the unsharded call's, K1
+   and K3 launched once a shard and K2 at the unsharded call's tiers on
+   every shard (its noise capture sits in the last shard); one 2^24-sample
+   capture per sequence family (QPSK, FSK1200, OFDM4, 8PSK, DSSS,
+   NEURAL@1200, HELL; tiled transmissions) through
+   ``decode_capture_sharded``: every frame (HELL: the text), QPSK, FSK1200
+   and DSSS bytes equal to the single-device demodulator's over their
+   common prefix, wall and peak memory printed; ``dryrun_multichip(4)`` and
+   ``(5)``; ``train_and_export`` at the shipped configuration (bits 8,
+   hidden 256, 3000 steps, batch 1024, sigma 0.35) into a scratch file:
+   unit power, nearest-codeword SER at most 0.01, steps per second; one dp
+   x tp training step on a 2 x 2 mesh beside the unsharded step: gradients
+   within 1e-5 of each tensor's largest, parameters inside Adam's bound on
+   that difference;
 6. timing with CUDA events (one warm-up, median of 5): ``demod_pack_batch``
    of each mode on its 64 x 2^24 int16 batch staged on the card (PSK with
    cfo_retry on and off, and again with its last capture noise, which
@@ -687,24 +705,18 @@ def phase_match_pack(device, r: int, card: str) -> dict:
     return errs
 
 
-def phase_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, card: str,
-                kernels=None, tag=None, wav=None) -> dict:
-    """One slice's main path at real size; returns the launch counts of its
-    ``decode_sample_batch`` run. ``kernels`` (default: the slice's own) are
-    the kernels the path must launch, and no others."""
-    from audio_modem_radio_tpu_torch.framing import crc32, pack_frame, parse_frames
-    from audio_modem_radio_tpu_torch.ops import kernels as tk
-    from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
+def _psk_slice_batch(mode: str, n_cap: int, n: int, payload_bytes: int):
+    """A PSK slice's batch: ``n_cap`` captures of ``n`` samples, capture i
+    one seeded payload framed and tiled from a random lead (captures 1 and
+    2 at the carrier +-100 Hz), the last capture noise. Returns (batch,
+    payloads, min_frames), None and 0 for the noise capture."""
+    from audio_modem_radio_tpu_torch.framing import crc32, pack_frame
 
-    tag = tag or {"QPSK": "5", "BPSK": "5b", "8PSK": "5c"}[mode]
-    kernels = kernels or _SLICES[mode]["kernels"]
     rng = np.random.default_rng(2024)
-    t_phase = t0 = time.perf_counter()
     batch = np.empty((n_cap, n), np.float32)
     payloads, min_frames = [], []
-    noise_i = n_cap - 1
     for i in range(n_cap):
-        if i == noise_i:
+        if i == n_cap - 1:
             batch[i] = np.clip(rng.normal(0.0, 0.3, n), -1, 1)
             payloads.append(None)
             min_frames.append(0)
@@ -720,6 +732,23 @@ def phase_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, card:
         batch[i] = _tiled(wave, n, lead=int(rng.integers(0, 1281)))
         payloads.append(p)
         min_frames.append(n // len(wave) - 1)
+    return batch, payloads, min_frames
+
+
+def phase_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, card: str,
+                kernels=None, tag=None, wav=None) -> dict:
+    """One slice's main path at real size; returns the launch counts of its
+    ``decode_sample_batch`` run. ``kernels`` (default: the slice's own) are
+    the kernels the path must launch, and no others."""
+    from audio_modem_radio_tpu_torch.framing import parse_frames
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
+
+    tag = tag or {"QPSK": "5", "BPSK": "5b", "8PSK": "5c"}[mode]
+    kernels = kernels or _SLICES[mode]["kernels"]
+    t_phase = t0 = time.perf_counter()
+    batch, payloads, min_frames = _psk_slice_batch(mode, n_cap, n, payload_bytes)
+    noise_i = n_cap - 1
     carrier = _SLICES[mode]["carrier"]
     say(f"[{tag} {mode}] built {n_cap} x {n} captures ({carrier:g} Hz carrier, captures 1 and 2 "
         f"at +-100 Hz, capture {noise_i} noise) in {time.perf_counter() - t0:.1f} s | {card}")
@@ -2935,6 +2964,175 @@ def phase_front_ends(work: str, card: str) -> None:
     say(f"[5s front ends] phase {time.perf_counter() - t_phase:.1f} s | {card}")
 
 
+# --- scale-out and training: the data-parallel and sequence-parallel meshes ---------
+
+# The sequence families of phase 5t, at the dry run's rates: label -> (mode,
+# rate, payload bytes or None for the text, compare with the single-device
+# demod).
+_SEQ_FAMILIES = {
+    "QPSK": ("QPSK", 9600, 16384, True), "FSK1200": ("FSK1200", 1200, 4096, True),
+    "OFDM4": ("OFDM4", 4800, 4096, False), "8PSK": ("8PSK", 9600, 16384, False),
+    "DSSS": ("DSSS", 9600, 1024, True), "NEURAL@1200": ("NEURAL", 1200, 4096, False),
+    "HELL": ("HELLSCHREIBER", 1200, None, False),
+}
+_SHARDS = 4
+
+
+def _single_device_raw(mode: str, x: np.ndarray, device) -> bytes:
+    """The port's single-device demodulator of ``mode`` on one capture."""
+    from audio_modem_radio_tpu_torch.ops.dsss import dsss_real_demodulate
+    from audio_modem_radio_tpu_torch.ops.fsk import fsk_demodulate
+    from audio_modem_radio_tpu_torch.ops.psk import qpsk_demodulate
+
+    if mode == "QPSK":
+        return qpsk_demodulate(x, BAUD, 3000.0, SR, device=device)
+    if mode == "FSK1200":
+        return fsk_demodulate(x, 1200, 1200.0, 2200.0, SR, device=device)
+    return dsss_real_demodulate(x, BAUD, 3000.0, SR, device=device)
+
+
+def phase_scaleout(device, n_cap: int, n: int, payload_bytes: int, work: str, card: str) -> None:
+    """5t. Scale-out and training on a virtual mesh of the one card (4
+    shards; the script hides every other card): the QPSK slice batch
+    through ``decode_sample_batch(mesh=)`` against the unsharded call, one
+    2^24-sample capture per sequence family through
+    ``decode_capture_sharded``, ``dryrun_multichip(4)`` and ``(5)``,
+    ``train_and_export`` at the shipped configuration, and the dp x tp
+    training step against the unsharded one."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.entry import dryrun_multichip
+    from audio_modem_radio_tpu_torch.framing import crc32, pack_frame, parse_frames
+    from audio_modem_radio_tpu_torch.modem import modulate
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.ops.hell import hellschreiber_modulate
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
+    from audio_modem_radio_tpu_torch.parallel.mesh import get_mesh
+    from audio_modem_radio_tpu_torch.parallel.sequence import decode_capture_sharded
+
+    t_phase = time.perf_counter()
+    mesh = get_mesh(devices=[device] * _SHARDS)
+
+    # The data-parallel batch: the noise capture sits in the last shard, so
+    # every shard must take the unsharded call's tiers.
+    batch, payloads, _min = _psk_slice_batch("QPSK", n_cap, n, payload_bytes)
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref = decode_sample_batch(batch, "QPSK", BAUD, device=device)
+    wall_ref = time.perf_counter() - t0
+    c_ref = _launched(tk.launch_counts())
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = decode_sample_batch(batch, "QPSK", BAUD, mesh=mesh)
+    wall = time.perf_counter() - t0
+    counts = _launched(tk.launch_counts())
+    check(got == ref, "decode_sample_batch(mesh=) differs from the unsharded call")
+    want = {"psk_project_decide_batch": _SHARDS, "relabel_pack_batch": _SHARDS,
+            "rotation_match_batch": _SHARDS * c_ref.get("rotation_match_batch", 0)}
+    check(c_ref.get("rotation_match_batch", 0) >= 2, f"the noise capture must pass the first tier: {c_ref}")
+    check(counts == want, f"decode_sample_batch(mesh=) launches {counts}, want {want}")
+    for i, raw in enumerate(got):
+        frames = parse_frames(raw)
+        check(bool(frames) == (payloads[i] is not None) and all(f.data == payloads[i] for f in frames),
+              f"mesh capture {i}: {len(frames)} frames")
+    say(f"[5t dp] {n_cap} x {n} QPSK through decode_sample_batch on {_SHARDS} shards of the card: bytes equal "
+        f"to the unsharded call's; launches {counts} (unsharded {c_ref}); wall {wall:.3f} s vs unsharded "
+        f"{wall_ref:.3f} s | {card}")
+    del batch, ref, got
+
+    # One capture per sequence family, sharded over the samples.
+    for label, (mode, rate, size, compare) in _SEQ_FAMILIES.items():
+        if size is None:
+            wave = np.asarray(hellschreiber_modulate(_HELL_TEXT), np.float32)
+        else:
+            p = _payload(7000 + rate, size)
+            if mode == "8PSK":  # whole 3-byte groups keep the tiled copies byte-aligned (phase 5c)
+                p = p[: len(p) - len(pack_frame(f"seq_{label}.bin", p, 0, 1, len(p), crc32(p))) % 3]
+            wave = modulate(mode, pack_frame(f"seq_{label}.bin", p, 0, 1, len(p), crc32(p)), rate)
+        x = _tiled(wave, n, lead=0 if size is None else 1234)
+        walls = []
+        for _ in range(2):  # the first call builds the tables
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            raw = decode_capture_sharded(x, mode, rate, mesh)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9  # the call's own, over what was allocated
+        if size is None:
+            check(raw.decode("utf-8") == _HELL_TEXT, f"sequence-parallel HELL: {raw[:60]!r}")
+            what = f"the text ({len(_HELL_TEXT)} characters)"
+        else:
+            frames = parse_frames(raw)
+            check(frames and all(f.data == p for f in frames), f"sequence-parallel {label}: {len(frames)} frames")
+            what = f"{len(frames)} frames (>= {max(1, (n - 1234) // len(wave) - 1)} expected)"
+            check(len(frames) >= max(1, (n - 1234) // len(wave) - 1), f"sequence-parallel {label}: {what}")
+        if compare:
+            single = _single_device_raw(label, x, device)
+            m = min(len(single), len(raw))
+            check(m > 0 and single[:m] == raw[:m],
+                  f"sequence-parallel {label} differs from the single-device demod over {m} bytes")
+            what += f", bytes equal to the single-device demod over {m}"
+        say(f"[5t sp {label}] one {n}-sample capture on {_SHARDS} shards: {what}; wall {walls[1]:.3f} s "
+            f"(first call {walls[0]:.3f} s), peak {peak:.2f} GB over the {base / 1e9:.2f} GB allocated | {card}")
+
+    for k in (_SHARDS, 5):
+        t0 = time.perf_counter()
+        dryrun_multichip(k)
+        say(f"[5t dryrun] dryrun_multichip({k}) {time.perf_counter() - t0:.1f} s | {card}")
+
+    phase_training(device, work, card)
+    say(f"[5t] {time.perf_counter() - t_phase:.1f} s | {card}")
+
+
+def phase_training(device, work: str, card: str) -> None:
+    """``train_and_export`` at the shipped configuration into ``work``, and
+    the dp x tp step on a virtual 2 x 2 mesh against the unsharded step."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.models.neural_modem import create_train_state, make_train_step
+    from audio_modem_radio_tpu_torch.models.train_neural import DEFAULT_CODEBOOK, train_and_export
+    from audio_modem_radio_tpu_torch.parallel.mesh import get_2d_mesh
+
+    out = os.path.join(work, "neural_codebook.npz")
+    t0 = time.perf_counter()
+    res = train_and_export(out, device=device)
+    wall = time.perf_counter() - t0
+    with np.load(DEFAULT_CODEBOOK) as z:
+        shipped_ser = float(z["nearest_codeword_ser"])
+    with np.load(out) as z:
+        cb = np.asarray(z["codebook"])
+    check(cb.shape == (256, 16) and np.allclose(np.mean(cb ** 2, axis=-1), 1.0, atol=1e-3),
+          "the trained codebook is not unit power")
+    check(res["ser"] <= 0.01, f"trained codebook SER {res['ser']} > 0.01")
+    say(f"[5t train] train_and_export (bits 8, hidden 256, sps 8, 3000 steps, batch 1024, sigma 0.35): "
+        f"{res['steps_per_s']:.1f} steps/s, {wall:.1f} s, final accuracy {res['acc']:.4f}, nearest-codeword SER "
+        f"{res['ser']:.4f} (the shipped codebook's {shipped_ser:.4f}) | {card}")
+
+    # Sharding changes only the order of the sums: the gradients agree to
+    # float32 rounding, and Adam's first step, lr * g / (|g| + eps), moves an
+    # element by at most 2 * lr * |dg| / (max |g| + eps) more.
+    lr = 1e-3
+    models = [create_train_state(0, device=device, learning_rate=lr) for _ in range(2)]
+    steps = [make_train_step(*models[0]), make_train_step(*models[1], mesh=get_2d_mesh(2, 2, [device] * 4))]
+    symbols = torch.randint(0, 256, (1024,), generator=torch.Generator(device=device).manual_seed(5), device=device)
+    res = [step(symbols, 0.35, torch.Generator(device=device).manual_seed(6)) for step in steps]
+    worst_g = worst_p = 0.0
+    for (name, pa), pb in zip(models[0][0].named_parameters(), models[1][0].parameters()):
+        ga, gb, pa, pb = pa.grad, pb.grad, pa.detach(), pb.detach()
+        worst_g = max(worst_g, float((ga - gb).abs().max() / ga.abs().max().clamp_min(1e-30)))
+        dp = (pa - pb).abs()
+        worst_p = max(worst_p, float(dp.max() / pa.abs().max().clamp_min(1e-30)))
+        bound = 1e-6 * pa.abs().max() + 2 * lr * (ga - gb).abs() / (torch.maximum(ga.abs(), gb.abs()) + 1e-8)
+        check(bool((dp <= bound).all()), f"the dp x tp step moved {name} past Adam's bound on the gradient difference")
+    check(worst_g <= 1e-5, f"the dp x tp gradients differ from the unsharded ones by {worst_g:.2e} of the largest")
+    check(abs(float(res[0][0]) - float(res[1][0])) <= 1e-5 * abs(float(res[0][0])), f"losses {res}")
+    say(f"[5t dp x tp] one step on a virtual 2 x 2 mesh beside the unsharded step: gradients within {worst_g:.2e} "
+        f"of each tensor's largest, parameters within {worst_p:.2e} (inside Adam's bound on the gradient "
+        f"difference), loss {float(res[1][0]):.6f} vs {float(res[0][0]):.6f} | {card}")
+
+
 def main() -> int:
     n, n_k1, n_slice, payload_bytes = 1 << 24, 8, 64, 16384
     # One card: the first visible one (set before torch initialises CUDA).
@@ -3024,6 +3222,8 @@ def main() -> int:
         phase_roundtrips(device, fec_work, card)
         phase = "5s front ends"
         phase_front_ends(fec_work, card)
+        phase = "5t scale-out and training"
+        phase_scaleout(device, n_slice, n, payload_bytes, fec_work, card)
         phase = "6 timing"
         psk_times, _, bounds = phase_timing(device, n_slice, n, payload_bytes, card)
         times = {k: (ms, plain, n_slice) for k, (ms, plain) in psk_times.items()}

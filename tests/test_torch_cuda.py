@@ -1420,3 +1420,81 @@ def test_new_batch_paths_launch_only_their_kernels(cuda, mode):
         assert raws == want
     else:
         assert [[f.data for f in parse_frames(r)] for r in raws] == [[p], [p], []]
+
+
+# --- scale-out and training on a virtual mesh of the card --------------------------
+
+def _qpsk_batch_late(n: int):
+    """3 QPSK captures of 2^20 samples (1024 host-shaped rows of 1280); the
+    last one's frame starts past the 256-row tier, inside pass 1's middle
+    window (rows 480-543), so the batch needs the full scan."""
+    rng = np.random.default_rng(31)
+    batch = np.zeros((3, n), np.float32)
+    payloads = []
+    for i, lead in enumerate((5, 900, 482 * 1280)):
+        p = rng.integers(0, 256, 1500, dtype=np.uint8).tobytes()
+        wave = modulate("QPSK", pack_frame(f"m{i}.bin", p, 0, 1, len(p), crc32(p)), 9600)
+        batch[i, lead : lead + len(wave)] = wave
+        payloads.append(p)
+    return batch, payloads
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_mesh_batch_on_the_card_equals_unsharded(cuda, shards):
+    """``decode_sample_batch(mesh=)`` over shards of the one card: the
+    unsharded call's bytes, K1 and K3 once a shard, K2 at the unsharded
+    call's tiers on every shard."""
+    from audio_modem_radio_tpu_torch.framing import parse_frames
+    from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
+    from audio_modem_radio_tpu_torch.parallel.mesh import get_mesh
+
+    batch, payloads = _qpsk_batch_late(1 << 20)
+    tk.reset_launch_counts()
+    ref = decode_sample_batch(batch, "QPSK", 9600, device=cuda)
+    c_ref = tk.launch_counts()
+    tk.reset_launch_counts()
+    got = decode_sample_batch(batch, "QPSK", 9600, mesh=get_mesh(devices=[cuda] * shards))
+    c = tk.launch_counts()
+    assert got == ref
+    assert [[f.data for f in parse_frames(r)] for r in got] == [[p] for p in payloads]
+    assert c_ref["rotation_match_batch"] == 2
+    assert c["psk_project_decide_batch"] == c["relabel_pack_batch"] == shards
+    assert c["rotation_match_batch"] == shards * c_ref["rotation_match_batch"]
+
+
+def test_sequence_decode_on_the_card_equals_the_cpu(cuda):
+    from audio_modem_radio_tpu_torch.framing import parse_frames
+    from audio_modem_radio_tpu_torch.parallel.mesh import get_mesh
+    from audio_modem_radio_tpu_torch.parallel.sequence import decode_capture_sharded
+
+    p = np.random.default_rng(32).integers(0, 256, 2000, dtype=np.uint8).tobytes()
+    for mode, rate in (("QPSK", 9600), ("FSK1200", 1200), ("OFDM4", 4800), ("NEURAL", 1200)):
+        wave = modulate(mode, pack_frame("s.bin", p, 0, 1, len(p), crc32(p)), rate)
+        x = np.concatenate([np.zeros(len(wave) + 777, np.float32), wave])
+        on_card = decode_capture_sharded(x, mode, rate, get_mesh(devices=[cuda] * 4))
+        assert [f.data for f in parse_frames(on_card)] == [p]
+        assert on_card == decode_capture_sharded(x, mode, rate, get_mesh(devices=["cpu"] * 4))
+
+
+def test_sharded_training_step_on_the_card(cuda):
+    from audio_modem_radio_tpu_torch.models.neural_modem import create_train_state, make_train_step
+    from audio_modem_radio_tpu_torch.parallel.mesh import get_2d_mesh
+
+    models = [create_train_state(0, bits_per_symbol=4, hidden=64, device=cuda) for _ in range(2)]
+    steps = [make_train_step(*models[0]), make_train_step(*models[1], mesh=get_2d_mesh(2, 2, [cuda] * 4))]
+    sym = torch.randint(0, 16, (256,), generator=torch.Generator(device=cuda).manual_seed(3), device=cuda)
+    res = [s(sym, 0.1, torch.Generator(device=cuda).manual_seed(4)) for s in steps]
+    assert abs(float(res[0][0]) - float(res[1][0])) <= 1e-5 * abs(float(res[0][0]))
+    for pa, pb in zip(models[0][0].parameters(), models[1][0].parameters()):
+        assert float((pa.grad - pb.grad).abs().max()) <= 1e-5 * float(pa.grad.abs().max())
+
+
+def test_entry_points_on_the_card(cuda, capsys):
+    from audio_modem_radio_tpu_torch.entry import dryrun_multichip, entry
+
+    fn, (x,) = entry()
+    assert x.device.type == "cuda"
+    packed, n_valid, found = fn(x)
+    assert packed.shape[0] == 4 and not bool(found.any())
+    dryrun_multichip(2)
+    assert "dryrun_multichip OK on 2 devices" in capsys.readouterr().out
