@@ -1,13 +1,18 @@
 """ctypes bindings for the port's native (C++) host runtime.
 
 Counterpart of ``audio_modem_radio_tpu/native.py``. The port keeps its own
-copy of the C++ source, ``native/amr_native.cpp`` in this package, and
-compiles it with g++ at first use into ``build/audio_modem_radio_tpu_torch/``
-beside the package, named by a hash of the source and the flags (as
-``ops/_build.py`` names the CUDA library); it never loads or rebuilds the
-JAX package's ``native/libamr_native.so``. Every entry point has a
-pure-Python fallback, used where no compiler or zlib is at hand; these are
-host code and hide no device.
+copy of the C++ source, ``native/amr_native.cpp`` in this package, read
+through ``importlib.resources`` (a directory and a zip alike), and names
+the library by a hash of the source and the flag set it is built with
+(with ``-march=native``, of this CPU's model and features too). As
+``ops/_build.py`` does for the CUDA library, it loads a library of such a
+name from ``build/audio_modem_radio_tpu_torch/`` beside the package or
+from the user cache (``ops._build.find``), this host's build before the
+portable one, else compiles it with g++ into the first of the two that is
+writable (``ops._build.out_dir``); it never loads or rebuilds the JAX
+package's ``native/libamr_native.so``. Every entry point has a
+pure-Python fallback, used where no library can be had (no compiler or no
+zlib); these are host code and hide no device.
 
 API:
   * :func:`scan_frames`: native-or-fallback equivalent of
@@ -30,20 +35,23 @@ import os
 import subprocess
 import tempfile
 import threading
+from importlib import resources
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .ops import _build
+
 logger = logging.getLogger("audio_modem_radio_tpu_torch")
 
-_PKG_DIR = Path(__file__).resolve().parent
-_SRC = _PKG_DIR / "native" / "amr_native.cpp"
-BUILD_DIR = _PKG_DIR.parent / "build" / _PKG_DIR.name
-_BASE_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+_PKG = "audio_modem_radio_tpu_torch"
+PORTABLE_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 # -march=native roughly doubles the Viterbi sweep (vectorized metric adds);
-# the portable flags are the fallback where it is refused.
-_FLAG_SETS = (_BASE_FLAGS + ("-march=native",), _BASE_FLAGS)
+# the portable flags are the fallback where it is refused, and what a
+# library built for other hosts (``tools/build_standalone.py``) takes.
+NATIVE_FLAGS = PORTABLE_FLAGS + ("-march=native",)
+_FLAG_SETS = (NATIVE_FLAGS, PORTABLE_FLAGS)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -63,34 +71,75 @@ class _FrameDesc(ctypes.Structure):
     ]
 
 
+def _source() -> bytes:
+    """The C++ source's bytes (empty when the package does not carry it)."""
+    try:
+        return resources.files(_PKG).joinpath("native").joinpath("amr_native.cpp").read_bytes()
+    except OSError:
+        return b""
+
+
+def _cpu() -> bytes:
+    """This CPU's model and feature flags, what ``-march=native`` builds for
+    (empty where ``/proc/cpuinfo`` cannot be read)."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            first = f.read().split(b"\n\n")[0]
+    except OSError:
+        return b""
+    return b"\n".join(ln for ln in first.splitlines() if ln.startswith((b"model name", b"flags")))
+
+
+def library_name(flags: Sequence[str] = NATIVE_FLAGS) -> str:
+    """The file name of the library built with ``flags``: a hash of the
+    source and the flags, and with ``-march=native`` of this CPU too, so a
+    library built for one CPU is never loaded by name on another that
+    shares the cache."""
+    h = hashlib.sha256(_source())
+    h.update(" ".join(flags).encode())
+    if "-march=native" in flags:
+        h.update(_cpu())
+    return f"libamr_native_{h.hexdigest()[:16]}.so"
+
+
 def library_path() -> Path:
-    """The built library's path: a hash of the source and both flag sets."""
-    h = hashlib.sha256(_SRC.read_bytes())
-    h.update(repr(_FLAG_SETS).encode())
-    return BUILD_DIR / f"libamr_native_{h.hexdigest()[:16]}.so"
+    """The library found by name (this host's build, then the portable
+    one), else the path this host's build would write."""
+    for flags in _FLAG_SETS:
+        found = _build.find(library_name(flags))
+        if found is not None:
+            return found
+    return (_build.out_dir() or _build.BUILD_DIR) / library_name()
 
 
-def _build(out: Path) -> bool:
-    """Compile the source into ``out`` (through a temporary file, so
-    concurrent builders never load a half-written library)."""
-    if not _SRC.is_file():
-        return False
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
-        tmp = os.path.join(work, out.name)
-        for flags in _FLAG_SETS:
+def build_library(out_dir: Path, flag_sets: Sequence[Sequence[str]] = _FLAG_SETS) -> Optional[Path]:
+    """Compile the source into ``out_dir`` with the first flag set g++
+    takes, under that set's name, from a copy of the source in a work
+    directory there (renamed into place, so concurrent builders never load
+    a half-written library). Returns the library's path, or None."""
+    src = _source()
+    if not src or not _build.writable_dir(out_dir):
+        return None
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        cpp = os.path.join(work, "amr_native.cpp")
+        with open(cpp, "wb") as f:
+            f.write(src)
+        for flags in flag_sets:
+            out = out_dir / library_name(flags)
+            tmp = os.path.join(work, out.name)
             try:
-                subprocess.run(["g++", *flags, str(_SRC), "-o", tmp, "-lz"],
+                subprocess.run(["g++", *flags, cpp, "-o", tmp, "-lz"],
                                check=True, capture_output=True, timeout=120)
             except FileNotFoundError as e:
                 logger.info("native build unavailable (%s); using Python fallbacks", e)
-                return False
+                return None
             except subprocess.SubprocessError:
                 continue
             os.replace(tmp, out)
-            return True
+            return out
     logger.info("native build failed; using Python fallbacks")
-    return False
+    return None
 
 
 def _load():
@@ -99,7 +148,9 @@ def _load():
         if _lib is not None:
             return _lib
         path = library_path()
-        if not path.is_file() and not _build(path):
+        if not path.is_file():
+            path = build_library(path.parent)
+        if path is None:
             _lib = False
             return False
         try:

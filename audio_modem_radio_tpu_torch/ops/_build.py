@@ -4,10 +4,22 @@ The sources have a plain C interface, so ``nvcc`` compiles them in seconds
 (no PyTorch headers): one ``nvcc -c`` per source, all started together,
 then one link into a shared library that ``ctypes`` binds: every pointer
 and the stream travel as ``c_void_p``. ``csrc/*.cuh`` holds code that more
-than one source includes. The library lands in
-``build/audio_modem_radio_tpu_torch/`` beside the package, named by a hash
-of the sources, the headers and the flags, so the first use after a source change rebuilds
-it and later uses load it. Nothing here runs at import.
+than one source includes.
+
+The library is named by a hash of the sources, the headers and the flags,
+read through ``importlib.resources``, so the name is the same whether the
+package is a directory, an installed wheel or a zip (``amr-torch.pyz``).
+It is looked for, and loaded before any compiler is looked for, in
+
+1. ``build/audio_modem_radio_tpu_torch/`` beside the package (where a tree
+   builds it and where ``amr-torch.run`` ships it prebuilt), then
+2. ``${XDG_CACHE_HOME:-~/.cache}/audio_modem_radio_tpu_torch/build/``.
+
+Where neither holds it, it is built into the first of the two that is a
+writable directory on disk (the cache for a zip or a read-only install),
+from a copy of the sources in a work directory there; with no ``nvcc`` the
+load raises, naming both places. A source change gives a new name, so the
+first use after it rebuilds. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -19,11 +31,13 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from importlib import resources
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
+_PKG = "audio_modem_radio_tpu_torch"
 _PKG_DIR = Path(__file__).resolve().parent.parent
-SRC_DIR = _PKG_DIR / "csrc"
+SRC_DIR = _PKG_DIR / "csrc"  # on disk only in a tree (the variant and SASS tools read it)
 BUILD_DIR = _PKG_DIR.parent / "build" / _PKG_DIR.name
 # ``-Xptxas -v`` changes no code: it reports each kernel's registers,
 # shared memory and spills on stderr, which compile_library returns.
@@ -74,35 +88,88 @@ def find_nvcc() -> str:
     return found
 
 
-def _sources() -> list:
-    return sorted(SRC_DIR.glob("*.cu"))
+def build_dirs() -> Tuple[Path, Path]:
+    """Where a built library is looked for, in order: beside the package,
+    then ``${XDG_CACHE_HOME:-~/.cache}/audio_modem_radio_tpu_torch/build``."""
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return BUILD_DIR, Path(cache) / _PKG / "build"
+
+
+def writable_dir(path: Path) -> bool:
+    """Whether ``path`` is, or can be made, a directory on disk that this
+    user can write: its nearest existing ancestor is a writable directory
+    (inside a zip that ancestor is the zip file)."""
+    while not path.exists():
+        path = path.parent
+    return path.is_dir() and os.access(path, os.W_OK | os.X_OK)
+
+
+def _sources() -> List[Tuple[str, bytes]]:
+    """(name, bytes) of every ``csrc/*.cu`` and ``csrc/*.cuh``, by name, read
+    through ``importlib.resources`` (a directory and a zip alike)."""
+    csrc = resources.files(_PKG).joinpath("csrc")
+    return sorted((p.name, p.read_bytes()) for p in csrc.iterdir()
+                  if p.name.endswith((".cu", ".cuh")) and p.is_file())
+
+
+def library_name() -> str:
+    h = hashlib.sha256()
+    for name, blob in _sources():
+        h.update(name.encode())
+        h.update(blob)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return f"libamr_torch_{h.hexdigest()[:16]}.so"
+
+
+def find(name: str) -> Optional[Path]:
+    """Library ``name`` in the first of ``build_dirs()`` that holds it."""
+    return next((d / name for d in build_dirs() if (d / name).is_file()), None)
+
+
+def out_dir() -> Optional[Path]:
+    """Where a library is built: the first of ``build_dirs()`` that is a
+    writable directory on disk, or None."""
+    return next((d for d in build_dirs() if writable_dir(d)), None)
 
 
 def library_path() -> Path:
-    h = hashlib.sha256()
-    for src in sorted(_sources() + list(SRC_DIR.glob("*.cuh"))):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libamr_torch_{h.hexdigest()[:16]}.so"
+    """The kernel library found by name, else the path a build would write."""
+    name = library_name()
+    return find(name) or (out_dir() or BUILD_DIR) / name
 
 
 def compile_library() -> Tuple[Path, str]:
-    """Compile ``csrc/*.cu`` into the hashed library path if it is missing:
-    one ``nvcc -c`` process per source, all running at once, then the link.
+    """The kernel library: found by name in ``build_dirs()``, else compiled
+    there from a copy of the sources: one ``nvcc -c`` process per source,
+    all running at once, then the link.
 
     Returns ``(path, nvcc_stderr)``, the stderr empty when the library was
-    already built; raises with nvcc's stderr on failure.
+    found; raises with nvcc's stderr on failure, and when there is no
+    library, no writable place or no ``nvcc``.
     """
-    out = library_path()
-    if out.is_file():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = find_nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+    name = library_name()
+    found = find(name)
+    if found is not None:
+        return found, ""
+    dirs = build_dirs()
+    missing = f"no kernel library {name} in {dirs[0]} or in {dirs[1]}"
+    where = out_dir()
+    if where is None:
+        raise RuntimeError(f"{missing}, and neither is a writable directory to build it in")
+    try:
+        nvcc = find_nvcc()
+    except RuntimeError as e:
+        raise RuntimeError(f"{missing}, and it cannot be built: {e}") from None
+    out = where / name
+    where.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=where) as work:
+        # The sources written out (a zip's too): the .cuh files sit beside
+        # the .cu files that include them.
+        for src_name, blob in _sources():
+            (Path(work) / src_name).write_bytes(blob)
         objs, procs = [], []
-        for src in _sources():
-            obj = str(Path(work) / f"{src.stem}.o")
+        for src in sorted(Path(work).glob("*.cu")):
+            obj = str(src.with_suffix(".o"))
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
             objs.append(obj)
             procs.append((cmd, subprocess.Popen(
@@ -115,7 +182,7 @@ def compile_library() -> Tuple[Path, str]:
                 failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
         if failed:
             raise RuntimeError("\n".join(failed))
-        tmp = str(Path(work) / out.name)
+        tmp = str(Path(work) / name)
         cmd = [nvcc, "-shared", "-o", tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -7,11 +7,13 @@ single-capture PSK, NEURAL and FSK receive (``decode_wav_file`` ->
 kernel), the Hellschreiber text modes, the round trips from the port's
 own encoder to the card (file -> ``encode_file`` -> WAV, FEC-coded or not
 -> ``decode_wav_file`` -> saved file), the front ends (the command
-line, the console app, the GUI's view model, live reception), and the
+line, the console app, the GUI's view model, live reception), the
 scale-out and training (the data- and sequence-parallel meshes, the dry
-run of ``entry.py``, the learned modem's ``train_and_export``).
+run of ``entry.py``, the learned modem's ``train_and_export``), and the
+distribution artifacts (``amr-torch.pyz``, the self-contained
+``amr-torch.run`` with its prebuilt kernels).
 
-    python3 chip_smoke.py    # one card, full size, about 7 minutes on an H100
+    python3 chip_smoke.py    # one card, full size, about 13 minutes on an H100
 
 It runs only on a CUDA card; the CPU checks of the same code are the tests
 ``tests/test_torch_*.py``. On a host with several cards it uses the first
@@ -173,6 +175,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    x tp training step on a 2 x 2 mesh beside the unsharded step: gradients
    within 1e-5 of each tensor's largest, parameters inside Adam's bound on
    that difference;
+5u. the distribution: ``amr-torch.pyz`` and ``amr-torch.run`` (gzip level
+   1) built from the tree, sizes and build seconds printed; the ``.run``
+   under a scrubbed environment (a fresh HOME, PATH=/usr/bin:/bin, no
+   CUDA_HOME) encodes and decodes 5s's 100 KiB QPSK@9600 file (K11), a 32
+   KiB ``--stream-fec`` file (the FEC Viterbi) and a 16 KiB FSK9600 file
+   (the MLSE Viterbi) to the same bytes, each kernel launched from the
+   bundled prebuilt library, and no library built anywhere (the extracted
+   build directory holds exactly the two bundled ones; no user cache); its
+   first run (extraction included) and second run timed, the second beside
+   ``python -m audio_modem_radio_tpu_torch.cli decode-wav`` on the same
+   WAV; the ``.pyz`` with this Python and a fresh XDG_CACHE_HOME: the same
+   bytes, the kernels built from the zip's sources into that cache, then
+   loaded from it by a second run;
 6. timing with CUDA events (one warm-up, median of 5): ``demod_pack_batch``
    of each mode on its 64 x 2^24 int16 batch staged on the card (PSK with
    cfo_retry on and off, and again with its last capture noise, which
@@ -3133,6 +3148,231 @@ def phase_training(device, work: str, card: str) -> None:
         f"difference), loss {float(res[1][0]):.6f} vs {float(res[0][0]):.6f} | {card}")
 
 
+# --- distribution: amr-torch.pyz and amr-torch.run ---------------------------------------
+
+# Phase 5u: a sitecustomize.py that each run of an artifact imports (through
+# PYTHONPATH, the one variable besides HOME and PATH): at exit it writes the
+# process's launch counts and the libraries it loaded beside itself. It holds
+# no module of the port or of torch.
+_REPORT_HOOK = """import atexit, json, os, sys
+
+
+def _report():
+    mods = sys.modules
+    kernels = mods.get("audio_modem_radio_tpu_torch.ops.kernels")
+    loaded = {k: getattr(getattr(mods.get(m), "_lib", None), "_name", None) for k, m in (
+        ("kernel_lib", "audio_modem_radio_tpu_torch.ops._build"), ("native_lib", "audio_modem_radio_tpu_torch.native"))}
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "report.json"), "w") as f:
+        json.dump({"launches": {k: v for k, v in (kernels.launch_counts() if kernels else {}).items() if v},
+                   "package": getattr(mods.get("audio_modem_radio_tpu_torch"), "__file__", None),
+                   "executable": sys.executable, **loaded}, f)
+
+
+atexit.register(_report)
+"""
+
+
+def _libraries_under(root: str) -> dict:
+    """path -> mtime of every ``libamr_*`` file under ``root``."""
+    found = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.startswith("libamr_"):
+                found[os.path.join(d, f)] = os.stat(os.path.join(d, f)).st_mtime_ns
+    return found
+
+
+def _tree_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(root) for f in files
+               if not os.path.islink(os.path.join(d, f)))
+
+
+def phase_distribution(work: str, card: str) -> None:
+    """5u. The distribution artifacts built from the tree and run on the
+    card: ``amr-torch.pyz`` (``tools/build_dist.py``) and ``amr-torch.run``
+    (``tools/build_standalone.py``, gzip level 1), each size and build time
+    printed. The ``.run`` runs under a scrubbed environment (HOME a fresh
+    directory, PATH=/usr/bin:/bin, so no CUDA_HOME and no toolkit or Python
+    of the host on PATH; PYTHONPATH names only the report hook): ``encode-file``
+    then ``decode-wav`` of phase 5s's 102,400-byte QPSK@9600 file (K11),
+    ``--stream-fec`` of 32 KiB (the FEC Viterbi) and an FSK9600 file of 16
+    KiB (the MLSE Viterbi; these two encoded by the tree's CLI in this
+    process), no device named: the same bytes, each kernel
+    launched from the bundled library, the extracted build directory
+    holding exactly the two bundled libraries (the kernels and the portable
+    native library) afterwards and no user cache
+    created, so no library was built anywhere. The ``.pyz`` runs with this
+    Python and a fresh XDG_CACHE_HOME: the same QPSK decode builds the
+    kernels and this host's native library from the zip's sources into
+    that cache, and a second run loads
+    them from there. Walls: the ``.run``'s first run (extraction
+    included), its second beside ``python -m audio_modem_radio_tpu_torch.cli
+    decode-wav`` on the same WAV, both ``.pyz`` runs. The artifacts and
+    the extracted prefix are deleted at the end.
+
+    The whole ``.run`` is packed and unpacked, not only its stage: the
+    stage holds the dependencies as links into this host's installation,
+    so only the unpacked prefix shows that the archive carries torch and
+    its CUDA libraries and that the launcher's extraction yields a prefix
+    that decodes; the CPU tests' probe ``.run`` carries neither torch nor
+    kernels."""
+    from audio_modem_radio_tpu_torch import native
+    from audio_modem_radio_tpu_torch.ops import _build
+    from audio_modem_radio_tpu_torch.tools.build_dist import build_pyz
+    from audio_modem_radio_tpu_torch.tools.build_standalone import build_standalone
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(dir=work)
+    try:
+        dist, files, hook, home, xdg = (os.path.join(root, d) for d in ("dist", "files", "hook", "home", "xdg"))
+        for d in (dist, files, hook, home):
+            os.makedirs(d)
+        with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+            f.write(_REPORT_HOOK)
+        report_path = os.path.join(hook, "report.json")
+        tree_libs = _libraries_under(os.path.join(HERE, "build", "audio_modem_radio_tpu_torch"))
+        # The .run ships the portable native library; the .pyz builds this host's.
+        kernel_name, native_name = _build.library_name(), native.library_name(native.PORTABLE_FLAGS)
+        host_native = native.library_name()
+
+        t0 = time.perf_counter()
+        pyz = build_pyz(dist)
+        say(f"[5u build] amr-torch.pyz {os.path.getsize(pyz)} bytes in {time.perf_counter() - t0:.3f} s | {card}")
+        t0 = time.perf_counter()
+        run = build_standalone(os.path.join(dist, "amr-torch.run"))
+        t_build = time.perf_counter() - t0
+        say(f"[5u build] amr-torch.run {os.path.getsize(run)} bytes ({os.path.getsize(run) / 2**30:.3f} GiB, gzip "
+            f"level 1) in {t_build:.3f} s | {card}")
+
+        qpsk = ["--mode", "QPSK", "--symbol-rate", str(BAUD)]
+        fsk = ["--mode", "FSK9600", "--symbol-rate", "9600"]
+        data = _front_file(files, "front.bin", _FRONT_BYTES, 501)
+        fec_data = _front_file(files, "fec.bin", _FRONT_FEC_BYTES, 520)
+        fsk_data = _front_file(files, "fsk.bin", _FRONT_FSK_BYTES, 530)
+
+        def tool(label: str, argv, env, want_rc: int = 0):
+            """Run ``argv`` in the files directory: (stdout lines, wall, report)."""
+            if os.path.exists(report_path):
+                os.remove(report_path)
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, cwd=files, env=env, capture_output=True, text=True, timeout=900)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == want_rc, f"{label}: rc {proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            report = {}
+            if os.path.exists(report_path):
+                with open(report_path) as f:
+                    report = json.load(f)
+            return proc.stdout.splitlines(), wall, report
+
+        def decoded(label: str, out, report, want: bytes, kernel: str, lib_dir: str) -> None:
+            check(len(out) == 2 and out[0].endswith(": 1 file(s)"), f"{label}: printed {out}")
+            check(_read_all([os.path.join(files, out[1])]) == [want], f"{label}: saved other bytes")
+            check(report.get("launches", {}).get(kernel, 0) >= 1, f"{label}: {kernel} not launched ({report})")
+            check(report.get("kernel_lib") == os.path.join(lib_dir, kernel_name),
+                  f"{label}: kernels loaded from {report.get('kernel_lib')}, not {lib_dir}")
+
+        # The .run, in a scrubbed environment.
+        scrubbed = {"HOME": home, "PATH": "/usr/bin:/bin", "PYTHONPATH": hook}
+        on_path = {t: shutil.which(t, path=scrubbed["PATH"]) for t in ("python3", "nvcc", "g++")}
+        walls, reports = {}, {}
+        out, walls["run encode-file (first run)"], _ = tool("run encode-file", [run, "encode-file", "front.bin", *qpsk],
+                                                            scrubbed)
+        wav = out[-1]
+        check(wav.endswith(".wav"), f"run encode-file printed {out}")
+        prefixes = [d for d in os.listdir(os.path.join(home, ".cache", "amr-torch-standalone")) if not d.startswith(".")]
+        check(len(prefixes) == 1, f"extracted prefixes {prefixes}")
+        prefix = os.path.join(home, ".cache", "amr-torch-standalone", prefixes[0])
+        bundled = [d for d, _, _ in os.walk(prefix)
+                   if os.path.basename(d) == "audio_modem_radio_tpu_torch" and os.path.basename(os.path.dirname(d)) == "build"]
+        check(len(bundled) == 1, f"bundled build directories in {prefix}: {bundled}")
+        bundled = bundled[0]
+        bundled_libs = _libraries_under(bundled)
+        check(sorted(os.path.basename(p) for p in bundled_libs) == sorted([kernel_name, native_name]),
+              f"bundled libraries {sorted(bundled_libs)}, want {kernel_name} and {native_name}")
+
+        label = "run decode-wav (second run)"
+        out, walls[label], reports[label] = tool(label, [run, "decode-wav", wav, *qpsk, "--recv-dir", "recv_run"],
+                                                 scrubbed)
+        decoded(label, out, reports[label], data, "psk_project_diff", bundled)
+        check(reports[label].get("native_lib") == os.path.join(bundled, native_name)
+              and reports[label].get("executable", "").startswith(prefix),
+              f"{label}: not the bundled interpreter and native library ({reports[label]})")
+
+        # The stream-FEC and FSK9600 WAVs come from the tree's encoder in this
+        # process (the .run's encoder ran above): only their decodes go through it.
+        old_cwd = os.getcwd()
+        os.chdir(files)
+        try:
+            rc_fec, out_fec, _ = _cli(["encode-file", "fec.bin", *qpsk, "--fec", "--fec-type", "stream",
+                                       "--cache-dir", "cache_fec"])
+            rc_fsk, out_fsk, _ = _cli(["encode-file", "fsk.bin", *fsk, "--cache-dir", "cache_fsk"])
+        finally:
+            os.chdir(old_cwd)
+        check(rc_fec == 0 and rc_fsk == 0, f"encode-file of the FEC and FSK9600 files: rc {rc_fec}, {rc_fsk}")
+        label = "run decode-wav --stream-fec"
+        out, walls[label], reports[label] = tool(
+            label, [run, "decode-wav", out_fec[-1], *qpsk, "--stream-fec", "--recv-dir", "recv_fec"], scrubbed)
+        decoded(label, out, reports[label], fec_data, "fec_viterbi_blocks", bundled)
+
+        label = "run decode-wav FSK9600"
+        out, walls[label], reports[label] = tool(label, [run, "decode-wav", out_fsk[-1], *fsk, "--recv-dir", "recv_fsk"],
+                                                 scrubbed)
+        decoded(label, out, reports[label], fsk_data, "mlse_viterbi_blocks", bundled)
+
+        # No library was built anywhere: the bundled two are unchanged, the
+        # home holds no other, no user cache was made, the tree's is as it was.
+        check(_libraries_under(home) == bundled_libs, f"libraries under the home: {sorted(_libraries_under(home))}")
+        check(not os.path.exists(os.path.join(home, ".cache", "audio_modem_radio_tpu_torch")),
+              "the .run made a user cache directory")
+        check(_libraries_under(os.path.join(HERE, "build", "audio_modem_radio_tpu_torch")) == tree_libs,
+              "the .run changed the tree's build directory")
+        ldd = subprocess.run(["ldd", os.path.join(bundled, kernel_name)], capture_output=True, text=True,
+                             env={"LD_LIBRARY_PATH": os.path.join(prefix, "lib")}).stdout
+        needed = sorted(line.split()[0] for line in ldd.splitlines() if line.strip())
+        check("not found" not in ldd and not any(n.startswith("libcuda") for n in needed),
+              f"the kernel library's libraries: {ldd}")
+
+        # The plain CLI of the tree on the same WAV, as the second .run run.
+        plain_env = dict(os.environ, PYTHONPATH=os.pathsep.join([HERE, hook]))
+        label = "python -m cli decode-wav"
+        out, walls[label], reports[label] = tool(
+            label, [sys.executable, "-m", "audio_modem_radio_tpu_torch.cli", "decode-wav", wav, *qpsk,
+                    "--recv-dir", "recv_plain"], plain_env)
+        decoded(label, out, reports[label], data, "psk_project_diff",
+                os.path.join(HERE, "build", "audio_modem_radio_tpu_torch"))
+
+        # The .pyz with this Python and a fresh user cache: built, then loaded.
+        pyz_env = dict(os.environ, XDG_CACHE_HOME=xdg, PYTHONPATH=hook)
+        cache = os.path.join(xdg, "audio_modem_radio_tpu_torch", "build")
+        cached = {}
+        for i in (1, 2):
+            label = f"pyz decode-wav ({'first: builds' if i == 1 else 'second: loads'})"
+            out, walls[label], reports[label] = tool(label, [sys.executable, pyz, "decode-wav", wav, *qpsk,
+                                                             "--recv-dir", f"recv_pyz{i}"], pyz_env)
+            decoded(label, out, reports[label], data, "psk_project_diff", cache)
+            check(reports[label].get("package", "").startswith(pyz + os.sep),
+                  f"{label}: the package came from {reports[label].get('package')}")
+            cached[i] = _libraries_under(xdg)
+            check(sorted(os.listdir(cache)) == sorted([kernel_name, host_native]),
+                  f"{label}: the cache holds {sorted(os.listdir(cache))}")
+        check(cached[1] == cached[2], "the second .pyz run rebuilt a library")
+        check(_libraries_under(os.path.join(HERE, "build", "audio_modem_radio_tpu_torch")) == tree_libs,
+              "the .pyz changed the tree's build directory")
+
+        say(f"[5u run] extracted prefix {_tree_bytes(prefix)} bytes; scrubbed PATH finds {on_path}; "
+            f"the kernel library links {needed}; the build host's C library {os.confstr('CS_GNU_LIBC_VERSION')} "
+            f"| {card}")
+        for label, wall in walls.items():
+            say(f"[5u] {label}: wall {wall:.3f} s, launches={reports.get(label, {}).get('launches', {})} | {card}")
+        say(f"[5u] the .run's second run {walls['run decode-wav (second run)']:.3f} s beside python -m "
+            f"audio_modem_radio_tpu_torch.cli decode-wav {walls['python -m cli decode-wav']:.3f} s on the same "
+            f"{len(data)}-byte QPSK@{BAUD} WAV; no library built by the .run, the .pyz built {sorted(cached[1])} "
+            f"and loaded them again | {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say(f"[5u] phase {time.perf_counter() - t_phase:.1f} s | {card}")
+
+
 def main() -> int:
     n, n_k1, n_slice, payload_bytes = 1 << 24, 8, 64, 16384
     # One card: the first visible one (set before torch initialises CUDA).
@@ -3224,6 +3464,8 @@ def main() -> int:
         phase_front_ends(fec_work, card)
         phase = "5t scale-out and training"
         phase_scaleout(device, n_slice, n, payload_bytes, fec_work, card)
+        phase = "5u distribution"
+        phase_distribution(fec_work, card)
         phase = "6 timing"
         psk_times, _, bounds = phase_timing(device, n_slice, n, payload_bytes, card)
         times = {k: (ms, plain, n_slice) for k, (ms, plain) in psk_times.items()}

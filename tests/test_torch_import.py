@@ -63,3 +63,27 @@ def test_source_has_no_jax_import(path):
     assert not re.search(r"^\s*(import\s+(jax|flax|optax|__graft_entry__)|from\s+(jax|flax|optax|__graft_entry__)\b)",
                          text, re.M)
     assert not re.search(r"^\s*(import|from)\s+audio_modem_radio_tpu\b(?!_torch)", text, re.M)
+    # Nor the repository's tools/ modules (the port keeps its own copies).
+    assert not re.search(r"^\s*(import|from)\s+(tools|build_dist|build_standalone)\b", text, re.M)
+
+
+_TOOLS = """
+import pathlib, sys
+import audio_modem_radio_tpu_torch.tools.build_dist
+import audio_modem_radio_tpu_torch.tools.build_standalone
+repo_tools = pathlib.Path(sys.argv[1]).resolve()
+leaked = sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "tools", "build_dist", "build_standalone")
+                or m.startswith(("jax.", "jaxlib", "tools.", "audio_modem_radio_tpu.")))
+leaked += sorted(m for m, mod in list(sys.modules.items())
+                 if getattr(mod, "__file__", None) and repo_tools in pathlib.Path(mod.__file__).resolve().parents)
+print("LEAKED", leaked)
+"""
+
+
+def test_port_tools_import_neither_jax_nor_the_repos_tools():
+    """``audio_modem_radio_tpu_torch.tools.*`` import torch's side only:
+    no JAX, no module of the JAX package and none of ``tools/``."""
+    out = subprocess.run([sys.executable, "-c", _TOOLS, str(REPO / "tools")], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout
