@@ -21,7 +21,9 @@ the C signature of the source it replaces, on the inputs of
 rows (``--dtype`` int16, int8 or float32) at pass 1's offsets and rotations,
 of QPSK (``--n-psk 4``), BPSK (2) or 8PSK (8); K7 on the FSK1200 bench
 batch's int16 overlapped rows at pass 1's offset; K10 on the NEURAL@9600
-bench batch's float32 rows synced by ``td_sync_batch``; K13 on the FSK1200
+bench batch's float32 rows synced by ``td_sync_batch`` (``--bf16``, ``--argmax
+dot``: its switches; a source with the earlier C interface, which has
+neither, is called through it); K13 on the FSK1200
 bench capture's flat float32 rows at pass 1's offset; K12 on the 8PSK bench
 batch's rows (``--dtype`` int16 or float32) at pass 1's offsets, K11
 (``--single``) on one float32 capture in the single-capture layout (13,120
@@ -102,6 +104,9 @@ _ROTATION_MATCH_EARLIER = ("amr_rotation_match", (_P, _P, _P, _I, _I, _I, _I, _P
 # The earlier C entry point of the FEC Viterbi, (pairs, known_start,
 # from_best_end, scratch, out, n_blocks, L, stream).
 _FEC_VITERBI_EARLIER = (_P, _I, _I, _P, _P, _I, _I, _P)
+# The earlier C entry point of K10, without the bf16 and argmax switches:
+# (x, dtype, codebook, phasors, s, out, n_captures, rows, stream).
+_NEURAL_EXTRACT_EARLIER = (_P, _I, _P, _P, _P, _P, _I, _I, _P)
 _PSK = {2: ("BPSK", 3000.0), 4: ("QPSK", 3000.0), 8: ("8PSK", 12000.0)}
 _N_PSK = {mode: n for n, (mode, _c) in _PSK.items()}
 _MANGLED = {"int16": "s", "int8": "a", "float32": "f"}  # a C++ type's code in a mangled name
@@ -225,7 +230,7 @@ def _wave(mode: str, rate: int) -> np.ndarray:
     return np.tile(wave, -(-N // len(wave)))[:N].astype(np.float32)
 
 
-def _neural_call(device):
+def _neural_args(device):
     from .ops.neural import _codebook, td_sync_batch
 
     x = torch.from_numpy(_wave("NEURAL", 9600)[None]).to(device).expand(B, -1).contiguous()
@@ -235,7 +240,36 @@ def _neural_call(device):
     cb = torch.from_numpy(_codebook()).to(device)
     ph = torch.stack([pr, pi], dim=1).contiguous()
     s = (k0 % 128).to(torch.int32)
-    return lambda: tk.neural_extract_batch(x2d, cb, ph, s, rows_per_capture=r3)
+    return x2d, cb, ph, s, r3
+
+
+def _neural_extract_earlier(src: str) -> bool:
+    """Whether the K10 source ``src`` has the earlier C interface (no
+    ``bf16`` and ``argmax`` switches)."""
+    text = Path(src if Path(src).is_absolute() else _build._PKG_DIR / src).read_text()
+    head = text[text.index('extern "C" int amr_neural_extract'):]
+    return "argmax" not in head[: head.index(")")]
+
+
+def _neural_call(nargs, earlier: bool, bf16: bool, argmax: str):
+    """K10 on ``nargs`` through the wrapper with ``bf16`` and ``argmax``, or
+    through the earlier C interface (float32 operands, the first maximum)."""
+    x2d, cb, ph, s, r3 = nargs
+    if not earlier:
+        return lambda: tk.neural_extract_batch(x2d, cb, ph, s, rows_per_capture=r3, bf16=bf16, argmax=argmax)
+    if bf16 or argmax != "loop":
+        raise SystemExit("an earlier neural_extract source has no bf16 or argmax switch")
+    b = x2d.shape[0] // r3
+
+    def call():
+        out = torch.empty((b, r3 * 8), dtype=torch.uint8, device=x2d.device)
+        err = _build._lib.amr_neural_extract(  # bound by _bound_to with the earlier argtypes
+            x2d.data_ptr(), 0, cb.data_ptr(), ph.data_ptr(), s.data_ptr(), out.data_ptr(), b, r3,
+            torch.cuda.current_stream(x2d.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"amr_neural_extract (earlier interface): cudaError_t {err}")
+        return out
+    return call
 
 
 def _psk_rows(mode: str, dtype: str, device):
@@ -574,6 +608,8 @@ def main() -> int:
     ap.add_argument("--batch", action="store_true", help="mlse_viterbi: the 8-capture batch's 1,640 blocks")
     ap.add_argument("--container", action="store_true",
                     help="fec_viterbi: one 9,216-step block with known boundaries")
+    ap.add_argument("--bf16", action="store_true", help="neural_extract: the bfloat16 operands")
+    ap.add_argument("--argmax", choices=("loop", "dot"), default="loop", help="neural_extract: the argmax rule")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", help="also write the report to this file")
     args = ap.parse_args()
@@ -619,8 +655,11 @@ def main() -> int:
         call, plain = None, (lambda: tk.fec_viterbi_blocks_plain(*fargs))
         steps = fargs[0].shape[1]
         what = f" ({fargs[0].shape[0]} blocks x {steps} steps, known boundaries {fargs[1]})"
+    elif args.kernel == "neural_extract":
+        nargs = _neural_args(device)
+        what = f" (bf16 {args.bf16}, argmax {args.argmax})"
     else:
-        call = {"fsk_tile": _tile_call, "neural_extract": _neural_call, "fsk_flat": _flat_call}[args.kernel](device)
+        call = {"fsk_tile": _tile_call, "fsk_flat": _flat_call}[args.kernel](device)
     # The timed instantiation's mangled template arguments: K1's sample type,
     # n_psk and spsym 10; K12's sample type and spsym 10; K7's and K13's
     # sample type.
@@ -634,10 +673,16 @@ def main() -> int:
     for name, src, flags in variants:
         lib, log = built[name]
         ptxas = _ptxas_lines(log, _KERNEL[args.kernel][0] + instance)
+        earlier_args = None
         if args.kernel == "fec_viterbi":
             earlier = _fec_viterbi_earlier(src)
             call = _fec_viterbi_call(fargs, earlier)
-        with _bound_to(lib, entry, _FEC_VITERBI_EARLIER if args.kernel == "fec_viterbi" and earlier else None):
+            earlier_args = _FEC_VITERBI_EARLIER if earlier else None
+        elif args.kernel == "neural_extract":
+            earlier = _neural_extract_earlier(src)
+            call = _neural_call(nargs, earlier, args.bf16, args.argmax)
+            earlier_args = _NEURAL_EXTRACT_EARLIER if earlier else None
+        with _bound_to(lib, entry, earlier_args):
             got = call()
             torch.cuda.synchronize()
             ms = _median_ms(call, args.reps)

@@ -61,7 +61,7 @@ _SIGNATURES = {
     "amr_fsk_quad": (_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "amr_project_diff_batch": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     "amr_project_diff": (_P, _I, _P, _P, _P, _I, _I, _P),
-    "amr_neural_extract": (_P, _I, _P, _P, _P, _P, _I, _I, _P),
+    "amr_neural_extract": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "amr_mlse_viterbi": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P),
     "amr_fec_viterbi": (_P, _I, _P, _P, _I, _I, _P),
 }

@@ -16,9 +16,13 @@ Counterpart of ``audio_modem_radio_tpu/ops/common.py``:
   FIR front end of the single-capture FSK receiver,
   :func:`analytic_bandpass_fir_dec` :468 and :func:`analytic_fir_dec_rows`
   :533: one float32 ``torch.matmul`` of overlapped rows against
-  :func:`_fir_dec_template`. The FFT front ends (``analytic_bandpass`` :370,
-  ``analytic_bandpass_fir`` :567) serve only the JAX package's A/B switches
-  and are not ported.
+  :func:`_fir_dec_template`;
+* the FFT front ends behind ``ops.fsk.fsk_demod_bits(frontend="fft"|"fir")``,
+  in plain ``torch.fft`` as the JAX package runs them in XLA:
+  :func:`analytic_bandpass` :370 (rfft, the band mask, the inverse FFT,
+  exact decimation) and :func:`analytic_bandpass_fir` :567 (overlap-save
+  FFT blocks of the complex FIR);
+* :func:`frame_signal` :611, overlapping frames of a 1-D signal.
 
 The batched PSK sync tails run on their own kernels (``ops/kernels.py``).
 """
@@ -331,3 +335,93 @@ def analytic_fir_dec_rows(
                                                  rows.device)
     r = rows.shape[0]
     return z2[:, :L].reshape(r * L), z2[:, L:].reshape(r * L)
+
+
+# --- the FFT front ends and framing ---------------------------------------------
+
+def analytic_bandpass(
+    samples: torch.Tensor, low_hz: float, high_hz: float, sample_rate: int, decimate: int = 1,
+) -> torch.Tensor:
+    """Band-limited analytic signal (complex64) by one FFT round trip: the
+    positive frequencies in ``[low_hz, high_hz]`` kept and doubled (DC kept
+    once when the band reaches it), over the last axis zero-padded to a
+    power of two. ``decimate=D > 1`` returns ``z[::D]`` exactly: the masked
+    spectrum lies in bins ``[0, n_fft/D)``, so the inverse FFT of those bins
+    at 1/D length is the decimated signal; it needs ``high_hz <
+    sample_rate/D`` and D dividing the padded length."""
+    n = samples.shape[-1]
+    n_fft = 1 << (n - 1).bit_length()
+    x = samples.to(torch.float32)
+    if n_fft != n:
+        x = F.pad(x, (0, n_fft - n))
+    dev = x.device
+    # np.fft.fftfreq's values: the bin numbers times 1 / (n_fft / rate), in float64.
+    k = torch.arange(n_fft, dtype=torch.float64, device=dev)
+    k[(n_fft + 1) // 2 :] -= n_fft
+    freqs = k * (1.0 / (n_fft * (1.0 / sample_rate)))
+    band = ((freqs >= max(low_hz, 0.0)) & (freqs <= high_hz)).to(torch.float32) * 2.0
+    if low_hz <= 0.0:
+        band[0] = 1.0
+    if decimate == 1:
+        z = torch.fft.ifft(torch.fft.fft(x) * band)
+        return z[..., :n] if n_fft != n else z
+    if high_hz >= sample_rate / decimate:
+        raise ValueError(f"band edge {high_hz} aliases at decimation {decimate}")
+    if n_fft % decimate:
+        raise ValueError("decimate must be a power of two (divides the padded FFT)")
+    nd = n_fft // decimate
+    spec = torch.fft.rfft(x)[..., :nd] * band[:nd]
+    z = torch.fft.ifft(spec) / float(decimate)
+    return z[..., : -(-n // decimate)]
+
+
+_OLS_BLOCK = 1 << 17  # overlap-save FFT block (power of 2)
+
+
+def analytic_bandpass_fir(
+    samples: torch.Tensor, low_hz: float, high_hz: float, sample_rate: int, taps: int = 1025,
+    block: int = _OLS_BLOCK,
+) -> torch.Tensor:
+    """Band-limited analytic signal (complex64) by exact linear convolution
+    with :func:`_analytic_fir_taps`, delay-centred so the output lines up
+    with the input, as overlap-save FFT blocks of ``block`` samples (one
+    block of the smallest power of two, at least 256, for a short capture)
+    over the last axis."""
+    n = samples.shape[-1]
+    T = taps
+    V = T - 1
+    c = V // 2
+    if n + V > block:
+        blk = block
+    else:
+        blk = max(256, 1 << int(np.ceil(np.log2(n + V))))
+    step = blk - V
+    nb = -(-(n + c) // step)
+    x = samples.to(torch.float32)
+    lead = x.shape[:-1]
+    # xp[m] = x[m - V] over [0, (nb+1)*step): the left V zeros give each block
+    # its overlap context, the right zeros square off the reshape.
+    xp = F.pad(x, (V, (nb + 1) * step - V - n))
+    main = xp[..., : nb * step].reshape(*lead, nb, step)
+    tail = xp[..., step : (nb + 1) * step].reshape(*lead, nb, step)[..., :V]
+    segs = torch.cat([main, tail], dim=-1)  # (..., nb, blk)
+    h = _analytic_fir_taps(float(low_hz), float(high_hz), int(sample_rate), taps)
+    H = torch.from_numpy(np.fft.fft(np.pad(h, (0, blk - T))).astype(np.complex64)).to(x.device)
+    y = torch.fft.ifft(torch.fft.fft(segs) * H)[..., V:]  # (..., nb, step)
+    return y.reshape(*lead, nb * step)[..., c : c + n]
+
+
+def frame_signal(x: torch.Tensor, frame_len: int, hop: int, n_frames: int) -> torch.Tensor:
+    """Overlapping frames ``x[k*hop : k*hop+frame_len]`` of a 1-D signal as
+    an (n_frames, frame_len) matrix, zeros past its end: two reshapes and a
+    concatenation when ``frame_len == 2*hop``, a gather otherwise."""
+    n = x.shape[-1]
+    if frame_len == 2 * hop:
+        need = (n_frames + 1) * hop
+        xp = F.pad(x, (0, max(0, need - n)))
+        a = xp[: n_frames * hop].reshape(n_frames, hop)
+        b = xp[hop : hop + n_frames * hop].reshape(n_frames, hop)
+        return torch.cat([a, b], dim=1)
+    idx = torch.arange(n_frames, device=x.device)[:, None] * hop + torch.arange(frame_len, device=x.device)[None, :]
+    xp = F.pad(x, (0, max(0, int(idx.max()) + 1 - n)))
+    return xp[idx]

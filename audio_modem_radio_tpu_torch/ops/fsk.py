@@ -59,6 +59,8 @@ from ..utils.torchenv import DeviceLike
 from .common import (
     _analytic_fir_taps,
     _fir_dec_template,
+    analytic_bandpass,
+    analytic_bandpass_fir,
     analytic_bandpass_fir_dec,
     analytic_fir_dec_rows,
     bit_sync_and_pack,
@@ -67,9 +69,12 @@ from .common import (
 from .kernels import (
     disc_phasor_rows,
     fsk_disc_sums_batch,
+    fsk_disc_sums_batch_plain,
     fsk_project_bits_batch,
     fsk_quad_margin_batch,
+    fsk_quad_margin_batch_plain,
     fsk_tile_bits_batch,
+    fsk_tile_bits_batch_plain,
     mlse_viterbi_blocks,
     quad_analytic_rows,
     quad_margins,
@@ -83,6 +88,10 @@ FSK_PREAMBLE = b"\xAA\xAA\xAA\xAA"
 # hundred bits).
 _MLSE_BLOCK_CORE = 1 << 13
 _MLSE_BLOCK_OVERLAP = 1 << 10
+
+
+# Taps of the full-rate overlap-save FIR front end (``frontend="fir"``).
+_FIR_TAPS = 1025
 
 
 def _mm_taps(dec: int) -> int:
@@ -293,6 +302,21 @@ def _fir_frontend_plan(baud: float, mark: float, space: float, sample_rate: int)
         return band_lo, band_hi, 1, 129
     dec = _discriminator_decimation(spb, band_hi, sample_rate)
     return band_lo, band_hi, dec, _mm_taps(dec)
+
+
+def _frontend_plan(baud: float, mark: float, space: float, sample_rate: int,
+                   frontend: str) -> Tuple[float, float, int, int]:
+    """(band_lo, band_hi, dec, taps) of a single-capture front end for a
+    close- or mid-separation configuration: "matmul" as
+    :func:`_fir_frontend_plan`; "fir" full rate with ``_FIR_TAPS``; "fft"
+    the matmul front end's decimation and no taps (the brick-wall mask,
+    which the equalizer calibration then models)."""
+    band_lo, band_hi, dec, taps = _fir_frontend_plan(baud, mark, space, sample_rate)
+    if frontend == "fir":
+        return band_lo, band_hi, 1, _FIR_TAPS
+    if frontend == "fft":
+        return band_lo, band_hi, dec, 0
+    return band_lo, band_hi, dec, taps
 
 
 def fsk_fir_row_shape(n_samples: int, baud: float, mark: float, space: float, sample_rate: int):
@@ -511,8 +535,8 @@ def _device_tables(kind: str, spb: int, baud: float, mark: float, space: float,
     """The path's tables as float32 tensors on ``device``: ("dual", W),
     ("disc", plan, W_fir, W_box, coef) or ("quad", plan, W_fir, W_quad) for
     the batch; for the single-capture receiver ("quad1", W_quad) and
-    ("local", W_local) on the dual-tone geometry, and ("disc1", W_box,
-    coef) on the decimated one."""
+    ("local", W_local) on the dual-tone geometry, and ("disc1:<frontend>",
+    W_box, coef) on the front end's decimated one."""
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -522,8 +546,8 @@ def _device_tables(kind: str, spb: int, baud: float, mark: float, space: float,
         return dev(_fsk_quadrature_templates(spb, mark, space, sample_rate, n_offsets)),
     if kind == "local":
         return dev(_fsk_local_quadrature_templates(spb, mark, space, sample_rate, n_offsets)),
-    if kind == "disc1":
-        blo, bhi, dec, taps = _fir_frontend_plan(baud, mark, space, sample_rate)
+    if kind.startswith("disc1:"):
+        blo, bhi, dec, taps = _frontend_plan(baud, mark, space, sample_rate, kind.partition(":")[2])
         coef = _discriminator_calibration(spb, baud, mark, space, sample_rate, float(blo), float(bhi),
                                           fir_taps=taps, dec=dec)
         return dev(_fsk_boxcar_templates_dec(spb, n_offsets, dec)), coef
@@ -590,12 +614,16 @@ def fsk_dual_pass1(
 
 def fsk_dual_bits_rows_batch(
     x3d: torch.Tensor, baud: float, mark: float, space: float, sample_rate: int,
-    n_offsets: int = 8,
+    n_offsets: int = 8, kernel: Optional[bool] = None,
 ) -> torch.Tensor:
     """Dual-tone FSK over host-overlapped (B, r, row+ov) rows (float32 or
     int16): pass 1, then K7. Returns uint8 bits (B, r*spr); entries past
-    each capture's signal are pad garbage."""
+    each capture's signal are pad garbage. ``kernel=False`` runs K7's plain
+    version on the rows' own device (the JAX package's XLA einsum); ``None``
+    and ``True`` the wrapper, which launches K7 on a CUDA tensor."""
     best, W, spr = fsk_dual_pass1(x3d, baud, mark, space, sample_rate, n_offsets)
+    if kernel is False:
+        return fsk_tile_bits_batch_plain(x3d, W, best, spr)
     return fsk_tile_bits_batch(x3d, W, best, rows_per_capture=x3d.shape[1], spr=spr)
 
 
@@ -692,17 +720,22 @@ def _disc_scale(sample_rate: int, plan: dict) -> float:
 
 def fsk_disc_bits_rows_batch(
     x3d: torch.Tensor, baud: float, mark: float, space: float, sample_rate: int,
-    n_offsets: int = 8,
+    n_offsets: int = 8, kernel: Optional[bool] = None,
 ) -> torch.Tensor:
     """Close-tone FSK discriminator over :func:`fsk_disc_row_shape` windows
     (float32 or int16): pass 1, K8's per-bit vector sums, then atan2, the
     calibrated equalizer and the tone decision. Returns uint8 bits
-    (B, r2*spr2)."""
+    (B, r2*spr2). ``kernel=False`` runs K8's plain version on the rows' own
+    device (the JAX package's XLA pipeline); ``None`` and ``True`` the
+    wrapper, which launches K8 on a CUDA tensor."""
     best, plan, Wf, Wb, coef = fsk_disc_pass1(x3d, baud, mark, space, sample_rate, n_offsets)
-    sr_sum, si_sum = fsk_disc_sums_batch(
-        x3d, Wf, Wb, best, rows_per_capture=x3d.shape[1], nrow2=plan["nrow2"], row2=plan["row2"],
-        ov2=plan["ov2"], spr2=plan["spr2"],
-    )
+    if kernel is False:
+        sr_sum, si_sum = fsk_disc_sums_batch_plain(x3d, Wf, Wb, best, plan["row2"], plan["ov2"])
+    else:
+        sr_sum, si_sum = fsk_disc_sums_batch(
+            x3d, Wf, Wb, best, rows_per_capture=x3d.shape[1], nrow2=plan["nrow2"], row2=plan["row2"],
+            ov2=plan["ov2"], spr2=plan["spr2"],
+        )
     return disc_decide(sr_sum, si_sum, plan, coef, sample_rate, mark, space)
 
 
@@ -747,16 +780,21 @@ def fsk_quad_pass1(
 
 def fsk_quad_bits_rows_batch(
     x3d: torch.Tensor, baud: float, mark: float, space: float, sample_rate: int,
-    n_offsets: int = 8,
+    n_offsets: int = 8, kernel: Optional[bool] = None,
 ) -> torch.Tensor:
     """Mid-separation FSK matched filter over :func:`fsk_quad_row_shape`
     windows (float32 or int16): pass 1, then K9's per-bit margins, bit =
-    margin > 0. Returns uint8 bits (B, r2*spr2)."""
+    margin > 0. Returns uint8 bits (B, r2*spr2). ``kernel=False`` runs K9's
+    plain version on the rows' own device (the JAX package's XLA pipeline);
+    ``None`` and ``True`` the wrapper, which launches K9 on a CUDA tensor."""
     best, plan, Wf, Wq = fsk_quad_pass1(x3d, baud, mark, space, sample_rate, n_offsets)
-    margin = fsk_quad_margin_batch(
-        x3d, Wf, Wq, best, rows_per_capture=x3d.shape[1], nrow2=plan["nrow2"], row2=plan["row2"],
-        ov2=plan["ov2"], spr2=plan["spr2"],
-    )
+    if kernel is False:
+        margin = fsk_quad_margin_batch_plain(x3d, Wf, Wq, best, plan["row2"], plan["ov2"], plan["spr2"])
+    else:
+        margin = fsk_quad_margin_batch(
+            x3d, Wf, Wq, best, rows_per_capture=x3d.shape[1], nrow2=plan["nrow2"], row2=plan["row2"],
+            ov2=plan["ov2"], spr2=plan["spr2"],
+        )
     return (margin > 0).to(torch.uint8)
 
 
@@ -934,8 +972,14 @@ def fsk_demod_bits(
       raw samples' local quadratures. Its soft margin carries the
       (refined) decisions' signs and the equalizer's magnitudes.
 
-    ``frontend`` is "matmul" only: the JAX package's "fft" and "fir" front
-    ends are A/B switches and are not ported."""
+    ``frontend`` selects how the quadrature and discriminator paths form
+    the analytic signal, as in the JAX package: "matmul" (the decimating
+    FIR as one product, the default), "fft" (whole-capture rfft, the band
+    mask and the decimated inverse FFT, :func:`ops.common.analytic_bandpass`)
+    or "fir" (the 1025-tap FIR at full rate by overlap-save FFT blocks,
+    :func:`ops.common.analytic_bandpass_fir`, so the discriminator runs at
+    decimation 1); the equalizer is calibrated against the front end in
+    use. Host-shaped FIR rows take "matmul" only."""
     bits, score, margin, mlse_in = _fsk_detect(samples, baud, mark, space, sample_rate, n_offsets, mlse,
                                                frontend, want_soft)
     if mlse_in is not None:
@@ -977,10 +1021,6 @@ def _fsk_detect(
     which are then the equalizer's seed."""
     if frontend not in ("matmul", "fft", "fir"):
         raise ValueError(f"unknown frontend {frontend!r}")
-    if frontend != "matmul":
-        raise NotImplementedError(
-            f"frontend={frontend!r} is one of the JAX package's A/B-only front ends (whole-capture FFT, "
-            "full-rate overlap-save FIR) and is not ported; the production front end is 'matmul'")
     spb = _samples_per_bit(sample_rate, baud)
     spr, row, ov = _fsk_geometry(spb)
     sep = _separation_cycles(baud, mark, space, sample_rate)
@@ -994,6 +1034,8 @@ def _fsk_detect(
         n_bits = r * spr
         xov = samples.to(torch.float32)
     elif pre_shaped:
+        if frontend != "matmul":
+            raise ValueError("pre-shaped FIR rows require frontend='matmul'")
         if mlse:
             raise ValueError(
                 "pre-shaped FIR rows are incompatible with MLSE refinement "
@@ -1024,11 +1066,15 @@ def _fsk_detect(
             margin = ((pj[:, 0] ** 2 + pj[:, 1] ** 2) - (pj[:, 2] ** 2 + pj[:, 3] ** 2)).reshape(-1)[:keep]
         return bits, score[0, best[0]], margin, None
 
-    band_lo, band_hi, dec, taps = _fir_frontend_plan(baud, mark, space, sample_rate)
+    band_lo, band_hi, dec, taps = _frontend_plan(baud, mark, space, sample_rate, frontend)
     if fir_rows is not None:
         zr, zi = analytic_fir_dec_rows(fir_rows, band_lo, band_hi, sample_rate, dec, taps)
-    else:
+    elif frontend == "matmul":
         zr, zi = analytic_bandpass_fir_dec(x, band_lo, band_hi, sample_rate, dec, taps=taps)
+    else:
+        z = (analytic_bandpass_fir(x, band_lo, band_hi, sample_rate, taps=taps) if frontend == "fir"
+             else analytic_bandpass(x, band_lo, band_hi, sample_rate, decimate=dec))
+        zr, zi = z.real.contiguous(), z.imag.contiguous()
 
     if sep >= 0.4:
         (W,) = _device_tables("quad1", spb, float(baud), float(mark), float(space), sample_rate, n_offsets, dev)
@@ -1051,7 +1097,8 @@ def _fsk_detect(
     zero = torch.zeros(1, dtype=torch.float32, device=dev)
     p_re = torch.cat([zr[1:] * zr[:-1] + zi[1:] * zi[:-1], zero])
     p_im = torch.cat([zi[1:] * zr[:-1] - zr[1:] * zi[:-1], zero])
-    Wb, coef = _device_tables("disc1", spb, float(baud), float(mark), float(space), sample_rate, n_offsets, dev)
+    Wb, coef = _device_tables(f"disc1:{frontend}", spb, float(baud), float(mark), float(space), sample_rate,
+                              n_offsets, dev)
     n_used_d = min(int(p_re.shape[-1]), -(-(n_bits * spb) // dec))
     pr = _rows_with_overlap(p_re, n_used_d, r_d, row_d, ov_d)
     pi = _rows_with_overlap(p_im, n_used_d, r_d, row_d, ov_d)

@@ -181,15 +181,15 @@ def _first_match_plain(planes, conds, tol: int, n: int) -> torch.Tensor:
 _TAN_PI_8 = math.tan(math.pi / 8)  # rounds to 0.41421356f, csrc/decide.cu's constant
 
 
-def psk8_sector_stream(dr: torch.Tensor, di: torch.Tensor) -> torch.Tensor:
+def psk8_sector_stream(d_re: torch.Tensor, d_im: torch.Tensor) -> torch.Tensor:
     """Differential phasor -> nearest k·π/4 sector (uint8 0..7), compares
     only: an axis sector when one component dominates by more than
     tan(67.5°), a diagonal sector otherwise (``ops/psk.py`` of the JAX
     package, :1306)."""
-    ax, bx = torch.abs(dr), torch.abs(di)
+    ax, bx = torch.abs(d_re), torch.abs(d_im)
     diag = (bx > _TAN_PI_8 * ax) & (ax > _TAN_PI_8 * bx)
-    k_axis = torch.where(ax >= bx, torch.where(dr >= 0, 0, 4), torch.where(di >= 0, 2, 6))
-    k_diag = torch.where(di >= 0, torch.where(dr >= 0, 1, 3), torch.where(dr >= 0, 7, 5))
+    k_axis = torch.where(ax >= bx, torch.where(d_re >= 0, 0, 4), torch.where(d_im >= 0, 2, 6))
+    k_diag = torch.where(d_im >= 0, torch.where(d_re >= 0, 1, 3), torch.where(d_re >= 0, 7, 5))
     return torch.where(diag, k_diag, k_axis).to(torch.uint8)
 
 
@@ -252,6 +252,8 @@ def psk_project_decide_batch_plain(
 
 
 _DECIDE_TEMPLATES: "collections.OrderedDict" = collections.OrderedDict()  # K1's, by template
+# K1's template width per body: the succ templates add successor columns.
+_DECIDE_WIDTHS = {"roll": 2 * _BLOCK_SYM, "succ": 4 * _BLOCK_SYM}
 
 
 def _decide_template(w_all: torch.Tensor, spsym: int) -> torch.Tensor:
@@ -290,11 +292,18 @@ def psk_project_decide_batch(
     Args:
       x3d: (B, R, 128*spsym) float32, int16 or int8 sample rows.
       w_all: (n_offsets, 128*spsym + OV, 256) float32 blocked templates
-        (``ops.psk._blocked_templates``). The kernel reads only the
+        (``ops.psk._blocked_templates``) for ``variant="roll"``, or the
+        (n_offsets, 128*spsym + OV, 512) successor-column templates
+        (``ops.psk._blocked_templates_succ``) for ``variant="succ"``, whose
+        first 256 columns are the former. The kernel reads only the
         (2*spsym, 2) dual basis each offset's block-diagonal repeats.
       best: (B,) int32 winning timing offset per capture.
       rot: (B, 2) float32 per-capture (cos θ, sin θ).
       n_psk: 4 (Gray dibits), 2 (sign bits of re, im) or 8 (π/4 sectors).
+      variant: the JAX package's two Pallas bodies, "roll" and "succ",
+        whose decisions it documents as bitwise identical (``_project_diff_body_succ``,
+        pallas_kernels.py:266-268); they differ only in TPU layout work, so
+        both run the one kernel, ``csrc/decide.cu``, on the dual basis.
     Returns uint8 (hi, lo) of shape (B, R, 128) for ``n_psk`` 2 and 4, or one
     uint8 (B, R, 128) sector array for 8; entries past the modulated span
     are garbage by contract. On the card ``x3d`` must start on a 16-byte
@@ -306,19 +315,19 @@ def psk_project_decide_batch(
     _require(r == rows_per_capture and r % block_rows == 0 and r % 2 == 0,
              f"rows {r} vs rows_per_capture={rows_per_capture}, block_rows={block_rows}")
     _require(n_psk in (2, 4, 8), f"n_psk={n_psk}: the decision exists for 2, 4 and 8 phases")
-    if variant != "roll":
-        raise NotImplementedError(f"variant={variant!r}: only the 'roll' body is ported")
+    _require(variant in _DECIDE_WIDTHS, f"variant={variant!r}: the decide body is one of {sorted(_DECIDE_WIDTHS)}")
     spsym = row // _BLOCK_SYM
     _require(row % _BLOCK_SYM == 0 and 1 <= spsym <= 32, f"row width {row}")
     _require(x3d.dtype in _DECIDE_DTYPES, f"x3d dtype {x3d.dtype}")
-    _require(w_all.dtype == torch.float32 and w_all.ndim == 3
-             and w_all.shape[1] >= row + 2 * spsym and w_all.shape[2] == 2 * _BLOCK_SYM,
+    _require(w_all.dtype == torch.float32 and w_all.ndim == 3 and w_all.shape[1] >= row + 2 * spsym,
              f"w_all {w_all.dtype} {tuple(w_all.shape)}")
+    _require(w_all.shape[2] == _DECIDE_WIDTHS[variant],
+             f"template width {w_all.shape[2]} does not match variant {variant!r}")
     _require(best.dtype == torch.int32 and tuple(best.shape) == (b,), f"best {best.dtype} {tuple(best.shape)}")
     _require(rot.dtype == torch.float32 and tuple(rot.shape) == (b, 2), f"rot {rot.dtype} {tuple(rot.shape)}")
     dev = _same_device(x3d, w_all, best, rot)
     if dev.type == "cpu":
-        return psk_project_decide_batch_plain(x3d, w_all, best, rot, n_psk)
+        return psk_project_decide_batch_plain(x3d, w_all[:, :, : 2 * _BLOCK_SYM], best, rot, n_psk)
 
     _require_aligned("psk_project_decide_batch", x3d)
     tmpl = _decide_template(w_all, spsym)
@@ -599,6 +608,12 @@ def rotation_match_batch(
 
 # --- K3: inverse-Gray relabel + mod-8 alignment + byte pack ---------------------
 
+# The sync tails' pack generation, the JAX package's default there; the pack
+# functions' own default is "shift", as in the JAX package.
+PACK_KERNEL_VARIANT = "weights"
+_PACK_VARIANTS = ("shift", "weights")
+
+
 def relabel_pack_batch_plain(
     hi3: torch.Tensor, lo3: torch.Tensor, s: torch.Tensor, ksel: torch.Tensor
 ) -> torch.Tensor:
@@ -622,15 +637,21 @@ def relabel_pack_batch(
     ksel: torch.Tensor,
     rows_per_capture: int,
     block_rows: int = 256,
-    variant: str = "weights",
+    variant: str = "shift",
 ) -> torch.Tensor:
     """Whole-batch rotation relabel + byte pack: (B, R, 128) uint8 lanes ->
     (B, R*32) uint8. The stream is aligned only mod 8 bits: the frame starts
     at byte ``s // 8``, which the frame parser's magic scan absorbs. The last
     byte of each capture is garbage by contract. On the card ``hi3`` and
-    ``lo3`` must start on a 16-byte boundary."""
-    if variant != "weights":
-        raise NotImplementedError(f"variant={variant!r}: only 'weights' is ported")
+    ``lo3`` must start on a 16-byte boundary.
+
+    ``variant`` names the JAX package's two Pallas generations, "shift"
+    (its default here) and "weights" (``PACK_KERNEL_VARIANT``, the sync
+    tails'), whose bytes it documents as bitwise equal
+    (pallas_kernels.py:1313-1318). They differ only in TPU layout work:
+    ``csrc/relabel_pack.cu`` shifts in registers, the "shift" generation's
+    own idea, so both run it."""
+    _require(variant in _PACK_VARIANTS, f"variant={variant!r}: the pack is one of {_PACK_VARIANTS}")
     b, r = _check_lanes("relabel_pack_batch", (hi3, lo3), rows_per_capture, block_rows)
     _check_per_capture("relabel_pack_batch", b, s, ksel)
     dev = _same_device(hi3, lo3, s, ksel)
@@ -666,16 +687,17 @@ def bit_select_pack_batch(
     ksel: torch.Tensor,
     rows_per_capture: int,
     block_rows: int = 256,
-    variant: str = "weights",
+    variant: str = "shift",
 ) -> torch.Tensor:
     """Whole-batch DBPSK stream select + complement + byte pack: (B, R, 128)
     uint8 sign-bit lanes -> (B, R*16) uint8. ``ksel`` is the hypothesis in
     :func:`bpsk_match_conditions` order (0 re, 1 im, 2 re inverted, 3 im
     inverted). The frame starts at byte ``s // 8``; bytes at or past
     ``(R*128 - (s & 7)) // 8`` are garbage by contract. On the card ``re3``
-    and ``im3`` must start on a 16-byte boundary."""
-    if variant != "weights":
-        raise NotImplementedError(f"variant={variant!r}: only 'weights' is ported")
+    and ``im3`` must start on a 16-byte boundary. ``variant`` "shift" and
+    "weights" both run ``csrc/bit_select_pack.cu``, as for
+    :func:`relabel_pack_batch`."""
+    _require(variant in _PACK_VARIANTS, f"variant={variant!r}: the pack is one of {_PACK_VARIANTS}")
     b, r = _check_lanes("bit_select_pack_batch", (re3, im3), rows_per_capture, block_rows)
     _check_per_capture("bit_select_pack_batch", b, s, ksel)
     dev = _same_device(re3, im3, s, ksel)
@@ -1188,20 +1210,38 @@ _MASK_RE = (1.0, 0.0, -1.0, 0.0)  # fs/4 downconversion by lane mod 4
 _MASK_IM = (0.0, -1.0, 0.0, 1.0)
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (to nearest even) and back to float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _first_max_or_zero(scores: torch.Tensor) -> torch.Tensor:
+    """``argmax="dot"``: the index of the maximum where exactly one entry of
+    the last axis holds it, 0 where several do (the JAX kernel's count gate)."""
+    top = scores.amax(dim=-1, keepdim=True)
+    n_top = (scores == top).sum(dim=-1)
+    return torch.where(n_top == 1, torch.argmax(scores, dim=-1), 0)
+
+
 def neural_extract_batch_plain(
     x2d: torch.Tensor, codebook: torch.Tensor, phasors: torch.Tensor, s: torch.Tensor,
-    rows_per_capture: int,
+    rows_per_capture: int, bf16: bool = False, argmax: str = "loop",
 ) -> torch.Tensor:
     """Plain K10: each row j of a capture and its circular successor (row
     j+1, row 0 after the last) as one 256-sample pair; fs/4 downconversion
     by sign masks; chip c the mean of lanes s+2c and s+2c+1 (s taken mod
     128); unrotation ``(a·re + b·im, a·im - b·re)``; slot m's 16 chips
     ``[re 8m..8m+7 | im 8m..8m+7]`` times the codebook; the first-max
-    argmax. Returns (B, r3 * 8) uint8."""
+    argmax (``argmax="loop"``) or the count gate (``"dot"``: 0 where
+    several codewords share the maximum). ``bf16`` rounds the samples
+    before the chip means, and the unrotated chips and the codebook before
+    the scores, to bfloat16. Returns (B, r3 * 8) uint8."""
     r = rows_per_capture
     b = x2d.shape[0] // r
     dev = x2d.device
     x = x2d.reshape(b, r, 128).to(torch.float32)
+    if bf16:
+        x = _bf16(x)
     pair = torch.cat([x, torch.roll(x, -1, dims=1)], dim=2)  # (B, r, 256)
     lane = torch.arange(256, device=dev) % 4
     zr = pair * torch.tensor(_MASK_RE, device=dev)[lane]
@@ -1213,7 +1253,13 @@ def neural_extract_batch_plain(
     a, c = phasors[:, 0, None, None], phasors[:, 1, None, None]
     ur, ui = cr * a + ci * c, ci * a - cr * c
     rx = torch.cat([ur.reshape(b, r, _NEURAL_SPR, 8), ui.reshape(b, r, _NEURAL_SPR, 8)], dim=3)
-    return torch.argmax(rx @ codebook.T, dim=-1).to(torch.uint8).reshape(b, r * _NEURAL_SPR)
+    scores = _bf16(rx) @ _bf16(codebook).T if bf16 else rx @ codebook.T
+    sym = _first_max_or_zero(scores) if argmax == "dot" else torch.argmax(scores, dim=-1)
+    return sym.to(torch.uint8).reshape(b, r * _NEURAL_SPR)
+
+
+_NEURAL_ARGMAX = {"loop": 0, "dot": 1}
+_NEURAL_COMPACTION = ("loop", "stack")
 
 
 def neural_extract_batch(
@@ -1222,6 +1268,9 @@ def neural_extract_batch(
     phasors: torch.Tensor,
     s: torch.Tensor,
     rows_per_capture: int,
+    bf16: bool = False,
+    compaction: str = "loop",
+    argmax: str = "loop",
 ) -> torch.Tensor:
     """Whole-batch NEURAL symbol extraction at chip length 2 (8 symbols of
     16 samples per 128-sample row): downconversion, chips, unrotation,
@@ -1235,18 +1284,30 @@ def neural_extract_batch(
         kernel takes its block-diagonal expansion and a chip table instead).
       phasors: (B, 2) float32 per-capture unit channel phasor (a, b).
       s: (B,) int32 in-row sample offset k0 % 128 (taken mod 128).
+      bf16: the JAX kernel's bfloat16 operands: the samples are rounded to
+        bfloat16 before the chip means, and the unrotated chips and the
+        codebook before the scores; every product is then exact in float32
+        and the sums stay float32 (the unrotation is float32 throughout).
+        The kernel's own template instantiation, not a cast of its inputs.
+      compaction: "loop" or "stack", the JAX kernel's two ways of packing
+        the symbol lanes into output tiles, documented there as bit-exact
+        to each other (pallas_kernels.py:1047); the byte output here needs
+        neither, so both run the same kernel.
+      argmax: "loop", the first maximum, or "dot", the JAX kernel's count
+        gate: the index where exactly one codeword holds the maximum, 0
+        where several do. The kernel keeps the second maximum beside its
+        running maximum in the same pass over the scores; the maximum is
+        unique where the two differ.
     Returns (B, r3 * 8) uint8 symbols on the UNROTATED grid, symbol 8j+m from
     row j's slot m; the caller rolls each capture left by (k0 // 128) * 8.
 
     Contract, pinned by the tests: the successor of each capture's last row
     is the capture's own row 0 (the circular wrap of the JAX package's
     ``_td_extract``; the Pallas kernel reads the next capture's head there,
-    garbage by its contract); the argmax is the FIRST maximum, as
-    ``jnp.argmax`` and the Pallas kernel's ``argmax="loop"`` (its default
-    in the JAX package's ``demod_td_batch`` is ``"dot"``, which sends an
-    exact tie between distinct nonzero codewords to 0; all-zero rows give
-    0 either way). The rolled stream then equals the JAX package's XLA
-    extraction symbol for symbol, up to scores within rounding of a tie.
+    garbage by its contract). With ``argmax="loop"`` the rolled stream
+    equals the JAX package's XLA extraction symbol for symbol, up to scores
+    within rounding of a tie; ``"dot"`` differs from it only on an exact
+    tie between distinct codewords (all-zero rows give 0 either way).
     """
     r = rows_per_capture
     _require(x2d.ndim == 2 and x2d.shape[1] == 128 and r >= 1 and x2d.shape[0] % r == 0,
@@ -1254,16 +1315,18 @@ def neural_extract_batch(
     _require(x2d.dtype in _NEURAL_DTYPES, f"x2d dtype {x2d.dtype}")
     _require(codebook.dtype == torch.float32 and tuple(codebook.shape) == (256, 16),
              f"codebook {codebook.dtype} {tuple(codebook.shape)}, want float32 (256, 16)")
+    _require(argmax in _NEURAL_ARGMAX, f"argmax={argmax!r}: one of {sorted(_NEURAL_ARGMAX)}")
+    _require(compaction in _NEURAL_COMPACTION, f"compaction={compaction!r}: one of {_NEURAL_COMPACTION}")
     b = x2d.shape[0] // r
     _require(phasors.dtype == torch.float32 and tuple(phasors.shape) == (b, 2),
              f"phasors {phasors.dtype} {tuple(phasors.shape)}, want float32 ({b}, 2)")
     _check_per_capture("neural_extract_batch", b, s)
     dev = _same_device(x2d, codebook, phasors, s)
     if dev.type == "cpu":
-        return neural_extract_batch_plain(x2d, codebook, phasors, s, r)
+        return neural_extract_batch_plain(x2d, codebook, phasors, s, r, bf16=bf16, argmax=argmax)
     out = torch.empty((b, r * _NEURAL_SPR), dtype=torch.uint8, device=dev)
     _launch("amr_neural_extract", dev, _ptr(x2d), _NEURAL_DTYPES[x2d.dtype], _ptr(codebook), _ptr(phasors),
-            _ptr(s), _ptr(out), b, r)
+            _ptr(s), _ptr(out), b, r, int(bool(bf16)), _NEURAL_ARGMAX[argmax])
     _count(neural_extract_batch)
     return out
 

@@ -16,8 +16,10 @@ Receive, on the samples' device:
   matmul over the first 1/8 of the lags, escalated to every lag for the
   whole batch when any capture's normalized peak falls below
   ``TD_PREFIX_RHO`` (one read to the host); then at chip length 2 (NEURAL at
-  9600 Bd) K10 (``ops.kernels.neural_extract_batch``) on the unrotated
-  symbol grid and a roll per capture, at chip length 4 the plain-torch
+  9600 Bd) K10 (``ops.kernels.neural_extract_batch``; on the card with the
+  JAX package's production count-gate argmax, on the CPU with the first
+  maximum of its XLA extraction) on the unrotated symbol grid and a roll
+  per capture, at chip length 4 the plain-torch
   extraction :func:`_td_extract`, one capture at a time;
 * single capture (:func:`neural_mode_demodulate`): the same sync over every
   lag and :func:`_td_extract` (no kernel, as in the JAX package), or, for
@@ -33,7 +35,7 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +43,7 @@ import torch.nn.functional as F
 
 from ..parallel.mesh import agree_all
 from ..utils.torchenv import DeviceLike, resolve_device
-from .kernels import neural_extract_batch
+from .kernels import neural_extract_batch, neural_extract_batch_plain
 
 SAMPLE_RATE = 96000
 CARRIER = 24000.0  # fs/4: the double-frequency image alternates sign per
@@ -394,17 +396,34 @@ def _td_extract(
     return torch.argmax(scores.reshape(r3 * spr, 256), dim=-1).to(torch.uint8)
 
 
-def demod_td_batch(samples: torch.Tensor, chip_len: int) -> torch.Tensor:
+def demod_td_batch(
+    samples: torch.Tensor, chip_len: int, kernel: Optional[bool] = None, kernel_bf16: bool = False,
+    kernel_argmax: str = "dot",
+) -> torch.Tensor:
     """(B, N) samples -> (B, ceil(N/128) * spr) uint8 symbols, symbol 0 at
     each capture's preamble (the stream wraps circularly past the end).
 
     Sync by :func:`td_sync_batch`. At chip length 2 the symbols come from
-    K10 (``neural_extract_batch``; its plain version for CPU tensors) on the
-    unrotated grid, every row's successor the capture's next row circularly,
-    and roll left by ``(k0 // 128) * spr``: the JAX package's XLA extraction
-    symbol for symbol. The JAX gate ``r3 % 512 == 0`` is a TPU tiling rule
-    and does not apply. At chip length 4 :func:`_td_extract` runs one
-    capture at a time (its scores take 537 MB a capture at 2^24 samples)."""
+    K10 (``neural_extract_batch``) on the unrotated grid, every row's
+    successor the capture's next row circularly, and roll left by
+    ``(k0 // 128) * spr``. ``kernel`` decides as the JAX package does, with
+    the card in the TPU's place:
+
+    * ``None``: on a CUDA tensor the kernel with ``kernel_bf16`` and
+      ``kernel_argmax`` (default "dot", the JAX package's production count
+      gate: an exact tie between distinct codewords gives 0); on a CPU
+      tensor the JAX XLA extraction's rule, float32 and the first maximum
+      (K10's plain version with ``argmax="loop"``), symbol for symbol;
+    * ``True``: K10 with ``kernel_bf16`` and ``kernel_argmax`` on either
+      device (its plain version for CPU tensors);
+    * ``False``: the plain PyTorch version on the tensors' own device, the
+      counterpart of the JAX package's XLA extraction.
+
+    The JAX gate ``r3 % 512 == 0`` is a TPU tiling rule and does not apply.
+    At chip length 4 :func:`_td_extract` runs one capture at a time (its
+    scores take 537 MB a capture at 2^24 samples), whatever ``kernel``."""
+    if kernel_argmax not in ("loop", "dot"):
+        raise ValueError(f"kernel_argmax={kernel_argmax!r}: 'loop' or 'dot'")
     b, n = samples.shape
     dev = samples.device
     r3 = -(-n // 128)
@@ -413,10 +432,12 @@ def demod_td_batch(samples: torch.Tensor, chip_len: int) -> torch.Tensor:
     tabs = _device_tables(chip_len, dev)
     if chip_len == 2:
         xp = F.pad(samples, (0, r3 * 128 - n)) if r3 * 128 != n else samples
-        syms = neural_extract_batch(
-            xp.contiguous().reshape(b * r3, 128), tabs["cb"], torch.stack([pr, pi], dim=1).contiguous(),
-            (k0 % 128).to(torch.int32), rows_per_capture=r3,
-        )
+        args = (xp.contiguous().reshape(b * r3, 128), tabs["cb"], torch.stack([pr, pi], dim=1).contiguous(),
+                (k0 % 128).to(torch.int32))
+        if kernel is False or (kernel is None and dev.type == "cpu"):
+            syms = neural_extract_batch_plain(*args, r3)
+        else:
+            syms = neural_extract_batch(*args, rows_per_capture=r3, bf16=kernel_bf16, argmax=kernel_argmax)
         n_sym = r3 * spr
         idx = (torch.arange(n_sym, device=dev)[None, :] + ((k0 // 128) * spr)[:, None]) % n_sym
         return torch.gather(syms, 1, idx)

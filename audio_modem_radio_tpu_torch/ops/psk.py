@@ -64,6 +64,7 @@ from .common import (
 )
 from .kernels import (
     _decide,
+    psk8_relabel_pack_rows_plain,
     psk8_sector_stream,
     psk_project_decide_batch,
     psk_project_diff,
@@ -83,6 +84,9 @@ _BLOCK_SYM = 128
 _BLOCK_MAX_SPSYM = 32
 # Row granularity of the pass-2 and sync-tail kernels.
 _BLOCK_ROWS = 256
+# K1's body, as the JAX package names it: "roll", or "succ" (the successor-
+# column templates). Both run csrc/decide.cu with the same decisions.
+DECIDE_KERNEL_VARIANT = "roll"
 
 
 def _samples_per_symbol(sample_rate: int, baud: float) -> int:
@@ -232,6 +236,28 @@ def _blocked_templates(spsym: int, carrier: float, sample_rate: int, n_offsets: 
         for s in range(_BLOCK_SYM):
             W[i, s * spsym : s * spsym + 2 * spsym, s] = T[:, 2 * i]
             W[i, s * spsym : s * spsym + 2 * spsym, _BLOCK_SYM + s] = T[:, 2 * i + 1]
+    return W
+
+
+@functools.lru_cache(maxsize=64)
+def _blocked_templates_succ(spsym: int, carrier: float, sample_rate: int, n_offsets: int) -> np.ndarray:
+    """(n_offsets, ROW+OV, 4*_BLOCK_SYM) templates with successor columns
+    [re x128 | im x128 | re_succ x128 | im_succ x128]: the first 256 columns
+    are :func:`_blocked_templates`, and the successor column of symbol s
+    holds symbol s+1's window (symbol 128's lies in the OV tail). The JAX
+    package's "succ" decide body reads the differential off one product
+    with them; K1 here reads their dual basis, as it does the "roll"
+    templates'."""
+    T = _offset_templates(spsym, float(carrier), sample_rate, n_offsets)
+    row = _BLOCK_SYM * spsym
+    ov = 128 * int(np.ceil(2 * spsym / 128))
+    W = np.zeros((n_offsets, row + ov, 4 * _BLOCK_SYM), dtype=np.float32)
+    W[:, :, : 2 * _BLOCK_SYM] = _blocked_templates(spsym, carrier, sample_rate, n_offsets)
+    for i in range(n_offsets):
+        for s in range(_BLOCK_SYM):
+            w0 = (s + 1) * spsym
+            W[i, w0 : w0 + 2 * spsym, 2 * _BLOCK_SYM + s] = T[:, 2 * i]
+            W[i, w0 : w0 + 2 * spsym, 3 * _BLOCK_SYM + s] = T[:, 2 * i + 1]
     return W
 
 
@@ -453,6 +479,7 @@ def psk_decision_streams_batch(
     n_psk: int = 4,
     cfo: bool = True,
     n_offsets: int = 8,
+    kernel_variant: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched decision streams of shape (B, r*128), uint8, on the input's
     device: Gray ``(hi, lo)`` dibit lanes for ``n_psk=4``, the sign bits of
@@ -462,7 +489,10 @@ def psk_decision_streams_batch(
     rotation θ; kernel K1 projects, differentiates, derotates by θ
     (``cfo=True``; identity otherwise) and decides. Entries past each
     capture's modulated span are garbage, which the sync tail and the frame
-    parser ignore.
+    parser ignore. ``kernel_variant`` is K1's body (default
+    ``DECIDE_KERNEL_VARIANT``, "roll"); "succ" gives the same decisions, as
+    in the JAX package, and runs the same kernel on the same templates here
+    (K1 reads only their dual basis).
 
     Where there is no blocked path (a symbol over 32 samples, PSK31 among
     them, or a capture under 256 symbols) each capture runs the
@@ -475,6 +505,9 @@ def psk_decision_streams_batch(
             f"n_psk={n_psk}: decision streams exist for DBPSK (2) and DQPSK (4); "
             "D8PSK is psk8_sector_rows_batch"
         )
+    variant = kernel_variant or DECIDE_KERNEL_VARIANT
+    if variant not in ("roll", "succ"):
+        raise ValueError(f"kernel_variant={kernel_variant!r}: K1's body is 'roll' or 'succ'")
     spsym = _samples_per_symbol(sample_rate, baud)
     setup = _batch_block_setup(samples, spsym)
     if setup is None:
@@ -686,10 +719,55 @@ def derotate(d_re: torch.Tensor, d_im: torch.Tensor, theta: torch.Tensor) -> Tup
     return d_re * c + d_im * s, d_im * c - d_re * s
 
 
+def quarter_turn(d_re: torch.Tensor, d_im: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rotate by −k·π/2 exactly (sign and swap only): the CFO ambiguity retry."""
+    k %= 4
+    if k == 0:
+        return d_re, d_im
+    if k == 1:
+        return d_im, -d_re
+    if k == 2:
+        return -d_re, -d_im
+    return -d_im, d_re
+
+
+def estimate_cfo(samples, baud: float, carrier: float, sample_rate: int, device: DeviceLike = None) -> float:
+    """Carrier-frequency-offset estimate in Hz, resolved mod ``baud/4``.
+
+    The modulator restarts the carrier every symbol, so an offset δ shows
+    only as a constant rotation 2π·δ/baud of every differential phasor, and
+    the blind 4th-power rotation estimate θ̂ of :func:`psk_demod_streams`'
+    streams is that measurement: δ̂ = baud·θ̂/2π. ``samples`` is a numpy
+    capture (on ``device``, default the card) or a tensor (on its own
+    device unless ``device`` is named)."""
+    if isinstance(samples, torch.Tensor) and device is None:
+        x = samples.to(torch.float32)
+    else:
+        x = _to_device(samples, device)
+    d_re, d_im, _ = psk_demod_streams(x, float(baud), float(carrier), int(sample_rate))
+    theta = float(estimate_common_rotation(d_re, d_im))
+    return theta * float(baud) / (2 * np.pi)
+
+
 def qpsk_gray_streams(d_re: torch.Tensor, d_im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differential phasor -> (hi, lo) Gray dibit streams, sign/compare only
     (sector boundaries at ±45° and ±135°)."""
     return _decide(d_re, d_im, 4)
+
+
+def psk_demod_bits(
+    samples: torch.Tensor, baud: float, carrier: float, sample_rate: int, n_psk: int, n_offsets: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One capture to an interleaved bit stream ``(bits, best_score)``, on
+    the capture's device: the sign of d_re for DBPSK (``n_psk=2``), the Gray
+    (hi, lo) dibits interleaved for DQPSK. No blind derotation: without a
+    frame sync to try the quarter-turn relabelings, derotating could turn a
+    decodable static phase offset into an undecodable one."""
+    d_re, d_im, best_score = psk_demod_streams(samples, baud, carrier, sample_rate, n_offsets)
+    if n_psk == 2:
+        return (d_re < 0).to(torch.uint8), best_score
+    hi, lo = qpsk_gray_streams(d_re, d_im)
+    return torch.stack([hi, lo], dim=1).reshape(-1), best_score
 
 
 def psk_demod_streams_batch(
@@ -821,6 +899,20 @@ def psk8_sync_and_pack_rotations(
     st = ((s32 + (8 - ksel)) % 8).to(torch.uint8)  # relabel: true = rx - k
     packed, n_valid = pack_bits_from(_psk8_gray_bits(st)[None], (3 * idx).reshape(1))
     return packed[0], n_valid[0], found
+
+
+def psk8_relabel_pack_batch(
+    sec: torch.Tensor, ksel: torch.Tensor, idx: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Relabel + byte-pack (B, m) D8PSK sector streams (m % 128 == 0) on the
+    winning hypothesis, in plain torch (the JAX package's XLA reference of
+    K6): true sector = received − ``ksel`` (mod 8), the stream shifted by
+    ``idx mod 8`` symbols only, so the magic sits at byte 3·(idx // 8).
+    Returns ``(packed (B, m // 128 * 48) uint8, n_valid (B,) int32)``."""
+    b, m = sec.shape
+    r8 = (idx.to(torch.int32) % 8)
+    packed = psk8_relabel_pack_rows_plain(sec.reshape(b, m // 128, 128), ksel.to(torch.int32), r8)
+    return packed, ((3 * (m - r8)) // 8).to(torch.int32)
 
 
 # --- the byte ladders ---------------------------------------------------------------

@@ -100,6 +100,7 @@ from ..ops.fsk import (
     fsk_quad_row_shape,
 )
 from ..ops.kernels import (
+    PACK_KERNEL_VARIANT,
     bit_select_pack_batch,
     psk8_relabel_pack_rows,
     relabel_pack_batch,
@@ -195,7 +196,7 @@ def _scan_tiered(r: int, match, fold, accept):
 
 
 def psk4_kernel_sync_tail(
-    hi: torch.Tensor, lo: torch.Tensor, cfo_retry: bool
+    hi: torch.Tensor, lo: torch.Tensor, cfo_retry: bool, pack_variant: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The DQPSK sync tail: K2 matcher over tiered prefixes + K3 pack.
 
@@ -204,7 +205,8 @@ def psk4_kernel_sync_tail(
     found (B,) bool)``. The stream is aligned only mod 8 bits: the frame
     starts at byte s//8, which the parser's magic scan absorbs. With
     ``cfo_retry`` off only the k=0 hypothesis is accepted, so a rotated
-    stream does not decode.
+    stream does not decode. ``pack_variant`` is K3's generation (default
+    ``PACK_KERNEL_VARIANT``); both run the same kernel.
     """
     n_dib = hi.shape[1]
     r_dib = n_dib // 128
@@ -237,13 +239,14 @@ def psk4_kernel_sync_tail(
     # scan's (a prefix k=0 match is the global first for its parity, and
     # ksel = 0 on both views).
     s, ksel, found = _scan_tiered(r_dib, match, fold, lambda f: f[:, 0] | f[:, 4])
-    packed = relabel_pack_batch(hi3, lo3, s, ksel, rows_per_capture=r_dib, variant="weights")
+    packed = relabel_pack_batch(hi3, lo3, s, ksel, rows_per_capture=r_dib,
+                                variant=pack_variant or PACK_KERNEL_VARIANT)
     n_valid = (2 * n_dib - (s & 7)) // 8
     return packed, n_valid.to(torch.int32), found
 
 
 def psk2_kernel_sync_tail(
-    hi: torch.Tensor, lo: torch.Tensor, cfo_retry: bool
+    hi: torch.Tensor, lo: torch.Tensor, cfo_retry: bool, pack_variant: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The DBPSK sync tail: K2 with the 4 DBPSK hypotheses (re/im x
     inverted) over tiered prefixes, then K4 (select + complement + pack).
@@ -252,7 +255,8 @@ def psk2_kernel_sync_tail(
     differential, n_bits a multiple of 128*256. Returns ``(packed (B,
     n_bits/8) uint8, n_valid (B,) int32, found (B,) bool)``; the frame
     starts at byte s//8. With ``cfo_retry`` off only hypothesis 0 (re,
-    uninverted) is accepted.
+    uninverted) is accepted. ``pack_variant`` is K4's generation (default
+    ``PACK_KERNEL_VARIANT``); both run the same kernel.
     """
     n_bits = hi.shape[1]
     r_bit = n_bits // 128
@@ -277,7 +281,8 @@ def psk2_kernel_sync_tail(
     # Accepted iff every capture matched hypothesis 0 inside the tier: then
     # ksel = 0 on both views and the prefix's first[:, 0] is the global first.
     s, ksel, found = _scan_tiered(r_bit, match, fold, lambda f: f[:, 0])
-    packed = bit_select_pack_batch(hi3, lo3, s, ksel, rows_per_capture=r_bit, variant="weights")
+    packed = bit_select_pack_batch(hi3, lo3, s, ksel, rows_per_capture=r_bit,
+                                   variant=pack_variant or PACK_KERNEL_VARIANT)
     n_valid = (n_bits - (s & 7)) // 8
     return packed, n_valid.to(torch.int32), found
 
@@ -365,6 +370,8 @@ def demod_pack_batch(
     symbol_rate: int,
     cfo_retry: bool = True,
     fsk_mlse: bool = False,
+    psk_variant: Optional[str] = None,
+    pack_variant: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, N) samples or host-shaped (B, r, cols) rows -> (packed bytes
     (B, max_bytes), n_valid (B,), found (B,)), on the input's device.
@@ -386,7 +393,11 @@ def demod_pack_batch(
     CONFIG ``tpu.demod_backend = "xla"`` D8PSK runs the staged float path
     (K12, rotation, sectors), every PSK kind and OFDM the per-capture tails
     and dual-tone FSK K7 on the unpadded float32 rows. ``fsk_mlse`` refines
-    close-tone FSK captures that arrive flat by MLSE.
+    close-tone FSK captures that arrive flat by MLSE. ``psk_variant`` (K1's
+    body, "roll" or "succ") and ``pack_variant`` (K3's and K4's generation,
+    "weights" or "shift") are the JAX package's A/B switches of the DQPSK
+    and DBPSK kernel path; each pair gives the same bytes and launches the
+    same kernels.
     """
     kind, params = _receive_kind(mode, symbol_rate)
     if kind == "neural":
@@ -430,11 +441,11 @@ def demod_pack_batch(
         return psk8_kernel_sync_tail(sec, cfo_retry)
     n_psk = 4 if kind == "psk4" else 2
     hi, lo = psk_decision_streams_batch(
-        samples, baud, carrier, SAMPLE_RATE, n_psk=n_psk, cfo=cfo_retry
+        samples, baud, carrier, SAMPLE_RATE, n_psk=n_psk, cfo=cfo_retry, kernel_variant=psk_variant
     )
     if not xla and hi.shape[1] % (128 * _MATCH_BLOCK_ROWS) == 0:
         tail = psk4_kernel_sync_tail if kind == "psk4" else psk2_kernel_sync_tail
-        return tail(hi, lo, cfo_retry)
+        return tail(hi, lo, cfo_retry, pack_variant=pack_variant)
     return _per_capture(_psk_capture_tail(kind, cfo_retry), hi, lo)
 
 

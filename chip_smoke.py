@@ -45,9 +45,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    1e-5 of their RMS, and the Gray dibits (QPSK) or π/4 sectors (8PSK)
    decided from them after derotation by pass 1's θ equal on every symbol;
 3d. K10 vs plain on 8 x 2^24-sample NEURAL@9600 captures synced by the
-   port's ``td_sync_batch``, float32 and int16 rows: symbols equal on clean
-   captures, at most 1e-4 different with AWGN at 6 dB, all zeros on an
-   all-zero capture;
+   port's ``td_sync_batch``, float32 and int16 rows, with the count-gate
+   argmax of the main path and with the first maximum: symbols equal on
+   clean captures, at most 1e-4 different with AWGN at 6 dB, all zeros on
+   an all-zero capture;
 3e. the MLSE Viterbi kernel (``mlse_viterbi.cu``) vs plain on the blocks
    the single-capture receiver gives it for one 2^24-sample capture at
    9600 Bd, clean and with AWGN at 15 dB, on three trellises: 48 states
@@ -188,6 +189,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    WAV; the ``.pyz`` with this Python and a fresh XDG_CACHE_HOME: the same
    bytes, the kernels built from the zip's sources into that cache, then
    loaded from it by a second run;
+5v. the JAX package's A/B switches, FSK front ends and helpers: 8 QPSK and
+   8 BPSK captures of 2^24 samples through ``demod_pack_batch(psk_variant=
+   "succ", pack_variant="shift")``, the default call's bytes and every
+   frame, K1, K2 and K3 or K4 launched; on 64 captures K1 "succ" bitwise
+   equal to "roll" and to plain, K3 and K4 "shift" byte-equal to "weights"
+   and to plain at every (ksel, s8) pair, each timed beside the production
+   variant; the NEURAL@9600 bench batch through ``demod_td_batch`` with the
+   production count gate, ``kernel_argmax="loop"`` and ``kernel_bf16=True``
+   (K10 once each, the frames recovered), K10 with each switch equal to
+   its plain version symbol for symbol at 8 captures and on rows of a
+   codebook with duplicated codewords (the count gate 0, the first maximum
+   the lower index), bf16 also on a capture with AWGN at 0 dB, where its
+   rounding moves symbols from float32 in the kernel and in plain, each
+   timed; ``fsk_demod_bits(frontend=)`` "matmul",
+   "fft" and "fir" on one 2^24-sample FSK9600 capture, the same frames, the
+   MLSE Viterbi once each, timed; ``estimate_cfo`` of QPSK@2400 on 6 kHz
+   moved +-100 Hz within 1 Hz;
 6. timing with CUDA events (one warm-up, median of 5): ``demod_pack_batch``
    of each mode on its 64 x 2^24 int16 batch staged on the card (PSK with
    cfo_retry on and off, and again with its last capture noise, which
@@ -225,10 +243,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 The line before the last is one JSON object with the kernels' names,
 sources, launch counts, errors, times and bounds (one entry per kernel and
-PSK variant): ``bound_ms`` is the larger of the bytes the call must move
+PSK variant, and one per JAX switch that phase 5v drives: K1 "succ", K3
+and K4 "shift", K10's first maximum and bf16, each with the launches of its
+5v run; the main path's K10 entry is the production count gate): ``bound_ms`` is the larger of the bytes the call must move
 over 3.35 TB/s and its operations over 67 T/s (the H100 SXM's published
 memory rate and float32 CUDA-core rate; integer operations are counted
-against the same rate), from the shapes and templates of the timed call.
+against the same rate; K10 bf16's scoring, bf16 products summed in float32,
+over the 989 TFLOP/s of the bf16 tensor cores), from the shapes and
+templates of the timed call.
 No single PyTorch call computes any of these functions, so ``library_ms``
 is null throughout. The two Viterbi kernels' bounds by bytes and
 operations are far below their real floor, the chain of 10,240 (MLSE) or
@@ -297,6 +319,7 @@ _K7_CASES = {
     "FT8": ("FT8", 50, 400),
 }
 _PEAK_BYTES, _PEAK_OPS = 3.35e12, 67e12  # H100 SXM: HBM3 bytes/s, float32 CUDA-core ops/s
+_PEAK_BF16 = 989e12  # H100 SXM: dense bf16 tensor-core flop/s (float32 accumulation)
 # The kernels line: entry -> (wrapper, the run whose launches it reports,
 # source, the TPU kernel it replaces).
 _ENTRIES = {
@@ -316,6 +339,12 @@ _ENTRIES = {
     "psk_project_diff": ("psk_project_diff", "QPSK single", "project_diff.cu", 199),
     "psk_project_diff_batch": ("psk_project_diff_batch", "8PSK xla", "project_diff.cu", 126),
     "neural_extract_batch": ("neural_extract_batch", "NEURAL", "neural_extract.cu", 1083),
+    # The JAX package's switches (phase 5v): each run through its entry point.
+    "psk_project_decide_batch@4:succ": ("psk_project_decide_batch", "5v QPSK", "decide.cu", 312),
+    "relabel_pack_batch:shift": ("relabel_pack_batch", "5v QPSK", "relabel_pack.cu", 1395),
+    "bit_select_pack_batch:shift": ("bit_select_pack_batch", "5v BPSK", "bit_select_pack.cu", 1577),
+    "neural_extract_batch:loop": ("neural_extract_batch", "5v NEURAL loop", "neural_extract.cu", 1151),
+    "neural_extract_batch:bf16": ("neural_extract_batch", "5v NEURAL bf16", "neural_extract.cu", 1151),
     # No Pallas kernel: the lax.scan pair of _mlse_refine.
     "mlse_viterbi_blocks": ("mlse_viterbi_blocks", "FSK9600 single", "mlse_viterbi.cu",
                             "audio_modem_radio_tpu/ops/fsk.py:375"),
@@ -327,6 +356,14 @@ _ENTRIES = {
 # compares, 16 chips of 4 (two mask products, a sum, the half) and 16
 # unrotated chips of 3.
 _K10_OPS = 256 * 16 * 2 + 256 + 16 * 4 + 16 * 3
+# K10's operations per symbol under its switches, from its code: the count
+# gate adds a max per codeword (the second maximum); the bf16 operands add a
+# rounding per sample read (32) and per unrotated chip (16), and their
+# scoring, bf16 products summed in float32, is the tensor cores' work, so
+# its bound counts those 256 x 16 FMAs at the bf16 rate.
+_K10_SCORE = 256 * 16 * 2
+_K10_OPS_DOT = _K10_OPS + 256
+_K10_OPS_BF16 = _K10_OPS_DOT + 48 - _K10_SCORE
 # The single-capture decodes of phase 5g: 128 KiB in 8 parts of 16 KiB.
 _FILE_BYTES, _N_PARTS = 128 * 1024, 8
 
@@ -439,10 +476,12 @@ def _awgn(clean: np.ndarray, snr_db: float, device) -> np.ndarray:
     return np.clip(clean + noise, -1.0, 1.0).astype(np.float32)
 
 
-def _bound(n_bytes: float, n_ops: float):
+def _bound(n_bytes: float, n_ops: float, n_bf16_ops: float = 0.0):
     """(ms, "bytes" or "operations"): the least time of a call that moves
-    ``n_bytes`` and does ``n_ops``, at the card's published peaks."""
-    t_bytes, t_ops = n_bytes / _PEAK_BYTES * 1e3, n_ops / _PEAK_OPS * 1e3
+    ``n_bytes``, does ``n_ops`` on the CUDA cores and ``n_bf16_ops`` bf16
+    tensor-core flops, at the card's published peaks."""
+    t_bytes = n_bytes / _PEAK_BYTES * 1e3
+    t_ops = (n_ops / _PEAK_OPS + n_bf16_ops / _PEAK_BF16) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1689,20 +1728,23 @@ def phase_neural_kernel(device, n_cap: int, n: int, payload_bytes: int, card: st
             x2d = x.reshape(b * r3, 128)
             ph = torch.stack([pr, pi], dim=1).contiguous()
             s = (k0 % 128).to(torch.int32)
-            got = tk.neural_extract_batch(x2d, cb, ph, s, rows_per_capture=r3)
-            ref = tk.neural_extract_batch_plain(x2d, cb, ph, s, r3)
-            torch.cuda.synchronize()
-            n_bad, n_all = int((got != ref).sum()), got.numel()
-            say(f"[3d K10] {tag} {dtype} rows ({b * r3}, 128): k0={k0.tolist()[:4]} mismatches={n_bad} of "
-                f"{n_all} ({n_bad / n_all:.3e}) | {card}")
-            if tag == "clean":
-                check(n_bad == 0, f"K10 differs from plain on clean {dtype} captures")
-                worst = max(worst, int((got.int() - ref.int()).abs().max()))
-            elif tag == "zero":
-                check(not got.any() and not ref.any(), f"K10 or plain decoded nonzero symbols from zeros ({dtype})")
-            else:
-                check(n_bad / n_all <= 1e-4, f"K10 mismatch fraction {n_bad / n_all} > 1e-4 at 6 dB")
-            del x, x2d, got, ref
+            for argmax in ("dot", "loop"):  # the main path's count gate, the first maximum
+                got = tk.neural_extract_batch(x2d, cb, ph, s, rows_per_capture=r3, argmax=argmax)
+                ref = tk.neural_extract_batch_plain(x2d, cb, ph, s, r3, argmax=argmax)
+                torch.cuda.synchronize()
+                n_bad, n_all = int((got != ref).sum()), got.numel()
+                say(f"[3d K10] {tag} {dtype} rows ({b * r3}, 128), argmax {argmax!r}: k0={k0.tolist()[:4]} "
+                    f"mismatches={n_bad} of {n_all} ({n_bad / n_all:.3e}) | {card}")
+                if tag == "clean":
+                    check(n_bad == 0, f"K10 differs from plain on clean {dtype} captures")
+                    worst = max(worst, int((got.int() - ref.int()).abs().max()))
+                elif tag == "zero":
+                    check(not got.any() and not ref.any(),
+                          f"K10 or plain decoded nonzero symbols from zeros ({dtype})")
+                else:
+                    check(n_bad / n_all <= 1e-4, f"K10 mismatch fraction {n_bad / n_all} > 1e-4 at 6 dB")
+                del got, ref
+            del x, x2d
     torch.cuda.empty_cache()
     say(f"[3d K10] {time.perf_counter() - t0:.1f} s | {card}")
     return {"neural_extract_batch": (float(worst), None)}
@@ -1807,7 +1849,8 @@ def phase_neural_single(device, n: int, work: str, card: str) -> str:
 def phase_neural_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
     """``demod_pack_batch`` NEURAL on the 64 x 2^24 float32 bench batch
     staged on the card (the prefix branch), again with its last capture
-    pure noise (the full search), and K10 beside its bound and its plain
+    pure noise (the full search), and K10 (the count-gate argmax of the main
+    path) beside its bound and its plain
     version at 8 captures (the plain scores of 64 captures would take 69
     GB). Returns ({entry: (ms, plain_ms, plain_captures)}, {label:
     Msamples/s}, {entry: (bound_ms, bound_by)})."""
@@ -1844,13 +1887,14 @@ def phase_neural_timing(device, n_cap: int, n: int, payload_bytes: int, card: st
     ph = torch.stack([pr, pi], dim=1).contiguous()
     s = (k0 % 128).to(torch.int32)
     n_sym = n_cap * r3 * 8
+    # The main path's K10 takes the JAX package's production count gate.
     bounds = {"neural_extract_batch": _bound(x2d.numel() * 4 + n_sym + cb.numel() * 4 + n_cap * 12,
-                                             n_sym * _K10_OPS)}
+                                             n_sym * _K10_OPS_DOT)}
     pc = min(8, n_cap)
     xp = x2d[: pc * r3]
     t = {"neural_extract_batch": (
-        _time_ms(lambda: tk.neural_extract_batch(x2d, cb, ph, s, rows_per_capture=r3)),
-        _time_ms(lambda: tk.neural_extract_batch_plain(xp, cb, ph[:pc], s[:pc], r3)), pc)}
+        _time_ms(lambda: tk.neural_extract_batch(x2d, cb, ph, s, rows_per_capture=r3, argmax="dot")),
+        _time_ms(lambda: tk.neural_extract_batch_plain(xp, cb, ph[:pc], s[:pc], r3, argmax="dot")), pc)}
     ms, plain, _ = t["neural_extract_batch"]
     say(f"[6 time] neural_extract_batch B={n_cap}: kernel {ms:.4f} ms, plain {plain:.4f} ms (plain at {pc} "
         f"captures), bound {bounds['neural_extract_batch'][0]:.4f} ms by {bounds['neural_extract_batch'][1]} | {card}")
@@ -3373,6 +3417,310 @@ def phase_distribution(work: str, card: str) -> None:
     say(f"[5u] phase {time.perf_counter() - t_phase:.1f} s | {card}")
 
 
+# --- phase 5v: the JAX package's switches, front ends and helpers -------------------
+
+def _analytic_shift(x: np.ndarray, df: float) -> np.ndarray:
+    """``x`` moved up by ``df`` Hz: the analytic signal (FFT, negative
+    frequencies dropped) times a complex tone, real part."""
+    n = len(x)
+    h = np.zeros(n)
+    h[0] = 1.0
+    h[1 : (n + 1) // 2] = 2.0
+    if n % 2 == 0:
+        h[n // 2] = 1.0
+    z = np.fft.ifft(np.fft.fft(np.asarray(x, np.float64)) * h)
+    return np.real(z * np.exp(2j * np.pi * df * np.arange(n) / SR)).astype(np.float32)
+
+
+def _variant_psk(device, mode: str, n_cap: int, n: int, payload_bytes: int, card: str, out: dict) -> None:
+    """5v for QPSK (K1 "succ", K3 "shift") or BPSK (K4 "shift"): 8 captures
+    of distinct payloads through ``demod_pack_batch`` with the JAX default
+    switches and with ``psk_variant="succ", pack_variant="shift"``, the
+    same bytes and frames; on 8 copies of them (64 captures) K1 "succ"
+    bitwise equal to "roll" and the pack "shift" byte-equal to "weights" and
+    to the plain version at every (ksel, s8) pair, each timed beside the
+    production variant."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2, parse_frames
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.ops.psk import _batch_pass1, _blocked_templates_succ, _device_tables
+    from audio_modem_radio_tpu_torch.parallel.batch import demod_pack_batch
+
+    t0 = time.perf_counter()
+    spec = _SLICES[mode]
+    n_psk, carrier = spec["n_psk"], spec["carrier"]
+    payloads = [_payload(500 + i, payload_bytes) for i in range(8)]
+    waves = [_wave(p, f"v{i}.bin", mode) for i, p in enumerate(payloads)]
+    x8 = _rows(np.stack([_tiled(w, n, lead=13 * i) for i, w in enumerate(waves)]), "int16", device, mode)
+    base = demod_pack_batch(x8, mode, BAUD)
+    tk.reset_launch_counts()
+    var = demod_pack_batch(x8, mode, BAUD, psk_variant="succ", pack_variant="shift")
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    check(all(torch.equal(a, c) for a, c in zip(base, var)),
+          f"5v {mode}: demod_pack_batch(psk_variant='succ', pack_variant='shift') differs from the default call")
+    want = ("psk_project_decide_batch", "rotation_match_batch",
+            "relabel_pack_batch" if n_psk == 4 else "bit_select_pack_batch")
+    _check_launches(counts, want, mode, "demod_pack_batch(psk_variant='succ', pack_variant='shift')")
+    packed, n_valid, _ = (v.cpu() for v in var)
+    for i, (p, w) in enumerate(zip(payloads, waves)):
+        frames = parse_frames(packed[i, : int(n_valid[i])].numpy().tobytes())
+        check(len(frames) >= n // len(w) - 1 and all(f.data == p for f in frames),
+              f"5v {mode}: capture {i} recovered {len(frames)} frames with the variants")
+    run = f"5v {mode}"
+    out["counts"][run] = counts
+    say(f"[5v {mode}] demod_pack_batch 8 x {n} int16 rows, psk_variant='succ', pack_variant='shift': the "
+        f"default call's bytes, every capture its frames, launches={counts} | {card}")
+
+    x = x8.repeat(n_cap // 8, 1, 1)
+    del x8, base, var
+    b, r, _ = x.shape
+    _, _, best, theta = _batch_pass1(None, x, b, r * 128, SPSYM, carrier, SR, 8, r)
+    W8, _, _ = _device_tables(SPSYM, carrier, SR, 8, x.device)
+    Ws = torch.from_numpy(_blocked_templates_succ(SPSYM, carrier, SR, 8)).to(x.device)
+    rot = torch.stack([torch.cos(theta), torch.sin(theta)], dim=1)
+    n_sym = b * r * 128
+    roll = tk.psk_project_decide_batch(x, W8, best, rot, rows_per_capture=r, n_psk=n_psk)
+    succ = tk.psk_project_decide_batch(x, Ws, best, rot, rows_per_capture=r, n_psk=n_psk, variant="succ")
+    plain = tk.psk_project_decide_batch_plain(x, W8, best, rot, n_psk=n_psk)
+    n_sig = n // SPSYM - 2
+    err = 0
+    for a, c, pl in zip(succ, roll, plain):
+        check(torch.equal(a, c), f"5v K1@{n_psk}: 'succ' differs from 'roll'")
+        d = (a.reshape(b, -1)[:, :n_sig].int() - pl.reshape(b, -1)[:, :n_sig].int()).abs()
+        err = max(err, int(d.max()))
+    check(err == 0, f"5v K1@{n_psk} 'succ' differs from plain on clean captures")
+    bound = _bound(x.numel() * x.element_size() + n_sym * 2, n_sym * (8 * SPSYM + 12))
+    ms_roll = _time_ms(lambda: tk.psk_project_decide_batch(x, W8, best, rot, rows_per_capture=r, n_psk=n_psk))
+    ms_succ = _time_ms(lambda: tk.psk_project_decide_batch(x, Ws, best, rot, rows_per_capture=r, n_psk=n_psk,
+                                                            variant="succ"))
+    ms_plain = _time_ms(lambda: tk.psk_project_decide_batch_plain(x, Ws[:, :, :256], best, rot, n_psk=n_psk))
+    say(f"[5v K1@{n_psk}] {mode} {b} x {n} int16 rows: 'succ' (templates {tuple(Ws.shape)}) {ms_succ:.4f} ms "
+        f"beside 'roll' {ms_roll:.4f} ms, plain {ms_plain:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}; "
+        f"decisions bitwise equal | {card}")
+    if n_psk == 4:
+        entry = "psk_project_decide_batch@4:succ"
+        out["times"][entry], out["errs"][entry], out["bounds"][entry] = (ms_succ, ms_plain, n_cap), (0.0, None), bound
+    del plain
+
+    hi, lo = roll
+    family = "qpsk" if n_psk == 4 else "bpsk"
+    first, _ = tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r, family=family, pattern2=MAGIC_BIT_PATTERN2,
+                                       rows_scanned=256)
+    s = (2 * first[:, 0] if n_psk == 4 else first[:, 0]).to(torch.int32)
+    i = torch.arange(b, device=x.device)
+    s_pairs = (s - (s & 7) + (i // 4) % 8).to(torch.int32)
+    ksel = (i % 4).to(torch.int32)
+    if n_psk == 4:
+        fn, fn_plain, entry, label = tk.relabel_pack_batch, tk.relabel_pack_batch_plain, "relabel_pack_batch", "K3"
+        bound = _bound(n_sym * 2 + b * r * 32, n_sym * 8)
+    else:
+        fn, fn_plain, entry, label = (tk.bit_select_pack_batch, tk.bit_select_pack_batch_plain,
+                                      "bit_select_pack_batch", "K4")
+        bound = _bound(n_sym + b * r * 16, n_sym * 3)
+    shift = fn(hi, lo, s_pairs, ksel, rows_per_capture=r, variant="shift")
+    weights = fn(hi, lo, s_pairs, ksel, rows_per_capture=r, variant="weights")
+    ref = fn_plain(hi, lo, s_pairs, ksel)
+    n_diff = int((shift != weights).sum()) + int((shift != ref).sum())
+    check(n_diff == 0, f"5v {label}: 'shift' differs from 'weights' or plain in {n_diff} bytes")
+    ms_shift = _time_ms(lambda: fn(hi, lo, s_pairs, ksel, rows_per_capture=r, variant="shift"))
+    ms_weights = _time_ms(lambda: fn(hi, lo, s_pairs, ksel, rows_per_capture=r, variant="weights"))
+    ms_plain = _time_ms(lambda: fn_plain(hi, lo, s_pairs, ksel))
+    say(f"[5v {label}] {tuple(hi.shape)} lanes, every (ksel, s8) pair: 'shift' {ms_shift:.4f} ms beside 'weights' "
+        f"{ms_weights:.4f} ms, plain {ms_plain:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}; bytes equal | {card}")
+    key = f"{entry}:shift"
+    out["times"][key], out["errs"][key], out["bounds"][key] = (ms_shift, ms_plain, n_cap), (0.0, None), bound
+    del x, roll, succ, hi, lo, shift, weights, ref
+    torch.cuda.empty_cache()
+    say(f"[5v {mode}] {time.perf_counter() - t0:.1f} s | {card}")
+
+
+def _variant_neural(device, n_cap: int, n: int, payload_bytes: int, card: str, out: dict) -> None:
+    """5v for NEURAL@9600 on the bench batch: ``demod_td_batch`` with the
+    production count gate, with ``kernel_argmax="loop"`` and with
+    ``kernel_bf16=True``, K10 launched once each and the frame recovered;
+    K10 with each switch equal to its plain version symbol for symbol at 8
+    captures and on rows of a codebook with duplicated codewords (the count
+    gate gives 0 there, the first maximum the lower index); bf16 also on a
+    capture with AWGN at 0 dB, where its rounding moves symbols from
+    float32; each timed."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.framing import parse_frames
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.ops import neural as tn
+
+    t0 = time.perf_counter()
+    payload = _payload(0, payload_bytes)
+    wave = _mode_wave(payload, "bench.bin", "NEURAL", BAUD)
+    one = torch.from_numpy(_tiled(wave, n)[None]).to(device)
+    x = one.expand(n_cap, -1).contiguous()
+    del one
+    syms = {}
+    for label, kw in (("dot", {}), ("loop", {"kernel_argmax": "loop"}), ("bf16", {"kernel_bf16": True})):
+        tk.reset_launch_counts()
+        syms[label] = tn.demod_td_batch(x, 2, **kw)
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        _check_launches(counts, ("neural_extract_batch",), "NEURAL", f"demod_td_batch({kw})")
+        check(sum(counts.values()) == 1, f"5v NEURAL {label}: launches {counts}")
+        framed = syms[label][0, tn.PREAMBLE_LEN :].cpu().numpy().tobytes()
+        frames = parse_frames(framed)
+        check(len(frames) >= n // len(wave) - 1 and all(f.data == payload for f in frames),
+              f"5v NEURAL {label}: {len(frames)} frames")
+        if label != "dot":
+            out["counts"][f"5v NEURAL {label}"] = counts
+    n_diff = {k: int((v != syms["dot"]).sum()) for k, v in syms.items()}
+    say(f"[5v NEURAL] demod_td_batch {n_cap} x {n}: K10 once per call, every capture's frames with the count gate, "
+        f"the first maximum and bf16; symbols differing from the count gate's {n_diff} of {syms['dot'].numel()} "
+        f"| {card}")
+    check(n_diff["loop"] == 0, "5v NEURAL: the first maximum and the count gate part on a clean batch")
+    del syms
+
+    k0, pr, pi = tn.td_sync_batch(x, 2)
+    r3 = n // 128
+    x2d = x.reshape(n_cap * r3, 128)
+    cb = torch.from_numpy(tn._codebook()).to(device)
+    ph = torch.stack([pr, pi], dim=1).contiguous()
+    s = (k0 % 128).to(torch.int32)
+    pc = min(8, n_cap)
+    xp = x2d[: pc * r3]
+    n_sym = n_cap * r3 * 8
+    n_bytes = x2d.numel() * 4 + n_sym + cb.numel() * 4 + n_cap * 12
+    # bf16 where its rounding moves the argmax: capture 0 with AWGN at 0 dB
+    # (the receiver's edge; at 6 dB bf16 moves no symbol), synced anew. The
+    # kernel must equal plain bf16 symbol for symbol, and bf16 must move
+    # some symbols from float32 in both, so that this tells the bf16 kernel
+    # from the float32 one.
+    noisy = torch.from_numpy(_awgn(x[:1].cpu().numpy(), 0.0, device)).to(device)
+    k1, pr1, pi1 = tn.td_sync_batch(noisy, 2)
+    nargs = (noisy.reshape(r3, 128), cb, torch.stack([pr1, pi1], dim=1).contiguous(), (k1 % 128).to(torch.int32))
+    worst_bf16 = 0
+    for argmax in ("dot", "loop"):
+        kern = [tk.neural_extract_batch(*nargs, rows_per_capture=r3, bf16=b, argmax=argmax) for b in (False, True)]
+        plain = [tk.neural_extract_batch_plain(*nargs, r3, bf16=b, argmax=argmax) for b in (False, True)]
+        bad = int((kern[1] != plain[1]).sum())
+        moved = int((plain[1] != plain[0]).sum()), int((kern[1] != kern[0]).sum())
+        say(f"[5v K10 bf16] capture 0 at 0 dB SNR, argmax={argmax!r}: bf16 kernel vs plain bf16 {bad} of "
+            f"{plain[1].numel()} symbols differ; bf16 moves {moved[0]} symbols from float32 in plain, {moved[1]} "
+            f"in the kernel | {card}")
+        check(bad == 0 and min(moved) > 0,
+              f"5v K10 bf16 at 0 dB, argmax={argmax!r}: {bad} symbols differ from plain bf16, moved {moved}")
+        worst_bf16 = max(worst_bf16, int((kern[1].int() - plain[1].int()).abs().max()))
+    del noisy, nargs, kern, plain
+
+    cases = {"dot": (False, "dot", _K10_OPS_DOT, 0), "loop": (False, "loop", _K10_OPS, 0),
+             "bf16": (True, "dot", _K10_OPS_BF16, _K10_SCORE)}
+    ms = {}
+    for label, (bf16, argmax, ops, bf16_ops) in cases.items():
+        got = tk.neural_extract_batch(xp, cb, ph[:pc], s[:pc], rows_per_capture=r3, bf16=bf16, argmax=argmax)
+        ref = tk.neural_extract_batch_plain(xp, cb, ph[:pc], s[:pc], r3, bf16=bf16, argmax=argmax)
+        bad = int((got != ref).sum())
+        check(bad == 0, f"5v K10 {label}: {bad} symbols differ from the plain version")
+        del got, ref
+        ms[label] = (
+            _time_ms(lambda: tk.neural_extract_batch(x2d, cb, ph, s, rows_per_capture=r3, bf16=bf16, argmax=argmax)),
+            _time_ms(lambda: tk.neural_extract_batch_plain(xp, cb, ph[:pc], s[:pc], r3, bf16=bf16, argmax=argmax)))
+        bound = _bound(n_bytes, n_sym * ops, n_sym * bf16_ops)
+        say(f"[5v K10 {label}] bf16={bf16} argmax={argmax!r}: {pc} captures equal to plain symbol for symbol; "
+            f"{n_cap} captures kernel {ms[label][0]:.4f} ms, plain {ms[label][1]:.4f} ms at {pc} captures, "
+            f"bound {bound[0]:.4f} ms by {bound[1]} | {card}")
+        if label != "dot":
+            key = f"neural_extract_batch:{label}"
+            err = float(worst_bf16) if bf16 else 0.0
+            out["times"][key], out["errs"][key], out["bounds"][key] = (*ms[label], pc), (err, None), bound
+    say(f"[5v K10] beside the production count gate ({ms['dot'][0]:.4f} ms): first maximum {ms['loop'][0]:.4f} ms, "
+        f"bf16 {ms['bf16'][0]:.4f} ms | {card}")
+    del x, x2d, xp
+
+    tied = tn._codebook().copy()
+    tied[[9, 200]] = tied[3]
+    rows = 257
+    sent = np.random.default_rng(23).choice([3, 9, 200, 40], rows * 8)
+    xt = torch.from_numpy(tn._synth(sent, tied, 2).reshape(rows, 128)).to(device)
+    cbt = torch.from_numpy(tied).to(device)
+    ph1 = torch.tensor([[1.0, 0.0]], device=device)
+    s1 = torch.zeros(1, dtype=torch.int32, device=device)
+    for argmax, want in (("dot", np.where(sent == 40, 40, 0)), ("loop", np.where(sent == 40, 40, 3))):
+        for bf16 in (False, True):
+            got = tk.neural_extract_batch(xt, cbt, ph1, s1, rows_per_capture=rows, bf16=bf16, argmax=argmax)
+            ref = tk.neural_extract_batch_plain(xt, cbt, ph1, s1, rows, bf16=bf16, argmax=argmax)
+            check(np.array_equal(got.cpu().numpy()[0], want) and torch.equal(got, ref),
+                  f"5v K10 tie rows, argmax={argmax!r}, bf16={bf16}: not the tie rule")
+    say(f"[5v K10] tie rows (codewords 9 and 200 = 3): the count gate 0, the first maximum 3, kernel = plain, "
+        f"float32 and bf16 | {card}")
+    torch.cuda.empty_cache()
+    say(f"[5v NEURAL] {time.perf_counter() - t0:.1f} s | {card}")
+
+
+def _variant_fsk_cfo(device, n: int, payload_bytes: int, card: str) -> None:
+    """5v: ``fsk_demod_bits(frontend=)`` "matmul", "fft" and "fir" on one
+    2^24-sample FSK9600 capture (tiled frames), the MLSE Viterbi launched
+    once each, every frame recovered and the same frames from each, timed;
+    ``estimate_cfo`` of a QPSK@2400 capture on 6 kHz moved by +-100 Hz,
+    within 1 Hz."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.framing import MAGIC_BIT_PATTERN, crc32, pack_frame, parse_frames
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+    from audio_modem_radio_tpu_torch.ops.common import bit_sync_and_pack
+    from audio_modem_radio_tpu_torch.ops.fsk import fsk_demod_bits
+    from audio_modem_radio_tpu_torch.ops.psk import estimate_cfo, qpsk_modulate
+
+    t0 = time.perf_counter()
+    payload = _payload(31, payload_bytes)
+    wave = _mode_wave(payload, "fe.bin", "FSK9600", BAUD)
+    x = torch.from_numpy(_tiled(wave, n, lead=777)).to(device)
+    baud, mark, space = _fsk_params("FSK9600", BAUD)
+    frames = {}
+    for fe in ("matmul", "fft", "fir"):
+        tk.reset_launch_counts()
+        bits, _ = fsk_demod_bits(x, baud, mark, space, SR, frontend=fe)
+        packed, n_valid, _ = bit_sync_and_pack(bits, MAGIC_BIT_PATTERN)
+        counts = tk.launch_counts()
+        frames[fe] = [(f.name, f.data) for f in parse_frames(packed.cpu().numpy()[: int(n_valid)].tobytes())]
+        check(counts["mlse_viterbi_blocks"] == 1 and sum(counts.values()) == 1,
+              f"5v FSK9600 frontend={fe}: launches {counts}")
+        check(len(frames[fe]) >= n // len(wave) - 1 and all(d == payload for _n, d in frames[fe]),
+              f"5v FSK9600 frontend={fe}: {len(frames[fe])} frames")
+        ms = _time_ms(lambda: fsk_demod_bits(x, baud, mark, space, SR, frontend=fe), reps=3)
+        say(f"[5v FSK9600] fsk_demod_bits(frontend={fe!r}) on one {n}-sample capture: {len(frames[fe])} frames, "
+            f"{ms:.3f} ms (CUDA events, median of 3, host work included), launches={counts} | {card}")
+    check(frames["fft"] == frames["matmul"] and frames["fir"] == frames["matmul"],
+          "5v FSK9600: the front ends recover other frames")
+    del x
+
+    # The JAX package's own CFO test configuration (tests/test_cfo.py): at
+    # 9600 Bd on 3 kHz the estimate is biased by several Hz in both packages.
+    payload = _payload(32, payload_bytes)
+    wave = qpsk_modulate(pack_frame("cfo.bin", payload, 0, 1, len(payload), crc32(payload)), 2400, 6000.0)
+    for df in (100.0, -100.0):
+        xs = _analytic_shift(wave, df)
+        t1 = time.perf_counter()
+        est = estimate_cfo(torch.from_numpy(xs).to(device), 2400.0, 6000.0, SR)
+        wall = time.perf_counter() - t1
+        check(abs(est - df) < 1.0, f"5v estimate_cfo: {est:.3f} Hz for an offset of {df} Hz")
+        say(f"[5v estimate_cfo] QPSK@2400 on 6 kHz moved {df:+.0f} Hz ({len(xs)} samples): {est:.4f} Hz in "
+            f"{wall:.3f} s | {card}")
+    say(f"[5v FSK front ends, estimate_cfo] {time.perf_counter() - t0:.1f} s | {card}")
+
+
+def phase_variants(device, n_cap: int, n: int, payload_bytes: int, card: str) -> dict:
+    """5v: the JAX package's A/B switches, FSK front ends and helpers on the
+    card. Returns {"counts": {run: launch counts}, "times": {entry: (ms,
+    plain_ms, plain_captures)}, "errs": {entry: (err, None)}, "bounds":
+    {entry: (bound_ms, bound_by)}} for the kernels line's variant entries."""
+    t0 = time.perf_counter()
+    out = {"counts": {}, "times": {}, "errs": {}, "bounds": {}}
+    for mode in ("QPSK", "BPSK"):
+        _variant_psk(device, mode, n_cap, n, payload_bytes, card, out)
+    _variant_neural(device, n_cap, n, payload_bytes, card, out)
+    _variant_fsk_cfo(device, n, payload_bytes, card)
+    say(f"[5v] {time.perf_counter() - t0:.1f} s | {card}")
+    return out
+
+
 def main() -> int:
     n, n_k1, n_slice, payload_bytes = 1 << 24, 8, 64, 16384
     # One card: the first visible one (set before torch initialises CUDA).
@@ -3466,6 +3814,10 @@ def main() -> int:
         phase_scaleout(device, n_slice, n, payload_bytes, fec_work, card)
         phase = "5u distribution"
         phase_distribution(fec_work, card)
+        phase = "5v switches, front ends, helpers"
+        variants = phase_variants(device, n_slice, n, payload_bytes, card)
+        counts.update(variants["counts"])
+        errs.update(variants["errs"])
         phase = "6 timing"
         psk_times, _, bounds = phase_timing(device, n_slice, n, payload_bytes, card)
         times = {k: (ms, plain, n_slice) for k, (ms, plain) in psk_times.items()}
@@ -3486,6 +3838,8 @@ def main() -> int:
         times.update(fec_times)
         bounds.update(fec_bounds)
         phase_ofdm_dsss_timing(device, n_slice, n, payload_bytes, card)
+        times.update(variants["times"])
+        bounds.update(variants["bounds"])
     except Exception as e:  # any failure: report the phase, print no result
         import traceback
 

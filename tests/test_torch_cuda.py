@@ -1024,6 +1024,80 @@ def test_neural_extract_kernel_first_maximum_wins_a_tie(cuda):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("bf16,argmax", [(True, "loop"), (False, "dot"), (True, "dot")])
+def test_neural_extract_switches_equal_plain(cuda, bf16, argmax):
+    """K10's bf16 operands and count-gate argmax: every symbol equal to the
+    plain version with the same switches, one launch a call. With bf16 also
+    on the rows with AWGN at 0 dB, where bf16 rounding moves symbols from
+    float32 in the plain version and in the kernel, so that the comparison
+    tells the bf16 kernel from the float32 one."""
+    from audio_modem_radio_tpu_torch.ops.neural import _codebook
+
+    rows = 300
+    clean = _neural_rows(4, rows * 128, "float32")
+    x = torch.from_numpy(clean).to(cuda)
+    cb = torch.from_numpy(_codebook()).to(cuda)
+    ph = torch.tensor([[1.0, 0.0], [0.6, 0.8], [-0.8, 0.6], [0.0, 1.0]], device=cuda)
+    s = torch.tensor([0, 19, 64 + 128, 127], dtype=torch.int32, device=cuda)
+    before = tk.neural_extract_batch.launches
+    got = tk.neural_extract_batch(x, cb, ph, s, rows_per_capture=rows, bf16=bf16, argmax=argmax)
+    ref = tk.neural_extract_batch_plain(x, cb, ph, s, rows, bf16=bf16, argmax=argmax)
+    torch.cuda.synchronize()
+    assert tk.neural_extract_batch.launches == before + 1
+    assert torch.equal(got, ref)
+    if bf16:
+        sigma = float(np.mean(clean[clean != 0] ** 2)) ** 0.5
+        noisy = clean + np.random.default_rng(6).normal(0.0, sigma, clean.shape).astype(np.float32)
+        xn = torch.from_numpy(noisy).to(cuda)
+        kern = [tk.neural_extract_batch(xn, cb, ph, s, rows_per_capture=rows, bf16=b, argmax=argmax)
+                for b in (False, True)]
+        plain = [tk.neural_extract_batch_plain(xn, cb, ph, s, rows, bf16=b, argmax=argmax) for b in (False, True)]
+        assert torch.equal(kern[1], plain[1])
+        assert (plain[1] != plain[0]).any() and (kern[1] != kern[0]).any()
+
+
+def test_neural_extract_dot_argmax_zeroes_a_tie(cuda):
+    """With codewords 9, 77 and 200 repeating codeword 3, argmax="dot" sends
+    every symbol of 3's four twins to 0 and keeps 40, in the kernel and the
+    plain version."""
+    from audio_modem_radio_tpu_torch.ops import neural as tn
+
+    cb = tn._codebook()
+    tied = cb.copy()
+    tied[[9, 77, 200]] = cb[3]
+    rows = 257
+    sent = np.random.default_rng(22).choice([3, 9, 40], rows * 8)
+    xt = torch.from_numpy(tn._synth(sent, tied, 2).reshape(rows, 128)).to(cuda)
+    cbt = torch.from_numpy(tied).to(cuda)
+    ph = torch.tensor([[1.0, 0.0]], device=cuda)
+    s = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = tk.neural_extract_batch(xt, cbt, ph, s, rows_per_capture=rows, argmax="dot")
+    ref = tk.neural_extract_batch_plain(xt, cbt, ph, s, rows, argmax="dot")
+    torch.cuda.synchronize()
+    assert np.array_equal(got.cpu().numpy()[0], np.where(sent == 40, 40, 0))
+    assert torch.equal(got, ref)
+
+
+def test_decide_succ_and_pack_shift_launch_the_same_kernels(cuda):
+    """K1 with the succ templates equals K1 with the roll templates, and K3
+    and K4 with variant "shift" equal "weights", byte for byte."""
+    x, _n_sig = _rows(2, 1 << 19, "int16")
+    x = torch.from_numpy(x).to(cuda)
+    b, r, _ = x.shape
+    _, _, best, theta = _batch_pass1(None, x, b, r * 128, 10, 3000.0, 96000, 8, r)
+    W8, _, _ = _device_tables(10, 3000.0, 96000, 8, x.device)
+    Ws = torch.from_numpy(tpsk._blocked_templates_succ(10, 3000.0, 96000, 8)).to(cuda)
+    rot = torch.stack([torch.cos(theta), torch.sin(theta)], 1)
+    roll = tk.psk_project_decide_batch(x, W8, best, rot, rows_per_capture=r)
+    succ = tk.psk_project_decide_batch(x, Ws, best, rot, rows_per_capture=r, variant="succ")
+    assert all(torch.equal(a, c) for a, c in zip(roll, succ))
+    hi, lo = roll
+    s = torch.tensor([3, 12], dtype=torch.int32, device=cuda)
+    ksel = torch.tensor([1, 2], dtype=torch.int32, device=cuda)
+    for fn in (tk.relabel_pack_batch, tk.bit_select_pack_batch):
+        assert torch.equal(fn(hi, lo, s, ksel, r, variant="shift"), fn(hi, lo, s, ksel, r, variant="weights"))
+
+
 def test_neural_decode_sample_batch_on_card(cuda):
     """NEURAL@9600 round trip on the card: K10 launches once and nothing
     else; NEURAL@3000 (chip length 4) launches no kernel."""

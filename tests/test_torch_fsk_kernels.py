@@ -94,7 +94,7 @@ def test_tile_plain_equals_pallas_and_xla(baud, dtype):
     _check_bits(got.numpy(), ref, _n_sig(n, baud), True)
     for kernel in (True, False):
         jbits = jfsk.fsk_dual_bits_rows_batch(jnp.asarray(rows), baud, MARK, SPACE, SR, kernel=kernel)
-        _check_bits(tfsk.fsk_dual_bits_rows_batch(x, baud, MARK, SPACE, SR).numpy(), jbits,
+        _check_bits(tfsk.fsk_dual_bits_rows_batch(x, baud, MARK, SPACE, SR, kernel=kernel).numpy(), jbits,
                     _n_sig(n, baud), True)
 
 
@@ -148,8 +148,8 @@ def test_disc_plain_equals_pallas_and_xla(dtype):
                              jnp.asarray(best.numpy()), interpret=True, **kw)
     _relative_close(sr.numpy(), sr_j, n_sig)
     _relative_close(si.numpy(), si_j, n_sig)
-    bits = tfsk.fsk_disc_bits_rows_batch(x, *cfg, SR).numpy()
     for kernel in (True, False) if dtype == np.float32 else (False,):
+        bits = tfsk.fsk_disc_bits_rows_batch(x, *cfg, SR, kernel=kernel).numpy()
         _check_bits(bits, jfsk.fsk_disc_bits_rows_batch(jnp.asarray(rows), *cfg, SR, kernel=kernel),
                     n_sig, True)
 
@@ -165,8 +165,8 @@ def test_quad_plain_equals_pallas_and_xla(dtype):
     margin_j = j_quad_margin(jnp.asarray(rows), jnp.asarray(Wf.numpy()), jnp.asarray(Wq.numpy()),
                              jnp.asarray(best.numpy()), interpret=True, **kw)
     _relative_close(margin.numpy(), margin_j, n_sig)
-    bits = tfsk.fsk_quad_bits_rows_batch(x, *cfg, SR).numpy()
     for kernel in (True, False) if dtype == np.float32 else (False,):
+        bits = tfsk.fsk_quad_bits_rows_batch(x, *cfg, SR, kernel=kernel).numpy()
         _check_bits(bits, jfsk.fsk_quad_bits_rows_batch(jnp.asarray(rows), *cfg, SR, kernel=kernel),
                     n_sig, True)
 

@@ -195,13 +195,16 @@ def test_preshaped_rows_match_flat(caps, name):
 
 
 def test_frontends_and_short_captures_checked():
-    """The A/B-only front ends raise NotImplementedError and say so; an
-    unknown front end and a capture under two bits raise ValueError, as in
-    the JAX package."""
+    """An unknown front end, the FFT front ends on host-shaped FIR rows and
+    a capture under two bits raise ValueError, as in the JAX package (the
+    front ends' parity: ``tests/test_torch_variants.py``)."""
     x = np.zeros(1 << 12, np.float32)
+    r, row, ov, lead = tfsk.fsk_fir_row_shape(1 << 14, 9600.0, 1200.0, 2200.0, SR)
+    rows = np.zeros((r, row + ov), np.float32)
     for frontend in ("fft", "fir"):
-        with pytest.raises(NotImplementedError, match="A/B-only"):
-            tfsk.fsk_demod_bits(torch.from_numpy(x), 9600.0, 1200.0, 2200.0, SR, frontend=frontend)
+        for pkg, arr in ((tfsk, torch.from_numpy(rows)), (jfsk, jnp.asarray(rows))):
+            with pytest.raises(ValueError, match="require frontend='matmul'"):
+                pkg.fsk_demod_bits(arr, 9600.0, 1200.0, 2200.0, SR, mlse=False, frontend=frontend)
     for pkg, arr in ((tfsk, torch.from_numpy(x)), (jfsk, jnp.asarray(x))):
         with pytest.raises(ValueError, match="unknown frontend"):
             pkg.fsk_demod_bits(arr, 9600.0, 1200.0, 2200.0, SR, frontend="nope")

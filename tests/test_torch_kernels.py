@@ -585,7 +585,7 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
 
 
 @pytest.mark.parametrize("case", [
-    "k1_dtype", "k1_rows", "k1_best_dtype", "k1_w_dtype", "k1_psk8",
+    "k1_dtype", "k1_rows", "k1_best_dtype", "k1_w_dtype", "k1_psk8", "k1_variant", "k1_succ_width",
     "k2_dtype", "k2_rows", "k2_prefix", "k2_family",
     "k3_dtype", "k3_shape", "k3_s_dtype", "k3_variant", "device_mix",
     "k4_dtype", "k4_ksel_dtype", "k4_variant", "k5_shape", "k5_prefix",
@@ -599,6 +599,8 @@ def test_wrappers_raise_on_bad_input(case):
         "k1_best_dtype": lambda: tk.psk_project_decide_batch(x3d, W8, best.long(), rot, r),
         "k1_w_dtype": lambda: tk.psk_project_decide_batch(x3d, W8.double(), best, rot, r),
         "k1_psk8": lambda: tk.psk_project_decide_batch(x3d, W8, best, rot, r, n_psk=3),
+        "k1_variant": lambda: tk.psk_project_decide_batch(x3d, W8, best, rot, r, variant="nope"),
+        "k1_succ_width": lambda: tk.psk_project_decide_batch(x3d, W8, best, rot, r, variant="succ"),
         "k2_dtype": lambda: tk.rotation_match_batch(hi.int(), lo, MAGIC_BIT_PATTERN, r),
         "k2_rows": lambda: tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, 2 * r),
         "k2_prefix": lambda: tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r, rows_scanned=100),
@@ -606,11 +608,11 @@ def test_wrappers_raise_on_bad_input(case):
         "k3_dtype": lambda: tk.relabel_pack_batch(hi.bool(), lo, s, k, r),
         "k3_shape": lambda: tk.relabel_pack_batch(hi[:, :, :64], lo[:, :, :64], s, k, r),
         "k3_s_dtype": lambda: tk.relabel_pack_batch(hi, lo, s.long(), k, r),
-        "k3_variant": lambda: tk.relabel_pack_batch(hi, lo, s, k, r, variant="shift"),
+        "k3_variant": lambda: tk.relabel_pack_batch(hi, lo, s, k, r, variant="nope"),
         "device_mix": lambda: tk.relabel_pack_batch(hi, lo.to("meta"), s, k, r),
         "k4_dtype": lambda: tk.bit_select_pack_batch(hi, lo.int(), s, k, r),
         "k4_ksel_dtype": lambda: tk.bit_select_pack_batch(hi, lo, s, k.long(), r),
-        "k4_variant": lambda: tk.bit_select_pack_batch(hi, lo, s, k, r, variant="shift"),
+        "k4_variant": lambda: tk.bit_select_pack_batch(hi, lo, s, k, r, variant="nope"),
         "k5_shape": lambda: tk.sector_match_batch(hi[:, :, :64], MAGIC_BIT_PATTERN, r),
         "k5_prefix": lambda: tk.sector_match_batch(hi, MAGIC_BIT_PATTERN, r, rows_scanned=2 * r),
         "k6_rows": lambda: tk.psk8_relabel_pack_rows(hi, k, s, 2 * r),

@@ -240,7 +240,8 @@ def test_extract_kernel_symbol_walk_mirrored(rows, sms):
     assert (writes == 1).all()
 
 
-@pytest.mark.parametrize("case", ["x_width", "rows", "x_dtype", "codebook", "phasors", "s_dtype"])
+@pytest.mark.parametrize("case", ["x_width", "rows", "x_dtype", "codebook", "phasors", "s_dtype", "argmax",
+                                  "compaction"])
 def test_extract_wrapper_raises_on_bad_input(case):
     x = torch.zeros((8, 128))
     cb = torch.from_numpy(tn._codebook())
@@ -253,6 +254,8 @@ def test_extract_wrapper_raises_on_bad_input(case):
         "codebook": lambda: tk.neural_extract_batch(x, cb[:, :8], ph, s, 4),
         "phasors": lambda: tk.neural_extract_batch(x, cb, ph[:1], s, 4),
         "s_dtype": lambda: tk.neural_extract_batch(x, cb, ph, s.long(), 4),
+        "argmax": lambda: tk.neural_extract_batch(x, cb, ph, s, 4, argmax="max"),
+        "compaction": lambda: tk.neural_extract_batch(x, cb, ph, s, 4, compaction="nope"),
     }
     with pytest.raises(ValueError):
         calls[case]()
