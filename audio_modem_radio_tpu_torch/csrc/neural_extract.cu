@@ -14,12 +14,9 @@
 //     sum_{c<8} re'[8m+c] * cb[w][c] + im'[8m+c] * cb[w][8+c],
 // and symbol 8j+m is the first w with the largest score, written as one byte.
 //
-// Two switches of the TPU kernel, each a template parameter here:
-// - kBf16 (its bf16=True): the samples are rounded to bfloat16 before the
-//   chip means, and the unrotated chips and the codebook before the scores
-//   (__float2bfloat16_rn, round to nearest even), as the TPU kernel rounds
-//   its matrix operands. A product of two bfloat16 values is exact in
-//   float32, and every sum stays float32; the unrotation is float32.
+// The TPU kernel's bf16=True switch (bfloat16 operands) runs on the tensor
+// cores in its own kernel, neural_extract_tc.cuh, which the C entry below
+// launches for bf16 = 1. Its argmax switch is a template parameter here:
 // - kCountMax (its argmax="dot"): the index only where exactly one codeword
 //   holds the maximum, 0 where several do (the TPU kernel's count gate).
 //   Beside the running maximum the kernel keeps, in the same pass, the
@@ -67,12 +64,12 @@
 // FMAs' register operands (a quarter of the FFMA read two fresh registers of
 // one bank). The count gate, the main path's argmax, took 16.3 ms alone
 // (kernel_variants.py --argmax dot) beside the first maximum's 14.3 in the
-// same call: a max and a select more a score; the bf16 operands add 0.4 ms
-// more, rounding on the CUDA cores, so bf16 saves no time here.
+// same call: a max and a select more a score.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "neural_extract_tc.cuh"
 
 namespace {
 
@@ -93,14 +90,8 @@ __device__ __forceinline__ float mask_im(int lane) {
   return m == 1 ? -1.f : (m == 3 ? 1.f : 0.f);
 }
 
-// x rounded to bfloat16 (to nearest even) and back, where kBf16.
-template <bool kBf16>
-__device__ __forceinline__ float operand(float x) {
-  return kBf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
 // The 16 unrotated chips [re 0..7 | im 0..7] of symbol g.
-template <typename T, bool kBf16>
+template <typename T>
 __device__ __forceinline__ void chips(const T* __restrict__ x, const float* __restrict__ phasors,
                                       const int* __restrict__ s_off, long long g, long long rows,
                                       float (&v)[kDim]) {
@@ -119,23 +110,23 @@ __device__ __forceinline__ void chips(const T* __restrict__ x, const float* __re
     if (p0 >= n_capture) p0 -= n_capture;  // the last row's successor is row 0
     long long p1 = p0 + 1;
     if (p1 >= n_capture) p1 -= n_capture;
-    const float x0 = operand<kBf16>(static_cast<float>(xc[p0]));
-    const float x1 = operand<kBf16>(static_cast<float>(xc[p1]));
+    const float x0 = static_cast<float>(xc[p0]);
+    const float x1 = static_cast<float>(xc[p1]);
     const float re = __fmul_rn(__fadd_rn(__fmul_rn(x0, mask_re(l)), __fmul_rn(x1, mask_re(l + 1))), 0.5f);
     const float im = __fmul_rn(__fadd_rn(__fmul_rn(x0, mask_im(l)), __fmul_rn(x1, mask_im(l + 1))), 0.5f);
-    v[k] = operand<kBf16>(__fadd_rn(__fmul_rn(re, a), __fmul_rn(im, c)));
-    v[8 + k] = operand<kBf16>(__fsub_rn(__fmul_rn(im, a), __fmul_rn(re, c)));
+    v[k] = __fadd_rn(__fmul_rn(re, a), __fmul_rn(im, c));
+    v[8 + k] = __fsub_rn(__fmul_rn(im, a), __fmul_rn(re, c));
   }
 }
 
-template <typename T, bool kBf16, bool kCountMax>
+template <typename T, bool kCountMax>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     neural_extract_kernel(const T* __restrict__ x, const float* __restrict__ codebook,
                           const float* __restrict__ phasors, const int* __restrict__ s_off,
                           uint8_t* __restrict__ out, long long rows, long long n_sym) {
   __shared__ float4 cbs[kCodewords * kDim / 4];
   float* cbf = reinterpret_cast<float*>(cbs);
-  for (int i = threadIdx.x; i < kCodewords * kDim; i += blockDim.x) cbf[i] = operand<kBf16>(codebook[i]);
+  for (int i = threadIdx.x; i < kCodewords * kDim; i += blockDim.x) cbf[i] = codebook[i];
   __syncthreads();
 
   constexpr long long kPerBlock = (long long)kThreads * kSyms;
@@ -145,7 +136,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     for (int u = 0; u < kSyms; ++u) {
       const long long g = base + threadIdx.x + u * kThreads;
       if (g < n_sym) {
-        chips<T, kBf16>(x, phasors, s_off, g, rows, v[u]);
+        chips<T>(x, phasors, s_off, g, rows, v[u]);
       } else {
 #pragma unroll
         for (int c = 0; c < kDim; ++c) v[u][c] = 0.f;
@@ -195,7 +186,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   }
 }
 
-template <typename T, bool kBf16, bool kCountMax>
+template <typename T, bool kCountMax>
 int launch(const void* x, const float* codebook, const float* phasors, const int* s, uint8_t* out,
            long long n_sym, long long rows, cudaStream_t stream) {
   int dev = 0, sms = 0;
@@ -206,19 +197,20 @@ int launch(const void* x, const float* codebook, const float* phasors, const int
   const long long need = (n_sym + per_block - 1) / per_block;
   const long long cap = (long long)sms * kBlocksPerSm;
   const unsigned blocks = (unsigned)(need < cap ? need : cap);
-  neural_extract_kernel<T, kBf16, kCountMax><<<blocks, kThreads, 0, stream>>>(
+  neural_extract_kernel<T, kCountMax><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), codebook, phasors, s, out, rows, n_sym);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_variant(const void* x, const float* codebook, const float* phasors, const int* s, uint8_t* out,
-                   long long n_sym, long long rows, int bf16, int argmax, cudaStream_t stream) {
+                   int n_captures, int rows, int bf16, int argmax, cudaStream_t stream) {
   if (bf16)
-    return argmax ? launch<T, true, true>(x, codebook, phasors, s, out, n_sym, rows, stream)
-                  : launch<T, true, false>(x, codebook, phasors, s, out, n_sym, rows, stream);
-  return argmax ? launch<T, false, true>(x, codebook, phasors, s, out, n_sym, rows, stream)
-                : launch<T, false, false>(x, codebook, phasors, s, out, n_sym, rows, stream);
+    return argmax ? neural_tc::launch<T, true>(x, codebook, phasors, s, out, n_captures, rows, stream)
+                  : neural_tc::launch<T, false>(x, codebook, phasors, s, out, n_captures, rows, stream);
+  const long long n_sym = (long long)n_captures * rows * kSpr;
+  return argmax ? launch<T, true>(x, codebook, phasors, s, out, n_sym, rows, stream)
+                : launch<T, false>(x, codebook, phasors, s, out, n_sym, rows, stream);
 }
 
 }  // namespace
@@ -226,20 +218,20 @@ int launch_variant(const void* x, const float* codebook, const float* phasors, c
 // K10. dtype: 0 = float32, 1 = int16. x is (n_captures * rows, 128)
 // contiguous; codebook (256, 16) float32; phasors (n_captures, 2) float32;
 // s (n_captures,) int32, taken mod 128; out (n_captures, rows * 8) uint8;
-// bf16: 1 rounds the operands to bfloat16; argmax: 0 the first maximum, 1
-// the count gate. Returns the cudaError_t of the launch.
+// bf16: 1 rounds the operands to bfloat16 and scores on the tensor cores
+// (neural_extract_tc.cuh); argmax: 0 the first maximum, 1 the count gate.
+// Returns the cudaError_t of the launch.
 extern "C" int amr_neural_extract(const void* x, int dtype, const float* codebook, const float* phasors,
                                   const int* s, uint8_t* out, int n_captures, int rows, int bf16, int argmax,
                                   void* stream) {
   if (n_captures < 1 || rows < 1 || (bf16 != 0 && bf16 != 1) || (argmax != 0 && argmax != 1))
     return (int)cudaErrorInvalidValue;
-  const long long n_sym = (long long)n_captures * rows * kSpr;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_variant<float>(x, codebook, phasors, s, out, n_sym, rows, bf16, argmax, st);
+      return launch_variant<float>(x, codebook, phasors, s, out, n_captures, rows, bf16, argmax, st);
     case 1:
-      return launch_variant<int16_t>(x, codebook, phasors, s, out, n_sym, rows, bf16, argmax, st);
+      return launch_variant<int16_t>(x, codebook, phasors, s, out, n_captures, rows, bf16, argmax, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

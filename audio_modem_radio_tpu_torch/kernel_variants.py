@@ -22,8 +22,11 @@ rows (``--dtype`` int16, int8 or float32) at pass 1's offsets and rotations,
 of QPSK (``--n-psk 4``), BPSK (2) or 8PSK (8); K7 on the FSK1200 bench
 batch's int16 overlapped rows at pass 1's offset; K10 on the NEURAL@9600
 bench batch's float32 rows synced by ``td_sync_batch`` (``--bf16``, ``--argmax
-dot``: its switches; a source with the earlier C interface, which has
-neither, is called through it); K13 on the FSK1200
+dot``: its switches, ``--bf16`` the tensor-core kernel of
+``neural_extract_tc.cuh``, its register lines and differing symbols also
+counted against the near-tie margin of ``ops/kernels.py``
+``neural_bf16_mismatches``; a source with the earlier C interface, which has
+neither switch, is called through it); K13 on the FSK1200
 bench capture's flat float32 rows at pass 1's offset; K12 on the 8PSK bench
 batch's rows (``--dtype`` int16 or float32) at pass 1's offsets, K11
 (``--single``) on one float32 capture in the single-capture layout (13,120
@@ -89,7 +92,7 @@ _ENTRY = {"decide": "amr_decide", "fsk_tile": "amr_fsk_tile", "neural_extract": 
 # The names of each kernel's device functions (the profiler's "alone" time
 # sums them; the first also picks nvcc's register lines).
 _KERNEL = {"decide": ("decide_kernel",), "fsk_tile": ("fsk_tile_kernel",),
-           "neural_extract": ("neural_extract_kernel",), "fsk_flat": ("fsk_flat_kernel",),
+           "neural_extract": ("neural_extract_kernel", "neural_extract_tc_kernel"), "fsk_flat": ("fsk_flat_kernel",),
            "project_diff": ("project_diff_kernel",), "sector_match": ("sector_match_kernel",),
            "rotation_match": ("rotmatch_kernel", "fill_big"), "psk8_pack": ("psk8_pack_kernel",),
            "relabel_pack": ("relabel_pack_kernel",), "bit_select_pack": ("bit_select_pack_kernel",),
@@ -666,13 +669,15 @@ def main() -> int:
     k12_type = "f" if args.single else _MANGLED[args.dtype]
     instance = {"decide": f"I{_MANGLED[args.dtype]}Li{args.n_psk}ELi10E", "fsk_tile": "Is", "fsk_flat": "If",
                 "project_diff": f"I{k12_type}Li10E"}.get(args.kernel, "")
+    # K10's bf16 operands run its tensor-core kernel, its float32 ones the CUDA-core kernel.
+    named = _KERNEL[args.kernel][1 if args.kernel == "neural_extract" and args.bf16 else 0]
     lines = [f"card: {card}", f"kernel: {args.kernel}{what}"]
     ref = None
     ref_plain = plain() if plain is not None else None
     ref_plain = ref_plain if ref_plain is None or isinstance(ref_plain, tuple) else (ref_plain,)
     for name, src, flags in variants:
         lib, log = built[name]
-        ptxas = _ptxas_lines(log, _KERNEL[args.kernel][0] + instance)
+        ptxas = _ptxas_lines(log, named + instance)
         earlier_args = None
         if args.kernel == "fec_viterbi":
             earlier = _fec_viterbi_earlier(src)
@@ -697,6 +702,9 @@ def main() -> int:
         ref = got if ref is None else ref
         n_diff = sum(int((g != f).sum()) for g, f in zip(got, ref))
         diff = f"{n_diff} of {sum(g.numel() for g in got)} outputs differ from {variants[0][0]}"
+        if args.kernel == "neural_extract" and args.bf16 and n_diff:
+            outside = tk.neural_bf16_mismatches(*nargs[:4], nargs[4], got[0], ref[0], argmax=args.argmax)[1]
+            diff += f" ({outside} of them not near ties)"
         if ref_plain is not None:
             diff += f", {sum(int((g != f).sum()) for g, f in zip(got, ref_plain))} from the plain version's"
         lines += [f"  {ln}" for ln in ptxas]

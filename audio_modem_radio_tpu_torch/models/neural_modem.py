@@ -30,6 +30,8 @@ import torch.nn.functional as F
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, psum
 from ..utils.torchenv import DeviceLike, resolve_device
 
+SAMPLE_RATE = 96000
+
 # The standard deviation of a unit normal truncated to [-2, 2]: flax's
 # truncated lecun-normal divides by it so the kept samples have variance
 # 1/fan_in.
@@ -105,10 +107,13 @@ def _unit_power(iq: torch.Tensor) -> torch.Tensor:
 
 
 class ModemEncoder(nn.Module):
-    """k-bit symbol (one-hot) -> 2*samples_per_symbol unit-power I/Q."""
+    """k-bit symbol (one-hot) -> 2*samples_per_symbol unit-power I/Q. Keeps
+    its configuration as attributes, as the flax module keeps its fields."""
 
     def __init__(self, hidden: int = 256, samples_per_symbol: int = 8, n_symbols: int = 256):
         super().__init__()
+        self.hidden = hidden
+        self.samples_per_symbol = samples_per_symbol
         self.layers = _mlp(n_symbols, hidden, 2 * samples_per_symbol)
 
     def forward(self, onehot: torch.Tensor) -> torch.Tensor:
@@ -116,10 +121,13 @@ class ModemEncoder(nn.Module):
 
 
 class ModemDecoder(nn.Module):
-    """Received I/Q waveform -> logits over the 2^k symbol alphabet."""
+    """Received I/Q waveform -> logits over the 2^k symbol alphabet. Keeps
+    its configuration as attributes, as the flax module keeps its fields."""
 
     def __init__(self, hidden: int = 256, n_symbols: int = 256, samples_per_symbol: int = 8):
         super().__init__()
+        self.hidden = hidden
+        self.n_symbols = n_symbols
         self.layers = _mlp(2 * samples_per_symbol, hidden, n_symbols)
 
     def forward(self, rx: torch.Tensor) -> torch.Tensor:
@@ -132,6 +140,7 @@ class LearnedModem(nn.Module):
     def __init__(self, bits_per_symbol: int = 8, hidden: int = 256, samples_per_symbol: int = 8):
         super().__init__()
         self.bits_per_symbol = bits_per_symbol
+        self.hidden = hidden
         self.n_symbols = 1 << bits_per_symbol
         self.samples_per_symbol = samples_per_symbol
         self.encoder = ModemEncoder(hidden, samples_per_symbol, self.n_symbols)

@@ -19,7 +19,8 @@ with the JAX names and argument order:
 * K8 :func:`fsk_disc_sums_batch` (``csrc/fsk_disc.cu``),
 * K9 :func:`fsk_quad_margin_batch` (``csrc/fsk_quad.cu``); K8 and K9 take
   the dense (c_pad, 256) FIR matrix only, not the Pallas banded form,
-* K10 :func:`neural_extract_batch` (``csrc/neural_extract.cu``), which
+* K10 :func:`neural_extract_batch` (``csrc/neural_extract.cu``; with
+  ``bf16`` the tensor-core kernel of ``csrc/neural_extract_tc.cuh``), which
   takes the (256, 16) codebook in place of the Pallas chip table and
   block-diagonal scorer;
 
@@ -1223,19 +1224,14 @@ def _first_max_or_zero(scores: torch.Tensor) -> torch.Tensor:
     return torch.where(n_top == 1, torch.argmax(scores, dim=-1), 0)
 
 
-def neural_extract_batch_plain(
-    x2d: torch.Tensor, codebook: torch.Tensor, phasors: torch.Tensor, s: torch.Tensor,
-    rows_per_capture: int, bf16: bool = False, argmax: str = "loop",
-) -> torch.Tensor:
-    """Plain K10: each row j of a capture and its circular successor (row
-    j+1, row 0 after the last) as one 256-sample pair; fs/4 downconversion
-    by sign masks; chip c the mean of lanes s+2c and s+2c+1 (s taken mod
-    128); unrotation ``(a·re + b·im, a·im - b·re)``; slot m's 16 chips
-    ``[re 8m..8m+7 | im 8m..8m+7]`` times the codebook; the first-max
-    argmax (``argmax="loop"``) or the count gate (``"dot"``: 0 where
-    several codewords share the maximum). ``bf16`` rounds the samples
-    before the chip means, and the unrotated chips and the codebook before
-    the scores, to bfloat16. Returns (B, r3 * 8) uint8."""
+def _neural_chips(x2d: torch.Tensor, phasors: torch.Tensor, s: torch.Tensor, rows_per_capture: int,
+                  bf16: bool) -> torch.Tensor:
+    """The scored chips of every symbol, (B, r3, 8, 16) float32 ``[re 0..7 |
+    im 0..7]`` of slot m of row j: each row and its circular successor (row
+    j+1, row 0 after the last) as one 256-sample pair, fs/4 downconversion
+    by sign masks, chip c the mean of lanes s+2c and s+2c+1 (s taken mod
+    128), unrotation ``(a·re + b·im, a·im - b·re)``. ``bf16`` rounds the
+    samples before the chip means and the unrotated chips to bfloat16."""
     r = rows_per_capture
     b = x2d.shape[0] // r
     dev = x2d.device
@@ -1253,9 +1249,122 @@ def neural_extract_batch_plain(
     a, c = phasors[:, 0, None, None], phasors[:, 1, None, None]
     ur, ui = cr * a + ci * c, ci * a - cr * c
     rx = torch.cat([ur.reshape(b, r, _NEURAL_SPR, 8), ui.reshape(b, r, _NEURAL_SPR, 8)], dim=3)
-    scores = _bf16(rx) @ _bf16(codebook).T if bf16 else rx @ codebook.T
+    return _bf16(rx) if bf16 else rx
+
+
+def neural_extract_batch_plain(
+    x2d: torch.Tensor, codebook: torch.Tensor, phasors: torch.Tensor, s: torch.Tensor,
+    rows_per_capture: int, bf16: bool = False, argmax: str = "loop",
+) -> torch.Tensor:
+    """Plain K10: the chips of :func:`_neural_chips` times the codebook;
+    the first-max argmax (``argmax="loop"``) or the count gate (``"dot"``:
+    0 where several codewords share the maximum). ``bf16`` rounds the
+    samples before the chip means, and the unrotated chips and the codebook
+    before the scores, to bfloat16; the scores are a float32 product.
+    Returns (B, r3 * 8) uint8."""
+    r = rows_per_capture
+    b = x2d.shape[0] // r
+    rx = _neural_chips(x2d, phasors, s, r, bf16)
+    scores = rx @ (_bf16(codebook) if bf16 else codebook).T
     sym = _first_max_or_zero(scores) if argmax == "dot" else torch.argmax(scores, dim=-1)
     return sym.to(torch.uint8).reshape(b, r * _NEURAL_SPR)
+
+
+# The near-tie margin of K10's bf16 scores: 2 x 32 units of 2^-24 times the
+# sum of the magnitudes of a score's 16 products. A float32 sum of 16 exact
+# products, in any order, is within 15 x 2^-24 of that sum of its exact
+# value; 32 covers a tensor core's truncated alignment, and the factor 2
+# two such sums, one on either side.
+_NEAR_TIE_UNITS = 2 * 32 * 2.0 ** -24
+_NEAR_TIE_CHUNK = 1024  # symbols a float64 score block holds
+
+
+def _exact_bf16_scores(rx: torch.Tensor, codebook: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores, magnitudes), (n, 256) float64 each, of the n bf16 chip rows
+    ``rx`` against the bf16-rounded codebook: the products of two bfloat16
+    values are exact in float64 and so, to 2^-53 of its magnitude, is each
+    sum of 16 of them; the magnitudes are the sums of the products'
+    absolute values. In blocks of ``_NEAR_TIE_CHUNK`` rows."""
+    cb = _bf16(codebook).to(torch.float64)
+    scores, mags = [], []
+    for lo in range(0, rx.shape[0], _NEAR_TIE_CHUNK):
+        prod = rx[lo:lo + _NEAR_TIE_CHUNK].to(torch.float64)[:, None, :] * cb[None]
+        scores.append(prod.sum(-1))
+        mags.append(prod.abs().sum(-1))
+    return torch.cat(scores), torch.cat(mags)
+
+
+def _near_tie(scores: torch.Tensor, mags: torch.Tensor, *answers: torch.Tensor,
+              count_gate: bool = False) -> torch.Tensor:
+    """Per row of exact ``scores``: whether its top two are less than δ
+    apart and each of ``answers`` (codeword indices) is within δ of the
+    top, or is 0 under the count gate; δ = ``_NEAR_TIE_UNITS`` times the
+    largest magnitude among the top two and the answers' codewords. An
+    exact tie of zero magnitude (an all-zero row: δ = 0) is no near tie."""
+    top = scores.topk(2, dim=-1)
+    involved = torch.cat([top.indices, *(a[:, None] for a in answers)], dim=1)
+    delta = _NEAR_TIE_UNITS * mags.gather(1, involved).amax(dim=1)
+    near = top.values[:, 0] - top.values[:, 1] < delta
+    for a in answers:
+        close = top.values[:, 0] - scores.gather(1, a[:, None])[:, 0] <= delta
+        near &= close | (count_gate & (a == 0))
+    return near
+
+
+def _neural_chips_at(x2d: torch.Tensor, phasors: torch.Tensor, s: torch.Tensor, rows_per_capture: int,
+                     at: torch.Tensor) -> torch.Tensor:
+    """The bf16 chips of :func:`_neural_chips` of the symbols at flat
+    indices ``at`` of the (B, r3 * 8) output, (len(at), 16): each from its
+    row and the row's circular successor alone, as a capture of two rows."""
+    r = rows_per_capture
+    cap, i = at // (r * _NEURAL_SPR), at % (r * _NEURAL_SPR)
+    row = cap * r + i // _NEURAL_SPR
+    succ = cap * r + (i // _NEURAL_SPR + 1) % r
+    pairs = torch.stack([x2d[row], x2d[succ]], dim=1).reshape(-1, 128)
+    rx = _neural_chips(pairs, phasors[cap], s[cap], 2, True)  # (n, 2, 8, 16)
+    return rx[torch.arange(at.numel(), device=at.device), 0, i % _NEURAL_SPR]
+
+
+def neural_near_ties(
+    x2d: torch.Tensor, codebook: torch.Tensor, phasors: torch.Tensor, s: torch.Tensor,
+    rows_per_capture: int,
+) -> torch.Tensor:
+    """(B, r3 * 8) bool: the symbols whose exact bf16 scores (the chips of
+    :func:`_neural_chips` with ``bf16``, float64 products and sums) have
+    their top two less than δ apart: the symbols where float32 sums of the
+    same operands, in two orders, may pick two codewords."""
+    r = rows_per_capture
+    b = x2d.shape[0] // r
+    rx = _neural_chips(x2d, phasors, s, r, True).reshape(-1, 16)
+    scores, mags = _exact_bf16_scores(rx, codebook)
+    return _near_tie(scores, mags).reshape(b, r * _NEURAL_SPR)
+
+
+def neural_bf16_mismatches(
+    x2d: torch.Tensor, codebook: torch.Tensor, phasors: torch.Tensor, s: torch.Tensor,
+    rows_per_capture: int, got: torch.Tensor, ref: torch.Tensor, argmax: str = "loop",
+) -> Tuple[int, int]:
+    """(differing, outside): how many symbols of two bf16 K10 outputs
+    ``got`` and ``ref`` (each (B, r3 * 8) uint8, on ``x2d``'s device)
+    differ, and how many of those are not near ties. A differing symbol is
+    a near tie where the exact top two of its bf16 scores (float64, as
+    :func:`neural_near_ties`) are less than δ apart and each output's
+    symbol is a codeword within δ of the top (or 0, under the count gate
+    ``argmax="dot"``); δ = 2 x 32 x 2^-24 times the largest sum of product
+    magnitudes among those codewords. The tensor cores sum a score's 16
+    exact products in their own order and alignment, the plain version in
+    float32 in another, so the two may part only there; a differing symbol
+    outside δ is a fault of the kernel."""
+    diff = (got != ref).reshape(-1).nonzero()[:, 0]
+    if diff.numel() == 0:
+        return 0, 0
+    outside = 0
+    for at in diff.split(_NEAR_TIE_CHUNK * 64):
+        rx = _neural_chips_at(x2d, phasors, s, rows_per_capture, at)
+        scores, mags = _exact_bf16_scores(rx, codebook)
+        answers = [t.reshape(-1)[at].to(torch.int64) for t in (got, ref)]
+        outside += int((~_near_tie(scores, mags, *answers, count_gate=argmax == "dot")).sum())
+    return int(diff.numel()), outside
 
 
 _NEURAL_ARGMAX = {"loop": 0, "dot": 1}
@@ -1286,9 +1395,12 @@ def neural_extract_batch(
       s: (B,) int32 in-row sample offset k0 % 128 (taken mod 128).
       bf16: the JAX kernel's bfloat16 operands: the samples are rounded to
         bfloat16 before the chip means, and the unrotated chips and the
-        codebook before the scores; every product is then exact in float32
-        and the sums stay float32 (the unrotation is float32 throughout).
-        The kernel's own template instantiation, not a cast of its inputs.
+        codebook before the scores; every product is then exact and the
+        sums are float32 (the unrotation is float32 throughout). On the card
+        a kernel of its own scores on the tensor cores, which sum a score's
+        16 products in their own order: its symbols may part from the plain
+        version's only where two codewords' exact scores lie within
+        rounding of each other (:func:`neural_bf16_mismatches`).
       compaction: "loop" or "stack", the JAX kernel's two ways of packing
         the symbol lanes into output tiles, documented there as bit-exact
         to each other (pallas_kernels.py:1047); the byte output here needs

@@ -40,7 +40,7 @@ from ..ops.psk import (
     _samples_per_symbol,
     qpsk_gray_streams,
 )
-from .mesh import Mesh, all_gather, ppermute, psum
+from .mesh import DATA_AXIS, Mesh, all_gather, ppermute, psum  # noqa: F401  (DATA_AXIS: re-export)
 
 SAMPLE_RATE = 96000
 

@@ -1026,11 +1026,13 @@ def test_neural_extract_kernel_first_maximum_wins_a_tie(cuda):
 
 @pytest.mark.parametrize("bf16,argmax", [(True, "loop"), (False, "dot"), (True, "dot")])
 def test_neural_extract_switches_equal_plain(cuda, bf16, argmax):
-    """K10's bf16 operands and count-gate argmax: every symbol equal to the
-    plain version with the same switches, one launch a call. With bf16 also
-    on the rows with AWGN at 0 dB, where bf16 rounding moves symbols from
-    float32 in the plain version and in the kernel, so that the comparison
-    tells the bf16 kernel from the float32 one."""
+    """K10's bf16 operands and count-gate argmax: every symbol of the clean
+    rows equal to the plain version with the same switches, one launch a
+    call. With bf16 also on the rows with AWGN at 0 dB, where bf16 rounding
+    moves symbols from float32 in the plain version and in the kernel, so
+    that the comparison tells the bf16 kernel from the float32 one; there
+    the tensor cores' sums may part from the plain float32 sums at near
+    ties only (``neural_bf16_mismatches``)."""
     from audio_modem_radio_tpu_torch.ops.neural import _codebook
 
     rows = 300
@@ -1052,8 +1054,97 @@ def test_neural_extract_switches_equal_plain(cuda, bf16, argmax):
         kern = [tk.neural_extract_batch(xn, cb, ph, s, rows_per_capture=rows, bf16=b, argmax=argmax)
                 for b in (False, True)]
         plain = [tk.neural_extract_batch_plain(xn, cb, ph, s, rows, bf16=b, argmax=argmax) for b in (False, True)]
-        assert torch.equal(kern[1], plain[1])
+        _differ, outside = tk.neural_bf16_mismatches(xn, cb, ph, s, rows, kern[1], plain[1], argmax=argmax)
+        assert outside == 0
         assert (plain[1] != plain[0]).any() and (kern[1] != kern[0]).any()
+
+
+def _wrapped_noisy_rows(rows: int, dtype: str, snr_db: float):
+    """(3 * rows, 128) rows of three NEURAL@9600 captures of tiled frames
+    that run through each capture's last row into its first, with AWGN at
+    ``snr_db``; float32, or int16 at scale 16384."""
+    from audio_modem_radio_tpu_torch.ops.neural import neural_mode_modulate
+
+    rng = np.random.default_rng(31)
+    n = rows * 128
+    x = np.zeros((3, n), np.float32)
+    for i in range(3):
+        p = rng.integers(0, 256, 700, dtype=np.uint8).tobytes()
+        wave = neural_mode_modulate(pack_frame("w.bin", p, 0, 1, len(p), crc32(p)), 9600)
+        x[i] = np.roll(np.tile(wave, -(-n // len(wave)))[:n], 5000 * i + 1000)
+    sigma = float(np.mean(x ** 2)) ** 0.5 * 10 ** (-snr_db / 20)
+    x += rng.normal(0.0, sigma, x.shape).astype(np.float32)
+    if dtype == "int16":
+        x = np.clip(np.round(x * 16384.0), -32768, 32767).astype(np.int16)
+    return x.reshape(-1, 128)
+
+
+@pytest.mark.parametrize("argmax", ["loop", "dot"])
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_neural_extract_bf16_kernel_parts_from_plain_at_near_ties_only(cuda, dtype, argmax):
+    """K10's bf16 tensor-core kernel on three captures at offsets s = 0, 19
+    and 127 whose frames wrap from the last row (an odd count) into row 0,
+    at 0 dB: one launch, and every symbol that differs from plain bf16 is
+    a near tie of the exact scores (``neural_bf16_mismatches``); bf16 moves
+    symbols from float32 there."""
+    from audio_modem_radio_tpu_torch.ops.neural import _codebook
+
+    rows = 301
+    x = torch.from_numpy(_wrapped_noisy_rows(rows, dtype, 0.0)).to(cuda)
+    cb = torch.from_numpy(_codebook()).to(cuda)
+    ph = torch.tensor([[0.6, 0.8], [1.0, 0.0], [-0.28, 0.96]], device=cuda)
+    s = torch.tensor([0, 19, 127], dtype=torch.int32, device=cuda)
+    before = tk.neural_extract_batch.launches
+    got = tk.neural_extract_batch(x, cb, ph, s, rows_per_capture=rows, bf16=True, argmax=argmax)
+    torch.cuda.synchronize()
+    assert tk.neural_extract_batch.launches == before + 1
+    ref = tk.neural_extract_batch_plain(x, cb, ph, s, rows, bf16=True, argmax=argmax)
+    differ, outside = tk.neural_bf16_mismatches(x, cb, ph, s, rows, got, ref, argmax=argmax)
+    assert outside == 0, (differ, outside)
+    f32 = tk.neural_extract_batch_plain(x, cb, ph, s, rows, argmax=argmax)
+    assert (ref != f32).any()
+
+
+def test_neural_extract_float32_count_gate_stays_bitwise(cuda):
+    """The float32 count gate, beside the bf16 kernel, still equals its
+    plain version symbol for symbol on the 0 dB wrapped captures, float32
+    and int16."""
+    from audio_modem_radio_tpu_torch.ops.neural import _codebook
+
+    rows = 301
+    cb = torch.from_numpy(_codebook()).to(cuda)
+    ph = torch.tensor([[0.6, 0.8], [1.0, 0.0], [-0.28, 0.96]], device=cuda)
+    s = torch.tensor([0, 19, 127], dtype=torch.int32, device=cuda)
+    for dtype in ("float32", "int16"):
+        x = torch.from_numpy(_wrapped_noisy_rows(rows, dtype, 0.0)).to(cuda)
+        got = tk.neural_extract_batch(x, cb, ph, s, rows_per_capture=rows, argmax="dot")
+        ref = tk.neural_extract_batch_plain(x, cb, ph, s, rows, argmax="dot")
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), dtype
+
+
+@pytest.mark.parametrize("argmax,twin", [("loop", 3), ("dot", 0)])
+def test_neural_extract_bf16_tie_rows_exact(cuda, argmax, twin):
+    """With codewords 9 and 200 repeating codeword 3, the bf16 kernel gives
+    the tie rule exactly (the first maximum 3, the count gate 0) and equals
+    plain bf16 on every symbol, all-zero rows included."""
+    from audio_modem_radio_tpu_torch.ops import neural as tn
+
+    tied = tn._codebook().copy()
+    tied[[9, 200]] = tied[3]
+    rows = 257
+    sent = np.random.default_rng(23).choice([3, 9, 200, 40], rows * 8)
+    syn = tn._synth(sent, tied, 2).reshape(rows, 128)
+    x = torch.from_numpy(np.concatenate([syn, np.zeros_like(syn)])).to(cuda)
+    cbt = torch.from_numpy(tied).to(cuda)
+    ph = torch.tensor([[1.0, 0.0], [1.0, 0.0]], device=cuda)
+    s = torch.zeros(2, dtype=torch.int32, device=cuda)
+    got = tk.neural_extract_batch(x, cbt, ph, s, rows_per_capture=rows, bf16=True, argmax=argmax)
+    ref = tk.neural_extract_batch_plain(x, cbt, ph, s, rows, bf16=True, argmax=argmax)
+    torch.cuda.synchronize()
+    assert np.array_equal(got.cpu().numpy()[0], np.where(sent == 40, 40, twin))
+    assert not got[1].any()
+    assert torch.equal(got, ref)
 
 
 def test_neural_extract_dot_argmax_zeroes_a_tie(cuda):

@@ -7,11 +7,22 @@ platform choice, has none). For every public function or class a JAX
 module defines, the port module has the same name, and the JAX parameter
 names are a subset of the port's, but for the entries of ``_ALLOWED``,
 each with its reason. Only signatures are read: nothing runs.
+
+Beside the functions, every public name of a JAX module that is neither a
+module nor callable exists in the port module, equal where it is plain data
+(numbers, strings, bytes and tuples, lists and dicts of them; a dict of
+other values has the same keys), but for ``_ALLOWED_CONSTANTS``; and every
+flax module, dataclass and namedtuple of the JAX package has its fields as
+attributes of a default instance of the port's class, equal where plain
+(``_RECORDS``).
 """
 
+import __future__
+import dataclasses
 import importlib
 import inspect
 import pkgutil
+import types
 
 import pytest
 import torch
@@ -50,6 +61,29 @@ _ALLOWED = {
     **{("parallel.batch", fn): {"interpret": _PALLAS} for fn in (
         "psk4_kernel_sync_tail", "psk2_kernel_sync_tail", "psk8_kernel_sync_tail")},
 }
+
+
+# (module, name) -> why the port's value differs from the JAX module's, or
+# why the port lacks the name.
+_ALLOWED_CONSTANTS = {
+    ("models.train_neural", "DEFAULT_CODEBOOK"): "the path of the port's own shipped codebook file",
+    ("observability", "LOGGER_NAME"): "the port's own logger, beside the JAX package's",
+    ("models.neural_modem", "FLAX_AVAILABLE"): "whether flax imports; the port's modules are torch.nn",
+}
+# The JAX package's flax modules, dataclasses and namedtuples: (module, class)
+# -> None where a default instance of each class is compared, else why none
+# is built (the port's dataclass fields are read instead).
+_NEEDS_ARGUMENTS = "its constructor needs arguments"
+_RECORDS = {
+    ("framing", "Frame"): _NEEDS_ARGUMENTS,
+    ("framing", "FrameCandidate"): _NEEDS_ARGUMENTS,
+    ("modem", "ModeSpec"): _NEEDS_ARGUMENTS,
+    ("models.neural_modem", "ModemEncoder"): None,
+    ("models.neural_modem", "ModemDecoder"): None,
+    ("models.neural_modem", "LearnedModem"): None,
+    ("tui", "AppState"): None,
+}
+_FLAX_BOOKKEEPING = ("parent", "name")
 
 
 def _jax_modules():
@@ -113,3 +147,106 @@ def test_allowed_entry_is_still_needed(key):
     for p, why in _ALLOWED[key].items():
         assert why
         assert p in jax_params and p not in port_params, (key, p)
+
+
+def _plain(v) -> bool:
+    """Whether ``v`` is plain data: a number, string, bytes or None, or a
+    tuple, list or dict of plain data."""
+    if v is None or isinstance(v, (bool, int, float, str, bytes)):
+        return True
+    if isinstance(v, (tuple, list)):
+        return all(_plain(e) for e in v)
+    if isinstance(v, dict):
+        return all(_plain(k) and _plain(e) for k, e in v.items())
+    return False
+
+
+def _constant_gaps(name):
+    """{public non-callable name of JAX module ``name``: what the port's
+    module lacks or holds otherwise}."""
+    jm = importlib.import_module(f"{_JAX}.{name}")
+    pm = importlib.import_module(f"{_PORT}.{_RENAMED.get(name, name)}")
+    gaps = {}
+    for key, value in vars(jm).items():
+        if key.startswith("_") or isinstance(value, (types.ModuleType, __future__._Feature)) or callable(value):
+            continue
+        if not hasattr(pm, key):
+            gaps[key] = "missing"
+            continue
+        port = getattr(pm, key)
+        if _plain(value) and port != value:
+            gaps[key] = f"{port!r} != {value!r}"
+        elif isinstance(value, dict) and not _plain(value) and set(port) != set(value):
+            gaps[key] = f"keys {sorted(port)} != {sorted(value)}"
+    return gaps
+
+
+@pytest.mark.parametrize("name", _MODULES)
+def test_module_constants_are_ported(name):
+    """Each public non-callable name of the JAX module exists in the port
+    module, equal where it is plain data, but for ``_ALLOWED_CONSTANTS``."""
+    gaps = {k: v for k, v in _constant_gaps(name).items() if (name, k) not in _ALLOWED_CONSTANTS}
+    assert not gaps, f"{name}: {gaps}"
+
+
+@pytest.mark.parametrize("key", sorted(_ALLOWED_CONSTANTS), ids=lambda k: ".".join(k))
+def test_allowed_constant_is_still_needed(key):
+    """Each ``_ALLOWED_CONSTANTS`` entry names a constant that the port
+    really lacks or holds otherwise."""
+    name, const = key
+    assert _ALLOWED_CONSTANTS[key]
+    assert const in _constant_gaps(name), key
+
+
+def _record_fields(cls):
+    if issubclass(cls, tuple) and hasattr(cls, "_fields"):
+        return list(cls._fields)
+    return [f.name for f in dataclasses.fields(cls) if f.name not in _FLAX_BOOKKEEPING]
+
+
+def test_record_list_is_whole():
+    """``_RECORDS`` names every public flax module, dataclass and
+    namedtuple of the JAX package."""
+    import flax.linen as fnn
+
+    found = set()
+    for name in _MODULES:
+        for cls_name, obj in _public(importlib.import_module(f"{_JAX}.{name}")).items():
+            if inspect.isclass(obj) and (issubclass(obj, fnn.Module) or dataclasses.is_dataclass(obj)
+                                         or (issubclass(obj, tuple) and hasattr(obj, "_fields"))):
+                found.add((name, cls_name))
+    assert found == set(_RECORDS)
+
+
+@pytest.mark.parametrize("key", sorted(_RECORDS), ids=lambda k: ".".join(k))
+def test_record_fields_are_attributes(key):
+    """The JAX class's fields are attributes of a default instance of the
+    port's class, equal where plain; for a class whose constructor needs
+    arguments, fields of the port's dataclass."""
+    name, cls_name = key
+    jcls = getattr(importlib.import_module(f"{_JAX}.{name}"), cls_name)
+    pcls = getattr(importlib.import_module(f"{_PORT}.{_RENAMED.get(name, name)}"), cls_name)
+    fields = _record_fields(jcls)
+    assert fields
+    if _RECORDS[key] is not None:
+        assert set(fields) <= set(_record_fields(pcls)), key
+        return
+    jobj, pobj = jcls(), pcls()
+    for f in fields:
+        assert hasattr(pobj, f), (key, f)
+        if _plain(getattr(jobj, f)):
+            assert getattr(pobj, f) == getattr(jobj, f), (key, f)
+
+
+def test_learned_modem_keeps_its_configuration():
+    """The learned modem's classes keep their configuration as the flax
+    modules do, and the module its sample rate."""
+    from audio_modem_radio_tpu_torch.models import neural_modem
+    from audio_modem_radio_tpu_torch.parallel import sequence
+
+    assert neural_modem.LearnedModem(hidden=64).hidden == 64
+    assert neural_modem.ModemEncoder().samples_per_symbol == 8
+    dec = neural_modem.ModemDecoder(hidden=32, n_symbols=16)
+    assert (dec.hidden, dec.n_symbols) == (32, 16)
+    assert neural_modem.SAMPLE_RATE == 96000
+    assert sequence.DATA_AXIS == "data"

@@ -216,6 +216,45 @@ def test_extract_bf16_follows_pallas_where_rounding_moves_symbols():
         assert int((got[1] != got[0]).sum()) >= 16 and int((ref[1] != ref[0]).sum()) >= 16, argmax
 
 
+def test_extract_bf16_differences_from_pallas_are_near_ties():
+    """On the captures with AWGN at 0 dB, every symbol where the Pallas bf16
+    kernel and the port's plain bf16 version differ, with either argmax, is
+    a near tie of the exact bf16 scores (``neural_bf16_mismatches``), and
+    no symbol of the clean captures is a near tie (``neural_near_ties``)."""
+    cap, s, ph, r3 = _neural_rows()
+    sigma = float(np.mean(cap[cap != 0] ** 2)) ** 0.5
+    noisy = (cap + np.random.default_rng(5).normal(0.0, sigma, cap.shape)).astype(np.float32)
+    keep = slice(0, (r3 - 1) * 8)
+    cb, tph, ts = torch.from_numpy(tn._codebook()), torch.from_numpy(ph), torch.from_numpy(s)
+    x = torch.from_numpy(noisy).reshape(-1, 128)
+    for argmax in ("dot", "loop"):
+        ref = _j_extract(noisy, jn._codebook_blocked(2), s, ph, r3, bf16=True, argmax=argmax)
+        got = tk.neural_extract_batch_plain(x, cb, tph, ts, r3, bf16=True, argmax=argmax)
+        ref = torch.from_numpy(np.array(ref))
+        ref[:, (r3 - 1) * 8:] = got[:, (r3 - 1) * 8:]  # the Pallas kernel's last row reads the next capture
+        differ, outside = tk.neural_bf16_mismatches(x, cb, tph, ts, r3, got, ref, argmax=argmax)
+        assert outside == 0, (argmax, differ)
+    clean = torch.from_numpy(cap).reshape(-1, 128)
+    assert not tk.neural_near_ties(clean, cb, tph, ts, r3)[:, keep].any()
+
+
+def test_near_tie_margin():
+    """The near-tie rule on exact scores: a top-two gap under δ (2 x 32 x
+    2^-24 times the largest magnitude involved) is a near tie, a wider one
+    or an answer far from the top is not, the count gate's 0 is taken at a
+    near tie, and an all-zero row (δ = 0) is no near tie."""
+    u = tk._NEAR_TIE_UNITS
+    scores = torch.tensor([[1.0, 1.0 - 0.5 * u, 0.0], [1.0, 1.0 - 2.0 * u, 0.0], [0.0, 0.0, 0.0],
+                           [1.0, 1.0 - 0.5 * u, 0.0]], dtype=torch.float64)
+    mags = torch.tensor([[1.0, 1.0, 1.0], [1.0, 1.0, 1.0], [0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], dtype=torch.float64)
+    assert tk._near_tie(scores, mags).tolist() == [True, False, False, True]
+    top, second, far = (torch.tensor([v] * 4) for v in (0, 1, 2))
+    assert tk._near_tie(scores, mags, top, second).tolist() == [True, False, False, True]
+    assert tk._near_tie(scores, mags, top, far).tolist() == [False] * 4
+    gate = torch.tensor([1, 0, 0, 1])
+    assert tk._near_tie(scores, mags, gate, top, count_gate=True)[[0, 3]].tolist() == [True, True]
+
+
 def _blocked(cb: np.ndarray) -> np.ndarray:
     """The JAX kernel's (128, 8*256) block-diagonal scorer of a codebook, by
     the recipe of its ``_codebook_blocked`` at chip length 2."""
