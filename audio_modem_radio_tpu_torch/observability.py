@@ -1,4 +1,5 @@
-"""Logging, log rotation, performance monitoring, and analytics.
+"""Logging, log rotation, performance monitoring, analytics, and the
+decode path's spans and counters.
 
 Capability parity with the reference's observability surface:
 
@@ -12,16 +13,35 @@ Capability parity with the reference's observability surface:
   *declares* but never writes (files_sent/received, bytes, error counts,
   modes_used, performance_metrics — reference filebeep_analytics.json);
   here encode/decode events actually update it.
+
+The port's own tracing (no counterpart upstream):
+
+* :func:`span` — a named stage of the decode path. Recorded only while a
+  ``torch.profiler`` session records on the calling thread: then it is a
+  ``record_function`` range (a ``user_annotation`` on the trace's clock,
+  with a ``gpu_user_annotation`` over the kernels it launched), a record in
+  memory with its host interval, and, on a CUDA device, a pair of CUDA
+  events that give its device milliseconds on the card's clock. Otherwise
+  it costs one check of ``torch.autograd._profiler_enabled()``.
+* :func:`count` — a running counter (always on), also added to the
+  ``amr.demod_pack_batch`` record of the call that made it.
+* :func:`host_read` — a device-to-host read, counted and spanned.
+* :func:`trace_snapshot` and :func:`trace_reset`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import logging
 import os
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+from torch.autograd import _profiler_enabled
 
 try:
     import psutil
@@ -200,3 +220,172 @@ class AnalyticsStore:
 
 
 analytics = AnalyticsStore()
+
+
+# --- spans and counters of the decode path ---------------------------------------
+
+CALL_SPAN = "amr.demod_pack_batch"  # the root: one batched decode call
+SPAN_LIMIT = 65536  # records kept until trace_reset(); later ones are counted as dropped
+
+_OFF = contextlib.nullcontext()
+_tls = threading.local()
+_lock = threading.Lock()
+_stores: List[list] = []  # every thread's record list, registered at its first span
+_streams: Dict[tuple, "torch.cuda.Stream"] = {}  # (device index, raw stream) -> its Stream object
+_counters: Dict[str, int] = {}
+_dropped = 0
+_issued = itertools.count()  # record slots handed out since the last reset
+_calls = itertools.count(1)
+
+
+class _ThreadState:
+    __slots__ = ("records", "stack", "name")
+
+    def __init__(self):
+        self.records: list = []  # only this thread appends here: no lock
+        self.stack: list = []  # its open spans
+        self.name = threading.current_thread().name
+        with _lock:
+            _stores.append(self.records)
+
+
+def _event(device: torch.device) -> "torch.cuda.Event":
+    """A timing event recorded now on ``device``'s current stream. The
+    Stream object is cached by its raw handle: building one costs more
+    than the record."""
+    raw = torch._C._cuda_getCurrentRawStream(device.index)
+    stream = _streams.get((device.index, raw))
+    if stream is None:
+        stream = _streams[(device.index, raw)] = torch.cuda.current_stream(device)
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
+class _Span:
+    """One span: its record in the store and its ``record_function`` range."""
+
+    __slots__ = ("name", "attrs", "parent", "call", "thread", "device", "stack", "rf", "t0", "t1", "ev0",
+                 "ev1", "counts")
+
+    def __init__(self, name: str, device: Optional[torch.device], attrs: dict):
+        global _dropped
+        st = getattr(_tls, "state", None)
+        if st is None:
+            st = _tls.state = _ThreadState()
+        self.name, self.attrs, self.thread, self.stack = name, attrs, st.name, st.stack
+        self.parent = st.stack[-1] if st.stack else None
+        self.call = next(_calls) if name == CALL_SPAN else (self.parent.call if self.parent else None)
+        self.device = device if device is not None and device.type == "cuda" else None
+        self.t0 = self.t1 = self.ev0 = self.ev1 = None
+        self.counts: Dict[str, int] = {}
+        if next(_issued) < SPAN_LIMIT:
+            st.records.append(self)
+        else:
+            with _lock:
+                _dropped += 1
+
+    def __enter__(self):
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        if self.device is not None:
+            self.ev0 = _event(self.device)
+        self.stack.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        self.stack.pop()
+        if self.device is not None:
+            self.ev1 = _event(self.device)
+        self.t1 = t1
+        self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str, device: Optional[torch.device] = None, **attrs):
+    """A context manager around one stage of the decode path, named ``name``
+    with ``attrs``; ``device`` is the device of the tensors its work runs on
+    (a CUDA device: events are recorded on its current stream; None: host
+    times only). Recorded only while a ``torch.profiler`` session records
+    on this thread."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Span(name, device, attrs)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` (always on); while spans record,
+    also to the counts of the enclosing ``amr.demod_pack_batch`` call."""
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + n
+    st = getattr(_tls, "state", None)
+    if st is not None:
+        for rec in reversed(st.stack):
+            if rec.name == CALL_SPAN:
+                rec.counts[name] = rec.counts.get(name, 0) + n
+                break
+
+
+def host_read(t: torch.Tensor, read: Callable[[torch.Tensor], Any] = bool):
+    """``read(t)``, a read of ``t`` to the host, counted under ``host_reads``
+    and spanned as ``amr.host_read`` with host times only: what it measures
+    is how long the host waited, and events recorded after the read would
+    cost the card's time (its queue is empty then)."""
+    count("host_reads")
+    with span("amr.host_read"):
+        return read(t)
+
+
+def trace_reset() -> None:
+    """Empty the span store and zero the counters and the drop count (the
+    kernels' launch counts are reset by ``ops.kernels.reset_launch_counts``)."""
+    global _issued, _dropped
+    with _lock:
+        for records in _stores:
+            records.clear()
+        _counters.clear()
+        _issued, _dropped = itertools.count(), 0
+
+
+def trace_snapshot() -> Dict[str, Any]:
+    """What was recorded since the last :func:`trace_reset`: ``records``,
+    ``counters``, ``dropped`` (records past ``SPAN_LIMIT``) and ``launches``
+    (``ops.kernels.launch_counts()``). Synchronizes once each device the
+    spans ran on; clears nothing; spans still open are left out.
+
+    A record: ``index``, ``name``, ``attrs``, ``parent`` (its index, None at
+    a root), ``call`` (the id of its ``amr.demod_pack_batch`` call),
+    ``thread``, ``host_start_ns``, ``host_ms``, ``device_ms`` (CUDA events on
+    the card's clock; None for a span without a CUDA device) and their self
+    times ``host_self_ms``, ``device_self_ms`` (the span less what its
+    children cover; a child without device times covers nothing on the
+    card's clock); a call's record also has ``counts``, the counts its call
+    made."""
+    from .ops.kernels import launch_counts
+
+    with _lock:
+        recs = [r for records in _stores for r in list(records) if r.t1 is not None]
+        counters, dropped = dict(_counters), _dropped
+    for dev in {r.device for r in recs if r.device is not None}:
+        torch.cuda.synchronize(dev)
+    index = {id(r): i for i, r in enumerate(recs)}
+    out = []
+    for i, r in enumerate(recs):
+        o = {"index": i, "name": r.name, "attrs": dict(r.attrs), "parent": index.get(id(r.parent)),
+             "call": r.call, "thread": r.thread, "host_start_ns": r.t0, "host_ms": (r.t1 - r.t0) / 1e6,
+             "device_ms": r.ev0.elapsed_time(r.ev1) if r.ev1 is not None else None}
+        if r.name == CALL_SPAN:
+            o["counts"] = dict(r.counts)
+        out.append(o)
+    host_kids, dev_kids = [0.0] * len(out), [0.0] * len(out)
+    for o in out:
+        p = o["parent"]
+        if p is not None:
+            host_kids[p] += o["host_ms"]
+            dev_kids[p] += o["device_ms"] or 0.0
+    for o, h, d in zip(out, host_kids, dev_kids):
+        o["host_self_ms"] = o["host_ms"] - h
+        o["device_self_ms"] = None if o["device_ms"] is None else o["device_ms"] - d
+    return {"records": out, "counters": counters, "dropped": dropped, "launches": launch_counts()}

@@ -36,6 +36,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..observability import host_read
+
 
 def bytes_to_bits(data: bytes) -> np.ndarray:
     """bytes -> uint8 bit array, MSB first (matches the reference bit order)."""
@@ -74,11 +76,13 @@ def pack_bits_from(bits: torch.Tensor, start: torch.Tensor) -> Tuple[torch.Tenso
 
     Returns ``(packed (B, ceil(n/1024)*128) uint8, n_valid (B,) int32)`` with
     ``n_valid = (n - start) // 8``; bytes past n_valid hold the zero fill.
-    The per-row shift is a slice of each row (one host read of ``start``)."""
+    The per-row shift is a slice of each row (one host read of ``start``,
+    counted and spanned by ``observability.host_read``)."""
     b, n = bits.shape
     n_out = -(-n // 1024) * 128
     padded = F.pad(bits, (0, 8 * n_out))
-    shifted = torch.stack([padded[i, s : s + 8 * n_out] for i, s in enumerate(start.tolist())])
+    starts = host_read(start, torch.Tensor.tolist)
+    shifted = torch.stack([padded[i, s : s + 8 * n_out] for i, s in enumerate(starts)])
     shifted = shifted.reshape(b, n_out, 8)
     packed = torch.zeros((b, n_out), dtype=torch.uint8, device=bits.device)
     for i in range(8):

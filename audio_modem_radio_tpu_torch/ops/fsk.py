@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from ..framing import MAGIC_BIT_PATTERN, parse_frames
+from ..observability import span
 from ..utils.torchenv import DeviceLike
 from .common import (
     _analytic_fir_taps,
@@ -587,19 +588,20 @@ def _dual_pass1(
 ):
     """:func:`fsk_dual_pass1` that also returns the per-offset scores:
     ``(best, score (B, n_offsets), W, spr)``."""
-    spb = _samples_per_bit(sample_rate, baud)
-    if _separation_cycles(baud, mark, space, sample_rate) < 0.8:
-        raise ValueError("fsk_dual_bits_rows_batch requires a dual-tone config")
-    spr, row, ov = _fsk_geometry(spb)
-    b, r, c = x3d.shape
-    if c != row + ov:
-        raise ValueError("pre-shaped dual-tone rows must have row+ov columns")
-    (W,) = _device_tables("dual", spb, float(baud), float(mark), float(space), sample_rate,
-                          n_offsets, x3d.device)
-    wr, starts = _window_starts(r)
-    wins = torch.cat([x3d[:, s : s + wr] for s in starts], dim=1).to(torch.float32)
-    best, score = _dual_scores(wins, W, spr)
-    return best, score, W, spr
+    with span("amr.pass1", x3d.device):
+        spb = _samples_per_bit(sample_rate, baud)
+        if _separation_cycles(baud, mark, space, sample_rate) < 0.8:
+            raise ValueError("fsk_dual_bits_rows_batch requires a dual-tone config")
+        spr, row, ov = _fsk_geometry(spb)
+        b, r, c = x3d.shape
+        if c != row + ov:
+            raise ValueError("pre-shaped dual-tone rows must have row+ov columns")
+        (W,) = _device_tables("dual", spb, float(baud), float(mark), float(space), sample_rate,
+                              n_offsets, x3d.device)
+        wr, starts = _window_starts(r)
+        wins = torch.cat([x3d[:, s : s + wr] for s in starts], dim=1).to(torch.float32)
+        best, score = _dual_scores(wins, W, spr)
+        return best, score, W, spr
 
 
 def fsk_dual_pass1(
@@ -622,9 +624,10 @@ def fsk_dual_bits_rows_batch(
     version on the rows' own device (the JAX package's XLA einsum); ``None``
     and ``True`` the wrapper, which launches K7 on a CUDA tensor."""
     best, W, spr = fsk_dual_pass1(x3d, baud, mark, space, sample_rate, n_offsets)
-    if kernel is False:
-        return fsk_tile_bits_batch_plain(x3d, W, best, spr)
-    return fsk_tile_bits_batch(x3d, W, best, rows_per_capture=x3d.shape[1], spr=spr)
+    with span("amr.decide", x3d.device, kernel="K7"):
+        if kernel is False:
+            return fsk_tile_bits_batch_plain(x3d, W, best, spr)
+        return fsk_tile_bits_batch(x3d, W, best, rows_per_capture=x3d.shape[1], spr=spr)
 
 
 def fsk_demod_bits_batch(
@@ -648,17 +651,19 @@ def fsk_demod_bits_batch(
     r = max(blk, -(-r0 // blk) * blk)
     x = samples.to(torch.float32)[:, : n_bits * spb]
     x3d = torch.nn.functional.pad(x, (0, r * row - n_bits * spb)).reshape(b, r, row)
-    (W,) = _device_tables("dual", spb, float(baud), float(mark), float(space), sample_rate,
-                          n_offsets, samples.device)
-    wr, starts = _window_starts(r0)
-    wins = torch.cat(
-        [torch.cat([x3d[:, s : s + wr], x3d[:, min(s + 1, r - wr) : min(s + 1, r - wr) + wr, :ov]], dim=2)
-         for s in starts],
-        dim=1,
-    )
-    best, _score = _dual_scores(wins, W, spr)
-    bits = fsk_project_bits_batch(x3d, W, best, rows_per_capture=r, spr=spr)
-    return bits[:, :n_bits]
+    with span("amr.pass1", samples.device):
+        (W,) = _device_tables("dual", spb, float(baud), float(mark), float(space), sample_rate,
+                              n_offsets, samples.device)
+        wr, starts = _window_starts(r0)
+        wins = torch.cat(
+            [torch.cat([x3d[:, s : s + wr], x3d[:, min(s + 1, r - wr) : min(s + 1, r - wr) + wr, :ov]], dim=2)
+             for s in starts],
+            dim=1,
+        )
+        best, _score = _dual_scores(wins, W, spr)
+    with span("amr.decide", samples.device, kernel="K13"):
+        bits = fsk_project_bits_batch(x3d, W, best, rows_per_capture=r, spr=spr)
+        return bits[:, :n_bits]
 
 
 # --- close and mid separation: K8 and K9 on FIR windows ----------------------------
@@ -690,27 +695,28 @@ def fsk_disc_pass1(
     """Pass 1 over :func:`fsk_disc_row_shape` windows: the energy-weighted,
     deviation-clamped frequency score of every offset on three windows.
     Returns ``(best (B,) int32, plan, W_fir, W_box, coef)``."""
-    spb = _samples_per_bit(sample_rate, baud)
-    if _separation_cycles(baud, mark, space, sample_rate) >= 0.4:
-        raise ValueError("fsk_disc_bits_rows_batch requires a discriminator config")
-    plan, Wf, Wb, coef = _device_tables("disc", spb, float(baud), float(mark), float(space),
-                                        sample_rate, n_offsets, x3d.device)
-    row2, spr2, ov2 = plan["row2"], plan["spr2"], plan["ov2"]
-    b, r, r2 = _check_fused_rows(x3d, plan, "fsk_disc_row_shape")
-    mid = (mark + space) / 2.0
-    dev = abs(space - mark) / 2.0
-    wins, w2 = _fir_windows(x3d, r2, row2 // 128)
-    pr_w, pi_w = disc_phasor_rows(wins, Wf, w2, row2, ov2)
-    Wb_all = Wb.permute(1, 0, 2).reshape(row2 + ov2, -1)
-    wins_r = pr_w.reshape(b, -1, row2 + ov2) @ Wb_all
-    wins_i = pi_w.reshape(b, -1, row2 + ov2) @ Wb_all
-    f_win = torch.atan2(wins_i, wins_r) * _disc_scale(sample_rate, plan)
-    mag_w = torch.sqrt(wins_r**2 + wins_i**2)
-    score = torch.sum(
-        (mag_w * torch.clamp(torch.abs(f_win - mid), max=dev)).reshape(b, -1, n_offsets, spr2),
-        dim=(1, 3),
-    )
-    return torch.argmax(score, dim=1).to(torch.int32), plan, Wf, Wb, coef
+    with span("amr.pass1", x3d.device):
+        spb = _samples_per_bit(sample_rate, baud)
+        if _separation_cycles(baud, mark, space, sample_rate) >= 0.4:
+            raise ValueError("fsk_disc_bits_rows_batch requires a discriminator config")
+        plan, Wf, Wb, coef = _device_tables("disc", spb, float(baud), float(mark), float(space),
+                                            sample_rate, n_offsets, x3d.device)
+        row2, spr2, ov2 = plan["row2"], plan["spr2"], plan["ov2"]
+        b, r, r2 = _check_fused_rows(x3d, plan, "fsk_disc_row_shape")
+        mid = (mark + space) / 2.0
+        dev = abs(space - mark) / 2.0
+        wins, w2 = _fir_windows(x3d, r2, row2 // 128)
+        pr_w, pi_w = disc_phasor_rows(wins, Wf, w2, row2, ov2)
+        Wb_all = Wb.permute(1, 0, 2).reshape(row2 + ov2, -1)
+        wins_r = pr_w.reshape(b, -1, row2 + ov2) @ Wb_all
+        wins_i = pi_w.reshape(b, -1, row2 + ov2) @ Wb_all
+        f_win = torch.atan2(wins_i, wins_r) * _disc_scale(sample_rate, plan)
+        mag_w = torch.sqrt(wins_r**2 + wins_i**2)
+        score = torch.sum(
+            (mag_w * torch.clamp(torch.abs(f_win - mid), max=dev)).reshape(b, -1, n_offsets, spr2),
+            dim=(1, 3),
+        )
+        return torch.argmax(score, dim=1).to(torch.int32), plan, Wf, Wb, coef
 
 
 def _disc_scale(sample_rate: int, plan: dict) -> float:
@@ -729,14 +735,15 @@ def fsk_disc_bits_rows_batch(
     device (the JAX package's XLA pipeline); ``None`` and ``True`` the
     wrapper, which launches K8 on a CUDA tensor."""
     best, plan, Wf, Wb, coef = fsk_disc_pass1(x3d, baud, mark, space, sample_rate, n_offsets)
-    if kernel is False:
-        sr_sum, si_sum = fsk_disc_sums_batch_plain(x3d, Wf, Wb, best, plan["row2"], plan["ov2"])
-    else:
-        sr_sum, si_sum = fsk_disc_sums_batch(
-            x3d, Wf, Wb, best, rows_per_capture=x3d.shape[1], nrow2=plan["nrow2"], row2=plan["row2"],
-            ov2=plan["ov2"], spr2=plan["spr2"],
-        )
-    return disc_decide(sr_sum, si_sum, plan, coef, sample_rate, mark, space)
+    with span("amr.decide", x3d.device, kernel="K8"):
+        if kernel is False:
+            sr_sum, si_sum = fsk_disc_sums_batch_plain(x3d, Wf, Wb, best, plan["row2"], plan["ov2"])
+        else:
+            sr_sum, si_sum = fsk_disc_sums_batch(
+                x3d, Wf, Wb, best, rows_per_capture=x3d.shape[1], nrow2=plan["nrow2"], row2=plan["row2"],
+                ov2=plan["ov2"], spr2=plan["spr2"],
+            )
+        return disc_decide(sr_sum, si_sum, plan, coef, sample_rate, mark, space)
 
 
 def disc_decide(sr_sum: torch.Tensor, si_sum: torch.Tensor, plan: dict, coef: np.ndarray,
@@ -759,23 +766,24 @@ def fsk_quad_pass1(
 ):
     """Pass 1 over :func:`fsk_quad_row_shape` windows: sum |margin| of every
     offset on three windows. Returns ``(best (B,) int32, plan, W_fir, W_quad)``."""
-    spb = _samples_per_bit(sample_rate, baud)
-    sep = _separation_cycles(baud, mark, space, sample_rate)
-    if not (0.4 <= sep < 0.8):
-        raise ValueError("fsk_quad_bits_rows_batch requires a mid-separation config")
-    plan, Wf, Wq = _device_tables("quad", spb, float(baud), float(mark), float(space),
-                                  sample_rate, n_offsets, x3d.device)
-    row2, spr2, ov2 = plan["row2"], plan["spr2"], plan["ov2"]
-    b, r, r2 = _check_fused_rows(x3d, plan, "fsk_quad_row_shape")
-    if spr2 % 128:
-        raise ValueError("rows do not match fsk_quad_row_shape for this config")
-    wins, w2 = _fir_windows(x3d, r2, row2 // 128)
-    rz_w, ri_w = quad_analytic_rows(wins, Wf, w2, row2, ov2)
-    Wq_all = Wq.permute(1, 0, 2).reshape(row2 + ov2, -1)
-    M = (rz_w.reshape(b, -1, row2 + ov2) @ Wq_all).reshape(b, -1, n_offsets, 4, spr2)
-    N = (ri_w.reshape(b, -1, row2 + ov2) @ Wq_all).reshape(b, -1, n_offsets, 4, spr2)
-    score = torch.sum(torch.abs(quad_margins(M, N)), dim=(1, 3))
-    return torch.argmax(score, dim=1).to(torch.int32), plan, Wf, Wq
+    with span("amr.pass1", x3d.device):
+        spb = _samples_per_bit(sample_rate, baud)
+        sep = _separation_cycles(baud, mark, space, sample_rate)
+        if not (0.4 <= sep < 0.8):
+            raise ValueError("fsk_quad_bits_rows_batch requires a mid-separation config")
+        plan, Wf, Wq = _device_tables("quad", spb, float(baud), float(mark), float(space),
+                                      sample_rate, n_offsets, x3d.device)
+        row2, spr2, ov2 = plan["row2"], plan["spr2"], plan["ov2"]
+        b, r, r2 = _check_fused_rows(x3d, plan, "fsk_quad_row_shape")
+        if spr2 % 128:
+            raise ValueError("rows do not match fsk_quad_row_shape for this config")
+        wins, w2 = _fir_windows(x3d, r2, row2 // 128)
+        rz_w, ri_w = quad_analytic_rows(wins, Wf, w2, row2, ov2)
+        Wq_all = Wq.permute(1, 0, 2).reshape(row2 + ov2, -1)
+        M = (rz_w.reshape(b, -1, row2 + ov2) @ Wq_all).reshape(b, -1, n_offsets, 4, spr2)
+        N = (ri_w.reshape(b, -1, row2 + ov2) @ Wq_all).reshape(b, -1, n_offsets, 4, spr2)
+        score = torch.sum(torch.abs(quad_margins(M, N)), dim=(1, 3))
+        return torch.argmax(score, dim=1).to(torch.int32), plan, Wf, Wq
 
 
 def fsk_quad_bits_rows_batch(
@@ -788,14 +796,15 @@ def fsk_quad_bits_rows_batch(
     plain version on the rows' own device (the JAX package's XLA pipeline);
     ``None`` and ``True`` the wrapper, which launches K9 on a CUDA tensor."""
     best, plan, Wf, Wq = fsk_quad_pass1(x3d, baud, mark, space, sample_rate, n_offsets)
-    if kernel is False:
-        margin = fsk_quad_margin_batch_plain(x3d, Wf, Wq, best, plan["row2"], plan["ov2"], plan["spr2"])
-    else:
-        margin = fsk_quad_margin_batch(
-            x3d, Wf, Wq, best, rows_per_capture=x3d.shape[1], nrow2=plan["nrow2"], row2=plan["row2"],
-            ov2=plan["ov2"], spr2=plan["spr2"],
-        )
-    return (margin > 0).to(torch.uint8)
+    with span("amr.decide", x3d.device, kernel="K9"):
+        if kernel is False:
+            margin = fsk_quad_margin_batch_plain(x3d, Wf, Wq, best, plan["row2"], plan["ov2"], plan["spr2"])
+        else:
+            margin = fsk_quad_margin_batch(
+                x3d, Wf, Wq, best, rows_per_capture=x3d.shape[1], nrow2=plan["nrow2"], row2=plan["row2"],
+                ov2=plan["ov2"], spr2=plan["spr2"],
+            )
+        return (margin > 0).to(torch.uint8)
 
 
 # --- the single-capture receiver ----------------------------------------------------

@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from ..framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
+from ..observability import host_read, span
 from ..utils.torchenv import DeviceLike, resolve_device
 from .common import (
     bit_sync_and_pack_rotations,
@@ -368,56 +369,58 @@ def _batch_pass1(samples, x3d, b, n_frames, spsym, carrier, sample_rate, n_offse
     4th (DBPSK and DQPSK both).
 
     Returns ``(x3d, r, best, theta)`` with best (B,) int32 and theta (B,).
+    The span ``amr.pass1``.
     """
     device = (samples if x3d is None else x3d).device
-    W8, W_all, grams = _device_tables(spsym, float(carrier), sample_rate, n_offsets, device)
-    row = _BLOCK_SYM * spsym
-    c = W8.shape[1]
-    ov = c - row
-    blk = _BLOCK_ROWS
-    if x3d is None:
-        # Ceil the row count and keep every input sample: flooring dropped
-        # the trailing partial block and corrupted the frame's last dibits.
-        r0 = -(-n_frames // _BLOCK_SYM)
-        r = max(blk, -(-r0 // blk) * blk)
-        x = samples.to(torch.float32)
-        x3d = F.pad(x, (0, r * row - x.shape[1])).reshape(b, r, row)
-    else:
-        r = r0 = r_pre
-        if r % blk:
-            raise ValueError(f"pre-shaped rows {r} must be a multiple of {blk}")
+    with span("amr.pass1", device):
+        W8, W_all, grams = _device_tables(spsym, float(carrier), sample_rate, n_offsets, device)
+        row = _BLOCK_SYM * spsym
+        c = W8.shape[1]
+        ov = c - row
+        blk = _BLOCK_ROWS
+        if x3d is None:
+            # Ceil the row count and keep every input sample: flooring dropped
+            # the trailing partial block and corrupted the frame's last dibits.
+            r0 = -(-n_frames // _BLOCK_SYM)
+            r = max(blk, -(-r0 // blk) * blk)
+            x = samples.to(torch.float32)
+            x3d = F.pad(x, (0, r * row - x.shape[1])).reshape(b, r, row)
+        else:
+            r = r0 = r_pre
+            if r % blk:
+                raise ValueError(f"pre-shaped rows {r} must be a multiple of {blk}")
 
-    # Slice the windows first, then build their overlap tails.
-    wr = min(64, r0) if r0 >= 1 else 1
-    starts = sorted({0, max(0, r0 // 2 - wr // 2), max(0, r0 - wr)})
-    n_rows = x3d.shape[1]
-    wins = []
-    for s in starts:
-        # Next-row heads; the start clamps at the array edge like JAX's
-        # dynamic_slice (the last window shifts by one row there).
-        n0 = min(max(min(s + 1, r0 - wr + 1 if r0 >= wr else 0), 0), n_rows - wr)
-        wins.append(torch.cat([x3d[:, s : s + wr], x3d[:, n0 : n0 + wr, :ov]], dim=2))
-    wins = torch.cat(wins, dim=1).to(torch.float32)  # (B, nw, row+ov); int rows cast here
-    # Normalize per capture: the 4th-power estimate raises phasors (~scale²)
-    # to the 4th, so int16-scaled input (x32768) would overflow float32.
-    wscale = torch.clamp_min(torch.amax(torch.abs(wins), dim=(1, 2), keepdim=True), 1e-12)
-    wins = wins / wscale
-    proj = torch.matmul(wins.reshape(b, -1, c), W_all)  # (B, nw, K*256)
-    proj = proj.reshape(b, -1, n_offsets, 2, _BLOCK_SYM)
-    re, im = proj[:, :, :, 0], proj[:, :, :, 1]  # (B, nw, K, 128)
-    re, im = _gram_scale(re, im, grams, offset_axis=2)
-    # In-row differentials (127 per row) are plenty for scoring.
-    dr = re[..., 1:] * re[..., :-1] + im[..., 1:] * im[..., :-1]
-    di = im[..., 1:] * re[..., :-1] - re[..., 1:] * im[..., :-1]
-    score = _coherence_score(dr, di, (1, 3), n_psk)  # (B, K)
-    best = torch.argmax(score, dim=1).to(torch.int32)
+        # Slice the windows first, then build their overlap tails.
+        wr = min(64, r0) if r0 >= 1 else 1
+        starts = sorted({0, max(0, r0 // 2 - wr // 2), max(0, r0 - wr)})
+        n_rows = x3d.shape[1]
+        wins = []
+        for s in starts:
+            # Next-row heads; the start clamps at the array edge like JAX's
+            # dynamic_slice (the last window shifts by one row there).
+            n0 = min(max(min(s + 1, r0 - wr + 1 if r0 >= wr else 0), 0), n_rows - wr)
+            wins.append(torch.cat([x3d[:, s : s + wr], x3d[:, n0 : n0 + wr, :ov]], dim=2))
+        wins = torch.cat(wins, dim=1).to(torch.float32)  # (B, nw, row+ov); int rows cast here
+        # Normalize per capture: the 4th-power estimate raises phasors (~scale²)
+        # to the 4th, so int16-scaled input (x32768) would overflow float32.
+        wscale = torch.clamp_min(torch.amax(torch.abs(wins), dim=(1, 2), keepdim=True), 1e-12)
+        wins = wins / wscale
+        proj = torch.matmul(wins.reshape(b, -1, c), W_all)  # (B, nw, K*256)
+        proj = proj.reshape(b, -1, n_offsets, 2, _BLOCK_SYM)
+        re, im = proj[:, :, :, 0], proj[:, :, :, 1]  # (B, nw, K, 128)
+        re, im = _gram_scale(re, im, grams, offset_axis=2)
+        # In-row differentials (127 per row) are plenty for scoring.
+        dr = re[..., 1:] * re[..., :-1] + im[..., 1:] * im[..., :-1]
+        di = im[..., 1:] * re[..., :-1] - re[..., 1:] * im[..., :-1]
+        score = _coherence_score(dr, di, (1, 3), n_psk)  # (B, K)
+        best = torch.argmax(score, dim=1).to(torch.int32)
 
-    idx = best.long()[:, None, None, None].expand(-1, dr.shape[1], 1, dr.shape[3])
-    dr_b = torch.gather(dr, 2, idx)[:, :, 0]  # (B, nw, 127)
-    di_b = torch.gather(di, 2, idx)[:, :, 0]
-    est = estimate_common_rotation8 if n_psk == 8 else estimate_common_rotation
-    theta = est(dr_b.reshape(b, -1), di_b.reshape(b, -1))
-    return x3d, r, best, theta
+        idx = best.long()[:, None, None, None].expand(-1, dr.shape[1], 1, dr.shape[3])
+        dr_b = torch.gather(dr, 2, idx)[:, :, 0]  # (B, nw, 127)
+        di_b = torch.gather(di, 2, idx)[:, :, 0]
+        est = estimate_common_rotation8 if n_psk == 8 else estimate_common_rotation
+        theta = est(dr_b.reshape(b, -1), di_b.reshape(b, -1))
+        return x3d, r, best, theta
 
 
 def _batch_block_setup(samples: torch.Tensor, spsym: int):
@@ -518,7 +521,8 @@ def psk_decision_streams_batch(
     x3d, W8, best, rot, b, r = _decide_inputs(
         samples, setup, spsym, carrier, sample_rate, cfo, n_offsets, pass1_psk=4
     )
-    hi, lo = psk_project_decide_batch(x3d, W8, best, rot, rows_per_capture=r, n_psk=n_psk)
+    with span("amr.decide", x3d.device, kernel="K1"):
+        hi, lo = psk_project_decide_batch(x3d, W8, best, rot, rows_per_capture=r, n_psk=n_psk)
     return hi.reshape(b, -1), lo.reshape(b, -1)
 
 
@@ -541,7 +545,8 @@ def psk8_sector_rows_batch(
     x3d, W8, best, rot, b, r = _decide_inputs(
         samples, setup, spsym, carrier, sample_rate, cfo, n_offsets, pass1_psk=8
     )
-    sec = psk_project_decide_batch(x3d, W8, best, rot, rows_per_capture=r, n_psk=8)
+    with span("amr.decide", x3d.device, kernel="K1"):
+        sec = psk_project_decide_batch(x3d, W8, best, rot, rows_per_capture=r, n_psk=8)
     return sec.reshape(b, -1)
 
 
@@ -927,12 +932,9 @@ def _to_device(samples, device: DeviceLike) -> torch.Tensor:
 
 def _found(res) -> bool:
     """Read a rung's ``found`` flag to the host: the ``jax.lax.cond`` of the
-    JAX ladders becomes this read and a Python branch. Counts the reads."""
-    _found.host_reads += 1
-    return bool(res[2])
-
-
-_found.host_reads = 0
+    JAX ladders becomes this read and a Python branch (counted under
+    ``host_reads`` by ``observability.host_read``)."""
+    return host_read(res[2])
 
 
 def _stream_bytes(packed: torch.Tensor, n_valid: torch.Tensor) -> bytes:

@@ -73,6 +73,7 @@ from ..assembly import AssemblyRegistry
 from ..config import CONFIG
 from ..framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
 from ..modem import SAMPLE_RATE
+from ..observability import CALL_SPAN, count, host_read, span
 from ..ops.common import (
     bit_sync_and_pack_rotations,
     dibit_sync_and_pack,
@@ -184,15 +185,24 @@ def _scan_tiered(r: int, match, fold, accept):
     the rows, then everything. ``match(rows) -> (first, found)``; a tier is
     taken when ``accept(found)`` holds for every capture (one scalar read to
     the host; under a data-parallel mesh, every capture of every shard), and
-    its ``fold(first, found) -> (s, ksel, found)`` returned."""
+    its ``fold(first, found) -> (s, ksel, found)`` returned. Each tier is an
+    ``amr.sync_tier`` span (its match and its read; host times only: its
+    edges fall where a read has emptied the card's queue, and events there
+    would cost the card's time) and a ``sync_tiers`` count."""
     r_pre = -(-r // 8 // _MATCH_BLOCK_ROWS) * _MATCH_BLOCK_ROWS
     tiers = [p for p in sorted({_MATCH_BLOCK_ROWS, r_pre}) if 2 * p <= r]
     for p in tiers:
-        first_p, found_p = match(p)
-        # Under a data-parallel mesh the tier is taken for the global batch.
-        if agree_all(bool(torch.all(accept(found_p)))):
+        with span("amr.sync_tier", rows=p):
+            count("sync_tiers")
+            first_p, found_p = match(p)
+            # Under a data-parallel mesh the tier is taken for the global batch.
+            taken = agree_all(host_read(torch.all(accept(found_p))))
+        if taken:
             return fold(first_p, found_p)
-    return fold(*match(r))
+    with span("amr.sync_tier", rows=r):
+        count("sync_tiers")
+        first, found = match(r)
+    return fold(first, found)
 
 
 def psk4_kernel_sync_tail(
@@ -238,11 +248,12 @@ def psk4_kernel_sync_tail(
     # parity) inside it; the fold over the prefix then equals the full
     # scan's (a prefix k=0 match is the global first for its parity, and
     # ksel = 0 on both views).
-    s, ksel, found = _scan_tiered(r_dib, match, fold, lambda f: f[:, 0] | f[:, 4])
-    packed = relabel_pack_batch(hi3, lo3, s, ksel, rows_per_capture=r_dib,
-                                variant=pack_variant or PACK_KERNEL_VARIANT)
-    n_valid = (2 * n_dib - (s & 7)) // 8
-    return packed, n_valid.to(torch.int32), found
+    with span("amr.sync_tail", hi.device):
+        s, ksel, found = _scan_tiered(r_dib, match, fold, lambda f: f[:, 0] | f[:, 4])
+        packed = relabel_pack_batch(hi3, lo3, s, ksel, rows_per_capture=r_dib,
+                                    variant=pack_variant or PACK_KERNEL_VARIANT)
+        n_valid = ((2 * n_dib - (s & 7)) // 8).to(torch.int32)
+    return packed, n_valid, found
 
 
 def psk2_kernel_sync_tail(
@@ -280,11 +291,12 @@ def psk2_kernel_sync_tail(
 
     # Accepted iff every capture matched hypothesis 0 inside the tier: then
     # ksel = 0 on both views and the prefix's first[:, 0] is the global first.
-    s, ksel, found = _scan_tiered(r_bit, match, fold, lambda f: f[:, 0])
-    packed = bit_select_pack_batch(hi3, lo3, s, ksel, rows_per_capture=r_bit,
-                                   variant=pack_variant or PACK_KERNEL_VARIANT)
-    n_valid = (n_bits - (s & 7)) // 8
-    return packed, n_valid.to(torch.int32), found
+    with span("amr.sync_tail", hi.device):
+        s, ksel, found = _scan_tiered(r_bit, match, fold, lambda f: f[:, 0])
+        packed = bit_select_pack_batch(hi3, lo3, s, ksel, rows_per_capture=r_bit,
+                                       variant=pack_variant or PACK_KERNEL_VARIANT)
+        n_valid = ((n_bits - (s & 7)) // 8).to(torch.int32)
+    return packed, n_valid, found
 
 
 def psk8_kernel_sync_tail(
@@ -324,13 +336,14 @@ def psk8_kernel_sync_tail(
     # Accepted iff every capture matched any hypothesis inside the tier
     # (hypothesis 0 with cfo_retry off): positions past the prefix are
     # larger, so the earliest match over all hypotheses lies in it.
-    s, ksel, found = _scan_tiered(
-        r_sym, match, fold, (lambda f: f.any(dim=1)) if cfo_retry else (lambda f: f[:, 0])
-    )
-    r8 = (s % 8).to(torch.int32)
-    packed = psk8_relabel_pack_rows(sec3, ksel, r8, rows_per_capture=r_sym)
-    n_valid = (3 * (m - r8)) // 8
-    return packed, n_valid.to(torch.int32), found
+    with span("amr.sync_tail", sec.device):
+        s, ksel, found = _scan_tiered(
+            r_sym, match, fold, (lambda f: f.any(dim=1)) if cfo_retry else (lambda f: f[:, 0])
+        )
+        r8 = (s % 8).to(torch.int32)
+        packed = psk8_relabel_pack_rows(sec3, ksel, r8, rows_per_capture=r_sym)
+        n_valid = ((3 * (m - r8)) // 8).to(torch.int32)
+    return packed, n_valid, found
 
 
 def _fsk_bits(samples: torch.Tensor, baud: float, mark: float, space: float, mlse: bool,
@@ -397,9 +410,16 @@ def demod_pack_batch(
     body, "roll" or "succ") and ``pack_variant`` (K3's and K4's generation,
     "weights" or "shift") are the JAX package's A/B switches of the DQPSK
     and DBPSK kernel path; each pair gives the same bytes and launches the
-    same kernels.
+    same kernels. The call is the span ``amr.demod_pack_batch`` (attrs
+    ``kind``, ``captures``), the root of its stages' spans and counts.
     """
     kind, params = _receive_kind(mode, symbol_rate)
+    with span(CALL_SPAN, samples.device, kind=kind, captures=int(samples.shape[0])):
+        return _demod_pack(samples, kind, params, cfo_retry, fsk_mlse, psk_variant, pack_variant)
+
+
+def _demod_pack(samples, kind, params, cfo_retry, fsk_mlse, psk_variant, pack_variant):
+    """:func:`demod_pack_batch`'s body for the kind and params of the mode."""
     if kind == "neural":
         return _neural_pack(samples, int(params[0]))
     if kind == "hell":
@@ -411,8 +431,9 @@ def demod_pack_batch(
         # The JAX package's sync tail as it is: the first exact magic (no
         # validation pattern, no rotations), unvalidated, then the pack.
         bits = _fsk_bits(samples, *params, mlse=fsk_mlse, xla=xla)
-        start, found = find_bit_pattern(bits, MAGIC_BIT_PATTERN)
-        packed, n_valid = pack_bits_from(bits, start)
+        with span("amr.sync_tail", bits.device):
+            start, found = find_bit_pattern(bits, MAGIC_BIT_PATTERN)
+            packed, n_valid = pack_bits_from(bits, start)
         return packed, n_valid, found
     if kind == "ofdm":
         baud, carrier, n_sub = params

@@ -19,7 +19,14 @@ script prints:
   CUDA events after one warm-up;
 - for each run, 5 reps under ``torch.profiler``: the host-clock time per
   rep (profiler on), the summed device-kernel time per rep, the device's
-  idle share (1 - kernel / wall), and the kernels by device time;
+  idle share (1 - the union of kernel, copy and fill intervals over the
+  profiled window), and the kernels by device time;
+- the same window's idle time by the innermost ``amr.*`` span
+  (``observability.span``) on the host thread at each idle gap's middle,
+  beside the part of it where no host operator or runtime call held the
+  gap's middle (what a trace named by operators alone calls "host, no
+  operator");
+- each span's host and device ms a rep (``observability.trace_snapshot``);
 - the profiler's ``key_averages()`` table.
 
 Each line carries the card's name and power limit. ``--out`` also writes
@@ -29,6 +36,7 @@ the whole report to FILE.
 from __future__ import annotations
 
 import argparse
+import bisect
 import statistics
 import subprocess
 import time
@@ -39,6 +47,7 @@ import torch
 
 from .framing import crc32, pack_frame
 from .modem import modulate
+from .observability import trace_reset, trace_snapshot
 from .ops import fsk
 from .ops.neural import td_sync_batch
 from .ops.psk import _batch_pass1
@@ -85,26 +94,103 @@ def _median_ms(fn, reps: int = 9) -> float:
     return statistics.median(times)
 
 
+_WINDOW = "profile_slice.window"
+
+
+def _span_event(e) -> bool:
+    """An ``amr.*`` span of ``observability.span`` (on the host, or its range
+    over the kernels it launched), not work of the device."""
+    return e.name.startswith("amr.") or e.name == _WINDOW or getattr(e, "is_user_annotation", False)
+
+
+def _merge(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _innermost(intervals, t: float):
+    """The latest-starting of the sorted ``(start, end, name)`` intervals
+    that holds ``t`` (the innermost, for nested ones), or None."""
+    i = bisect.bisect_right(intervals, (t, float("inf"), "")) - 1
+    while i >= 0 and intervals[i][1] < t:
+        i -= 1
+    return intervals[i][2] if i >= 0 else None
+
+
+def _idle_by_span(events, window, busy):
+    """Idle ms inside ``window`` (start, end, thread) between the merged
+    ``busy`` intervals, by the innermost ``amr.*`` span on the window's host
+    thread at each gap's middle: [(span, idle ms, of which no host operator
+    or runtime call held the middle either)], the share that a trace which
+    names gaps by operators alone calls "host, no operator"."""
+    w0, w1, tid = window
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU and e.thread == tid]
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in cpu if e.name.startswith("amr."))
+    ops = sorted((e.time_range.start, e.time_range.end, e.name) for e in cpu if not _span_event(e))
+    edges = [w0] + [x for ab in busy for x in ab] + [w1]
+    by = defaultdict(lambda: [0.0, 0.0])
+    for a, b in zip(edges[0::2], edges[1::2]):
+        if b <= a:
+            continue
+        mid = (a + b) / 2
+        row = by[_innermost(spans, mid) or "no amr.* span"]
+        row[0] += (b - a) / 1e3
+        if _innermost(ops, mid) is None:
+            row[1] += (b - a) / 1e3
+    return sorted(((k, ms, bare) for k, (ms, bare) in by.items()), key=lambda r: -r[1])
+
+
+def _span_table(records, reps: int):
+    """[(name, calls/rep, host ms/rep, device ms/rep or None)] of the spans."""
+    by = defaultdict(lambda: [0, 0.0, 0.0, True])
+    for r in records:
+        row = by[r["name"]]
+        row[0] += 1
+        row[1] += r["host_ms"]
+        if r["device_ms"] is None:
+            row[3] = False
+        else:
+            row[2] += r["device_ms"]
+    return [(name, n / reps, h / reps, d / reps if ok else None) for name, (n, h, d, ok) in by.items()]
+
+
 def _profile(fn, reps: int = 5):
-    """(wall ms/rep, kernel ms/rep, [(ms/rep, launches/rep, name)], table)."""
-    from torch.profiler import ProfilerActivity, profile
+    """(wall ms/rep, kernel ms/rep, idle share, [(ms/rep, launches/rep, name)],
+    [(span, idle ms/rep)], span table, key_averages table). The idle share
+    is 1 - the union of kernel, copy and fill intervals over the window."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
+    trace_reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
+        with record_function(_WINDOW):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+    spans = _span_table(trace_snapshot()["records"], reps)
+    events = prof.events()
+    win = next(e for e in events if e.name == _WINDOW and e.device_type == torch.autograd.DeviceType.CPU)
+    w0, w1 = win.time_range.start, win.time_range.end
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and not _span_event(e)]
+    busy = _merge([(max(e.time_range.start, w0), min(e.time_range.end, w1)) for e in device
+                   if e.time_range.end > w0 and e.time_range.start < w1])
+    idle_share = 1 - sum(b - a for a, b in busy) / (w1 - w0)
+    idle = [(name, ms / reps, bare / reps) for name, ms, bare in _idle_by_span(events, (w0, w1, win.thread), busy)]
     by_name = defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name][0] += e.time_range.elapsed_us() / 1e3 / reps
-            by_name[e.name][1] += 1
+    for e in device:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3 / reps
+        by_name[e.name][1] += 1
     kernels = sorted(((ms, n // reps, name) for name, (ms, n) in by_name.items()), reverse=True)
     table = prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=15)
-    return wall, sum(k[0] for k in kernels), kernels, table
+    return wall, sum(k[0] for k in kernels), idle_share, kernels, idle, spans, table
 
 
 def main() -> int:
@@ -162,11 +248,20 @@ def main() -> int:
         ms = _median_ms(lambda: _batch_pass1(None, x, b, r * 128, spsym, CARRIERS[mode], SR, 8, r, n_psk))
         say(f"{mode} _batch_pass1 alone: median {ms:.4f} ms | {card}")
     for cfo in cfos:
-        wall, busy, kernels, table = _profile(lambda: demod_pack_batch(x, mode, rate, cfo_retry=cfo))
+        wall, busy, idle_share, kernels, idle, spans, table = _profile(
+            lambda: demod_pack_batch(x, mode, rate, cfo_retry=cfo))
         say(f"--- {mode}{what} profile cfo={cfo}: wall {wall:.4f} ms/rep (profiler on), device kernel sum "
-            f"{busy:.4f} ms/rep, idle share {1 - busy / wall:.3f} | {card}")
+            f"{busy:.4f} ms/rep, idle share {idle_share:.4f} | {card}")
         for k_ms, n, name in kernels:
             say(f"  {k_ms:9.4f} ms  x{n:<3d} {name[:110]}")
+        total = sum(ms for _, ms, _ in idle)
+        say(f"  idle {total:.4f} ms/rep by the innermost amr.* span at each gap's middle "
+            f"(ms, share, ms with no host operator there):")
+        for name, ms, bare in idle:
+            say(f"  {ms:9.4f} ms  {100 * ms / total if total else 0.0:5.1f}%  {bare:9.4f} ms  {name}")
+        say("  spans: calls/rep, host ms/rep, device ms/rep:")
+        for name, n, host, dev in spans:
+            say(f"  {name:22s} {n:5.1f} {host:9.4f} {'not measured' if dev is None else f'{dev:9.4f}'}")
         say(table)
     if args.out:
         with open(args.out, "w") as f:

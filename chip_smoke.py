@@ -83,7 +83,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    transmission), decoded by ``decoder.decode_wav_file(device="cuda")``: the
    reassembled file equals the sent one and K11 is the only kernel
    launched, once; the same at the carrier +100 Hz; a noise-only WAV saves
-   nothing (its launches and the ladder's host reads are printed). Then a
+   nothing (its launches and host reads are printed). Then a
    PSK31 WAV (one short file; no kernel at 3072 samples per symbol) and a
    batch of 8 captures under 256 symbols through ``decode_sample_batch``
    (K11 once per capture);
@@ -1540,22 +1540,23 @@ def phase_project_diff(device, n_cap: int, n: int, payload_bytes: int, card: str
 
 def _decode_wav(device, path: str, mode: str, rate: int, work: str, label: str, **options):
     """decode_wav_file on ``device`` (with ``options``: stream_fec, denoise)
-    with the launch counts and the ladder's host reads reset first: (saved
-    paths, counts, host reads, wall s)."""
+    with the launch counts and the counters of ``observability`` reset
+    first: (saved paths, counts, host reads, wall s)."""
     import torch
 
     from audio_modem_radio_tpu_torch.assembly import AssemblyRegistry
     from audio_modem_radio_tpu_torch.decoder import decode_wav_file
+    from audio_modem_radio_tpu_torch.observability import trace_reset, trace_snapshot
     from audio_modem_radio_tpu_torch.ops import kernels as tk
-    from audio_modem_radio_tpu_torch.ops import psk as tpsk
 
     tk.reset_launch_counts()
-    tpsk._found.host_reads = 0
+    trace_reset()
     t0 = time.perf_counter()
     saved = decode_wav_file(path, mode, rate, recv_dir=os.path.join(work, "recv_" + label),
                             registry=AssemblyRegistry(journal_dir=""), device=device, **options)
     torch.cuda.synchronize()
-    return saved, tk.launch_counts(), tpsk._found.host_reads, time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    return saved, tk.launch_counts(), trace_snapshot()["counters"].get("host_reads", 0), wall
 
 
 def phase_single(device, n: int, card: str) -> dict:
@@ -1585,7 +1586,7 @@ def phase_single(device, n: int, card: str) -> dict:
             write_wav(path, x)
             saved, counts, reads, wall = _decode_wav(device, path, mode, BAUD, work, f"{mode}{offset:g}")
             say(f"[5g {mode}] decode_wav_file, carrier +{offset:g} Hz, {len(wave) / SR:.1f} s of signal in "
-                f"{n / SR:.1f} s: wall {wall:.3f} s, saved {len(saved)}, launches={counts}, ladder host "
+                f"{n / SR:.1f} s: wall {wall:.3f} s, saved {len(saved)}, launches={counts}, host "
                 f"reads {reads} | {card}")
             check(len(saved) == 1, f"{mode} +{offset:g} Hz: {len(saved)} files saved")
             with open(saved[0], "rb") as f:
@@ -1602,7 +1603,7 @@ def phase_single(device, n: int, card: str) -> dict:
     write_wav(path, np.clip(rng.normal(0.0, 0.3, n), -1, 1).astype(np.float32))
     saved, counts, reads, wall = _decode_wav(device, path, "QPSK", BAUD, work, "noise")
     say(f"[5g noise] decode_wav_file QPSK on a noise-only WAV: wall {wall:.3f} s, saved {len(saved)}, "
-        f"launches={counts}, ladder host reads {reads} | {card}")
+        f"launches={counts}, host reads {reads} | {card}")
     check(saved == [], "a noise-only WAV saved files")
 
     t0 = time.perf_counter()
@@ -1613,7 +1614,7 @@ def phase_single(device, n: int, card: str) -> dict:
     write_wav(path, np.concatenate([np.zeros(4000, np.float32), wave, np.zeros(4000, np.float32)]))
     saved, counts, reads, wall = _decode_wav(device, path, "PSK31", 31, work, "psk31")
     say(f"[5g PSK31] decode_wav_file, {len(wave) / SR:.1f} s: wall {wall:.3f} s, saved {len(saved)}, "
-        f"launches={counts}, ladder host reads {reads} | {card}")
+        f"launches={counts}, host reads {reads} | {card}")
     check(len(saved) == 1 and open(saved[0], "rb").read() == text, "PSK31: the saved file differs")
     check(sum(counts.values()) == 0, f"PSK31 (3072 samples per symbol) launched a kernel: {counts}")
 

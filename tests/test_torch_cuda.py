@@ -518,6 +518,37 @@ def test_decode_sample_batch_on_card_psk2_psk8(cuda, mode):
     _decode_on_card(cuda, mode)
 
 
+def test_decide_span_times_the_decide_kernel_on_the_card(cuda, tmp_path):
+    """On the 64 x 2^24 QPSK slice batch, the ``amr.decide`` span's device
+    ms (CUDA events) is within 10% of ``decide_kernel``'s time in the same
+    profiler trace, and the kernel lies inside the span's
+    ``gpu_user_annotation`` range (one clock for spans and kernels)."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_modem_radio_tpu_torch import observability as ob
+    from audio_modem_radio_tpu_torch.parallel.batch import demod_pack_batch
+    from audio_modem_radio_tpu_torch.profile_slice import _bench_rows
+
+    x = _bench_rows("QPSK", 9600, cuda)
+    demod_pack_batch(x, "QPSK", 9600)
+    torch.cuda.synchronize()
+    ob.trace_reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        demod_pack_batch(x, "QPSK", 9600)
+        torch.cuda.synchronize()
+    (span,) = [r for r in ob.trace_snapshot()["records"] if r["name"] == "amr.decide"]
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    (kernel,) = [e for e in events if e.get("cat") == "kernel" and "decide_kernel" in e["name"]]
+    (ann,) = [e for e in events if e.get("cat") == "gpu_user_annotation" and e["name"] == "amr.decide"]
+    assert float(ann["ts"]) <= float(kernel["ts"])
+    assert float(kernel["ts"]) + float(kernel["dur"]) <= float(ann["ts"]) + float(ann["dur"])
+    assert span["device_ms"] == pytest.approx(float(kernel["dur"]) / 1e3, rel=0.10)
+
+
 def test_wrapper_rejects_non_contiguous(cuda):
     hi = torch.zeros((2, 256, 256), dtype=torch.uint8, device=cuda)[:, :, ::2]
     s = torch.zeros(2, dtype=torch.int32, device=cuda)
