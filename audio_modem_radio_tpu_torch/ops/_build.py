@@ -48,6 +48,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 # C entry points: (argtypes) -> int cudaError_t.
 _SIGNATURES = {
     "amr_decide": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -64,6 +65,8 @@ _SIGNATURES = {
     "amr_neural_extract": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "amr_mlse_viterbi": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _P),
     "amr_fec_viterbi": (_P, _I, _P, _P, _I, _I, _P),
+    "amr_fsk_first": (_P, _I, _I, _U, _I, _P, _P),
+    "amr_fsk_pack": (_P, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

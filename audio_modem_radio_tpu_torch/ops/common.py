@@ -5,7 +5,9 @@ Counterpart of ``audio_modem_radio_tpu/ops/common.py``:
 * ``bytes_to_bits`` / ``bits_to_bytes`` (host, numpy), :38-47;
 * :func:`find_bit_pattern` and :func:`pack_bits_from`, :52-73 and :150-162,
   batched over a (B, n) uint8 tensor in plain PyTorch (plain XLA in the JAX
-  package): the FSK slices' sync tail;
+  package): the FSK slices' sync tail on the CPU and under
+  ``tpu.demod_backend = "xla"``, and the plain version of
+  ``ops.kernels.fsk_sync_pack_batch``, which runs it on the card;
 * the single-capture PSK sync tails, :76-351, on 1-D streams in plain
   PyTorch: :func:`find_bit_pattern_validated`, :func:`dibit_sync_and_pack`,
   :func:`dibit_sync_and_pack_rotations`, :func:`relabel_shift_pack`,

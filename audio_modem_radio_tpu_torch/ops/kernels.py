@@ -24,12 +24,15 @@ with the JAX names and argument order:
   takes the (256, 16) codebook in place of the Pallas chip table and
   block-diagonal scorer;
 
-and two kernels with no Pallas counterpart: :func:`mlse_viterbi_blocks`
+and three kernels with no Pallas counterpart: :func:`mlse_viterbi_blocks`
 (``csrc/mlse_viterbi.cu``), the Viterbi of the single-capture FSK
 receiver's MLSE, which the JAX package runs as two ``lax.scan``s
-(``ops/fsk.py:_mlse_refine``), and :func:`fec_viterbi_blocks`
+(``ops/fsk.py:_mlse_refine``), :func:`fec_viterbi_blocks`
 (``csrc/fec_viterbi.cu``), the Viterbi decoder of the convolutional code,
-two ``lax.scan``s of ``fec.py:_viterbi_block`` there.
+two ``lax.scan``s of ``fec.py:_viterbi_block`` there, and
+:func:`fsk_sync_pack_batch` (``csrc/fsk_sync.cu``), the batched FSK sync
+tail, plain XLA there (``ops/common.py`` ``find_bit_pattern`` and
+``pack_bits_from``).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. For tensors on the CPU it runs the plain version
@@ -53,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .common import find_bit_pattern, pack_bits_from
 
 _BLOCK_SYM = 128  # symbols per lane row (matches ops.psk)
 _BIG = 1 << 30  # "no match" sentinel of the magic matchers
@@ -1609,12 +1613,55 @@ def fec_viterbi_blocks(pairs: torch.Tensor, known_boundaries: bool) -> torch.Ten
     return out
 
 
+# --- the batched FSK sync tail: first exact magic + pack (no Pallas counterpart) ----
+
+def fsk_sync_pack_batch_plain(bits: torch.Tensor, pattern: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The batched FSK sync tail as the JAX package runs it in XLA:
+    :func:`ops.common.find_bit_pattern`, then :func:`ops.common.pack_bits_from`
+    (one host read of the starts)."""
+    start, found = find_bit_pattern(bits, pattern)
+    packed, n_valid = pack_bits_from(bits, start)
+    return packed, n_valid, found
+
+
+def fsk_sync_pack_batch(bits: torch.Tensor, pattern: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(B, n) uint8 0/1 bits -> (packed (B, ceil(n/1024)*128) uint8, n_valid
+    (B,) int32, found (B,) bool): each row packed MSB first from the first
+    exact ``pattern`` (at most 32 bits), or from 0 where it is absent, as
+    :func:`fsk_sync_pack_batch_plain` computes them, bit for bit. On the card
+    ``csrc/fsk_sync.cu``: a scan that posts each row's first match to a
+    device slot, then a pack that reads it there; no host read. ``bits``
+    must be contiguous, and on the card start on a 16-byte boundary."""
+    _require(bits.ndim == 2 and bits.dtype == torch.uint8,
+             f"fsk_sync_pack_batch: bits {bits.dtype} {tuple(bits.shape)}, want uint8 (B, n)")
+    _require(bits.is_contiguous(), "fsk_sync_pack_batch: bits must be contiguous")
+    _require(0 < len(pattern) <= 32 and set(pattern) <= {"0", "1"},
+             f"fsk_sync_pack_batch: pattern {pattern!r}, want 1 to 32 bits")
+    dev = _same_device(bits)
+    if dev.type == "cpu":
+        return fsk_sync_pack_batch_plain(bits, pattern)
+    b, n = bits.shape
+    _require(1 <= b <= _MAX_CAPTURES, f"fsk_sync_pack_batch: {b} captures, want 1 to {_MAX_CAPTURES}")
+    _require_aligned("fsk_sync_pack_batch", bits)
+    stream = _raw_stream(dev)
+    first = torch.full((b,), n - len(pattern) + 1, dtype=torch.int32, device=dev)
+    packed = torch.empty((b, -(-n // 1024) * 128), dtype=torch.uint8, device=dev)
+    n_valid = torch.empty(b, dtype=torch.int32, device=dev)
+    found = torch.empty(b, dtype=torch.bool, device=dev)
+    word = int(pattern[::-1], 2)  # bit t is pattern[t]
+    _launch("amr_fsk_first", dev, _ptr(bits), b, n, word, len(pattern), _ptr(first), stream=stream)
+    _launch("amr_fsk_pack", dev, _ptr(bits), b, n, len(pattern), _ptr(first), _ptr(packed), _ptr(n_valid),
+            _ptr(found), stream=stream)
+    _count(fsk_sync_pack_batch)
+    return packed, n_valid, found
+
+
 KERNELS = (
     psk_project_decide_batch, rotation_match_batch, relabel_pack_batch,
     bit_select_pack_batch, sector_match_batch, psk8_relabel_pack_rows,
     fsk_tile_bits_batch, fsk_project_bits_batch, fsk_disc_sums_batch, fsk_quad_margin_batch,
     psk_project_diff, psk_project_diff_batch, neural_extract_batch, mlse_viterbi_blocks,
-    fec_viterbi_blocks,
+    fec_viterbi_blocks, fsk_sync_pack_batch,
 )
 
 

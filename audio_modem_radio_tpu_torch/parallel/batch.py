@@ -37,8 +37,10 @@ modes (``hell``). The pipeline:
           single-capture receiver per capture for every other input (flat
           close and mid tones, FIR-window rows, CONFIG ``modem.batch_mlse``,
           whose MLSE Viterbi is a kernel of its own, one launch for every
-          capture's blocks); then the plain-torch
-          sync tail: first exact magic, shift, byte pack.
+          capture's blocks); then the sync tail (first exact magic,
+          shift, byte pack): ``csrc/fsk_sync.cu`` on a CUDA device outside
+          ``tpu.demod_backend = "xla"``, no host read; plain torch
+          elsewhere.
           PSK captures without a blocked path (PSK31, symbols over 32
           samples, captures under 256 symbols) run the single-capture
           receiver per capture (K11, rotation, decision) and the
@@ -103,6 +105,7 @@ from ..ops.fsk import (
 from ..ops.kernels import (
     PACK_KERNEL_VARIANT,
     bit_select_pack_batch,
+    fsk_sync_pack_batch,
     psk8_relabel_pack_rows,
     relabel_pack_batch,
     rotation_match_batch,
@@ -429,9 +432,12 @@ def _demod_pack(samples, kind, params, cfo_retry, fsk_mlse, psk_variant, pack_va
     xla = CONFIG.get("tpu.demod_backend", "auto") == "xla"
     if kind == "fsk":
         # The JAX package's sync tail as it is: the first exact magic (no
-        # validation pattern, no rotations), unvalidated, then the pack.
+        # validation pattern, no rotations), unvalidated, then the pack; on
+        # a CUDA device the kernel pair that computes it with no host read.
         bits = _fsk_bits(samples, *params, mlse=fsk_mlse, xla=xla)
         with span("amr.sync_tail", bits.device):
+            if not xla and bits.device.type == "cuda":
+                return fsk_sync_pack_batch(bits.contiguous(), MAGIC_BIT_PATTERN)
             start, found = find_bit_pattern(bits, MAGIC_BIT_PATTERN)
             packed, n_valid = pack_bits_from(bits, start)
         return packed, n_valid, found

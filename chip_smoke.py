@@ -297,9 +297,9 @@ _SLICES = {
 # FSK slices: symbol rate, the kernels its main path must launch, and
 # whether phase 5 also decodes WAVs written by the port.
 _FSK_SLICES = {
-    "FSK1200": dict(rate=1200, wav=True, kernels=("fsk_tile_bits_batch",)),
-    "FSK9600": dict(rate=9600, wav=True, kernels=("fsk_disc_sums_batch",)),
-    "FSK19200": dict(rate=19200, wav=False, kernels=("fsk_quad_margin_batch",)),
+    "FSK1200": dict(rate=1200, wav=True, kernels=("fsk_tile_bits_batch", "fsk_sync_pack_batch")),
+    "FSK9600": dict(rate=9600, wav=True, kernels=("fsk_disc_sums_batch", "fsk_sync_pack_batch")),
+    "FSK19200": dict(rate=19200, wav=False, kernels=("fsk_quad_margin_batch", "fsk_sync_pack_batch")),
 }
 # The single-capture FSK decodes of phase 5l: mode -> symbol rate.
 _FSK_SINGLE = {"FSK1200": 1200, "FSK9600": 9600, "FSK19200": 19200, "MSK": 9600, "FT8": 50}
@@ -357,6 +357,9 @@ _ENTRIES = {
     # No Pallas kernel: the lax.scan pair of fec._viterbi_block.
     "fec_viterbi_blocks": ("fec_viterbi_blocks", "QPSK stream", "fec_viterbi.cu",
                            "audio_modem_radio_tpu/fec.py:203"),
+    # No Pallas kernel: the batched FSK sync tail, plain XLA there.
+    "fsk_sync_pack_batch": ("fsk_sync_pack_batch", "FSK19200", "fsk_sync.cu",
+                            "audio_modem_radio_tpu/ops/common.py:52"),
 }
 # K10's operations per symbol, from its code: 256 codewords x 16 FMAs, 256
 # compares, 16 chips of 4 (two mask products, a sum, the half) and 16
@@ -1141,10 +1144,12 @@ def _bit_mismatch(got, ref, n_sig: int):
 
 
 def phase_fsk_kernels(device, n_cap: int, n: int, card: str) -> dict:
-    """K7, K13, K8 and K9 vs plain on real FSK captures; returns
-    {entry: (max abs error, max relative error)} over the clean captures."""
+    """K7, K13, K8 and K9 vs plain on real FSK captures, and the sync tail's
+    kernel pair on K8's and K9's bits; returns {entry: (max abs error, max
+    relative error)} over the clean captures."""
     import torch
 
+    from audio_modem_radio_tpu_torch.framing import MAGIC_BIT_PATTERN
     from audio_modem_radio_tpu_torch.ops import fsk as tf
     from audio_modem_radio_tpu_torch.ops import kernels as tk
 
@@ -1229,6 +1234,14 @@ def phase_fsk_kernels(device, n_cap: int, n: int, card: str) -> dict:
                 n_bad, n_all = _bit_mismatch(bits_k, bits_p, n_sig)
                 say(f"[3b {entry}] {mode} {tag} {dtype} rows {tuple(x.shape)}: best={best.tolist()} max abs "
                     f"err {ab:.4e}, max rel err {rel:.4e}; bit mismatches={n_bad} of {n_all} | {card}")
+                sync_bits = bits_k.to(torch.uint8).contiguous()
+                got_s = tk.fsk_sync_pack_batch(sync_bits, MAGIC_BIT_PATTERN)
+                ref_s = tk.fsk_sync_pack_batch_plain(sync_bits, MAGIC_BIT_PATTERN)
+                same = all(torch.equal(g, r) for g, r in zip(got_s, ref_s))
+                say(f"[3b fsk_sync_pack_batch] {mode} {tag} {dtype} bits {tuple(sync_bits.shape)}: found "
+                    f"{got_s[2].tolist()}, equal to plain: {same} | {card}")
+                check(same, f"fsk_sync_pack_batch differs from plain on {mode} {tag} {dtype} bits")
+                del sync_bits, got_s, ref_s
                 check(rel <= 1e-4, f"{entry} relative error {rel} > 1e-4 on {mode} {tag} {dtype}")
                 if tag == "clean":
                     check(n_bad == 0, f"{entry} bits differ from plain on clean {mode} {dtype} captures")
@@ -1268,6 +1281,7 @@ def phase_fsk_kernels(device, n_cap: int, n: int, card: str) -> dict:
         errs[entry] = (worst_abs, worst_rel)
         torch.cuda.empty_cache()
         say(f"[3b {entry}] {mode}: {time.perf_counter() - t0:.1f} s | {card}")
+    errs["fsk_sync_pack_batch"] = (0.0, None)
     return errs
 
 
@@ -1346,7 +1360,7 @@ def phase_fsk_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, t
         counts["FSK1200 flat"] = tk.launch_counts()
         say(f"[{tag} {mode}] flat (B, N) captures through demod_pack_batch: wall {wall:.3f} s "
             f"launches={counts['FSK1200 flat']} | {card}")
-        _check_launches(counts["FSK1200 flat"], ("fsk_project_bits_batch",), mode, "flat")
+        _check_launches(counts["FSK1200 flat"], ("fsk_project_bits_batch", "fsk_sync_pack_batch"), mode, "flat")
         raws = [packed[i, : int(n_valid[i])].tobytes() for i in range(n_cap)]
         _check_frames(mode, raws, payloads, min_frames, tag, card, "flat demod_pack_batch")
         del flat, packed, raws
@@ -1365,9 +1379,11 @@ def phase_fsk_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
     + 7 per bit (four spb-tap correlations and the energies), K8 and K9 4 x
     129 per analytic output (two 129-tap FMAs), 6 per phasor (K8), 4 per
     nonzero boxcar or quadrature tap of the winning offset (two streams)
-    and 11 per K9 margin."""
+    and 11 per K9 margin. The sync tail's kernel pair, on K9's bits: bytes
+    alone, the bits read twice (scan, pack) and the packed bytes written."""
     import torch
 
+    from audio_modem_radio_tpu_torch.framing import MAGIC_BIT_PATTERN
     from audio_modem_radio_tpu_torch.ops import fsk as tf
     from audio_modem_radio_tpu_torch.ops import kernels as tk
     from audio_modem_radio_tpu_torch.parallel.batch import demod_pack_batch
@@ -1441,6 +1457,14 @@ def phase_fsk_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
                 plain = lambda: tk.fsk_quad_margin_batch_plain(  # noqa: E731
                     xp, Wf, W2, best[:plain_cap], plan["row2"], plan["ov2"], plan["spr2"])
             t[entry] = (_time_ms(fn), _time_ms(plain), plain_cap)
+            if mode == "FSK19200":
+                bits = (fn() > 0).to(torch.uint8)
+                n_out = -(-bits.shape[1] // 1024) * 128
+                bounds["fsk_sync_pack_batch"] = _bound(2 * bits.numel() + b * n_out, 0)
+                t["fsk_sync_pack_batch"] = (
+                    _time_ms(lambda: tk.fsk_sync_pack_batch(bits, MAGIC_BIT_PATTERN)),
+                    _time_ms(lambda: tk.fsk_sync_pack_batch_plain(bits, MAGIC_BIT_PATTERN)), b)
+                del bits
             del x, xp
         torch.cuda.empty_cache()
         say(f"[6 time] {mode}: {time.perf_counter() - t0:.1f} s | {card}")
@@ -2117,8 +2141,8 @@ def phase_fsk_single(device, n: int, work: str, card: str):
     say(f"[5l batch_mlse] decode_sample_batch of 8 x {n} FSK9600 captures under modem.batch_mlse: wall "
         f"{wall:.3f} s, frames per capture {[len(g) for g in got]} of {n_frames}, launches={counts} | {card}")
     check(got == [[payload] * n_frames] * 8, "modem.batch_mlse: a capture lost frames")
-    check(counts["mlse_viterbi_blocks"] == 1 and sum(counts.values()) == 1,
-          f"modem.batch_mlse must launch the Viterbi once for the batch: {counts}")
+    check(counts["mlse_viterbi_blocks"] == 1 and counts["fsk_sync_pack_batch"] == 1 and sum(counts.values()) == 2,
+          f"modem.batch_mlse must launch the Viterbi and the sync tail once for the batch: {counts}")
     say(f"[5l] marginal, escalation and batch_mlse: {time.perf_counter() - t0:.1f} s | {card}")
     return wavs, fsk9600, calls[0]
 

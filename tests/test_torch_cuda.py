@@ -17,6 +17,8 @@ from audio_modem_radio_tpu_torch.ops import kernels as tk
 from audio_modem_radio_tpu_torch.ops import psk as tpsk
 from audio_modem_radio_tpu_torch.ops.psk import _GRAY8_INV, _batch_pass1, _device_tables, blocked_row_shape
 
+from fsk_sync_cases import CASES as SYNC_CASES, case_bits, sync_pack_reference
+
 pytestmark = pytest.mark.cuda
 
 
@@ -817,8 +819,95 @@ def test_fsk_decode_sample_batch_on_card(cuda, mode):
     tk.reset_launch_counts()
     raws = decode_sample_batch(batch, mode, rate, device=cuda)
     counts = tk.launch_counts()
-    assert {k for k, v in counts.items() if v > 0} == {want}
+    assert {k for k, v in counts.items() if v > 0} == {want, "fsk_sync_pack_batch"}
+    assert counts["fsk_sync_pack_batch"] == 1
     assert [[f.data for f in parse_frames(r)] for r in raws] == [[p], [p], []]
+
+
+# --- the batched FSK sync tail: csrc/fsk_sync.cu ----------------------------------
+
+@pytest.mark.parametrize("case", sorted(SYNC_CASES))
+def test_fsk_sync_pack_kernel_equals_plain(cuda, case):
+    """``fsk_sync_pack_batch`` on the card equals its plain version (run on
+    the same card) and a string search + ``np.packbits``, bitwise over the
+    whole output: first, mid-row and last legal magic, magics across the
+    scan's thread, warp and block edges and across rows, two in a row,
+    none, rows shorter than the magic, n off every grain, B = 1 and 64; one
+    launch."""
+    bits = torch.from_numpy(case_bits(case)).to(cuda)
+    before = tk.fsk_sync_pack_batch.launches
+    got = tk.fsk_sync_pack_batch(bits, MAGIC_BIT_PATTERN)
+    ref = tk.fsk_sync_pack_batch_plain(bits, MAGIC_BIT_PATTERN)
+    torch.cuda.synchronize()
+    assert tk.fsk_sync_pack_batch.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.device == r.device and torch.equal(g, r)
+    ref_packed, ref_n_valid, ref_found, _ = sync_pack_reference(case_bits(case))
+    assert np.array_equal(got[0].cpu().numpy(), ref_packed)
+    assert got[1].tolist() == ref_n_valid.tolist() and got[2].tolist() == ref_found.tolist()
+
+
+def test_fsk_sync_pack_kernel_other_patterns(cuda):
+    """Patterns of 1, 7, 31 and 32 bits on random rows: the kernel equals the
+    plain version, and a call allocates its start slot afresh (two calls in
+    a row give the same answer)."""
+    rng = np.random.default_rng(44)
+    bits = torch.from_numpy(rng.integers(0, 2, (5, 40_000), dtype=np.uint8)).to(cuda)
+    for pattern in ("1", "0110100", "1" + "0" * 29 + "1", "01" * 16):
+        for _ in range(2):
+            got = tk.fsk_sync_pack_batch(bits, pattern)
+            ref = tk.fsk_sync_pack_batch_plain(bits, pattern)
+            assert all(torch.equal(g, r) for g, r in zip(got, ref)), pattern
+
+
+def test_fsk_sync_pack_kernel_rejects_bad_views(cuda):
+    """Non-contiguous, non-uint8 and misaligned bits raise before a launch."""
+    bits = torch.zeros((4, 4096), dtype=torch.uint8, device=cuda)
+    before = tk.fsk_sync_pack_batch.launches
+    for bad in (bits[:, ::2], bits.T, bits.to(torch.int32), bits.bool(), bits.reshape(-1)[1:4065].reshape(2, 2032)):
+        with pytest.raises(ValueError):
+            tk.fsk_sync_pack_batch(bad, MAGIC_BIT_PATTERN)
+    assert tk.fsk_sync_pack_batch.launches == before
+
+
+def test_fsk19200_batch_on_card_equals_cpu_with_no_host_read(cuda):
+    """FSK19200's fused FIR windows through ``demod_pack_batch`` on the card
+    equal the CPU call bitwise; under the profiler the call reads nothing to
+    the host, launches ``fsk_sync_pack_batch`` once, and its
+    ``amr.sync_tail`` holds no ``amr.host_read`` (the card's counterpart of
+    ``test_torch_tracing.py``'s CPU test, where the plain tail reads once)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_modem_radio_tpu_torch import observability as ob
+    from audio_modem_radio_tpu_torch.parallel.batch import demod_pack_batch, host_shape_batch
+
+    rng = np.random.default_rng(45)
+    p = rng.integers(0, 256, 1200, dtype=np.uint8).tobytes()
+    wave = modulate("FSK19200", pack_frame("q.bin", p, 0, 1, len(p), crc32(p)), 19200)
+    x = np.zeros((3, 1 << 18), np.float32)
+    x[0, 100 : 100 + len(wave)] = wave
+    x[1, 7 : 7 + len(wave)] = wave
+    x[2] = rng.normal(0, 0.3, 1 << 18)
+    rows = host_shape_batch(x, "FSK19200", 19200, device="cpu")
+    ref = demod_pack_batch(torch.from_numpy(rows), "FSK19200", 19200)
+    rows_card = torch.from_numpy(rows).to(cuda)
+    demod_pack_batch(rows_card, "FSK19200", 19200)
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    ob.trace_reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got = demod_pack_batch(rows_card, "FSK19200", 19200)
+        torch.cuda.synchronize()
+    snap = ob.trace_snapshot()
+    assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+    assert got[2].tolist() == [True, True, False]
+    assert snap["counters"].get("host_reads", 0) == 0
+    assert tk.launch_counts()["fsk_sync_pack_batch"] == 1
+    recs = snap["records"]
+    (tail,) = [r for r in recs if r["name"] == "amr.sync_tail"]
+    assert not [r for r in recs if r["parent"] == tail["index"]]
+    assert not [r for r in recs if r["name"] == "amr.host_read"]
+    assert tail["device_ms"] is not None
 
 
 # --- K11 and K12: projection + differential ---------------------------------------
@@ -1424,8 +1513,9 @@ def test_fsk_dual_rows_under_xla_launch_k7(cuda, mode):
 
 def test_batch_mlse_one_viterbi_launch(cuda):
     """Under CONFIG ``modem.batch_mlse`` every FSK9600 capture's MLSE blocks
-    share one Viterbi launch (per-capture energy rows), and the bytes equal
-    the CPU's plain Viterbi."""
+    share one Viterbi launch (per-capture energy rows), the sync tail one
+    ``fsk_sync_pack_batch``, and the bytes equal the CPU's plain Viterbi
+    and plain tail."""
     from audio_modem_radio_tpu_torch.framing import parse_frames
 
     batch, _ = _fsk_batch("FSK9600")
@@ -1433,7 +1523,8 @@ def test_batch_mlse_one_viterbi_launch(cuda):
     tk.reset_launch_counts()
     got = _decode_batch_on(cuda, batch, "FSK9600", 9600, modem__batch_mlse=True)
     counts = tk.launch_counts()
-    assert counts["mlse_viterbi_blocks"] == 1 and sum(counts.values()) == 1, counts
+    assert counts["mlse_viterbi_blocks"] == 1 and counts["fsk_sync_pack_batch"] == 1, counts
+    assert sum(counts.values()) == 2, counts
     ref = _decode_batch_on("cpu", batch, "FSK9600", 9600, modem__batch_mlse=True)
     assert got == ref and all(parse_frames(r) for r in got)
 

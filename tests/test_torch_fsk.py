@@ -23,6 +23,7 @@ from audio_modem_radio_tpu.parallel.batch import (
 )
 
 from audio_modem_radio_tpu_torch import modulate as t_modulate
+from audio_modem_radio_tpu_torch import observability as ob
 from audio_modem_radio_tpu_torch.assembly import AssemblyRegistry as TRegistry
 from audio_modem_radio_tpu_torch.framing import parse_frames as t_parse
 from audio_modem_radio_tpu_torch.ops import common as tcommon
@@ -31,6 +32,8 @@ from audio_modem_radio_tpu_torch.ops import kernels as tk
 from audio_modem_radio_tpu_torch.ops.tables import tables_from_reference
 from audio_modem_radio_tpu_torch.parallel import batch as tb
 from audio_modem_radio_tpu_torch.utils.wavio import write_wav
+
+from fsk_sync_cases import CASES as SYNC_CASES, case_bits, sync_pack_reference
 
 # Parallel test workers share the cores: one intra-op thread each keeps
 # torch from oversubscribing them.
@@ -178,6 +181,55 @@ def test_find_and_pack_equal_jax(n, positions):
         assert np.array_equal(packed_t[i, :k].numpy(), np.asarray(packed_j)[:k])
         if positions[i] is not None and n >= 16:
             assert bool(found_t[i]) and int(start_t[i]) <= positions[i]
+
+
+@pytest.mark.parametrize("case", sorted(SYNC_CASES))
+def test_fsk_sync_pack_plain_is_find_and_pack(case):
+    """The batched FSK tail's plain version, and its wrapper on a CPU tensor,
+    is ``find_bit_pattern`` + ``pack_bits_from``: on the edge cases of the
+    card's kernel (first, mid-row and last legal magic, magics across the
+    scan's thread, warp and block edges and across rows, two in a row,
+    none, rows shorter than the magic, ragged n, B = 1 and 64) it equals a
+    string search + ``np.packbits`` over the whole output, and the JAX
+    package's tail row by row within n_valid."""
+    bits = case_bits(case)
+    t = torch.from_numpy(bits)
+    start, found = tcommon.find_bit_pattern(t, MAGIC_BIT_PATTERN)
+    packed, n_valid = tcommon.pack_bits_from(t, start)
+    ref_packed, ref_n_valid, ref_found, ref_start = sync_pack_reference(bits)
+    assert start.tolist() == ref_start.tolist() and found.tolist() == ref_found.tolist()
+    for got in (tk.fsk_sync_pack_batch_plain(t, MAGIC_BIT_PATTERN), tk.fsk_sync_pack_batch(t, MAGIC_BIT_PATTERN)):
+        assert got[0].dtype == torch.uint8 and got[1].dtype == torch.int32 and got[2].dtype == torch.bool
+        assert torch.equal(got[0], packed) and torch.equal(got[1], n_valid) and torch.equal(got[2], found)
+        assert np.array_equal(got[0].numpy(), ref_packed) and got[1].tolist() == ref_n_valid.tolist()
+    for i in range(0, bits.shape[0], max(1, bits.shape[0] // 4)):
+        start_j, found_j = jcommon.find_bit_pattern(jnp.asarray(bits[i]), MAGIC_BIT_PATTERN)
+        packed_j, n_valid_j = jcommon.pack_bits_from(jnp.asarray(bits[i]), start_j)
+        assert (int(start_j), bool(found_j), int(n_valid_j)) == (int(start[i]), bool(found[i]), int(n_valid[i]))
+        k = int(n_valid_j)
+        assert np.array_equal(packed[i, :k].numpy(), np.asarray(packed_j)[:k])
+
+
+def test_cpu_fsk_tail_keeps_the_plain_path(monkeypatch):
+    """On a CPU tensor the batched FSK tail is ``find_bit_pattern`` +
+    ``pack_bits_from`` with their one host read; the card's kernel pair is
+    not called."""
+    def card_only(*_a):
+        raise AssertionError("fsk_sync_pack_batch called on a CPU tensor")
+
+    monkeypatch.setattr(tb, "fsk_sync_pack_batch", card_only)
+    finds = []
+    real = tb.find_bit_pattern
+    monkeypatch.setattr(tb, "find_bit_pattern", lambda *a: finds.append(a[0].shape) or real(*a))
+    p = bytes(range(200))
+    wave = t_modulate("FSK9600", pack_frame("c.bin", p, 0, 1, len(p), crc32(p)), 9600)
+    x = np.zeros((2, 1 << 17), np.float32)
+    x[0, 50 : 50 + len(wave)] = wave
+    ob.trace_reset()
+    packed, n_valid, found = tb.demod_pack_batch(torch.from_numpy(x), "FSK9600", 9600)
+    assert len(finds) == 1 and found.tolist() == [True, False]
+    assert ob.trace_snapshot()["counters"] == {"host_reads": 1}
+    assert [f.data for f in t_parse(packed[0, : int(n_valid[0])].numpy().tobytes())] == [p]
 
 
 # --- host shaping: bitwise ------------------------------------------------------------

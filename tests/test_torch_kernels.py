@@ -575,12 +575,14 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
     tk.neural_extract_batch(torch.zeros((2 * r, 128)), torch.zeros((256, 16)), rot, s, rows_per_capture=r)
     tk.mlse_viterbi_blocks(torch.zeros((2, 4, 9)), torch.ones(8), torch.zeros(8), torch.zeros((2, 2, 8)), 1, 2)
     tk.fec_viterbi_blocks(torch.full((2, 9, 2), 0.5), False)
+    tk.fsk_sync_pack_batch(torch.zeros((2, 100), dtype=torch.uint8), MAGIC_BIT_PATTERN)
     assert tk.launch_counts() == {
         "psk_project_decide_batch": 0, "rotation_match_batch": 0, "relabel_pack_batch": 0,
         "bit_select_pack_batch": 0, "sector_match_batch": 0, "psk8_relabel_pack_rows": 0,
         "fsk_tile_bits_batch": 0, "fsk_project_bits_batch": 0, "fsk_disc_sums_batch": 0,
         "fsk_quad_margin_batch": 0, "psk_project_diff": 0, "psk_project_diff_batch": 0,
         "neural_extract_batch": 0, "mlse_viterbi_blocks": 0, "fec_viterbi_blocks": 0,
+        "fsk_sync_pack_batch": 0,
     }
 
 
@@ -590,6 +592,7 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
     "k3_dtype", "k3_shape", "k3_s_dtype", "k3_variant", "device_mix",
     "k4_dtype", "k4_ksel_dtype", "k4_variant", "k5_shape", "k5_prefix",
     "k6_rows", "k6_r8_shape",
+    "fsk_sync_dtype", "fsk_sync_ndim", "fsk_sync_strided", "fsk_sync_long_pattern", "fsk_sync_pattern_chars",
 ])
 def test_wrappers_raise_on_bad_input(case):
     r, hi, lo, s, k, x3d, W8, best, rot = _small_inputs()
@@ -617,6 +620,11 @@ def test_wrappers_raise_on_bad_input(case):
         "k5_prefix": lambda: tk.sector_match_batch(hi, MAGIC_BIT_PATTERN, r, rows_scanned=2 * r),
         "k6_rows": lambda: tk.psk8_relabel_pack_rows(hi, k, s, 2 * r),
         "k6_r8_shape": lambda: tk.psk8_relabel_pack_rows(hi, k, s[:1], r),
+        "fsk_sync_dtype": lambda: tk.fsk_sync_pack_batch(hi[0].bool(), MAGIC_BIT_PATTERN),
+        "fsk_sync_ndim": lambda: tk.fsk_sync_pack_batch(hi, MAGIC_BIT_PATTERN),
+        "fsk_sync_strided": lambda: tk.fsk_sync_pack_batch(hi[:, :, 0], MAGIC_BIT_PATTERN),
+        "fsk_sync_long_pattern": lambda: tk.fsk_sync_pack_batch(hi[0], "01" * 17),
+        "fsk_sync_pattern_chars": lambda: tk.fsk_sync_pack_batch(hi[0], "0120"),
     }
     with pytest.raises((ValueError, NotImplementedError)):
         calls[case]()
