@@ -733,7 +733,8 @@ def fsk_disc_bits_rows_batch(
     calibrated equalizer and the tone decision. Returns uint8 bits
     (B, r2*spr2). ``kernel=False`` runs K8's plain version on the rows' own
     device (the JAX package's XLA pipeline); ``None`` and ``True`` the
-    wrapper, which launches K8 on a CUDA tensor."""
+    wrapper, which launches K8 on a CUDA tensor. The decision after K8 is
+    the span ``amr.disc_decide``, inside ``amr.decide``."""
     best, plan, Wf, Wb, coef = fsk_disc_pass1(x3d, baud, mark, space, sample_rate, n_offsets)
     with span("amr.decide", x3d.device, kernel="K8"):
         if kernel is False:
@@ -743,7 +744,8 @@ def fsk_disc_bits_rows_batch(
                 x3d, Wf, Wb, best, rows_per_capture=x3d.shape[1], nrow2=plan["nrow2"], row2=plan["row2"],
                 ov2=plan["ov2"], spr2=plan["spr2"],
             )
-        return disc_decide(sr_sum, si_sum, plan, coef, sample_rate, mark, space)
+        with span("amr.disc_decide", x3d.device):
+            return disc_decide(sr_sum, si_sum, plan, coef, sample_rate, mark, space)
 
 
 def disc_decide(sr_sum: torch.Tensor, si_sum: torch.Tensor, plan: dict, coef: np.ndarray,

@@ -140,6 +140,27 @@ def test_fsk19200_fused_windows_read_once_and_take_no_tier(fresh):
     assert found.tolist() == [True, True]
 
 
+def test_fsk9600_decide_holds_the_equalizer_span(fresh):
+    """FSK9600's fused FIR windows: pass 1, ``amr.decide`` (K8) whose one
+    child is ``amr.disc_decide`` (atan2, the equalizer, the tone decision),
+    then the sync tail."""
+    wave = modulate("FSK9600", _framed(4), 9600)
+    x = np.zeros((2, 1 << 18), np.float32)
+    x[0, 100 : 100 + len(wave)] = wave
+    x[1, 7 : 7 + len(wave)] = wave
+    rows = torch.from_numpy(tb.host_shape_batch(x, "FSK9600", 9600, device="cpu"))
+    with profile(activities=[ProfilerActivity.CPU]):
+        _packed, _n_valid, found = tb.demod_pack_batch(rows, "FSK9600", 9600)
+    recs = ob.trace_snapshot()["records"]
+    (root,) = [r for r in recs if r["parent"] is None]
+    stages = _children(recs, root)
+    assert [(r["name"], r["attrs"]) for r in stages] == [
+        ("amr.pass1", {}), ("amr.decide", {"kernel": "K8"}), ("amr.sync_tail", {})]
+    assert [(r["name"], r["attrs"]) for r in _children(recs, stages[1])] == [("amr.disc_decide", {})]
+    assert _children(recs, _children(recs, stages[1])[0]) == []
+    assert found.tolist() == [True, True]
+
+
 def _aten_names(events, a=float("-inf"), b=float("inf")):
     return [e["name"] for e in sorted(events, key=lambda e: e["ts"])
             if e.get("cat") == "cpu_op" and e["name"].startswith("aten::")
