@@ -20,7 +20,9 @@ written out:
   :func:`fsk_disc_row_shape`: pass 1 scores offsets on three windows, then
   kernel K8 (``fsk_disc_sums_batch``) runs the decimating analytic FIR, the
   phasor z[n+1]·conj z[n] and the fractional per-bit boxcar; atan2, the
-  calibrated 9-tap equalizer and the tone decision follow in plain torch;
+  calibrated 9-tap equalizer and the tone decision follow in one more
+  kernel (``fsk_disc_decide_batch``, ``csrc/fsk_eq_bits.cu``), bitwise
+  the plain :func:`disc_decide`;
 * quadrature (0.4 <= separation < 0.8: FSK19200), over the windows of
   :func:`fsk_quad_row_shape`: pass 1, then kernel K9
   (``fsk_quad_margin_batch``): the analytic FIR at full rate, the per-bit
@@ -69,6 +71,7 @@ from .common import (
 )
 from .kernels import (
     disc_phasor_rows,
+    fsk_disc_decide_batch,
     fsk_disc_sums_batch,
     fsk_disc_sums_batch_plain,
     fsk_project_bits_batch,
@@ -726,15 +729,19 @@ def _disc_scale(sample_rate: int, plan: dict) -> float:
 
 def fsk_disc_bits_rows_batch(
     x3d: torch.Tensor, baud: float, mark: float, space: float, sample_rate: int,
-    n_offsets: int = 8, kernel: Optional[bool] = None,
+    n_offsets: int = 8, kernel: Optional[bool] = None, decide_kernel: Optional[bool] = None,
 ) -> torch.Tensor:
     """Close-tone FSK discriminator over :func:`fsk_disc_row_shape` windows
     (float32 or int16): pass 1, K8's per-bit vector sums, then atan2, the
     calibrated equalizer and the tone decision. Returns uint8 bits
-    (B, r2*spr2). ``kernel=False`` runs K8's plain version on the rows' own
-    device (the JAX package's XLA pipeline); ``None`` and ``True`` the
-    wrapper, which launches K8 on a CUDA tensor. The decision after K8 is
-    the span ``amr.disc_decide``, inside ``amr.decide``."""
+    (B, r2*spr2). ``kernel`` picks K8: ``False`` its plain version on the
+    rows' own device (the JAX package's XLA pipeline), ``None`` and
+    ``True`` the wrapper, which launches K8 on a CUDA tensor.
+    ``decide_kernel`` picks the decision after K8 the same way: the plain
+    :func:`disc_decide` or the wrapper of ``csrc/fsk_eq_bits.cu``; ``None``
+    follows ``kernel`` (``tpu.demod_backend = "xla"`` passes ``False``).
+    The decision after K8 is the span ``amr.disc_decide``, inside
+    ``amr.decide``."""
     best, plan, Wf, Wb, coef = fsk_disc_pass1(x3d, baud, mark, space, sample_rate, n_offsets)
     with span("amr.decide", x3d.device, kernel="K8"):
         if kernel is False:
@@ -744,14 +751,19 @@ def fsk_disc_bits_rows_batch(
                 x3d, Wf, Wb, best, rows_per_capture=x3d.shape[1], nrow2=plan["nrow2"], row2=plan["row2"],
                 ov2=plan["ov2"], spr2=plan["spr2"],
             )
+        if decide_kernel is None:
+            decide_kernel = kernel is not False
+        decide = fsk_disc_decide_batch if decide_kernel else disc_decide
         with span("amr.disc_decide", x3d.device):
-            return disc_decide(sr_sum, si_sum, plan, coef, sample_rate, mark, space)
+            return decide(sr_sum, si_sum, plan, coef, sample_rate, mark, space)
 
 
 def disc_decide(sr_sum: torch.Tensor, si_sum: torch.Tensor, plan: dict, coef: np.ndarray,
                 sample_rate: int, mark: float, space: float) -> torch.Tensor:
     """K8's per-bit vector sums -> bits: atan2 to a frequency, the calibrated
-    ``_EQ_TAPS``-tap equalizer (edges repeated), the nearer tone."""
+    ``_EQ_TAPS``-tap equalizer (edges repeated), the nearer tone. The plain
+    version of ``ops.kernels.fsk_disc_decide_batch`` (the JAX package's XLA
+    chain after K8)."""
     f = torch.atan2(si_sum, sr_sum) * _disc_scale(sample_rate, plan)
     pad = _EQ_TAPS // 2
     n = f.shape[1]

@@ -24,15 +24,18 @@ with the JAX names and argument order:
   takes the (256, 16) codebook in place of the Pallas chip table and
   block-diagonal scorer;
 
-and three kernels with no Pallas counterpart: :func:`mlse_viterbi_blocks`
+and four kernels with no Pallas counterpart: :func:`mlse_viterbi_blocks`
 (``csrc/mlse_viterbi.cu``), the Viterbi of the single-capture FSK
 receiver's MLSE, which the JAX package runs as two ``lax.scan``s
 (``ops/fsk.py:_mlse_refine``), :func:`fec_viterbi_blocks`
 (``csrc/fec_viterbi.cu``), the Viterbi decoder of the convolutional code,
-two ``lax.scan``s of ``fec.py:_viterbi_block`` there, and
+two ``lax.scan``s of ``fec.py:_viterbi_block`` there,
 :func:`fsk_sync_pack_batch` (``csrc/fsk_sync.cu``), the batched FSK sync
 tail, plain XLA there (``ops/common.py`` ``find_bit_pattern`` and
-``pack_bits_from``).
+``pack_bits_from``), and :func:`fsk_disc_decide_batch`
+(``csrc/fsk_eq_bits.cu``), the close-tone FSK decision after K8 (atan2,
+the calibrated equalizer, the tone), plain XLA there (``ops/fsk.py``
+``fsk_disc_bits_rows_batch``).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. For tensors on the CPU it runs the plain version
@@ -1207,6 +1210,44 @@ def fsk_quad_margin_batch(
     return margin
 
 
+# --- after K8: atan2, the equalizer, the tone (no Pallas counterpart) ---------------
+
+def fsk_disc_decide_batch(sr_sum: torch.Tensor, si_sum: torch.Tensor, plan: dict, coef: np.ndarray,
+                          sample_rate: int, mark: float, space: float) -> torch.Tensor:
+    """K8's per-bit vector sums (each (B, n) float32) -> uint8 bits (B, n):
+    atan2 to a frequency, the calibrated equalizer ``coef`` (taps, then the
+    bias; each row's edge frequencies repeated), the nearer of ``mark`` and
+    ``space``, as :func:`ops.fsk.disc_decide` computes them, bit for bit.
+    On the card ``csrc/fsk_eq_bits.cu``, one pass over the sums; on the CPU
+    the plain chain. The sums must be contiguous, and on the card start on a
+    16-byte boundary."""
+    from .fsk import _EQ_TAPS, _disc_scale, disc_decide
+
+    name = "fsk_disc_decide_batch"
+    _require(sr_sum.ndim == 2 and sr_sum.shape == si_sum.shape and sr_sum.dtype == si_sum.dtype == torch.float32,
+             f"{name}: sums {sr_sum.dtype} {tuple(sr_sum.shape)}, {si_sum.dtype} {tuple(si_sum.shape)}, "
+             "want two float32 (B, n)")
+    _require(sr_sum.is_contiguous() and si_sum.is_contiguous(), f"{name}: the sums must be contiguous")
+    coef = np.asarray(coef, np.float32)
+    _require(coef.shape == (_EQ_TAPS + 1,), f"{name}: coef {coef.shape}, want {_EQ_TAPS} taps and the bias")
+    dev = _same_device(sr_sum, si_sum)
+    if dev.type == "cpu":
+        return disc_decide(sr_sum, si_sum, plan, coef, sample_rate, mark, space)
+    # csrc/fsk_eq_bits.cu fixes the taps at 9 (kTaps) and reads 13 parameters.
+    _require(_EQ_TAPS == 9, f"{name}: the kernel takes 9 taps, the equalizer has {_EQ_TAPS}")
+    b, n = sr_sum.shape
+    _require(1 <= b <= _MAX_CAPTURES and n >= 1,
+             f"{name}: {b} captures of {n} bits, want 1 to {_MAX_CAPTURES} of 1 or more")
+    _require_aligned(name, sr_sum)
+    _require_aligned(name, si_sum)
+    # Each host scalar cast to float32 once, as ATen casts a Python number.
+    params = np.array([_disc_scale(sample_rate, plan), *coef, mark, space], np.float32)
+    bits = torch.empty((b, n), dtype=torch.uint8, device=dev)
+    _launch("amr_fsk_eq_bits", dev, _ptr(sr_sum), _ptr(si_sum), b, n, params.ctypes.data, _ptr(bits))
+    _count(fsk_disc_decide_batch)
+    return bits
+
+
 # --- K10: NEURAL chip extraction + codebook scores + argmax ---------------------------
 
 _NEURAL_DTYPES = {torch.float32: 0, torch.int16: 1}
@@ -1661,7 +1702,7 @@ KERNELS = (
     bit_select_pack_batch, sector_match_batch, psk8_relabel_pack_rows,
     fsk_tile_bits_batch, fsk_project_bits_batch, fsk_disc_sums_batch, fsk_quad_margin_batch,
     psk_project_diff, psk_project_diff_batch, neural_extract_batch, mlse_viterbi_blocks,
-    fec_viterbi_blocks, fsk_sync_pack_batch,
+    fec_viterbi_blocks, fsk_sync_pack_batch, fsk_disc_decide_batch,
 )
 
 

@@ -373,8 +373,9 @@ def _fsk_bits(samples: torch.Tensor, baud: float, mark: float, space: float, mls
             plan = None  # K9 takes 128-aligned spr2 only
         if (plan is not None and samples.shape[2] == plan["c_pad"]
                 and samples.shape[1] % plan["fb"] == 0):
-            fn = fsk_disc_bits_rows_batch if sep < 0.4 else fsk_quad_bits_rows_batch
-            return fn(samples, baud, mark, space, SAMPLE_RATE)
+            if sep < 0.4:
+                return fsk_disc_bits_rows_batch(samples, baud, mark, space, SAMPLE_RATE, decide_kernel=not xla)
+            return fsk_quad_bits_rows_batch(samples, baud, mark, space, SAMPLE_RATE)
     elif not xla and sep >= 0.8 and samples.shape[1] // spb >= 2 * _fsk_geometry(spb)[0]:
         return fsk_demod_bits_batch(samples, baud, mark, space, SAMPLE_RATE)
     return fsk_demod_bits_each(samples, baud, mark, space, SAMPLE_RATE, mlse=mlse)

@@ -38,7 +38,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    FSK1200 rows (and equal to K7 at the same offsets), K8 (FSK9600) and K9
    (FSK19200). Bits equal on clean captures, at most 1e-4 different with
    AWGN (6 dB for the dual tones, 15 dB for FSK9600 and FSK19200); K8's
-   sums and K9's margins within 1e-4 of the largest plain value;
+   sums and K9's margins within 1e-4 of the largest plain value; the
+   decision after K8 (``fsk_eq_bits.cu``) on K8's sums equal to the plain
+   ``disc_decide`` on the same sums, byte for byte, clean and noisy;
 3c. K12 vs plain on 8 x 2^24-sample QPSK and 8PSK captures (blocked rows,
    float32 and int16) and K11 vs plain on one 2^24-sample float32 capture
    (the single-capture layout, 64-row padded): the float streams within
@@ -224,7 +226,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    K4 also on K1's lanes of the bench batch at every (ksel, s8) pair,
    bytes equal to the plain version's; the
    plain K8, K9 and K10 at 8 captures, where their float32 intermediates
-   fit; K11 on one float32 capture, K12 on 64 x 2^24 int16 rows); 5 calls
+   fit; K11 on one float32 capture, K12 on 64 x 2^24 int16 rows; the
+   decision after K8 on K8's bench sums, and on them tiled to 256
+   captures, ``fsk-9600.line``'s call); 5 calls
    of ``sector_match_batch`` and of ``rotation_match_batch`` (each family)
    at 256 rows under ``torch.profiler`` must show exactly 5 device kernels
    and no copy or fill; and each mode's single-capture
@@ -298,7 +302,8 @@ _SLICES = {
 # whether phase 5 also decodes WAVs written by the port.
 _FSK_SLICES = {
     "FSK1200": dict(rate=1200, wav=True, kernels=("fsk_tile_bits_batch", "fsk_sync_pack_batch")),
-    "FSK9600": dict(rate=9600, wav=True, kernels=("fsk_disc_sums_batch", "fsk_sync_pack_batch")),
+    "FSK9600": dict(rate=9600, wav=True, kernels=("fsk_disc_sums_batch", "fsk_disc_decide_batch",
+                                                  "fsk_sync_pack_batch")),
     "FSK19200": dict(rate=19200, wav=False, kernels=("fsk_quad_margin_batch", "fsk_sync_pack_batch")),
 }
 # The single-capture FSK decodes of phase 5l: mode -> symbol rate.
@@ -360,6 +365,9 @@ _ENTRIES = {
     # No Pallas kernel: the batched FSK sync tail, plain XLA there.
     "fsk_sync_pack_batch": ("fsk_sync_pack_batch", "FSK19200", "fsk_sync.cu",
                             "audio_modem_radio_tpu/ops/common.py:52"),
+    # No Pallas kernel: FSK9600's decision after K8, plain XLA there.
+    "fsk_disc_decide_batch": ("fsk_disc_decide_batch", "FSK9600", "fsk_eq_bits.cu",
+                              "audio_modem_radio_tpu/ops/fsk.py:1004"),
 }
 # K10's operations per symbol, from its code: 256 codewords x 16 FMAs, 256
 # compares, 16 chips of 4 (two mask products, a sum, the half) and 16
@@ -1143,10 +1151,32 @@ def _bit_mismatch(got, ref, n_sig: int):
     return int((g != p).sum()), g.numel()
 
 
+def _eq_bits(sums, plan, coef, mark: float, space: float, what: str, card: str):
+    """The decision after K8 (``fsk_disc_decide_batch``) on K8's ``sums``:
+    every byte equal to the plain ``disc_decide`` on the same sums, one
+    launch; returns the kernel's bits."""
+    import torch
+
+    from audio_modem_radio_tpu_torch.ops import fsk as tf
+    from audio_modem_radio_tpu_torch.ops import kernels as tk
+
+    before = tk.fsk_disc_decide_batch.launches
+    got = tk.fsk_disc_decide_batch(*sums, plan, coef, SR, mark, space)
+    ref = tf.disc_decide(*sums, plan, coef, SR, mark, space)
+    torch.cuda.synchronize()
+    n_bad = int((got != ref).sum())
+    say(f"[3b fsk_disc_decide_batch] {what} sums {tuple(sums[0].shape)}: byte mismatches vs plain={n_bad} "
+        f"of {ref.numel()} | {card}")
+    check(tk.fsk_disc_decide_batch.launches == before + 1, f"fsk_disc_decide_batch did not launch once on {what}")
+    check(n_bad == 0, f"fsk_disc_decide_batch differs from plain disc_decide on {what}")
+    return got
+
+
 def phase_fsk_kernels(device, n_cap: int, n: int, card: str) -> dict:
-    """K7, K13, K8 and K9 vs plain on real FSK captures, and the sync tail's
-    kernel pair on K8's and K9's bits; returns {entry: (max abs error, max
-    relative error)} over the clean captures."""
+    """K7, K13, K8 and K9 vs plain on real FSK captures, the decision after
+    K8 vs plain on K8's sums, and the sync tail's kernel pair on K8's and
+    K9's bits; returns {entry: (max abs error, max relative error)} over the
+    clean captures."""
     import torch
 
     from audio_modem_radio_tpu_torch.framing import MAGIC_BIT_PATTERN
@@ -1218,7 +1248,7 @@ def phase_fsk_kernels(device, n_cap: int, n: int, card: str) -> dict:
                 if mode == "FSK9600":
                     got = tk.fsk_disc_sums_batch(x, Wf, W2, best, **kw)
                     ref = tk.fsk_disc_sums_batch_plain(x, Wf, W2, best, plan["row2"], plan["ov2"])
-                    bits_k = tf.disc_decide(*got, plan, coef, SR, mark, space)
+                    bits_k = _eq_bits(got, plan, coef, mark, space, f"{mode} {tag} {dtype}", card)
                     bits_p = tf.disc_decide(*ref, plan, coef, SR, mark, space)
                 else:
                     got = (tk.fsk_quad_margin_batch(x, Wf, W2, best, **kw),)
@@ -1259,7 +1289,7 @@ def phase_fsk_kernels(device, n_cap: int, n: int, card: str) -> dict:
                     if mode == "FSK9600":
                         got = tk.fsk_disc_sums_batch(xr, Wf, W2, best, **kwr)
                         ref = tk.fsk_disc_sums_batch_plain(xr, Wf, W2, best, plan["row2"], plan["ov2"])
-                        bits_k = tf.disc_decide(*got, plan, coef, SR, mark, space)
+                        bits_k = _eq_bits(got, plan, coef, mark, space, f"{mode} ragged pass {dtype}", card)
                         bits_p = tf.disc_decide(*ref, plan, coef, SR, mark, space)
                     else:
                         got = (tk.fsk_quad_margin_batch(xr, Wf, W2, best, **kwr),)
@@ -1282,6 +1312,7 @@ def phase_fsk_kernels(device, n_cap: int, n: int, card: str) -> dict:
         torch.cuda.empty_cache()
         say(f"[3b {entry}] {mode}: {time.perf_counter() - t0:.1f} s | {card}")
     errs["fsk_sync_pack_batch"] = (0.0, None)
+    errs["fsk_disc_decide_batch"] = (0.0, None)
     return errs
 
 
@@ -1380,7 +1411,10 @@ def phase_fsk_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
     129 per analytic output (two 129-tap FMAs), 6 per phasor (K8), 4 per
     nonzero boxcar or quadrature tap of the winning offset (two streams)
     and 11 per K9 margin. The sync tail's kernel pair, on K9's bits: bytes
-    alone, the bits read twice (scan, pack) and the packed bytes written."""
+    alone, the bits read twice (scan, pack) and the packed bytes written.
+    The decision after K8, on K8's bench sums: bytes alone, two float32
+    sums read and one byte written a bit; it is also timed on those sums
+    tiled to ``fsk-9600.line``'s call of 256 captures."""
     import torch
 
     from audio_modem_radio_tpu_torch.framing import MAGIC_BIT_PATTERN
@@ -1433,7 +1467,7 @@ def phase_fsk_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
             del flat, rows
         else:
             pass1 = tf.fsk_disc_pass1 if mode == "FSK9600" else tf.fsk_quad_pass1
-            best, plan, Wf, W2 = pass1(x, baud, mark, space, SR)[:4]
+            best, plan, Wf, W2, *coef = pass1(x, baud, mark, space, SR)
             kw = dict(rows_per_capture=r, nrow2=plan["nrow2"], row2=plan["row2"], ov2=plan["ov2"],
                       spr2=plan["spr2"])
             r2 = r * 128 // plan["row2"]
@@ -1457,6 +1491,21 @@ def phase_fsk_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
                 plain = lambda: tk.fsk_quad_margin_batch_plain(  # noqa: E731
                     xp, Wf, W2, best[:plain_cap], plan["row2"], plan["ov2"], plan["spr2"])
             t[entry] = (_time_ms(fn), _time_ms(plain), plain_cap)
+            if mode == "FSK9600":
+                sums = fn()
+                eq_args = (plan, coef[0], SR, mark, space)
+                bounds["fsk_disc_decide_batch"] = _bound(9 * n_bits, 0)
+                t["fsk_disc_decide_batch"] = (
+                    _time_ms(lambda: tk.fsk_disc_decide_batch(*sums, *eq_args)),
+                    _time_ms(lambda: tf.disc_decide(*sums, *eq_args)), b)
+                wide = [s.repeat(-(-256 // b), 1)[:256] for s in sums]
+                del sums
+                ms, plain_ms = (_time_ms(lambda: tk.fsk_disc_decide_batch(*wide, *eq_args)),
+                                _time_ms(lambda: tf.disc_decide(*wide, *eq_args)))
+                say(f"[6 time] fsk_disc_decide_batch at fsk-9600.line's call, K8's bench sums tiled to "
+                    f"{tuple(wide[0].shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{_bound(9 * wide[0].numel(), 0)[0]:.4f} ms by bytes | {card}")
+                del wide
             if mode == "FSK19200":
                 bits = (fn() > 0).to(torch.uint8)
                 n_out = -(-bits.shape[1] // 1024) * 128

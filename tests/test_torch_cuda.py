@@ -17,6 +17,7 @@ from audio_modem_radio_tpu_torch.ops import kernels as tk
 from audio_modem_radio_tpu_torch.ops import psk as tpsk
 from audio_modem_radio_tpu_torch.ops.psk import _GRAY8_INV, _batch_pass1, _device_tables, blocked_row_shape
 
+from fsk_eq_cases import CASES as EQ_CASES, case_coef, case_sums, plan_coef, tie_sums
 from fsk_sync_cases import CASES as SYNC_CASES, case_bits, sync_pack_reference
 
 pytestmark = pytest.mark.cuda
@@ -814,12 +815,13 @@ def test_fsk_decode_sample_batch_on_card(cuda, mode):
     batch[0, : len(wave)] = wave
     batch[1, 211 : 211 + len(wave)] = wave
     batch[2] = rng.normal(0, 0.3, n)
-    want = {"FSK1200": "fsk_tile_bits_batch", "MSK": "fsk_tile_bits_batch", "FT8": "fsk_tile_bits_batch",
-            "FSK9600": "fsk_disc_sums_batch", "FSK19200": "fsk_quad_margin_batch"}[mode]
+    want = {"FSK1200": ("fsk_tile_bits_batch",), "MSK": ("fsk_tile_bits_batch",), "FT8": ("fsk_tile_bits_batch",),
+            "FSK9600": ("fsk_disc_sums_batch", "fsk_disc_decide_batch"),
+            "FSK19200": ("fsk_quad_margin_batch",)}[mode]
     tk.reset_launch_counts()
     raws = decode_sample_batch(batch, mode, rate, device=cuda)
     counts = tk.launch_counts()
-    assert {k for k, v in counts.items() if v > 0} == {want, "fsk_sync_pack_batch"}
+    assert {k for k, v in counts.items() if v > 0} == {*want, "fsk_sync_pack_batch"}
     assert counts["fsk_sync_pack_batch"] == 1
     assert [[f.data for f in parse_frames(r)] for r in raws] == [[p], [p], []]
 
@@ -868,6 +870,93 @@ def test_fsk_sync_pack_kernel_rejects_bad_views(cuda):
         with pytest.raises(ValueError):
             tk.fsk_sync_pack_batch(bad, MAGIC_BIT_PATTERN)
     assert tk.fsk_sync_pack_batch.launches == before
+
+
+# --- after K8: atan2, the equalizer, the tone (csrc/fsk_eq_bits.cu) ---------------
+
+def _eq_equals_plain(sr: torch.Tensor, si: torch.Tensor, coef) -> torch.Tensor:
+    """``fsk_disc_decide_batch`` on the card: one launch, and its bits equal
+    the plain chain's on the same card, byte for byte."""
+    from audio_modem_radio_tpu_torch.ops import fsk as tf
+
+    plan, _ = plan_coef()
+    before = tk.fsk_disc_decide_batch.launches
+    got = tk.fsk_disc_decide_batch(sr, si, plan, coef, 96000, 1200.0, 2200.0)
+    ref = tf.disc_decide(sr, si, plan, coef, 96000, 1200.0, 2200.0)
+    torch.cuda.synchronize()
+    assert tk.fsk_disc_decide_batch.launches == before + 1
+    assert got.dtype == ref.dtype == torch.uint8 and got.device == ref.device and torch.equal(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("case", sorted(EQ_CASES))
+def test_fsk_eq_bits_kernel_equals_plain(cuda, case):
+    """Hand-made sums: zeros, signed zeros, denormals, huge and infinite
+    values, both tones, the tie at the mid-tone (zero taps, bias 1700 Hz),
+    rows of 1 to 9 bits, n off the kernel's 16 and 4096 grains and on them,
+    B = 1 and 256."""
+    sr, si = (torch.from_numpy(a).to(cuda) for a in case_sums(case))
+    bits = _eq_equals_plain(sr, si, case_coef(case))
+    if case == "tie_bias":
+        assert not bool(bits.any())
+
+
+def test_fsk_eq_bits_kernel_on_swept_ties(cuda):
+    """Sums whose equalized frequency under FSK9600's equalizer is exactly
+    the mid-tone in the plain chain on this card: the kernel decides 0
+    there, and equals the plain chain everywhere."""
+    _, coef = plan_coef()
+    sr, si, tie = tie_sums(cuda)
+    assert int(tie.sum()) >= 8
+    bits = _eq_equals_plain(sr, si, coef)
+    assert not bool(bits[tie].any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_fsk_eq_bits_kernel_on_k8_sums(cuda, dtype):
+    """K8's sums of a generated FSK9600 batch: the kernel's bits equal the
+    plain chain's, and so does the sync tail's output over them; a batched
+    call (``fsk_disc_bits_rows_batch``, ``demod_pack_batch``) launches it
+    once and adds no host read."""
+    from audio_modem_radio_tpu_torch import observability as ob
+    from audio_modem_radio_tpu_torch.ops import fsk as tf
+    from audio_modem_radio_tpu_torch.parallel.batch import demod_pack_batch
+
+    x, _, n_sig = _fsk_rows(cuda, "FSK9600", dtype)
+    args = (*_FSK["FSK9600"][1:], 96000)
+    best, plan, Wf, Wb, coef = tf.fsk_disc_pass1(x, *args)
+    sr, si = tk.fsk_disc_sums_batch(x, Wf, Wb, best, rows_per_capture=x.shape[1], nrow2=plan["nrow2"],
+                                    row2=plan["row2"], ov2=plan["ov2"], spr2=plan["spr2"])
+    bits = _eq_equals_plain(sr, si, coef)
+    plain = tf.disc_decide(sr, si, plan, coef, 96000, *_FSK["FSK9600"][2:])
+    got, ref = (tk.fsk_sync_pack_batch(b, MAGIC_BIT_PATTERN) for b in (bits, plain))
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert 0.2 < float(bits[:, :n_sig].float().mean()) < 0.8
+    before = tk.fsk_disc_decide_batch.launches
+    assert torch.equal(tf.fsk_disc_bits_rows_batch(x, *args), bits)
+    assert tk.fsk_disc_decide_batch.launches == before + 1
+    ob.trace_reset()
+    _packed, _n_valid, found = demod_pack_batch(x, "FSK9600", 9600)
+    torch.cuda.synchronize()
+    assert tk.fsk_disc_decide_batch.launches == before + 2
+    assert ob.trace_snapshot()["counters"].get("host_reads", 0) == 0
+    assert found.tolist() == [True, True, True]
+
+
+def test_fsk_eq_bits_kernel_rejects_bad_views(cuda):
+    """Misaligned, non-contiguous, non-float32 and mixed-device sums raise
+    before a launch."""
+    plan, coef = plan_coef()
+    sr = torch.zeros((2, 4096), device=cuda)
+    si = torch.zeros((2, 4096), device=cuda)
+    flat = torch.zeros(2 * 4096 + 1, device=cuda)
+    bad = [(flat[1:].reshape(2, 4096), si), (sr[:, ::2], si[:, ::2]), (sr.double(), si.double()), (sr, si.cpu()),
+           (sr.T.contiguous(), si)]
+    before = tk.fsk_disc_decide_batch.launches
+    for a, b in bad:
+        with pytest.raises(ValueError):
+            tk.fsk_disc_decide_batch(a, b, plan, coef, 96000, 1200.0, 2200.0)
+    assert tk.fsk_disc_decide_batch.launches == before
 
 
 def test_fsk19200_batch_on_card_equals_cpu_with_no_host_read(cuda):

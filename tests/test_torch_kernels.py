@@ -26,6 +26,7 @@ from audio_modem_radio_tpu.ops.pallas_kernels import (
     sector_match_batch as j_sector_match,
 )
 
+from audio_modem_radio_tpu_torch.ops import fsk as tfsk
 from audio_modem_radio_tpu_torch.ops import kernels as tk
 from audio_modem_radio_tpu_torch.ops import psk as tpsk
 
@@ -576,13 +577,15 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
     tk.mlse_viterbi_blocks(torch.zeros((2, 4, 9)), torch.ones(8), torch.zeros(8), torch.zeros((2, 2, 8)), 1, 2)
     tk.fec_viterbi_blocks(torch.full((2, 9, 2), 0.5), False)
     tk.fsk_sync_pack_batch(torch.zeros((2, 100), dtype=torch.uint8), MAGIC_BIT_PATTERN)
+    plan, _wf, _wb, coef = tfsk._device_tables("disc", 10, 9600.0, 1200.0, 2200.0, 96000, 8, torch.device("cpu"))
+    tk.fsk_disc_decide_batch(torch.zeros((2, 64)), torch.ones((2, 64)), plan, coef, 96000, 1200.0, 2200.0)
     assert tk.launch_counts() == {
         "psk_project_decide_batch": 0, "rotation_match_batch": 0, "relabel_pack_batch": 0,
         "bit_select_pack_batch": 0, "sector_match_batch": 0, "psk8_relabel_pack_rows": 0,
         "fsk_tile_bits_batch": 0, "fsk_project_bits_batch": 0, "fsk_disc_sums_batch": 0,
         "fsk_quad_margin_batch": 0, "psk_project_diff": 0, "psk_project_diff_batch": 0,
         "neural_extract_batch": 0, "mlse_viterbi_blocks": 0, "fec_viterbi_blocks": 0,
-        "fsk_sync_pack_batch": 0,
+        "fsk_sync_pack_batch": 0, "fsk_disc_decide_batch": 0,
     }
 
 
@@ -593,9 +596,13 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
     "k4_dtype", "k4_ksel_dtype", "k4_variant", "k5_shape", "k5_prefix",
     "k6_rows", "k6_r8_shape",
     "fsk_sync_dtype", "fsk_sync_ndim", "fsk_sync_strided", "fsk_sync_long_pattern", "fsk_sync_pattern_chars",
+    "fsk_eq_dtype", "fsk_eq_ndim", "fsk_eq_shape", "fsk_eq_strided", "fsk_eq_device_mix", "fsk_eq_coef",
 ])
 def test_wrappers_raise_on_bad_input(case):
     r, hi, lo, s, k, x3d, W8, best, rot = _small_inputs()
+    plan, _wf, _wb, coef = tfsk._device_tables("disc", 10, 9600.0, 1200.0, 2200.0, 96000, 8, torch.device("cpu"))
+    sums = torch.zeros((2, 64))
+    tones = (96000, 1200.0, 2200.0)
     calls = {
         "k1_dtype": lambda: tk.psk_project_decide_batch(x3d.double(), W8, best, rot, r),
         "k1_rows": lambda: tk.psk_project_decide_batch(x3d[:, :128], W8, best, rot, 128),
@@ -625,6 +632,12 @@ def test_wrappers_raise_on_bad_input(case):
         "fsk_sync_strided": lambda: tk.fsk_sync_pack_batch(hi[:, :, 0], MAGIC_BIT_PATTERN),
         "fsk_sync_long_pattern": lambda: tk.fsk_sync_pack_batch(hi[0], "01" * 17),
         "fsk_sync_pattern_chars": lambda: tk.fsk_sync_pack_batch(hi[0], "0120"),
+        "fsk_eq_dtype": lambda: tk.fsk_disc_decide_batch(sums.double(), sums.double(), plan, coef, *tones),
+        "fsk_eq_ndim": lambda: tk.fsk_disc_decide_batch(sums[0], sums[0], plan, coef, *tones),
+        "fsk_eq_shape": lambda: tk.fsk_disc_decide_batch(sums, sums[:, :32], plan, coef, *tones),
+        "fsk_eq_strided": lambda: tk.fsk_disc_decide_batch(sums[:, ::2], sums[:, ::2], plan, coef, *tones),
+        "fsk_eq_device_mix": lambda: tk.fsk_disc_decide_batch(sums, sums.to("meta"), plan, coef, *tones),
+        "fsk_eq_coef": lambda: tk.fsk_disc_decide_batch(sums, sums, plan, coef[:-1], *tones),
     }
     with pytest.raises((ValueError, NotImplementedError)):
         calls[case]()
