@@ -25,8 +25,7 @@ bench batch's float32 rows synced by ``td_sync_batch`` (``--bf16``, ``--argmax
 dot``: its switches, ``--bf16`` the tensor-core kernel of
 ``neural_extract_tc.cuh``, its register lines and differing symbols also
 counted against the near-tie margin of ``ops/kernels.py``
-``neural_bf16_mismatches``; a source with the earlier C interface, which has
-neither switch, is called through it); K13 on the FSK1200
+``neural_bf16_mismatches``); K13 on the FSK1200
 bench capture's flat float32 rows at pass 1's offset; K12 on the 8PSK bench
 batch's rows (``--dtype`` int16 or float32) at pass 1's offsets, K11
 (``--single``) on one float32 capture in the single-capture layout (13,120
@@ -47,16 +46,9 @@ decode of one 2^24-sample QPSK@9600 capture gives it (a random 208,915-byte
 file, framed, stream-FEC coded, modulated and demodulated on the card: zero
 start, best end) or, with ``--container``, on one block of 9,216 steps with known
 boundaries (a coded random stream, 2% of its bits flipped), with cycles a
-step. A K5 or K2
-source with the earlier C interface (``amr_sector_match``,
-``amr_rotation_match``: first positions only, 2^30 where none matched, a
-fill launch before the kernel, the masks a device table) is called as its
-wrapper called it, the epilogue run in PyTorch; so is an FEC Viterbi source
-whose ``amr_fec_viterbi`` takes the earlier pair of flags (``known_start,
-from_best_end``, 64 survivor words a stage of scratch). The report gives each
-variant's time (median of ``--reps`` CUDA-event timings after one warm-up),
+step. The report gives each variant's time (median of ``--reps`` CUDA-event timings after one warm-up),
 the kernel's own device time per call under ``torch.profiler`` (the
-wrapper's table work left out; an earlier K2's fill launch counted in),
+wrapper's table work left out),
 the host time per call (50 calls back to back, before the synchronize),
 the number of outputs that differ from the first variant's (K2, K3, K4, K6: and
 from the plain version's on the same inputs), the card's SM
@@ -94,22 +86,9 @@ _ENTRY = {"decide": "amr_decide", "fsk_tile": "amr_fsk_tile", "neural_extract": 
 _KERNEL = {"decide": ("decide_kernel",), "fsk_tile": ("fsk_tile_kernel",),
            "neural_extract": ("neural_extract_kernel", "neural_extract_tc_kernel"), "fsk_flat": ("fsk_flat_kernel",),
            "project_diff": ("project_diff_kernel",), "sector_match": ("sector_match_kernel",),
-           "rotation_match": ("rotmatch_kernel", "fill_big"), "psk8_pack": ("psk8_pack_kernel",),
+           "rotation_match": ("rotmatch_kernel",), "psk8_pack": ("psk8_pack_kernel",),
            "relabel_pack": ("relabel_pack_kernel",), "bit_select_pack": ("bit_select_pack_kernel",),
            "mlse_viterbi": ("mlse_viterbi_kernel",), "fec_viterbi": ("fec_viterbi_kernel",)}
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# The earlier C entry points of K5, (sec, masks on the card, n_hyp, tol,
-# n_sym, first, n_captures, rows, rows_scanned, stream), and of K2, (hi,
-# lo, masks on the card, n_hyp, span, tol, n_pat, first, n_captures, rows,
-# rows_scanned, stream).
-_SECTOR_MATCH_EARLIER = ("amr_sector_match", (_P, _P, _I, _I, _I, _P, _I, _I, _I, _P))
-_ROTATION_MATCH_EARLIER = ("amr_rotation_match", (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P))
-# The earlier C entry point of the FEC Viterbi, (pairs, known_start,
-# from_best_end, scratch, out, n_blocks, L, stream).
-_FEC_VITERBI_EARLIER = (_P, _I, _I, _P, _P, _I, _I, _P)
-# The earlier C entry point of K10, without the bf16 and argmax switches:
-# (x, dtype, codebook, phasors, s, out, n_captures, rows, stream).
-_NEURAL_EXTRACT_EARLIER = (_P, _I, _P, _P, _P, _P, _I, _I, _P)
 _PSK = {2: ("BPSK", 3000.0), 4: ("QPSK", 3000.0), 8: ("8PSK", 12000.0)}
 _N_PSK = {mode: n for n, (mode, _c) in _PSK.items()}
 _MANGLED = {"int16": "s", "int8": "a", "float32": "f"}  # a C++ type's code in a mangled name
@@ -210,15 +189,12 @@ def _ptxas_lines(log: str, kernel: str):
 
 
 @contextlib.contextmanager
-def _bound_to(lib_path: Path, entry: str, argtypes=None):
-    """The port's wrappers call ``entry`` of ``lib_path`` inside the block
-    (a K5 source may export the earlier entry point instead), with
-    ``argtypes`` where the source has an earlier signature of it."""
+def _bound_to(lib_path: Path, entry: str):
+    """The port's wrappers call ``entry`` of ``lib_path`` inside the block."""
     lib = ctypes.CDLL(str(lib_path))
-    fn = getattr(lib, entry, None)
-    if fn is not None:
-        fn.argtypes = argtypes or _build._SIGNATURES[entry]
-        fn.restype = ctypes.c_int
+    fn = getattr(lib, entry)
+    fn.argtypes = _build._SIGNATURES[entry]
+    fn.restype = ctypes.c_int
     old = _build._lib
     _build._lib = lib
     try:
@@ -244,35 +220,6 @@ def _neural_args(device):
     ph = torch.stack([pr, pi], dim=1).contiguous()
     s = (k0 % 128).to(torch.int32)
     return x2d, cb, ph, s, r3
-
-
-def _neural_extract_earlier(src: str) -> bool:
-    """Whether the K10 source ``src`` has the earlier C interface (no
-    ``bf16`` and ``argmax`` switches)."""
-    text = Path(src if Path(src).is_absolute() else _build._PKG_DIR / src).read_text()
-    head = text[text.index('extern "C" int amr_neural_extract'):]
-    return "argmax" not in head[: head.index(")")]
-
-
-def _neural_call(nargs, earlier: bool, bf16: bool, argmax: str):
-    """K10 on ``nargs`` through the wrapper with ``bf16`` and ``argmax``, or
-    through the earlier C interface (float32 operands, the first maximum)."""
-    x2d, cb, ph, s, r3 = nargs
-    if not earlier:
-        return lambda: tk.neural_extract_batch(x2d, cb, ph, s, rows_per_capture=r3, bf16=bf16, argmax=argmax)
-    if bf16 or argmax != "loop":
-        raise SystemExit("an earlier neural_extract source has no bf16 or argmax switch")
-    b = x2d.shape[0] // r3
-
-    def call():
-        out = torch.empty((b, r3 * 8), dtype=torch.uint8, device=x2d.device)
-        err = _build._lib.amr_neural_extract(  # bound by _bound_to with the earlier argtypes
-            x2d.data_ptr(), 0, cb.data_ptr(), ph.data_ptr(), s.data_ptr(), out.data_ptr(), b, r3,
-            torch.cuda.current_stream(x2d.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"amr_neural_extract (earlier interface): cudaError_t {err}")
-        return out
-    return call
 
 
 def _psk_rows(mode: str, dtype: str, device):
@@ -369,26 +316,19 @@ def _project_diff_call(device, dtype: str, single: bool):
 
 
 def _sector_call(device, rows_scanned: str, noise_last: bool):
-    """K5 on K1's sectors of the 8PSK bench batch, through the wrapper, or
-    through the earlier C interface where the bound library has that one."""
+    """K5 on K1's sectors of the 8PSK bench batch, through the wrapper."""
     from .framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
 
     sec = _decisions("8PSK", device, noise_last)
     r = sec.shape[1]
     p = r if rows_scanned == "full" else int(rows_scanned)
-
-    def call():
-        if hasattr(_build._lib, _ENTRY["sector_match"]):
-            return tk.sector_match_batch(sec, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p)
-        return _sector_match_earlier(sec, MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2, r, p)
-    return call
+    return lambda: tk.sector_match_batch(sec, MAGIC_BIT_PATTERN, r, pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p)
 
 
 def _rotation_call(device, family: str, rows_scanned: str, noise_last: bool):
     """(call, plain): K2 on K1's QPSK or BPSK decision lanes of the bench
-    batch, through the wrapper, or through the earlier C interface where
-    the bound library has that one; and the plain version's (first, found)
-    on the same lanes."""
+    batch, through the wrapper, and the plain version's (first, found) on
+    the same lanes."""
     from .framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
 
     hi, lo = _decisions("QPSK" if family == "qpsk" else "BPSK", device, noise_last)
@@ -396,10 +336,8 @@ def _rotation_call(device, family: str, rows_scanned: str, noise_last: bool):
     p = r if rows_scanned == "full" else int(rows_scanned)
 
     def call():
-        if hasattr(_build._lib, _ENTRY["rotation_match"]):
-            return tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r, family=family,
-                                           pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p)
-        return _rotation_match_earlier(hi, lo, MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2, family, r, p)
+        return tk.rotation_match_batch(hi, lo, MAGIC_BIT_PATTERN, r, family=family,
+                                       pattern2=MAGIC_BIT_PATTERN2, rows_scanned=p)
 
     def plain():
         conds, n_pat = tk._MATCH_FAMILIES[family](MAGIC_BIT_PATTERN + MAGIC_BIT_PATTERN2)
@@ -507,97 +445,6 @@ def fec_viterbi_args(device, container: bool, n: int = N):
     return calls[0]
 
 
-def _fec_viterbi_earlier(src: str) -> bool:
-    """Whether the FEC Viterbi source ``src`` has the earlier C interface."""
-    text = Path(src if Path(src).is_absolute() else _build._PKG_DIR / src).read_text()
-    head = text[text.index('extern "C" int amr_fec_viterbi'):]
-    return "from_best_end" in head[: head.index(")")]
-
-
-def _fec_viterbi_call(fargs, earlier: bool):
-    """The FEC Viterbi on ``fargs`` through the wrapper, or through the
-    earlier C interface as its wrapper called it (the two flags, a scratch
-    of 64 words a stage)."""
-    pairs, known = fargs
-    if not earlier:
-        return lambda: tk.fec_viterbi_blocks(pairs, known)
-    nb, L, _ = pairs.shape
-
-    def call():
-        fn = _build._lib.amr_fec_viterbi  # bound by _bound_to with the earlier argtypes
-        surv = torch.empty((nb, -(-L // 32) * 64), dtype=torch.int32, device=pairs.device)
-        out = torch.empty((nb, L), dtype=torch.uint8, device=pairs.device)
-        err = fn(pairs.data_ptr(), int(known), int(not known), surv.data_ptr(), out.data_ptr(), nb, L,
-                 torch.cuda.current_stream(pairs.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"amr_fec_viterbi (earlier interface): cudaError_t {err}")
-        return out
-    return call
-
-
-_EARLIER_MASKS: dict = {}
-
-
-def _sector_match_earlier(sec3, pattern: str, pattern2: str, r: int, p: int, tol: int = 3):
-    """K5 through its earlier C interface as its wrapper drove it: the
-    condition sets built anew, the mask table looked up by them, the call
-    (a fill launch, then the kernel), and the limit epilogue."""
-    conds, n_sym = tk.psk8_match_conditions.__wrapped__(pattern, pattern2)
-    masks = _EARLIER_MASKS.get(conds)
-    if masks is None:
-        table = tk._sector_mask_table.__wrapped__(pattern, pattern2)
-        masks = _EARLIER_MASKS[conds] = torch.from_numpy(table.copy()).to(sec3.device)
-    b = sec3.shape[0]
-    first = torch.empty((b, len(conds)), dtype=torch.int32, device=sec3.device)
-    name, argtypes = _SECTOR_MATCH_EARLIER
-    fn = getattr(_build._lib, name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    err = fn(sec3.data_ptr(), masks.data_ptr(), len(conds), tol, n_sym, first.data_ptr(), b, r, p,
-             torch.cuda.current_stream(sec3.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
-    found = (first < (1 << 30)) & (first < p * 128 - (n_sym + 1))
-    return torch.where(found, first, 0), found
-
-
-def _earlier_rotation_masks(conds, n_exact: int, device) -> torch.Tensor:
-    """The earlier K2's (n_hyp, 8) device table: per hypothesis [hi mask, hi
-    value, lo mask, lo value] of the exact part, then of the tolerant part,
-    bit j for window offset j."""
-    rows = []
-    for c in conds:
-        m = [0] * 8
-        for idx, (is_hi, off, bit) in enumerate(c):
-            base = (0 if idx < n_exact else 4) + (0 if is_hi else 2)
-            m[base] |= 1 << off
-            m[base + 1] |= bit << off
-        rows.append(m)
-    return torch.from_numpy(np.array(rows, dtype=np.uint32).view(np.int32)).to(device)
-
-
-def _rotation_match_earlier(hi, lo, pattern: str, pattern2: str, family: str, r: int, p: int, tol: int = 3):
-    """K2 through its earlier C interface as its wrapper drove it: the
-    cached condition sets and device mask table, the call (a fill launch,
-    then the kernel), and the limit epilogue."""
-    conds, n_pat = tk._MATCH_FAMILIES[family](pattern + pattern2)
-    key = (conds, len(pattern))
-    masks = _EARLIER_MASKS.get(key)
-    if masks is None:
-        masks = _EARLIER_MASKS[key] = _earlier_rotation_masks(conds, len(pattern), hi.device)
-    span = max(off for c in conds for (_s, off, _b) in c) + 1
-    b = hi.shape[0]
-    first = torch.empty((b, len(conds)), dtype=torch.int32, device=hi.device)
-    name, argtypes = _ROTATION_MATCH_EARLIER
-    fn = getattr(_build._lib, name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    err = fn(hi.data_ptr(), lo.data_ptr(), masks.data_ptr(), len(conds), span, tol, n_pat, first.data_ptr(), b, r, p,
-             torch.cuda.current_stream(hi.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
-    found = (first < (1 << 30)) & (first < p * 128 - (n_pat + 1))
-    return torch.where(found, first, 0), found
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=sorted(_ENTRY), required=True)
@@ -655,11 +502,13 @@ def main() -> int:
         what = f" ({vargs[0].shape[0]} blocks x {steps} steps, {vargs[1].shape[0]} states)"
     elif args.kernel == "fec_viterbi":
         fargs = fec_viterbi_args(device, args.container)
-        call, plain = None, (lambda: tk.fec_viterbi_blocks_plain(*fargs))
+        call, plain = (lambda: tk.fec_viterbi_blocks(*fargs)), (lambda: tk.fec_viterbi_blocks_plain(*fargs))
         steps = fargs[0].shape[1]
         what = f" ({fargs[0].shape[0]} blocks x {steps} steps, known boundaries {fargs[1]})"
     elif args.kernel == "neural_extract":
         nargs = _neural_args(device)
+        call = (lambda: tk.neural_extract_batch(*nargs[:4], rows_per_capture=nargs[4], bf16=args.bf16,
+                                                argmax=args.argmax))
         what = f" (bf16 {args.bf16}, argmax {args.argmax})"
     else:
         call = {"fsk_tile": _tile_call, "fsk_flat": _flat_call}[args.kernel](device)
@@ -678,16 +527,7 @@ def main() -> int:
     for name, src, flags in variants:
         lib, log = built[name]
         ptxas = _ptxas_lines(log, named + instance)
-        earlier_args = None
-        if args.kernel == "fec_viterbi":
-            earlier = _fec_viterbi_earlier(src)
-            call = _fec_viterbi_call(fargs, earlier)
-            earlier_args = _FEC_VITERBI_EARLIER if earlier else None
-        elif args.kernel == "neural_extract":
-            earlier = _neural_extract_earlier(src)
-            call = _neural_call(nargs, earlier, args.bf16, args.argmax)
-            earlier_args = _NEURAL_EXTRACT_EARLIER if earlier else None
-        with _bound_to(lib, entry, earlier_args):
+        with _bound_to(lib, entry):
             got = call()
             torch.cuda.synchronize()
             ms = _median_ms(call, args.reps)

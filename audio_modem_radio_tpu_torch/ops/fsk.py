@@ -22,7 +22,7 @@ written out:
   phasor z[n+1]·conj z[n] and the fractional per-bit boxcar; atan2, the
   calibrated 9-tap equalizer and the tone decision follow in one more
   kernel (``fsk_disc_decide_batch``, ``csrc/fsk_eq_bits.cu``), bitwise
-  the plain :func:`disc_decide`;
+  its plain version ``fsk_disc_decide_batch_plain``;
 * quadrature (0.4 <= separation < 0.8: FSK19200), over the windows of
   :func:`fsk_quad_row_shape`: pass 1, then kernel K9
   (``fsk_quad_margin_batch``): the analytic FIR at full rate, the per-bit
@@ -70,8 +70,11 @@ from .common import (
     bytes_to_bits,
 )
 from .kernels import (
+    _EQ_TAPS,
+    _disc_scale,
     disc_phasor_rows,
     fsk_disc_decide_batch,
+    fsk_disc_decide_batch_plain,
     fsk_disc_sums_batch,
     fsk_disc_sums_batch_plain,
     fsk_project_bits_batch,
@@ -402,9 +405,6 @@ def _fir_padded_template(
     return wf_pad
 
 
-_EQ_TAPS = 9  # calibrated discriminator equalizer length (per-bit taps)
-
-
 def _np_vector_bit_freqs(
     wave: np.ndarray, band_lo: float, band_hi: float, sr: int, spb: int,
     core_lo: int, core_hi: int, n_bits: int, fir_taps: int = 0, dec: int = 1,
@@ -722,11 +722,6 @@ def fsk_disc_pass1(
         return torch.argmax(score, dim=1).to(torch.int32), plan, Wf, Wb, coef
 
 
-def _disc_scale(sample_rate: int, plan: dict) -> float:
-    """Hz per radian of the decimated phasor."""
-    return sample_rate / plan["dec"] / (2 * math.pi)
-
-
 def fsk_disc_bits_rows_batch(
     x3d: torch.Tensor, baud: float, mark: float, space: float, sample_rate: int,
     n_offsets: int = 8, kernel: Optional[bool] = None, decide_kernel: Optional[bool] = None,
@@ -738,8 +733,9 @@ def fsk_disc_bits_rows_batch(
     rows' own device (the JAX package's XLA pipeline), ``None`` and
     ``True`` the wrapper, which launches K8 on a CUDA tensor.
     ``decide_kernel`` picks the decision after K8 the same way: the plain
-    :func:`disc_decide` or the wrapper of ``csrc/fsk_eq_bits.cu``; ``None``
-    follows ``kernel`` (``tpu.demod_backend = "xla"`` passes ``False``).
+    ``fsk_disc_decide_batch_plain`` or the wrapper of
+    ``csrc/fsk_eq_bits.cu``; ``None`` follows ``kernel``
+    (``tpu.demod_backend = "xla"`` passes ``False``).
     The decision after K8 is the span ``amr.disc_decide``, inside
     ``amr.decide``."""
     best, plan, Wf, Wb, coef = fsk_disc_pass1(x3d, baud, mark, space, sample_rate, n_offsets)
@@ -753,25 +749,9 @@ def fsk_disc_bits_rows_batch(
             )
         if decide_kernel is None:
             decide_kernel = kernel is not False
-        decide = fsk_disc_decide_batch if decide_kernel else disc_decide
+        decide = fsk_disc_decide_batch if decide_kernel else fsk_disc_decide_batch_plain
         with span("amr.disc_decide", x3d.device):
             return decide(sr_sum, si_sum, plan, coef, sample_rate, mark, space)
-
-
-def disc_decide(sr_sum: torch.Tensor, si_sum: torch.Tensor, plan: dict, coef: np.ndarray,
-                sample_rate: int, mark: float, space: float) -> torch.Tensor:
-    """K8's per-bit vector sums -> bits: atan2 to a frequency, the calibrated
-    ``_EQ_TAPS``-tap equalizer (edges repeated), the nearer tone. The plain
-    version of ``ops.kernels.fsk_disc_decide_batch`` (the JAX package's XLA
-    chain after K8)."""
-    f = torch.atan2(si_sum, sr_sum) * _disc_scale(sample_rate, plan)
-    pad = _EQ_TAPS // 2
-    n = f.shape[1]
-    fm = torch.cat([f[:, :1].expand(-1, pad), f, f[:, -1:].expand(-1, pad)], dim=1)
-    eq = torch.full_like(f, float(coef[-1]))
-    for j in range(_EQ_TAPS):
-        eq = eq + float(coef[j]) * fm[:, j : j + n]
-    return (torch.abs(eq - mark) < torch.abs(eq - space)).to(torch.uint8)
 
 
 def fsk_quad_pass1(

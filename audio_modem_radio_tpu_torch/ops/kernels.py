@@ -35,7 +35,8 @@ tail, plain XLA there (``ops/common.py`` ``find_bit_pattern`` and
 ``pack_bits_from``), and :func:`fsk_disc_decide_batch`
 (``csrc/fsk_eq_bits.cu``), the close-tone FSK decision after K8 (atan2,
 the calibrated equalizer, the tone), plain XLA there (``ops/fsk.py``
-``fsk_disc_bits_rows_batch``).
+``fsk_disc_bits_rows_batch``), with its plain version
+:func:`fsk_disc_decide_batch_plain`.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. For tensors on the CPU it runs the plain version
@@ -76,6 +77,33 @@ def _count(fn) -> None:
     """One launch of ``fn``'s kernel."""
     with _COUNT_LOCK:
         fn.launches += 1
+
+
+# The kernel tables the wrappers derive from a template, by template and tag:
+# room for K1/K12's and the four FSK kernels' tables of a process's configurations.
+_KEPT: "collections.OrderedDict" = collections.OrderedDict()
+_KEPT_SIZE = 16
+
+
+def _kept(template: torch.Tensor, tag, build):
+    """``build()``, computed once for ``template`` and ``tag`` and kept for
+    the last 16 of them, so that a call with the template of an earlier one
+    launches the kernel alone: the tables' small kernels and host reads run
+    at a template's first call only. An entry holds a weak reference to its
+    template (the cache never keeps one alive) and is used only while that
+    very tensor is alive and its version counter shows no write since."""
+    key = (template.data_ptr(), template._version, tuple(template.shape), template.device, tag)
+    with _CACHE_LOCK:
+        hit = _KEPT.get(key)
+        if hit is not None and hit[0]() is template:
+            _KEPT.move_to_end(key)
+            return hit[1]
+    value = build()
+    with _CACHE_LOCK:
+        _KEPT[key] = (weakref.ref(template), value)
+        while len(_KEPT) > _KEPT_SIZE:
+            _KEPT.popitem(last=False)
+    return value
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -259,30 +287,8 @@ def psk_project_decide_batch_plain(
     return tuple(o.reshape(b, r, _BLOCK_SYM) for o in out)
 
 
-_DECIDE_TEMPLATES: "collections.OrderedDict" = collections.OrderedDict()  # K1's, by template
 # K1's template width per body: the succ templates add successor columns.
 _DECIDE_WIDTHS = {"roll": 2 * _BLOCK_SYM, "succ": 4 * _BLOCK_SYM}
-
-
-def _decide_template(w_all: torch.Tensor, spsym: int) -> torch.Tensor:
-    """:func:`_dual_basis` of ``w_all`` for K1, kept for the last 8
-    templates, so that a call with the template of an earlier one launches
-    K1 alone. An entry holds only a weak reference to its template (the
-    batch receivers make the blocked templates anew on each call, and each
-    is 10 MB at 9600 Bd), so it is used only while that very tensor is alive
-    and its version counter shows no write since."""
-    key = (w_all.data_ptr(), w_all._version, tuple(w_all.shape), w_all.device, spsym)
-    with _CACHE_LOCK:
-        hit = _DECIDE_TEMPLATES.get(key)
-        if hit is not None and hit[0]() is w_all:
-            _DECIDE_TEMPLATES.move_to_end(key)
-            return hit[1]
-    tmpl = _dual_basis(w_all, spsym)
-    with _CACHE_LOCK:
-        _DECIDE_TEMPLATES[key] = (weakref.ref(w_all), tmpl)
-        while len(_DECIDE_TEMPLATES) > 8:
-            _DECIDE_TEMPLATES.popitem(last=False)
-    return tmpl
 
 
 def psk_project_decide_batch(
@@ -338,7 +344,7 @@ def psk_project_decide_batch(
         return psk_project_decide_batch_plain(x3d, w_all[:, :, : 2 * _BLOCK_SYM], best, rot, n_psk)
 
     _require_aligned("psk_project_decide_batch", x3d)
-    tmpl = _decide_template(w_all, spsym)
+    tmpl = _kept(w_all, ("dual_basis", spsym), lambda: _dual_basis(w_all, spsym))
     hi = torch.empty((b, r, _BLOCK_SYM), dtype=torch.uint8, device=dev)
     lo = None if n_psk == 8 else torch.empty_like(hi)
     _launch("amr_decide", dev, _ptr(x3d), _DECIDE_DTYPES[x3d.dtype], n_psk, _ptr(tmpl),
@@ -390,7 +396,7 @@ def psk_project_diff_batch(
     end read as zero, where the Pallas kernel's lookahead reads the next
     capture's head (garbage by its contract). On the card ``x3d`` must
     start on a 16-byte boundary, and the dual basis is kept per template
-    as K1's is (:func:`_decide_template`).
+    as K1's is (:func:`_kept`).
     """
     _require(x3d.ndim == 3 and x3d.shape[1] == rows_per_capture,
              f"x3d {tuple(x3d.shape)} vs rows_per_capture={rows_per_capture}")
@@ -404,7 +410,8 @@ def psk_project_diff_batch(
     _require_aligned("psk_project_diff_batch", x3d)
     d_re = torch.empty((b, r, _BLOCK_SYM), dtype=torch.float32, device=dev)
     d_im = torch.empty_like(d_re)
-    _launch("amr_project_diff_batch", dev, _ptr(x3d), _DIFF_DTYPES[x3d.dtype], _ptr(_decide_template(w_all, spsym)),
+    tmpl = _kept(w_all, ("dual_basis", spsym), lambda: _dual_basis(w_all, spsym))
+    _launch("amr_project_diff_batch", dev, _ptr(x3d), _DIFF_DTYPES[x3d.dtype], _ptr(tmpl),
             _ptr(best), _ptr(d_re), _ptr(d_im), b, r, spsym)
     _count(psk_project_diff_batch)
     return d_re, d_im
@@ -891,7 +898,8 @@ def _band_tables(w: torch.Tensor, groups: int) -> Tuple[torch.Tensor, torch.Tens
     [first, first + span), first is clamped so that first + span <= n_rows,
     and ``tab[i, g, t, o] = w[i, first[i, o] + t, g*n_out + o]``. The
     projection over those rows equals the dense one up to summation order.
-    Reads ``span`` to the host (one synchronisation)."""
+    Reads ``span`` to the host: the wrappers keep the tables per template
+    (:func:`_kept`), so that read is made at a template's first call."""
     n_off, n_rows, cols = w.shape
     n_out = cols // groups
     w4 = w.reshape(n_off, n_rows, groups, n_out)
@@ -906,30 +914,10 @@ def _band_tables(w: torch.Tensor, groups: int) -> Tuple[torch.Tensor, torch.Tens
     return first.to(torch.int32), tab.permute(0, 2, 1, 3).contiguous(), span
 
 
-_DUAL_TABLES: "collections.OrderedDict" = collections.OrderedDict()  # K7's and K13's, by template
-
-
-def _dual_tables(w: torch.Tensor, flat: bool) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """``_band_tables(w, 4)`` for K7, or for K13 with the table laid out
-    (n_off, spr, span, 4), kept for the last 8 templates. The main path
-    passes the same cached template on every call, so the tables' kernels
-    and their host read run once; an entry holds its template, so no other
-    tensor can take its address, and is used only while the template's
-    version counter shows no write since."""
-    key = (w.data_ptr(), w._version, tuple(w.shape), w.device, flat)
-    with _CACHE_LOCK:
-        hit = _DUAL_TABLES.get(key)
-        if hit is not None and hit[0] is w:
-            _DUAL_TABLES.move_to_end(key)
-            return hit[1]
+def _flat_band_tables(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """K13's ``_band_tables(w, 4)``, the table laid out (n_off, spr, span, 4)."""
     first, tab, span = _band_tables(w, 4)
-    if flat:
-        tab = tab.permute(0, 3, 2, 1).contiguous()
-    with _CACHE_LOCK:
-        _DUAL_TABLES[key] = (w, (first, tab, span))
-        while len(_DUAL_TABLES) > 8:
-            _DUAL_TABLES.popitem(last=False)
-    return first, tab, span
+    return first, tab.permute(0, 3, 2, 1).contiguous(), span
 
 
 def _check_best(name: str, best: torch.Tensor, b: int, n_offsets: int) -> None:
@@ -977,12 +965,13 @@ def _fsk_dual_launch(name: str, x3d, w_all, best, rows_per_capture: int, spr: in
     if dev.type == "cpu":
         plain = fsk_project_bits_batch_plain if flat else fsk_tile_bits_batch_plain
         return plain(x3d, w_all, best, spr)
-    first, tab, span = _dual_tables(w_all, flat)
     if flat:  # K13: the band table and two buffers of at least one row of samples
+        first, tab, span = _kept(w_all, "flat_band_tables", lambda: _flat_band_tables(w_all))
         row_floats = 4 * (((n_rows + 6) >> 2) | 1)
         _require(16 * span * spr + 8 * row_floats <= _SMEM_LIMIT,
                  f"{name}: a {span} x {spr} band table and {n_rows}-sample rows exceed shared memory")
     else:  # K7: the (spr, span) float4 weights and two buffers of at least one row's 16-byte chunks
+        first, tab, span = _kept(w_all, ("band_tables", 4), lambda: _band_tables(w_all, 4))
         per_chunk = 16 // x3d.element_size()
         _require(c % per_chunk == 0 and x3d.data_ptr() % 16 == 0,
                  f"{name}: the kernel stages 16-byte chunks of each row, so rows of {c} {x3d.dtype} samples "
@@ -1149,10 +1138,10 @@ def _fir_launch(name: str, x3d, w_fir, w2, groups: int, best, outs, row2: int, o
     """Launch K8 (``groups`` 1) or K9 (``groups`` 4) into ``outs``."""
     b, r, c = x3d.shape
     dev = x3d.device
-    taps, dec = _fir_taps(w_fir)
+    taps, dec = _kept(w_fir, "fir_taps", lambda: _fir_taps(w_fir))  # taps is held through the launch
     _require(c == _BLOCK_SYM * dec + _BLOCK_SYM,
              f"{name}: c_pad={c}, the kernel takes dec {dec} windows of {_BLOCK_SYM * dec + _BLOCK_SYM} samples")
-    first, tab, span = _band_tables(w2, groups)
+    first, tab, span = _kept(w2, ("band_tables", groups), lambda: _band_tables(w2, groups))
     ptrs = [_ptr(o) for o in outs] + [None] * (2 - len(outs))
     _launch(name, dev, _ptr(x3d), _FSK_DTYPES[x3d.dtype], taps.ctypes.data, dec, _ptr(first), _ptr(tab),
             span, _ptr(best), ptrs[0], ptrs[1], b, r, c, row2, ov2, spr2)
@@ -1212,17 +1201,39 @@ def fsk_quad_margin_batch(
 
 # --- after K8: atan2, the equalizer, the tone (no Pallas counterpart) ---------------
 
+_EQ_TAPS = 9  # calibrated discriminator equalizer length (per-bit taps)
+
+
+def _disc_scale(sample_rate: int, plan: dict) -> float:
+    """Hz per radian of the decimated phasor."""
+    return sample_rate / plan["dec"] / (2 * math.pi)
+
+
+def fsk_disc_decide_batch_plain(sr_sum: torch.Tensor, si_sum: torch.Tensor, plan: dict, coef: np.ndarray,
+                                sample_rate: int, mark: float, space: float) -> torch.Tensor:
+    """K8's per-bit vector sums -> bits: atan2 to a frequency, the calibrated
+    ``_EQ_TAPS``-tap equalizer (edges repeated), the nearer tone. The plain
+    version of :func:`fsk_disc_decide_batch` (the JAX package's XLA chain
+    after K8)."""
+    f = torch.atan2(si_sum, sr_sum) * _disc_scale(sample_rate, plan)
+    pad = _EQ_TAPS // 2
+    n = f.shape[1]
+    fm = torch.cat([f[:, :1].expand(-1, pad), f, f[:, -1:].expand(-1, pad)], dim=1)
+    eq = torch.full_like(f, float(coef[-1]))
+    for j in range(_EQ_TAPS):
+        eq = eq + float(coef[j]) * fm[:, j : j + n]
+    return (torch.abs(eq - mark) < torch.abs(eq - space)).to(torch.uint8)
+
+
 def fsk_disc_decide_batch(sr_sum: torch.Tensor, si_sum: torch.Tensor, plan: dict, coef: np.ndarray,
                           sample_rate: int, mark: float, space: float) -> torch.Tensor:
     """K8's per-bit vector sums (each (B, n) float32) -> uint8 bits (B, n):
     atan2 to a frequency, the calibrated equalizer ``coef`` (taps, then the
     bias; each row's edge frequencies repeated), the nearer of ``mark`` and
-    ``space``, as :func:`ops.fsk.disc_decide` computes them, bit for bit.
-    On the card ``csrc/fsk_eq_bits.cu``, one pass over the sums; on the CPU
-    the plain chain. The sums must be contiguous, and on the card start on a
-    16-byte boundary."""
-    from .fsk import _EQ_TAPS, _disc_scale, disc_decide
-
+    ``space``, as :func:`fsk_disc_decide_batch_plain` computes them, bit for
+    bit. On the card ``csrc/fsk_eq_bits.cu``, one pass over the sums; on the
+    CPU the plain chain. The sums must be contiguous, and on the card start
+    on a 16-byte boundary."""
     name = "fsk_disc_decide_batch"
     _require(sr_sum.ndim == 2 and sr_sum.shape == si_sum.shape and sr_sum.dtype == si_sum.dtype == torch.float32,
              f"{name}: sums {sr_sum.dtype} {tuple(sr_sum.shape)}, {si_sum.dtype} {tuple(si_sum.shape)}, "
@@ -1232,7 +1243,7 @@ def fsk_disc_decide_batch(sr_sum: torch.Tensor, si_sum: torch.Tensor, plan: dict
     _require(coef.shape == (_EQ_TAPS + 1,), f"{name}: coef {coef.shape}, want {_EQ_TAPS} taps and the bias")
     dev = _same_device(sr_sum, si_sum)
     if dev.type == "cpu":
-        return disc_decide(sr_sum, si_sum, plan, coef, sample_rate, mark, space)
+        return fsk_disc_decide_batch_plain(sr_sum, si_sum, plan, coef, sample_rate, mark, space)
     # csrc/fsk_eq_bits.cu fixes the taps at 9 (kTaps) and reads 13 parameters.
     _require(_EQ_TAPS == 9, f"{name}: the kernel takes 9 taps, the equalizer has {_EQ_TAPS}")
     b, n = sr_sum.shape

@@ -40,7 +40,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    AWGN (6 dB for the dual tones, 15 dB for FSK9600 and FSK19200); K8's
    sums and K9's margins within 1e-4 of the largest plain value; the
    decision after K8 (``fsk_eq_bits.cu``) on K8's sums equal to the plain
-   ``disc_decide`` on the same sums, byte for byte, clean and noisy;
+   ``fsk_disc_decide_batch_plain`` on the same sums, byte for byte, clean
+   and noisy;
 3c. K12 vs plain on 8 x 2^24-sample QPSK and 8PSK captures (blocked rows,
    float32 and int16) and K11 vs plain on one 2^24-sample float32 capture
    (the single-capture layout, 64-row padded): the float streams within
@@ -1153,22 +1154,21 @@ def _bit_mismatch(got, ref, n_sig: int):
 
 def _eq_bits(sums, plan, coef, mark: float, space: float, what: str, card: str):
     """The decision after K8 (``fsk_disc_decide_batch``) on K8's ``sums``:
-    every byte equal to the plain ``disc_decide`` on the same sums, one
-    launch; returns the kernel's bits."""
+    every byte equal to ``fsk_disc_decide_batch_plain`` on the same sums,
+    one launch; returns the kernel's bits."""
     import torch
 
-    from audio_modem_radio_tpu_torch.ops import fsk as tf
     from audio_modem_radio_tpu_torch.ops import kernels as tk
 
     before = tk.fsk_disc_decide_batch.launches
     got = tk.fsk_disc_decide_batch(*sums, plan, coef, SR, mark, space)
-    ref = tf.disc_decide(*sums, plan, coef, SR, mark, space)
+    ref = tk.fsk_disc_decide_batch_plain(*sums, plan, coef, SR, mark, space)
     torch.cuda.synchronize()
     n_bad = int((got != ref).sum())
     say(f"[3b fsk_disc_decide_batch] {what} sums {tuple(sums[0].shape)}: byte mismatches vs plain={n_bad} "
         f"of {ref.numel()} | {card}")
     check(tk.fsk_disc_decide_batch.launches == before + 1, f"fsk_disc_decide_batch did not launch once on {what}")
-    check(n_bad == 0, f"fsk_disc_decide_batch differs from plain disc_decide on {what}")
+    check(n_bad == 0, f"fsk_disc_decide_batch differs from fsk_disc_decide_batch_plain on {what}")
     return got
 
 
@@ -1249,7 +1249,7 @@ def phase_fsk_kernels(device, n_cap: int, n: int, card: str) -> dict:
                     got = tk.fsk_disc_sums_batch(x, Wf, W2, best, **kw)
                     ref = tk.fsk_disc_sums_batch_plain(x, Wf, W2, best, plan["row2"], plan["ov2"])
                     bits_k = _eq_bits(got, plan, coef, mark, space, f"{mode} {tag} {dtype}", card)
-                    bits_p = tf.disc_decide(*ref, plan, coef, SR, mark, space)
+                    bits_p = tk.fsk_disc_decide_batch_plain(*ref, plan, coef, SR, mark, space)
                 else:
                     got = (tk.fsk_quad_margin_batch(x, Wf, W2, best, **kw),)
                     ref = (tk.fsk_quad_margin_batch_plain(x, Wf, W2, best, plan["row2"], plan["ov2"],
@@ -1290,7 +1290,7 @@ def phase_fsk_kernels(device, n_cap: int, n: int, card: str) -> dict:
                         got = tk.fsk_disc_sums_batch(xr, Wf, W2, best, **kwr)
                         ref = tk.fsk_disc_sums_batch_plain(xr, Wf, W2, best, plan["row2"], plan["ov2"])
                         bits_k = _eq_bits(got, plan, coef, mark, space, f"{mode} ragged pass {dtype}", card)
-                        bits_p = tf.disc_decide(*ref, plan, coef, SR, mark, space)
+                        bits_p = tk.fsk_disc_decide_batch_plain(*ref, plan, coef, SR, mark, space)
                     else:
                         got = (tk.fsk_quad_margin_batch(xr, Wf, W2, best, **kwr),)
                         ref = (tk.fsk_quad_margin_batch_plain(xr, Wf, W2, best, plan["row2"], plan["ov2"],
@@ -1497,11 +1497,11 @@ def phase_fsk_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
                 bounds["fsk_disc_decide_batch"] = _bound(9 * n_bits, 0)
                 t["fsk_disc_decide_batch"] = (
                     _time_ms(lambda: tk.fsk_disc_decide_batch(*sums, *eq_args)),
-                    _time_ms(lambda: tf.disc_decide(*sums, *eq_args)), b)
+                    _time_ms(lambda: tk.fsk_disc_decide_batch_plain(*sums, *eq_args)), b)
                 wide = [s.repeat(-(-256 // b), 1)[:256] for s in sums]
                 del sums
                 ms, plain_ms = (_time_ms(lambda: tk.fsk_disc_decide_batch(*wide, *eq_args)),
-                                _time_ms(lambda: tf.disc_decide(*wide, *eq_args)))
+                                _time_ms(lambda: tk.fsk_disc_decide_batch_plain(*wide, *eq_args)))
                 say(f"[6 time] fsk_disc_decide_batch at fsk-9600.line's call, K8's bench sums tiled to "
                     f"{tuple(wide[0].shape)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                     f"{_bound(9 * wide[0].numel(), 0)[0]:.4f} ms by bytes | {card}")

@@ -99,8 +99,8 @@ def tie_sums(device, side: int = 64):
     theta = (f_star + np.stack(np.meshgrid(steps, steps, indexing="ij"), axis=-1).reshape(-1, 2)) / scale
     sr = torch.from_numpy(np.cos(theta).astype(np.float32)).to(device)
     si = torch.from_numpy(np.sin(theta).astype(np.float32)).to(device)
-    # The plain chain's equalized frequency (``ops.fsk.disc_decide`` before
-    # its compare), operator for operator, each row's edges repeated.
+    # The plain chain's equalized frequency (``fsk_disc_decide_batch_plain``
+    # before its compare), operator for operator, each row's edges repeated.
     f = torch.atan2(si, sr) * scale
     fm = torch.cat([f[:, :1].expand(-1, 4), f, f[:, -1:].expand(-1, 4)], dim=1)
     eq = torch.full_like(f, float(coef[-1]))

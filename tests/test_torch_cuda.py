@@ -7,6 +7,8 @@ machine without JAX it runs alone:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -877,12 +879,10 @@ def test_fsk_sync_pack_kernel_rejects_bad_views(cuda):
 def _eq_equals_plain(sr: torch.Tensor, si: torch.Tensor, coef) -> torch.Tensor:
     """``fsk_disc_decide_batch`` on the card: one launch, and its bits equal
     the plain chain's on the same card, byte for byte."""
-    from audio_modem_radio_tpu_torch.ops import fsk as tf
-
     plan, _ = plan_coef()
     before = tk.fsk_disc_decide_batch.launches
     got = tk.fsk_disc_decide_batch(sr, si, plan, coef, 96000, 1200.0, 2200.0)
-    ref = tf.disc_decide(sr, si, plan, coef, 96000, 1200.0, 2200.0)
+    ref = tk.fsk_disc_decide_batch_plain(sr, si, plan, coef, 96000, 1200.0, 2200.0)
     torch.cuda.synchronize()
     assert tk.fsk_disc_decide_batch.launches == before + 1
     assert got.dtype == ref.dtype == torch.uint8 and got.device == ref.device and torch.equal(got, ref)
@@ -928,7 +928,7 @@ def test_fsk_eq_bits_kernel_on_k8_sums(cuda, dtype):
     sr, si = tk.fsk_disc_sums_batch(x, Wf, Wb, best, rows_per_capture=x.shape[1], nrow2=plan["nrow2"],
                                     row2=plan["row2"], ov2=plan["ov2"], spr2=plan["spr2"])
     bits = _eq_equals_plain(sr, si, coef)
-    plain = tf.disc_decide(sr, si, plan, coef, 96000, *_FSK["FSK9600"][2:])
+    plain = tk.fsk_disc_decide_batch_plain(sr, si, plan, coef, 96000, *_FSK["FSK9600"][2:])
     got, ref = (tk.fsk_sync_pack_batch(b, MAGIC_BIT_PATTERN) for b in (bits, plain))
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
     assert 0.2 < float(bits[:, :n_sig].float().mean()) < 0.8
@@ -997,6 +997,46 @@ def test_fsk19200_batch_on_card_equals_cpu_with_no_host_read(cuda):
     assert not [r for r in recs if r["parent"] == tail["index"]]
     assert not [r for r in recs if r["name"] == "amr.host_read"]
     assert tail["device_ms"] is not None
+
+
+def test_second_call_on_the_same_templates_makes_no_host_read(cuda):
+    """K1's, K7's, K8's and K9's wrappers keep the kernel tables they derive
+    from a template (``ops.kernels._kept``): a second call on the same
+    templates launches each kernel once and makes no synchronising read,
+    which ``torch.cuda.set_sync_debug_mode("error")`` would raise on."""
+    from audio_modem_radio_tpu_torch.ops import fsk as tf
+
+    x, _ = _rows(3, 1 << 19, "int16")
+    x = torch.from_numpy(x).to(cuda)
+    b, r, _ = x.shape
+    _, _, best, theta = _batch_pass1(None, x, b, r * 128, 10, 3000.0, 96000, 8, r)
+    W8, _, _ = _device_tables(10, 3000.0, 96000, 8, x.device)
+    rot = torch.stack([torch.cos(theta), torch.sin(theta)], 1)
+    calls = [functools.partial(tk.psk_project_decide_batch, x, W8, best, rot, rows_per_capture=r)]
+    xt, _, _ = _fsk_rows(cuda, "FSK1200", "int16")
+    bt, W, spr = tf.fsk_dual_pass1(xt, *_FSK["FSK1200"][1:], 96000)
+    calls.append(functools.partial(tk.fsk_tile_bits_batch, xt, W, bt, rows_per_capture=xt.shape[1], spr=spr))
+    for mode, pass1, kernel in (("FSK9600", tf.fsk_disc_pass1, tk.fsk_disc_sums_batch),
+                                ("FSK19200", tf.fsk_quad_pass1, tk.fsk_quad_margin_batch)):
+        xf, _, _ = _fsk_rows(cuda, mode, "int16")
+        bf, plan, Wf, W2 = pass1(xf, *_FSK[mode][1:], 96000)[:4]
+        calls.append(functools.partial(kernel, xf, Wf, W2, bf, rows_per_capture=xf.shape[1], nrow2=plan["nrow2"],
+                                       row2=plan["row2"], ov2=plan["ov2"], spr2=plan["spr2"]))
+    firsts = [call() for call in calls]
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        seconds = [call() for call in calls]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    names = ("psk_project_decide_batch", "fsk_tile_bits_batch", "fsk_disc_sums_batch", "fsk_quad_margin_batch")
+    assert [counts[n] for n in names] == [1, 1, 1, 1]
+    for first, second in zip(firsts, seconds):
+        first, second = (first, second) if isinstance(first, tuple) else ((first,), (second,))
+        assert all(torch.equal(f, g) for f, g in zip(first, second))
 
 
 # --- K11 and K12: projection + differential ---------------------------------------

@@ -1,5 +1,5 @@
 """The port's FSK9600 batch (fused FIR windows -> pass 1 -> K8 ->
-``disc_decide`` -> the sync tail) against the benchmark's plain reference of
+``fsk_disc_decide_batch`` -> the sync tail) against the benchmark's plain reference of
 the close-tone discriminator (``portbench/reference/fsk_disc.py``), on small
 captures from the benchmark's generator at the ``fsk-9600`` configuration's
 40 dB, on the CPU: the same bits, frames recovered, and the TF32 control

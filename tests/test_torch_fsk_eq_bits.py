@@ -1,8 +1,8 @@
 """The close-tone FSK decision after K8 (``ops.kernels.fsk_disc_decide_batch``,
 ``csrc/fsk_eq_bits.cu`` on the card) on the CPU: the wrapper is the plain
-chain ``ops.fsk.disc_decide`` there, and the routing of
-``fsk_disc_bits_rows_batch`` (``kernel=False`` and ``tpu.demod_backend =
-"xla"`` keep the plain chain). The card's own comparison is in
+chain ``ops.kernels.fsk_disc_decide_batch_plain`` there, and the routing
+of ``fsk_disc_bits_rows_batch`` (``kernel=False`` and ``tpu.demod_backend
+= "xla"`` keep the plain chain). The card's own comparison is in
 ``test_torch_cuda.py``."""
 
 import numpy as np
@@ -42,7 +42,7 @@ def _check(sr: np.ndarray, si: np.ndarray, coef: np.ndarray) -> np.ndarray:
     sr_t, si_t = torch.from_numpy(sr), torch.from_numpy(si)
     before = tk.fsk_disc_decide_batch.launches
     got = tk.fsk_disc_decide_batch(sr_t, si_t, plan, coef, SAMPLE_RATE, MARK, SPACE)
-    ref = tf.disc_decide(sr_t, si_t, plan, coef, SAMPLE_RATE, MARK, SPACE)
+    ref = tk.fsk_disc_decide_batch_plain(sr_t, si_t, plan, coef, SAMPLE_RATE, MARK, SPACE)
     assert tk.fsk_disc_decide_batch.launches == before
     assert got.dtype == torch.uint8 and got.shape == sr_t.shape and torch.equal(got, ref)
     return ref.numpy()

@@ -9,6 +9,9 @@ FIR staging, the chunk walk and the analytic ring of K8 and K9) is mirrored in n
 versions, which are in turn held against the JAX package.
 """
 
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +30,7 @@ from audio_modem_radio_tpu.parallel.batch import _overlap_rows as j_overlap_rows
 
 from audio_modem_radio_tpu_torch.ops import fsk as tfsk
 from audio_modem_radio_tpu_torch.ops import kernels as tk
+from audio_modem_radio_tpu_torch.ops import psk as tpsk
 
 # Parallel test workers share the cores: one intra-op thread each keeps
 # torch from oversubscribing them.
@@ -584,22 +588,79 @@ def test_band_tables_rebuild_the_dense_templates():
     assert torch.equal(dense.reshape(W.shape), W)
 
 
-def test_dual_tables_kept_per_template_until_it_changes():
-    """The K7/K13 wrapper's tables: K13's are K7's laid out (n_off, spr,
-    span, 4); a second call with the same template reuses them; a write to
-    the template, or another tensor with equal values, makes them anew."""
-    # A copy: the write below must not reach the JAX package's cached table.
-    W = torch.from_numpy(jfsk._fsk_blocked_templates(80, MARK, SPACE, SR, 8).copy())
-    first, tab, span = tk._band_tables(W, 4)
-    f7, t7, s7 = tk._dual_tables(W, False)
-    f13, t13, s13 = tk._dual_tables(W, True)
-    assert s7 == s13 == span and torch.equal(f7, first) and torch.equal(f13, first)
-    assert torch.equal(t7, tab) and torch.equal(t13, tab.permute(0, 3, 2, 1))
-    assert tk._dual_tables(W, True)[1] is t13
-    assert tk._dual_tables(W.clone(), True)[1] is not t13
-    W[:, :, 0] *= 2.0
-    f2, t2, _ = tk._dual_tables(W, True)
-    assert t2 is not t13 and torch.equal(t2[:, 0, :, 0], 2.0 * t13[:, 0, :, 0])
+def _t(a):
+    # A copy: the writes below must not reach a table the builders cache.
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _fir_entries(plan_wf_w2, groups):
+    """K8's or K9's derived tables: the band tables of the boxcar or
+    quadrature template, the taps of the FIR matrix."""
+    _plan, wf, w2 = plan_wf_w2[:3]  # _disc_templates adds the band edges
+    return [(_t(w2), ("band_tables", groups), lambda w: tk._band_tables(w, groups)),
+            (_t(wf), "fir_taps", tk._fir_taps)]
+
+
+# Each case: the templates a wrapper derives tables from, each with the tag
+# and the builder the wrapper hands the cache.
+_KEPT_CASES = {
+    "k1_dual_basis": lambda: [(_t(tpsk._blocked_templates(10, 3000.0, SR, 8)), ("dual_basis", 10),
+                               lambda w: tk._dual_basis(w, 10))],
+    "k7_band_tables": lambda: [(_t(tfsk._fsk_blocked_templates(80, MARK, SPACE, SR, 8)), ("band_tables", 4),
+                                lambda w: tk._band_tables(w, 4))],
+    "k13_flat_band_tables": lambda: [(_t(tfsk._fsk_blocked_templates(80, MARK, SPACE, SR, 8)),
+                                      "flat_band_tables", tk._flat_band_tables)],
+    "k8_fsk9600": lambda: _fir_entries(tfsk._disc_templates(10, 9600.0, MARK, SPACE, SR, 8), 1),
+    "k9_fsk19200": lambda: _fir_entries(tfsk._quad_templates(5, 19200.0, 8000.0, 16000.0, SR, 8), 4),
+}
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def _refused():
+    raise AssertionError("rebuilt a kept entry")
+
+
+def _check_kept(w, tag, build):
+    """One template's entry: built once, reused for the same tensor, built
+    anew for a clone and after a write, equal to a fresh build."""
+    got = tk._kept(w, tag, lambda: build(w))
+    assert _same(got, build(w))
+    assert tk._kept(w, tag, _refused) is got
+    c = w.clone()
+    other = tk._kept(c, tag, lambda: build(c))
+    assert other is not got and _same(other, got)
+    w.mul_(2.0)
+    again = tk._kept(w, tag, lambda: build(w))
+    assert again is not got and _same(again, build(w)) and not _same(again, got)
+    assert tk._kept(w, tag, _refused) is again
+    return weakref.ref(w)
+
+
+@pytest.mark.parametrize("case", sorted(_KEPT_CASES))
+def test_kept_tables_per_template_until_it_changes(case):
+    """The wrappers' derived kernel tables (K1/K12's dual basis, K7's and
+    K13's band tables, K8's and K9's band tables and FIR taps) are built once
+    per template: the same tensor again reuses the entry, a clone or a write
+    to the template builds anew, every entry equals a fresh build, and the
+    cache keeps no template alive."""
+    entries = _KEPT_CASES[case]()
+    refs = [_check_kept(*entry) for entry in entries]
+    if case == "k13_flat_band_tables":  # K13's table is K7's laid out (n_off, spr, span, 4)
+        first, tab, span = tk._band_tables(entries[0][0], 4)
+        f13, t13, s13 = tk._kept(entries[0][0], "flat_band_tables", _refused)
+        assert s13 == span and torch.equal(f13, first) and torch.equal(t13, tab.permute(0, 3, 2, 1))
+    del entries
+    gc.collect()
+    assert all(r() is None for r in refs)
 
 
 def test_fir_taps_recovered_and_foreign_matrix_refused():

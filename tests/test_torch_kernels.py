@@ -518,28 +518,6 @@ def test_decide_kernel_tile_walk_mirrored(spsym, n_psk, dtype, b, sms):
             assert np.array_equal(m[:, :n_sig], p.reshape(b, -1)[:, :n_sig].numpy())
 
 
-def test_decide_template_kept_per_template_until_it_changes():
-    """K1's wrapper keeps the (n_offsets, 2*spsym, 2) dual basis per
-    template: the same tensor again reuses it, a write to the template or
-    another tensor makes it anew, and the cache does not keep a template
-    alive."""
-    import gc
-    import weakref
-
-    W8 = torch.from_numpy(tpsk._blocked_templates(10, 3000.0, 96000, 8).copy())
-    t1 = tk._decide_template(W8, 10)
-    assert torch.equal(t1, tk._dual_basis(W8, 10)) and tuple(t1.shape) == (8, 20, 2)
-    assert tk._decide_template(W8, 10) is t1
-    assert tk._decide_template(W8.clone(), 10) is not t1
-    W8[:, :, 0] *= 2.0
-    t2 = tk._decide_template(W8, 10)
-    assert t2 is not t1 and torch.equal(t2[..., 0], 2.0 * t1[..., 0])
-    ref = weakref.ref(W8)
-    del W8
-    gc.collect()
-    assert ref() is None
-
-
 def _small_inputs():
     r = 256
     hi = torch.zeros((2, r, 128), dtype=torch.uint8)
