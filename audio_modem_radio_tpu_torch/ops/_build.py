@@ -68,6 +68,7 @@ _SIGNATURES = {
     "amr_fsk_first": (_P, _I, _I, _U, _I, _P, _P),
     "amr_fsk_pack": (_P, _I, _I, _I, _P, _P, _P, _P, _P),
     "amr_fsk_eq_bits": (_P, _P, _I, _I, _P, _P, _P),
+    "amr_psk_pass1": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -24,7 +24,7 @@ with the JAX names and argument order:
   takes the (256, 16) codebook in place of the Pallas chip table and
   block-diagonal scorer;
 
-and four kernels with no Pallas counterpart: :func:`mlse_viterbi_blocks`
+and five kernels with no Pallas counterpart: :func:`mlse_viterbi_blocks`
 (``csrc/mlse_viterbi.cu``), the Viterbi of the single-capture FSK
 receiver's MLSE, which the JAX package runs as two ``lax.scan``s
 (``ops/fsk.py:_mlse_refine``), :func:`fec_viterbi_blocks`
@@ -32,11 +32,14 @@ receiver's MLSE, which the JAX package runs as two ``lax.scan``s
 two ``lax.scan``s of ``fec.py:_viterbi_block`` there,
 :func:`fsk_sync_pack_batch` (``csrc/fsk_sync.cu``), the batched FSK sync
 tail, plain XLA there (``ops/common.py`` ``find_bit_pattern`` and
-``pack_bits_from``), and :func:`fsk_disc_decide_batch`
+``pack_bits_from``), :func:`fsk_disc_decide_batch`
 (``csrc/fsk_eq_bits.cu``), the close-tone FSK decision after K8 (atan2,
 the calibrated equalizer, the tone), plain XLA there (``ops/fsk.py``
 ``fsk_disc_bits_rows_batch``), with its plain version
-:func:`fsk_disc_decide_batch_plain`.
+:func:`fsk_disc_decide_batch_plain`; and :func:`psk_pass1_batch`
+(``csrc/psk_pass1.cu``), the batched PSK pass 1 (each capture's timing
+offset and common rotation), plain XLA there (``ops/psk.py``
+``_batch_pass1``), with its plain version :func:`psk_pass1_batch_plain`.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take. For tensors on the CPU it runs the plain version
@@ -440,6 +443,144 @@ def psk_project_diff(
             _ptr(d_re), _ptr(d_im), r, spsym)
     _count(psk_project_diff)
     return d_re, d_im
+
+
+# --- PSK pass 1: timing offset and common rotation (no Pallas counterpart) ---------
+
+_PASS1_MAX_OFFSETS = 16  # csrc/psk_pass1.cu's kMaxOffsets
+
+
+def pass1_windows(r0: int, n_rows: int) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
+    """Pass 1's scored rows of a capture with ``r0`` rows of signal stored as
+    ``n_rows`` rows: ``(wr, ((start, head), ...))``, one to three windows of
+    ``wr = min(64, r0)`` rows at the capture's start, middle and end (equal
+    starts once). Window row j reads row ``start + j`` and the first OV
+    samples of row ``head + j``: the next row, its start clamped at the
+    array's edge as JAX's ``dynamic_slice`` clamps it (the last window's
+    heads then shift by one row)."""
+    wr = min(64, r0) if r0 >= 1 else 1
+    starts = sorted({0, max(0, r0 // 2 - wr // 2), max(0, r0 - wr)})
+    return wr, tuple(
+        (s, min(max(min(s + 1, r0 - wr + 1 if r0 >= wr else 0), 0), n_rows - wr)) for s in starts)
+
+
+def _pass1_basis(w_all: torch.Tensor, spsym: int) -> torch.Tensor:
+    """(n_offsets, 2*spsym, 2) dual-basis columns that the side-by-side
+    (ROW+OV, n_offsets*256) pass-1 matrix repeats: each offset's symbol 0
+    re and im columns."""
+    k = w_all.shape[1] // (2 * _BLOCK_SYM)
+    cols = w_all[: 2 * spsym].reshape(2 * spsym, k, 2, _BLOCK_SYM)[:, :, :, 0]
+    return cols.permute(1, 0, 2).contiguous()
+
+
+def _check_pass1(name: str, x3d: torch.Tensor, r0: int, w_all: torch.Tensor, grams: torch.Tensor) -> int:
+    """spsym of pass 1's operands; raises on what neither version takes."""
+    _require(x3d.ndim == 3, f"{name}: x3d must be (B, R, row), got {tuple(x3d.shape)}")
+    b, n_rows, row = x3d.shape
+    spsym = row // _BLOCK_SYM
+    _require(row % _BLOCK_SYM == 0 and 1 <= spsym <= 32, f"{name}: row width {row}")
+    _require(x3d.dtype in _DECIDE_DTYPES, f"{name}: x3d dtype {x3d.dtype}")
+    _require(1 <= r0 <= n_rows, f"{name}: r0={r0} of {n_rows} rows")
+    _require(w_all.dtype == torch.float32 and w_all.ndim == 2 and w_all.shape[0] >= row + 2 * spsym
+             and w_all.shape[1] % (2 * _BLOCK_SYM) == 0 and w_all.shape[1] > 0,
+             f"{name}: w_all {w_all.dtype} {tuple(w_all.shape)}, want float32 (row+ov, n_offsets*256)")
+    k = w_all.shape[1] // (2 * _BLOCK_SYM)
+    _require(grams.dtype == torch.float32 and tuple(grams.shape) == (k, 3),
+             f"{name}: grams {grams.dtype} {tuple(grams.shape)}, want float32 ({k}, 3)")
+    return spsym
+
+
+def psk_pass1_batch_plain(x3d: torch.Tensor, r0: int, w_all: torch.Tensor, grams: torch.Tensor,
+                          n_psk: int = 4) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain pass 1: :func:`pass1_windows`' rows cut and cast, scaled by the
+    capture's largest |x|, one dense product with the side-by-side
+    templates, the Gram scale, the in-row differentials, the coherence score
+    at the power that cancels the data, its argmax and the rotation from the
+    winning offset's differentials. Returns ``(best, theta)``, (B,) int32
+    and (B,) float32."""
+    # ops/psk.py imports this module, so its helpers are imported here.
+    from .psk import _coherence_score, _gram_scale, estimate_common_rotation, estimate_common_rotation8
+
+    b, n_rows, row = x3d.shape
+    c = w_all.shape[0]
+    ov = c - row
+    n_offsets = w_all.shape[1] // (2 * _BLOCK_SYM)
+    # Slice the windows first, then build their overlap tails.
+    wr, windows = pass1_windows(r0, n_rows)
+    wins = [torch.cat([x3d[:, s : s + wr], x3d[:, n0 : n0 + wr, :ov]], dim=2) for s, n0 in windows]
+    wins = torch.cat(wins, dim=1).to(torch.float32)  # (B, nw, row+ov); int rows cast here
+    # Normalize per capture: the 4th-power estimate raises phasors (~scale²)
+    # to the 4th, so int16-scaled input (x32768) would overflow float32.
+    wscale = torch.clamp_min(torch.amax(torch.abs(wins), dim=(1, 2), keepdim=True), 1e-12)
+    wins = wins / wscale
+    proj = torch.matmul(wins.reshape(b, -1, c), w_all)  # (B, nw, K*256)
+    proj = proj.reshape(b, -1, n_offsets, 2, _BLOCK_SYM)
+    re, im = proj[:, :, :, 0], proj[:, :, :, 1]  # (B, nw, K, 128)
+    re, im = _gram_scale(re, im, grams, offset_axis=2)
+    # In-row differentials (127 per row) are plenty for scoring.
+    dr = re[..., 1:] * re[..., :-1] + im[..., 1:] * im[..., :-1]
+    di = im[..., 1:] * re[..., :-1] - re[..., 1:] * im[..., :-1]
+    score = _coherence_score(dr, di, (1, 3), n_psk)  # (B, K)
+    best = torch.argmax(score, dim=1).to(torch.int32)
+
+    idx = best.long()[:, None, None, None].expand(-1, dr.shape[1], 1, dr.shape[3])
+    dr_b = torch.gather(dr, 2, idx)[:, :, 0]  # (B, nw, 127)
+    di_b = torch.gather(di, 2, idx)[:, :, 0]
+    est = estimate_common_rotation8 if n_psk == 8 else estimate_common_rotation
+    theta = est(dr_b.reshape(b, -1), di_b.reshape(b, -1))
+    return best, theta
+
+
+def psk_pass1_batch(x3d: torch.Tensor, r0: int, w_all: torch.Tensor, grams: torch.Tensor,
+                    n_psk: int = 4) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched PSK pass 1: each capture's timing offset and common rotation.
+
+    Args:
+      x3d: (B, R, 128*spsym) float32, int16 or int8 sample rows.
+      r0: the rows that hold signal (R for pre-shaped rows, fewer where
+        flat captures were padded to whole blocks); :func:`pass1_windows`
+        picks the scored rows from it.
+      w_all: (128*spsym + OV, n_offsets*256) float32, the offsets'
+        block-diagonal templates side by side (``ops.psk._device_tables``);
+        the kernel reads the (2*spsym, 2) dual basis each one repeats.
+      grams: (n_offsets, 3) float32 Gram entries (gxx, gxy, gyy).
+      n_psk: 8 scores and estimates at the 8th power, anything else at the
+        4th (DBPSK and DQPSK).
+    Returns ``(best, theta)``: (B,) int32 winning offset and (B,) float32
+    rotation, as :func:`psk_pass1_batch_plain` computes them; on the card
+    ``csrc/psk_pass1.cu`` sums in another order, so a score or θ may differ
+    in its last bits. On the CPU the plain chain. On the card ``x3d`` must
+    start on a 16-byte boundary.
+    """
+    name = "psk_pass1_batch"
+    spsym = _check_pass1(name, x3d, r0, w_all, grams)
+    dev = _same_device(x3d, w_all, grams)
+    if dev.type == "cpu":
+        return psk_pass1_batch_plain(x3d, r0, w_all, grams, n_psk)
+    b, n_rows, row = x3d.shape
+    n_offsets = grams.shape[0]
+    _require(1 <= b <= _MAX_CAPTURES and n_offsets <= _PASS1_MAX_OFFSETS,
+             f"{name}: {b} captures, {n_offsets} offsets; the kernel takes 1 to {_MAX_CAPTURES} "
+             f"and at most {_PASS1_MAX_OFFSETS}")
+    _require(grams.is_contiguous(), f"{name}: grams must be contiguous")
+    _require((w_all.shape[0] - row) % 16 == 0, f"{name}: the kernel reads the heads in 16-byte chunks, "
+             f"so OV ({w_all.shape[0] - row} samples) must be a multiple of 16")
+    _require_aligned(name, x3d)
+    wr, windows = pass1_windows(r0, n_rows)
+    nw = wr * len(windows)
+    win = np.zeros(8, np.int32)
+    win[:2] = wr, len(windows)
+    win[2 : 2 + 2 * len(windows)] = np.asarray(windows, np.int32).reshape(-1)
+    tmpl = _kept(w_all, ("pass1_basis", spsym), lambda: _pass1_basis(w_all, spsym))
+    rowmax = torch.empty((b, nw), dtype=torch.float32, device=dev)
+    part = torch.empty((b, nw, n_offsets, 2), dtype=torch.float32, device=dev)
+    best = torch.empty(b, dtype=torch.int32, device=dev)
+    theta = torch.empty(b, dtype=torch.float32, device=dev)
+    _launch("amr_psk_pass1", dev, _ptr(x3d), _DECIDE_DTYPES[x3d.dtype], 8 if n_psk == 8 else 4, _ptr(tmpl),
+            _ptr(grams), n_offsets, b, n_rows, spsym, w_all.shape[0] - row, win.ctypes.data, _ptr(rowmax),
+            _ptr(part), _ptr(best), _ptr(theta))
+    _count(psk_pass1_batch)
+    return best, theta
 
 
 # --- K2: rotation x parity (QPSK) or stream x inversion (BPSK) magic match -------
@@ -1713,7 +1854,7 @@ KERNELS = (
     bit_select_pack_batch, sector_match_batch, psk8_relabel_pack_rows,
     fsk_tile_bits_batch, fsk_project_bits_batch, fsk_disc_sums_batch, fsk_quad_margin_batch,
     psk_project_diff, psk_project_diff_batch, neural_extract_batch, mlse_viterbi_blocks,
-    fec_viterbi_blocks, fsk_sync_pack_batch, fsk_disc_decide_batch,
+    fec_viterbi_blocks, fsk_sync_pack_batch, fsk_disc_decide_batch, psk_pass1_batch,
 )
 
 

@@ -15,9 +15,11 @@ per mode
 Receive is the JAX package's two-pass design, with the batch dimension
 written out:
 
-* pass 1 (``_batch_pass1``): three windows of blocked sample rows are
-  projected onto every timing offset's template at once (one float32
-  ``torch.matmul``), scored by the energy-weighted phase coherence at the
+* pass 1 (``_batch_pass1``, ``ops.kernels.psk_pass1_batch``): three
+  windows of blocked sample rows are projected onto every timing offset's
+  template (on the CPU one float32 ``torch.matmul`` with the templates
+  side by side; on the card ``csrc/psk_pass1.cu`` over each offset's
+  2*spsym taps), scored by the energy-weighted phase coherence at the
   power that cancels the data (the 4th for DBPSK and DQPSK, the 8th for
   D8PSK), and the winning offset's differentials give each capture's
   blind common-rotation estimate θ;
@@ -67,6 +69,7 @@ from .kernels import (
     _decide,
     psk8_relabel_pack_rows_plain,
     psk8_sector_stream,
+    psk_pass1_batch,
     psk_project_decide_batch,
     psk_project_diff,
     psk_project_diff_batch,
@@ -364,19 +367,18 @@ def _batch_pass1(samples, x3d, b, n_frames, spsym, carrier, sample_rate, n_offse
                  n_psk=4):
     """Batched pass 1: build the blocked rows (flat input), score every timing
     offset on up to 3 row windows, and estimate each capture's common
-    differential rotation from the winning offset's window differentials.
-    ``n_psk=8`` scores and estimates at the 8th power, anything else at the
-    4th (DBPSK and DQPSK both).
+    differential rotation from the winning offset's window differentials
+    (``ops.kernels.psk_pass1_batch``: ``csrc/psk_pass1.cu`` on the card, the
+    plain chain on the CPU). ``n_psk=8`` scores and estimates at the 8th
+    power, anything else at the 4th (DBPSK and DQPSK both).
 
     Returns ``(x3d, r, best, theta)`` with best (B,) int32 and theta (B,).
     The span ``amr.pass1``.
     """
     device = (samples if x3d is None else x3d).device
     with span("amr.pass1", device):
-        W8, W_all, grams = _device_tables(spsym, float(carrier), sample_rate, n_offsets, device)
+        _, W_all, grams = _device_tables(spsym, float(carrier), sample_rate, n_offsets, device)
         row = _BLOCK_SYM * spsym
-        c = W8.shape[1]
-        ov = c - row
         blk = _BLOCK_ROWS
         if x3d is None:
             # Ceil the row count and keep every input sample: flooring dropped
@@ -389,37 +391,7 @@ def _batch_pass1(samples, x3d, b, n_frames, spsym, carrier, sample_rate, n_offse
             r = r0 = r_pre
             if r % blk:
                 raise ValueError(f"pre-shaped rows {r} must be a multiple of {blk}")
-
-        # Slice the windows first, then build their overlap tails.
-        wr = min(64, r0) if r0 >= 1 else 1
-        starts = sorted({0, max(0, r0 // 2 - wr // 2), max(0, r0 - wr)})
-        n_rows = x3d.shape[1]
-        wins = []
-        for s in starts:
-            # Next-row heads; the start clamps at the array edge like JAX's
-            # dynamic_slice (the last window shifts by one row there).
-            n0 = min(max(min(s + 1, r0 - wr + 1 if r0 >= wr else 0), 0), n_rows - wr)
-            wins.append(torch.cat([x3d[:, s : s + wr], x3d[:, n0 : n0 + wr, :ov]], dim=2))
-        wins = torch.cat(wins, dim=1).to(torch.float32)  # (B, nw, row+ov); int rows cast here
-        # Normalize per capture: the 4th-power estimate raises phasors (~scale²)
-        # to the 4th, so int16-scaled input (x32768) would overflow float32.
-        wscale = torch.clamp_min(torch.amax(torch.abs(wins), dim=(1, 2), keepdim=True), 1e-12)
-        wins = wins / wscale
-        proj = torch.matmul(wins.reshape(b, -1, c), W_all)  # (B, nw, K*256)
-        proj = proj.reshape(b, -1, n_offsets, 2, _BLOCK_SYM)
-        re, im = proj[:, :, :, 0], proj[:, :, :, 1]  # (B, nw, K, 128)
-        re, im = _gram_scale(re, im, grams, offset_axis=2)
-        # In-row differentials (127 per row) are plenty for scoring.
-        dr = re[..., 1:] * re[..., :-1] + im[..., 1:] * im[..., :-1]
-        di = im[..., 1:] * re[..., :-1] - re[..., 1:] * im[..., :-1]
-        score = _coherence_score(dr, di, (1, 3), n_psk)  # (B, K)
-        best = torch.argmax(score, dim=1).to(torch.int32)
-
-        idx = best.long()[:, None, None, None].expand(-1, dr.shape[1], 1, dr.shape[3])
-        dr_b = torch.gather(dr, 2, idx)[:, :, 0]  # (B, nw, 127)
-        di_b = torch.gather(di, 2, idx)[:, :, 0]
-        est = estimate_common_rotation8 if n_psk == 8 else estimate_common_rotation
-        theta = est(dr_b.reshape(b, -1), di_b.reshape(b, -1))
+        best, theta = psk_pass1_batch(x3d, r0, W_all, grams, n_psk)
         return x3d, r, best, theta
 
 

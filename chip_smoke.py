@@ -28,7 +28,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    8PSK@9600 (12 kHz) batches of 8 x 2^24 samples through the port's host
    shaping and pass 1, in float32 and int16 rows (and int8 rows for QPSK):
    decisions bitwise equal on clean captures, at most 1e-4 of them
-   different on a capture with AWGN at 6 dB SNR. DBPSK's lo stream (the
+   different on a capture with AWGN at 6 dB SNR; pass 1's kernel
+   (``psk_pass1_batch``, ``psk_pass1.cu``) on the same rows against its
+   plain chain: the same offsets, θ within 1e-5 rad. DBPSK's lo stream (the
    sign of the imaginary part, rounding noise on a clean derotated
    capture) is compared under a further π/4 rotation, where it carries
    the signal;
@@ -91,7 +93,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    batch of 8 captures under 256 symbols through ``decode_sample_batch``
    (K11 once per capture);
 5h. the 8PSK slice batch again under CONFIG ``tpu.demod_backend = "xla"``:
-   the staged float path, K12 launched once and no other kernel;
+   the staged float path, pass 1's kernel and K12 launched once each and no
+   other kernel;
 5i. the NEURAL@9600 slice: 64 x 2^24 captures (one seeded 16 KiB payload
    each, tiled, random leads, one capture sign-flipped, one pure noise,
    which escalates the batch to the full-lag search) through
@@ -144,7 +147,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    each tier and K3 at every (ksel, s8) pair on the dibit streams of a
    bench batch with its last capture noise, equal to their plain versions;
 5p. the DSSS slice: 64 x 2^24 at 9600 chips/s, 4 KiB payloads, the same
-   gate, no kernel launched;
+   gate, pass 1's kernel the only one launched, once;
 5q. the text modes HELLSCHREIBER, FELD_HELL and SLOW_HELL: a 37-character
    text (the port's ``encode_hellschreiber_text``, FELD_HELL through
    ``modulate``) and a noise WAV through ``decode_wav_batch`` and
@@ -165,8 +168,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    front end's host wall beside ``decode_wav_file``'s;
 5t. scale-out and training on a virtual mesh of 4 shards of the card (the
    script hides every other card): the QPSK slice batch (5) through
-   ``decode_sample_batch(mesh=)``, bytes equal to the unsharded call's, K1
-   and K3 launched once a shard and K2 at the unsharded call's tiers on
+   ``decode_sample_batch(mesh=)``, bytes equal to the unsharded call's, pass
+   1's kernel, K1 and K3 launched once a shard and K2 at the unsharded call's tiers on
    every shard (its noise capture sits in the last shard); one 2^24-sample
    capture per sequence family (QPSK, FSK1200, OFDM4, 8PSK, DSSS,
    NEURAL@1200, HELL; tiled transmissions) through
@@ -195,7 +198,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 5v. the JAX package's A/B switches, FSK front ends and helpers: 8 QPSK and
    8 BPSK captures of 2^24 samples through ``demod_pack_batch(psk_variant=
    "succ", pack_variant="shift")``, the default call's bytes and every
-   frame, K1, K2 and K3 or K4 launched; on 64 captures K1 "succ" bitwise
+   frame, pass 1's kernel, K1, K2 and K3 or K4 launched; on 64 captures K1 "succ" bitwise
    equal to "roll" and to plain, K3 and K4 "shift" byte-equal to "weights"
    and to plain at every (ksel, s8) pair, each timed beside the production
    variant; the NEURAL@9600 bench batch through ``demod_td_batch`` with the
@@ -229,7 +232,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    plain K8, K9 and K10 at 8 captures, where their float32 intermediates
    fit; K11 on one float32 capture, K12 on 64 x 2^24 int16 rows; the
    decision after K8 on K8's bench sums, and on them tiled to 256
-   captures, ``fsk-9600.line``'s call); 5 calls
+   captures, ``fsk-9600.line``'s call; pass 1's kernel at
+   ``qpsk-9600.archive``'s call, 256 captures of 192 window rows); 5 calls
    of ``sector_match_batch`` and of ``rotation_match_batch`` (each family)
    at 256 rows under ``torch.profiler`` must show exactly 5 device kernels
    and no copy or fill; and each mode's single-capture
@@ -253,7 +257,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 The line before the last is one JSON object with the kernels' names,
 sources, launch counts, errors, times and bounds (one entry per kernel and
-PSK variant, and one per JAX switch that phase 5v drives: K1 "succ", K3
+PSK variant, pass 1's, and one per JAX switch that phase 5v drives: K1 "succ", K3
 and K4 "shift", K10's first maximum and bf16, each with the launches of its
 5v run; the main path's K10 entry is the production count gate): ``bound_ms`` is the larger of the bytes the call must move
 over 3.35 TB/s and its operations over 67 T/s (the H100 SXM's published
@@ -293,11 +297,11 @@ _CSRC = "audio_modem_radio_tpu_torch/csrc"
 # launch, and whether phase 5 also decodes WAVs written by the port.
 _SLICES = {
     "QPSK": dict(carrier=3000.0, n_psk=4, wav=True, kernels=(
-        "psk_project_decide_batch", "rotation_match_batch", "relabel_pack_batch")),
+        "psk_pass1_batch", "psk_project_decide_batch", "rotation_match_batch", "relabel_pack_batch")),
     "BPSK": dict(carrier=3000.0, n_psk=2, wav=False, kernels=(
-        "psk_project_decide_batch", "rotation_match_batch", "bit_select_pack_batch")),
+        "psk_pass1_batch", "psk_project_decide_batch", "rotation_match_batch", "bit_select_pack_batch")),
     "8PSK": dict(carrier=12000.0, n_psk=8, wav=True, kernels=(
-        "psk_project_decide_batch", "sector_match_batch", "psk8_relabel_pack_rows")),
+        "psk_pass1_batch", "psk_project_decide_batch", "sector_match_batch", "psk8_relabel_pack_rows")),
 }
 # FSK slices: symbol rate, the kernels its main path must launch, and
 # whether phase 5 also decodes WAVs written by the port.
@@ -332,6 +336,12 @@ _K7_CASES = {
 }
 _PEAK_BYTES, _PEAK_OPS = 3.35e12, 67e12  # H100 SXM: HBM3 bytes/s, float32 CUDA-core ops/s
 _PEAK_BF16 = 989e12  # H100 SXM: dense bf16 tensor-core flop/s (float32 accumulation)
+# Pass 1's operations per symbol and timing offset beyond the projection's
+# two fmaf chains, from psk_pass1.cu: the Gram scale 17, the differential 6,
+# the 4th power 14, the two sums 2.
+_PASS1_SCORE_OPS = 39
+# qpsk-9600.archive's call: 256 captures, three windows of 64 rows each.
+_ARCHIVE_CAPTURES, _PASS1_WINDOW_ROWS = 256, 3 * 64
 # The kernels line: entry -> (wrapper, the run whose launches it reports,
 # source, the TPU kernel it replaces).
 _ENTRIES = {
@@ -369,6 +379,8 @@ _ENTRIES = {
     # No Pallas kernel: FSK9600's decision after K8, plain XLA there.
     "fsk_disc_decide_batch": ("fsk_disc_decide_batch", "FSK9600", "fsk_eq_bits.cu",
                               "audio_modem_radio_tpu/ops/fsk.py:1004"),
+    # No Pallas kernel: the batched PSK pass 1, plain XLA there.
+    "psk_pass1_batch": ("psk_pass1_batch", "QPSK", "psk_pass1.cu", "audio_modem_radio_tpu/ops/psk.py:635"),
 }
 # K10's operations per symbol, from its code: 256 codewords x 16 FMAs, 256
 # compares, 16 chips of 4 (two mask products, a sum, the half) and 16
@@ -609,13 +621,16 @@ def phase_decide(device, n_cap: int, n: int, payload_bytes: int, card: str) -> d
     clean DBPSK differential is real after derotation by θ, so the sign of
     its imaginary part (K1@2's lo stream) is rounding noise there; lo is
     compared under θ + π/4, where it carries the signal, and hi under both.
+    Pass 1's kernel, whose (best, θ) K1 takes, is held to its plain chain on
+    the same rows: the same offsets and θ within 1e-5 rad (its largest
+    difference is the kernels-line entry's error).
     """
     import torch
 
     from audio_modem_radio_tpu_torch.ops import kernels as tk
     from audio_modem_radio_tpu_torch.ops.psk import _batch_pass1, _device_tables
 
-    errs = {}
+    errs = {"psk_pass1_batch": 0.0}
     cases = [(mode, dtype) for mode in _SLICES for dtype in ("f32", "int16")] + [("QPSK", "int8")]
     batches = {}
     for mode, dtype in cases:
@@ -636,7 +651,14 @@ def phase_decide(device, n_cap: int, n: int, payload_bytes: int, card: str) -> d
             b, r, _ = x.shape
             _, _, best, theta = _batch_pass1(None, x, b, r * 128, SPSYM, carrier, SR, 8, r,
                                              n_psk=8 if n_psk == 8 else 4)
-            W8, _, _ = _device_tables(SPSYM, carrier, SR, 8, x.device)
+            W8, w_all, grams = _device_tables(SPSYM, carrier, SR, 8, x.device)
+            best_p, theta_p = tk.psk_pass1_batch_plain(x, r, w_all, grams, 8 if n_psk == 8 else 4)
+            d_theta = float((theta - theta_p).abs().max())
+            say(f"[3 pass1] {mode} {label} {dtype} rows B={b} R={r}: best kernel={best.tolist()} "
+                f"plain={best_p.tolist()}, largest |theta - plain| {d_theta:.3e} rad | {card}")
+            check(torch.equal(best, best_p) and d_theta <= 1e-5,
+                  f"pass 1's kernel differs from its plain chain on {mode} {label} {dtype} rows")
+            errs["psk_pass1_batch"] = max(errs["psk_pass1_batch"], d_theta)
             # (rotation, number of output streams compared) per comparison.
             rots = [(theta, 1), (theta + np.pi / 4, 2)] if n_psk == 2 else [(theta, 2)]
             n_bad = n_all = 0
@@ -902,7 +924,11 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
     Operations per item, from the kernels' code: K1 8*spsym + 12 per symbol
     (two 2*spsym-tap correlations, the differential and derotation); K2 12
     per position and hypothesis (four masked popcounts); K3 8 per dibit; K4
-    3 per bit; K5 6 per position and hypothesis; K6 6 per symbol."""
+    3 per bit; K5 6 per position and hypothesis; K6 6 per symbol; pass 1
+    8*spsym + 39 per window symbol and offset (the projection's two fmaf
+    chains over 2*spsym taps, then the scoring), its rows read once. Pass 1
+    is timed at the bench batch's 64 captures (the kernels line) and at
+    qpsk-9600.archive's call of 256."""
     import torch
 
     from audio_modem_radio_tpu_torch.framing import MAGIC_BIT_PATTERN, MAGIC_BIT_PATTERN2
@@ -970,6 +996,19 @@ def phase_timing(device, n_cap: int, n: int, payload_bytes: int, card: str):
                 _time_ms(lambda: tk.relabel_pack_batch_plain(hi, lo, s, zeros)),
             )
             _check_pack_every_pair("K3", tk.relabel_pack_batch, tk.relabel_pack_batch_plain, hi, lo, s, card)
+            _, w_all, grams = _device_tables(SPSYM, carrier, SR, 8, x.device)
+            for n_p1, xp in ((b, x), (_ARCHIVE_CAPTURES, x[:1].expand(_ARCHIVE_CAPTURES, -1, -1).contiguous())):
+                n_win = n_p1 * _PASS1_WINDOW_ROWS
+                p1_bytes = n_win * w_all.shape[0] * xp.element_size()
+                p1_ops = n_win * 128 * 8 * (8 * SPSYM + _PASS1_SCORE_OPS)
+                p1 = (_time_ms(lambda: tk.psk_pass1_batch(xp, r, w_all, grams)),
+                      _time_ms(lambda: tk.psk_pass1_batch_plain(xp, r, w_all, grams)))
+                if n_p1 == b:
+                    t["psk_pass1_batch"], bounds["psk_pass1_batch"] = p1, _bound(p1_bytes, p1_ops)
+                say(f"[6 time] psk_pass1_batch {n_p1} captures x {_PASS1_WINDOW_ROWS} window rows of int16: kernel "
+                    f"{p1[0]:.4f} ms, plain {p1[1]:.4f} ms, bound by bytes {p1_bytes / _PEAK_BYTES * 1e3:.4f} ms, "
+                    f"by operations {p1_ops / _PEAK_OPS * 1e3:.4f} ms | {card}")
+                del xp
             del x
             x8 = _rows(_tiled(wave, n)[None], "int8", device, mode).expand(n_cap, -1, -1).contiguous()
             key8 = "psk_project_decide_batch@4 int8"
@@ -1107,8 +1146,9 @@ def _time_psk8_xla(x, n: int, card: str) -> None:
         _, _, found = demod_pack_batch(x, "8PSK", BAUD, cfo_retry=True)
         counts = tk.launch_counts()
         check(bool(found.all()), "8PSK under xla: a capture found no magic")
-        check(counts["psk_project_diff_batch"] == 1 and sum(counts.values()) == 1,
-              f"8PSK under xla must launch K12 once and nothing else: {counts}")
+        check(counts["psk_pass1_batch"] == 1 and counts["psk_project_diff_batch"] == 1
+              and sum(counts.values()) == 2,
+              f"8PSK under xla must launch pass 1's kernel and K12 once each and nothing else: {counts}")
         ms = _time_ms(lambda: demod_pack_batch(x, "8PSK", BAUD, cfo_retry=True), reps=3)
     finally:
         CONFIG.set("tpu.demod_backend", "auto")
@@ -2765,7 +2805,8 @@ def phase_ofdm_slice(device, mode: str, n_cap: int, n: int, payload_bytes: int, 
 
 def phase_dsss_slice(device, n_cap: int, n: int, payload_bytes: int, card: str) -> dict:
     """DSSS at 9600 chips/s at full width through ``decode_sample_batch``:
-    no hand-written kernel, the frames gate. Returns the launch counts."""
+    pass 1's kernel once and no other hand-written kernel, the frames gate.
+    Returns the launch counts."""
     from audio_modem_radio_tpu_torch.ops import kernels as tk
     from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
 
@@ -2782,7 +2823,8 @@ def phase_dsss_slice(device, n_cap: int, n: int, payload_bytes: int, card: str) 
     wall = time.perf_counter() - t0
     counts = tk.launch_counts()
     say(f"[{tag} {mode}] decode_sample_batch wall {wall:.3f} s launches={_launched(counts)} | {card}")
-    check(sum(counts.values()) == 0, f"DSSS launched a hand-written kernel: {counts}")
+    check(counts["psk_pass1_batch"] == 1 and sum(counts.values()) == 1,
+          f"DSSS must launch pass 1's kernel once and no other hand-written kernel: {counts}")
     _check_frames(mode, raws, payloads, min_frames, tag, card, "decode_sample_batch, captures 1 and 2 at +-100 Hz")
     say(f"[{tag} {mode}] {time.perf_counter() - t_phase:.1f} s | {card}")
     return counts
@@ -2893,7 +2935,7 @@ _FRONT_BYTES, _FRONT_FEC_BYTES, _FRONT_FSK_BYTES, _FRONT_BATCH = 100 * 1024, 32 
 # Each front-end decode -> the kernels it must launch.
 _FRONT_KERNELS = {
     "single": ("psk_project_diff",),
-    "batch": ("psk_project_decide_batch", "rotation_match_batch", "relabel_pack_batch"),
+    "batch": ("psk_pass1_batch", "psk_project_decide_batch", "rotation_match_batch", "relabel_pack_batch"),
     "stream FEC": ("fec_viterbi_blocks",),
     "FSK9600": ("mlse_viterbi_blocks",),
 }
@@ -3171,7 +3213,7 @@ def phase_scaleout(device, n_cap: int, n: int, payload_bytes: int, work: str, ca
     wall = time.perf_counter() - t0
     counts = _launched(tk.launch_counts())
     check(got == ref, "decode_sample_batch(mesh=) differs from the unsharded call")
-    want = {"psk_project_decide_batch": _SHARDS, "relabel_pack_batch": _SHARDS,
+    want = {"psk_pass1_batch": _SHARDS, "psk_project_decide_batch": _SHARDS, "relabel_pack_batch": _SHARDS,
             "rotation_match_batch": _SHARDS * c_ref.get("rotation_match_batch", 0)}
     check(c_ref.get("rotation_match_batch", 0) >= 2, f"the noise capture must pass the first tier: {c_ref}")
     check(counts == want, f"decode_sample_batch(mesh=) launches {counts}, want {want}")
@@ -3545,7 +3587,7 @@ def _variant_psk(device, mode: str, n_cap: int, n: int, payload_bytes: int, card
     counts = tk.launch_counts()
     check(all(torch.equal(a, c) for a, c in zip(base, var)),
           f"5v {mode}: demod_pack_batch(psk_variant='succ', pack_variant='shift') differs from the default call")
-    want = ("psk_project_decide_batch", "rotation_match_batch",
+    want = ("psk_pass1_batch", "psk_project_decide_batch", "rotation_match_batch",
             "relabel_pack_batch" if n_psk == 4 else "bit_select_pack_batch")
     _check_launches(counts, want, mode, "demod_pack_batch(psk_variant='succ', pack_variant='shift')")
     packed, n_valid, _ = (v.cpu() for v in var)
@@ -3907,7 +3949,8 @@ def main() -> int:
         CONFIG.set("tpu.demod_backend", "xla")
         try:
             counts["8PSK xla"] = phase_slice(device, "8PSK", n_slice, n, payload_bytes, card,
-                                             kernels=("psk_project_diff_batch",), tag="5h", wav=False)
+                                             kernels=("psk_pass1_batch", "psk_project_diff_batch"), tag="5h",
+                                             wav=False)
         finally:
             CONFIG.set("tpu.demod_backend", "auto")
         check(counts["8PSK xla"]["psk_project_diff_batch"] == 1, "K12 must launch once on the xla path")

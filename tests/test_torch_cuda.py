@@ -100,6 +100,145 @@ def test_decide_kernel_equals_plain_psk2_psk8(cuda, n_psk, dtype):
             assert torch.equal(g.reshape(b, -1)[:, :n_sig], p.reshape(b, -1)[:, :n_sig])
 
 
+# --- PSK pass 1: psk_pass1_batch (csrc/psk_pass1.cu) -------------------------------
+
+_MODULATORS = {"QPSK": tpsk.qpsk_modulate, "BPSK": tpsk.bpsk_modulate, "8PSK": tpsk.psk8_real_modulate}
+
+
+def _pass1_batch(mode: str, spsym: int, n_samples: int, seed: int):
+    """Four flat float32 captures of ``n_samples``: framed waves tiled from
+    a lead, one at the carrier, one each at +100 and -100 Hz, and one of
+    noise only; and the symbols each signal capture's span covers."""
+    rng = np.random.default_rng(seed)
+    baud = 96000 // spsym
+    carrier = _CARRIER[mode]
+    x = np.zeros((4, n_samples), np.float32)
+    spans = []
+    for i, df in enumerate((0.0, 100.0, -100.0)):
+        p = rng.integers(0, 256, 900, dtype=np.uint8).tobytes()
+        wave = _MODULATORS[mode](pack_frame("p.bin", p, 0, 1, len(p), crc32(p)), baud, carrier + df)
+        lead = 3 * spsym * i + 7 * i
+        wave = np.tile(wave, -(-n_samples // len(wave)))[: n_samples - lead]
+        x[i, lead : lead + len(wave)] = wave
+        spans.append((lead // spsym + 2, (lead + len(wave)) // spsym - 2))
+    x[3] = rng.normal(0, 0.3, n_samples)
+    return np.clip(x, -1.0, 1.0), spans
+
+
+def _as_rows(x: np.ndarray, dtype: str, spsym: int, rows: int):
+    scale = _SCALE[dtype]
+    flat = np.zeros((x.shape[0], rows * 128 * spsym), np.float32)
+    flat[:, : x.shape[1]] = x[:, : rows * 128 * spsym]
+    if scale is not None:
+        flat = np.clip(np.round(flat * scale), -scale, scale - 1).astype(dtype)
+    return flat.reshape(x.shape[0], rows, 128 * spsym)
+
+
+# (mode, row dtype, spsym, layout): "rows" pre-shaped (r0 at the stored rows:
+# the last window's heads clamp at the edge), "flat" a (B, N) capture padded
+# to 256 rows with r0 40 (one window), 65 (two: the middle window is the
+# first) or 80 (three that overlap).
+_PASS1_CASES = [
+    ("QPSK", "float32", 10, "rows"), ("QPSK", "int16", 10, "rows"), ("QPSK", "int8", 10, "rows"),
+    ("BPSK", "int16", 10, "rows"), ("8PSK", "int16", 10, "rows"), ("8PSK", "float32", 10, "rows"),
+    ("8PSK", "int8", 20, "rows"), ("QPSK", "int16", 20, "rows"), ("BPSK", "float32", 32, "rows"),
+    ("QPSK", "int8", 32, "rows"), ("QPSK", "float32", 10, "flat40"), ("QPSK", "float32", 10, "flat65"),
+    ("8PSK", "float32", 10, "flat80"), ("BPSK", "float32", 20, "flat65"),
+]
+
+
+@pytest.mark.parametrize("mode,dtype,spsym,layout", _PASS1_CASES)
+def test_pass1_kernel_equals_plain(cuda, mode, dtype, spsym, layout):
+    """``psk_pass1_batch`` (``csrc/psk_pass1.cu``) against the plain chain on
+    the card, for every row type, both powers, spsym 10, 20 and 32, flat and
+    pre-shaped captures: the same ``best``, θ within 1e-5 rad, and K1's
+    decisions fed either (best, θ) bitwise equal over each signal capture's
+    span (BPSK's lo stream, the sign of a real differential's rounding, is
+    compared under θ + π/4) and, on the noise capture, on every symbol whose
+    float64 differential lies more than 1e-4 from a decision boundary."""
+    n_psk = {"QPSK": 4, "BPSK": 2, "8PSK": 8}[mode]
+    p1_psk = 8 if n_psk == 8 else 4
+    carrier = _CARRIER[mode]
+    if layout == "rows":
+        r = 256
+        xs, spans = _pass1_batch(mode, spsym, r * 128 * spsym, spsym + n_psk)
+        x = torch.from_numpy(_as_rows(xs, dtype, spsym, r)).to(cuda)
+        samples, x3d_in, n_frames, r0 = None, x, r * 128, r
+    else:
+        r0 = int(layout[4:])
+        xs, spans = _pass1_batch(mode, spsym, r0 * 128 * spsym - 3 * spsym, spsym + n_psk)
+        samples, x3d_in, n_frames, r = torch.from_numpy(xs).to(cuda), None, -(-xs.shape[1] // spsym), 0
+    b = xs.shape[0]
+    before = tk.psk_pass1_batch.launches
+    x3d, r, best, theta = _batch_pass1(samples, x3d_in, b, n_frames, spsym, carrier, 96000, 8, r, n_psk=p1_psk)
+    _, w_all, grams = _device_tables(spsym, carrier, 96000, 8, cuda)
+    best_p, theta_p = tk.psk_pass1_batch_plain(x3d, r0, w_all, grams, p1_psk)
+    torch.cuda.synchronize()
+    assert tk.psk_pass1_batch.launches == before + 1
+    assert r == 256 and x3d.shape == (b, 256, 128 * spsym)
+    assert best.dtype == torch.int32 and theta.dtype == torch.float32
+    assert best.tolist() == best_p.tolist()
+    assert float((theta - theta_p).abs().max()) <= 1e-5
+
+    W8, _, _ = _device_tables(spsym, carrier, 96000, 8, cuda)
+    rots = [(0.0, 1), (np.pi / 4, 2)] if n_psk == 2 else [(0.0, 2)]
+    for extra, n_streams in rots:
+        got = []
+        for bb, th in ((best, theta), (best_p, theta_p)):
+            th = th + extra
+            rot = torch.stack([torch.cos(th), torch.sin(th)], 1)
+            out = tk.psk_project_decide_batch(x3d, W8, bb, rot, rows_per_capture=256, n_psk=n_psk)
+            got.append([out] if n_psk == 8 else list(out)[:n_streams])
+        th = theta + extra
+        _, rel = _decide64(x3d[3:], tk._dual_basis(W8, spsym), best[3:], torch.stack(
+            [torch.cos(th[3:]), torch.sin(th[3:])], 1), n_psk)
+        clear = rel[0, : n_frames - 2] > 1e-4  # the noise capture's symbols, not the padding after them
+        assert float(clear.float().mean()) > 0.99
+        for k, p in zip(*got):
+            k, p = k.reshape(b, -1), p.reshape(b, -1)
+            for i, (lo, hi) in enumerate(spans):
+                assert torch.equal(k[i, lo:hi], p[i, lo:hi])
+            assert torch.equal(k[3, : n_frames - 2][clear], p[3, : n_frames - 2][clear])
+
+
+def test_pass1_kernel_takes_the_plain_chains_place_in_a_call(cuda, tmp_path):
+    """One ``demod_pack_batch`` call on the 64 x 2^24 QPSK bench rows under
+    the profiler: ``amr.pass1`` holds no ``aten::mm`` or ``aten::matmul``
+    (the dense product is gone), pass 1 is one more ``psk_pass1_batch``
+    launch, and its three kernels run inside the span's device range."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_modem_radio_tpu_torch import observability as ob
+    from audio_modem_radio_tpu_torch.parallel.batch import demod_pack_batch
+    from audio_modem_radio_tpu_torch.profile_slice import _bench_rows
+
+    x = _bench_rows("QPSK", 9600, cuda)
+    demod_pack_batch(x, "QPSK", 9600)
+    torch.cuda.synchronize()
+    ob.trace_reset()
+    before = tk.psk_pass1_batch.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        demod_pack_batch(x, "QPSK", 9600)
+        torch.cuda.synchronize()
+    assert tk.psk_pass1_batch.launches == before + 1
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    (ann,) = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == "amr.pass1"]
+    a, z = float(ann["ts"]), float(ann["ts"]) + float(ann["dur"])
+    ops = [e["name"] for e in events if e.get("cat") == "cpu_op" and a <= float(e["ts"]) <= z]
+    assert not [o for o in ops if o in ("aten::mm", "aten::matmul", "aten::bmm", "aten::addmm")], ops
+    (gann,) = [e for e in events if e.get("cat") == "gpu_user_annotation" and e["name"] == "amr.pass1"]
+    ga, gz = float(gann["ts"]), float(gann["ts"]) + float(gann["dur"])
+    kernels = [e for e in events if e.get("cat") == "kernel" and "pass1_" in e["name"]]
+    assert len(kernels) == 3
+    assert all(ga <= float(k["ts"]) and float(k["ts"]) + float(k["dur"]) <= gz for k in kernels)
+    assert not [e for e in events if e.get("cat") == "kernel" and "gemm" in e["name"]
+                and ga <= float(e["ts"]) <= gz]
+
+
 def _decide64(x, tmpl, best, rot, n_psk):
     """K1's decisions in float64 and each symbol's distance from a decision
     boundary (relative to the largest product the differential sums), so a
@@ -489,9 +628,9 @@ def test_psk8_pack_kernel_equals_plain(cuda):
 
 
 _SLICE_KERNELS = {
-    "QPSK": ("psk_project_decide_batch", "rotation_match_batch", "relabel_pack_batch"),
-    "BPSK": ("psk_project_decide_batch", "rotation_match_batch", "bit_select_pack_batch"),
-    "8PSK": ("psk_project_decide_batch", "sector_match_batch", "psk8_relabel_pack_rows"),
+    "QPSK": ("psk_pass1_batch", "psk_project_decide_batch", "rotation_match_batch", "relabel_pack_batch"),
+    "BPSK": ("psk_pass1_batch", "psk_project_decide_batch", "rotation_match_batch", "bit_select_pack_batch"),
+    "8PSK": ("psk_pass1_batch", "psk_project_decide_batch", "sector_match_batch", "psk8_relabel_pack_rows"),
 }
 
 
@@ -527,7 +666,11 @@ def test_decide_span_times_the_decide_kernel_on_the_card(cuda, tmp_path):
     """On the 64 x 2^24 QPSK slice batch, the ``amr.decide`` span's device
     ms (CUDA events) is within 10% of ``decide_kernel``'s time in the same
     profiler trace, and the kernel lies inside the span's
-    ``gpu_user_annotation`` range (one clock for spans and kernels)."""
+    ``gpu_user_annotation`` range (one clock for spans and kernels). The
+    call is queued behind about 50 ms of device sleep, so the host has
+    launched K1 before the card reaches the span: pass 1 takes well under a
+    millisecond on the card, and a card that waits on the host's launch
+    would put that wait in the span's events, not in the kernel."""
     import json
 
     from torch.profiler import ProfilerActivity, profile
@@ -541,6 +684,7 @@ def test_decide_span_times_the_decide_kernel_on_the_card(cuda, tmp_path):
     torch.cuda.synchronize()
     ob.trace_reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(100_000_000)
         demod_pack_batch(x, "QPSK", 9600)
         torch.cuda.synchronize()
     (span,) = [r for r in ob.trace_snapshot()["records"] if r["name"] == "amr.decide"]
@@ -1809,8 +1953,9 @@ def test_rotation_match_and_relabel_pack_kernels_on_ofdm_streams(cuda, mode):
 @pytest.mark.parametrize("mode", ["OFDM4", "OFDM8", "DSSS", "HELLSCHREIBER"])
 def test_new_batch_paths_launch_only_their_kernels(cuda, mode):
     """``decode_sample_batch`` on the card: OFDM launches K2 and K3 and no
-    other hand-written kernel, DSSS and the text mode none; every signal
-    capture decodes and noise yields nothing."""
+    other hand-written kernel, DSSS pass 1's alone (its front end is the
+    PSK batch's pass 1), the text mode none; every signal capture decodes
+    and noise yields nothing."""
     from audio_modem_radio_tpu_torch.framing import parse_frames
     from audio_modem_radio_tpu_torch.ops.hell import hellschreiber_modulate
     from audio_modem_radio_tpu_torch.parallel.batch import decode_sample_batch
@@ -1831,7 +1976,8 @@ def test_new_batch_paths_launch_only_their_kernels(cuda, mode):
     tk.reset_launch_counts()
     raws = decode_sample_batch(batch, mode, 9600, device=cuda)
     launched = {k for k, v in tk.launch_counts().items() if v > 0}
-    assert launched == ({"rotation_match_batch", "relabel_pack_batch"} if mode.startswith("OFDM") else set())
+    kernels = {"OFDM": {"rotation_match_batch", "relabel_pack_batch"}, "DSSS": {"psk_pass1_batch"}}
+    assert launched == kernels.get(mode[:4], set())
     if mode == "HELLSCHREIBER":
         assert raws == want
     else:

@@ -557,13 +557,15 @@ def test_wrappers_take_plain_path_on_cpu_without_counting():
     tk.fsk_sync_pack_batch(torch.zeros((2, 100), dtype=torch.uint8), MAGIC_BIT_PATTERN)
     plan, _wf, _wb, coef = tfsk._device_tables("disc", 10, 9600.0, 1200.0, 2200.0, 96000, 8, torch.device("cpu"))
     tk.fsk_disc_decide_batch(torch.zeros((2, 64)), torch.ones((2, 64)), plan, coef, 96000, 1200.0, 2200.0)
+    _, w_all, grams = tpsk._device_tables(10, 3000.0, 96000, 8, torch.device("cpu"))
+    tk.psk_pass1_batch(x3d, r, w_all, grams)
     assert tk.launch_counts() == {
         "psk_project_decide_batch": 0, "rotation_match_batch": 0, "relabel_pack_batch": 0,
         "bit_select_pack_batch": 0, "sector_match_batch": 0, "psk8_relabel_pack_rows": 0,
         "fsk_tile_bits_batch": 0, "fsk_project_bits_batch": 0, "fsk_disc_sums_batch": 0,
         "fsk_quad_margin_batch": 0, "psk_project_diff": 0, "psk_project_diff_batch": 0,
         "neural_extract_batch": 0, "mlse_viterbi_blocks": 0, "fec_viterbi_blocks": 0,
-        "fsk_sync_pack_batch": 0, "fsk_disc_decide_batch": 0,
+        "fsk_sync_pack_batch": 0, "fsk_disc_decide_batch": 0, "psk_pass1_batch": 0,
     }
 
 
